@@ -21,10 +21,24 @@ It builds the port's native libraries from the checkout, then:
    ``PagedDecodeServer``, whose tokens must agree;
 5. checks the kernel path against the plain path at float32 through a
    whole decode step;
-6. prints one JSON line of per-kernel results, the card again, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+6. training path — seeded WebDataset shards of flagship-length samples
+   through ``ShardedLoader`` and ``prefetch_to_device`` into a
+   ``Trainer`` with the flash kernels, warm-started from phase 4's
+   weights: 10 steps at seq 2048, batch 8, checkpoints every 5 steps;
+   a second ``Trainer`` resumes from step 10 with bitwise-equal
+   parameters and AdamW moments and runs to step 12 under the profiler;
+7. checks one float32 train step of the flagship through the flash
+   kernels against the same step through their plain versions;
+8. prints one JSON line of per-kernel results, the card again, and the
+   result line ``{"ok": true, "device": {...}}`` last.  Each kernel's
+   entry has ``name``, ``route``, ``source``, ``replaces``,
+   ``launches``, ``max_abs_err``, ``ms`` (and the same time again as
+   ``kernel_ms``), ``plain_ms``, ``bound_ms``, ``bound_by`` and
+   ``library_ms``.
 
-Every kernel must have launched during the main path (phases 3-4).  Any
+Each path is driven with every launch count set to 0 just before it and
+read just after: every kernel of the serving path must have launched in
+phases 3-4, and the flash kernels and ``h2d_copy`` in phase 6.  Any
 failure exits non-zero before the result line; so does a machine without
 CUDA, or a directory without the package.
 """
@@ -46,8 +60,11 @@ HBM_BYTES_PER_S = 3.35e12
 #: PCIe Gen5 x16, one direction: the host link the h2d copy crosses
 PCIE_BYTES_PER_S = 64e9
 #: H100 SXM float32 outside the tensor cores (NVIDIA data sheet): the
-#: attention kernels' fp32 FMAs
+#: least time for float32 work
 F32_FLOPS_PER_S = 67e12
+#: H100 SXM dense bf16 tensor cores (NVIDIA data sheet): the least time
+#: for bf16 attention, whatever units the kernel uses
+BF16_FLOPS_PER_S = 989e12
 #: (rtol, atol) of the attention kernels against their plain versions.
 #: bf16: both accumulate in fp32 and round the output once, so they may
 #: differ by one bf16 ulp (2**-7 relative), plus fp32 summation-order
@@ -84,11 +101,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, byte_rate, flops=0.0):
+def bound(nbytes, byte_rate, flops=0.0, flop_rate=F32_FLOPS_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take
     for work that moves ``nbytes`` at ``byte_rate`` and does ``flops``
-    float32 operations."""
-    t_bytes, t_ops = nbytes / byte_rate, flops / F32_FLOPS_PER_S
+    operations at ``flop_rate`` (default float32)."""
+    t_bytes, t_ops = nbytes / byte_rate, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -341,6 +358,175 @@ def check_paged(dev, results):
         f"block_k={bk} bf16 pos={ragged}", ok=True)
 
 
+#: (rtol, atol as a fraction of max |plain|) of the flash kernels against
+#: their plain versions: both compute in fp32 from the same inputs and
+#: round once, so bf16 results may differ by one bf16 ulp (2**-7); sums
+#: over up to 2048 keys or queries run in another order, which the
+#: relative atol covers where a value is near zero.  lse is fp32 on both
+#: sides: atol 1e-4 absolute.
+FLASH_BF16_TOL = (2 ** -7, 1e-4)
+FLASH_F32_TOL = (1e-4, 1e-5)
+LSE_ATOL = 1e-4
+
+
+def _flash_compare(name, got, want, tol):
+    atol = tol[1] * want.float().abs().max().item() + 1e-6
+    return _compare(name, got, want, (tol[0], atol))
+
+
+def _flash_case(dev, gen, b, h, s, skv, d, dtype):
+    """q, k contiguous and v, dout as (b, s, h, d) views, the layouts the
+    model hands the kernels."""
+    import torch
+
+    def bhsd(n):
+        return torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype)
+
+    def bshd(n):
+        return torch.randn(b, n, h, d, generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+    return bhsd(s), bhsd(skv), bshd(skv), bshd(s)
+
+
+def _flash_pairs(b, h, s, skv, causal):
+    """Unmasked (query, key) pairs: the work the kernels must do."""
+    return b * h * (s * (s + 1) // 2 if causal else s * skv)
+
+
+def check_flash(dev, results):
+    """Kernels 4-6 against their plain versions, bitwise determinism of
+    the backward, and times at the main path's shape."""
+    import torch
+    import torch.nn.functional as F
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = [  # (label, b, h, s, skv, d, dtype, causal, dlse)
+        ("flagship bf16 causal", 8, 8, 2048, 2048, 64, torch.bfloat16,
+         True, False),
+        ("flagship f32 causal", 8, 8, 2048, 2048, 64, torch.float32, True,
+         False),
+        ("ragged causal s=777 d=128 bf16", 2, 8, 777, 777, 128,
+         torch.bfloat16, True, False),
+        ("non-causal s=1000 skv=1536 d=128 bf16", 2, 8, 1000, 1536, 128,
+         torch.bfloat16, False, False),
+        ("dlse != 0, causal s=2048 d=64 bf16", 2, 8, 2048, 2048, 64,
+         torch.bfloat16, True, True),
+    ]
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for label, b, h, s, skv, d, dt, causal, with_dlse in cases:
+        tol = FLASH_BF16_TOL if dt == torch.bfloat16 else FLASH_F32_TOL
+        scale = d ** -0.5
+        q, k, v, do = _flash_case(dev, gen, b, h, s, skv, d, dt)
+        out, lse = fa.flash_fwd(q, k, v, causal, scale)
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        errs = {"flash_fwd": _flash_compare(f"flash_fwd out {label}", out,
+                                            out_p, tol)}
+        lse_err = _compare(f"flash_fwd lse {label}", lse, lse_p,
+                           (0.0, LSE_ATOL))
+        delta = (do.float() * out.float()).sum(-1)
+        if with_dlse:
+            delta = delta - torch.randn(delta.shape, generator=gen,
+                                        device=dev)
+        delta = delta.contiguous()
+        args = (q, k, v, do, lse, delta, causal, scale)
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        errs["flash_bwd_dq"] = _flash_compare(
+            f"flash_bwd_dq {label}", dq, fa.flash_bwd_dq_plain(*args), tol)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(*args)
+        errs["flash_bwd_dkv"] = max(
+            _flash_compare(f"flash_bwd_dkv dk {label}", dk, dk_p, tol),
+            _flash_compare(f"flash_bwd_dkv dv {label}", dv, dv_p, tol))
+        # no atomics: a second backward is bitwise the same
+        dk2, dv2 = fa.flash_bwd_dkv(*args)
+        if not (torch.equal(dq, fa.flash_bwd_dq(*args))
+                and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash backward not deterministic "
+                                 f"({label})")
+        if dt == torch.bfloat16:
+            for n, e in errs.items():
+                worst[n] = max(worst[n], e)
+        log(f"flash {label}: max |kernel - plain| out {errs['flash_fwd']:.3g}"
+            f" lse {lse_err:.3g} dq {errs['flash_bwd_dq']:.3g} dk/dv "
+            f"{errs['flash_bwd_dkv']:.3g}; backward bitwise repeatable "
+            f"(rtol, atol/max {tol})")
+        del q, k, v, do, out, lse, out_p, lse_p, dq, dk, dv, dk_p, dv_p
+    log("flash: bf16 tolerances one bf16 ulp (rtol 2**-7) + "
+        "1e-4*max|plain|; f32 rtol 1e-4 + 1e-5*max|plain|; lse atol 1e-4")
+
+    # times at the main path's shape: b 8, h 8, s 2048, d 64, bf16,
+    # causal, model layouts; two input sets (> 50 MB L2) in rotation
+    b, h, s, d = 8, 8, 2048, 64
+    scale = d ** -0.5
+    sets = []
+    for _ in range(2):
+        q, k, v, do = _flash_case(dev, gen, b, h, s, s, d, torch.bfloat16)
+        out, lse = fa.flash_fwd(q, k, v, True, scale)
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        sets.append((q, k, v, do, lse, delta))
+    pairs = _flash_pairs(b, h, s, s, True)
+    elem = b * h * s * d * 2                     # one bf16 (b,h,s,d)
+    rows = b * h * s * 4                         # one fp32 (b,h,s)
+
+    def fwd(q, k, v, *_):
+        return fa.flash_fwd(q, k, v, True, scale)
+
+    def fwd_plain(q, k, v, *_):
+        return fa.flash_fwd_plain(q, k, v, True, scale)
+
+    def sdpa(q, k, v, *_):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def dq(q, k, v, do, lse, delta):
+        return fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+
+    def dq_plain(q, k, v, do, lse, delta):
+        return fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True, scale)
+
+    def dkv(q, k, v, do, lse, delta):
+        return fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+
+    def dkv_plain(q, k, v, do, lse, delta):
+        return fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, scale)
+
+    # SDPA's backward (dq, dk and dv in one call), timed alone: one
+    # graph per input set, retained
+    graphs = []
+    for q, k, v, do, _, _ in sets:
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        graphs.append((sdpa(qs, ks, vs), (qs, ks, vs), do))
+
+    def sdpa_bwd(out, inputs, do):
+        return torch.autograd.grad(out, inputs, do, retain_graph=True)
+
+    specs = [  # name, source, replaces, kernel, plain, library, flops, bytes
+        ("flash_fwd", "flash_attention_fwd.cu", 74, fwd, fwd_plain,
+         Rotor(sdpa, sets), 4 * d * pairs, 4 * elem + rows),
+        ("flash_bwd_dq", "flash_attention_bwd.cu", 147, dq, dq_plain,
+         Rotor(sdpa_bwd, graphs), 6 * d * pairs, 5 * elem + 2 * rows),
+        ("flash_bwd_dkv", "flash_attention_bwd.cu", 181, dkv, dkv_plain,
+         None, 8 * d * pairs, 6 * elem + 2 * rows),
+    ]
+    for name, src, line, kern, plain, lib, flops, nbytes in specs:
+        bound_ms, bound_by = bound(nbytes, HBM_BYTES_PER_S, flops,
+                                   BF16_FLOPS_PER_S)
+        results[name] = dict(
+            name=name, route="cuda",
+            source=f"nvme_strom_tpu_torch/csrc/{src}",
+            replaces=f"nvme_strom_tpu/ops/flash_attention.py:{line}",
+            max_abs_err=worst[name],
+            ms=time_ms(Rotor(kern, sets), 10),
+            plain_ms=time_ms(Rotor(plain, sets), 3, warmup=1),
+            library_ms=time_ms(lib, 10) if lib is not None else None,
+            bound_ms=bound_ms, bound_by=bound_by,
+            shape=f"b={b} h={h} s={s} d={d} bf16 causal", ok=True)
+    results["flash_bwd_dq"]["library_covers"] = \
+        "SDPA backward: dq, dk and dv in one call (rows 5 and 6)"
+    results["flash_bwd_dkv"]["library_covers"] = \
+        "in flash_bwd_dq's library_ms"
+    del sets, graphs
+
+
 # -- phase 3: the headline stream --------------------------------------------
 
 def _weighted_sum_np(words, first):
@@ -529,14 +715,30 @@ def serve(server, requests):
     return out, time.monotonic() - t0
 
 
-def profile_serve(srv, requests):
-    """The same serving run under torch.profiler: device time by kernel
-    and the share of the run's wall time the device was busy (the
-    profiler's own overhead lengthens the wall time)."""
+def profile_run(run, label):
+    """``run(done)`` under torch.profiler, where calling ``done()`` ends
+    the profiled window (the run may go on unprofiled; the window also
+    ends with the run): device time by kernel and the share of the
+    window's wall time the device was busy (the profiler's own overhead
+    lengthens the wall time)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, secs = serve(srv, requests)
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    window = {}
+
+    def done():
+        if "secs" not in window:
+            torch.cuda.synchronize()
+            prof.stop()
+            window["secs"] = time.monotonic() - window["t0"]
+    prof.start()
+    window["t0"] = time.monotonic()
+    try:
+        run(done)
+    finally:
+        done()
+    secs = window["secs"]
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events)
@@ -546,10 +748,15 @@ def profile_serve(srv, requests):
            "device_busy_share": busy_us / 1e6 / secs,
            "top_kernels": [(e.key[:60], e.self_device_time_total / 1e3,
                             e.count) for e in top]}
-    log(f"profile (paged serve): device busy {busy_us / 1e6:.4f} s of "
+    log(f"profile ({label}): device busy {busy_us / 1e6:.4f} s of "
         f"{secs:.4f} s wall = {out['device_busy_share']:.3f}; top "
         f"kernels (name, ms, calls) {out['top_kernels']}")
     return out
+
+
+def profile_serve(srv, requests):
+    """The same serving run under torch.profiler."""
+    return profile_run(lambda done: serve(srv, requests), "paged serve")
 
 
 def serve_phase(dev, ckdir, cfg, cpu_params):
@@ -672,6 +879,198 @@ def f32_phase(dev, cfg, params):
     return out
 
 
+# -- phase 6: training at flagship width --------------------------------------
+
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 8
+TRAIN_STEPS = 10
+RESUME_STEPS = 12
+SAVE_EVERY = 5
+
+
+def _same_state(tr_a, tr_b):
+    """Raise unless two trainers' parameters and optimizer state are
+    bitwise equal."""
+    import torch
+    from nvme_strom_tpu_torch.train import optimizer_state
+    oa = optimizer_state(tr_a.optimizer, tr_a.params)
+    ob = optimizer_state(tr_b.optimizer, tr_b.params)
+    if sorted(oa) != sorted(ob):
+        raise AssertionError(f"optimizer state keys {sorted(oa)} != "
+                             f"{sorted(ob)}")
+    for name, p in tr_a.params.items():
+        if not torch.equal(p.detach(), tr_b.params[name].detach()):
+            raise AssertionError(f"resumed parameter {name} differs")
+        for key in oa:
+            if not torch.equal(oa[key][name].cpu(), ob[key][name].cpu()):
+                raise AssertionError(f"resumed optimizer {key} of {name} "
+                                     "differs")
+    return len(tr_a.params), len(oa)
+
+
+def train_phase(dev, ckdir, cfg):
+    """Seeded WebDataset shards → ShardedLoader → prefetch_to_device →
+    Trainer with the flash kernels, warm-started from ``ckdir``: 10
+    steps with a checkpoint every 5; a second Trainer resumes from step
+    10 (bitwise-equal state) and runs steps 11-12 under the profiler."""
+    import math
+    import shutil
+    import statistics
+    import torch
+    from nvme_strom_tpu_torch.data.prefetch import prefetch_to_device
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    from nvme_strom_tpu_torch.train import Trainer
+    from nvme_strom_tpu_torch.train_lm import (synthesize_shards,
+                                              token_batches)
+    shard_dir = os.path.join(DATA_DIR, "train_shards")
+    ckpt = os.path.join(DATA_DIR, "train_ckpt")
+    for d in (shard_dir, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(shard_dir)
+    shards = synthesize_shards(shard_dir, cfg.vocab, TRAIN_SEQ, n_shards=4,
+                               per_shard=8 * TRAIN_BATCH, seed=SEED)
+    report = {}
+    with StromEngine() as eng:
+        def make(log_to):
+            return Trainer(cfg, attn_fn=make_flash_attn(), init_weights=ckdir,
+                           ckpt_dir=ckpt, save_every=SAVE_EVERY, engine=eng,
+                           device=dev, seed=SEED,
+                           hooks=[lambda s, l, dt: log_to.append((s, l, dt))])
+
+        def batches():
+            return prefetch_to_device(token_batches(
+                shards, TRAIN_BATCH, cfg.vocab, eng, dev), size=2)
+
+        steps = []
+        tr = make(steps)
+        if tr.resumed_from is not None:
+            raise AssertionError("a fresh checkpoint dir resumed")
+        it = batches()
+        try:
+            res = tr.fit(it, steps=TRAIN_STEPS)
+        finally:
+            it.close()
+        torch.cuda.synchronize()
+        losses = [l for _, l, _ in steps]
+        if res.steps != TRAIN_STEPS or len(steps) != TRAIN_STEPS or \
+                not all(math.isfinite(l) for l in losses):
+            raise AssertionError(f"training: {res}, losses {losses}")
+        plain_ms = [dt * 1e3 for s, _, dt in steps
+                    if s > 1 and s % SAVE_EVERY]
+        ms = statistics.median(plain_ms)
+        report.update(
+            steps_per_s=res.steps_per_s,
+            tokens_per_s_fit=res.steps_per_s * TRAIN_BATCH * TRAIN_SEQ,
+            ms_per_step_median=ms,
+            tokens_per_s_median_step=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+            step_ms=[dt * 1e3 for _, _, dt in steps], losses=losses,
+            save_phases=tr.manager.last_save_phases,
+            checkpoint_steps=tr.manager.all_steps())
+        log(f"train: {TRAIN_STEPS} steps (seq {TRAIN_SEQ}, batch "
+            f"{TRAIN_BATCH}, flash) at {res.steps_per_s:.3f} steps/s = "
+            f"{report['tokens_per_s_fit']:.0f} tokens/s (fit, with 2 saves "
+            f"and the first step); median step without a save {ms:.2f} ms "
+            f"= {report['tokens_per_s_median_step']:.0f} tokens/s; step ms "
+            f"{[round(x, 2) for x in report['step_ms']]}; losses "
+            f"{[round(x, 4) for x in losses]}; last save "
+            f"{tr.manager.last_save_phases}")
+
+        steps2 = []
+        tr2 = make(steps2)
+        if tr2.resumed_from != TRAIN_STEPS or tr2.step != TRAIN_STEPS:
+            raise AssertionError(f"resumed from {tr2.resumed_from}, "
+                                 f"expected {TRAIN_STEPS}")
+        n_params, n_keys = _same_state(tr, tr2)
+        log(f"resume: second trainer resumed from step {tr2.resumed_from}"
+            f"; {n_params} parameters and {n_keys} AdamW state tensors "
+            f"each bitwise equal to the first trainer's")
+        tr.close()
+        del tr
+        it = batches()
+
+        def run(done):
+            # the window is the two steps: it ends in the last step's
+            # hook, before fit's final save
+            tr2.hooks.append(lambda s, l, dt: s == RESUME_STEPS and done())
+            r = tr2.fit(it, steps=RESUME_STEPS)
+            if r.steps != RESUME_STEPS:
+                raise AssertionError(f"resumed run ended at {r.steps}")
+        try:
+            report["profile"] = profile_run(
+                run, f"train steps {TRAIN_STEPS + 1}-{RESUME_STEPS}")
+        finally:
+            it.close()
+        if not all(math.isfinite(l) for _, l, _ in steps2):
+            raise AssertionError(f"resumed losses {steps2}")
+        report["resumed_losses"] = [l for _, l, _ in steps2]
+        tr2.close()
+        eng.sync_stats()
+        report["stats"] = eng.stats.snapshot()
+    log(f"train: engine stats {report['stats']}")
+    return report
+
+
+def f32_train_phase(dev, cfg):
+    """One float32 train step of the flagship (batch 2, seq 2048), TF32
+    off: loss and every gradient through the flash kernels against the
+    same step through their plain versions.  Both sides are float32
+    end to end; they differ only in summation order, so loss agrees to
+    1e-4 and each gradient to rtol 1e-3 + 1e-4*max|plain|."""
+    import dataclasses
+    import torch
+    from nvme_strom_tpu_torch.models.transformer import (init_params,
+                                                         trainable_params,
+                                                         value_and_grad)
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            scale = q.shape[-1] ** -0.5
+            out, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out, lse = ctx.saved_tensors
+            scale = q.shape[-1] ** -0.5
+            delta = (dout.float() * out.float()).sum(-1)
+            args = (q, k, v, dout, lse, delta, True, scale)
+            return (fa.flash_bwd_dq_plain(*args),
+                    *fa.flash_bwd_dkv_plain(*args))
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = trainable_params(init_params(SEED, cfg32), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (2, TRAIN_SEQ), generator=gen,
+                           device=dev)
+    loss_k, g_k = value_and_grad(params, tokens, cfg32,
+                                 fa.make_flash_attn())
+    loss_p, g_p = value_and_grad(params, tokens, cfg32, PlainFlash.apply)
+    loss_err = abs(loss_k.item() - loss_p.item())
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"f32 train step loss {loss_k.item()} vs "
+                             f"plain {loss_p.item()}")
+    worst = 0.0
+    for name in params:
+        want = g_p[name]
+        atol = 1e-4 * want.abs().max().item()
+        torch.testing.assert_close(g_k[name], want, rtol=1e-3, atol=atol,
+                                   msg=lambda m: f"f32 grad {name}: {m}")
+        rel = ((g_k[name] - want).abs().max().item()
+               / max(want.abs().max().item(), 1e-30))
+        worst = max(worst, rel)
+    log(f"f32 train step: loss {loss_k.item():.6f} (kernel) vs "
+        f"{loss_p.item():.6f} (plain), |diff| {loss_err:.3g}; largest "
+        f"gradient difference {worst:.3g} of its tensor's max |plain|, "
+        f"over {len(params)} gradients")
+    return {"loss_err": loss_err, "grad_max_rel_err": worst}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -693,6 +1092,7 @@ def main() -> int:
     from nvme_strom_tpu_torch import _build
     from nvme_strom_tpu_torch.models.transformer import flagship_config
     from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
     from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
     from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
 
@@ -708,9 +1108,12 @@ def main() -> int:
     check_h2d(dev, results)
     check_decode(dev, results)
     check_paged(dev, results)
+    check_flash(dev, results)
     for r in results.values():
+        lib = ("in flash_bwd_dq's" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"{r['name']} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
     os.makedirs(DATA_DIR, exist_ok=True)
@@ -720,27 +1123,50 @@ def main() -> int:
     want = write_stream_file(stream_path)
     cpu_params = write_checkpoint(ckdir, cfg)
 
-    # the main path: counts from here on are the kernels' launches
     counters = {"h2d_copy": h2d_copy, "decode_attention": decode_attention,
-                "paged_attention": paged_attention}
-    for fn in counters.values():
-        fn.launches = 0
-    stream = stream_phase(dev, stream_path, want)
-    params, serving = serve_phase(dev, ckdir, cfg, cpu_params)
-    launches = {n: fn.launches for n, fn in counters.items()}
-    log(f"main-path launches: {launches}")
-    for n, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {n} never launched on the main "
-                                 "path")
-        results[n]["launches"] = c
-        results[n]["kernel_ms"] = results[n]["ms"]
+                "paged_attention": paged_attention,
+                "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv}
 
+    def drive(path, kernels, run):
+        """Run one main path with every count at 0; each of ``kernels``
+        must have launched in it.  Returns (run's result, counts)."""
+        for fn in counters.values():
+            fn.launches = 0
+        out = run()
+        counts = {n: fn.launches for n, fn in counters.items()}
+        log(f"{path} launches: {counts}")
+        for n in kernels:
+            if counts[n] <= 0:
+                raise AssertionError(f"kernel {n} never launched on the "
+                                     f"{path} path")
+        return out, counts
+
+    # main path 1: the stream and serving
+    (stream, (params, serving)), counts = drive(
+        "stream+serve", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: (stream_phase(dev, stream_path, want),
+                 serve_phase(dev, ckdir, cfg, cpu_params)))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches"] = counts[n]
     f32 = f32_phase(dev, cfg, params)
     os.remove(stream_path)
+    del params
+
+    # main path 2: training with the flash kernels, batches through h2d
+    training, counts = drive(
+        "train", ("h2d_copy", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+        lambda: train_phase(dev, ckdir, cfg))
+    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        results[n]["launches"] = counts[n]
+    results["h2d_copy"]["launches_train"] = counts["h2d_copy"]
+    for n in counters:
+        results[n]["kernel_ms"] = results[n]["ms"]
+    f32_train = f32_train_phase(dev, cfg)
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
-                                  "f32_logits_err": f32,
+                                  "f32_logits_err": f32, "train": training,
+                                  "f32_train": f32_train,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))
     print(card_line())

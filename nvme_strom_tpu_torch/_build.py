@@ -155,6 +155,7 @@ def kernel_library() -> ctypes.CDLL:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, U64, I, F = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, \
         ctypes.c_float
+    S = ctypes.POINTER(ctypes.c_longlong)   # (sb, sh, ss) per tensor
     sigs = {
         "strom_host_register": [P, U64, I, ctypes.POINTER(P)],
         "strom_host_unregister": [P, I],
@@ -167,6 +168,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # block_k, max_blocks, d, dtype, scale, stream, dev
         "strom_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I,
                                   I, F, P, I],
+        # q, k, v, out, lse, strides, b, h, s, skv, d, dtype, causal,
+        # scale, stream, dev
+        "strom_flash_fwd": [P, P, P, P, P, S, I, I, I, I, I, I, I, F, P, I],
+        # q, k, v, dout, lse, delta, dq, strides, b, h, s, skv, d, dtype,
+        # causal, scale, stream, dev
+        "strom_flash_bwd_dq": [P, P, P, P, P, P, P, S, I, I, I, I, I, I, I,
+                               F, P, I],
+        # q, k, v, dout, lse, delta, dk, dv, strides, ... as above
+        "strom_flash_bwd_dkv": [P, P, P, P, P, P, P, P, S, I, I, I, I, I,
+                                I, I, F, P, I],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -1,0 +1,250 @@
+"""Sharded dataloader for one process and one device: WebDataset shards
+on NVMe → device batches (counterpart of nvme_strom_tpu/data/loader.py
+``ShardedLoader`` with ``fmt="wds"``).
+
+Per batch, in a producer thread:
+
+    shard index (tar headers only) → planned member reads through the
+    engine → decode (user fn) → host batch (np.stack)
+
+and in the consumer, each batch leaf goes to the device through the
+bridge's ``host_to_device`` (on a CUDA device the ``h2d_copy`` kernel).
+The sample order is the JAX loader's: shards sorted, then, with
+``LoaderConfig.shuffle_buffer``, shard order and each shard's sample
+order permuted per epoch from the seed (data/sharding.py).  Mixtures,
+the tfrecord / fixedrec / raw formats, sequence sharding and shard
+quarantine are not part of this port yet.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import OrderedDict
+from typing import Callable, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from nvme_strom_tpu_torch.data.sharding import (assign_shards,
+                                                shuffled_indices)
+from nvme_strom_tpu_torch.device import resolve_device
+from nvme_strom_tpu_torch.formats.wds import WdsShardIndex
+from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
+from nvme_strom_tpu_torch.io.plan import plan_and_submit
+from nvme_strom_tpu_torch.ops.bridge import to_device
+from nvme_strom_tpu_torch.utils.config import LoaderConfig
+
+_SENTINEL = object()
+
+
+def _default_decode(parts: dict) -> np.ndarray:
+    """A single-part sample → its bytes as uint8."""
+    if len(parts) != 1:
+        raise ValueError(
+            f"sample has parts {sorted(parts)}; pass decode= to combine")
+    (payload,) = parts.values()
+    return np.frombuffer(payload, dtype=np.uint8)
+
+
+def _stack(samples: list):
+    """Samples (arrays, or dicts / tuples of arrays) → one batch."""
+    first = samples[0]
+    if isinstance(first, dict):
+        return {k: _stack([s[k] for s in samples]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([s[i] for s in samples])
+                           for i in range(len(first)))
+    return np.stack(samples)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class ShardedLoader:
+    """Iterate device batches of ``global_batch`` samples from
+    WebDataset shards.  ``decode(parts: {ext: bytes}) -> array`` (or a
+    dict / tuple of arrays); ``exts`` keeps only these member
+    extensions; ``engine``: a shared StromEngine (one is created and
+    owned otherwise); ``device``: where batches go (default
+    ``cuda:0``).  Each ``iter()`` is one epoch."""
+
+    def __init__(self, shard_paths: Sequence, global_batch: int,
+                 fmt: str = "wds", decode: Optional[Callable] = None,
+                 engine: Optional[StromEngine] = None,
+                 exts: Optional[List[str]] = None,
+                 config: Optional[LoaderConfig] = None, device=None):
+        if fmt != "wds":
+            raise NotImplementedError(f"fmt {fmt!r} is not ported yet "
+                                      "(wds only)")
+        if global_batch < 1:
+            raise ValueError(f"global_batch must be >= 1, got "
+                             f"{global_batch}")
+        self.device = resolve_device(device)
+        self.fmt = fmt
+        self.decode = decode or _default_decode
+        self.exts = exts
+        self.config = config or LoaderConfig()
+        self.global_batch = global_batch
+        self.local_batch = global_batch
+        self.local_shards = assign_shards(shard_paths, 0, 1)
+        self._owns_engine = engine is None
+        self._engine = engine if engine is not None else StromEngine()
+        self.epoch = 0
+        self._shard_index: "OrderedDict[str, list]" = OrderedDict()
+        self._shard_index_total = 0
+
+    # -- samples (host side) -------------------------------------------------
+
+    def _index_shard(self, path) -> list:
+        key = str(path)
+        cached = self._shard_index.get(key)
+        if cached is not None:
+            self._shard_index.move_to_end(key)
+            return cached
+        idx = WdsShardIndex(path)
+        out = [{ext: rng for ext, rng in idx.samples[k].items()
+                if self.exts is None or ext in self.exts}
+               for k in idx.order]
+        cap = self.config.index_cache_samples
+        if cap > 0:
+            self._shard_index[key] = out
+            self._shard_index_total += len(out)
+            while (self._shard_index_total > cap
+                   and len(self._shard_index) > 1):
+                _, old = self._shard_index.popitem(last=False)
+                self._shard_index_total -= len(old)
+        return out
+
+    def _iter_local_samples(self) -> Iterator:
+        order = list(self.local_shards)
+        if self.config.shuffle_buffer:
+            perm = shuffled_indices(len(order), self.config.seed, self.epoch)
+            order = [order[i] for i in perm]
+        for path in order:
+            yield from self._shard_samples(path)
+
+    def _shard_samples(self, path) -> Iterator:
+        """Index → pipelined reads (one planned batch per sample, half
+        the engine's queue depth in flight) → decode, for one shard."""
+        eng = self._engine
+        samples = self._index_shard(path)
+        sample_order = range(len(samples))
+        if self.config.shuffle_buffer:
+            sample_order = shuffled_indices(len(samples),
+                                            self.config.seed + 1, self.epoch)
+        depth = max(2, eng.config.queue_depth // 2)
+        fh = eng.open(path)
+        pend: list = []
+
+        def finish(reads):
+            parts = {}
+            try:
+                for ext, pieces in reads.items():
+                    # a short read is a truncated shard: loud
+                    parts[ext] = b"".join(wait_exact(p).tobytes()
+                                          for p in pieces)
+            finally:
+                for pieces in reads.values():
+                    for p in pieces:
+                        p.release()
+            eng.stats.add(bounce_bytes=sum(len(v) for v in parts.values()))
+            return self.decode(parts)
+
+        try:
+            for si in sample_order:
+                items = list(samples[si].items())
+                planned = plan_and_submit(
+                    eng, [(fh, off, ln) for _, (off, ln) in items])
+                pend.append({ext: pieces for (ext, _), pieces
+                             in zip(items, planned)})
+                if len(pend) >= depth:
+                    yield finish(pend.pop(0))
+            while pend:
+                yield finish(pend.pop(0))
+        finally:
+            for reads in pend:        # in-flight reads hold pool buffers
+                for pieces in reads.values():
+                    for p in pieces:
+                        p.release()
+            eng.close(fh)
+
+    def _host_batches(self) -> Iterator:
+        batch: list = []
+        for sample in self._iter_local_samples():
+            batch.append(sample)
+            if len(batch) == self.local_batch:
+                yield _stack(batch)
+                batch = []
+        # a partial final batch is dropped: batches keep one shape
+
+    # -- batches on the device ---------------------------------------------
+
+    def __iter__(self) -> Iterator:
+        """One epoch of batches on ``self.device``."""
+        q: queue.Queue = queue.Queue(maxsize=self.config.prefetch)
+        err: list = []
+        stop = threading.Event()
+
+        def put_checked(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            gen = self._host_batches()
+            try:
+                for hb in gen:
+                    if not put_checked(hb):
+                        break
+            except Exception as e:     # raised again in the consumer
+                err.append(e)
+            finally:
+                try:
+                    gen.close()        # drains the shard's reads
+                except Exception as e:
+                    err.append(e)
+                put_checked(_SENTINEL)
+
+        t = threading.Thread(target=producer, daemon=True,
+                             name="strom-loader")
+        t.start()
+        try:
+            while True:
+                hb = q.get()
+                if hb is _SENTINEL:
+                    if err:
+                        raise err[0]
+                    break
+                yield _map(lambda x: to_device(self._engine, x,
+                                               self.device), hb)
+        finally:
+            # an abandoned iterator stops the producer before returning,
+            # so close() never races a thread still submitting reads
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=30)
+        self.epoch += 1
+
+    def close(self) -> None:
+        if self._owns_engine:
+            self._engine.close_all()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -3,7 +3,11 @@
 Counterpart of nvme_strom_tpu/io/engine.py.  The port loads its own
 build of the engine (``_build.engine_library``).  Reads complete into
 the engine's locked staging buffers and come back as zero-copy numpy
-views; Python never copies payload bytes on the read side.
+views; Python never copies payload bytes on the read side.  Writes
+(``open(..., writable=True)`` + ``submit_write``) go O_DIRECT straight
+from the caller's buffer when it, the offset and the length are
+alignment-conformant, and bounce through a staging buffer otherwise
+(the engine counts it).
 
 New for CUDA: :meth:`StromEngine.cuda_mapping` page-locks the staging
 pool for a CUDA device (``cudaHostRegister``, mapped) the first time a
@@ -97,6 +101,7 @@ def _lib() -> ctypes.CDLL:
                                  ctypes.POINTER(_FileInfo)]),
         "strom_get_pool_info": (None, [P, ctypes.POINTER(_PoolInfo)]),
         "strom_open": (I, [P, ctypes.c_char_p, I]),
+        "strom_file_is_direct": (I, [P, I]),
         "strom_close": (I, [P, I]),
         "strom_file_size": (I64, [P, I]),
         "strom_submit_read": (I64, [P, I, U64, U64]),
@@ -106,6 +111,8 @@ def _lib() -> ctypes.CDLL:
         "strom_wait_timeout": (I, [P, I64, ctypes.POINTER(_Completion),
                                    U64]),
         "strom_release": (I, [P, I64]),
+        "strom_submit_write": (I64, [P, I, U64, P, U64]),
+        "strom_crc32c": (U32, [P, U64, U32]),
         "strom_drain_stats": (None, [P, ctypes.POINTER(_StatsBlk)]),
         "strom_backend_is_uring": (I, [P]),
     }
@@ -115,6 +122,13 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = args
     _declared = True
     return lib
+
+
+def crc32c(data: np.ndarray, crc: int = 0) -> int:
+    """CRC32C (the engine's native implementation) of the bytes of a
+    numpy array; ``crc`` chains spans."""
+    arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    return int(_lib().strom_crc32c(arr.ctypes.data, arr.nbytes, crc))
 
 
 def check_file(path) -> dict:
@@ -235,6 +249,30 @@ def wait_exact(pending, timeout: Optional[float] = None) -> np.ndarray:
     return view
 
 
+class PendingWrite:
+    """An in-flight write.  ``wait()`` returns the bytes written and
+    frees the request; the source buffer is kept alive until then."""
+
+    def __init__(self, engine: "StromEngine", req_id: int,
+                 keepalive: np.ndarray, fh: int, offset: int):
+        self._engine = engine
+        self._req_id = req_id
+        self._keepalive = keepalive
+        self.fh = fh
+        self.offset = offset
+        self.length = keepalive.nbytes
+
+    def wait(self) -> int:
+        lib, h = self._engine._lib, self._engine._h
+        comp = _Completion()
+        rc = lib.strom_wait(h, self._req_id, ctypes.byref(comp))
+        lib.strom_release(h, self._req_id)
+        self._keepalive = None
+        if rc < 0:
+            raise OSError(-rc, os.strerror(-rc))
+        return int(comp.len)
+
+
 class StromEngine:
     """The userspace handle to one strom-io engine: one submission ring
     over one locked staging pool of ``config.n_buffers`` buffers of
@@ -259,11 +297,17 @@ class StromEngine:
 
     # -- files --------------------------------------------------------------
 
-    def open(self, path) -> int:
-        fh = self._lib.strom_open(self._h, os.fsencode(path), 0)
+    def open(self, path, writable: bool = False) -> int:
+        """A handle for engine reads (and writes when ``writable``); the
+        engine tries O_DIRECT first and falls back to buffered I/O."""
+        fh = self._lib.strom_open(self._h, os.fsencode(path),
+                                  1 if writable else 0)
         if fh < 0:
             raise OSError(-fh, os.strerror(-fh), str(path))
         return fh
+
+    def file_is_direct(self, fh: int) -> bool:
+        return self._lib.strom_file_is_direct(self._h, fh) == 1
 
     def close(self, fh: int) -> None:
         self._lib.strom_close(self._h, fh)
@@ -306,6 +350,19 @@ class StromEngine:
             raise OSError(-rc, os.strerror(-rc))
         return [PendingRead(self, int(rids[i]), reads[i][2], fh=reads[i][0],
                             offset=reads[i][1]) for i in range(n)]
+
+    # -- writes -------------------------------------------------------------
+
+    def submit_write(self, fh: int, offset: int,
+                     data: np.ndarray) -> PendingWrite:
+        """Write the bytes of ``data`` at ``offset``; the returned
+        request keeps ``data`` alive until ``wait()``."""
+        arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+        rid = self._lib.strom_submit_write(self._h, fh, offset,
+                                           arr.ctypes.data, arr.nbytes)
+        if rid < 0:
+            raise OSError(-rid, os.strerror(-rid))
+        return PendingWrite(self, rid, arr, fh, offset)
 
     # -- CUDA ---------------------------------------------------------------
 

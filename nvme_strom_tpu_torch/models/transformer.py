@@ -1,23 +1,27 @@
-"""Llama-style decoder, inference half (counterpart of
-nvme_strom_tpu/models/transformer.py).
+"""Llama-style decoder (counterpart of
+nvme_strom_tpu/models/transformer.py): the inference half and the
+training half (loss, chunked cross-entropy, remat, the train step).
 
 Parameters are a flat ``{name: tensor}`` dict in the JAX package's
 namespace and layout: matmul weights are ``(d_in, d_out)`` and apply as
-``x @ w``.  Matrices are held in the compute dtype, norm weights in
-float32.  Attention scores and softmax run in float32; the output of
-every matmul is in the compute dtype, as in the JAX model.  Mixture-of-
-experts layers and quantized weights are not part of this port yet.
+``x @ w``.  For serving, matrices are held in the compute dtype and norm
+weights in float32; for training, every parameter is a float32 master
+weight and ``wmat`` casts matrices to the compute dtype at use, as the
+JAX model does.  Attention scores and softmax run in float32; the output
+of every matmul is in the compute dtype.  Mixture-of-experts layers and
+quantized weights are not part of this port yet.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -38,6 +42,12 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     n_experts: int = 0
+    # "full" recomputes each layer in the backward
+    # (torch.utils.checkpoint); "none" keeps every activation
+    remat_policy: str = "none"
+    # cross-entropy over this many sequence slices (chunked_xent);
+    # 0/1 = the full-logits path
+    xent_chunks: int = 0
 
     def __post_init__(self):
         if isinstance(self.rope_scaling, dict):
@@ -183,27 +193,71 @@ def expand_gqa(t: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     return t
 
 
-def dense_causal_attention(q, k, v) -> torch.Tensor:
-    """softmax(QKᵀ/√d)V under a causal mask; (b, h, s, d) each, equal
-    head counts.  Scores and softmax in float32."""
-    s, hd = q.shape[-2], q.shape[-1]
-    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return (probs @ v).to(q.dtype)
+class _DenseGrouped(torch.autograd.Function):
+    """Causal attention in projection layout with k / v at kv-head
+    width (the JAX package's ``dense_causal_attention_grouped``): the
+    einsums carry (b, nkv) as batch dims, so K/V are never expanded.
+    The backward runs the softmax VJP in fp32 and rounds dS to the
+    activation dtype before the dQ / dK products, as the JAX custom VJP
+    does (a no-op at float32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        b, s, nh, hd = q.shape
+        nkv = k.shape[2]
+        qg = q.reshape(b, s, nkv, nh // nkv, hd)
+        scores = torch.einsum("bsngd,btnd->bngst", qg.float(), k.float())
+        scores = scores / math.sqrt(hd)
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        probs32 = torch.softmax(scores.masked_fill(~keep, -1e30), dim=-1)
+        out = torch.einsum("bngst,btnd->bsngd", probs32.to(q.dtype), v)
+        ctx.save_for_backward(q, k, v, probs32)
+        return out.reshape(b, s, nh * hd)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, probs32 = ctx.saved_tensors
+        b, s, nh, hd = q.shape
+        nkv = k.shape[2]
+        gr = nh // nkv
+        go = g_out.to(q.dtype).reshape(b, s, nkv, gr, hd).float()
+        probs = probs32.to(q.dtype).float()
+        dv = torch.einsum("bngst,bsngd->btnd", probs, go).to(v.dtype)
+        dprobs = torch.einsum("bsngd,btnd->bngst", go, v.float())
+        # masked entries have probs32 == 0 exactly: no gradient leaks
+        ds32 = probs32 * (dprobs - (dprobs * probs32).sum(-1, keepdim=True))
+        ds = (ds32 / math.sqrt(hd)).to(q.dtype).float()
+        qg = q.reshape(b, s, nkv, gr, hd).float()
+        dqg = torch.einsum("bngst,btnd->bsngd", ds, k.float()).to(q.dtype)
+        dk = torch.einsum("bngst,bsngd->btnd", ds, qg).to(k.dtype)
+        return dqg.reshape(b, s, nh, hd), dk, dv
 
 
-def attention(x, p, prefix, cfg: TransformerConfig, positions=None,
-              return_kv: bool = False):
-    """Causal self-attention of a (b, s, d) block; ``return_kv`` also
-    returns the post-RoPE kv-width k / v for the cache."""
+def dense_causal_attention_grouped(q, k, v) -> torch.Tensor:
+    """q (b, s, nh, hd), k / v (b, s, nkv, hd) → (b, s, nh·hd); the
+    default single-device training attention."""
+    return _DenseGrouped.apply(q, k, v)
+
+
+def attention(x, p, prefix, cfg: TransformerConfig, attn_fn=None,
+              positions=None, return_kv: bool = False):
+    """Causal self-attention of a (b, s, d) block.  Without ``attn_fn``
+    it is the grouped dense attention in projection layout; an
+    ``attn_fn`` (the flash kernels: ops.flash_attention
+    ``make_flash_attn``) takes q and GQA-expanded k / v in (b, h, s, d).
+    ``return_kv`` (cache prefill) also returns the post-RoPE kv-width
+    k / v (b, nkv, s, hd)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.float32, device=x.device)
     q, k, v = qkv_project(x, p, prefix, cfg, positions)
-    out = dense_causal_attention(q, expand_gqa(k, cfg), expand_gqa(v, cfg))
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    if attn_fn is None:
+        # back to projection layout: free views of the projections
+        out = dense_causal_attention_grouped(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    else:
+        out = attn_fn(q, expand_gqa(k, cfg), expand_gqa(v, cfg))
+        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     out = out @ wmat(p, prefix + "wo", x.dtype)
     return (out, k, v) if return_kv else out
 
@@ -216,3 +270,178 @@ def mlp(x, p, prefix) -> torch.Tensor:
 
 def embed(p, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     return F.embedding(tokens.long(), p["tok_embed"]).to(cfg.dtype)
+
+
+# ----------------------------- training -----------------------------
+
+def _remat_policy(cfg: TransformerConfig) -> str:
+    policy = cfg.remat_policy
+    if policy in ("dots", "nvme"):
+        raise NotImplementedError(
+            f"remat_policy {policy!r} is not ported yet (none|full)")
+    if policy not in ("none", "full"):
+        raise ValueError(f"remat_policy {policy!r}: expected none|full")
+    return policy
+
+
+def forward_hidden(params: Dict, tokens: torch.Tensor,
+                   cfg: TransformerConfig, attn_fn=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (b, s) → (final-norm hidden (b, s, d) in cfg.dtype,
+    aux_loss scalar), everything short of the lm_head.  aux_loss is the
+    MoE balancing loss of the JAX model, 0 for the dense layers this
+    port has.  ``remat_policy="full"`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``)."""
+    policy = _remat_policy(cfg)
+    x = wmat(params, "tok_embed", cfg.dtype)[tokens.long()]
+
+    def layer(x, i):
+        L = f"layers.{i}."
+        x = x + attention(rms_norm(x, params[L + "attn_norm"], cfg.norm_eps),
+                          params, L, cfg, attn_fn)
+        h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
+        return x + mlp(h, params, L)
+
+    for i in range(cfg.n_layers):
+        x = (checkpoint(layer, x, i, use_reentrant=False)
+             if policy == "full" else layer(x, i))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward_with_aux(params: Dict, tokens: torch.Tensor,
+                     cfg: TransformerConfig, attn_fn=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (b, s) → (logits (b, s, vocab) float32, aux_loss)."""
+    x, aux = forward_hidden(params, tokens, cfg, attn_fn)
+    return (x @ wmat(params, "lm_head", x.dtype)).float(), aux
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            attn_fn=None) -> torch.Tensor:
+    """tokens (b, s) → logits (b, s, vocab) float32."""
+    return forward_with_aux(params, tokens, cfg, attn_fn)[0]
+
+
+def _chunk_nll(h, w, t, wt):
+    logits = (h @ w).float()                        # (b, c, vocab)
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(-1, t[..., None])[..., 0]
+    return ((lse - tl) * wt).sum()
+
+
+def chunked_xent(params: Dict, hidden: torch.Tensor, tokens: torch.Tensor,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token NLL without materialising (b, s, vocab): the
+    sequence is cut into ``cfg.xent_chunks`` slices, each projected
+    through the lm_head and reduced under one ``torch.utils.checkpoint``
+    (its logits are recomputed in the backward).  The last position has
+    no next token and carries weight 0."""
+    b, s, _ = hidden.shape
+    n = cfg.xent_chunks
+    if s % n:
+        raise ValueError(f"xent_chunks={n} must divide the sequence "
+                         f"length {s}")
+    c = s // n
+    tokens = tokens.long()
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros(b, 1)], dim=1)
+    weights = torch.ones(b, s, dtype=torch.float32, device=hidden.device)
+    weights[:, -1] = 0.0
+    w = wmat(params, "lm_head", hidden.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_nll, hidden[:, sl], w,
+                                   targets[:, sl], weights[:, sl],
+                                   use_reentrant=False)
+    return total / (b * (s - 1))
+
+
+def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            attn_fn=None) -> torch.Tensor:
+    """Next-token cross-entropy; tokens are input and target.  The full
+    sequence is forwarded and the last logit dropped.  ``xent_chunks``
+    > 1 takes :func:`chunked_xent`."""
+    if cfg.xent_chunks > 1:
+        hidden, _ = forward_hidden(params, tokens, cfg, attn_fn)
+        return chunked_xent(params, hidden, tokens, cfg)
+    logits, _ = forward_with_aux(params, tokens, cfg, attn_fn)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    ll = logp.gather(-1, tokens[:, 1:].long()[..., None])
+    return -ll.mean()
+
+
+def value_and_grad(params: Dict, tokens: torch.Tensor,
+                   cfg: TransformerConfig, attn_fn=None):
+    """(loss, {name: gradient}) of :func:`loss_fn` at ``params``."""
+    names = list(params)
+    loss = loss_fn(params, tokens, cfg, attn_fn)
+    grads = torch.autograd.grad(loss, [params[n] for n in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+def accumulate_grads(grad_fn: Callable, like: Dict, tokens: torch.Tensor,
+                     accum_steps: int):
+    """Microbatched gradients: ``grad_fn(microbatch) -> (loss, grads)``
+    over ``accum_steps`` equal row groups of tokens (b, s), summed in
+    float32 and averaged, so the mean matches the full-batch value."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if accum_steps == 1:
+        return grad_fn(tokens)
+    b = tokens.shape[0]
+    if b % accum_steps:
+        raise ValueError(f"batch {b} not divisible by accum_steps "
+                         f"{accum_steps}")
+    loss_sum = torch.zeros((), dtype=torch.float32)
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in like.items()}
+    for mb in tokens.reshape(accum_steps, b // accum_steps, -1):
+        loss, g = grad_fn(mb)
+        loss_sum = loss_sum.to(loss.device) + loss
+        for n in grads:
+            grads[n] += g[n]
+    inv = 1.0 / accum_steps
+    return loss_sum * inv, {n: g * inv for n, g in grads.items()}
+
+
+def make_train_step(cfg: TransformerConfig, optimizer, attn_fn=None,
+                    accum_steps: int = 1):
+    """``step(params, tokens) -> loss``: gradients of the mean loss over
+    ``accum_steps`` microbatches, then one ``optimizer.step()``.
+    ``optimizer`` is a torch optimizer over ``params``' tensors, which
+    it updates in place (where the JAX step returns new params)."""
+
+    def step(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        loss, grads = accumulate_grads(
+            lambda mb: value_and_grad(params, mb, cfg, attn_fn), params,
+            tokens, accum_steps)
+        for n, p in params.items():
+            p.grad = grads[n].to(p.dtype)
+        optimizer.step()
+        return loss
+
+    return step
+
+
+def adamw(params, lr: float) -> torch.optim.AdamW:
+    """``optax.adamw(lr)`` as torch: betas (0.9, 0.999), eps 1e-8 and
+    decoupled weight decay 1e-4 (optax's defaults; torch's own default
+    decay is 1e-2).  ``params``: a {name: tensor} dict or tensors."""
+    if isinstance(params, dict):
+        params = list(params.values())
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def trainable_params(np_params: Dict[str, np.ndarray],
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """float32 leaf tensors on ``device`` that require grad, from
+    :func:`init_params`' numpy arrays or any tensors."""
+    out = {}
+    for name, arr in np_params.items():
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(arr))
+        out[name] = t.detach().to(device=device, dtype=torch.float32
+                                  ).clone().requires_grad_()
+    return out

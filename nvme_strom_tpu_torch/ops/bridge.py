@@ -404,3 +404,72 @@ class DeviceStream:
         else:
             out = torch.cat(parts)
         return _shaped(out, dtype, shape)
+
+
+# -- the write side: device → host → NVMe -----------------------------------
+
+def submit_chunked_writes(engine: StromEngine, fh: int, offset: int,
+                          host: np.ndarray, pend: list) -> int:
+    """Pipelined engine writes of the bytes ``host`` at ``offset`` of an
+    open handle, in chunks of at most one staging buffer.  In-flight
+    writes live in the caller's ``pend`` list (bounded here at the
+    engine's queue depth), so several calls can share one pipeline; the
+    caller waits out ``pend`` before closing ``fh``.  Returns the bytes
+    confirmed by the waits done here."""
+    chunk = engine.config.chunk_bytes
+    depth = engine.config.queue_depth
+    flat = _host_bytes(host)
+    drained = 0
+    for pos in range(0, flat.nbytes, chunk):
+        pend.append(engine.submit_write(fh, offset + pos,
+                                        flat[pos:pos + chunk]))
+        while len(pend) >= depth:
+            drained += pend.pop(0).wait()
+    return drained
+
+
+def write_from_device(engine: StromEngine, tensor: torch.Tensor, path,
+                      offset: int = 0) -> int:
+    """A tensor's bytes → ``path`` at ``offset`` through the engine.
+
+    From a CUDA tensor the bytes go device→host into a pinned buffer
+    (one copy on the current stream, waited for), whose chunks the
+    engine then writes: O_DIRECT straight from the buffer when a chunk
+    is alignment-conformant, bounced (and counted) by the engine
+    otherwise.  A CPU tensor is written from its own memory.  Returns
+    the bytes written."""
+    t = tensor.detach().contiguous().reshape(-1).view(torch.uint8)
+    if t.device.type == "cuda":
+        pinned = torch.empty(t.numel(), dtype=torch.uint8, pin_memory=True)
+        pinned.copy_(t)                      # synchronous to the host
+        t = pinned
+    elif t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    host = t.numpy()
+    fh = engine.open(path, writable=True)
+    total = 0
+    pend: list = []
+    try:
+        total += submit_chunked_writes(engine, fh, offset, host, pend)
+        while pend:
+            total += pend.pop(0).wait()
+    finally:
+        for p in pend:
+            try:
+                p.wait()
+            except OSError:
+                pass
+        engine.close(fh)
+    return total
+
+
+def to_device(engine: Optional[StromEngine], host: np.ndarray,
+              dev: torch.device) -> torch.Tensor:
+    """A numpy array → a tensor of its dtype and shape on ``dev`` through
+    :func:`host_to_device` (so a CUDA copy runs ``h2d_copy``); the copy
+    has completed when this returns."""
+    arr = np.ascontiguousarray(host)
+    t = host_to_device(engine, arr, dev)
+    t.synchronize()
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    return t.tensor.view(dtype).reshape(arr.shape)

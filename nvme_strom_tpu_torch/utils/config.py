@@ -1,5 +1,6 @@
-"""Engine configuration (counterpart of nvme_strom_tpu/utils/config.py
-``EngineConfig``, trimmed to what the stream and weight paths read).
+"""Engine and loader configuration (counterpart of
+nvme_strom_tpu/utils/config.py ``EngineConfig`` and ``LoaderConfig``,
+trimmed to what the port's paths read).
 
 Sizes are these defaults or explicit arguments: nothing here is read
 from the environment or from a tuning ledger."""
@@ -44,3 +45,22 @@ class EngineConfig:
     @property
     def n_buffers(self) -> int:
         return max(2, min(64, self.buffer_pool_bytes // self.chunk_bytes))
+
+
+@dataclass(frozen=True)
+class LoaderConfig:
+    """Dataloader knobs (the JAX package's ``LoaderConfig`` without its
+    shard-quarantine budget and tfrecord index switch, which this port
+    does not have, and without ``batch_size`` and ``drop_remainder``:
+    the batch is ``ShardedLoader``'s ``global_batch``, and a partial
+    final batch is always dropped)."""
+
+    #: host batches assembled ahead of the consumer
+    prefetch: int = 4
+    #: nonzero: shard order and sample order are permuted per epoch
+    #: from ``seed`` (data/sharding.shuffled_indices)
+    shuffle_buffer: int = 0
+    seed: int = 0
+    #: cached index entries (samples) across shards before the oldest
+    #: shard's index is dropped
+    index_cache_samples: int = 1_000_000

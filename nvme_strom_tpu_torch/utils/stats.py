@@ -3,9 +3,12 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
 
 * ``bytes_direct`` / ``bytes_fallback`` — payload the engine read with
   O_DIRECT / through the page cache (drained from the C engine);
-* ``bounce_bytes`` — bytes copied on the host after landing: by the
-  engine, by a host-side join, or because a copy to the device had to
-  start from memory CUDA had not page-locked;
+* ``bytes_written_direct`` — payload the engine wrote with O_DIRECT
+  (checkpoints);
+* ``bounce_bytes`` — bytes copied on the host after landing or before a
+  write: by the engine, by a host-side join, by the checkpoint writer's
+  aligned scratch buffers, or because a copy to the device had to start
+  from memory CUDA had not page-locked;
 * ``bytes_to_device`` — bytes handed to a device transfer;
 * ``overlap_chunks`` / ``overlap_bytes`` — chunks and bytes that went
   through the double-buffered host→device stage (one host copy each,
@@ -17,8 +20,9 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field, fields
 
-COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
-            "bytes_to_device", "overlap_chunks", "overlap_bytes")
+COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
+            "bounce_bytes", "bytes_to_device", "overlap_chunks",
+            "overlap_bytes")
 
 
 @dataclass
@@ -27,6 +31,7 @@ class StromStats:
 
     bytes_direct: int = 0
     bytes_fallback: int = 0
+    bytes_written_direct: int = 0
     bounce_bytes: int = 0
     bytes_to_device: int = 0
     overlap_chunks: int = 0

@@ -225,3 +225,141 @@ def test_engine_unregisters_before_destroy(dev, tmp_path):
     eng.close_all()
     assert not eng._mappings
     os.sync()
+
+
+# -- flash attention (kernels 4-6) --------------------------------------------
+
+#: (rtol, atol as a fraction of max |plain|) of the flash kernels against
+#: their plain versions.  Both sides compute in fp32 from the same
+#: inputs and round once, so bf16 results may differ by one bf16 ulp
+#: (rtol 2**-7); the sums over up to 2048 keys or queries run in another
+#: order, which the relative atol covers where a gradient is near zero.
+FLASH_BF16 = (2 ** -7, 1e-4)
+FLASH_F32 = (1e-4, 1e-5)
+
+
+def _flash_close(got, want, tol):
+    atol = tol[1] * want.float().abs().max().item() + 1e-6
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=atol)
+
+
+def _flash_inputs(dev, b, h, s, skv, d, dtype, seed, projection=False):
+    """q, k, v, dout; ``projection`` lays q, v and dout out as the
+    model's (b, s, h, d) views so the kernels read strided inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(n):
+        if projection:
+            return torch.randn(b, n, h, d, generator=g, device=dev).to(
+                dtype).transpose(1, 2)
+        return torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+    return make(s), make(skv), make(skv), make(s)
+
+
+@pytest.mark.parametrize("b,h,s,skv,d,dtype,causal,proj", [
+    (2, 3, 200, 200, 64, torch.bfloat16, True, True),
+    (1, 2, 256, 256, 128, torch.float32, True, False),
+    (2, 2, 130, 300, 128, torch.bfloat16, False, True),
+    (2, 2, 100, 64, 64, torch.float32, False, False),
+])
+def test_flash_kernels_match_plain(dev, b, h, s, skv, d, dtype, causal,
+                                   proj):
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    tol = FLASH_BF16 if dtype == torch.bfloat16 else FLASH_F32
+    q, k, v, do = _flash_inputs(dev, b, h, s, skv, d, dtype, s + skv, proj)
+    scale = d ** -0.5
+    n0 = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+          fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+    _flash_close(out, out_p, tol)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+    delta = (do.float() * out.float()).sum(-1) - 0.25
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    _flash_close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                           scale), tol)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                        scale)
+    _flash_close(dk, dk_p, tol)
+    _flash_close(dv, dv_p, tol)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in n0)
+    # no atomics: the backward is bitwise the same on a second run
+    assert torch.equal(dq, fa.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                           scale))
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_autograd_with_lse_cotangent(dev):
+    """Gradients through (out, lse) on the card equal the plain
+    formulas with delta = Σ dO·out − dlse."""
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(dev, 2, 2, 150, 150, 64, torch.float32, 7)
+    dlse = torch.randn(2, 2, 150, device=dev)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    out, lse = fa.flash_attention_lse(qs, ks, vs, causal=True)
+    ((out * do).sum() + (lse * dlse).sum()).backward()
+    scale = 64 ** -0.5
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = (do * out_p).sum(-1) - dlse
+    _flash_close(qs.grad, fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                                True, scale), FLASH_F32)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, True,
+                                        scale)
+    _flash_close(ks.grad, dk_p, FLASH_F32)
+    _flash_close(vs.grad, dv_p, FLASH_F32)
+
+
+def test_flash_wrappers_reject_what_they_do_not_take(dev):
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    x = torch.zeros(1, 2, 64, 32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(x, x, x)
+    x = torch.zeros(1, 2, 64, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="takes"):
+        fa.flash_fwd(x, x, x)
+    x = torch.zeros(1, 2, 64, 64, device=dev)
+    with pytest.raises(ValueError, match="stride"):
+        fa.flash_fwd(x.transpose(2, 3), x, x)
+    with pytest.raises(ValueError, match="devices|on"):
+        fa.flash_fwd(x, x.cpu(), x)
+    with pytest.raises(ValueError, match="equal q/kv"):
+        fa.flash_fwd(x, x[:, :, :32], x[:, :, :32])
+
+
+def test_trainer_fits_two_steps_with_flash_kernels(dev, tmp_path):
+    """Loader → Trainer with the flash kernels on the card: finite
+    losses, every flash kernel and h2d_copy launched, a checkpoint that
+    resumes bitwise."""
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.transformer import TransformerConfig
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.train import Trainer
+    from nvme_strom_tpu_torch.train_lm import (synthesize_shards,
+                                              token_batches)
+    cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512, max_seq=256)
+    shards = synthesize_shards(str(tmp_path), cfg.vocab, 256, 2, 8)
+    before = {f: f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
+                                      fa.flash_bwd_dkv, h2d_copy)}
+    losses = []
+    with StromEngine() as eng:
+        with Trainer(cfg, attn_fn=fa.make_flash_attn(), engine=eng,
+                     ckpt_dir=tmp_path / "ck", device=dev,
+                     hooks=[lambda s, l, dt: losses.append(l)]) as tr:
+            res = tr.fit(token_batches(shards, 4, cfg.vocab, eng, dev),
+                         steps=2)
+            saved = {n: p.detach().clone() for n, p in tr.params.items()}
+        with Trainer(cfg, engine=eng, ckpt_dir=tmp_path / "ck",
+                     device=dev) as tr2:
+            assert tr2.resumed_from == 2
+            for n, p in tr2.params.items():
+                assert torch.equal(p.detach(), saved[n]), n
+    assert res.steps == 2 and len(losses) == 2
+    assert all(np.isfinite(losses))
+    for f, n in before.items():
+        assert f.launches > n, f.__name__
