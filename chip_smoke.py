@@ -29,7 +29,16 @@ It builds the port's native libraries from the checkout, then:
    parameters and AdamW moments and runs to step 12 under the profiler;
 7. checks one float32 train step of the flagship through the flash
    kernels against the same step through their plain versions;
-8. prints one JSON line of per-kernel results, the card again, and the
+8. holds the ring all-gather (kernel 7) against its plain version on 4
+   ranks of the card at the row width of phase 9's restore (and on a
+   small ragged width), three calls in a row; on a machine with two or
+   more cards also across two cards against ``torch.cuda.nccl``;
+9. read-once restore path — restores the newest training checkpoint of
+   phase 6 with the read-all path, then with ``STROM_ICI_SCATTER=1``
+   over an exchange group of 4 ranks on the card (each rank reads a
+   quarter of the payload, the ring gathers them), and loads phase 4's
+   weights both ways: every tensor bitwise equal;
+10. prints one JSON line of per-kernel results, the card again, and the
    result line ``{"ok": true, "device": {...}}`` last.  Each kernel's
    entry has ``name``, ``route``, ``source``, ``replaces``,
    ``launches``, ``max_abs_err``, ``ms`` (and the same time again as
@@ -38,7 +47,9 @@ It builds the port's native libraries from the checkout, then:
 
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
-phases 3-4, and the flash kernels and ``h2d_copy`` in phase 6.  Any
+phases 3-4, the flash kernels and ``h2d_copy`` in phase 6, and
+``h2d_copy`` and ``ici_ring_gather`` in phase 9, which must also end
+with no brown-out (``ici_fallbacks`` 0).  Any
 failure exits non-zero before the result line; so does a machine without
 CUDA, or a directory without the package.
 """
@@ -1071,6 +1082,232 @@ def f32_train_phase(dev, cfg):
     return {"loss_err": loss_err, "grad_max_rel_err": worst}
 
 
+# -- phase 8: the ring all-gather (kernel 7) ---------------------------------
+
+ICI_RANKS = 4
+
+
+class SpanLog:
+    """A tracer for the exchange's spans: (name, seconds, args)."""
+
+    enabled = True
+
+    def __init__(self):
+        self.spans = []
+
+    def add_span(self, name, t0_ns, t1_ns, **args):
+        self.spans.append((name, (t1_ns - t0_ns) / 1e9, args))
+
+
+def _primed(devs, width, seed):
+    """Rows and per-rank (n, width) outputs with each own slot filled."""
+    import torch
+    n = len(devs)
+    gen = torch.Generator(device=devs[0]).manual_seed(seed)
+    rows = torch.randint(0, 256, (n, width), generator=gen,
+                         dtype=torch.uint8, device=devs[0])
+    slots = []
+    for r, d in enumerate(devs):
+        s = torch.empty(n, width, dtype=torch.uint8, device=d)
+        s[r] = rows[r].to(d)
+        slots.append(s)
+    return rows, slots
+
+
+def check_ici(dev, results, row_bytes):
+    """Kernel 7 against its plain version, bitwise, on ICI_RANKS ranks
+    of the card at the restore's row width (padded) and at a ragged
+    width, three calls in a row; times at the restore's width."""
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.ops.ici import (IciExchange, _padded,
+                                              ici_ring_gather,
+                                              ici_ring_gather_plain)
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    n = ICI_RANKS
+    devs = [dev] * n
+    group = exchange_group(devices=devs)
+    width = _padded(row_bytes)
+    first = None
+    for call in range(3):
+        rows, slots = _primed(devs, width, SEED + 3)
+        ici_ring_gather(slots, group)
+        for r, s in enumerate(slots):
+            if not torch.equal(s, rows):
+                raise AssertionError(f"ici_ring_gather call {call}: rank {r} "
+                                     "differs from the rows")
+        if first is None:
+            first = [s.clone() for s in slots]
+        elif not all(torch.equal(a, b) for a, b in zip(first, slots)):
+            raise AssertionError(f"ici_ring_gather call {call} differs from "
+                                 "call 0")
+        del slots
+    _, plain = _primed(devs, width, SEED + 3)
+    ici_ring_gather_plain(plain)
+    if not all(torch.equal(a, b) for a, b in zip(first, plain)):
+        raise AssertionError("ici_ring_gather != plain")
+    del first, plain
+    ragged = 12_345
+    ex = IciExchange(group)
+    rows = np.random.default_rng(SEED).integers(0, 256, (n, ragged),
+                                                dtype=np.uint8)
+    for _ in range(3):
+        if ex.all_gather(rows).numpy().tobytes() != rows.tobytes():
+            raise AssertionError("IciExchange ragged rows differ")
+    log(f"ici_ring_gather: {n} ranks on {dev}, width {width} B and ragged "
+        f"{ragged} B, 3 calls each, bitwise equal to plain and the rows")
+
+    _, slots = _primed(devs, width, SEED + 4)
+    ici_ring_gather(slots, group)
+
+    def library():
+        # the same n*(n-1) slot copies on the copy path, from each row's
+        # origin (the port never calls this)
+        for r in range(n):
+            for src in range(n):
+                if src != r:
+                    slots[r][src].copy_(slots[src][src])
+
+    ms = time_ms(lambda: ici_ring_gather(slots, group), 10)
+    plain_ms = time_ms(lambda: ici_ring_gather_plain(slots), 10)
+    library_ms = time_ms(library, 10)
+    # every push reads and writes one slot in HBM
+    bound_ms, bound_by = bound(2 * n * (n - 1) * width, HBM_BYTES_PER_S)
+    results["ici_ring_gather"] = dict(
+        name="ici_ring_gather", route="cuda",
+        source="nvme_strom_tpu_torch/csrc/ici_ring.cu",
+        replaces="nvme_strom_tpu/ops/ici.py:159", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"{n} ranks on one card, {width} B slots", ok=True,
+        blocks_per_rank=group.ring.blocks)
+    del slots
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        results["ici_ring_gather"]["two_cards"] = ici_two_cards(width)
+    else:
+        log("ici_ring_gather across cards: not run (one card)")
+
+
+def ici_two_cards(width):
+    """The ring across cuda:0 and cuda:1 (peer access), against
+    torch.cuda.nccl.all_gather."""
+    import torch
+    import torch.cuda.nccl as nccl
+    from nvme_strom_tpu_torch.ops.ici import ici_ring_gather
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    devs = [torch.device("cuda", i) for i in range(2)]
+    group = exchange_group(devices=devs)
+    rows, slots = _primed(devs, width, SEED + 5)
+    for _ in range(3):
+        ici_ring_gather(slots, group)
+        for s in slots:
+            if not torch.equal(s.to(devs[0]), rows):
+                raise AssertionError("two-card ring differs from the rows")
+    ms = time_ms(lambda: ici_ring_gather(slots, group), 10)
+    ins = [rows[r].to(d) for r, d in enumerate(devs)]
+    outs = [torch.empty(2 * width, dtype=torch.uint8, device=d)
+            for d in devs]
+    nccl_ms = time_ms(lambda: nccl.all_gather(ins, outs), 10)
+    bound_ms = width / 450e9 * 1e3
+    log(f"ici_ring_gather two cards, {width} B rows: kernel {ms:.4f} ms, "
+        f"nccl.all_gather {nccl_ms:.4f} ms, NVLink bound {bound_ms:.4f} ms")
+    return {"ms": ms, "nccl_ms": nccl_ms, "bound_ms": bound_ms}
+
+
+# -- phase 9: the read-once restore ------------------------------------------
+
+def restore_phase(dev, ckdir, cpu_params):
+    """The newest training checkpoint restored with the read-all path and
+    with the read-once scatter over ICI_RANKS ranks of the card, then
+    phase 4's weights loaded both ways: every tensor bitwise equal."""
+    import torch
+    from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
+    from nvme_strom_tpu_torch.checkpoint.scatter import build_restore_manifest
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.ops.ici import ici_unit_bytes
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
+    group = exchange_group(devices=[dev] * ICI_RANKS)
+    report = {}
+    with StromEngine() as eng:
+        eng.tracer = SpanLog()
+        mgr = CheckpointManager(os.path.join(DATA_DIR, "train_ckpt"),
+                                engine=eng)
+        step = mgr.latest_step()
+        man = build_restore_manifest(mgr.step_dir(step), ICI_RANKS,
+                                     ici_unit_bytes())
+
+        def timed(label, run):
+            eng.sync_stats()
+            before = eng.stats.snapshot()
+            t0 = time.monotonic()
+            out = run()
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            eng.sync_stats()
+            after = eng.stats.snapshot()
+            delta = {k: after[k] - before[k] for k in after}
+            report[label] = {"seconds": secs, "stats": delta}
+            log(f"{label}: {secs:.3f} s; stats {delta}")
+            return out, delta
+
+        os.environ.pop("STROM_ICI_SCATTER", None)
+        off, _ = timed("restore read-all", lambda: mgr.restore(device=dev))
+        os.environ["STROM_ICI_SCATTER"] = "1"
+        try:
+            n_spans = len(eng.tracer.spans)
+            on, st = timed("restore scatter", lambda: mgr.restore(
+                device=dev, ici_group=group))
+            spans = {n: (s, a) for n, s, a in eng.tracer.spans[n_spans:]}
+            exch, ex_args = spans["strom.ici.exchange"]
+            scat, sc_args = spans["strom.ici.scatter"]
+            if mgr.last_restore_step != step or set(on) != set(off):
+                raise AssertionError("scatter restore read another step")
+            for name in off:
+                if not torch.equal(on[name], off[name]):
+                    raise AssertionError(f"scatter restore: {name} differs")
+            if st["ici_fallbacks"] != 0:
+                raise AssertionError("the scatter restore browned out")
+            if st["ici_bytes_read"] != man.total_bytes:
+                raise AssertionError(f"ici_bytes_read {st['ici_bytes_read']}"
+                                     f" != payload {man.total_bytes}")
+            worst = max(man.host_bytes)
+            if worst > man.total_bytes / ICI_RANKS + man.shares.unit_bytes:
+                raise AssertionError(f"a host's share is {worst} B")
+            report["restore scatter"].update(
+                exchange_s=exch, scatter_setup_s=scat,
+                share_read_s=sc_args["read_s"], ring_s=ex_args["ring_s"],
+                exchange_out_s=ex_args["out_s"],
+                exchange_share=exch / report["restore scatter"]["seconds"],
+                payload_bytes=man.total_bytes, host_bytes=man.host_bytes,
+                tensors=len(on))
+            log(f"restore: step {step}, {len(on)} tensors bitwise equal; "
+                f"payload {man.total_bytes} B, host shares {man.host_bytes};"
+                f" scatter set-up {scat:.3f} s: share reads "
+                f"{sc_args['read_s']:.3f} s, exchange {exch:.4f} s (priming "
+                f"copies and ring {ex_args['ring_s']:.4f} s, host buffer "
+                f"and copy out {ex_args['out_s']:.4f} s)")
+            del on, off
+            os.environ.pop("STROM_ICI_SCATTER")
+            w_off, _ = timed("weights read-all", lambda: LazyCheckpoint(
+                ckdir).load(eng, device=dev))
+            os.environ["STROM_ICI_SCATTER"] = "1"
+            w_on, st = timed("weights scatter", lambda: LazyCheckpoint(
+                ckdir).load(eng, device=dev, ici_group=group))
+        finally:
+            os.environ.pop("STROM_ICI_SCATTER", None)
+        for name, t in cpu_params.items():
+            if not (torch.equal(w_on[name], w_off[name])
+                    and torch.equal(w_on[name].cpu(), t)):
+                raise AssertionError(f"scatter weights: {name} differs")
+        if st["ici_fallbacks"] != 0 or st["ici_bytes_read"] == 0:
+            raise AssertionError(f"weights scatter stats {st}")
+        log(f"weights: {len(w_on)} tensors bitwise equal with scatter on "
+            "and off")
+    return report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -1094,6 +1331,7 @@ def main() -> int:
     from nvme_strom_tpu_torch.ops.bridge import h2d_copy
     from nvme_strom_tpu_torch.ops import flash_attention as fa
     from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    from nvme_strom_tpu_torch.ops.ici import ici_ring_gather
     from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
 
     t_start = time.monotonic()
@@ -1126,7 +1364,8 @@ def main() -> int:
     counters = {"h2d_copy": h2d_copy, "decode_attention": decode_attention,
                 "paged_attention": paged_attention,
                 "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
-                "flash_bwd_dkv": fa.flash_bwd_dkv}
+                "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "ici_ring_gather": ici_ring_gather}
 
     def drive(path, kernels, run):
         """Run one main path with every count at 0; each of ``kernels``
@@ -1160,13 +1399,33 @@ def main() -> int:
     for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         results[n]["launches"] = counts[n]
     results["h2d_copy"]["launches_train"] = counts["h2d_copy"]
+    f32_train = f32_train_phase(dev, cfg)
+
+    # kernel 7 at the width of the restore below
+    from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
+    from nvme_strom_tpu_torch.checkpoint.scatter import build_restore_manifest
+    from nvme_strom_tpu_torch.ops.ici import ici_unit_bytes
+    mgr = CheckpointManager(os.path.join(DATA_DIR, "train_ckpt"))
+    man = build_restore_manifest(mgr.step_dir(mgr.latest_step()), ICI_RANKS,
+                                 ici_unit_bytes())
+    check_ici(dev, results, max(man.host_bytes))
+    r = results["ici_ring_gather"]
+    log(f"ici_ring_gather ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+    # main path 3: the read-once restore, shares gathered by kernel 7
+    restore, counts = drive(
+        "restore", ("h2d_copy", "ici_ring_gather"),
+        lambda: restore_phase(dev, ckdir, cpu_params))
+    results["ici_ring_gather"]["launches"] = counts["ici_ring_gather"]
+    results["h2d_copy"]["launches_restore"] = counts["h2d_copy"]
     for n in counters:
         results[n]["kernel_ms"] = results[n]["ms"]
-    f32_train = f32_train_phase(dev, cfg)
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "f32_logits_err": f32, "train": training,
-                                  "f32_train": f32_train,
+                                  "f32_train": f32_train, "restore": restore,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))
     print(card_line())

@@ -178,6 +178,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, k, v, dout, lse, delta, dk, dv, strides, ... as above
         "strom_flash_bwd_dkv": [P, P, P, P, P, P, P, P, S, I, I, I, I, I,
                                 I, I, F, P, I],
+        # slots, flags, ranks, n_here, n, slot_bytes, blocks, base,
+        # budget_ns, err, stream, dev
+        "strom_ici_ring": [P, P, P, I, I, U64, I, ctypes.c_uint,
+                           ctypes.c_ulonglong, P, P, I],
+        "strom_ici_ring_capacity": [I, ctypes.POINTER(I)],
+        "strom_enable_peer_access": [I, I],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

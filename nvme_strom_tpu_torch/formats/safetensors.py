@@ -55,8 +55,11 @@ class SafetensorsFile:
         self.path = str(path)
         fd = os.open(self.path, os.O_RDONLY)
         try:
-            (hlen,) = struct.unpack("<Q", pread_nopollute(self.path, 8,
-                                                          fd=fd))
+            raw = pread_nopollute(self.path, 8, fd=fd)
+            if len(raw) != 8:
+                raise ValueError(f"{self.path}: truncated safetensors "
+                                 "header")
+            (hlen,) = struct.unpack("<Q", raw)
             if hlen > 100 << 20:
                 raise ValueError(f"implausible safetensors header: {hlen}")
             header = json.loads(pread_nopollute(self.path, hlen, 8, fd=fd))

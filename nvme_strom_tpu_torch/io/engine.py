@@ -382,6 +382,11 @@ class StromEngine:
             self._mappings[device_index] = m
         return m
 
+    def cuda_mappings(self, device_index: int) -> list:
+        """The host ranges a device copy may read in place: the staging
+        pool (a scatter serve engine adds its store)."""
+        return [self.cuda_mapping(device_index)]
+
     # -- stats / lifecycle --------------------------------------------------
 
     def pool_info(self) -> dict:

@@ -42,12 +42,15 @@ def side_stream(dev: torch.device) -> "torch.cuda.Stream":
 
 
 def pinned_mapping(t: torch.Tensor, dev: torch.device) -> HostMapping:
-    """A ``pin_memory=True`` tensor with its address on ``dev``."""
+    """A ``pin_memory=True`` tensor (or a strided view of one) with its
+    address on ``dev``; the mapping spans every byte the view reaches."""
     ptr = ctypes.c_void_p()
     _build.check(_build.kernel_library().strom_host_device_pointer(
         t.data_ptr(), dev.index, ctypes.byref(ptr)),
         "cudaHostGetDevicePointer")
-    return HostMapping(t.data_ptr(), t.numel() * t.element_size(), ptr.value)
+    extent = (1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+              if t.numel() else 0)
+    return HostMapping(t.data_ptr(), extent * t.element_size(), ptr.value)
 
 
 def _host_bytes(src) -> np.ndarray:
@@ -128,9 +131,10 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
     """Host bytes → a flat uint8 tensor on ``dev``, with the byte
     accounting of the module docstring.
 
-    CUDA: the copy reads ``host`` in place when it lies in the engine's
-    registered staging pool or one of ``mappings``; otherwise through a
-    pinned bounce buffer.  It runs on the side stream, then an event is
+    CUDA: the copy reads ``host`` in place when it lies in one of
+    ``mappings`` or of the engine's (``engine.cuda_mappings``: its
+    registered staging pool, and a scatter store's rows); otherwise
+    through a pinned bounce buffer.  It runs on the side stream, then an event is
     recorded.  CPU: a copy, counted as bounce."""
     flat = _host_bytes(host)
     n = flat.nbytes
@@ -142,7 +146,7 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
     ptr = flat.ctypes.data
     maps = list(mappings)
     if engine is not None:
-        maps.append(engine.cuda_mapping(dev.index))
+        maps.extend(engine.cuda_mappings(dev.index))
     src_ptr = next((p for p in (m.device_ptr(ptr, n) for m in maps)
                     if p is not None), None)
     keep = None

@@ -6,9 +6,11 @@ Each tensor's rows are streamed through the engine in chunks of at most
 one staging buffer (rows are contiguous on disk), copied to the device
 straight out of the staging buffers, and joined on the device; the
 staging buffers are released by a :class:`StagingRetirePool` once the
-copies out of them have completed.  Sharding, read-once scatter,
-demand faulting and the read-side checksum of the JAX loader are not
-part of this port yet.
+copies out of them have completed.  With ``STROM_ICI_SCATTER=1`` the
+files are read once across an exchange group and every tensor is read
+from the gathered bytes (ops/ici.py), copied to the card in place from
+their page-locked store.  Sharding, demand faulting and the read-side
+checksum of the JAX loader are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
 from nvme_strom_tpu_torch.io.plan import join_pieces, plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import (StagingRetirePool,
                                              host_to_device)
+from nvme_strom_tpu_torch.ops.ici import ici_scatter_enabled, scatter_engine
 
 
 class LazyCheckpoint:
@@ -56,19 +59,29 @@ class LazyCheckpoint:
     def keys(self):
         return self._by_name.keys()
 
-    def load(self, engine: Optional[StromEngine] = None, device=None
-             ) -> Dict[str, torch.Tensor]:
+    def load(self, engine: Optional[StromEngine] = None, device=None,
+             ici_group=None) -> Dict[str, torch.Tensor]:
         """Every tensor on ``device`` (default ``cuda:0``) in its stored
-        dtype.  ``engine=None`` uses a temporary engine."""
+        dtype.  ``engine=None`` uses a temporary engine.
+
+        ``STROM_ICI_SCATTER=1``: each rank of ``ici_group`` (default
+        ``exchange_group(STROM_ICI_HOSTS)``) reads a 1/N share of the
+        files, the shares are all-gathered, and every tensor is read
+        from the gathered bytes; any failure of that set-up browns out
+        to reading the files directly (``ici_fallbacks``)."""
         dev = resolve_device(device)
         own = engine is None
-        eng = engine if engine is not None else StromEngine()
+        base = engine if engine is not None else StromEngine()
         try:
-            return {name: self._load_tensor(eng, name, dev)
+            eng = None
+            if ici_scatter_enabled():
+                eng = scatter_engine(base, [sf.path for sf in self.files],
+                                     group=ici_group)
+            return {name: self._load_tensor(eng or base, name, dev)
                     for name in self.keys()}
         finally:
             if own:
-                eng.close_all()
+                base.close_all()
 
     def _load_tensor(self, eng: StromEngine, name: str,
                      dev: torch.device) -> torch.Tensor:

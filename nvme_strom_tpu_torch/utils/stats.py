@@ -12,7 +12,19 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
 * ``bytes_to_device`` — bytes handed to a device transfer;
 * ``overlap_chunks`` / ``overlap_bytes`` — chunks and bytes that went
   through the double-buffered host→device stage (one host copy each,
-  staging buffer → pinned slab).
+  staging buffer → pinned slab);
+* ``ici_bytes_read`` — payload bytes the read-once scatter restore read
+  from this host's NVMe for its own share(s) (ops/ici.py; in the
+  single-process emulation every virtual host's share, so the payload
+  total);
+* ``ici_bytes_received`` — payload bytes obtained from peers over the
+  interconnect instead of local NVMe (0 in the single-process emulation,
+  which has no peers);
+* ``ici_fallbacks`` — scatter set-ups that browned out to the read-all
+  path (a one-rank group, a failed share read, a failed or corrupted
+  exchange);
+* ``restore_fallbacks`` — damaged checkpoint steps a restore stepped
+  past to an older intact one.
 """
 
 from __future__ import annotations
@@ -22,7 +34,8 @@ from dataclasses import dataclass, field, fields
 
 COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "bounce_bytes", "bytes_to_device", "overlap_chunks",
-            "overlap_bytes")
+            "overlap_bytes", "ici_bytes_read", "ici_bytes_received",
+            "ici_fallbacks", "restore_fallbacks")
 
 
 @dataclass
@@ -36,6 +49,10 @@ class StromStats:
     bytes_to_device: int = 0
     overlap_chunks: int = 0
     overlap_bytes: int = 0
+    ici_bytes_read: int = 0
+    ici_bytes_received: int = 0
+    ici_fallbacks: int = 0
+    restore_fallbacks: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 

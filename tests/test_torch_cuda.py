@@ -363,3 +363,131 @@ def test_trainer_fits_two_steps_with_flash_kernels(dev, tmp_path):
     assert all(np.isfinite(losses))
     for f, n in before.items():
         assert f.launches > n, f.__name__
+
+
+# -- the ring all-gather (kernel 7) and the scatter restore -------------------
+
+def _ring_slots(devs, width, seed):
+    """Per-rank (n, width) outputs with each rank's own row primed."""
+    n = len(devs)
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, 256, (n, width), generator=g, dtype=torch.uint8)
+    slots = []
+    for r, d in enumerate(devs):
+        s = torch.zeros(n, width, dtype=torch.uint8, device=d)
+        s[r] = rows[r].to(d)
+        slots.append(s)
+    return rows, slots
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("width", [16, 4096, 3 * 4096 + 48, 1 << 22])
+def test_ici_ring_matches_plain_on_one_card(dev, n, width):
+    from nvme_strom_tpu_torch.ops.ici import (ici_ring_gather,
+                                              ici_ring_gather_plain)
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    group = exchange_group(devices=[dev] * n)
+    rows, _ = _ring_slots([dev] * n, width, width + n)
+    for call in range(3):              # the flags' epochs carry over
+        _, slots = _ring_slots([dev] * n, width, width + n)
+        _, plain = _ring_slots([dev] * n, width, width + n)
+        before = ici_ring_gather.launches
+        ici_ring_gather(slots, group)
+        assert ici_ring_gather.launches == before + 1
+        ici_ring_gather_plain(plain)
+        for s, p in zip(slots, plain):
+            assert torch.equal(s, p)
+            assert torch.equal(s.cpu(), rows)
+    assert group.ring.calls == 3
+
+
+def test_ici_exchange_ragged_rows_and_repeated_calls(dev):
+    from nvme_strom_tpu_torch.ops.ici import IciExchange, ici_ring_gather
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    ex = IciExchange(exchange_group(devices=[dev] * 4))
+    before = ici_ring_gather.launches
+    for nbytes in (1, 4095, 12_345, (1 << 20) + 7, 12_345):
+        rows = np.random.default_rng(nbytes).integers(0, 256, (4, nbytes),
+                                                      dtype=np.uint8)
+        got = ex.all_gather(rows)
+        assert got.is_pinned() and got.numpy().tobytes() == rows.tobytes()
+    assert ici_ring_gather.launches == before + 5
+
+
+def test_ici_ring_fault_raises_instead_of_hanging(dev):
+    """A ring whose flags disagree with its epoch (a protocol fault) runs
+    out of its wait budget, raises, and leaves the group usable."""
+    from nvme_strom_tpu_torch.ops.ici import (ici_ring_gather,
+                                              ici_ring_gather_plain)
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    group = exchange_group(devices=[dev] * 2)
+    rows, slots = _ring_slots([dev] * 2, 4096, 0)
+    ici_ring_gather(slots, group)
+    group.ring.calls += 5              # waits for pushes that never come
+    with pytest.raises(RuntimeError, match="budget"):
+        ici_ring_gather(_ring_slots([dev] * 2, 4096, 0)[1], group)
+    assert group.ring.calls == 0
+    _, slots = _ring_slots([dev] * 2, 4096, 1)
+    _, plain = _ring_slots([dev] * 2, 4096, 1)
+    ici_ring_gather(slots, group)
+    ici_ring_gather_plain(plain)
+    assert all(torch.equal(s, p) for s, p in zip(slots, plain))
+
+
+def test_ici_ring_across_cards(dev):
+    from nvme_strom_tpu_torch.ops.ici import ici_ring_gather
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices, have {n}")
+    devs = [torch.device("cuda", i) for i in range(n)]
+    group = exchange_group()
+    for call in range(3):
+        rows, slots = _ring_slots(devs, (1 << 20) + 16, call)
+        ici_ring_gather(slots, group)
+        for s in slots:
+            assert torch.equal(s.cpu(), rows)
+    from nvme_strom_tpu_torch.ops.ici import IciExchange
+    rows = np.random.default_rng(n).integers(0, 256, (n, 12_345),
+                                             dtype=np.uint8)
+    got = IciExchange(group).all_gather(rows)
+    assert got.numpy().tobytes() == rows.tobytes()
+    assert torch.cuda.current_device() == 0
+
+
+def test_scatter_restore_on_one_card(dev, tmp_path, monkeypatch):
+    """Restore and weights load with the read-once scatter on 4 ranks of
+    one card: bitwise equal to the read-all path, with the ring and
+    h2d_copy launched and no brown-out."""
+    from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.ops.ici import ici_ring_gather
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    from nvme_strom_tpu_torch.parallel.weights import (LazyCheckpoint,
+                                                       save_checkpoint)
+    g = torch.Generator().manual_seed(0)
+    state = {"w": torch.randn(700, 300, generator=g).bfloat16(),
+             "m": {"w": torch.randn(700, 300, generator=g)}, "step": 4}
+    group = exchange_group(devices=[dev] * 4)
+    with StromEngine() as eng:
+        mgr = CheckpointManager(tmp_path / "ck", engine=eng)
+        mgr.save(4, state)
+        off = mgr.restore(device=dev)
+        monkeypatch.setenv("STROM_ICI_SCATTER", "1")
+        before = (ici_ring_gather.launches, h2d_copy.launches)
+        on = mgr.restore(device=dev, ici_group=group)
+        assert ici_ring_gather.launches > before[0]
+        assert h2d_copy.launches > before[1]
+        assert set(on) == set(off)
+        for k in off:
+            assert on[k].device == dev and torch.equal(on[k], off[k]), k
+        save_checkpoint(tmp_path / "m.safetensors", {"a": state["w"]})
+        monkeypatch.delenv("STROM_ICI_SCATTER")
+        w_off = LazyCheckpoint(tmp_path / "m.safetensors").load(eng, dev)
+        monkeypatch.setenv("STROM_ICI_SCATTER", "1")
+        w_on = LazyCheckpoint(tmp_path / "m.safetensors").load(
+            eng, dev, ici_group=group)
+        assert torch.equal(w_on["a"], w_off["a"])
+        eng.sync_stats()
+        assert eng.stats.ici_fallbacks == 0 and eng.stats.ici_bytes_read > 0
