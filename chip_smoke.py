@@ -10,7 +10,9 @@ It builds the port's native libraries from the checkout, then:
 1. prints the card (``nvidia-smi``) and the build times;
 2. holds each CUDA kernel against its plain PyTorch version on the card
    and times kernel, plain version and a library call at the shapes the
-   main path gives it;
+   main path gives it; for the flash kernels it also counts the outputs
+   that one bf16 rounding of the probability operand would put outside
+   the tolerance, against the two-part split the kernels use;
 3. main path — streams a 2 GiB file of seeded random bytes through
    ``DeviceStream`` onto the card, on both of its paths (copies from the
    staging buffers in place, and through the overlap stage), and checks
@@ -43,7 +45,9 @@ It builds the port's native libraries from the checkout, then:
    entry has ``name``, ``route``, ``source``, ``replaces``,
    ``launches``, ``max_abs_err``, ``ms`` (and the same time again as
    ``kernel_ms``), ``plain_ms``, ``bound_ms``, ``bound_by`` and
-   ``library_ms``.
+   ``library_ms``; the flash kernels' entries add ``tflops`` (the
+   algorithm's flops over ``ms``) and ``units`` (``wgmma`` for the
+   tensor-core kernels, ``fma`` for the fp32 FMA ones).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
@@ -404,6 +408,45 @@ def _flash_pairs(b, h, s, skv, causal):
     return b * h * (s * (s + 1) // 2 if causal else s * skv)
 
 
+def split_trap(q, k, v, do, causal, scale, tol):
+    """Why the tensor-core kernels split P and dS into two bf16 parts:
+    out, dV and dK of the plain versions recomputed with the product's
+    probability operand rounded once to bf16 (``one``) and split
+    x = hi + lo into two bf16 parts (``split``), both products in fp32,
+    counted against the plain versions at the kernels' tolerance."""
+    import torch
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    out, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    p, ds = fa._probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    qf, vf, dof = q.float(), v.float(), do.float()
+    # the forward's operand: exp(s − m), normalised after the product
+    sc = fa._masked_scores(q, k, causal, scale, prescale=True)
+    pf = torch.exp(sc - sc.amax(-1, keepdim=True))
+    l = pf.sum(-1, keepdim=True)
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return hi, (x - hi).bfloat16().float()
+
+    def outside(got, want):
+        atol = tol[1] * want.float().abs().max().item() + 1e-6
+        return int(((got.float() - want.float()).abs()
+                    > tol[0] * want.float().abs() + atol).sum().item())
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    counts = {}
+    for name, x, other, scale_by, want in (
+            ("out", pf, vf, l, out),
+            ("dv", p.transpose(-1, -2), dof, 1.0, dv),
+            ("dk", ds.transpose(-1, -2), qf, 1.0, dk)):
+        hi, lo = parts(x)
+        one = ((hi @ other) / scale_by).to(q.dtype)
+        two = ((hi @ other + lo @ other) / scale_by).to(q.dtype)
+        counts[name] = {"elements": want.numel(), "one": outside(one, want),
+                        "split": outside(two, want)}
+    return counts
+
+
 def check_flash(dev, results):
     """Kernels 4-6 against their plain versions, bitwise determinism of
     the backward, and times at the main path's shape."""
@@ -422,6 +465,9 @@ def check_flash(dev, results):
          torch.bfloat16, False, False),
         ("dlse != 0, causal s=2048 d=64 bf16", 2, 8, 2048, 2048, 64,
          torch.bfloat16, True, True),
+        # one row past the tensor-core kernels' 128-row tiles
+        ("causal s=129 d=128 bf16", 2, 8, 129, 129, 128, torch.bfloat16,
+         True, False),
     ]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for label, b, h, s, skv, d, dt, causal, with_dlse in cases:
@@ -464,6 +510,12 @@ def check_flash(dev, results):
         del q, k, v, do, out, lse, out_p, lse_p, dq, dk, dv, dk_p, dv_p
     log("flash: bf16 tolerances one bf16 ulp (rtol 2**-7) + "
         "1e-4*max|plain|; f32 rtol 1e-4 + 1e-5*max|plain|; lse atol 1e-4")
+    q, k, v, do = _flash_case(dev, gen, 1, 4, 2048, 2048, 64, torch.bfloat16)
+    trap = split_trap(q, k, v, do, True, 64 ** -0.5, FLASH_BF16_TOL)
+    log(f"flash split (b 1, h 4, s 2048, d 64, causal): elements outside "
+        f"the bf16 tolerance with the probability operand rounded once to "
+        f"bf16 (one) or split into hi + lo (split): {trap}")
+    del q, k, v, do
 
     # times at the main path's shape: b 8, h 8, s 2048, d 64, bf16,
     # causal, model layouts; two input sets (> 50 MB L2) in rotation
@@ -521,12 +573,14 @@ def check_flash(dev, results):
     for name, src, line, kern, plain, lib, flops, nbytes in specs:
         bound_ms, bound_by = bound(nbytes, HBM_BYTES_PER_S, flops,
                                    BF16_FLOPS_PER_S)
+        ms = time_ms(Rotor(kern, sets), 10)
         results[name] = dict(
             name=name, route="cuda",
             source=f"nvme_strom_tpu_torch/csrc/{src}",
             replaces=f"nvme_strom_tpu/ops/flash_attention.py:{line}",
             max_abs_err=worst[name],
-            ms=time_ms(Rotor(kern, sets), 10),
+            ms=ms, tflops=flops / ms / 1e9, units=fa.flash_route(
+                name.split("_")[-1], torch.bfloat16),
             plain_ms=time_ms(Rotor(plain, sets), 3, warmup=1),
             library_ms=time_ms(lib, 10) if lib is not None else None,
             bound_ms=bound_ms, bound_by=bound_by,
@@ -536,6 +590,7 @@ def check_flash(dev, results):
     results["flash_bwd_dkv"]["library_covers"] = \
         "in flash_bwd_dq's library_ms"
     del sets, graphs
+    return trap
 
 
 # -- phase 3: the headline stream --------------------------------------------
@@ -755,13 +810,19 @@ def profile_run(run, label):
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    flash = {e.key[:60]: (e.self_device_time_total / 1e3, e.count)
+             for e in events if "flash_" in e.key}
+    flash_ms = sum(ms for ms, _ in flash.values())
     out = {"wall_s": secs, "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / secs,
            "top_kernels": [(e.key[:60], e.self_device_time_total / 1e3,
-                            e.count) for e in top]}
+                            e.count) for e in top],
+           "flash_kernels": flash, "flash_ms": flash_ms,
+           "flash_share": flash_ms * 1e3 / busy_us if busy_us else 0.0}
     log(f"profile ({label}): device busy {busy_us / 1e6:.4f} s of "
         f"{secs:.4f} s wall = {out['device_busy_share']:.3f}; top "
-        f"kernels (name, ms, calls) {out['top_kernels']}")
+        f"kernels (name, ms, calls) {out['top_kernels']}; flash kernels "
+        f"{flash} = {flash_ms:.3f} ms, {out['flash_share']:.3f} of busy")
     return out
 
 
@@ -1346,12 +1407,14 @@ def main() -> int:
     check_h2d(dev, results)
     check_decode(dev, results)
     check_paged(dev, results)
-    check_flash(dev, results)
+    flash_split = check_flash(dev, results)
     for r in results.values():
         lib = ("in flash_bwd_dq's" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        log(f"{r['name']} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}, "
+        rate = (f" = {r['tflops']:.1f} TFLOP/s on {r['units']}"
+                if "tflops" in r else "")
+        log(f"{r['name']} ({r['shape']}): kernel {r['ms']:.4f} ms{rate}, "
+            f"plain {r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
 
     os.makedirs(DATA_DIR, exist_ok=True)
@@ -1426,6 +1489,7 @@ def main() -> int:
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
+                                  "flash_split": flash_split,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))
     print(card_line())

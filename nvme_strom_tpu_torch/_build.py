@@ -6,7 +6,9 @@
 * ``libstrom_torch_kernels.so`` — the hand-written Hopper kernels in
   ``nvme_strom_tpu_torch/csrc/*.cu``, compiled by ``nvcc`` for
   ``sm_90a`` (one ``nvcc -c`` per source, all started together, then
-  one link) and bound with ctypes.  Needs the CUDA toolkit.
+  one link against libcuda, whose ``cuTensorMapEncodeTiled`` the
+  tensor-core flash kernels call) and bound with ctypes.  Needs the CUDA
+  toolkit.
 
 Both land in ``build/torch_kernels/`` at the repository root and are
 rebuilt whenever the SHA-256 of their sources and flags changes.  A
@@ -36,6 +38,10 @@ ENGINE_SRC = _ROOT / "csrc"
 GXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+#: the link of the kernel library: the tensor-core flash kernels encode
+#: their TMA tensor maps with libcuda's cuTensorMapEncodeTiled
+NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                   "-lcuda"]
 
 #: seconds each library's build took in this process (0.0 = up to date)
 build_seconds: Dict[str, float] = {}
@@ -139,15 +145,15 @@ def kernel_library() -> ctypes.CDLL:
                 try:
                     _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
                           for s, o in zip(sources, objs)])
-                    _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                           "-shared", "-o", str(tmp), *map(str, objs)]])
+                    _run([[nvcc, "-o", str(tmp), *map(str, objs),
+                           *NVCC_LINK_FLAGS]])
                 finally:
                     for o in objs:
                         if o.exists():
                             o.unlink()
 
-            path = _build("libstrom_torch_kernels.so", deps, NVCC_FLAGS,
-                          make)
+            path = _build("libstrom_torch_kernels.so", deps,
+                          NVCC_FLAGS + NVCC_LINK_FLAGS, make)
             _kernel_lib = _declare(ctypes.CDLL(str(path)))
         return _kernel_lib
 
@@ -178,6 +184,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, k, v, dout, lse, delta, dk, dv, strides, ... as above
         "strom_flash_bwd_dkv": [P, P, P, P, P, P, P, P, S, I, I, I, I, I,
                                 I, I, F, P, I],
+        # kernel (0 forward, 1 dQ, 2 dK/dV), dtype
+        "strom_flash_route": [I, I],
         # slots, flags, ranks, n_here, n, slot_bytes, blocks, base,
         # budget_ns, err, stream, dev
         "strom_ici_ring": [P, P, P, I, I, U64, I, ctypes.c_uint,

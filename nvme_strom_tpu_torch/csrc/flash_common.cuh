@@ -1,23 +1,30 @@
-// flash_common.cuh — tiles and the small shared-memory products of the
-// flash-attention kernels (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// flash_common.cuh — what the flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) share: the (b, h,
+// seq, D) views, the dtype dispatch, and the fp32 FMA tiles.
 //
-// Every kernel works on 64-row tiles of one (batch, head): a tile of Q,
-// K, V or dO rows is loaded from device memory once, converted to fp32
-// and kept in shared memory with a row stride of D+1 floats.  The odd
-// stride puts row r, column c in bank (r + c) mod 32, so the products
-// below read shared memory without bank conflicts.
+// Which kernel takes which inputs (`tensor_cores` below): bf16 inputs
+// run the forward and the dK/dV kernel on the tensor cores (wgmma with
+// TMA loads, hopper.cuh); fp32 inputs, and the dQ kernel for both
+// dtypes, run the FMA kernels built from the tiles here.
+//
+// FMA tiles: every kernel works on 64-row tiles of one (batch, head): a
+// tile of Q, K, V or dO rows is loaded from device memory once,
+// converted to fp32 and kept in shared memory with a row stride of D+1
+// floats.  The odd stride puts row r, column c in bank (r + c) mod 32,
+// so the products below read shared memory without bank conflicts.
 //
 // A block has 256 threads laid out 16 x 16: thread (ty, tx) owns rows
 // ty + 16 i (i < 4) and columns tx + 16 j of every 64 x 64 score tile
 // and of every 64 x D output tile, so the 16 threads sharing a row are
 // one half-warp and reduce over the row with four shuffles.  All sums
-// are fp32 FMAs (no tensor cores: a later design moves the products to
-// mma/wgmma on bf16 tiles).
+// are fp32 FMAs.
 //
 // Tensors are (b, h, seq, D) views with unit stride along D and any
 // other strides (multiples of 16 bytes), so the kernels read the
 // projection layout (b, seq, h, D) in place.
 #pragma once
+
+#include <type_traits>
 
 #include "attn_common.cuh"
 
@@ -30,6 +37,22 @@ using strom_attn::store;
 constexpr int kTile = 64;       // rows of a Q tile and of a K tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kLd = kTile + 1;  // row stride of a 64 x 64 score tile
+
+// The three kernels, in the order of strom_flash_route's argument.
+constexpr int kFwd = 0, kDq = 1, kDkv = 2;
+
+// True where `kernel` runs on the tensor cores for inputs of type T.
+template <typename T>
+constexpr bool tensor_cores(int kernel) {
+  return std::is_same<T, __nv_bfloat16>::value && kernel != kDq;
+}
+
+// Dynamic shared memory rounded up to the 1024 bytes that a 128-byte
+// swizzled TMA tile needs (the kernels ask for 1024 bytes more).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return p + ((1024 - (a & 1023)) & 1023);
+}
 
 // A (b, h, seq, D) tensor: base pointer and element strides of b, h and
 // seq (D is contiguous).

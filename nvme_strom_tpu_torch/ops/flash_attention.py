@@ -12,6 +12,10 @@ Three hand-written CUDA kernels, each beside its plain PyTorch version:
   and dV, one block per k tile looping over q tiles from the causal
   start.
 
+On bf16 inputs the forward and dK/dV run on the tensor cores (wgmma fed
+by TMA, the probability and dS operands split into two bf16 parts);
+fp32 inputs and dQ run fp32 FMA kernels.  :func:`flash_route` says which.
+
 Each wrapper launches its kernel for CUDA tensors (and raises on what
 the kernel does not take) and runs its plain version for CPU tensors.
 The plain versions are the explicit formulas the kernels implement, not
@@ -177,6 +181,8 @@ def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, scale)
     code = _kernel_dtype(q, k, v)
+    if not scale > 0:  # the kernel's running max is over unscaled scores
+        raise ValueError(f"the kernel takes a positive scale, got {scale}")
     out = _bhsd_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _build.check(_build.kernel_library().strom_flash_fwd(
@@ -233,6 +239,16 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
         q.device.index), "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
+
+
+def flash_route(kernel: str, dtype: torch.dtype) -> str:
+    """``"wgmma"`` or ``"fma"``: the CUDA kernel that ``kernel``
+    (``"fwd"``, ``"dq"`` or ``"dkv"``) runs for inputs of ``dtype``, as
+    the library's own dispatch decides it."""
+    code = KERNEL_DTYPES[dtype]
+    index = ("fwd", "dq", "dkv").index(kernel)
+    return ("wgmma" if _build.kernel_library().strom_flash_route(index, code)
+            else "fma")
 
 
 #: launches of each kernel (CUDA only)

@@ -257,12 +257,23 @@ def _flash_inputs(dev, b, h, s, skv, d, dtype, seed, projection=False):
     return make(s), make(skv), make(skv), make(s)
 
 
+#: bf16 rows that cross the tensor-core kernels' tile edges: 128 q rows
+#: and 64-key K/V tiles (forward), 128 keys and 64-row Q/dO tiles (dK/dV)
+_EDGE_ROWS = [
+    (1, 2, s, s, d, torch.bfloat16, True, s == 2047)
+    for d in (64, 128) for s in (63, 64, 65, 127, 128, 129, 2047)
+] + [
+    (2, 2, 200, skv, d, torch.bfloat16, False, d == 128)
+    for d in (64, 128) for skv in (1, 129, 300)
+]
+
+
 @pytest.mark.parametrize("b,h,s,skv,d,dtype,causal,proj", [
     (2, 3, 200, 200, 64, torch.bfloat16, True, True),
     (1, 2, 256, 256, 128, torch.float32, True, False),
     (2, 2, 130, 300, 128, torch.bfloat16, False, True),
     (2, 2, 100, 64, 64, torch.float32, False, False),
-])
+] + _EDGE_ROWS)
 def test_flash_kernels_match_plain(dev, b, h, s, skv, d, dtype, causal,
                                    proj):
     from nvme_strom_tpu_torch.ops import flash_attention as fa
@@ -291,6 +302,28 @@ def test_flash_kernels_match_plain(dev, b, h, s, skv, d, dtype, causal,
                                            scale))
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_fp32_keeps_the_fma_kernels(dev):
+    """bf16 runs the forward and dK/dV on the tensor cores; fp32 (and dQ)
+    keep the fp32 FMA kernels, which hold the fp32 tolerance across the
+    tile edges."""
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    assert [fa.flash_route(k, torch.bfloat16) for k in ("fwd", "dq", "dkv")
+            ] == ["wgmma", "fma", "wgmma"]
+    assert [fa.flash_route(k, torch.float32) for k in ("fwd", "dq", "dkv")
+            ] == ["fma", "fma", "fma"]
+    q, k, v, do = _flash_inputs(dev, 1, 2, 129, 129, 128, torch.float32, 3,
+                                projection=True)
+    scale = 128 ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale)
+    _flash_close(out, out_p, FLASH_F32)
+    delta = (do * out).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, scale)
+    _flash_close(dk, dk_p, FLASH_F32)
+    _flash_close(dv, dv_p, FLASH_F32)
 
 
 def test_flash_autograd_with_lse_cotangent(dev):
@@ -328,6 +361,8 @@ def test_flash_wrappers_reject_what_they_do_not_take(dev):
         fa.flash_fwd(x, x.cpu(), x)
     with pytest.raises(ValueError, match="equal q/kv"):
         fa.flash_fwd(x, x[:, :, :32], x[:, :, :32])
+    with pytest.raises(ValueError, match="positive scale"):
+        fa.flash_fwd(x, x, x, scale=0.0)
 
 
 def test_trainer_fits_two_steps_with_flash_kernels(dev, tmp_path):
