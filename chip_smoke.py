@@ -11,8 +11,10 @@ It builds the port's native libraries from the checkout, then:
 2. holds each CUDA kernel against its plain PyTorch version on the card
    and times kernel, plain version and a library call at the shapes the
    main path gives it; for the flash kernels it also counts the outputs
-   that one bf16 rounding of the probability operand would put outside
-   the tolerance, against the two-part split the kernels use;
+   that one bf16 rounding of the probability or dS operand would put
+   outside the tolerance, against the two-part split the kernels use;
+   for ``h2d_copy`` it times the shipped design of the kernel beside
+   two others at 4 MiB and 64 MiB, and ``copy_`` (the probe);
 3. main path — streams a 2 GiB file of seeded random bytes through
    ``DeviceStream`` onto the card, on both of its paths (copies from the
    staging buffers in place, and through the overlap stage), and checks
@@ -181,6 +183,8 @@ def check_h2d(dev, results):
     lib = Rotor(lambda o: dst.copy_(src[o:o + chunk], non_blocking=True),
                 [(o,) for o in offs])
     ms = time_ms(kern, 50)
+    lib_ms = time_ms(lib, 50)
+    probe = h2d_probe(dev, src, m)
     dst_big = torch.empty(big, dtype=torch.uint8, device=dev)
     big_ms = time_ms(lambda: h2d_copy(host[:big], dst_big,
                                       src_ptr=m.dev_base), 3, warmup=1)
@@ -193,11 +197,70 @@ def check_h2d(dev, results):
         source="nvme_strom_tpu_torch/csrc/h2d_copy.cu",
         replaces="nvme_strom_tpu/ops/bridge.py:46",
         max_abs_err=float(worst), ms=ms, plain_ms=time_ms(plain, 20),
-        library_ms=time_ms(lib, 50), bound_ms=bound_ms, bound_by=bound_by,
-        shape=f"{chunk} B per launch", ms_256mib=big_ms, ok=True)
+        library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"{chunk} B per launch", ms_256mib=big_ms, probe=probe,
+        ok=True)
     log(f"h2d_copy 4 MiB: kernel {ms:.4f} ms "
         f"({chunk / ms / 1e6:.2f} GB/s), 256 MiB: {big_ms:.3f} ms "
         f"({big / big_ms / 1e6:.2f} GB/s)")
+
+
+#: designs of the h2d kernel the probe times, in the order of
+#: csrc/h2d_copy.cu `kDesigns`
+H2D_DESIGNS = [
+    "SM loads: 2 a thread in flight, 8 blocks/SM (shipped)",
+    "SM loads: 4 unrolled, grid for 1 a thread, 8 blocks/SM",
+    "bulk: 8 KiB pieces, 4 stages, 4 blocks/SM",
+]
+
+
+def h2d_probe(dev, src, m, rounds=5):
+    """GB/s of each design in H2D_DESIGNS at 4 MiB and 64 MiB, beside
+    ``copy_`` at each size: the median of ``rounds`` rounds, each of which
+    times every design and ``copy_`` in turn; each design's copy is
+    checked byte for byte once.  Sources rotate over 64 MiB (4 MiB) and
+    256 MiB (64 MiB) of pinned host memory, so no timed call reads what
+    an earlier one cached.  The probe's launches go through no wrapper
+    and count nowhere."""
+    import statistics
+    import torch
+    from nvme_strom_tpu_torch import _build
+    lib = _build.kernel_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = []
+    for n, nsets, iters in ((4 << 20, 16, 50), (64 << 20, 4, 8)):
+        dst = torch.empty(n, dtype=torch.uint8, device=dev)
+        offs = [(i * n,) for i in range(nsets)]
+        runs = {"copy_": Rotor(lambda o: dst.copy_(
+            src[o:o + n], non_blocking=True), offs)}
+        for design, label in enumerate(H2D_DESIGNS):
+            def run(o, design=design):
+                _build.check(lib.strom_h2d_copy_probe(
+                    m.dev_base + o, dst.data_ptr(), n, design, stream,
+                    dev.index), "h2d_copy probe")
+            dst.zero_()
+            run(offs[1][0])
+            torch.cuda.synchronize()
+            if not torch.equal(dst.cpu(), src[offs[1][0]:offs[1][0] + n]):
+                raise AssertionError(f"h2d probe {label}: bytes differ at "
+                                     f"{n} B")
+            runs[label] = Rotor(run, offs)
+        times = {label: [] for label in runs}
+        for _ in range(rounds):
+            for label, fn in runs.items():
+                times[label].append(time_ms(fn, iters))
+        rows.append({"bytes": n, "gb_per_s": {
+            label: [n / t / 1e6 for t in sorted(ts, reverse=True)]
+            for label, ts in times.items()}})
+        del dst, runs
+    log(f"h2d probe, GB/s at 4 MiB and 64 MiB a launch (median of "
+        f"{rounds} rounds, min-max):")
+    for label in rows[0]["gb_per_s"]:
+        log(f"  {label}: " + ", ".join(
+            f"{statistics.median(r['gb_per_s'][label]):.2f} "
+            f"({r['gb_per_s'][label][0]:.2f}-{r['gb_per_s'][label][-1]:.2f})"
+            for r in rows))
+    return rows
 
 
 def _attn_inputs(b, nh, nkv, S, d, dtype, pos, dev, gen, nan_tail=True):
@@ -410,10 +473,11 @@ def _flash_pairs(b, h, s, skv, causal):
 
 def split_trap(q, k, v, do, causal, scale, tol):
     """Why the tensor-core kernels split P and dS into two bf16 parts:
-    out, dV and dK of the plain versions recomputed with the product's
-    probability operand rounded once to bf16 (``one``) and split
-    x = hi + lo into two bf16 parts (``split``), both products in fp32,
-    counted against the plain versions at the kernels' tolerance."""
+    out, dV, dK and dQ of the plain versions recomputed with the
+    product's probability or dS operand rounded once to bf16 (``one``)
+    and split x = hi + lo into two bf16 parts (``split``), both products
+    in fp32, counted against the plain versions at the kernels'
+    tolerance."""
     import torch
     from nvme_strom_tpu_torch.ops import flash_attention as fa
     out, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
@@ -434,11 +498,13 @@ def split_trap(q, k, v, do, causal, scale, tol):
         return int(((got.float() - want.float()).abs()
                     > tol[0] * want.float().abs() + atol).sum().item())
     dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
     counts = {}
     for name, x, other, scale_by, want in (
             ("out", pf, vf, l, out),
             ("dv", p.transpose(-1, -2), dof, 1.0, dv),
-            ("dk", ds.transpose(-1, -2), qf, 1.0, dk)):
+            ("dk", ds.transpose(-1, -2), qf, 1.0, dk),
+            ("dq", ds, k.float(), 1.0, dq)):
         hi, lo = parts(x)
         one = ((hi @ other) / scale_by).to(q.dtype)
         two = ((hi @ other + lo @ other) / scale_by).to(q.dtype)
@@ -513,8 +579,8 @@ def check_flash(dev, results):
     q, k, v, do = _flash_case(dev, gen, 1, 4, 2048, 2048, 64, torch.bfloat16)
     trap = split_trap(q, k, v, do, True, 64 ** -0.5, FLASH_BF16_TOL)
     log(f"flash split (b 1, h 4, s 2048, d 64, causal): elements outside "
-        f"the bf16 tolerance with the probability operand rounded once to "
-        f"bf16 (one) or split into hi + lo (split): {trap}")
+        f"the bf16 tolerance with the probability or dS operand rounded "
+        f"once to bf16 (one) or split into hi + lo (split): {trap}")
     del q, k, v, do
 
     # times at the main path's shape: b 8, h 8, s 2048, d 64, bf16,
@@ -587,6 +653,12 @@ def check_flash(dev, results):
             shape=f"b={b} h={h} s={s} d={d} bf16 causal", ok=True)
     results["flash_bwd_dq"]["library_covers"] = \
         "SDPA backward: dq, dk and dv in one call (rows 5 and 6)"
+    bwd_ms = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkv"]["ms"]
+    log(f"flash backward (b={b} h={h} s={s} d={d} bf16 causal): dq "
+        f"{results['flash_bwd_dq']['ms']:.4f} ms + dk/dv "
+        f"{results['flash_bwd_dkv']['ms']:.4f} ms = {bwd_ms:.4f} ms against "
+        f"SDPA's whole backward {results['flash_bwd_dq']['library_ms']:.4f}"
+        f" ms")
     results["flash_bwd_dkv"]["library_covers"] = \
         "in flash_bwd_dq's library_ms"
     del sets, graphs

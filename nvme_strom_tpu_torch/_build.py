@@ -167,6 +167,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "strom_host_unregister": [P, I],
         "strom_host_device_pointer": [P, I, ctypes.POINTER(P)],
         "strom_h2d_copy": [P, P, U64, P, I],
+        # src, dst, n, design (csrc/h2d_copy.cu kDesigns), stream, dev
+        "strom_h2d_copy_probe": [P, P, U64, I, P, I],
         # q, k, v, pos, out, b, nkv, g, S, d, dtype, scale, stream, dev
         "strom_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, F, P,
                                    I],

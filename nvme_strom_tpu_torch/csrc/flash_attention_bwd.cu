@@ -27,39 +27,66 @@
 // causal), ~0.052 and ~0.069 ms at the 989 TFLOP/s of the bf16 tensor
 // cores.
 //
-// dK/dV on bf16 inputs is `flash_dkv_tc`, on the tensor cores
-// (hopper.cuh):
-//   * one block per (128 keys, head, batch row): two consumer
-//     warpgroups of 64 keys each and one producer warpgroup, of which
-//     one warp loads; K and V are loaded once by TMA; the blocks of the
-//     first keys, whose causal walk over the q tiles is the longest,
-//     are launched first;
-//   * the producer brings Q and dO tiles of 64 rows (TMA, 128-byte
-//     swizzle, zero past the end) and their lse·log2(e) and delta (64
-//     fp32 each, plain loads into shared memory) through a ring of two
-//     stages with full/empty mbarriers;
-//   * Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmmas from shared memory with M =
-//     keys, in two groups, so Pᵀ (one FMA and the SFU's exp2) is
-//     computed while dPᵀ is on the tensor cores; dSᵀ follows in
-//     registers;
-//   * dV += Pᵀ·dO and dK += dSᵀ·Q take Pᵀ and dSᵀ from registers as the
-//     wgmmas' A operand, each split x = hi + lo into two bf16 parts and
-//     two products into the fp32 accumulator (one bf16 rounding misses
-//     the one-ulp check against fp32: chip_smoke.py `split_trap`);
-//     12·d flops are executed per pair, 8·d counted as work.  dSᵀ is
-//     split while dV's products run;
+// bf16 inputs run both on the tensor cores (hopper.cuh): wgmma products
+// fed by TMA (128-byte swizzle, zero past the end) through rings of
+// full/empty mbarriers, one producer warp loading and two consumer
+// warpgroups computing; P, Pᵀ, dS and dSᵀ enter the next product from
+// registers as its A operand, split x = hi + lo into two bf16 parts with
+// two products into the fp32 accumulator (one bf16 rounding misses the
+// one-ulp check against fp32: chip_smoke.py `split_trap` counts it for
+// out, dV, dK and dQ); the blocks with the longest causal walk launch
+// first; a stuck pipeline traps after 2 s in an mbarrier wait.  The
+// producer warpgroup gives its registers up (setmaxnreg 40), the
+// consumers take 232.
+//
+// dQ, `flash_dq_tc`:
+//   * one block per (128 q rows, head, batch row), 64 q rows a consumer
+//     warpgroup; Q and dO are loaded once, K/V tiles of 64 keys stream
+//     through a ring of three stages, so two tiles load while the slower
+//     warpgroup still reads a third; lse·log2(e) and delta of a thread's
+//     two rows stay in registers for the whole loop;
+//   * S = Q·Kᵀ and dP = dO·Vᵀ are wgmmas from shared memory in two
+//     groups, so P (one FMA and the SFU's exp2, the scale folded in) is
+//     computed while dP is on the tensor cores; dS follows in registers;
+//   * dQ += dS·K takes dS from registers (split) with K as the MN-major
+//     B operand: keys are the product's K, D its N.  8·d flops executed
+//     per pair, 6·d counted as work;
+//   * a warpgroup runs its K tiles in turn; the other warpgroup's
+//     products fill the tensor cores while it computes P and dS.
+//     Issuing the next tile's S and dP before this tile's dQ product
+//     (as the forward overlaps its tiles) measured no faster at d = 64
+//     on an H100 80GB HBM3 (700 W) and ~20% slower at d = 128, where it
+//     keeps 160 accumulator and operand registers live and spills, so
+//     it is not done;
+//   * the same products in the same order take one of two loop shapes,
+//     whichever ptxas schedules better at the width: peeled (tile kt's
+//     dQ product, then tile kt + 1's dS) ran 6-8% faster at d = 64 on
+//     that card, one loop (tile kt's dS, then its product) 7-9% faster
+//     at d = 128, where the peeled shape spills 144 bytes and one loop
+//     none (peeled against one loop, s 2048 causal, b·h 64 at d = 64
+//     and 32 at d = 128, bitwise equal: 0.2179 against 0.2317 ms and
+//     0.1940 against 0.1771 ms).  The width fixes the shape at compile
+//     time;
+//   * the mask is applied only on tiles that cross the diagonal or the
+//     end of K; a warpgroup skips the K tiles past its last row.
+// dK/dV, `flash_dkv_tc`:
+//   * one block per (128 keys, head, batch row), 64 keys a consumer
+//     warpgroup; K and V are loaded once; Q and dO tiles of 64 rows with
+//     their lse·log2(e) and delta (plain loads into shared memory) come
+//     through a ring of two stages;
+//   * Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ from shared memory with M = keys, Pᵀ
+//     under dPᵀ as in dQ; dV += Pᵀ·dO and dK += dSᵀ·Q from split
+//     registers, dSᵀ split while dV's products run: 12·d flops executed
+//     per pair, 8·d counted;
 //   * a warpgroup skips the q tiles wholly before its first key.
-// Registers: dK and dV stay in registers for the whole loop, D fp32 a
-// thread for the two (64-key warpgroup tiles); with Pᵀ's and dSᵀ's
-// fragments that is ~210 at d = 128, past the 168 a thread that 384
-// threads at one block per SM start with.  So the producer warpgroup
-// gives its registers up (setmaxnreg down to 40) and the consumers take
-// 232; d = 128 still spills ~300 bytes (ptxas -v), d = 64 none.
-// Issuing the next tile's Sᵀ and dPᵀ before this tile's dV and dK (as
-// the forward overlaps its tiles) keeps two tiles' operands live: it
-// spilled at both widths and ran slower, so it is not done.
-// fp32 inputs, and dQ for both dtypes, keep the fp32 FMA kernels from
-// shared memory (flash_common.cuh); dQ is the next kernel to move.
+//   Registers: dK and dV stay in registers for the whole loop (D fp32 a
+//   thread for the two), ~210 with Pᵀ's and dSᵀ's fragments at d = 128:
+//   d = 128 spills ~300 bytes (ptxas -v), d = 64 none.  Issuing the next
+//   q tile's Sᵀ and dPᵀ before this tile's products keeps two tiles'
+//   operands live: it spilled at both widths and ran slower.
+// fp32 inputs keep the fp32 FMA kernels from shared memory
+// (flash_common.cuh), since the tensor cores take no fp32 products at the
+// fp32 tolerance.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -424,15 +451,255 @@ cudaError_t launch_dkv_tc(const BwdArgs& a, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// -- dQ on bf16: tensor cores -------------------------------------------------
+
+constexpr int kDqRows = 128;    // q rows of a block
+constexpr int kDqKeys = 64;     // keys of a K/V tile
+constexpr int kDqStages = 3;   // K/V tiles in the ring
+
+template <int D>
+struct TcDqSmem {
+  static constexpr int kQO = kDqRows * D * 2;  // Q or dO of the block
+  static constexpr int kKV = kDqKeys * D * 2;  // one K or V tile
+  static constexpr int kBars = (1 + 2 * kDqStages) * 8;
+  static constexpr int kBytes = 1024 + 2 * kQO + 2 * kDqStages * kKV + kBars;
+};
+
+// kPeeled: the loop's shape (LaunchDq), not its arithmetic.
+template <int D, bool kPeeled>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_dq_tc(const __grid_constant__ CUtensorMap mq,
+            const __grid_constant__ CUtensorMap mk,
+            const __grid_constant__ CUtensorMap mv,
+            const __grid_constant__ CUtensorMap mo, BwdArgs a) {
+  using L = TcDqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sO = sQ + L::kQO;   // dO
+  uint8_t* sKV = sO + L::kQO;  // stage i: K at 2i·kKV, V at (2i + 1)·kKV
+  uint64_t* qo_bar = reinterpret_cast<uint64_t*>(sKV + 2 * kDqStages * L::kKV);
+  uint64_t* full = qo_bar + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kend = a.causal ? min(a.skv, q0 + kDqRows) : a.skv;
+  const int n_kt = (kend + kDqKeys - 1) / kDqKeys;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hx::bar_init(qo_bar, 1);
+    for (int i = 0; i < kDqStages; ++i) {
+      hx::bar_init(&full[i], 1);
+      hx::bar_init(&empty[i], 8);  // one arrival per consumer warp
+    }
+    hx::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup
+    hx::set_regs_dec<kProducerRegs>();
+    if (warp != 8 || lane != 0) return;
+    hx::bar_expect(qo_bar, 2 * L::kQO);
+    hx::tma_tile<D>(sQ, kDqRows, &mq, qo_bar, q0, h, b);
+    hx::tma_tile<D>(sO, kDqRows, &mo, qo_bar, q0, h, b);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % kDqStages, round = kt / kDqStages;
+      if (round > 0) hx::bar_wait(&empty[st], (round - 1) & 1);
+      uint8_t* k = sKV + 2 * st * L::kKV;
+      hx::bar_expect(&full[st], 2 * L::kKV);
+      hx::tma_tile<D>(k, kDqKeys, &mk, &full[st], kt * kDqKeys, h, b);
+      hx::tma_tile<D>(k + L::kKV, kDqKeys, &mv, &full[st], kt * kDqKeys, h,
+                      b);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows qw0 .. qw0 + 63; this thread's rows
+  // are row0 and row0 + 8, its keys 8j + 2t and 8j + 2t + 1 of a tile
+  hx::set_regs_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int t = lane & 3;
+  const int qw0 = q0 + wg * 64;
+  const int row0 = qw0 + (warp & 3) * 16 + (lane >> 2);
+  const int kend_w = a.causal ? min(a.skv, qw0 + 64) : a.skv;
+  const int n_kt_w = qw0 < a.s ? (kend_w + kDqKeys - 1) / kDqKeys : 0;
+  const uint8_t* qw = sQ + wg * 64 * 128;
+  const uint8_t* ow = sO + wg * 64 * 128;
+  const float c2 = a.scale * hx::kLog2e;  // exp(scale·s − lse) as one exp2
+  // lse·log2(e) and delta of this thread's two rows, fixed for the loop
+  // (rows past the end: 0, and their Q and dO read as zero)
+  float lse2[2], delta[2];
+  const long long row_base = ((long long)b * a.h + h) * a.s;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const bool in = row < a.s;
+    lse2[r] = in ? a.lse[row_base + row] * hx::kLog2e : 0.f;
+    delta[r] = in ? a.delta[row_base + row] : 0.f;
+  }
+
+  // S = Q·Kᵀ and dP = dO·Vᵀ of the K/V tile in stage st, two groups
+  auto products = [&](float (&sc)[32], float (&dp)[32], int st) {
+    const uint8_t* sk = sKV + 2 * st * L::kKV;
+    const uint8_t* sv = sk + L::kKV;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hx::mma_ss_n64(sc, hx::desc_k(qw, kDqRows, kk),
+                     hx::desc_k(sk, kDqKeys, kk), kk > 0);
+    hx::wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hx::mma_ss_n64(dp, hx::desc_k(ow, kDqRows, kk),
+                     hx::desc_k(sv, kDqKeys, kk), kk > 0);
+    hx::wg_commit();
+  };
+  // P of K tile kt in place of S, exactly 0 where masked; the mask is
+  // tested only on tiles that cross the diagonal or the end of K
+  auto probs = [&](float (&sc)[32], int kt) {
+    const int k0 = kt * kDqKeys;
+    const bool mask =
+        k0 + kDqKeys > a.skv || (a.causal && k0 + kDqKeys - 1 > qw0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = hx::ex2(fmaf(sc[i], c2, -lse2[r]));
+      if (mask) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (col >= a.skv || (a.causal && col > row0 + 8 * r)) p = 0.f;
+      }
+      sc[i] = p;
+    }
+  };
+  // dS = P (dP − delta) scale, in place of dP
+  auto dsoft = [&](const float (&sc)[32], float (&dp)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = sc[i] * (dp[i] - delta[(i >> 1) & 1]) * a.scale;
+  };
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  uint32_t hi[4][4], lo[4][4];  // dS of the current tile, split
+  // dQ += dS·K for the K tile in stage st, dS from hi and lo: keys are
+  // the product's K, D its N (K MN-major)
+  auto dq_mma = [&](int st) {
+    const uint8_t* sk = sKV + 2 * st * L::kKV;
+    hx::wg_hold(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hx::mma_rs(dq, hi[kk], hx::desc_mn(sk, kDqKeys, kk));
+      hx::mma_rs(dq, lo[kk], hx::desc_mn(sk, kDqKeys, kk));
+    }
+    hx::wg_commit();
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) hx::bar_arrive(&empty[st]);
+  };
+  hx::bar_wait(qo_bar, 0);
+  float sc[32] = {}, dp[32] = {};
+  // S, dP, P and dS of the K tile in stage st, dS split into hi and lo
+  auto ds_of = [&](int st, int kt) {
+    hx::wg_fence();
+    products(sc, dp, st);
+    hx::wg_wait<1>();
+    hx::wg_hold(sc);
+    probs(sc, kt);
+    hx::wg_wait<0>();
+    hx::wg_hold(dp);
+    dsoft(sc, dp);
+    hx::split(dp, hi, lo);
+  };
+  auto dq_of = [&](int st) {
+    hx::wg_fence();
+    dq_mma(st);
+    hx::wg_wait<0>();
+    hx::wg_hold(dq);
+    hx::wg_hold(hi);
+    hx::wg_hold(lo);
+    release(st);
+  };
+  if constexpr (kPeeled) {
+    // tile kt's dQ product, then tile kt + 1's dS: the first dS and the
+    // last product peeled off, so no wgmma sits on a branch
+    if (n_kt_w > 0) {
+      hx::bar_wait(&full[0], 0);
+      ds_of(0, 0);
+      for (int kt = 0; kt + 1 < n_kt_w; ++kt) {
+        const int st1 = (kt + 1) % kDqStages;
+        hx::bar_wait(&full[st1], ((kt + 1) / kDqStages) & 1);
+        dq_of(kt % kDqStages);
+        ds_of(st1, kt + 1);
+      }
+      dq_of((n_kt_w - 1) % kDqStages);
+    }
+  } else {
+    for (int kt = 0; kt < n_kt_w; ++kt) {
+      const int st = kt % kDqStages;
+      hx::bar_wait(&full[st], (kt / kDqStages) & 1);
+      ds_of(st, kt);
+      dq_of(st);
+    }
+  }
+  // the tiles past this warpgroup's diagonal: release them unread
+  for (int kt = n_kt_w; kt < n_kt; ++kt) {
+    const int st = kt % kDqStages;
+    hx::bar_wait(&full[st], (kt / kDqStages) & 1);
+    release(st);
+  }
+  if (n_kt_w == 0) return;
+
+  __nv_bfloat16* dqp = head_ptr<__nv_bfloat16>(a.dq, b, h);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= a.s) continue;
+    __nv_bfloat16* dst = dqp + (long long)row * a.dq.ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          hx::pack(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D, bool kPeeled>
+cudaError_t launch_dq_tc(const BwdArgs& a, int b, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  if (!hx::encode_map(&mq, a.q.p, a.q.sb, a.q.sh, a.q.ss, b, a.h, a.s, D,
+                      kDqRows) ||
+      !hx::encode_map(&mo, a.dout.p, a.dout.sb, a.dout.sh, a.dout.ss, b, a.h,
+                      a.s, D, kDqRows) ||
+      !hx::encode_map(&mk, a.k.p, a.k.sb, a.k.sh, a.k.ss, b, a.h, a.skv, D,
+                      kDqKeys) ||
+      !hx::encode_map(&mv, a.v.p, a.v.sb, a.v.sh, a.v.ss, b, a.h, a.skv, D,
+                      kDqKeys))
+    return cudaErrorInvalidValue;
+  constexpr int smem = TcDqSmem<D>::kBytes;
+  cudaError_t e = allow_smem(flash_dq_tc<D, kPeeled>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.s + kDqRows - 1) / kDqRows, a.h, b);
+  flash_dq_tc<D, kPeeled><<<grid, kTcThreads, smem, stream>>>(mq, mk, mv, mo,
+                                                              a);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 struct LaunchDq {
-  static constexpr int kSmem = (4 * kTile * (D + 1) + kTile * kLd) * 4;
   static cudaError_t run(const BwdArgs& a, int b, cudaStream_t stream) {
-    cudaError_t e = allow_smem(flash_dq_kernel<T, D>, kSmem);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((a.s + kTile - 1) / kTile, a.h, b);
-    flash_dq_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(a);
-    return cudaGetLastError();
+    if constexpr (tensor_cores<T>(kDq)) {
+      // the loop's shape by width (flash_dq_tc): peeled at d = 64
+      constexpr bool kPeeled = D == 64;
+      return launch_dq_tc<D, kPeeled>(a, b, stream);
+    } else {
+      constexpr int kSmem = (4 * kTile * (D + 1) + kTile * kLd) * 4;
+      cudaError_t e = allow_smem(flash_dq_kernel<T, D>, kSmem);
+      if (e != cudaSuccess) return e;
+      const dim3 grid((a.s + kTile - 1) / kTile, a.h, b);
+      flash_dq_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(a);
+      return cudaGetLastError();
+    }
   }
 };
 

@@ -3,9 +3,9 @@
 // seq, D) views, the dtype dispatch, and the fp32 FMA tiles.
 //
 // Which kernel takes which inputs (`tensor_cores` below): bf16 inputs
-// run the forward and the dK/dV kernel on the tensor cores (wgmma with
-// TMA loads, hopper.cuh); fp32 inputs, and the dQ kernel for both
-// dtypes, run the FMA kernels built from the tiles here.
+// run the forward, the dQ and the dK/dV kernel on the tensor cores
+// (wgmma with TMA loads, hopper.cuh); fp32 inputs run the FMA kernels
+// built from the tiles here.
 //
 // FMA tiles: every kernel works on 64-row tiles of one (batch, head): a
 // tile of Q, K, V or dO rows is loaded from device memory once,
@@ -44,7 +44,7 @@ constexpr int kFwd = 0, kDq = 1, kDkv = 2;
 // True where `kernel` runs on the tensor cores for inputs of type T.
 template <typename T>
 constexpr bool tensor_cores(int kernel) {
-  return std::is_same<T, __nv_bfloat16>::value && kernel != kDq;
+  return std::is_same<T, __nv_bfloat16>::value;
 }
 
 // Dynamic shared memory rounded up to the 1024 bytes that a 128-byte

@@ -1,7 +1,8 @@
 // hopper.cuh — the sm_90a building blocks of the tensor-core flash
-// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu): mbarriers,
-// TMA tile loads, wgmma descriptors and products, and the host-side
-// tensor maps.  Raw PTX, no CUTLASS.
+// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) and of the
+// bulk-copy design of h2d_copy.cu: mbarriers, TMA tile loads and bulk
+// copies, wgmma descriptors and products, and the host-side tensor maps.
+// Raw PTX, no CUTLASS.
 //
 // Layout convention.  Every bf16 tile in shared memory is what a TMA
 // load with 128-byte swizzle leaves there: a (rows, D) tile is D/64
@@ -100,6 +101,48 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(row), "r"(head), "r"(batch)
       : "memory");
+}
+
+// Bulk copies (no tensor map): `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global memory into shared memory, completing on
+// `bar`, and from shared memory into global memory in a bulk group.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N bulk groups still read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's view of shared memory before async-proxy reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A (rows, D) tile at `row` of one head: D/64 boxes of 64 columns.

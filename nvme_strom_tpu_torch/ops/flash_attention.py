@@ -7,14 +7,14 @@ Three hand-written CUDA kernels, each beside its plain PyTorch version:
   ``_fwd_kernel``): out and the per-row log-sum-exp, online softmax in
   fp32, causal runs stopping at the q tile's last k tile;
 * ``flash_bwd_dq`` (csrc/flash_attention_bwd.cu, ``_dq_kernel``): dQ,
-  one block per q tile looping over k tiles;
+  one block per q tile looping over k tiles, no atomics;
 * ``flash_bwd_dkv`` (csrc/flash_attention_bwd.cu, ``_dkv_kernel``): dK
   and dV, one block per k tile looping over q tiles from the causal
   start.
 
-On bf16 inputs the forward and dK/dV run on the tensor cores (wgmma fed
-by TMA, the probability and dS operands split into two bf16 parts);
-fp32 inputs and dQ run fp32 FMA kernels.  :func:`flash_route` says which.
+On bf16 inputs all three run on the tensor cores (wgmma fed by TMA, the
+probability and dS operands split into two bf16 parts); fp32 inputs run
+fp32 FMA kernels.  :func:`flash_route` says which.
 
 Each wrapper launches its kernel for CUDA tensors (and raises on what
 the kernel does not take) and runs its plain version for CPU tensors.
@@ -26,9 +26,9 @@ the design are in the CUDA sources.
 ``flash_attention`` / ``flash_attention_lse`` wrap the three in a
 ``torch.autograd.Function`` with a differentiable ``(out, lse)`` pair:
 the LSE cotangent folds into the backward as
-``delta = Σ_d dO·out − dlse``.  Tiles are the kernels' own (64 rows), so
-the JAX package's ``block_q`` / ``block_k`` / ``interpret`` arguments
-have no counterpart here.
+``delta = Σ_d dO·out − dlse``.  Tiles are the kernels' own (64 and 128
+rows), so the JAX package's ``block_q`` / ``block_k`` / ``interpret``
+arguments have no counterpart here.
 """
 
 from __future__ import annotations

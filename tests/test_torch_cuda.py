@@ -32,10 +32,40 @@ def dev():
     return torch.device("cuda", 0)
 
 
+#: bytes one block of the h2d kernel's shipped design copies in a trip
+#: of its grid-stride loop (256 threads, two 16-byte loads each;
+#: csrc/h2d_copy.cu `kDesigns[0]`); the grid is sized in these blocks
+_BLOCK = 2 * 256 * 16
+
+
 @pytest.mark.parametrize("n,src_off,dst_off", [
     (1, 0, 0), (15, 1, 0), (4095, 3, 1), ((1 << 20) + 3, 5, 0),
-    ((1 << 20) + 3, 0, 9)])
+    ((1 << 20) + 3, 0, 9),
+    # one block -16 B, +16 B and +3 B; several blocks with an odd tail;
+    # aligned, the source misaligned, the destination misaligned, and
+    # both misaligned alike (an aligned body after a bytewise head)
+    (_BLOCK - 16, 0, 0), (_BLOCK + 16, 0, 0), (_BLOCK + 3, 0, 0),
+    (_BLOCK - 16, 4, 0), (_BLOCK + 16, 0, 12), (_BLOCK + 3, 9, 9),
+    (5 * _BLOCK + 7, 0, 0), (5 * _BLOCK + 7, 3, 0), (5 * _BLOCK + 7, 0, 1),
+    (5 * _BLOCK + 7, 11, 11)])
 def test_h2d_copy_bytes(dev, n, src_off, dst_off):
+    _check_h2d(dev, n, src_off, dst_off)
+
+
+@pytest.mark.parametrize("trips,extra,src_off,dst_off", [
+    (1, -16, 0, 0), (1, 16, 0, 0), (1, 3, 0, 0), (3, 7, 0, 0),
+    (3, 7, 5, 0), (3, 7, 9, 9), (3, 7, 2, 13)])
+def test_h2d_copy_bytes_across_grid_trips(dev, trips, extra, src_off,
+                                          dst_off):
+    """Sizes around whole trips of the full grid (8 blocks an SM), where
+    the grid-stride loop goes round more than once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _check_h2d(dev, trips * sms * 8 * _BLOCK + extra, src_off, dst_off)
+
+
+def _check_h2d(dev, n, src_off, dst_off):
+    """Copy n bytes at the offsets, launch counted once, every byte equal
+    and nothing written outside the destination."""
     from nvme_strom_tpu_torch.ops.bridge import h2d_copy, pinned_mapping
     src = torch.empty(n + 32, dtype=torch.uint8, pin_memory=True)
     src.numpy()[:] = np.random.default_rng(n).integers(0, 256, n + 32,
@@ -47,6 +77,35 @@ def test_h2d_copy_bytes(dev, n, src_off, dst_off):
              src_ptr=m.dev_base + src_off)
     torch.cuda.synchronize()
     assert h2d_copy.launches == before + 1
+    assert torch.equal(dst[dst_off:dst_off + n].cpu(),
+                       src[src_off:src_off + n])
+    assert not dst[:dst_off].any() and not dst[dst_off + n:].any()
+
+
+@pytest.mark.parametrize("design", [1, 2])
+@pytest.mark.parametrize("n,src_off,dst_off", [
+    ((8 << 10) - 16, 0, 0), ((8 << 10) + 16, 0, 0), (5 * (8 << 10) + 7, 0, 0),
+    (5 * (8 << 10) + 7, 3, 0), (5 * (8 << 10) + 7, 11, 11),
+    ((4 << 20) + 3, 0, 0)])
+def test_h2d_probe_designs_copy_bytes(dev, design, n, src_off, dst_off):
+    """The probe's other designs (csrc/h2d_copy.cu `kDesigns`: four loads
+    unrolled, and bulk copies of 8 KiB pieces) copy byte for byte too,
+    across the bulk pieces' edges; launched through the C entry point,
+    so they count nowhere."""
+    from nvme_strom_tpu_torch import _build
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy, pinned_mapping
+    src = torch.empty(n + 32, dtype=torch.uint8, pin_memory=True)
+    src.numpy()[:] = np.random.default_rng(n).integers(0, 256, n + 32,
+                                                       dtype=np.uint8)
+    m = pinned_mapping(src, dev)
+    dst = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
+    before = h2d_copy.launches
+    _build.check(_build.kernel_library().strom_h2d_copy_probe(
+        m.dev_base + src_off, dst[dst_off:].data_ptr(), n, design,
+        torch.cuda.current_stream(dev).cuda_stream, dev.index),
+        "h2d_copy probe")
+    torch.cuda.synchronize()
+    assert h2d_copy.launches == before
     assert torch.equal(dst[dst_off:dst_off + n].cpu(),
                        src[src_off:src_off + n])
     assert not dst[:dst_off].any() and not dst[dst_off + n:].any()
@@ -258,7 +317,8 @@ def _flash_inputs(dev, b, h, s, skv, d, dtype, seed, projection=False):
 
 
 #: bf16 rows that cross the tensor-core kernels' tile edges: 128 q rows
-#: and 64-key K/V tiles (forward), 128 keys and 64-row Q/dO tiles (dK/dV)
+#: and 64-key K/V tiles (forward and dQ), 128 keys and 64-row Q/dO tiles
+#: (dK/dV)
 _EDGE_ROWS = [
     (1, 2, s, s, d, torch.bfloat16, True, s == 2047)
     for d in (64, 128) for s in (63, 64, 65, 127, 128, 129, 2047)
@@ -276,6 +336,21 @@ _EDGE_ROWS = [
 ] + _EDGE_ROWS)
 def test_flash_kernels_match_plain(dev, b, h, s, skv, d, dtype, causal,
                                    proj):
+    _check_flash(dev, b, h, s, skv, d, dtype, causal, proj, dlse=None)
+
+
+@pytest.mark.parametrize("s,d", [(129, 128), (129, 64), (200, 128)])
+def test_flash_kernels_match_plain_with_dlse(dev, s, d):
+    """A random cotangent on lse, so the per-row delta that dQ and dK/dV
+    read differs row by row across the 64-row and 128-row tile edges."""
+    _check_flash(dev, 1, 2, s, s, d, torch.bfloat16, True, True,
+                 dlse=torch.Generator(device=dev).manual_seed(s + d))
+
+
+def _check_flash(dev, b, h, s, skv, d, dtype, causal, proj, dlse):
+    """Forward and backward kernels against their plain versions; delta
+    takes −0.25 for every row, or with ``dlse`` (a generator) a random
+    value a row."""
     from nvme_strom_tpu_torch.ops import flash_attention as fa
     tol = FLASH_BF16 if dtype == torch.bfloat16 else FLASH_F32
     q, k, v, do = _flash_inputs(dev, b, h, s, skv, d, dtype, s + skv, proj)
@@ -286,7 +361,12 @@ def test_flash_kernels_match_plain(dev, b, h, s, skv, d, dtype, causal,
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
     _flash_close(out, out_p, tol)
     torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
-    delta = (do.float() * out.float()).sum(-1) - 0.25
+    delta = (do.float() * out.float()).sum(-1)
+    if dlse is None:
+        delta = delta - 0.25
+    else:
+        delta = (delta - torch.randn(delta.shape, generator=dlse,
+                                     device=dev)).contiguous()
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     _flash_close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
@@ -304,13 +384,13 @@ def test_flash_kernels_match_plain(dev, b, h, s, skv, d, dtype, causal,
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
-def test_flash_fp32_keeps_the_fma_kernels(dev):
-    """bf16 runs the forward and dK/dV on the tensor cores; fp32 (and dQ)
-    keep the fp32 FMA kernels, which hold the fp32 tolerance across the
+def test_flash_routes_bf16_to_wgmma_and_fp32_to_fma(dev):
+    """bf16 runs the forward, dQ and dK/dV on the tensor cores; fp32
+    keeps the fp32 FMA kernels, which hold the fp32 tolerance across the
     tile edges."""
     from nvme_strom_tpu_torch.ops import flash_attention as fa
     assert [fa.flash_route(k, torch.bfloat16) for k in ("fwd", "dq", "dkv")
-            ] == ["wgmma", "fma", "wgmma"]
+            ] == ["wgmma", "wgmma", "wgmma"]
     assert [fa.flash_route(k, torch.float32) for k in ("fwd", "dq", "dkv")
             ] == ["fma", "fma", "fma"]
     q, k, v, do = _flash_inputs(dev, 1, 2, 129, 129, 128, torch.float32, 3,
@@ -320,6 +400,9 @@ def test_flash_fp32_keeps_the_fma_kernels(dev):
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale)
     _flash_close(out, out_p, FLASH_F32)
     delta = (do * out).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    _flash_close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True,
+                                           scale), FLASH_F32)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, scale)
     _flash_close(dk, dk_p, FLASH_F32)

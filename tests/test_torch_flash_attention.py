@@ -191,3 +191,40 @@ def test_rejects_bad_rank_and_causal_unequal_lengths():
     with pytest.raises(ValueError, match="equal q/kv lengths"):
         tfa.flash_fwd(q, kv, kv, causal=True)
     assert tfa.flash_attention(q, kv, kv, causal=False).shape == q.shape
+
+
+def test_dq_with_split_ds_holds_the_bf16_tolerance_and_matches_jax():
+    """The arithmetic of the tensor-core dQ kernel, on the CPU: dS split
+    x = hi + lo into two bf16 parts and the two products dS·K summed in
+    float32 lands within one bfloat16 ulp (rtol 2**-7) + 1e-4·max of
+    flash_bwd_dq_plain on bfloat16 inputs; and that plain version agrees
+    with jax.grad through the JAX package's kernels (Pallas in interpret
+    mode) at the float32 gradient tolerance."""
+    b, h, s, d = 1, 2, 256, 64
+    scale = d ** -0.5
+    rng = np.random.default_rng(21)
+    # bfloat16-representable values, so both dtypes see the same inputs
+    q, k, v, do = (rng.standard_normal((b, h, s, d), dtype=np.float32)
+                   .astype(ml_dtypes.bfloat16).astype(np.float32)
+                   for _ in range(4))
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    out, lse = tfa.flash_fwd_plain(tq, tk, tv, True, scale)
+    delta = (tdo * out).sum(-1)
+    bf = [t.bfloat16() for t in (tq, tk, tv, tdo)]
+    want = tfa.flash_bwd_dq_plain(*bf, lse, delta, True, scale)
+    _, ds = tfa._probs_and_ds(*bf, lse, delta, True, scale)
+    hi = ds.bfloat16().float()
+    lo = (ds - hi).bfloat16().float()
+    kf = bf[1].float()
+    got = (hi @ kf + lo @ kf).bfloat16()
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=2 ** -7,
+        atol=1e-4 * want.float().abs().max().item())
+
+    def jloss(q):
+        return jnp.sum(jfa.flash_attention(q, k, v, causal=True,
+                                           block_q=128, block_k=128) * do)
+
+    dq = tfa.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, True, scale)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jax.grad(jloss)(q)),
+                               **GRAD)
