@@ -14,7 +14,13 @@ It builds the port's native libraries from the checkout, then:
    that one bf16 rounding of the probability or dS operand would put
    outside the tolerance, against the two-part split the kernels use;
    for ``h2d_copy`` it times the shipped design of the kernel beside
-   two others at 4 MiB and 64 MiB, and ``copy_`` (the probe);
+   two others at 4 MiB and 64 MiB, and ``copy_`` (the probe); the
+   split-K decode and paged attention kernels are also checked on GQA
+   groups of 7 and 16 and head dims 40, 96 and 256 at positions around
+   a split edge, two calls bitwise equal, and timed back to back and by
+   device time (``device_ms``) at the flagship shape, at a 16k-context
+   GQA shape (``LONG_GQA``) and against SDPA over ``max_len`` (the
+   crossover), and their wrappers' host time a call (``host_us``);
 3. main path — streams a 2 GiB file of seeded random bytes through
    ``DeviceStream`` onto the card, on both of its paths (copies from the
    staging buffers in place, and through the overlap stage), and checks
@@ -24,7 +30,9 @@ It builds the port's native libraries from the checkout, then:
    same 8 greedy requests with ``DecodeServer`` and
    ``PagedDecodeServer``, whose tokens must agree;
 5. checks the kernel path against the plain path at float32 through a
-   whole decode step;
+   whole decode step, then serves 4 requests with both servers on a
+   2-layer model with a GQA group of 7 at head_dim 128 (``GQA_SERVE``),
+   whose tokens must agree;
 6. training path — seeded WebDataset shards of flagship-length samples
    through ``ShardedLoader`` and ``prefetch_to_device`` into a
    ``Trainer`` with the flash kernels, warm-started from phase 4's
@@ -49,19 +57,24 @@ It builds the port's native libraries from the checkout, then:
    ``kernel_ms``), ``plain_ms``, ``bound_ms``, ``bound_by`` and
    ``library_ms``; the flash kernels' entries add ``tflops`` (the
    algorithm's flops over ``ms``) and ``units`` (``wgmma`` for the
-   tensor-core kernels, ``fma`` for the fp32 FMA ones).
+   tensor-core kernels, ``fma`` for the fp32 FMA ones); the attention
+   kernels' entries add ``device_ms`` and ``library_device_ms`` (the
+   device time of ``ms`` and ``library_ms``, the calls queued ahead),
+   ``host_us``, ``split_len``, ``long_gqa`` and (decode) ``long_gqa8``
+   and ``crossover``.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
-phases 3-4, the flash kernels and ``h2d_copy`` in phase 6, and
-``h2d_copy`` and ``ici_ring_gather`` in phase 9, which must also end
-with no brown-out (``ici_fallbacks`` 0).  Any
-failure exits non-zero before the result line; so does a machine without
-CUDA, or a directory without the package.
+phases 3-4 and again in the GQA serve run of phase 5, the flash kernels
+and ``h2d_copy`` in phase 6, and ``h2d_copy`` and ``ici_ring_gather`` in
+phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
+Any failure exits non-zero before the result line; so does a machine
+without CUDA, or a directory without the package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -116,6 +129,55 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device milliseconds per call: CUDA events around ``iters``
+    calls queued behind a spin kernel, so the card runs them back to
+    back without waiting on the host.  Unlike ``time_ms`` it leaves out
+    the host's cost of launching, which bounds a call whose kernels take
+    less.  The spin doubles until it outlasts the queuing."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()    # the spin still ran: all queued
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        if cycles >= 1 << 34:
+            raise RuntimeError("device_ms: the calls never queued ahead "
+                               "of the card")
+        cycles *= 2
+
+
+def host_us(fn, iters: int = 200, rounds: int = 5) -> float:
+    """Host microseconds a call: the median over ``rounds`` of
+    perf_counter around ``iters`` calls that start on an idle card and
+    are not waited for.  For calls whose kernels take less time than
+    their launch, the launch queue never fills, so this is the host's
+    own cost of a call."""
+    import statistics
+    import torch
+    per = []
+    for _ in range(rounds):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per)
 
 
 def bound(nbytes, byte_rate, flops=0.0, flop_rate=F32_FLOPS_PER_S):
@@ -298,11 +360,57 @@ def _attn_bound(pos, nh, nkv, d, itemsize, table_bytes=0):
     return bound(nbytes, HBM_BYTES_PER_S, 4.0 * live * nh * d)
 
 
+#: (nh, nkv, d) shapes past the powers of two that the decode kernels
+#: take: a group of 7 (two chunks of 4 rows, one masked) at d 96 and at
+#: d 128 (28 over 4 kv heads), a group of 16 (four chunks) at d 256, and
+#: d 40 on the 64-wide build; each runs with positions at split_len - 1,
+#: split_len and split_len + 1
+WIDE_SHAPES = [(7, 1, 96), (28, 4, 128), (16, 1, 256), (4, 4, 40)]
+#: the long GQA timing shape: a Llama-3-8B-like layer at 16k context
+#: (b, nh, nkv, d, S), every row at position S - 1; and a group of 8 at
+#: the same width (Llama-3-70B-like heads), decode only
+LONG_GQA = (4, 32, 8, 128, 16384)
+LONG_GQA8 = (4, 64, 8, 128, 16384)
+#: max_len of the kernel-vs-SDPA crossover sweep, at the flagship heads
+CROSSOVER_LENS = [128, 512, 2048, 8192]
+
+
+def _sdpa(q, k, v, mask=None):
+    """SDPA over the kv-width cache, the GQA group expanded inside."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=q.shape[1] != k.shape[1])
+
+
+def _rotating(make, set_bytes, at_least=64 << 20):
+    """Input sets enough to pass the 50 MB L2 in rotation (2 at least)."""
+    return [make() for _ in range(max(2, -(-at_least // set_bytes)))]
+
+
+def _repeatable(name, fn, args):
+    """Raise unless two calls give the same bits."""
+    import torch
+    if not torch.equal(fn(*args), fn(*args)):
+        raise AssertionError(f"{name}: two calls differ")
+
+
+def _wide_cases(L, with_S):
+    """WIDE_SHAPES in bf16 and f32 at positions around the split edge L:
+    (label, b, nh, nkv, [S,] d, dtype, pos, tol)."""
+    import torch
+    return [(f"nh {nh} nkv {nkv} d {d} {str(dt)[6:]} at the split edge", 3,
+             nh, nkv, *((2 * L + 3,) if with_S else ()), d, dt,
+             [L - 1, L, L + 1], tol)
+            for nh, nkv, d in WIDE_SHAPES
+            for dt, tol in ((torch.bfloat16, BF16_TOL),
+                            (torch.float32, F32_TOL))]
+
+
 def check_decode(dev, results):
     import torch
-    import torch.nn.functional as F
     from nvme_strom_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain)
+        SPLIT_LEN, decode_attention, decode_attention_plain, kernel_launch,
+        sm_count)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flagship_pos = [0, 1, 511, 2047] * 2
     cases = [  # (label, b, nh, nkv, S, d, dtype, pos, tol)
@@ -314,7 +422,7 @@ def check_decode(dev, results):
          [4096, 100, 0, 2500], BF16_TOL),
         ("GQA scalar pos bf16", 4, 32, 8, 4097, 128, torch.bfloat16,
          [777] * 4, BF16_TOL),
-    ]
+    ] + _wide_cases(SPLIT_LEN, with_S=True)
     worst = 0.0
     for label, b, nh, nkv, S, d, dt, pos, tol in cases:
         q, k, v = _attn_inputs(b, nh, nkv, S, d, dt, pos, dev, gen)
@@ -323,10 +431,12 @@ def check_decode(dev, results):
         err = _compare(f"decode_attention {label}",
                        decode_attention(q, k, v, p),
                        decode_attention_plain(q, k, v, p), tol)
+        _repeatable(f"decode_attention {label}", decode_attention,
+                    (q, k, v, p))
         if dt == torch.bfloat16:
             worst = max(worst, err)
         log(f"decode_attention {label}: max |kernel - plain| = {err:.3g} "
-            f"(rtol, atol {tol})")
+            f"(rtol, atol {tol}); two calls bitwise equal")
     # timing at the flagship serving shape, NaN-free inputs, 4 caches
     # (134 MB) in rotation so the cache is read from HBM every call
     b, nh, nkv, S, d = 8, 8, 8, 2048, 64
@@ -336,20 +446,90 @@ def check_decode(dev, results):
     mask = (torch.arange(S, device=dev)[None, :]
             <= pos_t[:, None])[:, None, None, :]
     bound_ms, bound_by = _attn_bound(flagship_pos, nh, nkv, d, 2)
+    kern = Rotor(lambda q, k, v: decode_attention(q, k, v, pos_t), sets)
+    lib = Rotor(lambda q, k, v: _sdpa(q, k, v, mask), sets)
     results["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="nvme_strom_tpu_torch/csrc/decode_attention.cu",
         replaces="nvme_strom_tpu/ops/decode_attention.py:35",
-        max_abs_err=worst,
-        ms=time_ms(Rotor(lambda q, k, v: decode_attention(q, k, v, pos_t),
-                         sets), 100),
+        max_abs_err=worst, ms=time_ms(kern, 100),
+        device_ms=device_ms(kern, 100),
         plain_ms=time_ms(Rotor(lambda q, k, v: decode_attention_plain(
             q, k, v, pos_t), sets), 20),
-        library_ms=time_ms(Rotor(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), sets), 50),
+        library_ms=time_ms(lib, 50), library_device_ms=device_ms(lib, 50),
         bound_ms=bound_ms, bound_by=bound_by,
         shape=f"b={b} nh={nh} nkv={nkv} S={S} d={d} "
-        f"bf16 pos={flagship_pos}", ok=True)
+        f"bf16 pos={flagship_pos}",
+        split_len=kernel_launch(b, nh, nkv, d, S, 1, sm_count(0))[2],
+        ok=True)
+    del sets
+    results["decode_attention"]["long_gqa"] = decode_long(dev, gen,
+                                                          LONG_GQA)
+    results["decode_attention"]["long_gqa8"] = decode_long(dev, gen,
+                                                           LONG_GQA8)
+    results["decode_attention"]["crossover"] = decode_crossover(dev, gen)
+
+
+def decode_long(dev, gen, shape):
+    """Kernel, plain version and SDPA at a long ``shape`` (b, nh, nkv, d,
+    S), two caches (537 MB) in rotation."""
+    import torch
+    from nvme_strom_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain, kernel_launch, sm_count)
+    b, nh, nkv, d, S = shape
+    pos = [S - 1] * b
+    sets = [_attn_inputs(b, nh, nkv, S, d, torch.bfloat16, pos, dev, gen,
+                         nan_tail=False) for _ in range(2)]
+    bound_ms, bound_by = _attn_bound(pos, nh, nkv, d, 2)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kern = Rotor(lambda q, k, v: decode_attention(q, k, v, p), sets)
+    out = dict(
+        shape=f"b={b} nh={nh} nkv={nkv} S={S} d={d} bf16 pos={S - 1}",
+        ms=time_ms(kern, 50), device_ms=device_ms(kern, 50),
+        plain_ms=time_ms(Rotor(lambda q, k, v: decode_attention_plain(
+            q, k, v, p), sets), 3, warmup=1),
+        library_ms=time_ms(Rotor(_sdpa, sets), 50),
+        library_device_ms=device_ms(Rotor(_sdpa, sets), 50),
+        bound_ms=bound_ms, bound_by=bound_by,
+        split_len=kernel_launch(b, nh, nkv, d, S, 1, sm_count(0))[2])
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    log(f"decode_attention long GQA ({out['shape']}): kernel "
+        f"{out['ms']:.4f} ms = {out['bound_share']:.3f} of its "
+        f"{bound_ms:.4f} ms bound at split_len {out['split_len']} "
+        f"({out['device_ms']:.4f} ms on the device), SDPA "
+        f"{out['library_ms']:.4f} ms ({out['library_device_ms']:.4f}), "
+        f"plain {out['plain_ms']:.4f} ms")
+    return out
+
+
+def decode_crossover(dev, gen):
+    """Kernel against SDPA at the flagship heads (b 8, nh 8, nkv 8,
+    d 64, bf16), every row at max_len - 1, caches in rotation past L2."""
+    import torch
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    b, nh, nkv, d = 8, 8, 8, 64
+    rows = []
+    for S in CROSSOVER_LENS:
+        pos = [S - 1] * b
+        sets = _rotating(lambda: _attn_inputs(
+            b, nh, nkv, S, d, torch.bfloat16, pos, dev, gen,
+            nan_tail=False), 2 * b * nkv * S * d * 2)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        kern = Rotor(lambda q, k, v: decode_attention(q, k, v, p), sets)
+        lib = Rotor(_sdpa, sets)
+        row = {"max_len": S, "ms": time_ms(kern, 100),
+               "device_ms": device_ms(kern, 100),
+               "library_ms": time_ms(lib, 100),
+               "library_device_ms": device_ms(lib, 100),
+               "bound_ms": _attn_bound(pos, nh, nkv, d, 2)[0]}
+        rows.append(row)
+        log(f"decode crossover max_len {S}: kernel {row['ms']:.4f} ms, "
+            f"SDPA {row['library_ms']:.4f} ms; on the device kernel "
+            f"{row['device_ms']:.4f} ms, SDPA "
+            f"{row['library_device_ms']:.4f} ms; bound "
+            f"{row['bound_ms']:.5f} ms ({len(sets)} caches in rotation)")
+        del sets
+    return rows
 
 
 def _paged_inputs(b, nh, nkv, bk, max_blocks, d, dtype, pos, dev, gen,
@@ -376,20 +556,32 @@ def _paged_inputs(b, nh, nkv, bk, max_blocks, d, dtype, pos, dev, gen,
     return q, kp, vp, table.to(dev)
 
 
+def _gathered_sdpa(q, kp, vp, table, mask=None):
+    """The library's paged attention: gather each row's blocks, then
+    SDPA."""
+    b, nb = table.shape
+    _, nkv, bk, d = kp.shape
+    idx = table.long()
+    k = kp[idx].permute(0, 2, 1, 3, 4).reshape(b, nkv, nb * bk, d)
+    v = vp[idx].permute(0, 2, 1, 3, 4).reshape(b, nkv, nb * bk, d)
+    return _sdpa(q, k, v, mask)
+
+
 def check_paged(dev, results):
     import torch
-    import torch.nn.functional as F
+    from nvme_strom_tpu_torch.ops.decode_attention import (
+        SPLIT_LEN, kernel_launch, sm_count)
     from nvme_strom_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     ragged = [0, 127, 128, 1000, 2047, 5, 300, 1500]
+    bk, max_blocks = 128, 16
     cases = [  # (label, b, nh, nkv, d, dtype, pos, tol)
         ("flagship bf16", 8, 8, 8, 64, torch.bfloat16, ragged, BF16_TOL),
         ("flagship f32", 8, 8, 8, 64, torch.float32, ragged, F32_TOL),
         ("GQA bf16", 4, 32, 8, 128, torch.bfloat16, [2047, 0, 129, 900],
          BF16_TOL),
-    ]
-    bk, max_blocks = 128, 16
+    ] + _wide_cases(SPLIT_LEN, with_S=False)
     worst = 0.0
     for label, b, nh, nkv, d, dt, pos, tol in cases:
         q, kp, vp, table = _paged_inputs(b, nh, nkv, bk, max_blocks, d, dt,
@@ -398,10 +590,12 @@ def check_paged(dev, results):
         err = _compare(f"paged_attention {label}",
                        paged_attention(q, kp, vp, table, p),
                        paged_attention_plain(q, kp, vp, table, p), tol)
+        _repeatable(f"paged_attention {label}", paged_attention,
+                    (q, kp, vp, table, p))
         if dt == torch.bfloat16:
             worst = max(worst, err)
         log(f"paged_attention {label}: max |kernel - plain| = {err:.3g} "
-            f"(rtol, atol {tol})")
+            f"(rtol, atol {tol}); two calls bitwise equal")
     b, nh, nkv, d = 8, 8, 8, 64
     p = torch.tensor(ragged, dtype=torch.int32, device=dev)
     sets = [_paged_inputs(b, nh, nkv, bk, max_blocks, d, torch.bfloat16,
@@ -410,30 +604,88 @@ def check_paged(dev, results):
     S = bk * max_blocks
     mask = (torch.arange(S, device=dev)[None, :] <= p[:, None])[:, None,
                                                                 None, :]
-
-    def library(q, kp, vp, table):
-        idx = table.long()
-        k = kp[idx].permute(0, 2, 1, 3, 4).reshape(b, nkv, S, d)
-        v = vp[idx].permute(0, 2, 1, 3, 4).reshape(b, nkv, S, d)
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-
     bound_ms, bound_by = _attn_bound(
         ragged, nh, nkv, d, 2,
         table_bytes=4 * sum(p // bk + 1 for p in ragged))
+    kern = Rotor(lambda q, kp, vp, t: paged_attention(q, kp, vp, t, p), sets)
+    lib = Rotor(lambda q, kp, vp, t: _gathered_sdpa(q, kp, vp, t, mask),
+                sets)
     results["paged_attention"] = dict(
         name="paged_attention", route="cuda",
         source="nvme_strom_tpu_torch/csrc/paged_attention.cu",
         replaces="nvme_strom_tpu/ops/paged_attention.py:36",
-        max_abs_err=worst,
-        ms=time_ms(Rotor(lambda q, kp, vp, t: paged_attention(q, kp, vp, t,
-                                                              p), sets),
-                   100),
+        max_abs_err=worst, ms=time_ms(kern, 100),
+        device_ms=device_ms(kern, 100),
         plain_ms=time_ms(Rotor(lambda q, kp, vp, t: paged_attention_plain(
             q, kp, vp, t, p), sets), 20),
-        library_ms=time_ms(Rotor(library, sets), 50),
+        library_ms=time_ms(lib, 50), library_device_ms=device_ms(lib, 50),
         bound_ms=bound_ms, bound_by=bound_by,
         shape=f"b={b} nh={nh} nkv={nkv} d={d} "
-        f"block_k={bk} bf16 pos={ragged}", ok=True)
+        f"block_k={bk} bf16 pos={ragged}",
+        split_len=kernel_launch(b, nh, nkv, d, S, bk, sm_count(0))[2],
+        ok=True)
+    del sets
+    results["paged_attention"]["long_gqa"] = paged_long(dev, gen)
+
+
+def paged_long(dev, gen):
+    """Kernel, plain version and gather + SDPA at LONG_GQA in pool blocks
+    of 128 keys, two pools in rotation."""
+    import torch
+    from nvme_strom_tpu_torch.ops.decode_attention import (kernel_launch,
+                                                           sm_count)
+    from nvme_strom_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_plain)
+    b, nh, nkv, d, S = LONG_GQA
+    bk = 128
+    pos = [S - 1] * b
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    sets = [_paged_inputs(b, nh, nkv, bk, S // bk, d, torch.bfloat16, pos,
+                          dev, gen, garbage=False) for _ in range(2)]
+    bound_ms, bound_by = _attn_bound(pos, nh, nkv, d, 2,
+                                     table_bytes=4 * b * (S // bk))
+    kern = Rotor(lambda q, kp, vp, t: paged_attention(q, kp, vp, t, p),
+                 sets)
+    out = dict(
+        shape=f"b={b} nh={nh} nkv={nkv} S={S} d={d} block_k={bk} bf16 "
+        f"pos={S - 1}",
+        ms=time_ms(kern, 50), device_ms=device_ms(kern, 50),
+        plain_ms=time_ms(Rotor(lambda q, kp, vp, t: paged_attention_plain(
+            q, kp, vp, t, p), sets), 3, warmup=1),
+        library_ms=time_ms(Rotor(_gathered_sdpa, sets), 20),
+        library_device_ms=device_ms(Rotor(_gathered_sdpa, sets), 20),
+        bound_ms=bound_ms, bound_by=bound_by,
+        split_len=kernel_launch(b, nh, nkv, d, S, bk, sm_count(0))[2])
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    log(f"paged_attention long GQA ({out['shape']}): kernel "
+        f"{out['ms']:.4f} ms = {out['bound_share']:.3f} of its "
+        f"{bound_ms:.4f} ms bound at split_len {out['split_len']} "
+        f"({out['device_ms']:.4f} ms on the device), gather + SDPA "
+        f"{out['library_ms']:.4f} ms ({out['library_device_ms']:.4f}), "
+        f"plain {out['plain_ms']:.4f} ms")
+    return out
+
+
+def attention_host_us(dev):
+    """Host microseconds a call of ``decode_attention`` and
+    ``paged_attention`` at the flagship serving shape (the timing shapes
+    of check_decode and check_paged), positions on the card as the
+    servers pass them.  It calls only the wrappers' public signature, so
+    it times any tree's package that is first on ``sys.path``."""
+    import torch
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    pos = [0, 1, 511, 2047] * 2
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q, k, v = _attn_inputs(8, 8, 8, 2048, 64, torch.bfloat16, pos, dev,
+                           gen, nan_tail=False)
+    args = _paged_inputs(8, 8, 8, 128, 16, 64, torch.bfloat16, pos, dev,
+                         gen, garbage=False)
+    out = {"decode": host_us(lambda: decode_attention(q, k, v, p)),
+           "paged": host_us(lambda: paged_attention(*args, p))}
+    log(f"attention wrappers' host time a call (us): {out}")
+    return out
 
 
 #: (rtol, atol as a fraction of max |plain|) of the flash kernels against
@@ -898,11 +1150,6 @@ def profile_run(run, label):
     return out
 
 
-def profile_serve(srv, requests):
-    """The same serving run under torch.profiler."""
-    return profile_run(lambda done: serve(srv, requests), "paged serve")
-
-
 def serve_phase(dev, ckdir, cfg, cpu_params):
     import numpy as np
     import torch
@@ -957,9 +1204,14 @@ def serve_phase(dev, ckdir, cfg, cpu_params):
         log(f"serve {label}: {toks} tokens in {secs:.3f} s = "
             f"{toks / secs:.1f} tok/s, TTFT avg {s['ttft_ms_avg']} ms "
             f"max {s['ttft_ms_max']} ms, timings {srv.timings}")
-    report["paged_profile"] = profile_serve(
-        PagedDecodeServer(params, cfg, 8, 2048, total_blocks=128,
-                          block_len=128, device=dev), requests)
+    # the same runs under torch.profiler: the device-busy share
+    for label, srv in (
+            ("dense", DecodeServer(params, cfg, 8, 2048, device=dev)),
+            ("paged", PagedDecodeServer(params, cfg, 8, 2048,
+                                        total_blocks=128, block_len=128,
+                                        device=dev))):
+        report[f"{label}_profile"] = profile_run(
+            lambda done, srv=srv: serve(srv, requests), f"{label} serve")
     for label in ("dense_cold", "paged"):
         if outs[label] != outs["dense"]:
             diff = [r for r in outs["dense"]
@@ -968,6 +1220,60 @@ def serve_phase(dev, ckdir, cfg, cpu_params):
                                  f"{diff}")
     log("serve: dense and paged servers gave identical tokens")
     return params, report
+
+
+#: the GQA serve run: a 2-layer model at a Qwen2-7B-like attention
+#: width, 28 query heads over 4 kv heads (a group of 7) at head_dim 128
+GQA_SERVE = dict(d_model=3584, n_layers=2, n_heads=28, n_kv_heads=4,
+                 d_ff=18944)
+
+
+def gqa_serve_phase(dev, cfg):
+    """GQA_SERVE's seeded weights on the card, then DecodeServer and
+    PagedDecodeServer on 4 requests (prompts 16-1100, 16 new tokens
+    each): their greedy tokens must agree."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.models.transformer import param_shapes
+    gcfg = dataclasses.replace(cfg, **GQA_SERVE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = {}
+    for name, shape in param_shapes(gcfg).items():
+        if len(shape) == 1:
+            params[name] = torch.ones(shape, device=dev)
+        else:
+            fan_in = 1 if name == "tok_embed" else shape[0]
+            params[name] = (torch.randn(shape, generator=gen, device=dev)
+                            * fan_in ** -0.5).to(gcfg.dtype)
+    rng = np.random.default_rng(SEED + 6)
+    requests = [(f"g{i}", rng.integers(0, gcfg.vocab, n).tolist())
+                for i, n in enumerate([16, 300, 700, 1100])]
+    outs, report = {}, {"config": GQA_SERVE}
+    for label, srv in (
+            ("dense", DecodeServer(params, gcfg, 4, 2048, device=dev)),
+            ("paged", PagedDecodeServer(params, gcfg, 4, 2048,
+                                        total_blocks=64, block_len=128,
+                                        device=dev))):
+        t0 = time.monotonic()
+        for rid, ids in requests:
+            srv.submit(rid, ids, 16)
+        outs[label] = srv.run(lookahead=8)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        toks = sum(len(v) for v in outs[label].values())
+        report[label] = {"tokens": toks, "seconds": secs,
+                         "tok_per_s": toks / secs}
+        log(f"GQA serve {label} ({GQA_SERVE}): {toks} tokens in "
+            f"{secs:.3f} s")
+    if outs["dense"] != outs["paged"] or \
+            any(len(v) != 16 for v in outs["dense"].values()):
+        raise AssertionError(f"GQA serve: dense {outs['dense']} and paged "
+                             f"{outs['paged']} tokens differ")
+    log("GQA serve: dense and paged servers gave identical tokens")
+    return report
 
 
 def f32_phase(dev, cfg, params):
@@ -1479,12 +1785,22 @@ def main() -> int:
     check_h2d(dev, results)
     check_decode(dev, results)
     check_paged(dev, results)
+    host = attention_host_us(dev)
+    for n in ("decode", "paged"):
+        results[f"{n}_attention"]["host_us"] = host[n]
     flash_split = check_flash(dev, results)
+    # the checks' inputs (GBs at the long shapes) stay in the caching
+    # allocator: hand them back before the main paths are timed
+    gc.collect()
+    torch.cuda.empty_cache()
     for r in results.values():
         lib = ("in flash_bwd_dq's" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         rate = (f" = {r['tflops']:.1f} TFLOP/s on {r['units']}"
-                if "tflops" in r else "")
+                if "tflops" in r else
+                f" ({r['device_ms']:.4f} ms on the device, library "
+                f"{r['library_device_ms']:.4f}; host {r['host_us']:.2f} us "
+                f"a call)" if "device_ms" in r else "")
         log(f"{r['name']} ({r['shape']}): kernel {r['ms']:.4f} ms{rate}, "
             f"plain {r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -1526,6 +1842,10 @@ def main() -> int:
     f32 = f32_phase(dev, cfg, params)
     os.remove(stream_path)
     del params
+    # a group of 7 at head_dim 128 through both servers
+    gqa, _ = drive("GQA serve", ("decode_attention", "paged_attention"),
+                   lambda: gqa_serve_phase(dev, cfg))
+    torch.cuda.empty_cache()
 
     # main path 2: training with the flash kernels, batches through h2d
     training, counts = drive(
@@ -1559,6 +1879,7 @@ def main() -> int:
         results[n]["kernel_ms"] = results[n]["ms"]
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
+                                  "gqa_serve": gqa,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
                                   "flash_split": flash_split,

@@ -169,13 +169,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "strom_h2d_copy": [P, P, U64, P, I],
         # src, dst, n, design (csrc/h2d_copy.cu kDesigns), stream, dev
         "strom_h2d_copy_probe": [P, P, U64, I, P, I],
-        # q, k, v, pos, out, b, nkv, g, S, d, dtype, scale, stream, dev
-        "strom_decode_attention": [P, P, P, P, P, I, I, I, I, I, I, F, P,
-                                   I],
-        # q, k_pool, v_pool, table, pos, out, b, nkv, g, n_pool,
-        # block_k, max_blocks, d, dtype, scale, stream, dev
-        "strom_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                  I, F, P, I],
+        # q, k, v, pos, out, ws, b, nkv, g, S, d, width, rows,
+        # split_len, dtype, scale, stream, dev
+        "strom_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                   I, I, F, P, I],
+        # q, k_pool, v_pool, table, pos, out, ws, b, nkv, g, n_pool,
+        # block_k, max_blocks, d, width, rows, split_len, dtype, scale,
+        # stream, dev
+        "strom_paged_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                  I, I, I, I, F, P, I],
         # q, k, v, out, lse, strides, b, h, s, skv, d, dtype, causal,
         # scale, stream, dev
         "strom_flash_fwd": [P, P, P, P, P, S, I, I, I, I, I, I, I, F, P, I],

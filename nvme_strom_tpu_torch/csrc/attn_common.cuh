@@ -1,57 +1,135 @@
-// attn_common.cuh — the fused one-token decode attention shared by the
-// dense-cache kernel (decode_attention.cu) and the block-table kernel
-// (paged_attention.cu).  The two differ only in where key j's K and V
-// rows live, which a small "rows" functor answers.
+// attn_common.cuh — split-K one-token decode attention for sm_90a,
+// shared by the dense-cache kernel (decode_attention.cu) and the
+// block-table kernel (paged_attention.cu).  The two differ only in where
+// key j's K and V rows live, which a small "rows" functor answers.
 //
-// One thread block per (batch row, kv head): it holds that kv head's G
-// query rows (the GQA group, so K/V are read at kv-head width, never
-// expanded) and walks the keys 0..last, last = the row's newest
-// position.  Keys past `last` are never read, so garbage (NaN) in an
-// unfilled cache tail or a padding block cannot reach the output, and
-// the walk stops at the row's live length.
+// Replaces the TPU kernels nvme_strom_tpu/ops/decode_attention.py
+// `_decode_kernel` and nvme_strom_tpu/ops/paged_attention.py
+// `_paged_kernel`: q (b, nh, 1, d) attends to the keys 0..pos[b] of its
+// row at kv-head width (the GQA group of g = nh / nkv query heads is
+// handled per kv head), fp32 online softmax, output rounded once to the
+// input dtype.
 //
-// Layout of the work: D/8 lanes share one key, each lane holding 8
-// elements of the head dimension (one 16-byte bf16 load per K or V
-// row), so a warp scores 32/(D/8) keys at once and a block of 4 warps
-// keeps 4*32/(D/8) keys in flight.  Each such key group keeps its own
-// fp32 online-softmax state (running max m, denominator l, accumulator
-// acc) for the G query rows; the groups are merged through shared
-// memory at the end.  Scores are q·k with q scaled in fp32, as in the
-// TPU kernel; the output is rounded once to the input dtype.
+// Bound: bytes.  One query row per kv-head group is far below the ~295
+// operations a byte the tensor cores need, so the kernel is bound by the
+// K and V bytes of the live positions over HBM's 3.35 TB/s, and its aim
+// is bytes in flight on every SM.  The FMA dot products and their
+// shuffle sums cost ~4 instructions a byte at four query rows, half the
+// SMs' issue rate at HBM speed: a group of more than 4 (two or more row
+// chunks) is bound by issue, not bytes (PERF.md).
 //
-// Bound: K+V bytes of the live positions over HBM bandwidth.  At the
-// flagship width (b=8, 8 kv heads) only 64 blocks exist for 132 SMs, so
-// the kernel cannot reach that bound; split-K over the sequence with a
-// combine pass is the design that fills the card.
+// Layout of the work:
+//   * split: the grid covers (split · row chunk, batch row · kv head).  A
+//     split holds `split_len` keys (the wrapper picks it; a multiple of
+//     block_k for the paged kernel, so a split reads whole pool blocks
+//     and its table entries once).  Splits past a row's live length
+//     pos[b] + 1 exit at once and read nothing.  A row chunk holds up to
+//     G = 4 query rows of the group; a group of g takes ceil(g / 4)
+//     chunks, rows past g in the last one are masked (g = 7: two chunks,
+//     one row masked; g = 16: four).  The chunks of a split are
+//     neighbours in the grid, so they run together and all but the first
+//     read its K and V rows from L2.  A block of 8 rows would hold 128
+//     floats of queries and accumulators a thread in registers, which
+//     leaves too few loads in flight; it ran slower than two blocks of 4
+//     at g = 7 and 8 (PERF.md);
+//   * head dim: D in {64, 128, 256} is built; any d <= 256 that is a
+//     multiple of 8 runs on the next D, lanes past d loading nothing and
+//     contributing zero.  D/8 lanes share one key, each holding 8
+//     elements (one 16-byte bf16 load, two for fp32), neighbouring lanes
+//     on neighbouring addresses; the G query rows stay in registers, so
+//     K and V are read once at kv-head width and never expanded;
+//   * inside a split, one pass: each lane group (the D/8 lanes of a key)
+//     walks every GROUPS-th key, U keys a trip with their K and V loads
+//     all in flight before any is used (U = unroll(): 8 for one or two
+//     query rows in bf16, 4 for four, half that in fp32), and
+//     keeps an fp32 online softmax (running max m, sum l, acc) with one
+//     rescale a trip; the block then merges its lane groups' states in
+//     shared memory;
+//   * combine: a row with one live split writes acc / l straight to the
+//     output.  Otherwise each split writes (m, l, acc[G][D]) in fp32 to a
+//     workspace the wrapper allocates, and `combine_splits`, a second
+//     kernel, forms out = Σ e^(m_i − M)·acc_i / Σ e^(m_i − M)·l_i over
+//     the row's live splits in split order.  No floating-point atomics
+//     anywhere: two calls are bitwise equal.
+//
+// Keys past pos are never read, so garbage (NaN) in an unfilled cache
+// tail or a padding block cannot reach the output; a key the rows
+// functor skips (a table entry outside the pool) counts as absent; a
+// row with pos < 0 gives 0.  Scores are q·k with q scaled in fp32, as in
+// the TPU kernel.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace strom_attn {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+// most keys one split may hold (bounds the paged kernel's table entries
+// in shared memory)
+constexpr int kMaxSplit = 512;
 constexpr float kNegInf = -1e30f;
 
+// dtype codes shared with the Python wrappers
+constexpr int kBF16 = 0;
+constexpr int kF32 = 1;
+
+// 8 elements of a K or V row, loaded raw so that several loads of a lane
+// are in flight before any is used
+template <typename T>
+struct Vec8;
+
+template <>
+struct Vec8<__nv_bfloat16> {
+  uint4 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      o[2 * j] = f.x;
+      o[2 * j + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Vec8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  }
+  __device__ __forceinline__ void zero() {
+    a = make_float4(0.f, 0.f, 0.f, 0.f);
+    b = a;
+  }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+};
+
+// 8 elements at p as floats (the flash kernels' fp32 tiles)
 __device__ __forceinline__ void load8(const __nv_bfloat16* p,
                                       float (&o)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    o[2 * j] = f.x;
-    o[2 * j + 1] = f.y;
-  }
+  Vec8<__nv_bfloat16> x;
+  x.r = *reinterpret_cast<const uint4*>(p);
+  x.get(o);
 }
 
 __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  Vec8<float> x;
+  x.a = *reinterpret_cast<const float4*>(p);
+  x.b = *reinterpret_cast<const float4*>(p + 4);
+  x.get(o);
 }
 
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
@@ -60,80 +138,165 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
-// q_rows: the G query rows (G, D) of this (batch row, kv head);
-// out: where their (G, D) result goes; rows(j, k, v) sets the K and V
-// row pointers of key j and returns false if key j must be skipped.
+// What the split kernel and the combine kernel share about one launch.
+// ws: the workspace, acc (cells, n_splits, G, D) then (m, l) (cells,
+// n_splits, 2, G), cells = rows · chunks; null when n_splits == 1.
+struct SplitArgs {
+  const void* q;      // (rows, g, d): rows = b · nkv
+  void* out;          // (rows, g, d)
+  float* ws;
+  const int32_t* pos; // (b,)
+  int nkv, g, d, capacity, split_len, n_splits;
+  float scale;
+};
+
+// keys 0..last of row b are live; their splits are 0..n_live-1
+__device__ __forceinline__ int live_splits(const SplitArgs& a, int b,
+                                           int& last) {
+  last = min(a.pos[b], a.capacity - 1);
+  return last < 0 ? 0 : last / a.split_len + 1;
+}
+
+// Keys a lane group has in flight at once (each a K and a V row): as
+// many as fit beside the query rows and the accumulators in registers.
+template <typename T, int G>
+__host__ __device__ constexpr int unroll() {
+  return (G <= 2 ? 8 : 4) * 2 / (int)sizeof(T);
+}
+
+// One block: split blockIdx.x / chunks, query rows chunk
+// blockIdx.x % chunks, of row blockIdx.y (b · nkv + kv head).
+// rows.prepare(k0, k1) runs once before the split's keys are read (the
+// paged kernel loads its table entries there); rows(key, k, v) sets
+// key's K and V row pointers and returns false if the key must be
+// skipped.
 template <typename T, int D, int G, typename Rows>
-__device__ __forceinline__ void attend(const T* __restrict__ q_rows,
-                                       int last, float scale,
-                                       const Rows& rows,
-                                       T* __restrict__ out) {
-  constexpr int LPK = D / 8;            // lanes per key
-  constexpr int KPW = 32 / LPK;         // keys per warp per trip
-  constexpr int GROUPS = kWarps * KPW;  // keys per block per trip
+__device__ __forceinline__ void split_attend(const SplitArgs& a,
+                                             Rows& rows) {
+  constexpr int LPK = D / 8;             // lanes per key
+  constexpr int KPW = 32 / LPK;          // key groups per warp
+  constexpr int GROUPS = kWarps * KPW;   // key groups per block
+  constexpr int U = unroll<T, G>();
+  constexpr int kStep = GROUPS * U;      // keys per block per trip
+  __shared__ float sm_acc[GROUPS][G][D];
+  __shared__ float sm_m[GROUPS][G], sm_l[GROUPS][G];
+
+  // row chunks are the fastest index: a split's chunks run together
+  // and read its K and V rows from HBM once, the other chunks from L2
+  const int chunks = (a.g + G - 1) / G;
+  const int split = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const int bh = blockIdx.y;
+  int last;
+  const int n_live = live_splits(a, bh / a.nkv, last);
+  const int g0 = chunk * G;
+  const int here = min(G, a.g - g0);  // query rows of this chunk
+  T* out = static_cast<T*>(a.out) + ((size_t)bh * a.g + g0) * a.d;
+  if (n_live == 0) {  // pos < 0: the masked softmax's output is 0
+    if (split == 0)
+      for (int i = threadIdx.x; i < here * a.d; i += kThreads)
+        store(out + i, 0.f);
+    return;
+  }
+  if (split >= n_live) return;
+  const int k0 = split * a.split_len;
+  const int n = min(a.split_len, last + 1 - k0);
+  rows.prepare(k0, k0 + n);
+
   const int lane = threadIdx.x & 31;
   const int group = (threadIdx.x >> 5) * KPW + lane / LPK;
   const int part = lane % LPK;
+  const bool on = part * 8 < a.d;  // lanes past d load nothing
 
   float q[G][8];
+  {
+    const T* qp = static_cast<const T*>(a.q) +
+                  ((size_t)bh * a.g + g0) * a.d + part * 8;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load8(q_rows + g * D + part * 8, q[g]);
+    for (int g = 0; g < G; ++g) {
+      Vec8<T> x;
+      if (on && g < here) x.load(qp + (size_t)g * a.d); else x.zero();
+      x.get(q[g]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) q[g][j] *= scale;
+      for (int e = 0; e < 8; ++e) q[g][e] *= a.scale;
+    }
   }
+  // this key group's online softmax state
   float m[G], l[G], acc[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
+    m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
   }
 
   // block-uniform trip count: every lane takes part in the shuffles
-  for (int base = 0; base <= last; base += GROUPS) {
-    const int key = base + group;
-    const T* krow = nullptr;
-    const T* vrow = nullptr;
-    const bool valid = key <= last && rows(key, krow, vrow);
-    float kf[8];
-    if (valid) {
-      load8(krow + part * 8, kf);
-    } else {
+  for (int base = 0; base < n; base += kStep) {
+    Vec8<T> kr[U], vr[U];
+    bool ok[U];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kf[j] = 0.f;
+    for (int u = 0; u < U; ++u) {
+      const int j = base + u * GROUPS + group;
+      const T* kp = nullptr;
+      const T* vp = nullptr;
+      ok[u] = j < n && rows(k0 + j, kp, vp);
+      if (ok[u] && on) {
+        kr[u].load(kp + part * 8);
+        vr[u].load(vp + part * 8);
+      } else {
+        kr[u].zero();
+        vr[u].zero();
+      }
     }
-    float s[G];
+    float s[U][G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float d = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d = fmaf(q[g][j], kf[j], d);
-#pragma unroll
-      for (int off = LPK / 2; off > 0; off >>= 1)
-        d += __shfl_xor_sync(0xffffffffu, d, off);
-      s[g] = d;
-    }
-    if (valid) {
-      float vf[8];
-      load8(vrow + part * 8, vf);
+    for (int u = 0; u < U; ++u) {
+      float kf[8];
+      kr[u].get(kf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float mn = fmaxf(m[g], s[g]);
-        const float alpha = expf(m[g] - mn);
-        const float p = expf(s[g] - mn);
-        l[g] = l[g] * alpha + p;
+        float d = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[g][j] = acc[g][j] * alpha + p * vf[j];
-        m[g] = mn;
+        for (int e = 0; e < 8; ++e) d = fmaf(q[g][e], kf[e], d);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        s[u][g] = ok[u] ? d : -INFINITY;
       }
+    }
+    // one rescale a trip; the whole lane group holds the same scores
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mn = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mn = fmaxf(mn, s[u][g]);
+      if (mn == -INFINITY) continue;  // no key of this group yet
+      const float alpha = expf(m[g] - mn);
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u][g] = expf(s[u][g] - mn);
+        l[g] += s[u][g];
+      }
+      m[g] = mn;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      float vf[8];
+      vr[u].get(vf);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[g][e] = fmaf(s[u][g], vf[e], acc[g][e]);
     }
   }
 
-  __shared__ float sm_m[GROUPS][G];
-  __shared__ float sm_l[GROUPS][G];
-  __shared__ float sm_acc[GROUPS][G][D];
+  // merge the key groups' states
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (part == 0) {
@@ -141,51 +304,131 @@ __device__ __forceinline__ void attend(const T* __restrict__ q_rows,
       sm_l[group][g] = l[g];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) sm_acc[group][g][part * 8 + j] = acc[g][j];
+    for (int e = 0; e < 8; ++e) sm_acc[group][g][part * 8 + e] = acc[g][e];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D;
-    const int col = idx % D;
-    float mx = kNegInf;
+  const size_t cell = ((size_t)bh * chunks + chunk) * a.n_splits + split;
+  const size_t cells = (size_t)gridDim.y * chunks * a.n_splits;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D;
+    const int col = i % D;
+    float mx = -INFINITY;
+#pragma unroll
     for (int r = 0; r < GROUPS; ++r) mx = fmaxf(mx, sm_m[r][g]);
     float den = 0.f, num = 0.f;
-    for (int r = 0; r < GROUPS; ++r) {
-      const float w = expf(sm_m[r][g] - mx);
-      den += sm_l[r][g] * w;
-      num += sm_acc[r][g][col] * w;
+    if (mx != -INFINITY) {  // else every key of the split was skipped
+#pragma unroll
+      for (int r = 0; r < GROUPS; ++r) {
+        const float w = expf(sm_m[r][g] - mx);
+        den = fmaf(w, sm_l[r][g], den);
+        num = fmaf(w, sm_acc[r][g][col], num);
+      }
     }
-    // no live key (pos < 0): the masked softmax's output is 0
-    store(out + idx, den > 0.f ? num / den : 0.f);
+    if (n_live == 1) {
+      if (g < here && col < a.d)
+        store(out + g * a.d + col, den > 0.f ? num / den : 0.f);
+    } else {
+      a.ws[cell * G * D + i] = num;
+      if (col == 0) {
+        float* ml = a.ws + cells * G * D + cell * 2 * G;
+        ml[g] = mx == -INFINITY ? kNegInf : mx;
+        ml[G + g] = den;
+      }
+    }
   }
 }
 
-// dtype codes shared with the Python wrappers
-constexpr int kBF16 = 0;
-constexpr int kF32 = 1;
+// The combine pass: one block per (row, chunk, query row g) whose row
+// has more than one live split; out = Σ e^(m_i − M)·acc_i /
+// Σ e^(m_i − M)·l_i over the live splits in split order, rounded once.
+// Warp 0 finds M and the denominator; every thread then sums its
+// columns over the splits, 8 splits' loads in flight at once.  Each
+// kernel source wraps it in a kernel of its own.
+template <typename T, int D, int G>
+__device__ __forceinline__ void combine_splits(const SplitArgs& a) {
+  __shared__ float sm_m, sm_den;
+  const int bh = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int g = blockIdx.z;
+  const int g0 = chunk * G;
+  int last;
+  const int n_live = live_splits(a, bh / a.nkv, last);
+  // one split: written by the split kernel; rows past g: masked
+  if (n_live <= 1 || g0 + g >= a.g) return;
+  const size_t cell0 = ((size_t)bh * gridDim.y + chunk) * a.n_splits;
+  const size_t cells = (size_t)gridDim.x * gridDim.y * a.n_splits;
+  const float* acc = a.ws + cell0 * G * D + g * D;  // split i at i·G·D
+  const float* ml = a.ws + cells * G * D + cell0 * 2 * G + g;  // i·2G
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float mx = kNegInf;
+    for (int i = lane; i < n_live; i += 32) mx = fmaxf(mx, ml[i * 2 * G]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float den = 0.f;
+    for (int i = lane; i < n_live; i += 32)
+      den = fmaf(expf(ml[i * 2 * G] - mx), ml[i * 2 * G + G], den);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      den += __shfl_xor_sync(0xffffffffu, den, off);
+    if (lane == 0) {
+      sm_m = mx;
+      sm_den = den;
+    }
+  }
+  __syncthreads();
+  const float mx = sm_m;
+  const float den = sm_den;
+  T* out = static_cast<T*>(a.out) + ((size_t)bh * a.g + g0 + g) * a.d;
+  for (int col = threadIdx.x; col < a.d; col += kThreads) {
+    float num = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < n_live; ++i)
+      num = fmaf(expf(ml[i * 2 * G] - mx), acc[(size_t)i * G * D + col],
+                 num);
+    // every live key skipped: 0, as for a row with none
+    store(out + col, den > 0.f ? num / den : 0.f);
+  }
+}
 
-// Instantiate `Body<T, D, G>::run(args...)` for the (dtype, d, g) the
-// caller asks for; returns cudaErrorInvalidValue for anything else.
+// The split kernel's grid, (n_splits · chunks, rows), and the
+// combine's, (rows, chunks, G); the combine runs only where
+// n_splits > 1.
+inline dim3 split_grid(const SplitArgs& a, int rows, int G) {
+  return dim3(a.n_splits * ((a.g + G - 1) / G), rows);
+}
+
+inline dim3 combine_grid(const SplitArgs& a, int rows, int G) {
+  return dim3(rows, (a.g + G - 1) / G, G);
+}
+
+
+// Instantiate `Body<T, D, G>::run(args...)` for the dtype, built head
+// width D and rows per chunk G the caller asks for; returns
+// cudaErrorInvalidValue for anything else.
 template <template <typename, int, int> class Body, typename... Args>
-cudaError_t dispatch(int dtype, int d, int g, Args... args) {
+cudaError_t dispatch(int dtype, int width, int rows, Args... args) {
 #define STROM_ATTN_CASE(T, DD, GG)                 \
-  if (d == DD && g == GG) {                        \
+  if (width == DD && rows == GG) {                 \
     Body<T, DD, GG>::run(args...);                 \
     return cudaGetLastError();                     \
   }
-#define STROM_ATTN_GROUPS(T, DD) \
-  STROM_ATTN_CASE(T, DD, 1)      \
-  STROM_ATTN_CASE(T, DD, 2)      \
-  STROM_ATTN_CASE(T, DD, 4)      \
-  STROM_ATTN_CASE(T, DD, 8)
+#define STROM_ATTN_ROWS(T, DD) \
+  STROM_ATTN_CASE(T, DD, 1)    \
+  STROM_ATTN_CASE(T, DD, 2)    \
+  STROM_ATTN_CASE(T, DD, 4)
+#define STROM_ATTN_WIDTHS(T) \
+  STROM_ATTN_ROWS(T, 64)     \
+  STROM_ATTN_ROWS(T, 128)    \
+  STROM_ATTN_ROWS(T, 256)
   if (dtype == kBF16) {
-    STROM_ATTN_GROUPS(__nv_bfloat16, 64)
-    STROM_ATTN_GROUPS(__nv_bfloat16, 128)
+    STROM_ATTN_WIDTHS(__nv_bfloat16)
   } else if (dtype == kF32) {
-    STROM_ATTN_GROUPS(float, 64)
-    STROM_ATTN_GROUPS(float, 128)
+    STROM_ATTN_WIDTHS(float)
   }
-#undef STROM_ATTN_GROUPS
+#undef STROM_ATTN_WIDTHS
+#undef STROM_ATTN_ROWS
 #undef STROM_ATTN_CASE
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,13 @@
 // decode_attention.cu — one query token per row against a contiguous
-// kv-head-width cache.
+// kv-head-width cache, split-K.
 //
 // Replaces the TPU kernel nvme_strom_tpu/ops/decode_attention.py
 // `_decode_kernel`: q (b, nh, 1, d) attends to k/v (b, nkv, S, d) at
 // positions [0, pos[b]], the GQA group of nh/nkv query heads handled
 // per kv head, fp32 online softmax.  Where the TPU walks every k-block
-// of the grid and masks, this kernel stops at pos[b]; what bounds it and
-// how the work is laid out is in attn_common.cuh.
+// of the grid and masks, the splits past pos[b] exit without reading;
+// what bounds the kernel and how the split and the combine lay out the
+// work is in attn_common.cuh.
 
 #include "attn_common.cuh"
 
@@ -14,55 +15,69 @@ namespace {
 
 using namespace strom_attn;
 
-template <typename T, int D>
+template <typename T>
 struct DenseRows {
-  const T* k;  // this (row, kv head)'s (S, D) slab
+  const T* k;  // this (row, kv head)'s (S, d) slab
   const T* v;
+  int d;
+  __device__ __forceinline__ void prepare(int, int) const {}
   __device__ __forceinline__ bool operator()(int key, const T*& kr,
                                              const T*& vr) const {
-    kr = k + (size_t)key * D;
-    vr = v + (size_t)key * D;
+    kr = k + (size_t)key * d;
+    vr = v + (size_t)key * d;
     return true;
   }
 };
 
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int32_t* __restrict__ pos, T* __restrict__ out,
-                        int nkv, int S, float scale) {
-  const int bh = blockIdx.x;  // b * nkv + kv head
-  const int b = bh / nkv;
-  const int last = min(pos[b], S - 1);
-  const size_t slab = (size_t)bh * S * D;
-  const DenseRows<T, D> rows{k + slab, v + slab};
-  attend<T, D, G>(q + (size_t)bh * G * D, last, scale, rows,
-                  out + (size_t)bh * G * D);
+decode_split(SplitArgs a, const T* __restrict__ k, const T* __restrict__ v) {
+  const size_t slab = (size_t)blockIdx.y * a.capacity * a.d;
+  DenseRows<T> rows{k + slab, v + slab, a.d};
+  split_attend<T, D, G>(a, rows);
+}
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kThreads) decode_combine(SplitArgs a) {
+  combine_splits<T, D, G>(a);
 }
 
 template <typename T, int D, int G>
 struct Launch {
-  static void run(const void* q, const void* k, const void* v,
-                  const int32_t* pos, void* out, int b, int nkv, int S,
-                  float scale, cudaStream_t stream) {
-    decode_attention_kernel<T, D, G><<<b * nkv, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), pos, static_cast<T*>(out), nkv, S, scale);
+  static void run(const SplitArgs& a, int rows, const void* k,
+                  const void* v, cudaStream_t stream) {
+    decode_split<T, D, G><<<split_grid(a, rows, G), kThreads, 0, stream>>>(
+        a, static_cast<const T*>(k), static_cast<const T*>(v));
+    if (a.n_splits > 1)
+      decode_combine<T, D, G>
+          <<<combine_grid(a, rows, G), kThreads, 0, stream>>>(a);
   }
 };
 
 }  // namespace
 
+// width, rows_per_chunk: the built head width D (>= d) and the rows G of
+// a query chunk the wrapper picked (ops/decode_attention.py
+// `kernel_shape`); ws: n_splits > 1 ? the workspace : null.
 extern "C" int strom_decode_attention(const void* q, const void* k,
                                       const void* v, const void* pos,
-                                      void* out, int b, int nkv, int g,
-                                      int S, int d, int dtype, float scale,
-                                      void* stream, int device) {
+                                      void* out, void* ws, int b, int nkv,
+                                      int g, int S, int d, int width,
+                                      int rows_per_chunk, int split_len,
+                                      int dtype, float scale, void* stream,
+                                      int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (b <= 0 || nkv <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Launch>(dtype, d, g, q, k, v,
-                               static_cast<const int32_t*>(pos), out, b,
-                               nkv, S, scale, (cudaStream_t)stream);
+  const int n_splits = S > 0 && split_len > 0 ? (S - 1) / split_len + 1 : 0;
+  if (b <= 0 || nkv <= 0 || g <= 0 || S <= 0 || d <= 0 || d % 8 ||
+      d > width || split_len <= 0 || split_len > kMaxSplit ||
+      (long long)b * nkv > 65535 ||
+      (g + rows_per_chunk - 1) / rows_per_chunk > 65535 ||
+      (n_splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const SplitArgs a{q, out, static_cast<float*>(ws),
+                    static_cast<const int32_t*>(pos), nkv, g, d, S,
+                    split_len, n_splits, scale};
+  return (int)dispatch<Launch>(dtype, width, rows_per_chunk, a, b * nkv, k,
+                               v, (cudaStream_t)stream);
 }

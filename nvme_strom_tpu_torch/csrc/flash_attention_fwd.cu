@@ -38,6 +38,8 @@
 //     the current one, so that tile's softmax overlaps P·V on the
 //     tensor cores; the other warpgroup fills the gaps as well;
 //   * exp runs as the SFU's exp2 with scale·log2(e) folded into one FMA;
+//     the running max is over sign(scale)·s, so any scale works (0 gives
+//     the uniform softmax);
 //   * a warpgroup skips the K/V tiles wholly above its diagonal.
 // Registers: ptxas gives 288 threads at one block per SM 168 a thread;
 // d = 128 takes 160 (O 64, S of the next tile 32, P's fragments 32) and
@@ -157,36 +159,47 @@ struct TcFwdSmem {
 
 // Online softmax of one 64 x 64 score tile (raw q·k in the accumulator
 // layout of hopper.cuh) for the K tile kt: masks, updates the running
-// max m (raw units) and this thread's part of the row sums l, leaves
+// max m and this thread's part of the row sums l, leaves
 // p = exp(scale·(s − m)) in sc and each row's rescale factor in alpha.
-// exp runs as exp2 with scale·log2(e) folded into one FMA; the max is
-// taken over unscaled scores, so scale must be positive (the wrapper
-// checks).
+// The max runs over sign(scale)·s, so scale·s − |scale|·m <= 0 for any
+// scale: exp runs as exp2 with c = scale·log2(e) folded into one FMA, m
+// in units of ca = |c| (c = ca = 1e-30 for scale 0, which makes every
+// unmasked p exactly 1: the uniform softmax).  Masked entries become
+// sign(scale)·s = −inf, so they add nothing to the max and their p is
+// exp2(−inf) = 0.
 __device__ __forceinline__ void softmax(float (&sc)[32], int kt, int row0,
-                                        int t, int qw0, float c,
+                                        int t, int qw0, float c, float ca,
                                         const FwdArgs& a, float (&m)[2],
                                         float (&l)[2], float (&alpha)[2]) {
   const int k0 = kt * kKRows;
+  const bool neg = c < 0.f;
   if (k0 + kKRows > a.skv || (a.causal && k0 + kKRows - 1 > qw0)) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
       const int row = row0 + 8 * ((i >> 1) & 1);
-      if (col >= a.skv || (a.causal && col > row)) sc[i] = kNegInf;
+      if (col >= a.skv || (a.causal && col > row))
+        sc[i] = neg ? INFINITY : -INFINITY;
     }
   }
-  float mx[2] = {kNegInf, kNegInf};
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (neg) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    for (int i = 0; i < 32; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], -sc[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  }
   float mc[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     const float mn = fmaxf(m[r], mx[r]);
-    alpha[r] = hx::ex2((m[r] - mn) * c);
-    mc[r] = mn * c;
+    alpha[r] = hx::ex2((m[r] - mn) * ca);
+    mc[r] = mn * ca;
     m[r] = mn;
     l[r] *= alpha[r];
   }
@@ -254,7 +267,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap mq,
   const int kend_w = a.causal ? min(a.skv, qw0 + 64) : a.skv;
   const int n_kt_w = qw0 < a.s ? (kend_w + kKRows - 1) / kKRows : 0;
   const uint8_t* qw = sQ + wg * 64 * 128;
-  const float c = a.scale * hx::kLog2e;
+  // exp2 units: ca = |c|, floored so that scale 0 gives p = 1
+  const float ca = fmaxf(fabsf(a.scale * hx::kLog2e), 1e-30f);
+  const float c = a.scale < 0.f ? -ca : ca;
 
   // S of the K tile in stage st (raw q·k, fp32)
   auto scores = [&](float (&sc)[32], int st) {
@@ -294,7 +309,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap mq,
     scores(sc, 0);
     hx::wg_wait<0>();
     hx::wg_hold(sc);
-    softmax(sc, 0, row0, t, qw0, c, a, m, l, alpha);
+    softmax(sc, 0, row0, t, qw0, c, ca, a, m, l, alpha);
     hx::split(sc, hi, lo);
     // Tile kt: S of tile kt + 1 is issued before P·V of tile kt, so the
     // softmax of kt + 1 runs while the tensor cores do P·V of kt.  No
@@ -307,7 +322,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap mq,
       pv(st);
       hx::wg_wait<1>();
       hx::wg_hold(sc);
-      softmax(sc, kt + 1, row0, t, qw0, c, a, m, l, alpha);
+      softmax(sc, kt + 1, row0, t, qw0, c, ca, a, m, l, alpha);
       hx::wg_wait<0>();
       hx::wg_hold(o);
       hx::wg_hold(hi);
@@ -348,7 +363,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap mq,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
           hx::pack(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    if (t == 0) lse[row] = m[r] * a.scale + logf(l[r]);
+    // m is the max of sign(scale)·s: the max of scale·s is |scale|·m
+    if (t == 0) lse[row] = m[r] * fabsf(a.scale) + logf(l[r]);
   }
 }
 

@@ -5,16 +5,23 @@
 (csrc/decode_attention.cu, replacing the TPU kernel ``_decode_kernel``)
 for CUDA tensors and runs ``decode_attention_plain`` for CPU tensors.
 The kernel reads the cache at kv-head width (the GQA group is handled
-inside), masks each row by its own position, stops at that position, and
-keeps the online-softmax state in float32.  It is bound by the K/V bytes
-of the live positions over HBM bandwidth; at the flagship width it runs
-only b·n_kv_heads blocks, fewer than the card's 132 SMs (see
-csrc/attn_common.cuh).
+inside), masks each row by its own position, and keeps the softmax state
+in float32.  It is bound by the K/V bytes of the live positions over HBM
+bandwidth, and splits each row's keys into ``split_len`` pieces so that
+every SM streams: one launch scores the splits, a second combines a
+row's splits (csrc/attn_common.cuh).  It takes any GQA group and any
+head_dim up to 256 that is a multiple of 8.
+
+``split_partials_plain`` and ``combine_splits_plain`` are the kernel's
+split and combine written in torch; the tests hold them against
+``decode_attention_plain``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
 
 import torch
 
@@ -22,8 +29,19 @@ from nvme_strom_tpu_torch import _build
 
 #: element types the kernels take, by their code in csrc/attn_common.cuh
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_GROUPS = (1, 2, 4, 8)
+#: head widths the kernels are built for; a head_dim that is a multiple of
+#: 8 runs on the next one up, so the kernels take any such head_dim <= 256
+KERNEL_WIDTHS = (64, 128, 256)
+#: most query rows of a GQA group one block holds; a larger group takes
+#: ceil(g / 4) blocks of rows (csrc/attn_common.cuh says why not 8)
+KERNEL_MAX_ROWS = 4
+#: keys a split holds: SPLIT_LEN, or LONG_SPLIT_LEN where the grid at
+#: that length still holds two blocks on every SM of the card.  Of 128,
+#: 256 and 512, 256 was the fastest at the flagship's 2k positions, 512
+#: at 16k (fewer, longer blocks and a smaller combine); PERF.md has the
+#: numbers.
+SPLIT_LEN = 256
+LONG_SPLIT_LEN = 512
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -62,10 +80,70 @@ def check_kernel_inputs(q: torch.Tensor, *tensors: torch.Tensor) -> int:
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"the kernel takes {list(KERNEL_DTYPES)}, got "
                          f"{q.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    d = q.shape[-1]
+    if d % 8 or d > KERNEL_WIDTHS[-1]:
+        raise ValueError(f"the kernel takes a head_dim that is a multiple "
+                         f"of 8 up to {KERNEL_WIDTHS[-1]}, got {d}")
     return KERNEL_DTYPES[q.dtype]
+
+
+def kernel_shape(d: int, g: int):
+    """(built head width, query rows a block holds) of the kernel that
+    runs head_dim ``d`` and GQA group ``g``."""
+    width = next(w for w in KERNEL_WIDTHS if d <= w)
+    return width, min(KERNEL_MAX_ROWS, 1 << (g - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def kernel_launch(b: int, nh: int, nkv: int, d: int, capacity: int,
+                  block_k: int, sms: int):
+    """(built head width, rows a block holds, keys a split holds, float32
+    elements of workspace) of a launch over ``capacity`` keys a row on a
+    card of ``sms`` SMs: SPLIT_LEN or LONG_SPLIT_LEN keys a split, cut
+    down to whole blocks of ``block_k`` keys where a block is no longer.
+    The workspace holds every split's fp32 acc (rows, width), m and l; it
+    is 0 where no row can have more than one split."""
+    g = nh // nkv
+    width, rows = kernel_shape(d, g)
+    cells = b * nkv * -(-g // rows)
+    split_len = (LONG_SPLIT_LEN if cells * -(-capacity // LONG_SPLIT_LEN)
+                 >= 2 * sms else SPLIT_LEN)
+    if block_k <= split_len:
+        split_len -= split_len % block_k
+    n_splits = -(-capacity // split_len)
+    ws = cells * n_splits * rows * (width + 2) if n_splits > 1 else 0
+    return width, rows, split_len, ws
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream, from torch's
+    own accessor, which Triton's launcher calls too: building a
+    ``torch.cuda.Stream`` object each call was one of the largest parts
+    of a decode call's host time."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_workspaces: dict = {}
+
+
+def workspace(device: torch.device, stream: int, n: int):
+    """A float32 workspace of at least ``n`` elements on ``device`` (None
+    for 0), kept for the calling thread's launches on ``stream``: those
+    run in order, so each reuses it after the last has read it."""
+    if not n:
+        return None
+    key = (threading.get_ident(), device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _workspaces[key] = torch.empty(n, dtype=torch.float32,
+                                            device=device)
+    return ws
 
 
 def decode_attention_plain(q, k, v, pos, *, scale=None) -> torch.Tensor:
@@ -85,6 +163,55 @@ def decode_attention_plain(q, k, v, pos, *, scale=None) -> torch.Tensor:
     s = torch.where(ok[:, None, None, :], s, -1e30)
     o = torch.einsum("bngs,bnsd->bngd", torch.softmax(s, dim=-1), vf)
     return o.reshape(b, nh, 1, d).to(q.dtype)
+
+
+def split_partials_plain(q, k, v, pos, split_len: int, *, scale=None,
+                         present=None):
+    """The split kernel's per-split state in float32: the live keys
+    [0, pos] of each row cut into splits of ``split_len`` keys and, for
+    each split, m (b, nkv, g, n_splits) its largest score (-1e30 where
+    the split holds no key), l the sum of exp(s − m) and acc
+    (b, nkv, g, n_splits, d) the sum of exp(s − m)·v.  ``present``
+    (b, S) bool marks the keys that may be read (the paged kernel skips
+    table entries outside the pool).  Splits past pos come out empty."""
+    b, nh, _, d = q.shape
+    _, nkv, S, _ = k.shape
+    _check_q(q, nkv)
+    g = nh // nkv
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    p = _positions(pos, b, q.device)
+    n = -(-S // split_len)
+    pad = n * split_len - S
+    live = torch.arange(S, device=q.device)[None, :] <= p[:, None].long()
+    if present is not None:
+        live = live & present
+    live = torch.nn.functional.pad(live, (0, pad))
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    vf = torch.where(live[:, None, :, None], vf, 0.0)
+    qg = q.reshape(b, nkv, g, d).float() * scale
+    s = torch.einsum("bngd,bnsd->bngs", qg, kf)
+    s = torch.where(live[:, None, None, :], s, -math.inf)
+    s = s.view(b, nkv, g, n, split_len)
+    m = s.amax(-1)
+    e = torch.where(torch.isinf(m)[..., None], 0.0,
+                    torch.exp(s - m[..., None]))
+    acc = torch.einsum("bngcj,bncjd->bngcd", e,
+                       vf.view(b, nkv, n, split_len, d))
+    return torch.where(torch.isinf(m), -1e30, m), e.sum(-1), acc
+
+
+def combine_splits_plain(m, l, acc, dtype) -> torch.Tensor:
+    """The combine of :func:`split_partials_plain`'s state, as the
+    kernel forms it: out = Σ e^(m_i − M)·acc_i / Σ e^(m_i − M)·l_i over
+    a row's splits (an empty split adds nothing), 0 where no split holds
+    a key; (b, nkv·g, 1, d) in ``dtype``."""
+    b, nkv, g, _, d = acc.shape
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    den = (w * l).sum(-1, keepdim=True)
+    num = (w[..., None] * acc).sum(-2)
+    out = torch.where(den > 0, num / den, 0.0)
+    return out.reshape(b, nkv * g, 1, d).to(dtype)
 
 
 def decode_attention(q, k, v, pos, *, scale=None) -> torch.Tensor:
@@ -107,21 +234,23 @@ def decode_attention(q, k, v, pos, *, scale=None) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     code = check_kernel_inputs(q, k, v)
-    g = nh // nkv
-    if g not in KERNEL_GROUPS:
-        raise ValueError(f"the kernel takes query groups {KERNEL_GROUPS}, "
-                         f"got {g}")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     p = _positions(pos, b, q.device)
     out = torch.empty_like(q)
+    dev = q.device.index
+    width, rows, split_len, n_ws = kernel_launch(b, nh, nkv, d, S, 1,
+                                                 sm_count(dev))
+    stream = current_stream(dev)
+    ws = workspace(q.device, stream, n_ws)
     _build.check(_build.kernel_library().strom_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-        out.data_ptr(), b, nkv, g, S, d, code, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream, q.device.index),
-        "decode_attention")
+        out.data_ptr(), 0 if ws is None else ws.data_ptr(), b, nkv,
+        nh // nkv, S, d, width, rows, split_len, code, float(scale),
+        stream, dev), "decode_attention")
     decode_attention.launches += 1
     return out
 
 
-#: launches of the decode-attention kernel
+#: launches of the decode-attention kernel (one a call: its split kernel
+#: and, where a row may hold more than one split, the combine)
 decode_attention.launches = 0

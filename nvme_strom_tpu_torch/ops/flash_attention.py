@@ -181,8 +181,6 @@ def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, scale)
     code = _kernel_dtype(q, k, v)
-    if not scale > 0:  # the kernel's running max is over unscaled scores
-        raise ValueError(f"the kernel takes a positive scale, got {scale}")
     out = _bhsd_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _build.check(_build.kernel_library().strom_flash_fwd(

@@ -4,9 +4,12 @@ of nvme_strom_tpu/ops/paged_attention.py).
 ``paged_attention`` launches the hand-written CUDA kernel
 (csrc/paged_attention.cu, replacing the TPU kernel ``_paged_kernel``)
 for CUDA tensors and runs ``paged_attention_plain`` for CPU tensors.
-The kernel reads each row's block-table entries itself and stops at the
-row's live length, so padding entries are never read; bound and layout
-as in ops/decode_attention.py.
+The kernel splits each row's keys into pieces of whole pool blocks,
+loads each split's block-table entries itself, and skips the splits past
+the row's live length, so padding entries are never read; bound, layout
+and the shapes it takes as in ops/decode_attention.py.
+``paged_split_partials_plain`` is its split written in torch, for the
+tests.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import torch
 
 from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.ops.decode_attention import (
-    KERNEL_GROUPS, _check_q, _positions, check_kernel_inputs,
-    decode_attention_plain)
+    _check_q, _positions, check_kernel_inputs, current_stream,
+    decode_attention_plain, kernel_launch, sm_count, split_partials_plain,
+    workspace)
 
 
 def _check(q, k_pool, v_pool, table) -> None:
@@ -52,6 +56,26 @@ def paged_attention_plain(q, k_pool, v_pool, table, pos, *, scale=None
                                   scale=scale)
 
 
+def paged_split_partials_plain(q, k_pool, v_pool, table, pos,
+                               split_len: int, *, scale=None):
+    """:func:`split_partials_plain` over each row's gathered blocks, the
+    keys of a table entry outside the pool skipped as the kernel skips
+    them."""
+    _check(q, k_pool, v_pool, table)
+    b, nb = table.shape
+    n_pool, nkv, bk, d = k_pool.shape
+    idx = table.long()
+    inside = (idx >= 0) & (idx < n_pool)
+
+    def gather(pool):
+        return (pool[idx.clamp(0, n_pool - 1)].permute(0, 2, 1, 3, 4)
+                .reshape(b, nkv, nb * bk, d))
+
+    return split_partials_plain(
+        q, gather(k_pool), gather(v_pool), pos, split_len, scale=scale,
+        present=inside.repeat_interleave(bk, dim=1))
+
+
 def paged_attention(q, k_pool, v_pool, table, pos, *, scale=None
                     ) -> torch.Tensor:
     """q (b, n_heads, 1, d) attends to its block-table history.
@@ -72,22 +96,25 @@ def paged_attention(q, k_pool, v_pool, table, pos, *, scale=None
                          f"{q.device}")
     b, nh, _, d = q.shape
     n_pool, nkv, block_k, _ = k_pool.shape
-    g = nh // nkv
-    if g not in KERNEL_GROUPS:
-        raise ValueError(f"the kernel takes query groups {KERNEL_GROUPS}, "
-                         f"got {g}")
+    max_blocks = table.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     p = _positions(pos, b, q.device)
     out = torch.empty_like(q)
+    dev = q.device.index
+    width, rows, split_len, n_ws = kernel_launch(
+        b, nh, nkv, d, max_blocks * block_k, block_k, sm_count(dev))
+    stream = current_stream(dev)
+    ws = workspace(q.device, stream, n_ws)
     _build.check(_build.kernel_library().strom_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), p.data_ptr(), out.data_ptr(), b, nkv, g, n_pool,
-        block_k, table.shape[1], d, code, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream, q.device.index),
-        "paged_attention")
+        table.data_ptr(), p.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), b, nkv, nh // nkv, n_pool,
+        block_k, max_blocks, d, width, rows, split_len, code, float(scale),
+        stream, dev), "paged_attention")
     paged_attention.launches += 1
     return out
 
 
-#: launches of the paged-attention kernel
+#: launches of the paged-attention kernel (one a call, as for
+#: decode_attention)
 paged_attention.launches = 0

@@ -121,55 +121,126 @@ def test_h2d_copy_of_nothing_launches_nothing(dev):
     assert h2d_copy.launches == before
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL),
-                                       (torch.float32, F32_TOL)])
-@pytest.mark.parametrize("nh,nkv,d", [(8, 8, 64), (32, 8, 128), (4, 2, 64)])
-def test_attention_kernels_match_plain(dev, dtype, tol, nh, nkv, d):
+def _nan_cache(dev, dtype, b, nh, nkv, S, d, pos, seed):
+    """q, k, v with NaN past each row's position."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, nh, 1, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, nkv, S, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, nkv, S, d, generator=g, device=dev).to(dtype)
+    for i, p in enumerate(pos):
+        k[i, :, p + 1:] = float("nan")
+        v[i, :, p + 1:] = float("nan")
+    return q, k, v
+
+
+def _pool_of(k, v, bk):
+    """The cache cut into pool blocks of ``bk`` keys, one NaN block last;
+    the table names each row's blocks, in order."""
+    b, nkv, S, d = k.shape
+    nb = -(-S // bk)
+    kp = torch.full((b * nb + 1, nkv, bk, d), float("nan"), dtype=k.dtype,
+                    device=k.device)
+    vp = kp.clone()
+    for pool, t in ((kp, k), (vp, v)):
+        pad = torch.nn.functional.pad(t, (0, 0, 0, nb * bk - S))
+        pool[:-1] = pad.view(b, nkv, nb, bk, d).transpose(1, 2).reshape(
+            -1, nkv, bk, d)
+    table = torch.arange(b * nb, dtype=torch.int32,
+                         device=k.device).view(b, nb).clone()
+    return kp, vp, table
+
+
+def _check_attention(q, k, v, pos, tol, bk=64):
+    """decode_attention and paged_attention (the same cache in pool
+    blocks, padding entries on a NaN block) against their plain versions
+    and each other; returns both outputs."""
     from nvme_strom_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain)
     from nvme_strom_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain)
-    g = torch.Generator(device=dev).manual_seed(0)
-    b, S, bk = 3, 300, 64
-    pos = torch.tensor([0, 150, 299], dtype=torch.int32, device=dev)
-    q = torch.randn(b, nh, 1, d, generator=g, device=dev).to(dtype)
-    k = torch.randn(b, nkv, S, d, generator=g, device=dev).to(dtype)
-    v = torch.randn(b, nkv, S, d, generator=g, device=dev).to(dtype)
-    for i, p in enumerate(pos.tolist()):
-        k[i, :, p + 1:] = float("nan")
-        v[i, :, p + 1:] = float("nan")
     got = decode_attention(q, k, v, pos)
     torch.testing.assert_close(got.float(),
                                decode_attention_plain(q, k, v, pos).float(),
                                rtol=tol[0], atol=tol[1])
-    # the same cache in pool blocks, padding entries on a NaN block
-    nb = -(-S // bk)
-    kp = torch.full((b * nb + 1, nkv, bk, d), float("nan"), dtype=dtype,
-                    device=dev)
-    vp = kp.clone()
-    kpad = torch.nn.functional.pad(k, (0, 0, 0, nb * bk - S))
-    vpad = torch.nn.functional.pad(v, (0, 0, 0, nb * bk - S))
-    kp[:-1] = kpad.view(b, nkv, nb, bk, d).transpose(1, 2).reshape(
-        -1, nkv, bk, d)
-    vp[:-1] = vpad.view(b, nkv, nb, bk, d).transpose(1, 2).reshape(
-        -1, nkv, bk, d)
-    table = torch.arange(b * nb, dtype=torch.int32,
-                         device=dev).view(b, nb).clone()
-    table[0, 1:] = b * nb                        # row 0 lives in block 0
+    kp, vp, table = _pool_of(k, v, bk)
+    for i, p in enumerate(pos.tolist()):
+        table[i, max(p, 0) // bk + 1:] = kp.shape[0] - 1
     out = paged_attention(q, kp, vp, table, pos)
     torch.testing.assert_close(out.float(), got.float(), rtol=tol[0],
                                atol=tol[1])
     torch.testing.assert_close(
         out.float(), paged_attention_plain(q, kp, vp, table, pos).float(),
         rtol=tol[0], atol=tol[1])
+    return got, out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL),
+                                       (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("nh,nkv,d", [
+    (8, 8, 64), (32, 8, 128), (4, 2, 64),
+    # GQA groups and head dims past the powers of two: a group of 7 (two
+    # chunks of 4 rows, one masked), of 16 (four chunks), d 96 and 40 on
+    # wider builds
+    (7, 1, 96), (28, 4, 128), (16, 1, 256), (4, 4, 40)])
+def test_attention_kernels_match_plain(dev, dtype, tol, nh, nkv, d):
+    pos = torch.tensor([0, 150, 299], dtype=torch.int32, device=dev)
+    q, k, v = _nan_cache(dev, dtype, 3, nh, nkv, 300, d, pos.tolist(), 0)
+    _check_attention(q, k, v, pos, tol)
+
+
+@pytest.mark.parametrize("S,bk", [
+    # splits of 256 keys, paged cut to 192 (2 blocks of 96) and to 240
+    # (5 blocks of 48); at 4100 keys 512 a split, where the grid at 512
+    # still fills the card
+    (600, 64), (600, 96), (600, 48), (4100, 128)])
+@pytest.mark.parametrize("nh,nkv,d", [(8, 8, 64), (28, 4, 128),
+                                      (16, 1, 256), (7, 1, 96)])
+def test_attention_kernels_at_split_edges(dev, S, bk, nh, nkv, d):
+    """Positions one before, at and one past the first split edge and at
+    the second, of both kernels' splits as the wrappers pick them; a row
+    with pos < 0 gives 0."""
+    from nvme_strom_tpu_torch.ops.decode_attention import (kernel_launch,
+                                                           sm_count)
+    b = 8
+    sms = sm_count(dev.index)
+    Ld = kernel_launch(b, nh, nkv, d, S, 1, sms)[2]
+    Lp = kernel_launch(b, nh, nkv, d, -(-S // bk) * bk, bk, sms)[2]
+    pos = torch.tensor([Ld - 1, Ld, Ld + 1, 2 * Ld, Lp - 1, Lp, Lp + 1, -1],
+                       dtype=torch.int32, device=dev)
+    q, k, v = _nan_cache(dev, torch.bfloat16, b, nh, nkv, S, d,
+                         pos.tolist(), Ld + bk)
+    got, out = _check_attention(q, k, v, pos, BF16_TOL, bk=bk)
+    assert (got[-1] == 0).all() and (out[-1] == 0).all()
+
+
+@pytest.mark.parametrize("nh,nkv,d", [(8, 8, 64), (28, 4, 128)])
+def test_attention_kernels_are_bitwise_repeatable(dev, nh, nkv, d):
+    """No floating-point atomics: two calls give the same bits, on rows
+    of one split and of many."""
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+    pos = torch.tensor([3, 700, 2047, 1500], dtype=torch.int32, device=dev)
+    q, k, v = _nan_cache(dev, torch.bfloat16, 4, nh, nkv, 2048, d,
+                         pos.tolist(), 1)
+    kp, vp, table = _pool_of(k, v, 128)
+    for fn, args in ((decode_attention, (q, k, v, pos)),
+                     (paged_attention, (q, kp, vp, table, pos))):
+        assert torch.equal(fn(*args), fn(*args))
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(dev):
+    """Any head_dim that is a multiple of 8 up to 256 runs (16 on the
+    64-wide build); 20 and 264 raise, and so does fp16."""
     from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
-    q = torch.zeros(2, 4, 1, 16, device=dev)
-    k = torch.zeros(2, 2, 8, 16, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
-        decode_attention(q, k, k, 3)
+    pos = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+    q, k, v = _nan_cache(dev, torch.float32, 2, 4, 2, 8, 16, pos.tolist(),
+                         2)
+    _check_attention(q, k, v, pos, F32_TOL, bk=4)
+    for d in (20, 264):
+        q = torch.zeros(2, 4, 1, d, device=dev)
+        k = torch.zeros(2, 2, 8, d, device=dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_attention(q, k, k, 3)
     q = torch.zeros(2, 4, 1, 64, device=dev, dtype=torch.float16)
     k = torch.zeros(2, 2, 8, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="takes"):
@@ -444,8 +515,31 @@ def test_flash_wrappers_reject_what_they_do_not_take(dev):
         fa.flash_fwd(x, x.cpu(), x)
     with pytest.raises(ValueError, match="equal q/kv"):
         fa.flash_fwd(x, x[:, :, :32], x[:, :, :32])
-    with pytest.raises(ValueError, match="positive scale"):
-        fa.flash_fwd(x, x, x, scale=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_take_any_scale(dev, dtype, scale, causal):
+    """A negative scale and scale 0 (the uniform softmax over the
+    unmasked keys): the forward and, through torch.autograd, the
+    backward kernels against the plain versions."""
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    tol = FLASH_BF16 if dtype == torch.bfloat16 else FLASH_F32
+    s, skv = (200, 200) if causal else (130, 300)
+    q, k, v, do = _flash_inputs(dev, 2, 2, s, skv, 64, dtype, 11, True)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+    _flash_close(out, out_p, tol)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention(qs, ks, vs, causal=causal, scale=scale).backward(do)
+    delta = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, causal, scale)
+    _flash_close(qs.grad, fa.flash_bwd_dq_plain(*args), tol)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(*args)
+    _flash_close(ks.grad, dk_p, tol)
+    _flash_close(vs.grad, dv_p, tol)
 
 
 def test_trainer_fits_two_steps_with_flash_kernels(dev, tmp_path):

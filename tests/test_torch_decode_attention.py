@@ -14,7 +14,8 @@ import torch
 
 from nvme_strom_tpu.ops.decode_attention import decode_attention as jax_da
 from nvme_strom_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_plain)
+    combine_splits_plain, decode_attention, decode_attention_plain,
+    kernel_launch, kernel_shape, split_partials_plain, workspace)
 
 TOL = 1e-5
 
@@ -42,6 +43,9 @@ CASES = [
     ("vector pos", 3, 4, 2, 50, 16, [0, 17, 49], 512, False),
     ("vector pos NaN tail", 3, 4, 2, 50, 16, [3, 17, 40], 16, True),
     ("scalar pos NaN tail", 2, 8, 2, 107, 16, 40, 32, True),
+    # GQA groups and head dims past the powers of two
+    ("gqa 7 d 40 NaN tail", 3, 14, 2, 70, 40, [0, 33, 69], 16, True),
+    ("gqa 16 d 24", 2, 32, 2, 50, 24, [17, 49], 512, False),
 ]
 
 
@@ -63,6 +67,94 @@ def test_plain_matches_jax_kernel(label, b, nh, nkv, S, d, pos, block_k,
                                  torch.from_numpy(v), tpos)
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+SPLIT_CASES = [
+    # (label, b, nh, nkv, S, d, pos, split_len)
+    ("pos at split edges", 4, 4, 2, 64, 16, [15, 16, 17, 31], 16),
+    ("empty splits past pos", 3, 8, 2, 100, 16, [0, 3, 40], 16),
+    ("one split holds the row", 2, 4, 4, 30, 8, [29, 7], 32),
+    ("pos < 0 and a split of one key", 3, 14, 2, 33, 40, [-1, 32, 8], 8),
+    ("gqa 16, split of one key", 2, 16, 1, 9, 24, [8, 4], 1),
+]
+
+
+@pytest.mark.parametrize("label,b,nh,nkv,S,d,pos,split_len", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+def test_split_and_combine_match_plain(label, b, nh, nkv, S, d, pos,
+                                       split_len):
+    """The kernel's split-and-combine, written in torch, against the
+    one-softmax plain version: splits past pos are empty, a row whose pos
+    sits on a split edge fills its last split exactly or starts a new one
+    with one key, and pos < 0 gives 0.  NaN past pos must not reach the
+    output."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(
+        b, nh, nkv, S, d, seed=len(label), nan_after=pos))
+    tpos = torch.tensor(pos, dtype=torch.int32)
+    m, l, acc = split_partials_plain(q, k, v, tpos, split_len)
+    n = -(-S // split_len)
+    assert m.shape == (b, nkv, nh // nkv, n) and acc.shape[-2:] == (n, d)
+    for row, p in enumerate(pos):
+        empty = slice(p // split_len + 1 if p >= 0 else 0, None)
+        assert (m[row, ..., empty] == -1e30).all()
+        assert (l[row, ..., empty] == 0).all()
+        assert (acc[row, :, :, empty] == 0).all()
+    got = combine_splits_plain(m, l, acc, q.dtype)
+    want = decode_attention_plain(q, k, v, tpos)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL,
+                               rtol=TOL)
+    assert (got[[i for i, p in enumerate(pos) if p < 0]] == 0).all()
+
+
+@pytest.mark.parametrize("d,g,want", [
+    (64, 1, (64, 1)), (40, 7, (64, 4)), (96, 3, (128, 4)),
+    (128, 16, (128, 4)), (256, 2, (256, 2)), (8, 12, (64, 4))])
+def test_kernel_shape(d, g, want):
+    """The built head width (64, 128 or 256) at or above d, and the query
+    rows a block holds (a power of 2 up to 4)."""
+    assert kernel_shape(d, g) == want
+
+
+@pytest.mark.parametrize("b,nh,nkv,S,d,block_k,sms,want", [
+    # the flagship's 2k cache: 256 (the grid at 512 would not fill an
+    # H100's 132 SMs twice); 8k of a group of 7 and 16k of a group of 4:
+    # 512; the flagship on a card of 16 SMs: 512
+    (8, 8, 8, 2048, 64, 1, 132, 256),
+    (4, 28, 4, 8192, 128, 1, 132, 512),
+    (4, 32, 8, 16384, 128, 1, 132, 512),
+    (8, 8, 8, 2048, 64, 1, 16, 512),
+    # cut to whole pool blocks; a split inside a longer block is not
+    (8, 8, 8, 2048, 64, 96, 132, 192),
+    (8, 8, 8, 2048, 64, 384, 132, 256),
+    # one split a row: no workspace
+    (2, 4, 2, 200, 16, 1, 132, 256),
+])
+def test_kernel_launch_plan(b, nh, nkv, S, d, block_k, sms, want):
+    """Keys a split holds and the workspace: every split's acc (rows,
+    width), m and l in float32, none where a row has one split."""
+    width, rows, got, ws = kernel_launch(b, nh, nkv, d, S, block_k, sms)
+    assert got == want
+    assert (width, rows) == kernel_shape(d, nh // nkv)
+    n_splits = -(-S // got)
+    cells = b * nkv * -(-(nh // nkv) // rows)
+    assert ws == (cells * n_splits * rows * (width + 2)
+                  if n_splits > 1 else 0)
+
+
+def test_workspace_is_kept_per_stream_and_grows():
+    """One float32 workspace for each stream a thread launches on, reused
+    while it is large enough; none where the launch needs none."""
+    dev = torch.device("cpu")
+    assert workspace(dev, 11, 0) is None
+    ws = workspace(dev, 11, 100)
+    assert ws.dtype == torch.float32 and ws.numel() == 100
+    assert workspace(dev, 11, 60) is ws
+    other = workspace(dev, 12, 60)
+    assert other is not ws
+    grown = workspace(dev, 11, 101)
+    assert grown.numel() == 101 and workspace(dev, 11, 100) is grown
+    assert workspace(dev, 12, 60) is other
 
 
 def test_wrapper_on_cpu_runs_plain_and_launches_nothing():

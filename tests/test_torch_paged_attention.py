@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from nvme_strom_tpu.ops.paged_attention import paged_attention as jax_pa
+from nvme_strom_tpu_torch.ops.decode_attention import (
+    combine_splits_plain, decode_attention_plain)
 from nvme_strom_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain)
+    paged_attention, paged_attention_plain, paged_split_partials_plain)
 
 TOL = 1e-5
 
@@ -54,6 +56,53 @@ def test_plain_matches_jax_kernel(name):
                                   (q, kp, vp, table, pos)))
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("split_len", [8, 16])
+def test_split_and_combine_match_plain(name, split_len):
+    """The paged kernel's split-and-combine, written in torch, against
+    the plain paged version: splits of whole blocks (8 and 16 keys over
+    blocks of 8 and 4), NaN padding blocks past pos never reached."""
+    c = CASES[name]
+    args = [torch.from_numpy(a) for a in _case(**c, seed=len(name))]
+    got = combine_splits_plain(
+        *paged_split_partials_plain(*args, split_len), torch.float32)
+    np.testing.assert_allclose(got.numpy(),
+                               paged_attention_plain(*args).numpy(),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("split_len", [4, 8, 12])
+def test_split_whose_every_key_is_skipped(split_len):
+    """Table entries outside the pool (-1, n_pool) are skipped, keys and
+    all: a split made only of them adds nothing, and the output equals
+    the dense decode over the keys that remain."""
+    rng = np.random.default_rng(split_len)
+    b, nh, nkv, d, bk, n_pool = 2, 14, 2, 16, 4, 6
+    kp = torch.from_numpy(rng.standard_normal((n_pool, nkv, bk, d),
+                                              np.float32))
+    vp = torch.from_numpy(rng.standard_normal((n_pool, nkv, bk, d),
+                                              np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, nh, 1, d), np.float32))
+    # row 0: blocks 2 and 3 (keys 8..15) outside the pool; row 1: all
+    # of its keys outside
+    table = torch.tensor([[0, 1, -1, n_pool, 2, 3], [-1, 9, 0, 0, 0, 0]],
+                         dtype=torch.int32)
+    pos = torch.tensor([21, 7], dtype=torch.int32)
+    m, l, acc = paged_split_partials_plain(q, kp, vp, table, pos,
+                                           split_len)
+    if split_len <= 8:   # one split lies wholly on row 0's skipped blocks
+        assert (m[0, ..., 8 // split_len] == -1e30).all()
+        assert (l[0, ..., 8 // split_len] == 0).all()
+    got = combine_splits_plain(m, l, acc, torch.float32)
+    keep = [0, 1, 2, 3]          # row 0's blocks in the pool, in order
+    k = kp[keep].permute(1, 0, 2, 3).reshape(1, nkv, 4 * bk, d)
+    v = vp[keep].permute(1, 0, 2, 3).reshape(1, nkv, 4 * bk, d)
+    want = decode_attention_plain(q[:1], k, v, 21 - 2 * bk)
+    np.testing.assert_allclose(got[:1].numpy(), want.numpy(), atol=TOL,
+                               rtol=TOL)
+    assert (got[1] == 0).all()
 
 
 def test_paged_equals_dense_on_the_gathered_cache():

@@ -166,3 +166,27 @@ def test_submit_validation(setup):
     with pytest.raises(ValueError, match="is on meta"):
         DecodeServer({k: v.to("meta") for k, v in pt.items()}, cfg_t, 1,
                      16, device="cpu")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_gqa_group_of_7_matches_jax_server(paged):
+    """A Qwen2-style GQA group of 7 (14 query heads over 2 kv heads,
+    head_dim 8): the port's servers give the JAX server's greedy
+    tokens."""
+    cfg_j = jtr.TransformerConfig(**{**jtr.tiny_config().__dict__,
+                                     "d_model": 112, "n_heads": 14,
+                                     "n_kv_heads": 2,
+                                     "dtype": jnp.float32})
+    cfg_t = dataclasses.replace(ttr.tiny_config(), d_model=112, n_heads=14,
+                                n_kv_heads=2, dtype=torch.float32)
+    pj = jtr.init_params(jax.random.key(3), cfg_j)
+    pt = params_from_jax({k: np.asarray(v) for k, v in pj.items()}, cfg_t,
+                         "cpu")
+    reqs = _requests(cfg_t, 7, [6, 11, 4], [9, 5, 8])
+    want = _drive(JaxServer(pj, cfg_j, max_batch=2, max_len=64), reqs[:2],
+                  reqs[2:])
+    srv = (PagedDecodeServer(pt, cfg_t, max_batch=2, max_len=64,
+                             total_blocks=12, block_len=8, device="cpu")
+           if paged else
+           DecodeServer(pt, cfg_t, max_batch=2, max_len=64, device="cpu"))
+    assert _drive(srv, reqs[:2], reqs[2:]) == want
