@@ -20,7 +20,9 @@ It builds the port's native libraries from the checkout, then:
    a split edge, two calls bitwise equal, and timed back to back and by
    device time (``device_ms``) at the flagship shape, at a 16k-context
    GQA shape (``LONG_GQA``) and against SDPA over ``max_len`` (the
-   crossover), and their wrappers' host time a call (``host_us``);
+   crossover), and their wrappers' host time a call (``host_us``); their
+   any-width path (head dims 100 and 576) is checked in bf16 and f32
+   and timed at the flagship shape (``any_width``);
 3. main path — streams a 2 GiB file of seeded random bytes through
    ``DeviceStream`` onto the card, on both of its paths (copies from the
    staging buffers in place, and through the overlap stage), and checks
@@ -43,8 +45,10 @@ It builds the port's native libraries from the checkout, then:
    kernels against the same step through their plain versions;
 8. holds the ring all-gather (kernel 7) against its plain version on 4
    ranks of the card at the row width of phase 9's restore (and on a
-   small ragged width), three calls in a row; on a machine with two or
-   more cards also across two cards against ``torch.cuda.nccl``;
+   small ragged width), three calls in a row, and times it back to back,
+   on the device alone (torch.profiler) and by the difference, the
+   wrapper's host time a call; on a machine with two or four cards also
+   across them against ``torch.cuda.nccl``;
 9. read-once restore path — restores the newest training checkpoint of
    phase 6 with the read-all path, then with ``STROM_ICI_SCATTER=1``
    over an exchange group of 4 ranks on the card (each rank reads a
@@ -60,8 +64,10 @@ It builds the port's native libraries from the checkout, then:
    tensor-core kernels, ``fma`` for the fp32 FMA ones); the attention
    kernels' entries add ``device_ms`` and ``library_device_ms`` (the
    device time of ``ms`` and ``library_ms``, the calls queued ahead),
-   ``host_us``, ``split_len``, ``long_gqa`` and (decode) ``long_gqa8``
-   and ``crossover``.
+   ``host_us``, ``split_len``, ``long_gqa``, ``any_width`` and (decode)
+   ``long_gqa8`` and ``crossover``; the ring's entry adds ``device_ms``,
+   ``host_us``, ``design`` and, on two or four cards, ``two_cards`` and
+   ``four_cards``.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
@@ -408,9 +414,9 @@ def _wide_cases(L, with_S):
 
 def check_decode(dev, results):
     import torch
+    from nvme_strom_tpu_torch.device import sm_count
     from nvme_strom_tpu_torch.ops.decode_attention import (
-        SPLIT_LEN, decode_attention, decode_attention_plain, kernel_launch,
-        sm_count)
+        SPLIT_LEN, decode_attention, decode_attention_plain, kernel_launch)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flagship_pos = [0, 1, 511, 2047] * 2
     cases = [  # (label, b, nh, nkv, S, d, dtype, pos, tol)
@@ -468,14 +474,60 @@ def check_decode(dev, results):
     results["decode_attention"]["long_gqa8"] = decode_long(dev, gen,
                                                            LONG_GQA8)
     results["decode_attention"]["crossover"] = decode_crossover(dev, gen)
+    results["decode_attention"]["any_width"] = any_width(
+        "decode_attention", decode_attention, decode_attention_plain,
+        lambda d, dt, nan: (*_attn_inputs(b, nh, nkv, S, d, dt,
+                                          flagship_pos, dev, gen, nan),
+                            pos_t),
+        flagship_pos, nh, nkv, 0)
+
+
+#: head dims of the any-width path (not a multiple of 8, or above 256)
+#: checked and timed at the flagship serving shape: ragged and wide
+ANY_WIDTH_D = (100, 576)
+
+
+def any_width(name, kernel, plain, make, pos, nh, nkv, table_bytes):
+    """``kernel`` against ``plain`` at each of ANY_WIDTH_D in bf16 and
+    f32 (NaN past each position, two calls bitwise equal), then its
+    time in bf16, back to back and on the device, with its bound.
+    ``make(d, dtype, nan)`` gives the inputs (the last is the positions,
+    on the card); ``table_bytes`` the block-table bytes the bound counts."""
+    import torch
+    rows = []
+    for d in ANY_WIDTH_D:
+        worst = 0.0
+        for dt, tol in ((torch.bfloat16, BF16_TOL),
+                        (torch.float32, F32_TOL)):
+            args = make(d, dt, True)
+            err = _compare(f"{name} d {d} {str(dt)[6:]}", kernel(*args),
+                           plain(*args), tol)
+            _repeatable(f"{name} d {d}", kernel, args)
+            worst = max(worst, err) if dt == torch.bfloat16 else worst
+            del args
+        sets = _rotating(lambda: make(d, torch.bfloat16, False),
+                         2 * len(pos) * nkv * (max(pos) + 1) * d * 2)
+        kern = Rotor(kernel, sets)
+        bound_ms, _ = _attn_bound(pos, nh, nkv, d, 2, table_bytes)
+        row = {"d": d, "max_abs_err": worst, "ms": time_ms(kern, 50),
+               "device_ms": device_ms(kern, 50), "bound_ms": bound_ms}
+        del sets, kern
+        rows.append(row)
+        log(f"{name} any-width path at d {d} (flagship shape otherwise): "
+            f"max |kernel - plain| {worst:.3g} in bf16, f32 within "
+            f"{F32_TOL}; {row['ms']:.4f} ms back to back, "
+            f"{row['device_ms']:.4f} ms on the device, bound "
+            f"{bound_ms:.5f} ms")
+    return rows
 
 
 def decode_long(dev, gen, shape):
     """Kernel, plain version and SDPA at a long ``shape`` (b, nh, nkv, d,
     S), two caches (537 MB) in rotation."""
     import torch
+    from nvme_strom_tpu_torch.device import sm_count
     from nvme_strom_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain, kernel_launch, sm_count)
+        decode_attention, decode_attention_plain, kernel_launch)
     b, nh, nkv, d, S = shape
     pos = [S - 1] * b
     sets = [_attn_inputs(b, nh, nkv, S, d, torch.bfloat16, pos, dev, gen,
@@ -569,8 +621,9 @@ def _gathered_sdpa(q, kp, vp, table, mask=None):
 
 def check_paged(dev, results):
     import torch
-    from nvme_strom_tpu_torch.ops.decode_attention import (
-        SPLIT_LEN, kernel_launch, sm_count)
+    from nvme_strom_tpu_torch.device import sm_count
+    from nvme_strom_tpu_torch.ops.decode_attention import (SPLIT_LEN,
+                                                           kernel_launch)
     from nvme_strom_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -626,14 +679,19 @@ def check_paged(dev, results):
         ok=True)
     del sets
     results["paged_attention"]["long_gqa"] = paged_long(dev, gen)
+    results["paged_attention"]["any_width"] = any_width(
+        "paged_attention", paged_attention, paged_attention_plain,
+        lambda d, dt, nan: (*_paged_inputs(b, nh, nkv, bk, max_blocks, d,
+                                           dt, ragged, dev, gen, nan), p),
+        ragged, nh, nkv, 4 * sum(x // bk + 1 for x in ragged))
 
 
 def paged_long(dev, gen):
     """Kernel, plain version and gather + SDPA at LONG_GQA in pool blocks
     of 128 keys, two pools in rotation."""
     import torch
-    from nvme_strom_tpu_torch.ops.decode_attention import (kernel_launch,
-                                                           sm_count)
+    from nvme_strom_tpu_torch.device import sm_count
+    from nvme_strom_tpu_torch.ops.decode_attention import kernel_launch
     from nvme_strom_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain)
     b, nh, nkv, d, S = LONG_GQA
@@ -1553,6 +1611,49 @@ def _primed(devs, width, seed):
     return rows, slots
 
 
+def kernel_device_ms(fn, iters, name):
+    """Mean device milliseconds of a kernel whose name holds ``name``,
+    over the launches torch.profiler records in ``iters`` calls of ``fn``
+    (one a call; the profiler may miss one): the kernel's own time, for
+    calls that wait for their kernels and so cannot be queued ahead of
+    the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and name in e.key]
+    count = sum(e.count for e in hits)
+    if not 0 < count <= iters:
+        raise RuntimeError(f"kernel_device_ms: {count} {name} kernels in "
+                           f"{iters} calls")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count
+
+
+def ring_times(dev, width, n=ICI_RANKS, iters=10):
+    """Kernel 7 on ``n`` ranks of one card with (n, width) slots: ``ms``
+    back to back (CUDA events around ``iters`` calls, each waiting for
+    its kernel as a caller does), ``device_ms`` (the kernel alone, by
+    torch.profiler) and ``host_us`` (the difference a call: the
+    wrapper's own work, through which the card idles).  It calls only
+    the wrapper's public signature, so it times any tree's package that
+    is first on ``sys.path``."""
+    from nvme_strom_tpu_torch.ops.ici import ici_ring_gather
+    from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+    group = exchange_group(devices=[dev] * n)
+    _, slots = _primed([dev] * n, width, SEED + 4)
+
+    def call():
+        ici_ring_gather(slots, group)
+    ms = time_ms(call, iters)
+    dms = kernel_device_ms(call, iters, "ici_ring")
+    return {"ms": ms, "device_ms": dms, "host_us": (ms - dms) * 1e3}
+
+
 def check_ici(dev, results, row_bytes):
     """Kernel 7 against its plain version, bitwise, on ICI_RANKS ranks
     of the card at the restore's row width (padded) and at a ragged
@@ -1596,8 +1697,8 @@ def check_ici(dev, results, row_bytes):
     log(f"ici_ring_gather: {n} ranks on {dev}, width {width} B and ragged "
         f"{ragged} B, 3 calls each, bitwise equal to plain and the rows")
 
+    times = ring_times(dev, width, n)
     _, slots = _primed(devs, width, SEED + 4)
-    ici_ring_gather(slots, group)
 
     def library():
         # the same n*(n-1) slot copies on the copy path, from each row's
@@ -1607,50 +1708,62 @@ def check_ici(dev, results, row_bytes):
                 if src != r:
                     slots[r][src].copy_(slots[src][src])
 
-    ms = time_ms(lambda: ici_ring_gather(slots, group), 10)
     plain_ms = time_ms(lambda: ici_ring_gather_plain(slots), 10)
     library_ms = time_ms(library, 10)
-    # every push reads and writes one slot in HBM
-    bound_ms, bound_by = bound(2 * n * (n - 1) * width, HBM_BYTES_PER_S)
+    # each rank's own row read once and the n - 1 other rows of every
+    # rank's output written once; a ring whose every push reads and
+    # writes HBM moves 2·n·(n - 1) rows (logged, not a result)
+    bound_ms, bound_by = bound(n * n * width, HBM_BYTES_PER_S)
+    log(f"ici_ring_gather: ring-traffic figure (2·n·(n-1) rows over HBM) "
+        f"{bound(2 * n * (n - 1) * width, HBM_BYTES_PER_S)[0]:.4f} ms")
     results["ici_ring_gather"] = dict(
         name="ici_ring_gather", route="cuda",
         source="nvme_strom_tpu_torch/csrc/ici_ring.cu",
         replaces="nvme_strom_tpu/ops/ici.py:159", max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        **times, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bound_by=bound_by,
         shape=f"{n} ranks on one card, {width} B slots", ok=True,
+        design=f"TMA bulk copies of {group.ring.chunk >> 10} KB chunks, "
+        "interleaved over the blocks, each taken round the ring before the "
+        "next, a flag a chunk",
         blocks_per_rank=group.ring.blocks)
     del slots
     torch.cuda.empty_cache()
-    if torch.cuda.device_count() >= 2:
-        results["ici_ring_gather"]["two_cards"] = ici_two_cards(width)
-    else:
-        log("ici_ring_gather across cards: not run (one card)")
+    for cards, key in ((2, "two_cards"), (4, "four_cards")):
+        if torch.cuda.device_count() >= cards:
+            results["ici_ring_gather"][key] = ici_across_cards(width, cards)
+        else:
+            log(f"ici_ring_gather across {cards} cards: not run "
+                f"({torch.cuda.device_count()} card(s))")
 
 
-def ici_two_cards(width):
-    """The ring across cuda:0 and cuda:1 (peer access), against
-    torch.cuda.nccl.all_gather."""
+def ici_across_cards(width, cards):
+    """The ring across cuda:0 .. cuda:cards-1 (peer access, one rank a
+    card), bitwise over three calls, timed against
+    torch.cuda.nccl.all_gather of the same rows."""
     import torch
     import torch.cuda.nccl as nccl
     from nvme_strom_tpu_torch.ops.ici import ici_ring_gather
     from nvme_strom_tpu_torch.parallel.mesh import exchange_group
-    devs = [torch.device("cuda", i) for i in range(2)]
+    devs = [torch.device("cuda", i) for i in range(cards)]
     group = exchange_group(devices=devs)
     rows, slots = _primed(devs, width, SEED + 5)
     for _ in range(3):
         ici_ring_gather(slots, group)
         for s in slots:
             if not torch.equal(s.to(devs[0]), rows):
-                raise AssertionError("two-card ring differs from the rows")
+                raise AssertionError(f"{cards}-card ring differs from the "
+                                     "rows")
     ms = time_ms(lambda: ici_ring_gather(slots, group), 10)
     ins = [rows[r].to(d) for r, d in enumerate(devs)]
-    outs = [torch.empty(2 * width, dtype=torch.uint8, device=d)
+    outs = [torch.empty(cards * width, dtype=torch.uint8, device=d)
             for d in devs]
     nccl_ms = time_ms(lambda: nccl.all_gather(ins, outs), 10)
-    bound_ms = width / 450e9 * 1e3
-    log(f"ici_ring_gather two cards, {width} B rows: kernel {ms:.4f} ms, "
-        f"nccl.all_gather {nccl_ms:.4f} ms, NVLink bound {bound_ms:.4f} ms")
+    # each card sends n - 1 rows to its right neighbour
+    bound_ms = (cards - 1) * width / 450e9 * 1e3
+    log(f"ici_ring_gather {cards} cards, {width} B rows: kernel {ms:.4f} "
+        f"ms, nccl.all_gather {nccl_ms:.4f} ms, NVLink bound "
+        f"{bound_ms:.4f} ms")
     return {"ms": ms, "nccl_ms": nccl_ms, "bound_ms": bound_ms}
 
 
@@ -1865,7 +1978,9 @@ def main() -> int:
                                  ici_unit_bytes())
     check_ici(dev, results, max(man.host_bytes))
     r = results["ici_ring_gather"]
-    log(f"ici_ring_gather ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+    log(f"ici_ring_gather ({r['shape']}; {r['design']}): kernel "
+        f"{r['ms']:.4f} ms back to back, {r['device_ms']:.4f} ms on the "
+        f"device (host {r['host_us']:.1f} us a call), plain "
         f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
 

@@ -190,11 +190,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                 I, I, F, P, I],
         # kernel (0 forward, 1 dQ, 2 dK/dV), dtype
         "strom_flash_route": [I, I],
-        # slots, flags, ranks, n_here, n, slot_bytes, blocks, base,
-        # budget_ns, err, stream, dev
-        "strom_ici_ring": [P, P, P, I, I, U64, I, ctypes.c_uint,
-                           ctypes.c_ulonglong, P, P, I],
-        "strom_ici_ring_capacity": [I, ctypes.POINTER(I)],
+        # slots, flags, ranks (host arrays), n_here, n, remote_right,
+        # slot_bytes, blocks, base, budget_ns, err, err_host, stream, dev
+        "strom_ici_ring": [P, P, P, I, I, U64, U64, I, ctypes.c_uint,
+                           ctypes.c_ulonglong, P, P, P, I],
+        # dev, blocks, chunk (both written)
+        "strom_ici_ring_capacity": [I, ctypes.POINTER(I),
+                                    ctypes.POINTER(ctypes.c_uint)],
+        "strom_stream_synchronize": [P, I],
         "strom_enable_peer_access": [I, I],
     }
     for name, args in sigs.items():

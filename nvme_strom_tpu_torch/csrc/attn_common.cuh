@@ -37,7 +37,9 @@
 //     contributing zero.  D/8 lanes share one key, each holding 8
 //     elements (one 16-byte bf16 load, two for fp32), neighbouring lanes
 //     on neighbouring addresses; the G query rows stay in registers, so
-//     K and V are read once at kv-head width and never expanded;
+//     K and V are read once at kv-head width and never expanded.  Every
+//     other d (not a multiple of 8, whose rows are not 16-byte aligned,
+//     or above 256) takes the any-width path below, `split_attend_any`;
 //   * inside a split, one pass: each lane group (the D/8 lanes of a key)
 //     walks every GROUPS-th key, U keys a trip with their K and V loads
 //     all in flight before any is used (U = unroll(): 8 for one or two
@@ -338,14 +340,251 @@ __device__ __forceinline__ void split_attend(const SplitArgs& a,
   }
 }
 
+// -- the any-width path ---------------------------------------------------
+//
+// Every head_dim the built widths do not take: d not a multiple of 8
+// (rows not 16-byte aligned) or d above 256.  The split and its grid are
+// those of `split_attend`; inside a split, three passes over runtime d:
+//   1. scores: each warp takes every kWarps-th key of the split and walks
+//      the head in pieces of 256 columns (32 lanes of 8), the G query
+//      rows' piece in registers, U keys' loads in flight; lane 0 adds the
+//      piece's dot product into the key's score in shared memory;
+//   2. softmax: warp g turns row g's scores into weights e^(s − m) and
+//      sums them (m, l);
+//   3. P·V: as 1, each warp its keys over the head's pieces, U V rows
+//      in flight; the 4 warps' sums meet in shared memory in warp order.
+// K and V are read once; registers do not grow with d.  Loads are 16
+// bytes where d is a multiple of 8, else one column (`Cols8`); columns
+// past d are zero.  Correct for every d >= 1; not tuned (PERF.md has its
+// times).
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Columns c..c+7 of a row of d elements at p, as floats; past d zero.
+// ALIGNED (d a multiple of 8: a lane's columns are one 16-byte-aligned
+// run) loads as `Vec8` does, otherwise column by column: loads of 4
+// columns where d is a multiple of 4 ran slower at d 100 (PERF.md).
+template <typename T, bool ALIGNED>
+struct Cols8;
+
+template <typename T>
+struct Cols8<T, true> {
+  Vec8<T> x;
+  __device__ __forceinline__ void load(const T* p, int c, int d) {
+    if (c < d) x.load(p + c); else x.zero();
+  }
+  __device__ __forceinline__ void zero() { x.zero(); }
+  __device__ __forceinline__ void get(float (&o)[8]) const { x.get(o); }
+};
+
+template <typename T>
+struct Cols8<T, false> {
+  float f[8];
+  __device__ __forceinline__ void load(const T* p, int c, int d) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      f[e] = c + e < d ? to_float(__ldg(p + c + e)) : 0.f;
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = 0.f;
+  }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = f[e];
+  }
+};
+
+// true where the built widths take head_dim d (split_attend), false
+// where the any-width path does
+__host__ __device__ constexpr bool built_width(int d) {
+  return d % 8 == 0 && d <= 256;
+}
+
+// One block of the any-width path, as `split_attend`; the workspace's
+// acc rows are W floats apart (the wrapper's width, >= d).
+template <typename T, int G, bool ALIGNED, typename Rows>
+__device__ __forceinline__ void split_attend_any(const SplitArgs& a,
+                                                 Rows& rows, int W) {
+  static_assert(G <= kWarps, "one warp a query row in the softmax");
+  constexpr int kPiece = 32 * 8;  // columns a warp covers a pass
+  constexpr int U = 4;            // rows of a thread in flight
+  __shared__ float sm_p[kMaxSplit][G];  // scores, then weights
+  __shared__ const T* sm_k[kMaxSplit];  // key rows, null where skipped
+  __shared__ const T* sm_v[kMaxSplit];
+  __shared__ float sm_o[kWarps][G][kPiece];  // the warps' P·V sums
+  __shared__ float sm_m[G], sm_l[G];
+
+  const int chunks = (a.g + G - 1) / G;
+  const int split = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const int bh = blockIdx.y;
+  int last;
+  const int n_live = live_splits(a, bh / a.nkv, last);
+  const int g0 = chunk * G;
+  const int here = min(G, a.g - g0);
+  T* out = static_cast<T*>(a.out) + ((size_t)bh * a.g + g0) * a.d;
+  if (n_live == 0) {
+    if (split == 0)
+      for (int i = threadIdx.x; i < here * a.d; i += kThreads)
+        store(out + i, 0.f);
+    return;
+  }
+  if (split >= n_live) return;
+  const int k0 = split * a.split_len;
+  const int n = min(a.split_len, last + 1 - k0);
+  rows.prepare(k0, k0 + n);
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const T* kp = nullptr;
+    const T* vp = nullptr;
+    const bool ok = rows(k0 + j, kp, vp);
+    sm_k[j] = ok ? kp : nullptr;
+    sm_v[j] = ok ? vp : nullptr;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const T* qp =
+      static_cast<const T*>(a.q) + ((size_t)bh * a.g + g0) * a.d;
+  // 1. scores
+  for (int c0 = 0; c0 < a.d; c0 += kPiece) {
+    const int c = c0 + lane * 8;
+    float q[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      Cols8<T, ALIGNED> x;
+      if (g < here) x.load(qp + (size_t)g * a.d, c, a.d); else x.zero();
+      x.get(q[g]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q[g][e] *= a.scale;
+    }
+    for (int j0 = warp; j0 < n; j0 += kWarps * U) {
+      Cols8<T, ALIGNED> kr[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * kWarps;
+        const T* kp = j < n ? sm_k[j] : nullptr;
+        if (kp) kr[u].load(kp, c, a.d); else kr[u].zero();
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * kWarps;
+        float kf[8];
+        kr[u].get(kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dot = fmaf(q[g][e], kf[e], dot);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          if (lane == 0 && j < n)
+            sm_p[j][g] = c0 == 0 ? dot : sm_p[j][g] + dot;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // 2. softmax: weights, their max and sum
+  if (warp < G) {
+    const int g = warp;
+    float mx = -INFINITY;
+    if (g < here)
+      for (int j = lane; j < n; j += 32)
+        if (sm_k[j]) mx = fmaxf(mx, sm_p[j][g]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float l = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float w =
+          mx != -INFINITY && sm_k[j] ? expf(sm_p[j][g] - mx) : 0.f;
+      sm_p[j][g] = w;
+      l += w;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      sm_m[g] = mx == -INFINITY ? kNegInf : mx;
+      sm_l[g] = l;
+    }
+  }
+  __syncthreads();
+  // 3. P·V: each warp sums its keys' weighted V rows over the piece's
+  // columns, as in 1; the warps' sums then meet in shared memory, in
+  // warp order
+  const size_t cell = ((size_t)bh * chunks + chunk) * a.n_splits + split;
+  const size_t cells = (size_t)gridDim.y * chunks * a.n_splits;
+  for (int c0 = 0; c0 < a.d; c0 += kPiece) {
+    const int c = c0 + lane * 8;
+    float acc[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    for (int j0 = warp; j0 < n; j0 += kWarps * U) {
+      Cols8<T, ALIGNED> vr[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * kWarps;
+        const T* vp = j < n ? sm_v[j] : nullptr;
+        if (vp) vr[u].load(vp, c, a.d); else vr[u].zero();
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * kWarps;
+        if (j >= n) break;
+        float vf[8];
+        vr[u].get(vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float w = sm_p[j][g];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(w, vf[e], acc[g][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sm_o[warp][g][lane * 8 + e] = acc[g][e];
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * kPiece; i += kThreads) {
+      const int g = i / kPiece;
+      const int col = c0 + i % kPiece;
+      if (col >= a.d) continue;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += sm_o[w][g][i % kPiece];
+      if (n_live > 1)
+        a.ws[cell * G * W + g * W + col] = sum;
+      else if (g < here)
+        store(out + g * a.d + col, sm_l[g] > 0.f ? sum / sm_l[g] : 0.f);
+    }
+    __syncthreads();  // the next piece reuses sm_o
+  }
+  if (n_live > 1 && threadIdx.x < G) {
+    float* ml = a.ws + cells * G * W + cell * 2 * G;
+    ml[threadIdx.x] = sm_m[threadIdx.x];
+    ml[G + threadIdx.x] = sm_l[threadIdx.x];
+  }
+}
+
 // The combine pass: one block per (row, chunk, query row g) whose row
 // has more than one live split; out = Σ e^(m_i − M)·acc_i /
 // Σ e^(m_i − M)·l_i over the live splits in split order, rounded once.
 // Warp 0 finds M and the denominator; every thread then sums its
-// columns over the splits, 8 splits' loads in flight at once.  Each
-// kernel source wraps it in a kernel of its own.
-template <typename T, int D, int G>
-__device__ __forceinline__ void combine_splits(const SplitArgs& a) {
+// columns over the splits, 8 splits' loads in flight at once.  The
+// workspace's acc rows are W floats apart.  Each kernel source wraps it
+// in a kernel of its own.
+template <typename T, int G>
+__device__ __forceinline__ void combine_splits(const SplitArgs& a, int W) {
   __shared__ float sm_m, sm_den;
   const int bh = blockIdx.x;
   const int chunk = blockIdx.y;
@@ -357,8 +596,8 @@ __device__ __forceinline__ void combine_splits(const SplitArgs& a) {
   if (n_live <= 1 || g0 + g >= a.g) return;
   const size_t cell0 = ((size_t)bh * gridDim.y + chunk) * a.n_splits;
   const size_t cells = (size_t)gridDim.x * gridDim.y * a.n_splits;
-  const float* acc = a.ws + cell0 * G * D + g * D;  // split i at i·G·D
-  const float* ml = a.ws + cells * G * D + cell0 * 2 * G + g;  // i·2G
+  const float* acc = a.ws + cell0 * G * W + g * W;  // split i at i·G·W
+  const float* ml = a.ws + cells * G * W + cell0 * 2 * G + g;  // i·2G
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     float mx = kNegInf;
@@ -385,7 +624,7 @@ __device__ __forceinline__ void combine_splits(const SplitArgs& a) {
     float num = 0.f;
 #pragma unroll 8
     for (int i = 0; i < n_live; ++i)
-      num = fmaf(expf(ml[i * 2 * G] - mx), acc[(size_t)i * G * D + col],
+      num = fmaf(expf(ml[i * 2 * G] - mx), acc[(size_t)i * G * W + col],
                  num);
     // every live key skipped: 0, as for a row with none
     store(out + col, den > 0.f ? num / den : 0.f);
@@ -430,6 +669,32 @@ cudaError_t dispatch(int dtype, int width, int rows, Args... args) {
 #undef STROM_ATTN_WIDTHS
 #undef STROM_ATTN_ROWS
 #undef STROM_ATTN_CASE
+  return cudaErrorInvalidValue;
+}
+
+// Instantiate `Body<T, G, ALIGNED>::run(args...)`, the any-width path,
+// for the dtype, rows per chunk G and head_dim d (ALIGNED: d a multiple
+// of 8) the caller asks for.
+template <template <typename, int, bool> class Body, typename... Args>
+cudaError_t dispatch_any(int dtype, int d, int rows, Args... args) {
+  const bool aligned = d % 8 == 0;
+#define STROM_ANY_CASE(T, GG)                     \
+  if (rows == GG) {                               \
+    if (aligned) Body<T, GG, true>::run(args...); \
+    else Body<T, GG, false>::run(args...);        \
+    return cudaGetLastError();                    \
+  }
+#define STROM_ANY_ROWS(T) \
+  STROM_ANY_CASE(T, 1)    \
+  STROM_ANY_CASE(T, 2)    \
+  STROM_ANY_CASE(T, 4)
+  if (dtype == kBF16) {
+    STROM_ANY_ROWS(__nv_bfloat16)
+  } else if (dtype == kF32) {
+    STROM_ANY_ROWS(float)
+  }
+#undef STROM_ANY_ROWS
+#undef STROM_ANY_CASE
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,9 @@
 // hopper.cuh — the sm_90a building blocks of the tensor-core flash
-// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) and of the
-// bulk-copy design of h2d_copy.cu: mbarriers, TMA tile loads and bulk
-// copies, wgmma descriptors and products, and the host-side tensor maps.
+// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu), of the
+// bulk-copy design of h2d_copy.cu and of the ring all-gather
+// (ici_ring.cu): mbarriers, TMA tile loads and bulk copies (with L2
+// cache hints), wgmma descriptors and products, and the host-side tensor
+// maps.
 // Raw PTX, no CUTLASS.
 //
 // Layout convention.  Every bf16 tile in shared memory is what a TMA
@@ -143,6 +145,50 @@ __device__ __forceinline__ void bulk_wait() {
 // Order this thread's view of shared memory before async-proxy reads.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Order this thread's generic-proxy accesses of global memory with its
+// async-proxy ones (bulk copies), both ways.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// L2 policies for the bulk copies' cache hints: lines a copy touches go
+// first (evict_first) or last (evict_last) when L2 needs room.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// bulk_load and bulk_store with an L2 cache policy.
+__device__ __forceinline__ void bulk_load_hint(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar)),
+      "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_hint(void* dst, const void* src,
+                                                uint32_t bytes,
+                                                uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, %3;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_addr(src)), "r"(bytes), "l"(policy)
+      : "memory");
 }
 
 // A (rows, D) tile at `row` of one head: D/64 boxes of 64 columns.

@@ -50,26 +50,67 @@ struct PagedRows {
   }
 };
 
+// The rows of grid row blockIdx.y (b · nkv + kv head); `entries` holds
+// a split's table entries, at most split_len / block_k + 2 of them.
+template <typename T>
+__device__ __forceinline__ PagedRows<T> paged_rows(
+    const SplitArgs& a, const T* k_pool, const T* v_pool,
+    const int32_t* table, int* entries, int n_pool, int block_k,
+    int max_blocks) {
+  const int bh = blockIdx.y;
+  const int shift = block_k & (block_k - 1) ? -1 : __ffs(block_k) - 1;
+  return PagedRows<T>{k_pool, v_pool,
+                      table + (size_t)(bh / a.nkv) * max_blocks, entries, 0,
+                      bh % a.nkv, a.nkv, block_k, n_pool, a.d, shift};
+}
+
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_split(SplitArgs a, const T* __restrict__ k_pool,
             const T* __restrict__ v_pool, const int32_t* __restrict__ table,
             int n_pool, int block_k, int max_blocks) {
-  // a split of split_len keys touches at most split_len / block_k + 2
-  // blocks
   __shared__ int entries[kMaxSplit + 2];
-  const int bh = blockIdx.y;  // b * nkv + kv head
-  const int shift = block_k & (block_k - 1) ? -1 : __ffs(block_k) - 1;
-  PagedRows<T> rows{k_pool, v_pool, table + (size_t)(bh / a.nkv) * max_blocks,
-                    entries, 0, bh % a.nkv, a.nkv, block_k, n_pool, a.d,
-                    shift};
+  PagedRows<T> rows = paged_rows(a, k_pool, v_pool, table, entries, n_pool,
+                                 block_k, max_blocks);
   split_attend<T, D, G>(a, rows);
 }
 
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(kThreads) paged_combine(SplitArgs a) {
-  combine_splits<T, D, G>(a);
+// the combine of both paths: workspace rows of `width` floats
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+paged_combine(SplitArgs a, int width) {
+  combine_splits<T, G>(a, width);
 }
+
+// the any-width path (attn_common.cuh), for every other head_dim
+template <typename T, int G, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+paged_split_any(SplitArgs a, const T* __restrict__ k_pool,
+                const T* __restrict__ v_pool,
+                const int32_t* __restrict__ table, int n_pool, int block_k,
+                int max_blocks, int width) {
+  __shared__ int entries[kMaxSplit + 2];
+  PagedRows<T> rows = paged_rows(a, k_pool, v_pool, table, entries, n_pool,
+                                 block_k, max_blocks);
+  split_attend_any<T, G, ALIGNED>(a, rows, width);
+}
+
+template <typename T, int G, bool ALIGNED>
+struct LaunchAny {
+  static void run(const SplitArgs& a, int rows, const void* k_pool,
+                  const void* v_pool, const int32_t* table, int n_pool,
+                  int block_k, int max_blocks, int width,
+                  cudaStream_t stream) {
+    paged_split_any<T, G, ALIGNED>
+        <<<split_grid(a, rows, G), kThreads, 0, stream>>>(
+            a, static_cast<const T*>(k_pool),
+            static_cast<const T*>(v_pool), table, n_pool, block_k,
+            max_blocks, width);
+    if (a.n_splits > 1)
+      paged_combine<T, G>
+          <<<combine_grid(a, rows, G), kThreads, 0, stream>>>(a, width);
+  }
+};
 
 template <typename T, int D, int G>
 struct Launch {
@@ -80,8 +121,8 @@ struct Launch {
         a, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
         table, n_pool, block_k, max_blocks);
     if (a.n_splits > 1)
-      paged_combine<T, D, G>
-          <<<combine_grid(a, rows, G), kThreads, 0, stream>>>(a);
+      paged_combine<T, G>
+          <<<combine_grid(a, rows, G), kThreads, 0, stream>>>(a, D);
   }
 };
 
@@ -102,7 +143,7 @@ extern "C" int strom_paged_attention(const void* q, const void* k_pool,
   const long long n_splits =
       capacity > 0 && split_len > 0 ? (capacity - 1) / split_len + 1 : 0;
   if (b <= 0 || nkv <= 0 || g <= 0 || block_k <= 0 || max_blocks <= 0 ||
-      capacity > 0x7fffffff || d <= 0 || d % 8 || d > width ||
+      capacity > 0x7fffffff || d <= 0 || d > width ||
       split_len <= 0 || split_len > kMaxSplit ||
       (long long)b * nkv > 65535 ||
       (g + rows_per_chunk - 1) / rows_per_chunk > 65535 ||
@@ -111,6 +152,11 @@ extern "C" int strom_paged_attention(const void* q, const void* k_pool,
   const SplitArgs a{q, out, static_cast<float*>(ws),
                     static_cast<const int32_t*>(pos), nkv, g, d,
                     (int)capacity, split_len, (int)n_splits, scale};
+  if (!built_width(d))
+    return (int)dispatch_any<LaunchAny>(
+        dtype, d, rows_per_chunk, a, b * nkv, k_pool, v_pool,
+        static_cast<const int32_t*>(table), n_pool, block_k, max_blocks,
+        width, (cudaStream_t)stream);
   return (int)dispatch<Launch>(dtype, width, rows_per_chunk, a, b * nkv,
                                k_pool, v_pool,
                                static_cast<const int32_t*>(table), n_pool,

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -19,3 +21,17 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream, from torch's
+    own accessor, which Triton's launcher calls too: building a
+    ``torch.cuda.Stream`` object each call was one of the largest parts
+    of a decode call's host time."""
+    return torch._C._cuda_getCurrentRawStream(index)

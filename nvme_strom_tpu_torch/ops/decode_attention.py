@@ -10,7 +10,8 @@ in float32.  It is bound by the K/V bytes of the live positions over HBM
 bandwidth, and splits each row's keys into ``split_len`` pieces so that
 every SM streams: one launch scores the splits, a second combines a
 row's splits (csrc/attn_common.cuh).  It takes any GQA group and any
-head_dim up to 256 that is a multiple of 8.
+head_dim: a multiple of 8 up to 256 on the built widths, every other
+head_dim on the any-width path (three passes a split over runtime d).
 
 ``split_partials_plain`` and ``combine_splits_plain`` are the kernel's
 split and combine written in torch; the tests hold them against
@@ -26,11 +27,13 @@ import threading
 import torch
 
 from nvme_strom_tpu_torch import _build
+from nvme_strom_tpu_torch.device import current_stream, sm_count
 
 #: element types the kernels take, by their code in csrc/attn_common.cuh
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 #: head widths the kernels are built for; a head_dim that is a multiple of
-#: 8 runs on the next one up, so the kernels take any such head_dim <= 256
+#: 8 runs on the next one up, so these take any such head_dim <= 256.
+#: Every other head_dim runs on the any-width path.
 KERNEL_WIDTHS = (64, 128, 256)
 #: most query rows of a GQA group one block holds; a larger group takes
 #: ceil(g / 4) blocks of rows (csrc/attn_common.cuh says why not 8)
@@ -80,30 +83,23 @@ def check_kernel_inputs(q: torch.Tensor, *tensors: torch.Tensor) -> int:
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"the kernel takes {list(KERNEL_DTYPES)}, got "
                          f"{q.dtype}")
-    d = q.shape[-1]
-    if d % 8 or d > KERNEL_WIDTHS[-1]:
-        raise ValueError(f"the kernel takes a head_dim that is a multiple "
-                         f"of 8 up to {KERNEL_WIDTHS[-1]}, got {d}")
     return KERNEL_DTYPES[q.dtype]
 
 
 def kernel_shape(d: int, g: int):
-    """(built head width, query rows a block holds) of the kernel that
-    runs head_dim ``d`` and GQA group ``g``."""
-    width = next(w for w in KERNEL_WIDTHS if d <= w)
+    """(head width, query rows a block holds) of the kernel that runs
+    head_dim ``d`` and GQA group ``g``.  The width is the built one at or
+    above ``d`` where ``d`` is a multiple of 8 up to 256, else ``d``
+    itself: the any-width path, whose workspace rows are ``d`` floats."""
+    width = (next(w for w in KERNEL_WIDTHS if d <= w)
+             if d % 8 == 0 and d <= KERNEL_WIDTHS[-1] else d)
     return width, min(KERNEL_MAX_ROWS, 1 << (g - 1).bit_length())
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=1024)
 def kernel_launch(b: int, nh: int, nkv: int, d: int, capacity: int,
                   block_k: int, sms: int):
-    """(built head width, rows a block holds, keys a split holds, float32
+    """(head width, rows a block holds, keys a split holds, float32
     elements of workspace) of a launch over ``capacity`` keys a row on a
     card of ``sms`` SMs: SPLIT_LEN or LONG_SPLIT_LEN keys a split, cut
     down to whole blocks of ``block_k`` keys where a block is no longer.
@@ -119,14 +115,6 @@ def kernel_launch(b: int, nh: int, nkv: int, d: int, capacity: int,
     n_splits = -(-capacity // split_len)
     ws = cells * n_splits * rows * (width + 2) if n_splits > 1 else 0
     return width, rows, split_len, ws
-
-
-def current_stream(index: int) -> int:
-    """The raw handle of device ``index``'s current stream, from torch's
-    own accessor, which Triton's launcher calls too: building a
-    ``torch.cuda.Stream`` object each call was one of the largest parts
-    of a decode call's host time."""
-    return torch._C._cuda_getCurrentRawStream(index)
 
 
 _workspaces: dict = {}

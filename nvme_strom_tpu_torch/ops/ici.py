@@ -44,12 +44,13 @@ from nvme_strom_tpu_torch.io.engine import wait_exact
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.io.scatter import (ScatterServeEngine,
                                              ScatterStore, partition_files)
+from nvme_strom_tpu_torch.device import current_stream
 from nvme_strom_tpu_torch.ops.bridge import h2d_copy, pinned_mapping
 from nvme_strom_tpu_torch.parallel.mesh import ExchangeGroup, exchange_group
 
 _log = logging.getLogger(__name__)
 
-#: share rows pad to this many bytes, so every stripe of a slot is
+#: share rows pad to this many bytes, so every chunk of a slot is
 #: 16-byte aligned for the ring kernel
 _ROW_ALIGN = 4096
 
@@ -60,6 +61,10 @@ DEFAULT_UNIT_BYTES = 1 << 20
 #: wall-clock budget of each spin-wait of the ring kernel: a protocol
 #: fault raises after this instead of hanging the card
 RING_BUDGET_NS = 2_000_000_000
+
+#: most ranks of a CUDA group: the kernel takes every rank's pointers by
+#: value in its parameters (csrc/ici_ring.cu kMaxRanks)
+RING_MAX_RANKS = 64
 
 
 def ici_scatter_enabled() -> bool:
@@ -111,11 +116,23 @@ def ici_ring_gather_plain(slots: Sequence[torch.Tensor]
     return slots
 
 
+def ring_chunks(width: int, blocks: int, chunk: int) -> int:
+    """C, the chunks each block of a rank owns in a slot of ``width``
+    bytes cut into ``chunk``-byte chunks over ``blocks`` blocks (the last
+    of a block's chunks may lie past the slot's end).  Each call of the
+    ring kernel adds (n-1)·C to every flag (csrc/ici_ring.cu)."""
+    chunks = -(-width // chunk)
+    return -(-chunks // blocks)
+
+
 class _Ring:
-    """A group's ring on its cards: ``blocks`` stripes per rank, one
-    flag per (rank, stripe) on the rank's card, an error word per card,
-    and the count of completed calls (flags only grow: call c waits for
-    ``c * (n - 1) + step``)."""
+    """A group's ring on its cards: ``blocks`` blocks per rank, the bytes
+    of a ``chunk`` (the unit the kernel moves and signals), one flag
+    per (rank, block) on the rank's card, an error word per card in
+    device memory with its mirror in mapped page-locked host memory,
+    ``base`` (the flags' value before the next call: each call adds
+    (n-1)·C) and the count of completed calls.  The pointer arrays the
+    kernel takes by value are built once here."""
 
     def __init__(self, group: ExchangeGroup):
         lib = _build.kernel_library()
@@ -123,47 +140,57 @@ class _Ring:
         for r, d in enumerate(group.devices):
             self.ranks_on.setdefault(d.index, []).append(r)
         caps = []
+        cap, chunk = ctypes.c_int(), ctypes.c_uint()
         for card, ranks in self.ranks_on.items():
-            cap = ctypes.c_int()
             with torch.cuda.device(card):   # the call sets the device
                 _build.check(lib.strom_ici_ring_capacity(
-                    card, ctypes.byref(cap)), "ici_ring_gather capacity")
+                    card, ctypes.byref(cap), ctypes.byref(chunk)),
+                    "ici_ring_gather capacity")
             caps.append(cap.value // len(ranks))
         self.blocks = min(caps)
+        self.chunk = chunk.value
         if self.blocks < 1:
             raise RuntimeError("ici_ring_gather: too many ranks on one card "
                                "for a block per rank")
+        n = group.n
+        self.remote_right = 0
         for r, d in enumerate(group.devices):
-            right = group.devices[(r + 1) % group.n]
+            right = group.devices[(r + 1) % n]
             if right.index != d.index:
+                self.remote_right |= 1 << r
                 with torch.cuda.device(d):
                     _build.check(lib.strom_enable_peer_access(d.index,
                                                               right.index),
                                  f"peer access {d} -> {right}")
-        self.flags, self.err, self.flag_ptrs, self.rank_ids = {}, {}, {}, {}
-        ptrs = [0] * group.n
+        self.flags, self.err, self.err_host, self.err_ptr = {}, {}, {}, {}
+        self.rank_ids = {}
+        ptrs = [0] * n
         for card, ranks in self.ranks_on.items():
             dev = torch.device("cuda", card)
             f = torch.zeros(len(ranks) * self.blocks, dtype=torch.int32,
                             device=dev)
             self.flags[card] = f
             self.err[card] = torch.zeros(1, dtype=torch.int32, device=dev)
-            self.rank_ids[card] = torch.tensor(ranks, dtype=torch.int32,
-                                               device=dev)
+            host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+            self.err_host[card] = host.numpy()   # read with no CUDA call
+            with torch.cuda.device(dev):    # the call sets the device
+                self.err_ptr[card] = pinned_mapping(host, dev).dev_base
+            self.rank_ids[card] = (ctypes.c_int * len(ranks))(*ranks)
             for j, r in enumerate(ranks):
                 ptrs[r] = f.data_ptr() + 4 * j * self.blocks
-        for card in self.ranks_on:
-            self.flag_ptrs[card] = torch.tensor(
-                ptrs, dtype=torch.int64, device=torch.device("cuda", card))
+        self.flag_ptrs = (ctypes.c_uint64 * n)(*ptrs)
+        self.base = 0
         self.calls = 0
 
     def reset(self) -> None:
         """After a failed call (every kernel has ended): zeroed flags and
-        error words, a fresh count."""
+        error words, a fresh base and count."""
         for card in self.ranks_on:
             self.flags[card].zero_()
             self.err[card].zero_()
+            self.err_host[card][0] = 0
             torch.cuda.synchronize(card)
+        self.base = 0
         self.calls = 0
 
 
@@ -183,6 +210,9 @@ def _check_slots(slots: Sequence[torch.Tensor], group: ExchangeGroup):
                              f"puts rank {r} on {d}")
     if width % 16:
         raise ValueError(f"slot width {width} is not a multiple of 16")
+    if group.is_cuda and n > RING_MAX_RANKS:
+        raise ValueError(f"the ring kernel takes at most {RING_MAX_RANKS} "
+                         f"ranks, got {n}")
 
 
 def ici_ring_gather(slots: Sequence[torch.Tensor],
@@ -192,9 +222,11 @@ def ici_ring_gather(slots: Sequence[torch.Tensor],
     rank's output holds every row.  ``slots[r]`` lies on
     ``group.devices[r]``.
 
-    On CUDA devices this launches kernel 7 once per card and waits for
-    it (its error word is read after the wait): a fault raises.  On the
-    CPU it runs :func:`ici_ring_gather_plain`."""
+    On CUDA devices this launches kernel 7 once per card on its current
+    stream and waits for it (its error word, in page-locked host memory,
+    is read after the wait): a fault raises.  On one card nothing waits
+    before the launch.  On the CPU it runs
+    :func:`ici_ring_gather_plain`."""
     _check_slots(slots, group)
     if not group.is_cuda:
         return ici_ring_gather_plain(slots)
@@ -203,9 +235,10 @@ def ici_ring_gather(slots: Sequence[torch.Tensor],
     ring = group.ring
     lib = _build.kernel_library()
     n = group.n
-    base = (ring.calls * (n - 1)) & 0xFFFFFFFF
+    width = slots[0].shape[1]
+    C = ring_chunks(width, ring.blocks, ring.chunk)
     cards = list(ring.ranks_on)
-    keep = []                   # the pointer arrays the kernels read
+    ptrs = (ctypes.c_uint64 * n)(*(s.data_ptr() for s in slots))
     try:
         if len(cards) > 1:
             # every rank's output is written by its left neighbour's
@@ -213,23 +246,19 @@ def ici_ring_gather(slots: Sequence[torch.Tensor],
             for card in cards:
                 torch.cuda.synchronize(card)
         for card in cards:
-            dev = torch.device("cuda", card)
-            ptrs = torch.tensor([s.data_ptr() for s in slots],
-                                dtype=torch.int64, device=dev)
-            keep.append(ptrs)
-            with torch.cuda.device(dev):    # the launch sets the device
+            with torch.cuda.device(card):   # the launch sets the device
                 _build.check(lib.strom_ici_ring(
-                    ptrs.data_ptr(), ring.flag_ptrs[card].data_ptr(),
-                    ring.rank_ids[card].data_ptr(),
-                    len(ring.ranks_on[card]), n, slots[0].shape[1],
-                    ring.blocks, base, RING_BUDGET_NS,
-                    ring.err[card].data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream, card),
-                    "ici_ring_gather")
+                    ptrs, ring.flag_ptrs, ring.rank_ids[card],
+                    len(ring.ranks_on[card]), n, ring.remote_right, width,
+                    ring.blocks, ring.base, RING_BUDGET_NS,
+                    ring.err[card].data_ptr(), ring.err_ptr[card],
+                    current_stream(card), card), "ici_ring_gather")
             ici_ring_gather.launches += 1
         for card in cards:
-            torch.cuda.current_stream(card).synchronize()
-        failed = [card for card in cards if ring.err[card].item()]
+            with torch.cuda.device(card):
+                _build.check(lib.strom_stream_synchronize(
+                    current_stream(card), card), "ici_ring_gather wait")
+        failed = [card for card in cards if ring.err_host[card][0]]
         if failed:
             raise RuntimeError(
                 f"ici_ring_gather: a ring wait on cuda:{failed} ran out of "
@@ -239,6 +268,7 @@ def ici_ring_gather(slots: Sequence[torch.Tensor],
             torch.cuda.synchronize(card)
         ring.reset()
         raise
+    ring.base = (ring.base + (n - 1) * C) & 0xFFFFFFFF
     ring.calls += 1
     return slots
 

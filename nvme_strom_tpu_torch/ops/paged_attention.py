@@ -19,10 +19,10 @@ import math
 import torch
 
 from nvme_strom_tpu_torch import _build
+from nvme_strom_tpu_torch.device import current_stream, sm_count
 from nvme_strom_tpu_torch.ops.decode_attention import (
-    _check_q, _positions, check_kernel_inputs, current_stream,
-    decode_attention_plain, kernel_launch, sm_count, split_partials_plain,
-    workspace)
+    _check_q, _positions, check_kernel_inputs, decode_attention_plain,
+    kernel_launch, split_partials_plain, workspace)
 
 
 def _check(q, k_pool, v_pool, table) -> None:

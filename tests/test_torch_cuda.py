@@ -199,8 +199,8 @@ def test_attention_kernels_at_split_edges(dev, S, bk, nh, nkv, d):
     """Positions one before, at and one past the first split edge and at
     the second, of both kernels' splits as the wrappers pick them; a row
     with pos < 0 gives 0."""
-    from nvme_strom_tpu_torch.ops.decode_attention import (kernel_launch,
-                                                           sm_count)
+    from nvme_strom_tpu_torch.device import sm_count
+    from nvme_strom_tpu_torch.ops.decode_attention import kernel_launch
     b = 8
     sms = sm_count(dev.index)
     Ld = kernel_launch(b, nh, nkv, d, S, 1, sms)[2]
@@ -229,22 +229,48 @@ def test_attention_kernels_are_bitwise_repeatable(dev, nh, nkv, d):
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(dev):
-    """Any head_dim that is a multiple of 8 up to 256 runs (16 on the
-    64-wide build); 20 and 264 raise, and so does fp16."""
+    """Every head_dim runs: 16 on the 64-wide build, 20 and 264 on the
+    any-width path, each matching the plain version; fp16 raises."""
     from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
-    pos = torch.tensor([3, 7], dtype=torch.int32, device=dev)
-    q, k, v = _nan_cache(dev, torch.float32, 2, 4, 2, 8, 16, pos.tolist(),
-                         2)
-    _check_attention(q, k, v, pos, F32_TOL, bk=4)
-    for d in (20, 264):
-        q = torch.zeros(2, 4, 1, d, device=dev)
-        k = torch.zeros(2, 2, 8, d, device=dev)
-        with pytest.raises(ValueError, match="head_dim"):
-            decode_attention(q, k, k, 3)
+    for d, seed in ((16, 2), (20, 3), (264, 4)):
+        pos = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+        q, k, v = _nan_cache(dev, torch.float32, 2, 4, 2, 8, d,
+                             pos.tolist(), seed)
+        _check_attention(q, k, v, pos, F32_TOL, bk=4)
     q = torch.zeros(2, 4, 1, 64, device=dev, dtype=torch.float16)
     k = torch.zeros(2, 2, 8, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="takes"):
         decode_attention(q, k, k, 3)
+
+
+#: head dims past the built widths: ragged (rows not 16-byte aligned;
+#: loads of 4 elements where d is a multiple of 4, else of 1) and wide,
+#: up to DeepSeek's 576
+_ANY_D = [1, 12, 20, 30, 100, 264, 320, 512, 576]
+
+
+@pytest.mark.parametrize("d", _ANY_D)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL),
+                                       (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("nh,nkv", [(4, 4), (14, 2)])
+def test_attention_kernels_take_any_head_dim(dev, d, dtype, tol, nh, nkv):
+    """The any-width path, groups of 1 and 7: both kernels against their
+    plain versions and each other, NaN past every row's position, rows
+    of one split and of several (at 600 keys, splits of 256; paged cut
+    to blocks of 48), pos < 0 giving 0, two calls bitwise equal."""
+    from nvme_strom_tpu_torch.ops.decode_attention import (
+        decode_attention, kernel_shape)
+    from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+    assert kernel_shape(d, nh // nkv)[0] == d
+    pos = torch.tensor([0, 255, 256, 599, -1], dtype=torch.int32,
+                       device=dev)
+    q, k, v = _nan_cache(dev, dtype, 5, nh, nkv, 600, d, pos.tolist(), d)
+    got, out = _check_attention(q, k, v, pos, tol, bk=48)
+    assert (got[-1] == 0).all() and (out[-1] == 0).all()
+    kp, vp, table = _pool_of(k, v, 48)
+    for fn, args in ((decode_attention, (q, k, v, pos)),
+                     (paged_attention, (q, kp, vp, table, pos))):
+        assert torch.equal(fn(*args), fn(*args))
 
 
 def test_stream_and_weights_on_the_card(dev, tmp_path):
@@ -592,13 +618,28 @@ def _ring_slots(devs, width, seed):
     return rows, slots
 
 
-@pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("width", [16, 4096, 3 * 4096 + 48, 1 << 22])
+#: slot widths at the ring's chunk edges, from the chunk's bytes and the
+#: B blocks of a rank (known once the group's ring is built on the card):
+#: one chunk and one whole round of the blocks' chunks, ± 16 bytes
+_RING_EDGES = {
+    "chunk - 16": lambda chunk, B: chunk - 16,
+    "chunk + 16": lambda chunk, B: chunk + 16,
+    "B * chunk - 16": lambda chunk, B: B * chunk - 16,
+    "B * chunk + 16": lambda chunk, B: B * chunk + 16,
+}
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("width", [16, 4096, 3 * 4096 + 48, 1 << 22,
+                                   *_RING_EDGES])
 def test_ici_ring_matches_plain_on_one_card(dev, n, width):
-    from nvme_strom_tpu_torch.ops.ici import (ici_ring_gather,
+    from nvme_strom_tpu_torch.ops.ici import (_Ring, ici_ring_gather,
                                               ici_ring_gather_plain)
     from nvme_strom_tpu_torch.parallel.mesh import exchange_group
     group = exchange_group(devices=[dev] * n)
+    if isinstance(width, str):
+        group.ring = _Ring(group)
+        width = _RING_EDGES[width](group.ring.chunk, group.ring.blocks)
     rows, _ = _ring_slots([dev] * n, width, width + n)
     for call in range(3):              # the flags' epochs carry over
         _, slots = _ring_slots([dev] * n, width, width + n)
@@ -635,7 +676,7 @@ def test_ici_ring_fault_raises_instead_of_hanging(dev):
     group = exchange_group(devices=[dev] * 2)
     rows, slots = _ring_slots([dev] * 2, 4096, 0)
     ici_ring_gather(slots, group)
-    group.ring.calls += 5              # waits for pushes that never come
+    group.ring.base += 5               # waits for pushes that never come
     with pytest.raises(RuntimeError, match="budget"):
         ici_ring_gather(_ring_slots([dev] * 2, 4096, 0)[1], group)
     assert group.ring.calls == 0

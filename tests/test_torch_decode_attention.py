@@ -46,6 +46,11 @@ CASES = [
     # GQA groups and head dims past the powers of two
     ("gqa 7 d 40 NaN tail", 3, 14, 2, 70, 40, [0, 33, 69], 16, True),
     ("gqa 16 d 24", 2, 32, 2, 50, 24, [17, 49], 512, False),
+    # head dims of the any-width path: ragged (rows not 16-byte
+    # aligned) and wide
+    ("d 12 NaN tail", 2, 4, 2, 40, 12, [5, 39], 16, True),
+    ("gqa 7 d 100", 2, 14, 2, 33, 100, [0, 32], 512, False),
+    ("d 320 NaN tail", 2, 4, 4, 24, 320, [9, 23], 8, True),
 ]
 
 
@@ -76,6 +81,9 @@ SPLIT_CASES = [
     ("one split holds the row", 2, 4, 4, 30, 8, [29, 7], 32),
     ("pos < 0 and a split of one key", 3, 14, 2, 33, 40, [-1, 32, 8], 8),
     ("gqa 16, split of one key", 2, 16, 1, 9, 24, [8, 4], 1),
+    ("d 12 at split edges", 3, 4, 2, 48, 12, [15, 16, 47], 16),
+    ("gqa 7 d 100, empty splits", 2, 14, 2, 40, 100, [3, 20], 8),
+    ("d 320, pos < 0", 3, 4, 1, 20, 320, [-1, 19, 4], 8),
 ]
 
 
@@ -109,10 +117,14 @@ def test_split_and_combine_match_plain(label, b, nh, nkv, S, d, pos,
 
 @pytest.mark.parametrize("d,g,want", [
     (64, 1, (64, 1)), (40, 7, (64, 4)), (96, 3, (128, 4)),
-    (128, 16, (128, 4)), (256, 2, (256, 2)), (8, 12, (64, 4))])
+    (128, 16, (128, 4)), (256, 2, (256, 2)), (8, 12, (64, 4)),
+    # the any-width path: its width is d
+    (1, 1, (1, 1)), (12, 7, (12, 4)), (100, 2, (100, 2)),
+    (264, 16, (264, 4)), (320, 1, (320, 1)), (576, 3, (576, 4))])
 def test_kernel_shape(d, g, want):
-    """The built head width (64, 128 or 256) at or above d, and the query
-    rows a block holds (a power of 2 up to 4)."""
+    """The built head width (64, 128 or 256) at or above a d that is a
+    multiple of 8 up to 256, else d itself (the any-width path), and the
+    query rows a block holds (a power of 2 up to 4)."""
     assert kernel_shape(d, g) == want
 
 
@@ -129,6 +141,10 @@ def test_kernel_shape(d, g, want):
     (8, 8, 8, 2048, 64, 384, 132, 256),
     # one split a row: no workspace
     (2, 4, 2, 200, 16, 1, 132, 256),
+    # the any-width path: workspace rows of d floats
+    (4, 28, 4, 8192, 100, 1, 132, 512),
+    (8, 8, 8, 2048, 576, 128, 132, 256),
+    (2, 4, 2, 200, 320, 1, 132, 256),
 ])
 def test_kernel_launch_plan(b, nh, nkv, S, d, block_k, sms, want):
     """Keys a split holds and the workspace: every split's acc (rows,

@@ -21,7 +21,7 @@ from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
 from nvme_strom_tpu_torch.io.scatter import partition_files
 from nvme_strom_tpu_torch.ops import ici as ici_mod
 from nvme_strom_tpu_torch.ops.ici import (IciExchange, ici_ring_gather,
-                                          ici_ring_gather_plain,
+                                          ici_ring_gather_plain, ring_chunks,
                                           scatter_engine)
 from nvme_strom_tpu_torch.parallel.mesh import (exchange_group,
                                                 local_batch_slice)
@@ -152,6 +152,61 @@ def test_plain_ring_gathers_every_row_as_jax_does(n):
     ici_ring_gather(again, group)
     assert all(torch.equal(a, slots[0]) for a in again)
     assert ici_ring_gather.launches == 0
+
+
+#: the ring kernel's chunk (csrc/ici_ring.cu kChunk)
+CHUNK = 48 << 10
+
+
+def ring_plan(n: int, width: int, blocks: int, base: int = 0):
+    """Kernel 7's schedule over one call, as csrc/ici_ring.cu runs it:
+    ``(C, owned, waits)``.  ``owned[b]`` lists the slot chunks block b
+    owns, b, b + blocks, ... (None for one past the slot's end, which
+    the block signals without moving); the block takes each through
+    steps 0..n-2 before the next, so chunk j of step k is its move
+    i = j·(n-1) + k, and each move releases the right neighbour's flag
+    once.  ``waits[b]`` lists the flag values it waits for, in order:
+    before move i at a step k >= 1, base + i (its left neighbour's block
+    b has made move i - 1, landing chunk j of step k - 1), then
+    base + (n-1)·C, when every move of the left block has landed."""
+    C = ring_chunks(width, blocks, CHUNK)
+    chunks = -(-width // CHUNK)
+    owned = [[c if c < chunks else None
+              for c in range(b, b + C * blocks, blocks)]
+             for b in range(blocks)]
+    waits = [[(base + j * (n - 1) + k) & 0xFFFFFFFF
+              for j, c in enumerate(own) if c is not None
+              for k in range(1, n - 1)]
+             + [(base + (n - 1) * C) & 0xFFFFFFFF]
+             for own in owned]
+    return C, owned, waits
+
+
+@pytest.mark.parametrize("n,width,blocks,base", [
+    (4, 137_363_456, 165, 0),           # the restore's slots
+    (2, 4096, 528, 7),                   # one chunk, most blocks empty
+    (3, 3 * CHUNK + 16, 2, 2 ** 32 - 5),   # base wraps
+    (8, 5 * CHUNK, 5, 100),   # one round of the blocks
+])
+def test_ring_plan_owns_each_chunk_once_and_waits_grow(n, width, blocks,
+                                                       base):
+    """Kernel 7's schedule: every chunk of a slot has exactly one owner
+    block, block b owning chunks b, b + B, ...; each block waits for
+    strictly growing flag values (modulo 2**32, from base), the last
+    being base + (n-1)·C, what one call adds to every flag."""
+    C, owned, waits = ring_plan(n, width, blocks, base)
+    chunks = -(-width // CHUNK)
+    assert sorted(c for own in owned for c in own if c is not None) == \
+        list(range(chunks))
+    for b, (own, w) in enumerate(zip(owned, waits)):
+        assert len(own) == C and None not in own[:-1]
+        assert all(c is None or (c % blocks, c // blocks) == (b, j)
+                   for j, c in enumerate(own))
+        # a wait for each owned chunk of steps 1..n-2, then the last
+        assert len(w) == (n - 2) * (C - own.count(None)) + 1
+        rel = [(t - base) % 2 ** 32 for t in w]
+        assert all(x < y for x, y in zip(rel, rel[1:]))
+        assert w[-1] == (base + (n - 1) * C) % 2 ** 32
 
 
 def test_ring_rejects_what_it_does_not_take(group):

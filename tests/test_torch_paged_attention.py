@@ -42,6 +42,15 @@ CASES = {
                             table=[[0, 1, 8, 8], [2, 8, 8, 8],
                                    [3, 4, 5, 6]],
                             pos=[12, 0, 30], nan_block=8),
+    # head dims of the any-width path: ragged and wide
+    "d 12 ragged": dict(b=2, nh=4, nkv=2, d=12, block_k=8, n_pool=6,
+                        table=[[3, 1, 0], [5, 2, 4]], pos=[20, 9],
+                        nan_block=None),
+    "gqa 7 d 100 nan padding": dict(b=2, nh=14, nkv=2, d=100, block_k=4,
+                                    n_pool=5, table=[[0, 1, 4], [2, 3, 4]],
+                                    pos=[6, 7], nan_block=4),
+    "d 320": dict(b=1, nh=2, nkv=1, d=320, block_k=8, n_pool=3,
+                  table=[[2, 0, 1]], pos=[17], nan_block=None),
 }
 
 
