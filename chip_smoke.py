@@ -22,7 +22,9 @@ It builds the port's native libraries from the checkout, then:
    GQA shape (``LONG_GQA``) and against SDPA over ``max_len`` (the
    crossover), and their wrappers' host time a call (``host_us``); their
    any-width path (head dims 100 and 576) is checked in bf16 and f32
-   and timed at the flagship shape (``any_width``);
+   and timed at the flagship shape (``any_width``); decode, paged and
+   flash attention are also checked in fp16, and timed in fp16 at the
+   main paths' shapes (``fp16_times``);
 3. main path — streams a 2 GiB file of seeded random bytes through
    ``DeviceStream`` onto the card, on both of its paths (copies from the
    staging buffers in place, and through the overlap stage), and checks
@@ -32,9 +34,16 @@ It builds the port's native libraries from the checkout, then:
    same 8 greedy requests with ``DecodeServer`` and
    ``PagedDecodeServer``, whose tokens must agree;
 5. checks the kernel path against the plain path at float32 through a
-   whole decode step, then serves 4 requests with both servers on a
-   2-layer model with a GQA group of 7 at head_dim 128 (``GQA_SERVE``),
-   whose tokens must agree;
+   whole decode step; main path — serves 8 chat requests over two
+   shared 1024-token system prompts through the SSD-backed KV prefix
+   store (``prefix_store_phase``): cold, NVMe hit (every page restored
+   through ``h2d_copy`` from the staging buffers, ``bounce_bytes`` 0,
+   bitwise the cold run's pages), ``STROM_VERIFY=full``, a flipped page
+   healed by recompute, and the paged server's HBM hit, whose tokens
+   must all agree; cold against hit tokens are reported in bf16 and
+   asserted equal in float32 (``prefix_store_f32_phase``); then serves
+   4 requests with both servers on a 2-layer model with a GQA group of
+   7 at head_dim 128 (``GQA_SERVE``), whose tokens must agree;
 6. training path — seeded WebDataset shards of flagship-length samples
    through ``ShardedLoader`` and ``prefetch_to_device`` into a
    ``Trainer`` with the flash kernels, warm-started from phase 4's
@@ -71,7 +80,8 @@ It builds the port's native libraries from the checkout, then:
 
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
-phases 3-4 and again in the GQA serve run of phase 5, the flash kernels
+phases 3-4, again in the prefix-store run and in the GQA serve run of
+phase 5, the flash kernels
 and ``h2d_copy`` in phase 6, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
@@ -106,6 +116,8 @@ BF16_FLOPS_PER_S = 989e12
 #: differ by one bf16 ulp (2**-7 relative), plus fp32 summation-order
 #: noise where the output is near zero.
 BF16_TOL = (2 ** -7, 2e-5)
+#: fp16: as bf16, one fp16 ulp (2**-10 relative)
+F16_TOL = (2 ** -10, 2e-5)
 F32_TOL = (1e-4, 1e-4)
 F32_LOGITS_TOL = 1e-3
 
@@ -424,6 +436,8 @@ def check_decode(dev, results):
          BF16_TOL),
         ("flagship f32", 8, 8, 8, 2048, 64, torch.float32, flagship_pos,
          F32_TOL),
+        ("flagship f16", 8, 8, 8, 2048, 64, torch.float16, flagship_pos,
+         F16_TOL),
         ("GQA bf16", 4, 32, 8, 4097, 128, torch.bfloat16,
          [4096, 100, 0, 2500], BF16_TOL),
         ("GQA scalar pos bf16", 4, 32, 8, 4097, 128, torch.bfloat16,
@@ -632,6 +646,7 @@ def check_paged(dev, results):
     cases = [  # (label, b, nh, nkv, d, dtype, pos, tol)
         ("flagship bf16", 8, 8, 8, 64, torch.bfloat16, ragged, BF16_TOL),
         ("flagship f32", 8, 8, 8, 64, torch.float32, ragged, F32_TOL),
+        ("flagship f16", 8, 8, 8, 64, torch.float16, ragged, F16_TOL),
         ("GQA bf16", 4, 32, 8, 128, torch.bfloat16, [2047, 0, 129, 900],
          BF16_TOL),
     ] + _wide_cases(SPLIT_LEN, with_S=False)
@@ -753,7 +768,10 @@ def attention_host_us(dev):
 #: relative atol covers where a value is near zero.  lse is fp32 on both
 #: sides: atol 1e-4 absolute.
 FLASH_BF16_TOL = (2 ** -7, 1e-4)
+FLASH_F16_TOL = (2 ** -10, 1e-4)
 FLASH_F32_TOL = (1e-4, 1e-5)
+FLASH_TOL = {"bfloat16": FLASH_BF16_TOL, "float16": FLASH_F16_TOL,
+             "float32": FLASH_F32_TOL}
 LSE_ATOL = 1e-4
 
 
@@ -844,10 +862,13 @@ def check_flash(dev, results):
         # one row past the tensor-core kernels' 128-row tiles
         ("causal s=129 d=128 bf16", 2, 8, 129, 129, 128, torch.bfloat16,
          True, False),
+        # fp16 runs the fp32 FMA kernels, rounded once to fp16
+        ("ragged causal s=777 d=128 f16", 2, 8, 777, 777, 128,
+         torch.float16, True, False),
     ]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for label, b, h, s, skv, d, dt, causal, with_dlse in cases:
-        tol = FLASH_BF16_TOL if dt == torch.bfloat16 else FLASH_F32_TOL
+        tol = FLASH_TOL[str(dt)[6:]]
         scale = d ** -0.5
         q, k, v, do = _flash_case(dev, gen, b, h, s, skv, d, dt)
         out, lse = fa.flash_fwd(q, k, v, causal, scale)
@@ -885,7 +906,8 @@ def check_flash(dev, results):
             f"(rtol, atol/max {tol})")
         del q, k, v, do, out, lse, out_p, lse_p, dq, dk, dv, dk_p, dv_p
     log("flash: bf16 tolerances one bf16 ulp (rtol 2**-7) + "
-        "1e-4*max|plain|; f32 rtol 1e-4 + 1e-5*max|plain|; lse atol 1e-4")
+        "1e-4*max|plain|; f16 one f16 ulp (rtol 2**-10) + 1e-4*max|plain|; "
+        "f32 rtol 1e-4 + 1e-5*max|plain|; lse atol 1e-4")
     q, k, v, do = _flash_case(dev, gen, 1, 4, 2048, 2048, 64, torch.bfloat16)
     trap = split_trap(q, k, v, do, True, 64 ** -0.5, FLASH_BF16_TOL)
     log(f"flash split (b 1, h 4, s 2048, d 64, causal): elements outside "
@@ -973,6 +995,58 @@ def check_flash(dev, results):
         "in flash_bwd_dq's library_ms"
     del sets, graphs
     return trap
+
+
+def fp16_times(dev, results):
+    """fp16 on kernels 2-6 at the main paths' shapes: decode and paged
+    attention at the flagship serving shape (back to back and on the
+    device), the flash kernels (fp32 FMA kernels, no tensor cores) at
+    the training shape; each beside its bf16 kernel's time in
+    ``results``.  The checks against the plain versions ran in
+    check_decode, check_paged and check_flash."""
+    import torch
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    f16 = torch.float16
+    pos = [0, 1, 511, 2047] * 2
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    sets = [_attn_inputs(8, 8, 8, 2048, 64, f16, pos, dev, gen, False)
+            for _ in range(4)]
+    kern = Rotor(lambda q, k, v: decode_attention(q, k, v, p), sets)
+    results["decode_attention"]["fp16"] = {
+        "ms": time_ms(kern, 100), "device_ms": device_ms(kern, 100)}
+    ragged = [0, 127, 128, 1000, 2047, 5, 300, 1500]
+    pr = torch.tensor(ragged, dtype=torch.int32, device=dev)
+    sets = [_paged_inputs(8, 8, 8, 128, 16, 64, f16, ragged, dev, gen,
+                          garbage=False) for _ in range(4)]
+    kern = Rotor(lambda q, kp, vp, t: paged_attention(q, kp, vp, t, pr),
+                 sets)
+    results["paged_attention"]["fp16"] = {
+        "ms": time_ms(kern, 100), "device_ms": device_ms(kern, 100)}
+    del sets, kern
+    b, h, s, d = 8, 8, 2048, 64
+    scale = d ** -0.5
+    sets = []
+    for _ in range(2):
+        q, k, v, do = _flash_case(dev, gen, b, h, s, s, d, f16)
+        out, lse = fa.flash_fwd(q, k, v, True, scale)
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        sets.append((q, k, v, do, lse, delta))
+    for name, fn in (
+            ("flash_fwd", lambda q, k, v, *_: fa.flash_fwd(q, k, v, True,
+                                                           scale)),
+            ("flash_bwd_dq", lambda *a: fa.flash_bwd_dq(*a, True, scale)),
+            ("flash_bwd_dkv", lambda *a: fa.flash_bwd_dkv(*a, True, scale))):
+        results[name]["fp16"] = {
+            "ms": time_ms(Rotor(fn, sets), 5, warmup=1),
+            "units": fa.flash_route(name.split("_")[-1], f16)}
+    del sets
+    log("fp16 (kernel ms back to back; attention also on the device): " +
+        json.dumps({n: results[n]["fp16"] for n in (
+            "decode_attention", "paged_attention", "flash_fwd",
+            "flash_bwd_dq", "flash_bwd_dkv")}))
 
 
 # -- phase 3: the headline stream --------------------------------------------
@@ -1385,6 +1459,379 @@ def f32_phase(dev, cfg, params):
         log(f"f32 decode-step logits via {label}: max |kernel - plain| = "
             f"{err:.3g} (tol {F32_LOGITS_TOL})")
     return out
+
+
+# -- phase 5b: the SSD-backed KV prefix store ---------------------------------
+
+#: the prefix-store traffic: a chat service whose sessions share one of
+#: two system prompts of 8 pages and come back after the server restarts
+PREFIX_SYSTEM_TOKENS = 1024
+PREFIX_USER_TOKENS = (16, 400)
+PREFIX_REQUESTS = 8
+PREFIX_NEW_TOKENS = 32
+PREFIX_PAGE_TOKENS = 128
+PREFIX_STORE_BYTES = 1 << 30
+#: engine counters a store run reports (deltas over the run)
+STORE_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
+                  "bytes_to_device", "bytes_verified", "checksum_failures",
+                  "kv_pages_written", "kv_pages_deduped", "kv_pages_restored",
+                  "kv_prefix_hits", "kv_prefix_misses",
+                  "kv_restore_failures", "kv_store_evictions")
+
+
+def prefix_requests(vocab):
+    """PREFIX_REQUESTS seeded requests: system prompt i % 2, then a user
+    turn of 16-400 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 7)
+    systems = [rng.integers(0, vocab, PREFIX_SYSTEM_TOKENS).tolist()
+               for _ in range(2)]
+    return [(f"p{i}", systems[i % 2] + rng.integers(
+        0, vocab, int(rng.integers(PREFIX_USER_TOKENS[0],
+                                   PREFIX_USER_TOKENS[1] + 1))).tolist())
+            for i in range(PREFIX_REQUESTS)]
+
+
+def store_run(label, srv, requests, eng, store, rid_prefix=""):
+    """Every request admitted in one step, run to the end: tokens, tok/s,
+    TTFT, the engine's counter deltas, the store's device copies and the
+    h2d_copy launches of the run."""
+    import torch
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    eng.sync_stats()
+    before = eng.stats.snapshot()
+    h0, c0 = h2d_copy.launches, store.copies if store is not None else 0
+    t0 = time.monotonic()
+    for rid, ids in requests:
+        srv.submit(rid_prefix + rid, ids, PREFIX_NEW_TOKENS)
+    out = srv.run(lookahead=8)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    eng.sync_stats()
+    after = eng.stats.snapshot()
+    s = srv.stats()
+    toks = sum(len(v) for v in out.values())
+    if len(out) != len(requests) or \
+            any(len(v) != PREFIX_NEW_TOKENS for v in out.values()):
+        raise AssertionError(f"prefix store {label}: incomplete results")
+    rep = {"tokens": toks, "seconds": secs, "tok_per_s": toks / secs,
+           "ttft_ms_avg": s["ttft_ms_avg"], "ttft_ms_max": s["ttft_ms_max"],
+           "stats": {k: after[k] - before[k] for k in STORE_COUNTERS},
+           "h2d_launches": h2d_copy.launches - h0,
+           "store_copies": (store.copies if store is not None else 0) - c0,
+           "kv_restore_p99_ms": after.get("kv_restore_p99_ms")}
+    log(f"prefix store {label}: {toks} tokens in {secs:.3f} s = "
+        f"{rep['tok_per_s']:.1f} tok/s, TTFT avg {rep['ttft_ms_avg']} ms "
+        f"max {rep['ttft_ms_max']} ms; h2d_copy launches "
+        f"{rep['h2d_launches']}, store copies {rep['store_copies']}; "
+        f"stats {rep['stats']}; restore p99 {rep['kv_restore_p99_ms']} ms")
+    return {(r[len(rid_prefix):]): v for r, v in out.items()}, rep
+
+
+def _writer_pages(srv, requests, store):
+    """{chain key: (k, v)} of every full prompt page, taken from the
+    cache slot of the first request (in slot order) that computed it:
+    the bytes the store's page holds."""
+    P = store.page_tokens
+    pages = {}
+    for slot, (_, ids) in enumerate(requests):
+        for j, kx in enumerate(store.chain_keys(ids)):
+            if kx not in pages:
+                pages[kx] = (srv.k_cache[:, slot, :, j * P:(j + 1) * P],
+                             srv.v_cache[:, slot, :, j * P:(j + 1) * P])
+    return pages
+
+
+def _flip_page_byte(store, key, at=100):
+    """Flip one byte of ``key``'s page in the closed store's file."""
+    with open(store.manifest_path) as f:
+        man = json.load(f)
+    slot = next(int(s) for s, row in man["pages"].items()
+                if row["key"] == key.hex())
+    with open(store.path, "r+b") as f:
+        f.seek(slot * store.page_bytes + at)
+        b = f.read(1)
+        f.seek(slot * store.page_bytes + at)
+        f.write(bytes([b[0] ^ 0x01]))
+        f.flush()
+        os.fsync(f.fileno())
+        os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+    return slot
+
+
+def prefix_store_phase(dev, cfg, params):
+    """The prefix store on both servers at flagship width, pages of
+    PREFIX_PAGE_TOKENS (1 MiB) in a PREFIX_STORE_BYTES store under
+    DATA_DIR, 8 requests (two shared system prompts of 8 pages):
+    1. cold: each server over an empty store (every page misses and is
+       written), flushed;
+    2. NVMe hit: new servers over a new store object reattaching the
+       dense run's clean manifest: every page restores through h2d_copy;
+       the restored bytes must equal the cold run's bitwise, with
+       bounce_bytes 0 and h2d_copy launches >= the pieces copied;
+    3. run 2 under STROM_VERIFY=full (every page checked on staging);
+    4. one byte of one system-prompt page flipped on disk, then
+       STROM_VERIFY=full: the page fails its check and heals through
+       recompute;
+    5. HBM hit: the paged server of run 2 again, from its in-memory
+       prefix cache.
+    Dense-hit, paged-hit and HBM-hit tokens must be identical (the same
+    suffix block_step on bitwise-equal prefix KV); cold against hit is
+    reported (bf16 is not bitwise across prefill shapes) and asserted
+    in float32 by prefix_store_f32_phase."""
+    import shutil
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    sdir = os.path.join(DATA_DIR, "kv_store")
+    shutil.rmtree(sdir, ignore_errors=True)
+    requests = prefix_requests(cfg.vocab)
+    report, toks = {}, {}
+    P = PREFIX_PAGE_TOKENS
+
+    def store(name, fresh=False):
+        path = os.path.join(sdir, name)
+        if fresh:
+            for p in (path, path + ".kvman.json"):
+                if os.path.exists(p):
+                    os.remove(p)
+        return PrefixStore(cfg, eng, path, P, PREFIX_STORE_BYTES)
+
+    def dense(st):
+        return DecodeServer(params, cfg, PREFIX_REQUESTS, 2048, device=dev,
+                            kv_store=st)
+
+    def paged(st):
+        return PagedDecodeServer(params, cfg, PREFIX_REQUESTS, 2048,
+                                 total_blocks=128, block_len=P, device=dev,
+                                 kv_store=st)
+
+    with StromEngine() as eng:
+        eng.cuda_mapping(dev.index)          # page-lock staging first
+        # 1. cold
+        st = store("chat.kvstore", fresh=True)
+        srv = dense(st)
+        toks["dense_cold"], report["dense_cold"] = store_run(
+            "dense cold", srv, requests, eng, st)
+        cold_pages = _writer_pages(srv, requests, st)
+        page_bytes = st.page_bytes
+        st.close()
+        del srv
+        st_p = store("chat_paged.kvstore", fresh=True)
+        toks["paged_cold"], report["paged_cold"] = store_run(
+            "paged cold", paged(st_p), requests, eng, st_p)
+        st_p.close()
+        for label in ("dense_cold", "paged_cold"):
+            r = report[label]["stats"]
+            if r["kv_pages_restored"] or not r["kv_pages_written"] or \
+                    r["kv_prefix_misses"] != len(cold_pages) + \
+                    r["kv_pages_deduped"]:
+                raise AssertionError(f"{label}: not every page missed "
+                                     f"and was written: {r}")
+        torch.cuda.empty_cache()
+        # 2. NVMe hit, through a store object reattaching the manifest
+        st = store("chat.kvstore")
+        if st.pages_resident() != len(cold_pages):
+            raise AssertionError(f"reattached {st.pages_resident()} pages "
+                                 f"of {len(cold_pages)}")
+        srv = dense(st)
+        toks["dense_hit"], report["dense_hit"] = store_run(
+            "dense NVMe hit", srv, requests, eng, st)
+        for slot, (_, ids) in enumerate(requests):
+            for j, kx in enumerate(st.chain_keys(ids)):
+                k, v = cold_pages[kx]
+                if not (torch.equal(srv.k_cache[:, slot, :, j * P:(j + 1) * P],
+                                    k) and
+                        torch.equal(srv.v_cache[:, slot, :, j * P:(j + 1) * P],
+                                    v)):
+                    raise AssertionError(f"restored page {j} of slot {slot} "
+                                         "differs from the cold run's")
+        del srv
+        psrv = paged(st)
+        toks["paged_hit"], report["paged_hit"] = store_run(
+            "paged NVMe hit", psrv, requests, eng, st)
+        # the restore alone: every resident page of the run, one batch,
+        # three times, bytes compared with the cold run's
+        keys = list(cold_pages)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            got = st.restore_many({0: (0, keys)}, device=dev)[0]
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        for j, kx in enumerate(keys):
+            if not (torch.equal(got[j][0], cold_pages[kx][0])
+                    and torch.equal(got[j][1], cold_pages[kx][1])):
+                raise AssertionError(f"restore_many page {j} differs")
+        nbytes = len(keys) * st.page_bytes
+        report["restore"] = {
+            "pages": len(keys), "bytes": nbytes, "seconds": times,
+            "gib_per_s": [nbytes / t / 2**30 for t in times],
+            "kv_restore_p99_ms": st.restore_p99_ms()}
+        log(f"prefix store restore of {len(keys)} pages ({nbytes} B), one "
+            f"batch: {[f'{t * 1e3:.2f}' for t in times]} ms = "
+            f"{[f'{g:.3f}' for g in report['restore']['gib_per_s']]} GiB/s;"
+            f" restore p99 {st.restore_p99_ms()} ms; bitwise equal to the "
+            "cold run's pages")
+        del got
+        # 5. HBM hit: the same paged server, from its block cache
+        toks["paged_hbm_hit"], report["paged_hbm_hit"] = store_run(
+            "paged HBM hit", psrv, requests, eng, st, rid_prefix="h")
+        del psrv
+        st.close()
+        torch.cuda.empty_cache()
+        # 3. the NVMe hit under STROM_VERIFY=full
+        os.environ["STROM_VERIFY"] = "full"
+        try:
+            st = store("chat.kvstore")
+            toks["dense_verify"], report["dense_verify"] = store_run(
+                "dense NVMe hit, STROM_VERIFY=full", dense(st), requests,
+                eng, st)
+            toks["paged_verify"], report["paged_verify"] = store_run(
+                "paged NVMe hit, STROM_VERIFY=full", paged(st), requests,
+                eng, st)
+            st.close()
+            # 4. one flipped byte on disk
+            sys0 = st.chain_keys(requests[0][1])[3]
+            slot = _flip_page_byte(st, sys0)
+            st = store("chat.kvstore")
+            toks["dense_heal"], report["dense_heal"] = store_run(
+                "dense, a flipped byte in page slot "
+                f"{slot}, STROM_VERIFY=full", dense(st), requests, eng, st)
+            st.close()
+        finally:
+            os.environ.pop("STROM_VERIFY", None)
+    # checks
+    hit = toks["dense_hit"]
+    for label in ("paged_hit", "paged_hbm_hit", "dense_verify",
+                  "paged_verify"):
+        if toks[label] != hit:
+            diff = [r for r in hit if toks[label][r] != hit[r]]
+            raise AssertionError(f"prefix store: {label} tokens differ from "
+                                 f"the dense NVMe hit's for {diff}")
+    n_keys = len(cold_pages)
+    for label in ("dense_hit", "paged_hit", "dense_verify", "paged_verify"):
+        r = report[label]
+        st_ = r["stats"]
+        if st_["kv_prefix_misses"] or st_["kv_restore_failures"] or \
+                st_["kv_pages_written"]:
+            raise AssertionError(f"{label}: not every page restored: {st_}")
+        if st_["bounce_bytes"] != 0:
+            raise AssertionError(f"{label}: bounce_bytes "
+                                 f"{st_['bounce_bytes']} on the restores")
+        if not r["h2d_launches"] >= r["store_copies"] > 0:
+            raise AssertionError(f"{label}: h2d_copy launches "
+                                 f"{r['h2d_launches']} < pieces copied "
+                                 f"{r['store_copies']}")
+    if report["paged_hbm_hit"]["stats"]["kv_pages_restored"]:
+        raise AssertionError("the HBM hit run read the store")
+    for label in ("dense_verify", "paged_verify"):
+        # one batch: each resident page read and checked once
+        st_ = report[label]["stats"]
+        if st_["bytes_verified"] != n_keys * page_bytes or \
+                st_["checksum_failures"]:
+            raise AssertionError(f"{label}: verify counters {st_}")
+    heal = report["dense_heal"]["stats"]
+    if heal["kv_restore_failures"] < 1 or heal["checksum_failures"] < 1:
+        raise AssertionError(f"the flipped page was not caught: {heal}")
+    # the system prompt the damaged page is not part of restores the same
+    # bytes as run 2: same tokens
+    clean = [rid for i, (rid, _) in enumerate(requests) if i % 2]
+    if any(toks["dense_heal"][r] != hit[r] for r in clean):
+        raise AssertionError("heal run: requests on the undamaged prompt "
+                             "changed tokens")
+    report["n_pages"] = n_keys
+    report["cold_vs_hit_equal"] = {
+        rid: toks["dense_cold"][rid] == hit[rid] for rid, _ in requests}
+    report["heal_vs_hit_equal"] = {
+        rid: toks["dense_heal"][rid] == hit[rid] for rid, _ in requests}
+    report["ttft_ms_avg"] = {k: report[k]["ttft_ms_avg"] for k in (
+        "dense_cold", "paged_cold", "dense_hit", "paged_hit",
+        "paged_hbm_hit")}
+    log(f"prefix store: {n_keys} pages; dense-hit, paged-hit, HBM-hit and "
+        f"verified tokens identical; cold == hit per request (bf16) "
+        f"{report['cold_vs_hit_equal']}; heal == hit "
+        f"{report['heal_vs_hit_equal']}; TTFT avg ms {report['ttft_ms_avg']}")
+    return report
+
+
+def prefix_store_f32_phase(dev, cfg, params):
+    """The store in float32 (f32_phase's config): the dense server's
+    cold run against its NVMe-hit run, and against a run whose restored
+    page fails its check and is recomputed: tokens must be equal, and
+    the first-token logits of the cold prefill and the restored-prefix
+    block_step close."""
+    import dataclasses
+    import shutil
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import decode as dec
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import DecodeServer
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items()}
+    sdir = os.path.join(DATA_DIR, "kv_store_f32")
+    shutil.rmtree(sdir, ignore_errors=True)
+    path = os.path.join(sdir, "chat.kvstore")
+    requests = prefix_requests(cfg.vocab)
+    P = PREFIX_PAGE_TOKENS
+    toks, report = {}, {}
+    with StromEngine() as eng:
+        eng.cuda_mapping(dev.index)          # page-lock staging first
+
+        def run(label):
+            st = PrefixStore(cfg32, eng, path, P, PREFIX_STORE_BYTES)
+            toks[label], report[label] = store_run(
+                f"f32 {label}", DecodeServer(p32, cfg32, PREFIX_REQUESTS,
+                                             2048, device=dev, kv_store=st),
+                requests, eng, st)
+            return st
+        run("cold").close()
+        st = run("hit")
+        # first-token logits of one request, cold prefill against the
+        # restored prefix + suffix block_step
+        ids = requests[0][1]
+        s = len(ids)
+        keys = st.chain_keys(ids)
+        cache = dec.init_cache(cfg32, 1, s, device=dev)
+        cold, _ = dec.prefill(p32, torch.tensor([ids], device=dev), cfg32,
+                              cache)
+        got = st.restore_many({0: (0, keys)}, device=dev)[0]
+        cache = dec.init_cache(cfg32, 1, -(-s // P) * P, device=dev)
+        for j in range(len(keys)):
+            cache["k"][:, 0, :, j * P:(j + 1) * P] = got[j][0]
+            cache["v"][:, 0, :, j * P:(j + 1) * P] = got[j][1]
+        cache["pos"] = len(keys) * P
+        suffix = ids[len(keys) * P:]
+        hit, _ = dec.block_step(p32, torch.tensor([suffix], device=dev),
+                                cfg32, cache, last=len(suffix) - 1)
+        report["first_logits_max_abs_diff"] = (hit - cold).abs().max().item()
+        st.close()
+        _flip_page_byte(st, keys[3])
+        os.environ["STROM_VERIFY"] = "full"
+        try:
+            run("heal").close()
+        finally:
+            os.environ.pop("STROM_VERIFY", None)
+    if report["heal"]["stats"]["kv_restore_failures"] < 1:
+        raise AssertionError(f"f32 heal: the flipped page was not caught "
+                             f"{report['heal']['stats']}")
+    for label in ("hit", "heal"):
+        if toks[label] != toks["cold"]:
+            diff = [r for r in toks["cold"] if toks[label][r] !=
+                    toks["cold"][r]]
+            raise AssertionError(f"f32 prefix store: {label} tokens differ "
+                                 f"from cold for {diff}")
+    if not report["first_logits_max_abs_diff"] <= F32_LOGITS_TOL:
+        raise AssertionError(f"f32 first-token logits, cold against hit, "
+                             f"differ by {report['first_logits_max_abs_diff']}")
+    log(f"prefix store f32: cold, NVMe-hit and healed tokens identical; "
+        f"first-token logits max |hit - cold| "
+        f"{report['first_logits_max_abs_diff']:.3g} (tol {F32_LOGITS_TOL})")
+    return report
 
 
 # -- phase 6: training at flagship width --------------------------------------
@@ -1902,6 +2349,7 @@ def main() -> int:
     for n in ("decode", "paged"):
         results[f"{n}_attention"]["host_us"] = host[n]
     flash_split = check_flash(dev, results)
+    fp16_times(dev, results)
     # the checks' inputs (GBs at the long shapes) stay in the caching
     # allocator: hand them back before the main paths are timed
     gc.collect()
@@ -1954,7 +2402,19 @@ def main() -> int:
         results[n]["launches"] = counts[n]
     f32 = f32_phase(dev, cfg, params)
     os.remove(stream_path)
+    # main path 1b: the prefix store on both servers, restored through
+    # h2d_copy, decoded on kernels 2-3
+    prefix, counts = drive(
+        "prefix store", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: prefix_store_phase(dev, cfg, params))
+    results["h2d_copy"]["launches_prefix_store"] = counts["h2d_copy"]
+    results["decode_attention"]["launches_prefix_store"] = \
+        counts["decode_attention"]
+    results["paged_attention"]["launches_prefix_store"] = \
+        counts["paged_attention"]
+    prefix["f32"] = prefix_store_f32_phase(dev, cfg, params)
     del params
+    torch.cuda.empty_cache()
     # a group of 7 at head_dim 128 through both servers
     gqa, _ = drive("GQA serve", ("decode_attention", "paged_attention"),
                    lambda: gqa_serve_phase(dev, cfg))
@@ -1994,7 +2454,7 @@ def main() -> int:
         results[n]["kernel_ms"] = results[n]["ms"]
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
-                                  "gqa_serve": gqa,
+                                  "gqa_serve": gqa, "prefix_store": prefix,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
                                   "flash_split": flash_split,

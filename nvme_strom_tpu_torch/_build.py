@@ -43,7 +43,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared",
                    "-lcuda"]
 
-#: seconds each library's build took in this process (0.0 = up to date)
+#: seconds each library's build took in this process (0.0 = up to date),
+#: and each kernel source's ``nvcc -c`` (``"nvcc <file>"``, from the
+#: start of the parallel compile to that source's end)
 build_seconds: Dict[str, float] = {}
 
 _lock = threading.Lock()
@@ -59,19 +61,29 @@ def _digest(paths: List[Path], flags: List[str]) -> str:
     return h.hexdigest()
 
 
-def _run(cmds: List[List[str]]) -> None:
+def _run(cmds: List[List[str]]) -> List[float]:
     """Run the commands concurrently; raise with the compiler's output
-    if any of them fails."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    errors = []
-    for c, p in zip(cmds, procs):
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"$ {' '.join(c)}\n{out}")
+    if any of them fails.  Returns each command's seconds from the
+    common start to its end."""
+    t0 = time.monotonic()
+    done: List[tuple] = [()] * len(cmds)
+
+    def one(i: int) -> None:
+        p = subprocess.run(cmds[i], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        done[i] = (p.returncode, p.stdout, time.monotonic() - t0)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(cmds))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    errors = [f"$ {' '.join(c)}\n{out}" for c, (rc, out, _) in
+              zip(cmds, done) if rc != 0]
     if errors:
         raise RuntimeError("native build failed:\n" + "\n".join(errors))
+    return [secs for _, _, secs in done]
 
 
 def _build(name: str, deps: List[Path], flags: List[str], make) -> Path:
@@ -143,8 +155,10 @@ def kernel_library() -> ctypes.CDLL:
                 objs = [BUILD_DIR / f".{s.stem}.{os.getpid()}.o"
                         for s in sources]
                 try:
-                    _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
-                          for s, o in zip(sources, objs)])
+                    secs = _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o",
+                                  str(o)] for s, o in zip(sources, objs)])
+                    build_seconds.update(
+                        (f"nvcc {s.name}", t) for s, t in zip(sources, secs))
                     _run([[nvcc, "-o", str(tmp), *map(str, objs),
                            *NVCC_LINK_FLAGS]])
                 finally:

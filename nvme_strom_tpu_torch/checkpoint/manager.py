@@ -19,8 +19,12 @@ renamed into place once every byte is on disk; a staging directory left
 by a crashed save is never taken for a checkpoint and is removed at
 startup once it is older than ``gc_min_age_s``.  Restore steps past a
 damaged step to an older one, and can read the step once across an
-exchange group (``STROM_ICI_SCATTER``, ops/ici.py).  Multi-host saves
-and ``STROM_VERIFY`` on restore are not part of this port yet.
+exchange group (``STROM_ICI_SCATTER``, ops/ici.py).  Under
+``STROM_VERIFY`` (utils/checksum.py) every whole stored tile read is
+checked against its write-time CRC32C stamp; a mismatch re-reads the
+tile once, and a second one raises ``ChecksumError``, an OSError, so the
+restore steps back to the previous intact step.  Multi-host saves are
+not part of this port yet.
 """
 
 from __future__ import annotations
@@ -40,13 +44,14 @@ import torch
 
 from nvme_strom_tpu_torch.checkpoint.scatter import build_restore_manifest
 from nvme_strom_tpu_torch.formats.safetensors import (
-    SafetensorsFile, torch_dtype, write_safetensors_engine)
+    SafetensorsFile, tensor_checksums, torch_dtype, write_safetensors_engine)
 from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import host_to_device, pinned_mapping
 from nvme_strom_tpu_torch.ops.ici import (ici_hosts, ici_scatter_enabled,
                                           ici_unit_bytes, scatter_engine)
 from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+from nvme_strom_tpu_torch.utils.checksum import VerifyPolicy
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _TMP_RE = re.compile(r"^\.tmp_step_(\d{8})$")
@@ -142,6 +147,8 @@ class CheckpointManager:
         #: the step the last restore read (an older one than asked for
         #: when it fell back past a damaged step)
         self.last_restore_step: Optional[int] = None
+        #: STROM_VERIFY, read once per manager
+        self._verify = VerifyPolicy()
         self._gc_tmp_dirs(gc_min_age_s)
 
     def _gc_tmp_dirs(self, min_age: float) -> None:
@@ -452,12 +459,24 @@ class CheckpointManager:
         region of the stored tensor, assembled from whichever stored
         tiles intersect it.  Rows are contiguous on disk, so of each
         tile only the rows the region needs are read; a tile that
-        covers whole rows of the region is read straight into it."""
+        covers whole rows of the region is read straight into it.
+        Under ``STROM_VERIFY`` a whole-tile read is checked against its
+        stamp; ``full`` widens a partial-row read of a stamped tile to
+        the whole tile, so every byte used is covered."""
         shape = tuple(info["shape"])
         dtype = torch_dtype(info["dtype"])
         isz = torch.empty(0, dtype=dtype).element_size()
         tiles = [(tuple(tuple(b) for b in t["idx"]), t["file"])
                  for t in info["tiles"]]
+        policy = self._verify
+        stamps: Dict[str, Dict[str, int]] = {}     # file → its stamps
+
+        def stamp(sf, fname, tkey) -> Optional[int]:
+            if not policy.enabled:
+                return None
+            if fname not in stamps:
+                stamps[fname] = tensor_checksums(sf)
+            return stamps[fname].get(tkey)
 
         def read_tile_rows(bounds, fname, a, b, out):
             """Rows [a, b) (tile-local, leading axis) of a stored tile
@@ -466,14 +485,32 @@ class CheckpointManager:
             if sf is None:
                 sf = files[fname] = SafetensorsFile(os.path.join(cdir,
                                                                  fname))
-            t = sf.tensors[_tile_key(name, bounds, shape)]
+            tkey = _tile_key(name, bounds, shape)
+            t = sf.tensors[tkey]
             tshape = tuple(hi - lo for lo, hi in bounds)
             if tuple(t["shape"]) != tshape:
                 raise ValueError(f"{name}: stored tile {bounds} has shape "
                                  f"{tuple(t['shape'])}")
+            rows = tshape[0] if tshape else 1
+            expected = stamp(sf, fname, tkey)
+            if expected is not None and (a, b) != (0, rows):
+                if policy.mode == "full":
+                    tile = read_tile_rows(bounds, fname, 0, rows,
+                                          torch.empty(tshape, dtype=dtype))
+                    out.copy_(tile[a:b])
+                    eng.stats.add(bounce_bytes=out.numel() * isz)
+                    return out
+                expected = None     # only a whole tile has a stamp
             row_bytes = isz * int(np.prod(tshape[1:], dtype=np.int64))
+            flat = out.reshape(-1).view(torch.uint8).numpy()
             self._engine_read(eng, sf.path, t["offset"] + a * row_bytes,
-                              out.reshape(-1).view(torch.uint8).numpy())
+                              flat)
+            if expected is not None and policy.want():
+                policy.check_with_reread(
+                    flat, expected,
+                    lambda: self._engine_read(eng, sf.path, t["offset"],
+                                              flat) or flat,
+                    eng.stats, where=f"tile {tkey} of {sf.path}")
             return out
 
         def read_region(bounds, pin: bool = False) -> torch.Tensor:

@@ -58,10 +58,13 @@
 // tail or a padding block cannot reach the output; a key the rows
 // functor skips (a table entry outside the pool) counts as absent; a
 // row with pos < 0 gives 0.  Scores are q·k with q scaled in fp32, as in
-// the TPU kernel.
+// the TPU kernel.  bf16, fp16 and fp32 inputs take the same code: each
+// element is widened to fp32 as it is loaded and the output is rounded
+// once to the input dtype.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -78,6 +81,7 @@ constexpr float kNegInf = -1e30f;
 // dtype codes shared with the Python wrappers
 constexpr int kBF16 = 0;
 constexpr int kF32 = 1;
+constexpr int kF16 = 2;
 
 // 8 elements of a K or V row, loaded raw so that several loads of a lane
 // are in flight before any is used
@@ -96,6 +100,24 @@ struct Vec8<__nv_bfloat16> {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float2 f = __bfloat1622float2(h[j]);
+      o[2 * j] = f.x;
+      o[2 * j + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Vec8<__half> {
+  uint4 r;
+  __device__ __forceinline__ void load(const __half* p) {
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { r = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+    const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __half22float2(h[j]);
       o[2 * j] = f.x;
       o[2 * j + 1] = f.y;
     }
@@ -127,6 +149,12 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   x.get(o);
 }
 
+__device__ __forceinline__ void load8(const __half* p, float (&o)[8]) {
+  Vec8<__half> x;
+  x.r = *reinterpret_cast<const uint4*>(p);
+  x.get(o);
+}
+
 __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
   Vec8<float> x;
   x.a = *reinterpret_cast<const float4*>(p);
@@ -136,6 +164,10 @@ __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
 
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -362,6 +394,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 // Columns c..c+7 of a row of d elements at p, as floats; past d zero.
 // ALIGNED (d a multiple of 8: a lane's columns are one 16-byte-aligned
@@ -643,6 +676,12 @@ inline dim3 combine_grid(const SplitArgs& a, int rows, int G) {
 }
 
 
+// Which dtypes a translation unit instantiates: fp16 in the one that
+// defines STROM_ATTN_F16_TU (decode_attention_f16.cu,
+// paged_attention_f16.cu), bf16 and fp32 in the others, so that nvcc
+// builds the two sets in parallel; each entry point hands fp16 calls to
+// its fp16 unit.
+
 // Instantiate `Body<T, D, G>::run(args...)` for the dtype, built head
 // width D and rows per chunk G the caller asks for; returns
 // cudaErrorInvalidValue for anything else.
@@ -661,11 +700,17 @@ cudaError_t dispatch(int dtype, int width, int rows, Args... args) {
   STROM_ATTN_ROWS(T, 64)     \
   STROM_ATTN_ROWS(T, 128)    \
   STROM_ATTN_ROWS(T, 256)
+#ifdef STROM_ATTN_F16_TU
+  if (dtype == kF16) {
+    STROM_ATTN_WIDTHS(__half)
+  }
+#else
   if (dtype == kBF16) {
     STROM_ATTN_WIDTHS(__nv_bfloat16)
   } else if (dtype == kF32) {
     STROM_ATTN_WIDTHS(float)
   }
+#endif
 #undef STROM_ATTN_WIDTHS
 #undef STROM_ATTN_ROWS
 #undef STROM_ATTN_CASE
@@ -688,11 +733,17 @@ cudaError_t dispatch_any(int dtype, int d, int rows, Args... args) {
   STROM_ANY_CASE(T, 1)    \
   STROM_ANY_CASE(T, 2)    \
   STROM_ANY_CASE(T, 4)
+#ifdef STROM_ATTN_F16_TU
+  if (dtype == kF16) {
+    STROM_ANY_ROWS(__half)
+  }
+#else
   if (dtype == kBF16) {
     STROM_ANY_ROWS(__nv_bfloat16)
   } else if (dtype == kF32) {
     STROM_ANY_ROWS(float)
   }
+#endif
 #undef STROM_ANY_ROWS
 #undef STROM_ANY_CASE
   return cudaErrorInvalidValue;

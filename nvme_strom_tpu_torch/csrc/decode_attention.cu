@@ -81,17 +81,35 @@ struct LaunchAny {
 
 }  // namespace
 
+// The fp16 unit (decode_attention_f16.cu) includes this file with
+// STROM_ATTN_F16_TU defined: its entry point is strom_decode_attention_f16.
+#ifdef STROM_ATTN_F16_TU
+#define STROM_DECODE_ENTRY strom_decode_attention_f16
+#else
+#define STROM_DECODE_ENTRY strom_decode_attention
+extern "C" int strom_decode_attention_f16(
+    const void* q, const void* k, const void* v, const void* pos, void* out,
+    void* ws, int b, int nkv, int g, int S, int d, int width,
+    int rows_per_chunk, int split_len, int dtype, float scale, void* stream,
+    int device);
+#endif
+
 // width, rows_per_chunk: the head width (>= d) and the rows G of a query
 // chunk the wrapper picked (ops/decode_attention.py `kernel_shape`): the
 // built width D where `built_width(d)`, else the any-width path's
 // workspace row; ws: n_splits > 1 ? the workspace : null.
-extern "C" int strom_decode_attention(const void* q, const void* k,
-                                      const void* v, const void* pos,
-                                      void* out, void* ws, int b, int nkv,
-                                      int g, int S, int d, int width,
-                                      int rows_per_chunk, int split_len,
-                                      int dtype, float scale, void* stream,
-                                      int device) {
+extern "C" int STROM_DECODE_ENTRY(const void* q, const void* k,
+                                  const void* v, const void* pos, void* out,
+                                  void* ws, int b, int nkv, int g, int S,
+                                  int d, int width, int rows_per_chunk,
+                                  int split_len, int dtype, float scale,
+                                  void* stream, int device) {
+#ifndef STROM_ATTN_F16_TU
+  if (dtype == kF16)
+    return strom_decode_attention_f16(q, k, v, pos, out, ws, b, nkv, g, S,
+                                      d, width, rows_per_chunk, split_len,
+                                      dtype, scale, stream, device);
+#endif
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int n_splits = S > 0 && split_len > 0 ? (S - 1) / split_len + 1 : 0;

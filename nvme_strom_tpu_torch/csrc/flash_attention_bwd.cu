@@ -86,7 +86,7 @@
 //   operands live: it spilled at both widths and ran slower.
 // fp32 inputs keep the fp32 FMA kernels from shared memory
 // (flash_common.cuh), since the tensor cores take no fp32 products at the
-// fp32 tolerance.
+// fp32 tolerance; fp16 inputs take them too.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"

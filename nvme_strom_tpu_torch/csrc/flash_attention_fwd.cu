@@ -46,7 +46,7 @@
 // d = 64 135, without spills, so no setmaxnreg.
 // fp32 inputs keep `flash_fwd_kernel`: fp32 FMAs from shared memory
 // (flash_common.cuh), since the tensor cores take no fp32 products at
-// the fp32 tolerance.
+// the fp32 tolerance; fp16 inputs take it too.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -423,6 +423,8 @@ extern "C" int strom_flash_fwd(void* q, void* k, void* v, void* out,
 // Which kernel `kernel` (0 forward, 1 dQ, 2 dK/dV) runs for `dtype`:
 // 1 the tensor-core kernel, 0 the fp32 FMA kernel.
 extern "C" int strom_flash_route(int kernel, int dtype) {
-  return dtype == strom_attn::kBF16 ? (int)tensor_cores<__nv_bfloat16>(kernel)
-                                    : (int)tensor_cores<float>(kernel);
+  if (dtype == strom_attn::kBF16)
+    return (int)tensor_cores<__nv_bfloat16>(kernel);
+  if (dtype == strom_attn::kF16) return (int)tensor_cores<__half>(kernel);
+  return (int)tensor_cores<float>(kernel);
 }

@@ -4,8 +4,9 @@
 //
 // Which kernel takes which inputs (`tensor_cores` below): bf16 inputs
 // run the forward, the dQ and the dK/dV kernel on the tensor cores
-// (wgmma with TMA loads, hopper.cuh); fp32 inputs run the FMA kernels
-// built from the tiles here.
+// (wgmma with TMA loads, hopper.cuh); fp32 and fp16 inputs run the FMA
+// kernels built from the tiles here (no model the repo ships trains in
+// fp16, so it has no tensor-core path).
 //
 // FMA tiles: every kernel works on 64-row tiles of one (batch, head): a
 // tile of Q, K, V or dO rows is loaded from device memory once,
@@ -188,6 +189,10 @@ cudaError_t dispatch(int dtype, int d, Args... args) {
   if (dtype == strom_attn::kF32 && d == 64) return Body<float, 64>::run(args...);
   if (dtype == strom_attn::kF32 && d == 128)
     return Body<float, 128>::run(args...);
+  if (dtype == strom_attn::kF16 && d == 64)
+    return Body<__half, 64>::run(args...);
+  if (dtype == strom_attn::kF16 && d == 128)
+    return Body<__half, 128>::run(args...);
   return cudaErrorInvalidValue;
 }
 

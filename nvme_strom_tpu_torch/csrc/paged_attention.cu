@@ -128,15 +128,35 @@ struct Launch {
 
 }  // namespace
 
+// The fp16 unit (paged_attention_f16.cu) includes this file with
+// STROM_ATTN_F16_TU defined: its entry point is strom_paged_attention_f16.
+#ifdef STROM_ATTN_F16_TU
+#define STROM_PAGED_ENTRY strom_paged_attention_f16
+#else
+#define STROM_PAGED_ENTRY strom_paged_attention
+extern "C" int strom_paged_attention_f16(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos, void* out, void* ws, int b, int nkv, int g, int n_pool,
+    int block_k, int max_blocks, int d, int width, int rows_per_chunk,
+    int split_len, int dtype, float scale, void* stream, int device);
+#endif
+
 // width, rows_per_chunk, ws: as strom_decode_attention.
-extern "C" int strom_paged_attention(const void* q, const void* k_pool,
-                                     const void* v_pool, const void* table,
-                                     const void* pos, void* out, void* ws,
-                                     int b, int nkv, int g, int n_pool,
-                                     int block_k, int max_blocks, int d,
-                                     int width, int rows_per_chunk,
-                                     int split_len, int dtype, float scale,
-                                     void* stream, int device) {
+extern "C" int STROM_PAGED_ENTRY(const void* q, const void* k_pool,
+                                 const void* v_pool, const void* table,
+                                 const void* pos, void* out, void* ws, int b,
+                                 int nkv, int g, int n_pool, int block_k,
+                                 int max_blocks, int d, int width,
+                                 int rows_per_chunk, int split_len,
+                                 int dtype, float scale, void* stream,
+                                 int device) {
+#ifndef STROM_ATTN_F16_TU
+  if (dtype == kF16)
+    return strom_paged_attention_f16(q, k_pool, v_pool, table, pos, out, ws,
+                                     b, nkv, g, n_pool, block_k, max_blocks,
+                                     d, width, rows_per_chunk, split_len,
+                                     dtype, scale, stream, device);
+#endif
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const long long capacity = (long long)max_blocks * block_k;

@@ -1,0 +1,8 @@
+// paged_attention_f16.cu — the fp16 cases of paged_attention.cu, a
+// translation unit of their own so that nvcc builds them in parallel with
+// the bf16 and fp32 cases (the build runs one nvcc a source, all started
+// together).  strom_paged_attention hands fp16 calls to this unit's
+// strom_paged_attention_f16.
+
+#define STROM_ATTN_F16_TU
+#include "paged_attention.cu"

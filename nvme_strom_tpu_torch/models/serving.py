@@ -19,7 +19,15 @@ one device.
 
 Admission prefills the exact prompt: PyTorch runs eagerly, so the JAX
 server's power-of-two prompt buckets, which bound its compile count,
-are not needed.  The NVMe prefix store, tenants, load shedding, drain/handoff,
+are not needed.
+
+``kv_store`` attaches the SSD-backed KV prefix store
+(models/kv_offload.py ``PrefixStore``): a step plans every admission
+first, restores all their store-resident prompt pages in one batched
+read (through ``h2d_copy`` onto the card), then finishes each one:
+restored pages head the request's cache and ``block_step`` prefills only
+the suffix.  Newly computed full pages are written back once, however
+many sessions share them.  Tenants, load shedding, drain/handoff,
 session export and cold start of the JAX server are not part of this
 port yet.
 """
@@ -53,6 +61,8 @@ class _Request:
     seed: int = 0
     out: List[int] = field(default_factory=list)
     chain_keys: object = None     # paged prefix-cache memo
+    store_keys: object = None     # prefix-store memo (its page size may
+    #                               differ from the HBM block size)
     # submitted, admitted, first token delivered to the host
     t_submit: float = 0.0
     t_admit: float = 0.0
@@ -126,8 +136,10 @@ class DecodeServer:
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  cfg: TransformerConfig, max_batch: int, max_len: int,
-                 device=None):
+                 device=None, kv_store=None):
         self.device = resolve_device(device)
+        #: the shared NVMe prefix store (None: the store-less path)
+        self.kv_store = kv_store
         for name, t in params.items():
             if t.device != self.device:
                 raise ValueError(f"parameter {name} is on {t.device}, the "
@@ -190,6 +202,10 @@ class DecodeServer:
             top_p=top_p, seed=seed & 0xFFFFFFFF, t_submit=time.monotonic()))
 
     # -- admission ----------------------------------------------------------
+    #
+    # Plan (capacity decisions, in queue order), one batched restore of
+    # every admitting slot's store-resident pages, then finish (prefill
+    # and place).  Without a store the two halves are the plain admit.
 
     def _admit_plan(self, slot: int, req: _Request) -> dict:
         """Capacity decisions only (all of a step's admissions plan
@@ -199,16 +215,109 @@ class DecodeServer:
     def _prompt(self, ids: List[int]) -> torch.Tensor:
         return torch.tensor([ids], dtype=torch.long, device=self.device)
 
-    def _admit_finish(self, plan: dict) -> None:
-        """Prefill the prompt and place its KV in the slot's rows."""
+    def _store_keys(self, req: _Request) -> list:
+        """The request's prefix-store chain keys, hashed once."""
+        if self.kv_store is None:
+            return []
+        if req.store_keys is None:
+            req.store_keys = self.kv_store.chain_keys(req.prompt)
+        return req.store_keys
+
+    def _store_skip(self, plan: dict) -> int:
+        """Chain pages a cheaper tier already covers (the paged server's
+        HBM block cache); the store restores only past them."""
+        return 0
+
+    def _store_fits(self, plan: dict, n_pages: int) -> bool:
+        """Whether a page-granular admission cache fits ``max_len`` (the
+        JAX server's rule, kept so both count the same hits)."""
+        s = len(plan["req"].prompt)
+        P = self.kv_store.page_tokens
+        return -(-s // P) * P <= self.max_len
+
+    def _restore_prefixes(self, plans: list) -> Dict[int, dict]:
+        """Every admitting slot's store-resident pages in one
+        ``restore_many`` batch: {slot: {chain index: (k, v)}} on this
+        server's device.  Pages past the resident prefix count
+        ``kv_prefix_misses``."""
+        store = self.kv_store
+        wants: Dict[int, tuple] = {}
+        misses = 0
+        for plan in plans:
+            keys = self._store_keys(plan["req"])
+            if not keys:
+                continue
+            skip = self._store_skip(plan)
+            matched = store.match(keys)
+            misses += len(keys) - matched
+            if matched > skip and self._store_fits(plan, matched):
+                wants[plan["slot"]] = (skip, keys[skip:matched])
+        if misses:
+            store.stats.add(kv_prefix_misses=misses)
+        if not wants:
+            return {}
+        return store.restore_many(wants, device=self.device)
+
+    @staticmethod
+    def _contiguous_from(restored: dict, start: int) -> list:
+        """The restored pages at chain indices start, start + 1, ...
+        without a gap: the usable prefix extension."""
+        use = []
+        while start + len(use) in restored:
+            use.append(restored[start + len(use)])
+        return use
+
+    def _admit_finish(self, plan: dict, restored: dict) -> None:
+        """Prefill the prompt and place its KV in the slot's rows.  With
+        restored pages, they head a page-granular cache and
+        ``block_step`` prefills only the suffix."""
         slot, req = plan["slot"], plan["req"]
         s = len(req.prompt)
-        cache = _dec.init_cache(self.cfg, 1, s, device=self.device)
-        logits, cache = _dec.prefill(self.params, self._prompt(req.prompt),
-                                     self.cfg, cache)
-        self.k_cache[:, slot, :, :s] = cache["k"][:, 0]
-        self.v_cache[:, slot, :, :s] = cache["v"][:, 0]
+        use = self._contiguous_from(restored, 0)
+        if use:
+            P = self.kv_store.page_tokens
+            cache = _dec.init_cache(self.cfg, 1, -(-s // P) * P,
+                                    device=self.device)
+            for j, (k, v) in enumerate(use):
+                cache["k"][:, 0, :, j * P:(j + 1) * P] = k
+                cache["v"][:, 0, :, j * P:(j + 1) * P] = v
+            cache["pos"] = len(use) * P
+            suffix = req.prompt[len(use) * P:]
+            logits, cache = _dec.block_step(self.params, self._prompt(suffix),
+                                            self.cfg, cache,
+                                            last=len(suffix) - 1)
+        else:
+            cache = _dec.init_cache(self.cfg, 1, s, device=self.device)
+            logits, cache = _dec.prefill(self.params,
+                                         self._prompt(req.prompt), self.cfg,
+                                         cache)
+        self.k_cache[:, slot, :, :s] = cache["k"][:, 0, :, :s]
+        self.v_cache[:, slot, :, :s] = cache["v"][:, 0, :, :s]
+        if self.kv_store is not None:
+            self._store_put(req, cache, len(use))
         self._occupy(slot, req, logits)
+
+    def _store_put(self, req: _Request, cache: Dict, have: int) -> None:
+        """Write this admission's newly computed full prompt pages
+        (chain indices ``have``..) to the store, which dedupes by key:
+        one device→host pull for all of them, into one pinned buffer."""
+        keys = self._store_keys(req)
+        n = len(keys) - have
+        if n <= 0:
+            return
+        cfg, P = self.cfg, self.kv_store.page_tokens
+        L, nkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+
+        def pages_of(t):
+            return (t[:, 0, :, have * P:(have + n) * P]
+                    .reshape(L, nkv, n, P, hd).permute(2, 0, 1, 3, 4))
+        dev_pages = torch.stack([pages_of(cache["k"]),
+                                 pages_of(cache["v"])], dim=1)
+        host = torch.empty(dev_pages.shape, dtype=dev_pages.dtype,
+                           pin_memory=self.device.type == "cuda")
+        host.copy_(dev_pages)
+        self.kv_store.put([(keys[have + i], host[i, 0], host[i, 1])
+                           for i in range(n)])
 
     def _occupy(self, slot: int, req: _Request, logits: torch.Tensor):
         """Slot bookkeeping once the prompt's KV is in place; the first
@@ -260,9 +369,13 @@ class DecodeServer:
         return not self.queue and all(s is None for s in self.slots)
 
     def stats(self) -> Dict[str, float]:
+        """Slot occupancy, queue depth, the retired requests' TTFT and
+        admission-wait aggregates, and, with a store, its ``kv_``
+        counters and gauges (shared by every server on the store's
+        engine)."""
         agg = self._metrics_agg
         n = agg["n"]
-        return {
+        out = {
             "slots_total": self.B,
             "slots_busy": sum(r is not None for r in self.slots),
             "queued": len(self.queue),
@@ -274,6 +387,11 @@ class DecodeServer:
             "admit_wait_ms_avg": round(agg["wait_sum"] / n, 3) if n else 0.0,
             "admit_wait_ms_max": round(agg["wait_max"], 3),
         }
+        if self.kv_store is not None:
+            out.update({k: v for k, v in
+                        self.kv_store.stats.snapshot().items()
+                        if k.startswith("kv_")})
+        return out
 
     def _run_step(self) -> torch.Tensor:
         """One decode step of every slot → next tokens (B,) on device."""
@@ -310,8 +428,10 @@ class DecodeServer:
             if (self.slots[slot] is None and self.queue
                     and self._can_admit(self.queue[0])):
                 plans.append(self._admit_plan(slot, self.queue.pop(0)))
+        restored = (self._restore_prefixes(plans)
+                    if plans and self.kv_store is not None else {})
         for plan in plans:
-            self._admit_finish(plan)
+            self._admit_finish(plan, restored.get(plan["slot"], {}))
         self.timings["admit_s"] += time.monotonic() - t0
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
@@ -395,14 +515,21 @@ class PagedDecodeServer(DecodeServer):
     def __init__(self, params: Dict[str, torch.Tensor],
                  cfg: TransformerConfig, max_batch: int, max_len: int,
                  total_blocks: int, block_len: int = 128,
-                 prefix_cache: bool = True, device=None):
+                 prefix_cache: bool = True, device=None, kv_store=None):
         if block_len < 1 or total_blocks < 1:
             raise ValueError("block_len and total_blocks must be >= 1")
+        if kv_store is not None and kv_store.page_tokens != block_len:
+            # store pages go 1:1 into pool blocks; another size would
+            # need a re-chunking copy on every restore
+            raise ValueError(
+                f"kv_store.page_tokens ({kv_store.page_tokens}) must "
+                f"equal block_len ({block_len})")
         self.block_len = block_len
         self.total_blocks = total_blocks
         self.prefix_cache = prefix_cache
         self.max_blocks = -(-max_len // block_len)
-        super().__init__(params, cfg, max_batch, max_len, device=device)
+        super().__init__(params, cfg, max_batch, max_len, device=device,
+                         kv_store=kv_store)
 
     def _alloc_storage(self) -> None:
         cfg = self.cfg
@@ -510,10 +637,20 @@ class PagedDecodeServer(DecodeServer):
         return {"slot": slot, "req": req, "keys": keys, "c": len(matched),
                 "blks": shared + self._alloc_blocks(need - len(matched))}
 
-    def _admit_finish(self, plan: dict) -> None:
-        """Prefill the suffix past the cached prefix blocks (the whole
-        prompt when none matched) and scatter its KV into the request's
-        own blocks."""
+    def _store_skip(self, plan: dict) -> int:
+        # pages the HBM block cache holds cost one gather, less than any
+        # NVMe read: the store starts past them
+        return plan["c"]
+
+    def _store_fits(self, plan: dict, n_pages: int) -> bool:
+        return True    # restored pages land in blocks already reserved
+
+    def _admit_finish(self, plan: dict, restored: dict) -> None:
+        """Pages restored from the store go into the request's own new
+        blocks past its HBM prefix-cache match and register in that
+        cache; then the suffix past every cached block (the whole prompt
+        when none) is prefilled and its KV scattered into the request's
+        blocks."""
         slot, req = plan["slot"], plan["req"]
         keys, c, blks = plan["keys"], plan["c"], plan["blks"]
         cfg, bk = self.cfg, self.block_len
@@ -526,13 +663,25 @@ class PagedDecodeServer(DecodeServer):
         if c:
             self._pc_hits += 1
             self._pc_shared_blocks += c
-            idx = torch.tensor(blks[:c], device=self.device)
+        use = self._contiguous_from(restored, c)
+        if use:
+            idx = torch.tensor(blks[c:c + len(use)], device=self.device)
+            self.k_pool[:, idx] = torch.stack([k for k, _ in use], dim=1)
+            self.v_pool[:, idx] = torch.stack([v for _, v in use], dim=1)
+            # keys is empty without the HBM cache: restores still serve,
+            # there is just no registry to join
+            for j in range(len(use) if keys else 0):
+                self._pc_register(keys[c + j], blks[c + j])
+        ct = c + len(use)
+        if ct:
+            idx = torch.tensor(blks[:ct], device=self.device)
             for pool, dst in ((self.k_pool, cache["k"]),
                               (self.v_pool, cache["v"])):
-                dst[:, 0, :, :c * bk] = (pool[:, idx].permute(0, 2, 1, 3, 4)
-                                         .reshape(L, nkv, c * bk, hd))
-            cache["pos"] = c * bk
-            suffix = req.prompt[c * bk:]
+                dst[:, 0, :, :ct * bk] = (pool[:, idx]
+                                          .permute(0, 2, 1, 3, 4)
+                                          .reshape(L, nkv, ct * bk, hd))
+            cache["pos"] = ct * bk
+            suffix = req.prompt[ct * bk:]
             logits, cache = _dec.block_step(self.params,
                                             self._prompt(suffix), cfg,
                                             cache, last=len(suffix) - 1)
@@ -540,14 +689,16 @@ class PagedDecodeServer(DecodeServer):
             logits, cache = _dec.prefill(self.params,
                                          self._prompt(req.prompt), cfg,
                                          cache)
-        idx = torch.tensor(blks[c:n_pb], device=self.device)
+        idx = torch.tensor(blks[ct:n_pb], device=self.device)
         for pool, src in ((self.k_pool, cache["k"]),
                           (self.v_pool, cache["v"])):
-            pool[:, idx] = (src[:, 0, :, c * bk:n_pb * bk]
-                            .reshape(L, nkv, n_pb - c, bk, hd)
+            pool[:, idx] = (src[:, 0, :, ct * bk:n_pb * bk]
+                            .reshape(L, nkv, n_pb - ct, bk, hd)
                             .permute(0, 2, 1, 3, 4))
-        for i in range(c, len(keys)):
+        for i in range(ct, len(keys)):
             self._pc_register(keys[i], blks[i])
+        if self.kv_store is not None:
+            self._store_put(req, cache, ct)
         self._occupy(slot, req, logits)
 
     def _can_admit(self, req: _Request) -> bool:

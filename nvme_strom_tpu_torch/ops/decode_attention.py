@@ -30,7 +30,7 @@ from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.device import current_stream, sm_count
 
 #: element types the kernels take, by their code in csrc/attn_common.cuh
-KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 #: head widths the kernels are built for; a head_dim that is a multiple of
 #: 8 runs on the next one up, so these take any such head_dim <= 256.
 #: Every other head_dim runs on the any-width path.

@@ -13,8 +13,8 @@ Three hand-written CUDA kernels, each beside its plain PyTorch version:
   start.
 
 On bf16 inputs all three run on the tensor cores (wgmma fed by TMA, the
-probability and dS operands split into two bf16 parts); fp32 inputs run
-fp32 FMA kernels.  :func:`flash_route` says which.
+probability and dS operands split into two bf16 parts); fp32 and fp16
+inputs run fp32 FMA kernels.  :func:`flash_route` says which.
 
 Each wrapper launches its kernel for CUDA tensors (and raises on what
 the kernel does not take) and runs its plain version for CPU tensors.

@@ -7,8 +7,8 @@ a machine without it:
 Each kernel is held against its plain PyTorch version on the same
 inputs: h2d_copy exactly, attention in bfloat16 to one bfloat16 ulp of
 the output (rtol=2**-7: both sides accumulate in float32 and round once)
-plus atol=2e-5 for float32 summation order near zero, and in float32 to
-1e-4.
+plus atol=2e-5 for float32 summation order near zero, in float16 to one
+float16 ulp (rtol=2**-10) plus the same atol, and in float32 to 1e-4.
 """
 
 import dataclasses
@@ -22,6 +22,7 @@ pytestmark = pytest.mark.cuda
 
 #: (rtol, atol) of the attention kernels against their plain versions
 BF16_TOL = (2 ** -7, 2e-5)
+F16_TOL = (2 ** -10, 2e-5)
 F32_TOL = (1e-4, 1e-4)
 
 
@@ -175,6 +176,7 @@ def _check_attention(q, k, v, pos, tol, bk=64):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL),
+                                       (torch.float16, F16_TOL),
                                        (torch.float32, F32_TOL)])
 @pytest.mark.parametrize("nh,nkv,d", [
     (8, 8, 64), (32, 8, 128), (4, 2, 64),
@@ -230,15 +232,16 @@ def test_attention_kernels_are_bitwise_repeatable(dev, nh, nkv, d):
 
 def test_kernel_wrappers_reject_what_they_do_not_take(dev):
     """Every head_dim runs: 16 on the 64-wide build, 20 and 264 on the
-    any-width path, each matching the plain version; fp16 raises."""
+    any-width path, each matching the plain version; a dtype the kernels
+    have no case for (float64) raises."""
     from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
     for d, seed in ((16, 2), (20, 3), (264, 4)):
         pos = torch.tensor([3, 7], dtype=torch.int32, device=dev)
         q, k, v = _nan_cache(dev, torch.float32, 2, 4, 2, 8, d,
                              pos.tolist(), seed)
         _check_attention(q, k, v, pos, F32_TOL, bk=4)
-    q = torch.zeros(2, 4, 1, 64, device=dev, dtype=torch.float16)
-    k = torch.zeros(2, 2, 8, 64, device=dev, dtype=torch.float16)
+    q = torch.zeros(2, 4, 1, 64, device=dev, dtype=torch.float64)
+    k = torch.zeros(2, 2, 8, 64, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="takes"):
         decode_attention(q, k, k, 3)
 
@@ -251,6 +254,7 @@ _ANY_D = [1, 12, 20, 30, 100, 264, 320, 512, 576]
 
 @pytest.mark.parametrize("d", _ANY_D)
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL),
+                                       (torch.float16, F16_TOL),
                                        (torch.float32, F32_TOL)])
 @pytest.mark.parametrize("nh,nkv", [(4, 4), (14, 2)])
 def test_attention_kernels_take_any_head_dim(dev, d, dtype, tol, nh, nkv):
@@ -370,6 +374,73 @@ def test_dense_and_paged_servers_agree_on_the_card(dev):
     torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=1e-3)
 
 
+def test_prefix_store_restores_through_h2d_on_the_card(dev, tmp_path):
+    """Pages put from the host restore onto the card bitwise, each piece
+    copied by h2d_copy from its staging buffer in place (the bridge
+    bounces nothing); then a dense and a paged server over the store,
+    both restoring the same prefix, give identical tokens."""
+    from nvme_strom_tpu_torch.convert import params_from_jax
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    cfg = TransformerConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=256)
+    P = 16                                  # 8 KiB pages: O_DIRECT-sized
+    shape = (cfg.n_layers, cfg.n_kv_heads, P, cfg.head_dim)
+    g = torch.Generator().manual_seed(0)
+    pages = [(torch.randn(shape, generator=g).bfloat16(),
+              torch.randn(shape, generator=g).bfloat16()) for _ in range(5)]
+    with StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                  buffer_pool_bytes=16 << 20)) as eng:
+        store = PrefixStore(cfg, eng, str(tmp_path / "p.kvstore"), P,
+                            1 << 20)
+        keys = store.chain_keys(list(range(5 * P + 1)))
+        store.put([(kx, k, v) for kx, (k, v) in zip(keys, pages)])
+        store.flush()
+        before, copies0 = h2d_copy.launches, store.copies
+        got = store.restore_many({0: (0, keys), 1: (2, keys[2:4])},
+                                 device=dev)
+        assert h2d_copy.launches - before == store.copies - copies0 == 5
+        assert eng.stats.bounce_bytes == 0      # the bridge's, before
+        #                                         the engine's are merged
+        for i, (k, v) in enumerate(pages):
+            assert got[0][i][0].device == dev
+            assert torch.equal(got[0][i][0].cpu(), k)
+            assert torch.equal(got[0][i][1].cpu(), v)
+        assert got[1][2][0] is got[0][2][0]     # copied once, shared
+        eng.sync_stats()
+        if eng.stats.bytes_fallback == 0:
+            assert eng.stats.bounce_bytes == 0
+        store.close()
+        params = params_from_jax(init_params(0, cfg), cfg, dev)
+        store = PrefixStore(cfg, eng, str(tmp_path / "s.kvstore"), P,
+                            1 << 20)
+        rng = np.random.default_rng(1)
+        sys_prompt = rng.integers(0, 256, 4 * P).tolist()
+        reqs = [(f"r{i}", sys_prompt + rng.integers(0, 256, 3 + i).tolist())
+                for i in range(3)]
+        seed = DecodeServer(params, cfg, 1, 256, device=dev, kv_store=store)
+        seed.submit("seed", sys_prompt + [1], 2)
+        seed.run()
+        outs = []
+        for srv in (DecodeServer(params, cfg, 3, 256, device=dev,
+                                 kv_store=store),
+                    PagedDecodeServer(params, cfg, 3, 256, total_blocks=64,
+                                      block_len=P, device=dev,
+                                      kv_store=store)):
+            for rid, p in reqs:
+                srv.submit(rid, p, 8)
+            outs.append(srv.run(lookahead=4))
+        assert outs[0] == outs[1]
+        assert eng.stats.kv_pages_restored >= 2 * 3 * 4
+        store.close()
+
+
 def test_engine_unregisters_before_destroy(dev, tmp_path):
     from nvme_strom_tpu_torch.io.engine import StromEngine
     from nvme_strom_tpu_torch.utils.config import EngineConfig
@@ -391,7 +462,10 @@ def test_engine_unregisters_before_destroy(dev, tmp_path):
 #: (rtol 2**-7); the sums over up to 2048 keys or queries run in another
 #: order, which the relative atol covers where a gradient is near zero.
 FLASH_BF16 = (2 ** -7, 1e-4)
+FLASH_F16 = (2 ** -10, 1e-4)
 FLASH_F32 = (1e-4, 1e-5)
+FLASH_TOL = {torch.bfloat16: FLASH_BF16, torch.float16: FLASH_F16,
+             torch.float32: FLASH_F32}
 
 
 def _flash_close(got, want, tol):
@@ -430,6 +504,9 @@ _EDGE_ROWS = [
     (1, 2, 256, 256, 128, torch.float32, True, False),
     (2, 2, 130, 300, 128, torch.bfloat16, False, True),
     (2, 2, 100, 64, 64, torch.float32, False, False),
+    # fp16 runs the fp32 FMA kernels and rounds once to fp16
+    (2, 3, 200, 200, 64, torch.float16, True, True),
+    (2, 2, 130, 300, 128, torch.float16, False, False),
 ] + _EDGE_ROWS)
 def test_flash_kernels_match_plain(dev, b, h, s, skv, d, dtype, causal,
                                    proj):
@@ -449,7 +526,7 @@ def _check_flash(dev, b, h, s, skv, d, dtype, causal, proj, dlse):
     takes −0.25 for every row, or with ``dlse`` (a generator) a random
     value a row."""
     from nvme_strom_tpu_torch.ops import flash_attention as fa
-    tol = FLASH_BF16 if dtype == torch.bfloat16 else FLASH_F32
+    tol = FLASH_TOL[dtype]
     q, k, v, do = _flash_inputs(dev, b, h, s, skv, d, dtype, s + skv, proj)
     scale = d ** -0.5
     n0 = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
@@ -483,13 +560,14 @@ def _check_flash(dev, b, h, s, skv, d, dtype, causal, proj, dlse):
 
 def test_flash_routes_bf16_to_wgmma_and_fp32_to_fma(dev):
     """bf16 runs the forward, dQ and dK/dV on the tensor cores; fp32
-    keeps the fp32 FMA kernels, which hold the fp32 tolerance across the
-    tile edges."""
+    (and fp16) keep the fp32 FMA kernels, which hold the fp32 tolerance
+    across the tile edges."""
     from nvme_strom_tpu_torch.ops import flash_attention as fa
     assert [fa.flash_route(k, torch.bfloat16) for k in ("fwd", "dq", "dkv")
             ] == ["wgmma", "wgmma", "wgmma"]
-    assert [fa.flash_route(k, torch.float32) for k in ("fwd", "dq", "dkv")
-            ] == ["fma", "fma", "fma"]
+    for dt in (torch.float32, torch.float16):
+        assert [fa.flash_route(k, dt) for k in ("fwd", "dq", "dkv")
+                ] == ["fma", "fma", "fma"]
     q, k, v, do = _flash_inputs(dev, 1, 2, 129, 129, 128, torch.float32, 3,
                                 projection=True)
     scale = 128 ** -0.5
@@ -531,7 +609,7 @@ def test_flash_wrappers_reject_what_they_do_not_take(dev):
     x = torch.zeros(1, 2, 64, 32, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(x, x, x)
-    x = torch.zeros(1, 2, 64, 64, device=dev, dtype=torch.float16)
+    x = torch.zeros(1, 2, 64, 64, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="takes"):
         fa.flash_fwd(x, x, x)
     x = torch.zeros(1, 2, 64, 64, device=dev)
@@ -543,7 +621,8 @@ def test_flash_wrappers_reject_what_they_do_not_take(dev):
         fa.flash_fwd(x, x[:, :, :32], x[:, :, :32])
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("scale", [-0.125, 0.0])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_take_any_scale(dev, dtype, scale, causal):
@@ -551,7 +630,7 @@ def test_flash_kernels_take_any_scale(dev, dtype, scale, causal):
     unmasked keys): the forward and, through torch.autograd, the
     backward kernels against the plain versions."""
     from nvme_strom_tpu_torch.ops import flash_attention as fa
-    tol = FLASH_BF16 if dtype == torch.bfloat16 else FLASH_F32
+    tol = FLASH_TOL[dtype]
     s, skv = (200, 200) if causal else (130, 300)
     q, k, v, do = _flash_inputs(dev, 2, 2, s, skv, 64, dtype, 11, True)
     out, lse = fa.flash_fwd(q, k, v, causal, scale)

@@ -74,6 +74,37 @@ def test_plain_matches_jax_kernel(label, b, nh, nkv, S, d, pos, block_k,
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
 
 
+#: float16: both sides compute in float32 and round once to float16, so
+#: they may differ by one float16 ulp (rtol 2**-10) plus the float32
+#: summation order near zero
+F16 = dict(atol=2e-5, rtol=2 ** -10)
+
+
+@pytest.mark.parametrize("label,b,nh,nkv,S,d,pos,block_k,nan", [
+    c for c in CASES if c[0] in ("gqa odd S last", "vector pos NaN tail",
+                                 "gqa 7 d 40 NaN tail", "d 12 NaN tail",
+                                 "d 320 NaN tail")], ids=str)
+def test_plain_matches_jax_kernel_fp16(label, b, nh, nkv, S, d, pos,
+                                       block_k, nan):
+    """float16 in, float16 out, as the Pallas kernel takes it."""
+    per_row = pos if isinstance(pos, list) else [pos] * b
+    q, k, v = (a.astype(np.float16) for a in _inputs(
+        b, nh, nkv, S, d, seed=len(label),
+        nan_after=per_row if nan else None))
+    jpos = (jnp.asarray(pos, jnp.int32) if isinstance(pos, list) else pos)
+    want = np.asarray(jax_da(jnp.asarray(q), jnp.asarray(k),
+                             jnp.asarray(v), jpos, block_k=block_k,
+                             interpret=True))
+    assert want.dtype == np.float16
+    tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(
+        pos, list) else pos
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), tpos)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               **F16)
+
+
 SPLIT_CASES = [
     # (label, b, nh, nkv, S, d, pos, split_len)
     ("pos at split edges", 4, 4, 2, 64, 16, [15, 16, 17, 31], 16),

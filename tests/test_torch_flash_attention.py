@@ -67,6 +67,38 @@ def test_forward_bf16():
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_and_grads_fp16(causal):
+    """float16 in and out (the Pallas kernels compute in float32 and
+    write q's dtype): one float16 ulp (rtol 2**-10) on both outputs and
+    gradients, plus float32 summation order near zero."""
+    q, k, v = (a.astype(np.float16) for a in _qkv(s=64, d=16, seed=13))
+    w = np.random.default_rng(2).standard_normal(q.shape).astype(np.float16)
+    want = jfa.flash_attention(q, k, v, causal=causal, block_q=32,
+                               block_k=32)
+    assert want.dtype == jnp.float16
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=causal, block_q=32,
+                                  block_k=32)
+        return jnp.sum(out.astype(jnp.float32) * w.astype(np.float32))
+
+    want_g = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    got = tfa.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               atol=2e-5, rtol=2 ** -10)
+    (got.float() * torch.from_numpy(w).float()).sum().backward()
+    for g, ref, name in zip((tq.grad, tk.grad, tv.grad), want_g, "qkv"):
+        assert g.dtype == torch.float16
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(ref).astype(np.float32),
+                                   atol=1e-4, rtol=2 ** -10,
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("s,skv,block_k", [(64, 96, 32), (96, 32, 32)])
 def test_forward_kv_length_differs(s, skv, block_k):
     q, k, v = _qkv(s=s, skv=skv, seed=4)

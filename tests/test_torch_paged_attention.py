@@ -68,6 +68,24 @@ def test_plain_matches_jax_kernel(name):
 
 
 @pytest.mark.parametrize("name", list(CASES))
+def test_plain_matches_jax_kernel_fp16(name):
+    """float16 in, float16 out; both round once from float32, so one
+    float16 ulp (rtol 2**-10) plus summation order near zero (2e-5)."""
+    c = CASES[name]
+    q, kp, vp, table, pos = _case(**c, seed=len(name))
+    q, kp, vp = (a.astype(np.float16) for a in (q, kp, vp))
+    want = np.asarray(jax_pa(jnp.asarray(q), jnp.asarray(kp),
+                             jnp.asarray(vp), jnp.asarray(table),
+                             jnp.asarray(pos), interpret=True))
+    assert want.dtype == np.float16
+    got = paged_attention(*(torch.from_numpy(a) for a in
+                            (q, kp, vp, table, pos)))
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               atol=2e-5, rtol=2 ** -10)
+
+
+@pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("split_len", [8, 16])
 def test_split_and_combine_match_plain(name, split_len):
     """The paged kernel's split-and-combine, written in torch, against
