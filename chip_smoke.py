@@ -41,7 +41,18 @@ It builds the port's native libraries from the checkout, then:
    bitwise the cold run's pages), ``STROM_VERIFY=full``, a flipped page
    healed by recompute, and the paged server's HBM hit, whose tokens
    must all agree; cold against hit tokens are reported in bf16 and
-   asserted equal in float32 (``prefix_store_f32_phase``); then serves
+   asserted equal in float32 (``prefix_store_f32_phase``); main path —
+   offloaded long-context decode (``offload_phase``): the flagship at
+   batch 8 over a 1024-token prompt, 7 cold pages of 8 MiB streamed
+   back through ``h2d_copy`` every step (tok/s, MiB a step,
+   ``bounce_bytes`` 0, every eviction write O_DIRECT), float32 tokens
+   equal to the dense generate's, int8 pages, a host tier of 4 pages,
+   ``STROM_VERIFY=full`` with a flipped byte, a saved and reloaded
+   session; an 8192-token chunked prefill against the dense prefill;
+   Llama-3-8B's widths (2 layers) over a 32768-position history, every
+   ``attend`` against a dense float32 softmax; and ``python -m
+   nvme_strom_tpu_torch.generate --offload`` on the serving checkpoint,
+   whose ids must equal the API's; then serves
    4 requests with both servers on a 2-layer model with a GQA group of
    7 at head_dim 128 (``GQA_SERVE``), whose tokens must agree;
 6. training path — seeded WebDataset shards of flagship-length samples
@@ -81,7 +92,7 @@ It builds the port's native libraries from the checkout, then:
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
-phase 5, the flash kernels
+phase 5, ``h2d_copy`` in its offload run, the flash kernels
 and ``h2d_copy`` in phase 6, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
@@ -1834,6 +1845,632 @@ def prefix_store_f32_phase(dev, cfg, params):
     return report
 
 
+# -- phase 5c: offloaded long-context KV decode -------------------------------
+
+#: (a) the flagship at bench_suite config 10's full-size settings: batch
+#: 8, a 1024-token prompt, pages of 128 positions (8 MiB in bf16), a
+#: window of 2 pages: 7 cold pages, 56 MiB streamed a step
+OFFLOAD_BATCH = 8
+OFFLOAD_PROMPT = 1024
+OFFLOAD_PAGE = 128
+OFFLOAD_WINDOW_PAGES = 2
+OFFLOAD_STEPS = 16
+#: (b) one 8192-token prompt through chunked prefill: 64 pages
+OFFLOAD_LONG_PROMPT = 8192
+#: (c) Llama-3-8B's published widths cut to 2 of 32 layers and a 32000
+#: vocabulary, a 32768-position history at batch 1: 255 cold pages of
+#: 1 MiB
+LLAMA3_8B_2L = dict(vocab=32000, d_model=4096, n_layers=2, n_heads=32,
+                    n_kv_heads=8, d_ff=14336, max_seq=32768 + 64,
+                    rope_theta=500000.0)
+OFFLOAD_LONG_HISTORY = 32768
+OFFLOAD_LONG_STEPS = 8
+#: (rtol, atol) of a bf16 attend against a dense float32 softmax over
+#: the whole history; of float32 chunked-prefill logits against the
+#: dense prefill at 8192 positions (the JAX test allows 2e-4 at 27
+#: positions; 64 chunks of online-softmax sums in another order than
+#: one dense softmax may drift further); of int8 pages against dense
+OFFLOAD_ATTEND_TOL = (2e-2, 2e-2)
+OFFLOAD_F32_LOGITS_TOL = (1e-3, 1e-3)
+OFFLOAD_INT8_TOL = (3e-2, 3e-2)
+#: engine counters an offload run reports (deltas over the run)
+OFFLOAD_COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
+                    "bounce_bytes", "bytes_to_device", "bytes_verified",
+                    "checksum_failures")
+
+
+class Counters:
+    """Engine counter deltas since construction (or ``reset``)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.reset()
+
+    def _now(self):
+        self.eng.sync_stats()
+        return self.eng.stats.snapshot()
+
+    def reset(self):
+        self._t0 = self._now()
+
+    def delta(self):
+        now = self._now()
+        d = {k: now[k] - self._t0[k] for k in OFFLOAD_COUNTERS}
+        d["bytes_read"] = d["bytes_direct"] + d["bytes_fallback"]
+        return d
+
+
+def _dense_attend(q, ks, vs):
+    """float32 softmax attention of q (b, nh, 1, hd) over ks / vs (b,
+    nkv, S, hd), the plain reference of ``PagedKVCache.attend``."""
+    import torch
+    g = q.shape[1] // ks.shape[1]
+    k = ks.float().repeat_interleave(g, dim=1)
+    v = vs.float().repeat_interleave(g, dim=1)
+    p = torch.softmax(q.float() @ k.transpose(-1, -2)
+                      / q.shape[-1] ** 0.5, dim=-1)
+    return p @ v
+
+
+def _close(name, got, want, tol):
+    """max |got - want|; raises past ``tol`` (rtol, atol)."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    try:
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                                   atol=tol[1])
+    except AssertionError as e:
+        raise AssertionError(f"{name}: max error {err}: {e}") from None
+    return err
+
+
+def _greedy_steps(params, cfg, cache, tok, n, logits=None):
+    """n offload decode steps from ``tok``; returns the tokens (and
+    appends each step's logits to ``logits``)."""
+    import torch
+    from nvme_strom_tpu_torch.models.kv_offload import offload_decode_step
+    out = []
+    for _ in range(n):
+        lg = offload_decode_step(params, tok, cfg, cache)
+        if logits is not None:
+            logits.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append(tok)
+    return out
+
+
+def _flip_byte(path, at):
+    with open(path, "r+b") as f:
+        f.seek(at)
+        b = f.read(1)
+        f.seek(at)
+        f.write(bytes([b[0] ^ 0x01]))
+        f.flush()
+        os.fsync(f.fileno())
+        os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+
+
+def _read_split(cache):
+    """Wrap ``cache``'s page iterator to add the wall seconds spent
+    waiting for each page (its reads and copies) to the returned cell."""
+    spent = [0.0]
+    orig = cache._iter_layer_pages
+
+    def pages(layer):
+        it = orig(layer)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                spent[0] += time.perf_counter() - t0
+                return
+            spent[0] += time.perf_counter() - t0
+            yield item
+    cache._iter_layer_pages = pages
+    return spent
+
+
+def _verify_run(params, cfg, cache, kv, tok0, toks, step_bytes):
+    """A cache made under STROM_VERIFY=full: the prompt's k/v appended,
+    two steps whose every streamed byte is checked (and whose tokens
+    are the unverified run's ``toks``), then one flipped byte of the
+    page file must raise ChecksumError.  Returns the two steps' counter
+    deltas."""
+    import torch
+    from nvme_strom_tpu_torch.utils.checksum import ChecksumError
+    cache.append(*kv)
+    cache.flush()
+    ctr = Counters(cache.engine)
+    v_toks = _greedy_steps(params, cfg, cache, tok0, 2)
+    st = ctr.delta()
+    if (st["bytes_verified"] != 2 * step_bytes
+            or st["bytes_read"] != 2 * step_bytes
+            or st["checksum_failures"] != 0
+            or not all(torch.equal(a, c) for a, c in zip(v_toks, toks))):
+        raise AssertionError(f"(a) verify: {st}")
+    _flip_byte(cache.ocfg.path, 100)
+    q = torch.zeros(cache.batch, cfg.n_heads, 1, cfg.head_dim,
+                    dtype=cfg.dtype, device=cache.device)
+    try:
+        cache.attend(0, q)
+    except ChecksumError as e:
+        if "corrupt" not in str(e):
+            raise
+    else:
+        raise AssertionError("(a) verify: a flipped byte passed")
+    if ctr.delta()["checksum_failures"] != 1:
+        raise AssertionError("(a) verify: checksum_failures != 1")
+    return st
+
+
+def offload_flagship(dev, cfg, params, odir):
+    """(a): batch 8, a 1024-token prompt through the dense prefill and
+    ``append``; one warm step and 16 timed steps; then the same prompt
+    in float32 (tokens equal the dense generate), against the dense
+    bf16 decode_step, with int8 pages, with a host tier of 4 pages,
+    under STROM_VERIFY=full with a flipped byte, and across a saved and
+    reloaded session."""
+    import dataclasses
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import decode as dec
+    from nvme_strom_tpu_torch.models.kv_offload import (
+        OffloadConfig, PagedKVCache, offloaded_generate)
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    b, s, n = OFFLOAD_BATCH, OFFLOAD_PROMPT, OFFLOAD_STEPS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                           dtype=torch.int32)
+    dense = dec.init_cache(cfg, b, s + n + 4, device=dev)
+    logits0, dense = dec.prefill(params, prompt, cfg, dense)
+    k0 = dense["k"][..., :s, :].clone()
+    v0 = dense["v"][..., :s, :].clone()
+    tok0 = logits0.argmax(-1).to(torch.int32)
+    report = {}
+
+    def ocfg(name, **kw):
+        return OffloadConfig(path=os.path.join(odir, name),
+                             page_len=OFFLOAD_PAGE,
+                             window_pages=OFFLOAD_WINDOW_PAGES, **kw)
+
+    # the timed bf16 run
+    with StromEngine() as eng:
+        ctr = Counters(eng)
+        with PagedKVCache(cfg, ocfg("a.bin"), eng, b, device=dev) as cache:
+            cache.append(k0, v0)
+            cache.flush()
+            written = ctr.delta()
+            n_cold = cache.n_cold
+            if n_cold != 7:
+                raise AssertionError(f"(a): {n_cold} cold pages, want 7")
+            step_bytes = (cfg.n_layers * n_cold * 2 * cache._pb_layer)
+            wrote = n_cold * cache._page_stride
+            if written["bytes_written_direct"] != wrote:
+                raise AssertionError(
+                    f"(a): {written['bytes_written_direct']} of {wrote} "
+                    f"evicted bytes written O_DIRECT")
+            lgs: list = []
+            warm = _greedy_steps(params, cfg, cache, tok0, 1, lgs)
+            torch.cuda.synchronize()
+            ctr.reset()
+            launches0 = h2d_copy.launches
+            t0 = time.monotonic()
+            toks = warm + _greedy_steps(params, cfg, cache, warm[-1], n, lgs)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            st = ctr.delta()
+            launches = h2d_copy.launches - launches0
+            # where a step's time goes: page reads against the rest, two
+            # steps; then the device's share over two more (profiler)
+            spent = _read_split(cache)
+            t1 = time.monotonic()
+            _greedy_steps(params, cfg, cache, toks[-1], 2)
+            torch.cuda.synchronize()
+            split_s = time.monotonic() - t1
+            read_s = spent[0]
+            prof = profile_run(
+                lambda done: (_greedy_steps(params, cfg, cache, toks[-1], 2),
+                              done()), "offload (a), two steps")
+    del prof["flash_kernels"], prof["flash_ms"], prof["flash_share"]
+    want_launches = n * cfg.n_layers * n_cold * 2
+    if launches != want_launches or st["bounce_bytes"] != 0:
+        raise AssertionError(f"(a): {launches} h2d launches (want "
+                             f"{want_launches}), bounce {st['bounce_bytes']}")
+    if st["bytes_read"] != n * step_bytes:
+        raise AssertionError(f"(a): read {st['bytes_read']} B, want "
+                             f"{n * step_bytes}")
+    report["a"] = {
+        "tok_s": b * n / secs, "ms_step": secs / n * 1e3,
+        "mib_step": st["bytes_read"] / n / 2**20,
+        "direct_share": st["bytes_direct"] / max(1, st["bytes_read"]),
+        "bounce_bytes": st["bounce_bytes"], "h2d_launches": launches,
+        "bytes_written": wrote,
+        "bytes_written_direct": written["bytes_written_direct"],
+        "read_gib_s": st["bytes_read"] / secs / 2**30,
+        "two_steps_s": split_s, "two_steps_read_s": read_s,
+        "profile": prof}
+    log(f"offload (a): flagship b {b}, prompt {s}, 7 cold pages: "
+        f"{report['a']['tok_s']:.1f} tok/s, {report['a']['ms_step']:.2f} "
+        f"ms a step, {report['a']['mib_step']:.1f} MiB streamed a step "
+        f"({report['a']['read_gib_s']:.2f} GiB/s), direct share "
+        f"{report['a']['direct_share']:.3f}, bounce {st['bounce_bytes']}, "
+        f"written {wrote} B, {written['bytes_written_direct']} O_DIRECT, "
+        f"{launches} h2d launches; two steps {split_s * 1e3:.1f} ms, "
+        f"{read_s * 1e3:.1f} of it waiting for pages")
+
+    # bf16 against the dense decode_step on the same tokens
+    n1 = n + 1                   # the warm step and the timed ones
+    dl, errs, agree = dense, [], 0
+    for i, t in enumerate([tok0] + toks[:-1]):
+        want, dl = dec.decode_step(params, t, cfg, dl)
+        errs.append((lgs[i] - want).abs().max().item())
+        agree += int((lgs[i].argmax(-1) == want.argmax(-1)).sum())
+    report["a"]["bf16_vs_dense"] = {"max_logit_err": max(errs),
+                                    "token_agreement": agree / (b * n1)}
+    log(f"offload (a) bf16 against the dense decode_step over {n1} steps: "
+        f"max logit error {max(errs):.4g}, argmax agreement "
+        f"{agree}/{b * n1}")
+
+    # float32: tokens equal the dense generate's
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items()}
+    with StromEngine() as eng:
+        got = offloaded_generate(p32, prompt, cfg32, ocfg("f32.bin"), eng,
+                                 n1 + 1)
+    want = dec.generate(p32, prompt, cfg32, n1 + 1)
+    if not torch.equal(got.long(), want.long()):
+        raise AssertionError("(a) float32: offloaded tokens differ from "
+                             "the dense generate's")
+    log(f"offload (a) float32: {b}x{n1 + 1} tokens identical to the dense "
+        "generate")
+
+    # int8 pages: attend against dense, tokens against bf16
+    with StromEngine() as eng:
+        ctr = Counters(eng)
+        with PagedKVCache(cfg, ocfg("q.bin", quantize="int8"), eng, b,
+                          device=dev) as cache:
+            cache.append(k0, v0)
+            q = torch.randn(b, cfg.n_heads, 1, cfg.head_dim, generator=gen,
+                            device=dev).bfloat16()
+            int8_err = _close("(a) int8 attend", cache.attend(0, q),
+                              _dense_attend(q, k0[0], v0[0]),
+                              OFFLOAD_INT8_TOL)
+            ctr.reset()
+            q_toks = _greedy_steps(params, cfg, cache, tok0, n1)
+        st = ctr.delta()
+    q_agree = sum(int((a == c).sum()) for a, c in zip(q_toks, toks))
+    report["a"]["int8"] = {"attend_err": int8_err,
+                           "token_agreement_bf16": q_agree / (b * n1),
+                           "mib_step": st["bytes_read"] / n1 / 2**20,
+                           "bounce_bytes": st["bounce_bytes"]}
+    log(f"offload (a) int8 pages: attend max error {int8_err:.4g} (tol "
+        f"{OFFLOAD_INT8_TOL}), tokens agree with bf16 {q_agree}/{b * n1}, "
+        f"{report['a']['int8']['mib_step']:.1f} MiB read a step")
+
+    # the host tier: 4 of 7 pages from host memory
+    with StromEngine() as eng:
+        ctr = Counters(eng)
+        launches0 = h2d_copy.launches
+        with PagedKVCache(cfg, ocfg("h.bin", host_cache_pages=4), eng, b,
+                          device=dev) as cache:
+            cache.append(k0, v0)
+            ctr.reset()
+            h_toks = _greedy_steps(params, cfg, cache, tok0, n1)
+            hits, misses = cache.host_cache_hits, cache.host_cache_misses
+        st = ctr.delta()
+        h_launches = h2d_copy.launches - launches0
+    if not all(torch.equal(a, c) for a, c in zip(h_toks, toks)):
+        raise AssertionError("(a) host tier: tokens differ from the run "
+                             "without it")
+    if (hits != n1 * cfg.n_layers * 4 or st["bounce_bytes"] != 0
+            or st["bytes_read"] >= n1 * step_bytes
+            or h_launches != n1 * cfg.n_layers * n_cold * 2):
+        raise AssertionError(f"(a) host tier: hits {hits}, misses {misses}"
+                             f", bounce {st['bounce_bytes']}, read "
+                             f"{st['bytes_read']}, launches {h_launches}")
+    report["a"]["host_tier"] = {"hits": hits, "misses": misses,
+                                "mib_step": st["bytes_read"] / n1 / 2**20,
+                                "bounce_bytes": st["bounce_bytes"],
+                                "h2d_launches": h_launches}
+    log(f"offload (a) host tier of 4 pages: {hits} hits, {misses} misses, "
+        f"{report['a']['host_tier']['mib_step']:.1f} MiB read a step, "
+        f"bounce 0, tokens identical, {h_launches} h2d launches")
+
+    # STROM_VERIFY=full: every streamed byte checked; a flip raises
+    with StromEngine() as eng:
+        os.environ["STROM_VERIFY"] = "full"   # read when the cache is made
+        try:
+            cache = PagedKVCache(cfg, ocfg("v.bin"), eng, b, device=dev)
+        finally:
+            os.environ.pop("STROM_VERIFY", None)
+        with cache:
+            st = _verify_run(params, cfg, cache, (k0, v0), tok0, toks,
+                             step_bytes)
+    report["a"]["verify"] = {"bytes_verified": st["bytes_verified"],
+                             "bytes_read": st["bytes_read"]}
+    log(f"offload (a) STROM_VERIFY=full: {st['bytes_verified']} B checked "
+        f"= {st['bytes_read']} B streamed over 2 steps; the flipped byte "
+        "raised ChecksumError, checksum_failures 1")
+
+    # a session saved after 8 steps and reloaded continues identically
+    half = n // 2
+    sess = os.path.join(odir, "session")
+    with StromEngine() as eng:
+        with PagedKVCache(cfg, ocfg("s.bin"), eng, b, device=dev) as cache:
+            cache.append(k0, v0)
+            s_toks = _greedy_steps(params, cfg, cache, tok0, half)
+            cache.save_session(sess)
+        cache = PagedKVCache.load_session(cfg, eng, sess, device=dev)
+        try:
+            s_toks += _greedy_steps(params, cfg, cache, s_toks[-1],
+                                    n1 - half)
+        finally:
+            cache.close()
+    if not all(torch.equal(a, c) for a, c in zip(s_toks, toks)):
+        raise AssertionError("(a) session: the resumed continuation "
+                             "differs")
+    log(f"offload (a) session saved after {half} steps and reloaded: "
+        f"{n1 - half} more steps identical")
+    return report
+
+
+def offload_chunked(dev, cfg, params, odir):
+    """(b): batch 1, an 8192-token prompt through ``offloaded_prefill``
+    (64 pages), its last-position logits against the dense prefill's in
+    float32 (asserted) and bf16 (logged), then 16 bf16 decode steps."""
+    import dataclasses
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import decode as dec
+    from nvme_strom_tpu_torch.models.kv_offload import (
+        OffloadConfig, PagedKVCache, offloaded_prefill)
+    s, n = OFFLOAD_LONG_PROMPT, OFFLOAD_STEPS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    prompt = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=dev,
+                           dtype=torch.int32)
+    report = {}
+    for label, c in (("f32", dataclasses.replace(cfg, dtype=torch.float32)),
+                     ("bf16", cfg)):
+        p = {k: v.to(c.dtype) if v.dim() > 1 else v
+             for k, v in params.items()}
+        dense = dec.init_cache(c, 1, s, device=dev)
+        want, dense = dec.prefill(p, prompt, c, dense)
+        del dense
+        torch.cuda.empty_cache()
+        with StromEngine() as eng:
+            ctr = Counters(eng)
+            with PagedKVCache(c, OffloadConfig(
+                    path=os.path.join(odir, f"b_{label}.bin"),
+                    page_len=OFFLOAD_PAGE,
+                    window_pages=OFFLOAD_WINDOW_PAGES), eng, 1,
+                    device=dev) as cache:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                got = offloaded_prefill(p, prompt, c, cache)
+                torch.cuda.synchronize()
+                secs = time.monotonic() - t0
+                st = ctr.delta()
+                r = {"prefill_s": secs, "pages": cache.n_cold,
+                     "gib_streamed": st["bytes_read"] / 2**30,
+                     "read_gib_s": st["bytes_read"] / secs / 2**30,
+                     "bounce_bytes": st["bounce_bytes"],
+                     "direct_share": st["bytes_direct"]
+                     / max(1, st["bytes_read"]),
+                     "max_logit_err": (got - want).abs().max().item(),
+                     "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                                      want.argmax(-1)))}
+                if label == "f32":
+                    _close("(b) float32 chunked prefill logits", got, want,
+                           OFFLOAD_F32_LOGITS_TOL)
+                else:
+                    tok = got.argmax(-1).to(torch.int32)
+                    torch.cuda.synchronize()
+                    ctr.reset()
+                    t0 = time.monotonic()
+                    _greedy_steps(p, c, cache, tok, n)
+                    torch.cuda.synchronize()
+                    dsecs = time.monotonic() - t0
+                    d = ctr.delta()
+                    r.update(decode_tok_s=n / dsecs,
+                             decode_ms_step=dsecs / n * 1e3,
+                             decode_mib_step=d["bytes_read"] / n / 2**20,
+                             decode_bounce_bytes=d["bounce_bytes"])
+                    st["bounce_bytes"] += d["bounce_bytes"]
+            if st["bounce_bytes"] != 0:
+                raise AssertionError(f"(b) {label}: bounce "
+                                     f"{st['bounce_bytes']}")
+        report[label] = r
+        log(f"offload (b) {label}: {s}-token chunked prefill "
+            f"{secs:.3f} s over {r['pages']} pages, "
+            f"{r['gib_streamed']:.3f} GiB streamed "
+            f"({r['read_gib_s']:.2f} GiB/s), direct share "
+            f"{r['direct_share']:.3f}, bounce 0; last logits max error "
+            f"against the dense prefill {r['max_logit_err']:.4g}"
+            + (f" (tol {OFFLOAD_F32_LOGITS_TOL})" if label == "f32" else
+               f"; then {r['decode_tok_s']:.1f} tok/s, "
+               f"{r['decode_ms_step']:.2f} ms a step, "
+               f"{r['decode_mib_step']:.1f} MiB a step"))
+    return report
+
+
+def _card_params(cfg, seed, dev):
+    """Seeded random weights made on the card (the JAX init scheme:
+    norms ones, matrices normal / sqrt(fan_in), fan_in 1 for the token
+    embedding), in the model dtype; norms float32."""
+    import torch
+    from nvme_strom_tpu_torch.models.transformer import param_shapes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        if len(shape) == 1:
+            out[name] = torch.ones(shape, device=dev)
+        else:
+            fan = 1.0 if name == "tok_embed" else shape[0]
+            out[name] = (torch.randn(shape, generator=gen, device=dev)
+                         / fan ** 0.5).to(cfg.dtype)
+    return out
+
+
+def offload_long(dev, odir):
+    """(c): Llama-3-8B's widths (2 of 32 layers), a 32768-position
+    seeded history at batch 1 through ``append`` (255 cold pages of 1
+    MiB), then 8 decode steps; every layer's ``attend`` output is held
+    against a dense float32 softmax over the whole history."""
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import (OffloadConfig,
+                                                        PagedKVCache)
+    from nvme_strom_tpu_torch.models.transformer import TransformerConfig
+    cfg = TransformerConfig(**LLAMA3_8B_2L)
+    params = _card_params(cfg, SEED + 11, dev)
+    S, n = OFFLOAD_LONG_HISTORY, OFFLOAD_LONG_STEPS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    shape = (cfg.n_layers, 1, cfg.n_kv_heads, S, cfg.head_dim)
+    hist_k = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    hist_v = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    tok = torch.randint(0, cfg.vocab, (1,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    errs, ref_max = [], []
+    with StromEngine() as eng:
+        ctr = Counters(eng)
+        with PagedKVCache(cfg, OffloadConfig(
+                path=os.path.join(odir, "c.bin"), page_len=OFFLOAD_PAGE,
+                window_pages=OFFLOAD_WINDOW_PAGES), eng, 1,
+                device=dev) as cache:
+            t0 = time.monotonic()
+            cache.append(hist_k, hist_v)
+            cache.flush()
+            seed_s = time.monotonic() - t0
+            written = ctr.delta()
+            if cache.n_cold != 255:
+                raise AssertionError(f"(c): {cache.n_cold} cold pages")
+            extra = [[] for _ in range(cfg.n_layers)]
+            attend = cache.attend
+            check_s = [0.0]
+
+            def checked(layer, q, valid=None):
+                out = attend(layer, q, valid)
+                torch.cuda.synchronize()
+                c0 = time.monotonic()
+                c = cache.count          # the step's staged position
+                extra[layer].append(
+                    (cache.k_win[layer, :, :, c:c + 1].clone(),
+                     cache.v_win[layer, :, :, c:c + 1].clone()))
+                ks = torch.cat([hist_k[layer]] + [k for k, _ in
+                                                  extra[layer]], dim=2)
+                vs = torch.cat([hist_v[layer]] + [v for _, v in
+                                                  extra[layer]], dim=2)
+                want = _dense_attend(q, ks, vs)
+                errs.append(_close(f"(c) layer {layer} attend", out, want,
+                                   OFFLOAD_ATTEND_TOL))
+                ref_max.append(want.abs().max().item())
+                torch.cuda.synchronize()
+                check_s[0] += time.monotonic() - c0
+                return out
+            cache.attend = checked
+            ctr.reset()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            _greedy_steps(params, cfg, cache, tok, n)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0 - check_s[0]
+            st = ctr.delta()
+    if st["bounce_bytes"] != 0:
+        raise AssertionError(f"(c): bounce {st['bounce_bytes']}")
+    r = {"seed_s": seed_s, "bytes_written": written["bytes_written_direct"],
+         "ms_step": secs / n * 1e3, "tok_s": n / secs,
+         "mib_step": st["bytes_read"] / n / 2**20,
+         "read_gib_s": st["bytes_read"] / secs / 2**30,
+         "direct_share": st["bytes_direct"] / max(1, st["bytes_read"]),
+         "bounce_bytes": st["bounce_bytes"], "attend_max_err": max(errs),
+         "attend_ref_max": max(ref_max)}
+    log(f"offload (c) Llama-3-8B widths, 2 layers, history {S}: seeded in "
+        f"{seed_s:.2f} s ({written['bytes_written_direct']} B O_DIRECT); "
+        f"{r['ms_step']:.1f} ms a step ({r['tok_s']:.2f} tok/s), "
+        f"{r['mib_step']:.1f} MiB streamed a step = "
+        f"{r['read_gib_s']:.2f} GiB/s, direct share "
+        f"{r['direct_share']:.3f}, bounce 0; attend max error "
+        f"{max(errs):.3g} (|ref| up to {max(ref_max):.3g}, tol "
+        f"{OFFLOAD_ATTEND_TOL}) over {len(errs)} calls")
+    return r
+
+
+def offload_generate_main(dev, cfg, ckdir, params, odir):
+    """``python -m nvme_strom_tpu_torch.generate --offload`` on the
+    serving checkpoint: a 1000-token prompt, 64 new tokens, a window of
+    256; its ids must equal ``offloaded_generate``'s."""
+    import contextlib
+    import io
+    import torch
+    from nvme_strom_tpu_torch import generate
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import (OffloadConfig,
+                                                        offloaded_generate)
+    rng = torch.Generator().manual_seed(SEED + 13)
+    ids = torch.randint(0, cfg.vocab, (1000,), generator=rng).tolist()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = generate.main(["--weights", ckdir, "--prompt",
+                            ",".join(map(str, ids)), "--new", "64",
+                            "--offload", os.path.join(odir, "main.bin"),
+                            "--offload-window", "256", "--device",
+                            str(dev)])
+    secs = time.monotonic() - t0
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"generate.main returned {rc}: {out}")
+    line = next(x for x in out.splitlines() if x.startswith("output ids:"))
+    got = [int(t) for t in line.split(":", 1)[1].strip().split(",")]
+    with StromEngine() as eng:
+        want = offloaded_generate(
+            params, torch.tensor([ids], dtype=torch.int32, device=dev), cfg,
+            OffloadConfig(path=os.path.join(odir, "api.bin"), page_len=64,
+                          window_pages=4), eng, 64)
+    if got != want[0].tolist():
+        raise AssertionError("generate.main --offload ids differ from the "
+                             "API's")
+    stats = next(x for x in out.splitlines()
+                 if x.startswith("engine stats"))
+    log(f"generate.main --offload (1000-token prompt, 64 new, window "
+        f"256): ids equal the API's; {secs:.2f} s with the weights' load; "
+        f"{stats}")
+    return {"seconds": secs, "engine_stats": stats}
+
+
+def offload_phase(dev, cfg, ckdir, params):
+    """Offloaded long-context KV decode, (a)-(c) and the entry point,
+    each timed; page files under DATA_DIR/offload."""
+    import shutil
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    odir = os.path.join(DATA_DIR, "offload")
+    shutil.rmtree(odir, ignore_errors=True)
+    os.makedirs(odir)
+    report, secs = {}, {}
+    t = time.monotonic()
+    report["flagship"] = offload_flagship(dev, cfg, params, odir)
+    secs["a"] = time.monotonic() - t
+    t = time.monotonic()
+    report["chunked"] = offload_chunked(dev, cfg, params, odir)
+    secs["b"] = time.monotonic() - t
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    report["long"] = offload_long(dev, odir)
+    secs["c"] = time.monotonic() - t
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    report["generate_main"] = offload_generate_main(dev, cfg, ckdir,
+                                                    params, odir)
+    secs["generate_main"] = time.monotonic() - t
+    report["seconds"] = secs
+    log(f"offload phase seconds: {secs}, total {sum(secs.values()):.1f}")
+    shutil.rmtree(odir, ignore_errors=True)
+    return report
+
+
 # -- phase 6: training at flagship width --------------------------------------
 
 TRAIN_SEQ = 2048
@@ -2413,6 +3050,12 @@ def main() -> int:
     results["paged_attention"]["launches_prefix_store"] = \
         counts["paged_attention"]
     prefix["f32"] = prefix_store_f32_phase(dev, cfg, params)
+    torch.cuda.empty_cache()
+    # main path 1c: offloaded long-context decode, cold pages streamed
+    # back through h2d_copy
+    offload, counts = drive("offload", ("h2d_copy",),
+                            lambda: offload_phase(dev, cfg, ckdir, params))
+    results["h2d_copy"]["launches_offload"] = counts["h2d_copy"]
     del params
     torch.cuda.empty_cache()
     # a group of 7 at head_dim 128 through both servers
@@ -2455,6 +3098,7 @@ def main() -> int:
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
+                                  "offload": offload,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
                                   "flash_split": flash_split,

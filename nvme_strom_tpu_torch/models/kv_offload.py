@@ -1,14 +1,44 @@
-"""The SSD-backed KV prefix store shared by the decode servers
-(counterpart of nvme_strom_tpu/models/kv_offload.py ``PrefixStore`` and
-``build_prefix_store``).
+"""SSD-backed KV caches (counterpart of
+nvme_strom_tpu/models/kv_offload.py): the offloaded decode cache
+``PagedKVCache`` with its generation functions, and the prefix store
+``PrefixStore`` shared by the decode servers.
 
-A page holds ``page_tokens`` positions of one sequence at kv-head width,
-laid out ``[k block][v block]``, each ``(n_layers, n_kv_heads,
-page_tokens, head_dim)`` of the model dtype, and is keyed by the rolling
-SHA-1 of the token chain up to and including it, seeded with the model
-identity.  The page file, its ``.kvman.json`` manifest and the keys are
-the JAX package's byte for byte, so either package reattaches and
-restores the other's store, and its ``strom-scrub`` checks the file.
+**Offloaded decode.**  A session whose attention history is larger than
+the device budget keeps a window of ``page_len * window_pages`` recent
+positions on the device, ``(n_layers, batch, n_kv_heads, window,
+head_dim)`` for each of k and v, and spills older positions to a page
+file through the engine's write path, one ``page_len``-position page at
+a time.  A page is ``[k data][k scales][v data][v scales]``, each
+section layer-major (scales only under ``quantize="int8"``: int8 data
+with one float32 absmax scale per position and kv head), so one layer's
+page is two (or four) contiguous spans.  Attention over the history is
+an online-softmax sum at kv-head width: the window and each page give a
+partial ``(m, l, acc)`` in float32, merged by ``_combine``, so pages
+stream through one at a time and the whole history never sits on the
+device.  The partials are plain torch ops, as the reference computes
+them in jnp outside any kernel.
+
+Each step streams a layer's cold spans with ``ops/bridge.py``
+``DeviceStream.stream_ranges``: on a CUDA device the ``h2d_copy`` kernel
+reads each span from the engine's registered staging buffer in place.
+An evicted page is copied from the device into a page-locked,
+4 KiB-aligned host buffer, so its writes go O_DIRECT where the sizes
+allow, and the host tier (``host_cache_pages``) hands that same buffer
+to ``h2d_copy`` with its mapping: neither path bounces.  Under
+``STROM_VERIFY`` every evicted layer section is stamped with its CRC32C
+and checked on the staging view before its copy; a mismatch raises
+``ChecksumError``.  The page file, the session files and their
+``session.json`` are the JAX package's, so either package resumes the
+other's session.
+
+**The prefix store.**  A page holds ``page_tokens`` positions of one
+sequence at kv-head width, laid out ``[k block][v block]``, each
+``(n_layers, n_kv_heads, page_tokens, head_dim)`` of the model dtype, and
+is keyed by the rolling SHA-1 of the token chain up to and including it,
+seeded with the model identity.  The page file, its ``.kvman.json``
+manifest and the keys are the JAX package's byte for byte, so either
+package reattaches and restores the other's store, and its
+``strom-scrub`` checks the file.
 
 The restore is the system's own path: ``restore_many`` reads every
 requesting slot's due pages in one ``plan_and_submit`` batch into the
@@ -24,18 +54,21 @@ Left for the later parts of the port, each named where it would act:
 the QoS class and host-tier hot pin of the reads (``klass="decode"``,
 ``hot=True``; ``warm_pages``' pin of the host-cache lines), the tenant
 charge and quota pre-pass of the eviction, the SLO governor
-(``STROM_KV_P99_MS``, refused by ``KVServeConfig``), and the tracer's
-restore span.  Pages carry ``tenant: None``.
+(``STROM_KV_P99_MS``, refused by ``KVServeConfig``), the tracer's
+restore span, and the resilient write mirror of the eviction writes.
+Pages carry ``tenant: None``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,9 +76,12 @@ import torch
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.io.engine import StromEngine, crc32c
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
-from nvme_strom_tpu_torch.models.transformer import TransformerConfig
-from nvme_strom_tpu_torch.ops.bridge import host_to_device
-from nvme_strom_tpu_torch.utils.checksum import VerifyPolicy
+from nvme_strom_tpu_torch.models.transformer import (
+    TransformerConfig, embed, mlp, qkv_project, rms_norm, wmat)
+from nvme_strom_tpu_torch.ops.bridge import (DeviceStream, host_to_device,
+                                             pinned_mapping, split_ranges,
+                                             write_from_device)
+from nvme_strom_tpu_torch.utils.checksum import ChecksumError, VerifyPolicy
 from nvme_strom_tpu_torch.utils.stats import percentiles_from_log2_hist
 
 #: the JAX config's mixture-of-experts fields that the chain seed hashes;
@@ -71,6 +107,686 @@ def _host_bytes(x) -> np.ndarray:
             t = t.cpu()
         return t.contiguous().reshape(-1).view(torch.uint8).numpy()
     return np.ascontiguousarray(np.asarray(x)).reshape(-1).view(np.uint8)
+
+
+def _aligned_host(nbytes: int, dev: torch.device):
+    """A host buffer of ``nbytes`` whose first byte is 4 KiB-aligned:
+    page-locked (with its mapping for ``dev``) when ``dev`` is a CUDA
+    device.  Returns (flat uint8 tensor, mapping or None)."""
+    pinned = dev.type == "cuda"
+    buf = torch.empty(nbytes + _ALIGN, dtype=torch.uint8, pin_memory=pinned)
+    off = (-buf.data_ptr()) % _ALIGN
+    host = buf[off:off + nbytes]
+    return host, (pinned_mapping(host, dev) if pinned else None)
+
+
+# ---------------------------------------------------------------------------
+# offloaded decode: the HBM window and its NVMe page file
+
+
+@dataclass(frozen=True)
+class OffloadConfig:
+    """Shape of the device window and its NVMe backing file.
+
+    ``window = page_len * window_pages`` recent positions stay on the
+    device; older history lives in ``path`` in ``page_len``-position
+    pages.  ``quantize="int8"`` stores cold pages as int8 with one
+    float32 absmax scale per (position, kv head); the window and all
+    compute stay full precision, and pages are dequantized on the device
+    after the read.  ``host_cache_pages``: the newest N evicted pages
+    keep their host copies, and attention reads those from host memory
+    instead of the page file."""
+    path: str
+    page_len: int = 256
+    window_pages: int = 4
+    quantize: Optional[str] = None      # None | "int8"
+    host_cache_pages: int = 0
+
+    def __post_init__(self):
+        if self.quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', "
+                             f"got {self.quantize!r}")
+
+    @property
+    def window(self) -> int:
+        return self.page_len * self.window_pages
+
+
+#: the score of a hidden slot: exp(-1e30 - m) is exactly 0 in float32,
+#: and a partial whose every slot is hidden merges with weight 0, where
+#: -inf would give exp(-inf - -inf) = NaN
+_HIDDEN = -1e30
+
+
+def _append_block(k_win, v_win, k_new, v_new, count: int):
+    """Write (L, b, nkv, s, hd) new positions at window slot ``count``
+    (in place)."""
+    s = k_new.shape[3]
+    k_win[:, :, :, count:count + s] = k_new
+    v_win[:, :, :, count:count + s] = v_new
+    return k_win, v_win
+
+
+def _append_layer(k_win, v_win, k_new, v_new, layer: int, count: int):
+    """Write one layer's (b, nkv, s, hd) positions at (layer, count)
+    (in place)."""
+    s = k_new.shape[2]
+    k_win[layer, :, :, count:count + s] = k_new
+    v_win[layer, :, :, count:count + s] = v_new
+    return k_win, v_win
+
+
+def _evict_pages(k_win, v_win, page_slots: int):
+    """Split off the oldest ``page_slots`` positions and shift the rest
+    down, zeroing the tail.  Returns (k_page, v_page, k_win, v_win): the
+    pages are copies, taken before the shift, and the shift reads a
+    copy, because its source and destination overlap."""
+    W = k_win.shape[3]
+    pages = []
+    for win in (k_win, v_win):
+        pages.append(win[:, :, :, :page_slots].clone())
+        win[:, :, :, :W - page_slots] = win[:, :, :, page_slots:].clone()
+        win[:, :, :, W - page_slots:] = 0
+    return pages[0], pages[1], k_win, v_win
+
+
+def _grouped(q, n_kv: int):
+    """(b, nh, s, hd) queries → (b, n_kv, g*s, hd) grouped to kv heads;
+    row kv*(g*s) + j*s + t is head kv*g + j at position t.  A copying
+    reshape: the projections arrive as transposed views."""
+    b, nh, s, hd = q.shape
+    return q.reshape(b, n_kv, (nh // n_kv) * s, hd)
+
+
+def _partial_impl(q, k, v, mask=None):
+    """Online-softmax partial of grouped queries against one key block,
+    in float32.  q (b, nkv, rows, hd); k/v (b, nkv, S, hd); optional
+    ``mask`` broadcastable to the (b, nkv, rows, S) scores (False =
+    hidden) → m (b, nkv, rows, 1), l, acc."""
+    hd = q.shape[-1]
+    # the reference's einsums "bkgd,bksd->bkgs" and "bkgs,bksd->bkgd"
+    s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+    if mask is not None:
+        s = torch.where(mask, s, _HIDDEN)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = p @ v.float()
+    return m, l, acc
+
+
+_page_partial = _partial_impl
+
+
+def _page_partial_q(q, k_q, k_s, v_q, v_s):
+    """The int8 page's partial: dequantized (data × scale) first."""
+    return _partial_impl(q, k_q.float() * k_s, v_q.float() * v_s)
+
+
+def _window_partial(q, k_win_l, v_win_l, count: int):
+    """Partial over the window's first ``count`` valid positions."""
+    W = k_win_l.shape[2]
+    valid = (torch.arange(W, device=q.device) < count)[None, None, None, :]
+    return _partial_impl(q, k_win_l, v_win_l, mask=valid)
+
+
+#: the reference writes ``m / 127.0``, which XLA compiles as a product
+#: with the float32 reciprocal: the same product gives the same scales
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _quantize_page(x):
+    """(…, P, hd) page → (int8 data, float32 absmax scale over hd);
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    m = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(m > 0, m * _INV_127, torch.ones_like(m))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _combine(m1, l1, a1, m2, l2, a2):
+    """Associative online-softmax merge of two partials."""
+    m = torch.maximum(m1, m2)
+    w1 = torch.exp(m1 - m)
+    w2 = torch.exp(m2 - m)
+    return m, l1 * w1 + l2 * w2, a1 * w1 + a2 * w2
+
+
+def _chunk_causal_partial(q, k, v, s_len: int):
+    """Causal partial of a prefill chunk against its own k/v.  q (b,
+    nkv, g*s, hd) grouped rows (row j*s+t is head j at position t); k/v
+    (b, nkv, s, hd).  Row t sees keys 0..t."""
+    rows = q.shape[2]
+    t = torch.arange(rows, device=q.device) % s_len
+    causal = (t[:, None] >= torch.arange(s_len, device=q.device)[None, :]
+              )[None, None]
+    return _partial_impl(q, k, v, mask=causal)
+
+
+def _finish(m, l, acc):
+    """(b, nkv, rows, hd) partials → normalized attention rows, in the
+    flattened (head, position) order :func:`_grouped` made."""
+    return acc / l
+
+
+class PagedKVCache:
+    """Mutable decode-session KV cache: a device window and NVMe pages.
+
+    The host runs the tier boundary (append, evict, stream); every
+    tensor op runs on ``device`` (default ``cuda:0``).  Not thread-safe;
+    one instance per decode session."""
+
+    #: page writes kept in flight before an eviction drains
+    _MAX_PENDING_PAGES = 4
+
+    def __init__(self, cfg: TransformerConfig, ocfg: OffloadConfig,
+                 engine: StromEngine, batch: int, device=None):
+        self.cfg = cfg
+        self.ocfg = ocfg
+        self.engine = engine
+        self.batch = batch
+        self.device = resolve_device(device)
+        L, nkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        shape = (L, batch, nkv, ocfg.window, hd)
+        self.k_win = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.v_win = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.count = 0            # valid positions in the window
+        self.n_cold = 0           # pages already written to the file
+        self._quant = ocfg.quantize == "int8"
+        self._itemsize = (1 if self._quant
+                          else torch.empty(0, dtype=cfg.dtype).element_size())
+        # bytes of one layer of one page of k (or v): data, then scales
+        self._pb_layer = batch * nkv * ocfg.page_len * hd * self._itemsize
+        self._pb_block = self._pb_layer * L
+        self._sb_layer = (batch * nkv * ocfg.page_len * 4 if self._quant
+                          else 0)
+        self._sb_block = self._sb_layer * L
+        # page file stride: [k data][k scales][v data][v scales]
+        self._page_stride = 2 * (self._pb_block + self._sb_block)
+        self._fh = engine.open(ocfg.path, writable=True)
+        # the reference tags these reads klass="decode" for its QoS
+        # scheduler, which the port does not have yet
+        self._stream = DeviceStream(engine, device=self.device,
+                                    depth=engine.config.queue_depth)
+        # in-flight eviction writes, a list of PendingWrites a page; each
+        # keeps its host buffer alive until waited
+        self._pending_writes: list = []
+        # the host tier: page index → (section host views, mapping),
+        # dropped in insertion order past host_cache_pages
+        self._host_cache: Dict[int, tuple] = {}
+        self.host_cache_hits = 0
+        self.host_cache_misses = 0
+        # STROM_VERIFY: (page, section, layer) → CRC32C stamped at
+        # eviction, checked when the layer's section streams back
+        self._verify = VerifyPolicy()
+        self._page_crc: Dict[tuple, int] = {}
+
+    # -- lifecycle --------------------------------------------------------
+
+    def _drain_writes(self, keep: int = 0) -> None:
+        """Complete in-flight eviction writes, oldest first, leaving at
+        most ``keep`` pages' writes outstanding.  Every popped write is
+        waited even when an earlier one fails (each keeps its source
+        buffer alive while the engine reads it); the first error raises
+        after the batch settles."""
+        first_err: Optional[OSError] = None
+        while len(self._pending_writes) > keep:
+            for p in self._pending_writes.pop(0):
+                try:
+                    p.wait()
+                except OSError as e:
+                    if first_err is None:
+                        first_err = e
+        if first_err is not None:
+            raise first_err
+
+    def flush(self) -> None:
+        """Block until every evicted page's write has completed (visible
+        to readers of the file; no fsync)."""
+        self._drain_writes()
+
+    def close(self) -> None:
+        if self._fh is not None:
+            try:
+                self._drain_writes()
+            finally:
+                self.engine.close(self._fh)
+                self._fh = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @property
+    def pos(self) -> int:
+        """Total cached positions (cold + window)."""
+        return self.n_cold * self.ocfg.page_len + self.count
+
+    # -- write tier -------------------------------------------------------
+
+    def _section_offsets(self, page: int) -> Tuple[int, int, int, int]:
+        """(k data, k scales, v data, v scales) file offsets of a page
+        (the scale sections are empty unquantized)."""
+        base = page * self._page_stride
+        return (base,
+                base + self._pb_block,
+                base + self._pb_block + self._sb_block,
+                base + 2 * self._pb_block + self._sb_block)
+
+    def _write_page(self, k_page, v_page) -> None:
+        """An evicted (L, b, nkv, P, hd) pair → asynchronous engine
+        writes of its sections (int8 data and float32 scales when
+        quantizing), from one page-locked 4 KiB-aligned host buffer the
+        device copies into first.  Every read drains the writes first."""
+        self._drain_writes(keep=self._MAX_PENDING_PAGES - 1)
+        kd, ks, vd, vs = self._section_offsets(self.n_cold)
+        if self._quant:
+            k_q, k_s = _quantize_page(k_page)
+            v_q, v_s = _quantize_page(v_page)
+            sections = ((k_q, kd), (k_s, ks), (v_q, vd), (v_s, vs))
+        else:
+            sections = ((k_page, kd), (v_page, vd))
+        base = kd
+        buf, mapping = _aligned_host(self._page_stride, self.device)
+        hosts = []
+        for arr, off in sections:
+            flat = arr.contiguous().reshape(-1).view(torch.uint8)
+            dst = buf[off - base:off - base + flat.numel()]
+            dst.copy_(flat, non_blocking=True)
+            hosts.append(dst.numpy())
+        if self.device.type == "cuda":
+            # the writes and the CRC read the buffer: the copies first
+            torch.cuda.current_stream(self.device).synchronize()
+        sec_lens = (self._pb_layer, self._sb_layer,
+                    self._pb_layer, self._sb_layer)
+        chunk = self.engine.config.chunk_bytes
+        pend = []
+        for sec_idx, ((_arr, off), host) in enumerate(zip(sections, hosts)):
+            if self._verify.enabled:
+                # one stamp a layer slice, the span the read tier streams;
+                # sampling gates here, so the read side checks exactly
+                # the stamped spans
+                ln = sec_lens[sec_idx] if self._quant else self._pb_layer
+                for layer in range(self.cfg.n_layers):
+                    if self._verify.want():
+                        self._page_crc[(self.n_cold, sec_idx, layer)] = \
+                            crc32c(host[layer * ln:(layer + 1) * ln])
+            for p0 in range(0, host.nbytes, chunk):
+                pend.append(self.engine.submit_write(
+                    self._fh, off + p0, host[p0:p0 + chunk]))
+        self._pending_writes.append(pend)
+        if self.ocfg.host_cache_pages > 0:
+            # the host tier keeps the buffer the writes read: no copy
+            self._host_cache[self.n_cold] = (hosts, mapping)
+            while len(self._host_cache) > self.ocfg.host_cache_pages:
+                self._host_cache.pop(next(iter(self._host_cache)))
+        self.n_cold += 1
+
+    def _evict_one(self) -> None:
+        k_page, v_page, self.k_win, self.v_win = _evict_pages(
+            self.k_win, self.v_win, self.ocfg.page_len)
+        self._write_page(k_page, v_page)
+        self.count -= self.ocfg.page_len
+
+    def append(self, k_new, v_new) -> None:
+        """Push (L, b, nkv, s, hd) new positions; evict pages as needed.
+        Post-condition: ``count < window`` (a free slot, which the
+        append_layer / commit_step cycle relies on)."""
+        W = self.ocfg.window
+        s = k_new.shape[3]
+        done = 0
+        while done < s:
+            take = min(W - self.count, s - done)
+            if take > 0:
+                _append_block(
+                    self.k_win, self.v_win,
+                    k_new[:, :, :, done:done + take].to(self.cfg.dtype),
+                    v_new[:, :, :, done:done + take].to(self.cfg.dtype),
+                    self.count)
+                self.count += take
+                done += take
+            if self.count == W:
+                self._evict_one()
+
+    def append_layer(self, layer: int, k, v) -> None:
+        """Stage one layer's (b, nkv, s, hd) positions at slot ``count``
+        without advancing it: every layer of a step or chunk writes the
+        same slots, and :meth:`commit_step` / :meth:`commit_block`
+        advance.  Needs count + s <= window."""
+        _append_layer(self.k_win, self.v_win, k.to(self.cfg.dtype),
+                      v.to(self.cfg.dtype), layer, self.count)
+
+    def commit_step(self) -> None:
+        """Advance past the slot all layers just staged; evict if full."""
+        self.commit_block(1)
+
+    def commit_block(self, s: int) -> None:
+        """Advance past ``s`` staged slots; evict until count < window."""
+        self.count += s
+        if self.count > self.ocfg.window:
+            raise RuntimeError(
+                f"commit_block({s}) overran the window "
+                f"({self.count} > {self.ocfg.window})")
+        while self.count >= self.ocfg.window:
+            self._evict_one()
+
+    def ensure_room(self, s: int) -> None:
+        """Evict until ``s`` more positions fit in the window (the
+        evicted slots predate the block being staged)."""
+        P, W = self.ocfg.page_len, self.ocfg.window
+        if s > W:
+            raise ValueError(f"block of {s} exceeds window {W}")
+        while self.count + s > W:
+            if self.count < P:
+                raise RuntimeError(
+                    f"cannot make room: count={self.count} < page "
+                    f"{P} but {s} more positions requested")
+            self._evict_one()
+
+    # -- session persistence ----------------------------------------------
+
+    def save_session(self, directory) -> None:
+        """Persist the session beside its page file: the window (through
+        the engine's write path) and the counters in ``session.json``.
+        With the page file (flushed here) this is the whole decode
+        state; either package's :meth:`load_session` resumes it."""
+        os.makedirs(directory, exist_ok=True)
+        self.flush()
+        for name, arr in (("k_win.bin", self.k_win),
+                          ("v_win.bin", self.v_win)):
+            path = os.path.join(directory, name)
+            # the engine opens without O_TRUNC: a smaller re-save would
+            # keep stale trailing bytes
+            open(path, "wb").close()
+            write_from_device(self.engine, arr, path)
+        meta = {"count": self.count, "n_cold": self.n_cold,
+                "batch": self.batch, "page_len": self.ocfg.page_len,
+                "window_pages": self.ocfg.window_pages,
+                "quantize": self.ocfg.quantize,
+                "host_cache_pages": self.ocfg.host_cache_pages,
+                "page_file": os.path.abspath(self.ocfg.path),
+                "dtype": _dtype_name(self.cfg.dtype),
+                "window_shape": list(self.k_win.shape)}
+        tmp = os.path.join(directory, "session.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(directory, "session.json"))
+
+    @classmethod
+    def load_session(cls, cfg: TransformerConfig, engine: StromEngine,
+                     directory, device=None) -> "PagedKVCache":
+        """Rebuild a saved session: the window streams back through the
+        engine, the page file reattaches in place."""
+        with open(os.path.join(directory, "session.json")) as f:
+            meta = json.load(f)
+        ocfg = OffloadConfig(
+            path=meta["page_file"], page_len=meta["page_len"],
+            window_pages=meta["window_pages"], quantize=meta["quantize"],
+            host_cache_pages=meta.get("host_cache_pages", 0))
+        if meta.get("dtype") != _dtype_name(cfg.dtype):
+            raise ValueError(
+                f"session saved with dtype {meta.get('dtype')}, cfg has "
+                f"{_dtype_name(cfg.dtype)}: a bitcast would silently "
+                f"corrupt the cache")
+        self = cls(cfg, ocfg, engine, meta["batch"], device=device)
+        try:
+            shape = tuple(self.k_win.shape)
+            if list(shape) != meta.get("window_shape"):
+                raise ValueError(
+                    f"session window shape {meta.get('window_shape')} "
+                    f"does not match cfg's {list(shape)}")
+            # free the zero windows before the saved ones arrive
+            self.k_win = self.v_win = None
+            for attr, name in (("k_win", "k_win.bin"),
+                               ("v_win", "v_win.bin")):
+                setattr(self, attr, self._stream.read_to_device(
+                    os.path.join(directory, name), dtype=cfg.dtype,
+                    shape=shape))
+            self.count = meta["count"]
+            self.n_cold = meta["n_cold"]
+        except BaseException:
+            self.close()
+            raise
+        return self
+
+    # -- read tier --------------------------------------------------------
+
+    def _make_verify_cb(self, layer: int, span_meta, n_sub):
+        """The ``stream_ranges`` hook checking each stamped span's
+        CRC32C on its staging views: a span split over several ranges
+        accumulates, and its last range compares with the eviction-time
+        stamp.  An unstamped span (not sampled, or evicted before
+        verification was on) is skipped.  A mismatch raises
+        ``ChecksumError``: there is no other copy of the history."""
+        range_span = []          # range index → (span, last of span)
+        for si, cnt in enumerate(n_sub):
+            for j in range(cnt):
+                range_span.append((si, j == cnt - 1))
+        running: Dict[int, int] = {}
+        stats = self.engine.stats
+
+        def verify(ri: int, view) -> None:
+            si, last = range_span[ri]
+            page, sec = span_meta[si]
+            expected = self._page_crc.get((page, sec, layer))
+            if expected is None:
+                return
+            running[si] = crc32c(view, running.get(si, 0))
+            stats.add(bytes_verified=int(view.nbytes))
+            if not last:
+                return
+            got = running.pop(si)
+            if got != expected:
+                stats.add(checksum_failures=1)
+                raise ChecksumError(
+                    f"KV page {page} section {sec} layer {layer} of "
+                    f"{self.ocfg.path} fails its eviction-time CRC32C "
+                    f"({got:#010x} != {expected:#010x}): corrupt history "
+                    f"must not reach attention")
+
+        return verify
+
+    def _iter_layer_pages(self, layer: int):
+        """(k_page, v_page) device pairs of one layer's cold history, in
+        file order, streamed at queue depth across all pages (a span
+        larger than a staging buffer is read in chunks and joined on the
+        device); host-tier pages are copied from their host buffers."""
+        self._drain_writes()     # a just-evicted page must not read stale
+        P = self.ocfg.page_len
+        _L, b, nkv, _W, hd = self.k_win.shape
+        sec_lens = tuple(ln for ln in (self._pb_layer, self._sb_layer,
+                                       self._pb_layer, self._sb_layer)
+                         if ln)
+        spans = []          # per uncached page: k data[, sc], v data[, sc]
+        span_meta = []      # (page, write-section index) of each span
+        for page in range(self.n_cold):
+            if page in self._host_cache:
+                continue
+            kd, ks, vd, vs = self._section_offsets(page)
+            for sec_idx, (base, ln) in enumerate(
+                    ((kd, self._pb_layer), (ks, self._sb_layer),
+                     (vd, self._pb_layer), (vs, self._sb_layer))):
+                if ln:
+                    spans.append((base + layer * ln, ln))
+                    # the eviction numbered the sections it wrote:
+                    # k, v unquantized; k, ks, v, vs quantized
+                    span_meta.append(
+                        (page, sec_idx if self._quant else sec_idx // 2))
+        ranges, n_sub = split_ranges(spans, self.engine.config.chunk_bytes)
+        verify_cb = (self._make_verify_cb(layer, span_meta, n_sub)
+                     if self._verify.enabled else None)
+        it = self._stream.stream_ranges(self._fh, ranges, verify=verify_cb)
+        counts = iter(n_sub)
+        host_copies = []     # host-tier transfers, waited before return
+
+        def stream_flat():
+            parts = [next(it) for _ in range(next(counts))]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        def read_kv(take):
+            if self._quant:
+                data = take().view(torch.int8).reshape(b, nkv, P, hd)
+                scale = take().view(torch.float32).reshape(b, nkv, P, 1)
+                return data, scale
+            return take().view(self.cfg.dtype).reshape(b, nkv, P, hd)
+
+        try:
+            for page in range(self.n_cold):
+                entry = self._host_cache.get(page)
+                if entry is not None:
+                    self.host_cache_hits += 1
+                    hosts, mapping = entry
+                    flats = []
+                    for sec, ln in zip(hosts, sec_lens):
+                        t = host_to_device(
+                            self.engine, sec[layer * ln:(layer + 1) * ln],
+                            self.device,
+                            mappings=(mapping,) if mapping else ())
+                        if t.event is not None:
+                            torch.cuda.current_stream(
+                                self.device).wait_event(t.event)
+                        host_copies.append(t)
+                        flats.append(t.tensor)
+                    take = iter(flats).__next__
+                else:
+                    self.host_cache_misses += 1
+                    take = stream_flat
+                yield read_kv(take), read_kv(take)
+        finally:
+            it.close()
+            # the host tier may drop a buffer at the next eviction: its
+            # copies end first
+            for t in host_copies:
+                t.synchronize()
+
+    def _history_partials(self, layer: int, qf, valid: int):
+        """(m, l, acc) of grouped queries over the cold pages and
+        ``valid`` window slots: the window first, then the pages in file
+        order."""
+        m, l, acc = _window_partial(qf, self.k_win[layer],
+                                    self.v_win[layer], valid)
+        for k_item, v_item in self._iter_layer_pages(layer):
+            if self._quant:
+                pm, pl, pacc = _page_partial_q(qf, *k_item, *v_item)
+            else:
+                pm, pl, pacc = _page_partial(qf, k_item, v_item)
+            m, l, acc = _combine(m, l, acc, pm, pl, pacc)
+        return m, l, acc
+
+    def attend(self, layer: int, q, valid: Optional[int] = None):
+        """Full-history attention of one layer's query block.  q (b,
+        n_heads, s, hd): every row attends all cold pages and ``valid``
+        window slots (default ``count``; a decode step passes count + 1
+        after :meth:`append_layer`, so its own position is visible).
+        Returns (b, n_heads, s, hd) in the model dtype."""
+        b, nh, s_q, hd = q.shape
+        # cast once: every partial would cast it again for each page
+        qf = _grouped(q, self.cfg.n_kv_heads).float()
+        m, l, acc = self._history_partials(
+            layer, qf, self.count if valid is None else valid)
+        out = _finish(m, l, acc)
+        return out.reshape(b, nh, s_q, hd).to(self.cfg.dtype)
+
+    def attend_chunk(self, layer: int, q, k_chunk, v_chunk):
+        """Chunked-prefill attention: every row sees the whole cached
+        history plus its own chunk causally.  q (b, n_heads, s, hd);
+        k_chunk / v_chunk (b, nkv, s, hd), not yet in the window."""
+        b, nh, s_q, hd = q.shape
+        qf = _grouped(q, self.cfg.n_kv_heads).float()    # cast once
+        m, l, acc = self._history_partials(layer, qf, self.count)
+        cm, cl, cacc = _chunk_causal_partial(
+            qf, k_chunk.to(self.cfg.dtype), v_chunk.to(self.cfg.dtype),
+            s_q)
+        m, l, acc = _combine(m, l, acc, cm, cl, cacc)
+        out = _finish(m, l, acc)
+        return out.reshape(b, nh, s_q, hd).to(self.cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# generation on the paged cache
+
+
+def _layer_forward(params: Dict, i: int, x, cfg: TransformerConfig,
+                   positions, attend):
+    """One transformer layer against the paged cache, shared by the
+    decode step and chunked prefill; ``attend(i, q, k, v)`` orders the
+    append and the attention and returns (b, nh, s, hd)."""
+    b, s, _ = x.shape
+    Lk = f"layers.{i}."
+    h = rms_norm(x, params[Lk + "attn_norm"], cfg.norm_eps)
+    q, k, v = qkv_project(h, params, Lk, cfg, positions)
+    a = attend(i, q, k, v)
+    a = a.transpose(1, 2).reshape(b, s, -1)
+    x = x + a @ wmat(params, Lk + "wo", a.dtype)
+    h = rms_norm(x, params[Lk + "mlp_norm"], cfg.norm_eps)
+    return (x + mlp(h, params, Lk)).to(cfg.dtype)
+
+
+def _final_logits(params: Dict, x_last, cfg: TransformerConfig):
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return (x_last @ wmat(params, "lm_head", x_last.dtype)).float()
+
+
+def offload_decode_step(params: Dict, token, cfg: TransformerConfig,
+                        cache: PagedKVCache):
+    """One decode step against the paged cache: token (b,) at position
+    ``cache.pos`` → next-token logits (b, vocab) float32.  Each layer's
+    k/v land in the window before its attention, so the new position
+    sees itself; the count advances once, in ``commit_step``."""
+    x = embed(params, token[:, None], cfg)
+    positions = torch.tensor([cache.pos], dtype=torch.float32,
+                             device=x.device)
+
+    def attend(i, q, k, v):
+        cache.append_layer(i, k, v)
+        return cache.attend(i, q, valid=cache.count + 1)
+
+    for i in range(cfg.n_layers):
+        x = _layer_forward(params, i, x, cfg, positions, attend)
+    cache.commit_step()
+    return _final_logits(params, x[:, 0], cfg)
+
+
+def offloaded_prefill(params: Dict, tokens, cfg: TransformerConfig,
+                      cache: PagedKVCache):
+    """Prefill a prompt of any length with a bounded window: chunks of
+    ``page_len`` tokens each attend the whole cached history plus
+    themselves causally, then join the window (evicting as needed).
+    Needs ``window_pages >= 2``.  Returns the last position's logits
+    (b, vocab) float32."""
+    if cache.ocfg.window_pages < 2:
+        raise ValueError("chunked prefill needs window_pages >= 2")
+    _b, total = tokens.shape
+    P = cache.ocfg.page_len
+
+    def attend(i, q, k, v):
+        a = cache.attend_chunk(i, q, k, v)
+        cache.append_layer(i, k, v)
+        return a
+
+    x_last = None
+    for c0 in range(0, total, P):
+        chunk = tokens[:, c0:c0 + P]
+        s = chunk.shape[1]
+        cache.ensure_room(s)
+        pos0 = cache.pos
+        x = embed(params, chunk, cfg)
+        positions = torch.arange(pos0, pos0 + s, dtype=torch.float32,
+                                 device=x.device)
+        for i in range(cfg.n_layers):
+            x = _layer_forward(params, i, x, cfg, positions, attend)
+        cache.commit_block(s)
+        x_last = x[:, -1]
+    return _final_logits(params, x_last, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the serving prefix store: content-addressed cross-request KV pages on NVMe
 
 
 class PrefixStore:
@@ -496,9 +1212,7 @@ class PrefixStore:
         if kb.nbytes != half or vb.nbytes != half:
             raise ValueError(f"a page's k and v are {half} bytes each, got "
                              f"{kb.nbytes} and {vb.nbytes}")
-        buf = np.empty(self.page_bytes + _ALIGN, np.uint8)
-        off = (-buf.ctypes.data) % _ALIGN
-        host = buf[off:off + self.page_bytes]
+        host = _aligned_host(self.page_bytes, torch.device("cpu"))[0].numpy()
         host[:half] = kb
         host[half:] = vb
         return host
@@ -766,3 +1480,42 @@ def build_prefix_store(cfg: TransformerConfig, engine: StromEngine,
     return PrefixStore(cfg, engine, path,
                        page_tokens=kvcfg.page_tokens or page_tokens,
                        capacity_bytes=kvcfg.store_mb << 20)
+
+
+def offloaded_generate(params: Dict, prompt, cfg: TransformerConfig,
+                       ocfg: OffloadConfig, engine: StromEngine,
+                       max_new_tokens: int, eos_id: Optional[int] = None,
+                       pad_id: int = 0, chunked_prefill: bool = False):
+    """Greedy generation with the SSD-backed cache on ``prompt``'s
+    device.  prompt (b, s) → (b, max_new_tokens) int32.  By default the
+    prompt prefills through the dense path (``models/decode.py``; it
+    must fit on the device once) and its k/v seed the cache;
+    ``chunked_prefill`` runs :func:`offloaded_prefill` instead.  After
+    ``eos_id`` a row emits ``pad_id``."""
+    from nvme_strom_tpu_torch.models import decode as _dec
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, "
+                         f"got {max_new_tokens}")
+    b, s = prompt.shape
+    with PagedKVCache(cfg, ocfg, engine, b, device=prompt.device) as cache:
+        if chunked_prefill:
+            logits = offloaded_prefill(params, prompt, cfg, cache)
+        else:
+            dense = _dec.init_cache(cfg, b, s, device=prompt.device)
+            logits, dense = _dec.prefill(params, prompt, cfg, dense)
+            # the dense cache is updated in place: its first s positions
+            cache.append(dense["k"][..., :s, :], dense["v"][..., :s, :])
+            del dense
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        done = (torch.zeros(b, dtype=torch.bool, device=prompt.device)
+                if eos_id is None else tok == eos_id)
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits = offload_decode_step(params, tok, cfg, cache)
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+            if eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+                done = done | (nxt == eos_id)
+            out.append(nxt)
+            tok = nxt
+        return torch.stack(out, dim=1)

@@ -29,6 +29,7 @@ import torch
 from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.io.engine import HostMapping, StromEngine
+from nvme_strom_tpu_torch.io.plan import split_spans
 
 _SIDE_STREAMS: Dict[int, torch.cuda.Stream] = {}
 
@@ -170,6 +171,13 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
     if stats is not None:
         stats.add(bytes_to_device=n)
     return Transfer(out, event, keep)
+
+
+def split_ranges(spans, chunk: int):
+    """(offset, length) spans → (flat sub-ranges ≤ ``chunk``, per-span
+    sub-range counts): a span larger than one staging buffer becomes
+    chunk-sized reads (``io.plan.split_spans``'s rule)."""
+    return split_spans(spans, chunk)
 
 
 def _shaped(t: torch.Tensor, dtype, shape) -> torch.Tensor:
@@ -332,11 +340,18 @@ class DeviceStream:
             self.engine.close(fh)
 
     def stream_ranges(self, fh: int, ranges: Sequence[tuple],
-                      dtype=None, shapes: Optional[Sequence] = None
+                      dtype=None, shapes: Optional[Sequence] = None,
+                      verify: Optional[Callable] = None
                       ) -> Iterator[torch.Tensor]:
         """Device tensors of arbitrary (offset, length) ranges of an
-        open file."""
-        pending: list = []   # (PendingRead, shape)
+        open file.
+
+        ``verify``: ``fn(range_index, host_view)``, called on each
+        range's completed staging view before its copy starts (the only
+        point where the payload is on the host), so a corrupt range
+        never reaches the device; a raise ends the stream, with every
+        staging buffer released and every copy in flight waited out."""
+        pending: list = []   # (PendingRead, shape, range index)
         inflight: list = []  # (Transfer, PendingRead or None)
         stage = (OverlapStage(self.engine, self.device,
                               self.engine.config.chunk_bytes,
@@ -351,9 +366,13 @@ class DeviceStream:
             return t.tensor
 
         def start_transfer():
-            pr, shp = pending.pop(0)
+            # the entry leaves ``pending`` before the wait: on a raise
+            # the finally below cannot see it, so it is released here
+            pr, shp, ri = pending.pop(0)
             try:
                 view = pr.wait()
+                if verify is not None:
+                    verify(ri, view)
                 if stage is None:    # the copy reads the staging buffer
                     inflight.append((self._put(view, dtype, shp), pr))
                     return
@@ -374,7 +393,7 @@ class DeviceStream:
                                                 for off, ln in take])
                 for j, pr in enumerate(prs):
                     shape = shapes_l[i + j] if shapes_l is not None else None
-                    pending.append((pr, shape))
+                    pending.append((pr, shape, i + j))
                 i += len(take)
                 while len(pending) > self.depth:
                     start_transfer()
@@ -385,7 +404,7 @@ class DeviceStream:
             while inflight:
                 yield drain_one()
         finally:
-            for pr, _ in pending:
+            for pr, _, _ in pending:
                 try:
                     pr.wait()
                 except OSError:

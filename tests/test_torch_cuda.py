@@ -441,6 +441,78 @@ def test_prefix_store_restores_through_h2d_on_the_card(dev, tmp_path):
         store.close()
 
 
+@pytest.mark.parametrize("quant,host_pages", [(None, 0), (None, 2),
+                                              ("int8", 2)])
+def test_offload_attend_through_h2d_on_the_card(dev, tmp_path, quant,
+                                                host_pages):
+    """The offloaded cache's cold pages come back to the card through
+    h2d_copy (from the staging buffers, and from the host tier's
+    page-locked buffers) with nothing bounced, and ``attend`` matches a
+    dense float32 softmax over the whole history: to one bf16 ulp of the
+    output (int8 pages: 3e-2, the quantization).  Then greedy float32
+    generation through the cache gives the dense path's tokens."""
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import decode as dec
+    from nvme_strom_tpu_torch.models.kv_offload import (OffloadConfig,
+                                                        PagedKVCache,
+                                                        offloaded_generate)
+    from nvme_strom_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from nvme_strom_tpu_torch.convert import params_from_jax
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    cfg = TransformerConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, max_seq=256)
+    b, S, P = 2, 150, 16        # 8 KiB bf16 layer sections: O_DIRECT-sized
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, S, cfg.head_dim)
+    ks = torch.randn(shape, generator=g, device=dev).bfloat16()
+    vs = torch.randn(shape, generator=g, device=dev).bfloat16()
+    q = torch.randn(b, cfg.n_heads, 1, cfg.head_dim, generator=g,
+                    device=dev).bfloat16()
+    ocfg = OffloadConfig(path=str(tmp_path / "kv.bin"), page_len=P,
+                         window_pages=2, quantize=quant,
+                         host_cache_pages=host_pages)
+    with StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                  buffer_pool_bytes=64 << 20)) as eng:
+        with PagedKVCache(cfg, ocfg, eng, b) as cache:
+            assert cache.device == dev
+            cache.append(ks, vs)
+            assert cache.n_cold >= 7
+            before = h2d_copy.launches
+            for layer in range(cfg.n_layers):
+                got = cache.attend(layer, q)
+                grp = cfg.n_heads // cfg.n_kv_heads
+                k = ks[layer].float().repeat_interleave(grp, dim=1)
+                v = vs[layer].float().repeat_interleave(grp, dim=1)
+                p = torch.softmax(q.float() @ k.transpose(-1, -2)
+                                  / cfg.head_dim ** 0.5, dim=-1)
+                want = p @ v
+                rtol, atol = ((2 ** -7, 2e-5) if quant is None
+                              else (3e-2, 3e-2))
+                torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                           atol=atol)
+            sections = 2 if quant is None else 4
+            assert h2d_copy.launches - before == \
+                cfg.n_layers * cache.n_cold * sections
+            assert cache.host_cache_hits == cfg.n_layers * host_pages
+        assert eng.stats.bounce_bytes == 0      # the bridge's, before the
+        #                                         engine's are merged
+        eng.sync_stats()
+        if eng.stats.bytes_fallback == 0:
+            assert eng.stats.bounce_bytes == 0
+        if quant is None and host_pages == 0:
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+            params = params_from_jax(init_params(0, cfg32), cfg32, dev)
+            prompt = torch.randint(0, cfg.vocab, (2, 40), generator=g,
+                                   device=dev)
+            got = offloaded_generate(params, prompt, cfg32, OffloadConfig(
+                path=str(tmp_path / "gen.bin"), page_len=P, window_pages=2),
+                eng, 24)
+            want = dec.generate(params, prompt, cfg32, 24)
+            assert torch.equal(got.long(), want.long())
+
+
 def test_engine_unregisters_before_destroy(dev, tmp_path):
     from nvme_strom_tpu_torch.io.engine import StromEngine
     from nvme_strom_tpu_torch.utils.config import EngineConfig
