@@ -14,7 +14,8 @@ It builds the port's native libraries from the checkout, then:
    that one bf16 rounding of the probability or dS operand would put
    outside the tolerance, against the two-part split the kernels use;
    for ``h2d_copy`` it times the shipped design of the kernel beside
-   two others at 4 MiB and 64 MiB, and ``copy_`` (the probe); the
+   two others at 4 MiB and 64 MiB, and ``copy_`` (the probe), and
+   checks it from a host-tier line and an arena bridge slab; the
    split-K decode and paged attention kernels are also checked on GQA
    groups of 7 and 16 and head dims 40, 96 and 256 at positions around
    a split edge, two calls bitwise equal, and timed back to back and by
@@ -27,8 +28,9 @@ It builds the port's native libraries from the checkout, then:
    main paths' shapes (``fp16_times``);
 3. main path — streams a 2 GiB file of seeded random bytes through
    ``DeviceStream`` onto the card, on both of its paths (copies from the
-   staging buffers in place, and through the overlap stage), and checks
-   every pass on the device;
+   staging buffers in place, and through the overlap stage), the direct
+   one also on a one-ring engine beside the default ring count, and
+   checks every pass on the device;
 4. main path — writes flagship-width weights (seeded) as safetensors,
    streams them onto the card with ``LazyCheckpoint`` and serves the
    same 8 greedy requests with ``DecodeServer`` and
@@ -52,7 +54,21 @@ It builds the port's native libraries from the checkout, then:
    Llama-3-8B's widths (2 layers) over a 32768-position history, every
    ``attend`` against a dense float32 softmax; and ``python -m
    nvme_strom_tpu_torch.generate --offload`` on the serving checkpoint,
-   whose ids must equal the API's; then serves
+   whose ids must equal the API's; main path — both of those
+   decode-class sources under a prefetch storm (``qos_phase``: a thread
+   streams seeded random batches of 8 × 4 MiB of the stream file onto
+   the card as ``klass="prefetch"``): the prefix store's chat traffic
+   through both servers (restores as ``klass="decode", hot=True``) and
+   (a)'s 16 offloaded steps (``klass="decode"``), on one ring, on the
+   default ring count with the QoS scheduler, both again with every read
+   padded by 2 ms, and with the host-DRAM tier (512 MiB, lines of the
+   engine's chunk); two trials a mode in alternating order, the median
+   reported: restore-batch and step p50/p99, the storm's GiB/s, ring
+   depths, the scheduler's and the tier's counters; tokens equal to the
+   earlier phases', pages bitwise, ``bounce_bytes`` 0, no arena
+   fallback, tier hits from its registered carve, a flipped byte in a
+   resident line caught and healed, a page put over a resident line's
+   slot restored fresh; then serves
    4 requests with both servers on a 2-layer model with a GQA group of
    7 at head_dim 128 (``GQA_SERVE``), whose tokens must agree;
 6. training path — seeded WebDataset shards of flagship-length samples
@@ -92,7 +108,8 @@ It builds the port's native libraries from the checkout, then:
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
-phase 5, ``h2d_copy`` in its offload run, the flash kernels
+phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos run,
+the flash kernels
 and ``h2d_copy`` in phase 6, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
@@ -261,6 +278,7 @@ def check_h2d(dev, results):
             raise AssertionError(f"h2d_copy != plain at n={n}")
     log("h2d_copy: byte-identical at 1 B, 4095 B, 1 MiB+3 B, 256 MiB, "
         "aligned and misaligned")
+    worst = max(worst, h2d_from_carves(dev))
     # time at the main path's shape: one staging chunk (4 MiB), over
     # 16 distinct chunks (64 MiB > L2)
     chunk, nsets = 4 << 20, 16
@@ -294,6 +312,54 @@ def check_h2d(dev, results):
     log(f"h2d_copy 4 MiB: kernel {ms:.4f} ms "
         f"({chunk / ms / 1e6:.2f} GB/s), 256 MiB: {big_ms:.3f} ms "
         f"({big / big_ms / 1e6:.2f} GB/s)")
+
+
+def h2d_from_carves(dev):
+    """h2d_copy from a resident line of the host-DRAM tier and from an
+    arena bridge slab, each carve registered with CUDA on its first copy
+    and read in place, held against the plain version of the same bytes;
+    returns the largest difference."""
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.io import arena, hostcache
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy, h2d_copy_plain
+    from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+    rng = np.random.default_rng(SEED + 1)
+    chunk, fkey = 4 << 20, ("chip_smoke", 0)
+    hostcache.reset()
+    cache = hostcache.configure(HostCacheConfig(budget_mb=16,
+                                                line_bytes=chunk))
+    slab = arena.carve_or_none(chunk, "bridge")
+    if slab is None:
+        raise AssertionError("the pinned arena gave no bridge slab")
+    worst, line = 0, None
+    try:
+        cache.fill(fkey, 0, rng.integers(0, 256, chunk, dtype=np.uint8),
+                   "decode")
+        segs, _ = cache.probe_range(fkey, 0, chunk, "decode")
+        line = segs[0][3]
+        slab.view[:] = rng.integers(0, 256, chunk, dtype=np.uint8)
+        for label, host, reg in (
+                ("host-tier line", cache.line_view(line, 3, chunk),
+                 cache.arena.cuda),
+                ("arena bridge slab", slab.view[5:], slab.cuda)):
+            dst = torch.empty(host.nbytes, dtype=torch.uint8, device=dev)
+            h2d_copy(host, dst, src_ptr=reg.device_ptr(
+                host.ctypes.data, host.nbytes, dev.index))
+            ref = h2d_copy_plain(host, torch.empty(
+                host.nbytes, dtype=torch.uint8, device=dev))
+            torch.cuda.synchronize()
+            worst = max(worst, (dst.int() - ref.int()).abs().max().item())
+            if not torch.equal(dst, ref) or reg.devices != [dev.index]:
+                raise AssertionError(f"h2d_copy from a {label} != plain")
+            log(f"h2d_copy from a {label} ({host.nbytes} B, read in place "
+                "from its registered carve): byte-identical to plain")
+    finally:
+        if line is not None:
+            cache.unpin(line)
+        slab.release()
+        hostcache.reset()
+    return worst
 
 
 #: designs of the h2d kernel the probe times, in the order of
@@ -1116,17 +1182,20 @@ def stream_phase(dev, path, want):
     by the size of the engine's staging pool: the default pool (64
     buffers) is large enough for each copy to read its staging buffer in
     place; a pool of 8 buffers is too small for depth 3, so chunks go
-    through the overlap stage's pinned slabs.  Passes run direct,
-    overlap, overlap, direct, so each path has a pass before and after
-    the other's; the first is the headline (the file's first read since
-    it was written and dropped from the page cache)."""
+    through the overlap stage's slabs (arena carves).  The direct path
+    also runs on a one-ring engine (``STROM_RINGS=1``) beside the default
+    ring count.  Passes run direct, one ring, overlap, overlap, one ring,
+    direct, so each has a pass before and after the others; the first is
+    the headline (the file's first read since it was written and dropped
+    from the page cache)."""
     from nvme_strom_tpu_torch.io.engine import StromEngine, check_file
     from nvme_strom_tpu_torch.ops.bridge import DeviceStream, h2d_copy
     from nvme_strom_tpu_torch.utils.config import EngineConfig
     small = EngineConfig(buffer_pool_bytes=8 * EngineConfig().chunk_bytes)
     passes = []
-    with StromEngine() as eng_d, StromEngine(small) as eng_o:
-        engines = {"direct": eng_d, "overlap": eng_o}
+    with StromEngine() as eng_d, StromEngine(small) as eng_o, \
+            StromEngine(EngineConfig(n_rings=1)) as eng_1:
+        engines = {"direct": eng_d, "overlap": eng_o, "direct_1_ring": eng_1}
         register_s = {}
         for name, eng in engines.items():
             t0 = time.monotonic()
@@ -1134,9 +1203,12 @@ def stream_phase(dev, path, want):
             register_s[name] = time.monotonic() - t0
         streams = {n: DeviceStream(e, device=dev)
                    for n, e in engines.items()}
-        if streams["direct"].overlap or not streams["overlap"].overlap:
+        if streams["direct"].overlap or not streams["overlap"].overlap \
+                or streams["direct_1_ring"].overlap:
             raise AssertionError("the pool sizes did not pick the paths")
-        for name in ("direct", "overlap", "overlap", "direct"):
+        rings = {n: e.n_rings for n, e in engines.items()}
+        for name in ("direct", "direct_1_ring", "overlap", "overlap",
+                     "direct_1_ring", "direct"):
             before = h2d_copy.launches
             dt, consumer_s = stream_once(streams[name], path, dev, want)
             passes.append({"path": name, "seconds": dt,
@@ -1155,9 +1227,14 @@ def stream_phase(dev, path, want):
     # the storage side alone, on the same file
     ceilings = read_ceilings(path)
     direct = check_file(path)["supports_direct"]
+    by_path = {n: [p["gib_per_s"] for p in passes if p["path"] == n]
+               for n in engines}
     log(f"stream: staging pools registered in {register_s} s; engine "
-        f"{backend}, O_DIRECT {'yes' if direct else 'no'}; stats "
-        f"{stats}; after it, on the same file: {ceilings}")
+        f"{backend}, rings {rings}, O_DIRECT {'yes' if direct else 'no'}; "
+        f"stats {stats}; after it, on the same file: {ceilings}")
+    log(f"stream GiB/s on the default ring count ({rings['direct']} "
+        f"rings): {by_path['direct']}; STROM_RINGS=1: "
+        f"{by_path['direct_1_ring']}")
     for p in passes:
         if p["launches"] <= 0:
             raise AssertionError(f"a {p['path']} pass launched no h2d_copy")
@@ -1168,11 +1245,13 @@ def stream_phase(dev, path, want):
         if (st["overlap_chunks"] > 0) != (name == "overlap"):
             raise AssertionError(f"{name}: overlap_chunks "
                                  f"{st['overlap_chunks']}")
-    by_path = {n: [p["gib_per_s"] for p in passes if p["path"] == n]
-               for n in engines}
+        if st["arena_fallbacks"]:
+            raise AssertionError(f"{name}: arena_fallbacks "
+                                 f"{st['arena_fallbacks']}")
     return {"gib_per_s": passes[0]["gib_per_s"],
             "seconds": passes[0]["seconds"], "passes": passes,
-            "gib_per_s_by_path": by_path, "register_s": register_s,
+            "gib_per_s_by_path": by_path, "rings": rings,
+            "register_s": register_s,
             "engine": backend, "stats": stats, **ceilings}
 
 
@@ -1570,7 +1649,24 @@ def _flip_page_byte(store, key, at=100):
     return slot
 
 
-def prefix_store_phase(dev, cfg, params):
+def _copy_store(src, dst, page_bytes):
+    """A copy of a closed store: its clean manifest and the bytes of
+    every page it lists, at the same slots."""
+    with open(src + ".kvman.json") as f:
+        man = json.load(f)
+    with open(src, "rb") as fi, open(dst, "wb") as fo:
+        for slot in man["pages"]:
+            fi.seek(int(slot) * page_bytes)
+            fo.seek(int(slot) * page_bytes)
+            fo.write(fi.read(page_bytes))
+        fo.flush()
+        os.fsync(fo.fileno())
+        os.posix_fadvise(fo.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+    with open(dst + ".kvman.json", "w") as f:
+        json.dump(man, f)
+
+
+def prefix_store_phase(dev, cfg, params, shared):
     """The prefix store on both servers at flagship width, pages of
     PREFIX_PAGE_TOKENS (1 MiB) in a PREFIX_STORE_BYTES store under
     DATA_DIR, 8 requests (two shared system prompts of 8 pages):
@@ -1589,7 +1685,9 @@ def prefix_store_phase(dev, cfg, params):
     Dense-hit, paged-hit and HBM-hit tokens must be identical (the same
     suffix block_step on bitwise-equal prefix KV); cold against hit is
     reported (bf16 is not bitwise across prefill shapes) and asserted
-    in float32 by prefix_store_f32_phase."""
+    in float32 by prefix_store_f32_phase.  ``shared`` receives what
+    qos_phase replays: a copy of the cold store, its pages, the requests
+    and the NVMe-hit tokens."""
     import shutil
     import torch
     from nvme_strom_tpu_torch.io.engine import StromEngine
@@ -1629,6 +1727,12 @@ def prefix_store_phase(dev, cfg, params):
         cold_pages = _writer_pages(srv, requests, st)
         page_bytes = st.page_bytes
         st.close()
+        qos_store = os.path.join(sdir, "qos.kvstore")
+        _copy_store(st.path, qos_store, page_bytes)
+        shared["prefix"] = {
+            "store": qos_store, "requests": requests,
+            "pages": {kx: (k.clone(), v.clone())
+                      for kx, (k, v) in cold_pages.items()}}
         del srv
         st_p = store("chat_paged.kvstore", fresh=True)
         toks["paged_cold"], report["paged_cold"] = store_run(
@@ -1754,6 +1858,7 @@ def prefix_store_phase(dev, cfg, params):
     if any(toks["dense_heal"][r] != hit[r] for r in clean):
         raise AssertionError("heal run: requests on the undamaged prompt "
                              "changed tokens")
+    shared["prefix"]["hit_tokens"] = hit
     report["n_pages"] = n_keys
     report["cold_vs_hit_equal"] = {
         rid: toks["dense_cold"][rid] == hit[rid] for rid, _ in requests}
@@ -2004,13 +2109,14 @@ def _verify_run(params, cfg, cache, kv, tok0, toks, step_bytes):
     return st
 
 
-def offload_flagship(dev, cfg, params, odir):
+def offload_flagship(dev, cfg, params, odir, shared):
     """(a): batch 8, a 1024-token prompt through the dense prefill and
     ``append``; one warm step and 16 timed steps; then the same prompt
     in float32 (tokens equal the dense generate), against the dense
     bf16 decode_step, with int8 pages, with a host tier of 4 pages,
     under STROM_VERIFY=full with a flipped byte, and across a saved and
-    reloaded session."""
+    reloaded session.  ``shared`` receives the prompt's k/v, the first
+    token and the timed run's tokens, which qos_phase replays."""
     import dataclasses
     import torch
     from nvme_strom_tpu_torch.io.engine import StromEngine
@@ -2073,6 +2179,7 @@ def offload_flagship(dev, cfg, params, odir):
                 lambda done: (_greedy_steps(params, cfg, cache, toks[-1], 2),
                               done()), "offload (a), two steps")
     del prof["flash_kernels"], prof["flash_ms"], prof["flash_share"]
+    shared["offload"] = {"k0": k0, "v0": v0, "tok0": tok0, "toks": toks}
     want_launches = n * cfg.n_layers * n_cold * 2
     if launches != want_launches or st["bounce_bytes"] != 0:
         raise AssertionError(f"(a): {launches} h2d launches (want "
@@ -2439,7 +2546,7 @@ def offload_generate_main(dev, cfg, ckdir, params, odir):
     return {"seconds": secs, "engine_stats": stats}
 
 
-def offload_phase(dev, cfg, ckdir, params):
+def offload_phase(dev, cfg, ckdir, params, shared):
     """Offloaded long-context KV decode, (a)-(c) and the entry point,
     each timed; page files under DATA_DIR/offload."""
     import shutil
@@ -2451,7 +2558,7 @@ def offload_phase(dev, cfg, ckdir, params):
     os.makedirs(odir)
     report, secs = {}, {}
     t = time.monotonic()
-    report["flagship"] = offload_flagship(dev, cfg, params, odir)
+    report["flagship"] = offload_flagship(dev, cfg, params, odir, shared)
     secs["a"] = time.monotonic() - t
     t = time.monotonic()
     report["chunked"] = offload_chunked(dev, cfg, params, odir)
@@ -2468,6 +2575,387 @@ def offload_phase(dev, cfg, ckdir, params):
     report["seconds"] = secs
     log(f"offload phase seconds: {secs}, total {sum(secs.values()):.1f}")
     shutil.rmtree(odir, ignore_errors=True)
+    return report
+
+
+# -- phase 5d: decode-class reads under a storm: rings, QoS, host tier ------
+
+#: (label, STROM_RINGS, STROM_FAULT_READ_DELAY_MS, host tier MiB): one
+#: ring without a scheduler; the default ring count with it; both with
+#: every engine read padded by 2 ms (the reference's bench_mixed pad,
+#: which makes queueing visible where storage is 9p); the default with
+#: the host-DRAM tier on, lines of the engine's chunk
+QOS_MODES = (("1 ring", "1", "0", 0), ("auto rings", "0", "0", 0),
+             ("1 ring, 2 ms pad", "1", "2", 0),
+             ("auto rings, 2 ms pad", "0", "2", 0),
+             ("auto rings, host tier", "0", "0", 512))
+#: trials per mode, in alternating order; the median trial (by decode
+#: p99) is the mode's
+QOS_TRIALS = 2
+#: the storm: batches of 8 reads of one chunk at seeded random offsets
+QOS_STORM_READS = 8
+#: restore batches of every stored page after the servers' runs
+QOS_RESTORES = 4
+#: engine counters a qos run reports (deltas over the run)
+QOS_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
+                "bytes_to_device", "sched_enqueued", "sched_dispatches",
+                "sched_promotions", "arena_fallbacks", "cache_hits",
+                "cache_misses", "bytes_served_cache", "cache_admissions",
+                "cache_admission_rejections", "cache_fill_failures",
+                "cache_evictions", "cache_invalidations",
+                "checksum_failures", "kv_restore_failures",
+                "kv_pages_restored")
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0
+
+
+class Storm:
+    """A thread streaming seeded random batches of QOS_STORM_READS
+    chunks of the stream file onto the card through
+    ``DeviceStream.stream_ranges(klass="prefetch")``, and a sampler of
+    the engine's ring depths, until ``stop()``."""
+
+    def __init__(self, eng, dev, path, seed):
+        import threading
+        from nvme_strom_tpu_torch.ops.bridge import DeviceStream
+        self.eng, self.bytes, self.error = eng, 0, None
+        self.depth_max = [0] * eng.n_rings
+        self._stop = threading.Event()
+        chunk = eng.config.chunk_bytes
+        size = os.path.getsize(path)
+        ds = DeviceStream(eng, device=dev, depth=QOS_STORM_READS,
+                          klass="prefetch")
+
+        def storm():
+            import numpy as np
+            rng = np.random.default_rng(seed)
+            fh = eng.open(path)
+            try:
+                while not self._stop.is_set():
+                    base = int(rng.integers(
+                        0, size - QOS_STORM_READS * chunk))
+                    base -= base % 4096
+                    for t in ds.stream_ranges(fh, [
+                            (base + i * chunk, chunk)
+                            for i in range(QOS_STORM_READS)]):
+                        self.bytes += t.numel()
+            except Exception as e:   # re-raised by stop()
+                self.error = e
+            finally:
+                eng.close(fh)
+
+        def sample():
+            while not self._stop.wait(0.005):
+                for r, d in enumerate(eng.ring_depths()):
+                    self.depth_max[r] = max(self.depth_max[r], d)
+
+        self._threads = [threading.Thread(target=storm),
+                         threading.Thread(target=sample)]
+        self._t0 = time.monotonic()
+        for t in self._threads:
+            t.start()
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+        secs = time.monotonic() - self._t0
+        if any(t.is_alive() for t in self._threads):
+            raise AssertionError("the storm did not stop")
+        if self.error is not None:
+            raise self.error
+        return self.bytes / secs / 2**30
+
+
+def qos_run(dev, cfg, params, mode, shared, stream_path, trial):
+    """One run of ``mode``: a new engine with the mode's rings, pad and
+    host tier; the storm; the prefix store's chat traffic through both
+    servers (restores as decode, hot) and QOS_RESTORES more restores of
+    every page; offloaded decode (a), 16 timed steps.  Returns the
+    decode-class times, the storm's GiB/s, tokens and counters."""
+    import torch
+    from nvme_strom_tpu_torch.io import hostcache
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import (OffloadConfig,
+                                                        PagedKVCache,
+                                                        PrefixStore)
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+    label, rings, pad, tier_mb = mode
+    pre, off = shared["prefix"], shared["offload"]
+    env = {"STROM_RINGS": rings, "STROM_FAULT_READ_DELAY_MS": pad}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        eng = StromEngine()          # both are read when it is made
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {"mode": label, "trial": trial, "n_rings": eng.n_rings}
+    try:
+        cache = (hostcache.configure(HostCacheConfig(budget_mb=tier_mb),
+                                     engine=eng) if tier_mb else None)
+        # page-lock the staging pool and the tier's lines first: a
+        # registration is set-up, not a decode-class read's time
+        t0 = time.monotonic()
+        eng.cuda_mapping(dev.index)
+        if cache is not None:
+            cache.arena.cuda.mapping(dev.index)
+        out["register_s"] = time.monotonic() - t0
+        eng.sync_stats()
+        before = eng.stats.snapshot()
+        store = PrefixStore(cfg, eng, pre["store"], PREFIX_PAGE_TOKENS,
+                            PREFIX_STORE_BYTES)
+        restore_ms: list = []
+        restore = store.restore_many
+
+        def timed_restore(*a, **k):
+            t0 = time.perf_counter()
+            got = restore(*a, **k)
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+            return got
+        store.restore_many = timed_restore
+        ocfg = OffloadConfig(path=os.path.join(DATA_DIR, "qos", "a.bin"),
+                             page_len=OFFLOAD_PAGE,
+                             window_pages=OFFLOAD_WINDOW_PAGES)
+        kv = PagedKVCache(cfg, ocfg, eng, OFFLOAD_BATCH, device=dev)
+        storm = Storm(eng, dev, stream_path, SEED + 11 + trial)
+        try:
+            t0 = time.monotonic()
+            toks = {}
+            for name, srv in (
+                    ("dense", DecodeServer(params, cfg, PREFIX_REQUESTS,
+                                           2048, device=dev,
+                                           kv_store=store)),
+                    ("paged", PagedDecodeServer(
+                        params, cfg, PREFIX_REQUESTS, 2048,
+                        total_blocks=128, block_len=PREFIX_PAGE_TOKENS,
+                        device=dev, kv_store=store))):
+                for rid, ids in pre["requests"]:
+                    srv.submit(rid, ids, PREFIX_NEW_TOKENS)
+                toks[name] = srv.run(lookahead=8)
+                del srv
+            keys = list(pre["pages"])
+            for _ in range(QOS_RESTORES):
+                got = store.restore_many({0: (0, keys)}, device=dev)[0]
+            pages_equal = all(
+                torch.equal(got[j][0], pre["pages"][kx][0])
+                and torch.equal(got[j][1], pre["pages"][kx][1])
+                for j, kx in enumerate(keys))
+            del got
+            kv.append(off["k0"], off["v0"])
+            kv.flush()
+            tok = _greedy_steps(params, cfg, kv, off["tok0"], 1)
+            step_ms, wait_ms, o_toks = [], [], list(tok)
+            spent = _read_split(kv)
+            for _ in range(OFFLOAD_STEPS):
+                torch.cuda.synchronize()
+                w0, t1 = spent[0], time.perf_counter()
+                o_toks += _greedy_steps(params, cfg, kv, o_toks[-1], 1)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                wait_ms.append((spent[0] - w0) * 1e3)
+            decode_s = time.monotonic() - t0
+        finally:
+            storm_gib_s = storm.stop()
+            kv.close()
+            store.close()
+        eng.sync_stats()
+        after = eng.stats.snapshot()
+        out.update({
+            "decode_s": decode_s, "storm_gib_s": storm_gib_s,
+            "restore_ms": restore_ms, "step_ms": step_ms,
+            "restore_p50_ms": _pct(restore_ms, 0.5),
+            "restore_p99_ms": _pct(restore_ms, 0.99),
+            "step_p50_ms": _pct(step_ms, 0.5),
+            "step_p99_ms": _pct(step_ms, 0.99),
+            "step_wait_p50_ms": _pct(wait_ms, 0.5),
+            "ring_depth_max": storm.depth_max,
+            "stats": {k: after[k] - before[k] for k in QOS_COUNTERS},
+            "class_dispatches": {
+                k: v.get("dispatches", 0) - before.get("class_stats", {})
+                .get(k, {}).get("dispatches", 0)
+                for k, v in after.get("class_stats", {}).items()},
+            "tokens_equal": toks["dense"] == pre["hit_tokens"] ==
+            toks["paged"],
+            "pages_equal": pages_equal,
+            "offload_tokens_equal": all(
+                torch.equal(a, c) for a, c in zip(o_toks, off["toks"]))})
+        if cache is not None:
+            out["tier"] = {"registered": cache.arena.cuda.devices,
+                           **cache.counters()}
+    finally:
+        hostcache.reset()
+        eng.close_all()
+    return out
+
+
+def _qos_tier_checks(dev, cfg, shared):
+    """The host tier under STROM_VERIFY=full: a byte flipped in a
+    resident line of the store is caught and the page heals through the
+    miss path; and a page rewritten into the slot of a resident line (a
+    full store's eviction, then ``put``) restores its new bytes."""
+    import torch
+    from nvme_strom_tpu_torch.io import hostcache
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+    pre = shared["prefix"]
+    keys = list(pre["pages"])
+    rep = {}
+    os.environ["STROM_VERIFY"] = "full"   # read by the tier and the store
+    try:
+        with StromEngine() as eng:
+            cache = hostcache.configure(HostCacheConfig(budget_mb=512),
+                                        engine=eng)
+            try:
+                st = PrefixStore(cfg, eng, pre["store"], PREFIX_PAGE_TOKENS,
+                                 PREFIX_STORE_BYTES)
+                st.restore_many({0: (0, keys)}, device=dev)
+                fkey = eng.file_key(st._fh)
+                line = next(ln for k, ln in cache._lines.items()
+                            if k[0] == fkey)
+                cache.arena.view[line.slot * cache.line_bytes + 100] ^= 0x01
+                eng.sync_stats()
+                b = eng.stats.snapshot()
+                got = st.restore_many({0: (0, keys)}, device=dev)[0]
+                eng.sync_stats()
+                a = eng.stats.snapshot()
+                d = {k: a[k] - b[k] for k in QOS_COUNTERS}
+                ok = all(torch.equal(got[j][0], pre["pages"][kx][0])
+                         and torch.equal(got[j][1], pre["pages"][kx][1])
+                         for j, kx in enumerate(keys))
+                st.close()
+                if not ok or d["checksum_failures"] != 1 or \
+                        d["kv_restore_failures"] or \
+                        d["cache_invalidations"] < 1:
+                    raise AssertionError(f"tier verify: pages equal {ok}, "
+                                         f"counters {d}")
+                rep["verify_flip"] = d
+                log(f"qos: a byte flipped in a resident line of the store, "
+                    f"STROM_VERIFY=full: caught ({d['checksum_failures']} "
+                    f"failure, {d['cache_invalidations']} line dropped), "
+                    f"healed through the miss path, pages bitwise equal")
+                # a full store of 4 pages, a fifth put over a resident
+                # line's slot
+                path = os.path.join(DATA_DIR, "qos", "small.kvstore")
+                small = PrefixStore(cfg, eng, path, PREFIX_PAGE_TOKENS,
+                                    4 * st.page_bytes)
+                shape = st._kv_shape
+                gen = torch.Generator().manual_seed(SEED + 12)
+                pages = [(torch.randn(shape, generator=gen).to(cfg.dtype),
+                          torch.randn(shape, generator=gen).to(cfg.dtype))
+                         for _ in range(5)]
+                ks = small.chain_keys(list(range(5 * PREFIX_PAGE_TOKENS
+                                                 + 1)))
+                small.put([(kx, k, v) for kx, (k, v) in
+                           zip(ks[:4], pages[:4])])
+                small.flush()
+                for _ in range(2):
+                    small.restore_many({0: (0, ks[:4])}, device=dev)
+                eng.sync_stats()
+                b = eng.stats.snapshot()
+                small.put([(ks[4], *pages[4])])
+                small.flush()
+                got = small.restore_many({0: (4, [ks[4]])}, device=dev)[0][4]
+                eng.sync_stats()
+                a = eng.stats.snapshot()
+                d = {k: a[k] - b[k] for k in ("cache_invalidations",
+                                             "cache_hits", "cache_misses")}
+                fresh = (torch.equal(got[0].cpu(), pages[4][0])
+                         and torch.equal(got[1].cpu(), pages[4][1]))
+                small.close()
+                if not fresh or d["cache_invalidations"] < 1:
+                    raise AssertionError(f"tier put: fresh {fresh}, {d}")
+                rep["put_over_resident"] = d
+                log(f"qos: a page put into a resident line's slot: the line "
+                    f"dropped ({d}), the restore gives the new bytes")
+            finally:
+                hostcache.reset()
+    finally:
+        os.environ.pop("STROM_VERIFY", None)
+    return rep
+
+
+def qos_phase(dev, cfg, params, shared, stream_path):
+    """Decode-class reads under a prefetch storm, every mode of
+    QOS_MODES QOS_TRIALS times in alternating order, the median trial of
+    each (by decode p99) reported; then the host tier's verify and
+    staleness checks.  Raises unless every trial's tokens equal the
+    prefix store's NVMe-hit tokens and the offloaded run's, the restored
+    pages are bitwise the cold run's, nothing bounced, no carve fell
+    back, and the tier served hits from its registered carve."""
+    import torch
+    os.makedirs(os.path.join(DATA_DIR, "qos"), exist_ok=True)
+    t0 = time.monotonic()
+    card = card_line()
+    runs = {m[0]: [] for m in QOS_MODES}
+    for trial in range(QOS_TRIALS):
+        for mode in (QOS_MODES if trial % 2 == 0 else QOS_MODES[::-1]):
+            r = qos_run(dev, cfg, params, mode, shared, stream_path, trial)
+            runs[mode[0]].append(r)
+            log(f"qos {mode[0]} (trial {trial}, {r['n_rings']} rings; "
+                f"{card}; registered in {r['register_s']:.3f} s): "
+                f"restore-batch ms p50 {r['restore_p50_ms']:.2f} "
+                f"p99 {r['restore_p99_ms']:.2f}, offloaded step ms p50 "
+                f"{r['step_p50_ms']:.2f} p99 {r['step_p99_ms']:.2f} (p50 "
+                f"{r['step_wait_p50_ms']:.2f} of it waiting for pages); "
+                f"decode side {r['decode_s']:.2f} s; storm "
+                f"{r['storm_gib_s']:.3f} GiB/s; ring depth max "
+                f"{r['ring_depth_max']}; class dispatches "
+                f"{r['class_dispatches']}; counters {r['stats']}"
+                + (f"; tier {r['tier']}" if "tier" in r else ""))
+            torch.cuda.empty_cache()
+    report = {}
+    for label, rs in runs.items():
+        for r in rs:
+            st = r["stats"]
+            if not (r["tokens_equal"] and r["offload_tokens_equal"]
+                    and r["pages_equal"]):
+                raise AssertionError(f"qos {label}: tokens or pages differ "
+                                     f"from the prefix and offload phases'")
+            if st["bytes_fallback"] == 0 and st["bounce_bytes"] != 0:
+                raise AssertionError(f"qos {label}: bounce_bytes "
+                                     f"{st['bounce_bytes']}")
+            if st["arena_fallbacks"] or st["kv_restore_failures"]:
+                raise AssertionError(f"qos {label}: {st}")
+            if r["n_rings"] > 1 and (not st["sched_dispatches"] or
+                                     not r["class_dispatches"].get("decode")):
+                raise AssertionError(f"qos {label}: the scheduler granted "
+                                     f"no decode batch: {r}")
+            if "tier" in r and (st["cache_hits"] <= 0
+                                or st["bytes_served_cache"] <= 0
+                                or r["tier"]["registered"] != [dev.index]
+                                or not st["cache_admission_rejections"]):
+                raise AssertionError(f"qos {label}: the tier served no hit "
+                                     f"from its registered carve: {r}")
+        med = sorted(rs, key=lambda r: r["restore_p99_ms"] +
+                     r["step_p99_ms"])[len(rs) // 2]
+        report[label] = {k: med[k] for k in (
+            "n_rings", "register_s", "restore_p50_ms", "restore_p99_ms",
+            "step_p50_ms", "step_wait_p50_ms", "decode_s",
+            "step_p99_ms", "storm_gib_s", "ring_depth_max",
+            "class_dispatches", "stats")}
+        if "tier" in med:
+            report[label]["tier"] = med["tier"]
+        report[label]["trials"] = [
+            {k: r[k] for k in ("restore_p99_ms", "step_p99_ms",
+                               "storm_gib_s")} for r in rs]
+    report["tier_checks"] = _qos_tier_checks(dev, cfg, shared)
+    report["seconds"] = time.monotonic() - t0
+    report["card"] = card
+    log(f"qos ({card}): median trial per mode "
+        + json.dumps({k: {n: v for n, v in r.items() if n != "stats"}
+                      for k, r in report.items()
+                      if isinstance(r, dict) and "n_rings" in r})
+        + f"; phase {report['seconds']:.1f} s")
     return report
 
 
@@ -2698,20 +3186,24 @@ def _primed(devs, width, seed):
 def kernel_device_ms(fn, iters, name):
     """Mean device milliseconds of a kernel whose name holds ``name``,
     over the launches torch.profiler records in ``iters`` calls of ``fn``
-    (one a call; the profiler may miss one): the kernel's own time, for
-    calls that wait for their kernels and so cannot be queued ahead of
-    the card."""
+    (one a call; the profiler may miss one, and a window in which it
+    recorded none is taken again, twice at most): the kernel's own time,
+    for calls that wait for their kernels and so cannot be queued ahead
+    of the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and name in e.key]
-    count = sum(e.count for e in hits)
+    for _ in range(3):   # a window whose launches the profiler all missed
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and name in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            break
     if not 0 < count <= iters:
         raise RuntimeError(f"kernel_device_ms: {count} {name} kernels in "
                            f"{iters} calls")
@@ -2864,6 +3356,7 @@ def restore_phase(dev, ckdir, cpu_params):
     from nvme_strom_tpu_torch.ops.ici import ici_unit_bytes
     from nvme_strom_tpu_torch.parallel.mesh import exchange_group
     from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
+    from nvme_strom_tpu_torch.utils.stats import COUNTERS
     group = exchange_group(devices=[dev] * ICI_RANKS)
     report = {}
     with StromEngine() as eng:
@@ -2883,7 +3376,7 @@ def restore_phase(dev, ckdir, cpu_params):
             secs = time.monotonic() - t0
             eng.sync_stats()
             after = eng.stats.snapshot()
-            delta = {k: after[k] - before[k] for k in after}
+            delta = {k: after[k] - before[k] for k in COUNTERS}
             report[label] = {"seconds": secs, "stats": delta}
             log(f"{label}: {secs:.3f} s; stats {delta}")
             return out, delta
@@ -3038,12 +3531,13 @@ def main() -> int:
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches"] = counts[n]
     f32 = f32_phase(dev, cfg, params)
-    os.remove(stream_path)
+    # what the prefix store and offload phases leave for the qos phase
+    shared: dict = {}
     # main path 1b: the prefix store on both servers, restored through
     # h2d_copy, decoded on kernels 2-3
     prefix, counts = drive(
         "prefix store", ("h2d_copy", "decode_attention", "paged_attention"),
-        lambda: prefix_store_phase(dev, cfg, params))
+        lambda: prefix_store_phase(dev, cfg, params, shared))
     results["h2d_copy"]["launches_prefix_store"] = counts["h2d_copy"]
     results["decode_attention"]["launches_prefix_store"] = \
         counts["decode_attention"]
@@ -3054,8 +3548,20 @@ def main() -> int:
     # main path 1c: offloaded long-context decode, cold pages streamed
     # back through h2d_copy
     offload, counts = drive("offload", ("h2d_copy",),
-                            lambda: offload_phase(dev, cfg, ckdir, params))
+                            lambda: offload_phase(dev, cfg, ckdir, params,
+                                                  shared))
     results["h2d_copy"]["launches_offload"] = counts["h2d_copy"]
+    torch.cuda.empty_cache()
+    # main path 1d: both decode-class sources under a prefetch storm, on
+    # one ring, on the default ring count with the scheduler, padded,
+    # and with the host-DRAM tier
+    qos, counts = drive(
+        "qos", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: qos_phase(dev, cfg, params, shared, stream_path))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_qos"] = counts[n]
+    del shared
+    os.remove(stream_path)
     del params
     torch.cuda.empty_cache()
     # a group of 7 at head_dim 128 through both servers
@@ -3098,7 +3604,7 @@ def main() -> int:
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
-                                  "offload": offload,
+                                  "offload": offload, "qos": qos,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
                                   "flash_split": flash_split,

@@ -1,0 +1,42 @@
+from nvme_strom_tpu_torch.io.arena import (
+    PinnedArena,
+    Slab,
+    get_arena,
+)
+from nvme_strom_tpu_torch.io.engine import (
+    PendingRead,
+    PendingWrite,
+    StromEngine,
+    check_file,
+    wait_exact,
+)
+from nvme_strom_tpu_torch.io.hostcache import (
+    CacheHitRead,
+    HostCache,
+    get_cache,
+)
+from nvme_strom_tpu_torch.io.plan import (
+    ExtentPlan,
+    SpanView,
+    plan_and_submit,
+    plan_extents,
+    split_spans,
+    submit_spans,
+    submit_spans_tiered,
+)
+from nvme_strom_tpu_torch.io.sched import (
+    CLASS_ORDER,
+    DEFAULT_CLASS,
+    ClassPolicy,
+    QoSScheduler,
+    default_policies,
+)
+
+__all__ = ["PinnedArena", "Slab", "get_arena",
+           "StromEngine", "PendingRead", "PendingWrite", "check_file",
+           "wait_exact",
+           "CacheHitRead", "HostCache", "get_cache",
+           "ExtentPlan", "SpanView", "plan_and_submit", "plan_extents",
+           "split_spans", "submit_spans", "submit_spans_tiered",
+           "CLASS_ORDER", "DEFAULT_CLASS", "ClassPolicy", "QoSScheduler",
+           "default_policies"]

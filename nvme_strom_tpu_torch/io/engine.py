@@ -9,11 +9,23 @@ from the caller's buffer when it, the offset and the length are
 alignment-conformant, and bounce through a staging buffer otherwise
 (the engine counts it).
 
-New for CUDA: :meth:`StromEngine.cuda_mapping` page-locks the staging
-pool for a CUDA device (``cudaHostRegister``, mapped) the first time a
-device transfer needs it, so the host→device kernel reads staging
-buffers in place; the pool is unregistered before the engine is
-destroyed.
+One engine owns N submission rings (``EngineConfig.n_rings``, auto by
+default: :func:`auto_ring_count`) over one staging pool, carved from the
+process's pinned arena (``io/arena.py``, tag ``staging``) when it has
+room.  A multi-ring engine owns the QoS scheduler (``io/sched.py``) that
+grants each class's batches a ring; one ring (``STROM_RINGS=1``) is the
+engine without a scheduler.  ``open`` keys each file by its identity
+(``fstat`` on the engine's own descriptor), which the host-DRAM tier
+(``io/hostcache.py``) keys its lines by, and every write drops the
+tier's lines it overlaps (``notify_write``), at submit and again at
+completion.
+
+New for CUDA: the staging pool is registered with CUDA (mapped) the
+first time a device copy reads it (:meth:`StromEngine.cuda_mapping`), so
+the host→device kernel reads staging buffers in place; it is
+unregistered, after the device has finished every copy out of it,
+before the engine is destroyed.  The breaker mask and supervision tick
+of the reference's admission poll come with resilience.
 """
 
 from __future__ import annotations
@@ -21,13 +33,18 @@ from __future__ import annotations
 import ctypes
 import errno
 import os
-from typing import Dict, Optional
+from typing import List, Optional
 
 import numpy as np
 
 from nvme_strom_tpu_torch import _build
-from nvme_strom_tpu_torch.utils.config import EngineConfig
+from nvme_strom_tpu_torch.io import arena as _arena
+from nvme_strom_tpu_torch.io.arena import CudaRegistration, HostMapping
+from nvme_strom_tpu_torch.utils.config import EngineConfig, SchedConfig
 from nvme_strom_tpu_torch.utils.stats import StromStats
+
+#: the request ids' ring bits bound the ring count (STROM_MAX_RINGS)
+_MAX_RINGS = 64
 
 
 class _FileInfo(ctypes.Structure):
@@ -83,6 +100,58 @@ class _Completion(ctypes.Structure):
     ]
 
 
+class _RingInfo(ctypes.Structure):
+    _fields_ = [
+        ("ring_id", ctypes.c_uint32),
+        ("n_buffers", ctypes.c_uint32),
+        ("free_buffers", ctypes.c_uint32),
+        ("deferred", ctypes.c_uint32),
+        ("submitted", ctypes.c_uint64),
+        ("completed", ctypes.c_uint64),
+        ("inflight_io", ctypes.c_uint32),
+        ("backend_uring", ctypes.c_int32),
+        ("failed", ctypes.c_uint64),
+        ("restarts", ctypes.c_uint64),
+        ("parked", ctypes.c_uint32),
+        ("stalled", ctypes.c_int32),
+        ("oldest_inflight_ns", ctypes.c_uint64),
+        ("fixed_bufs", ctypes.c_int32),
+        ("reg_files", ctypes.c_int32),
+        ("sqpoll", ctypes.c_int32),
+    ]
+
+
+def _nvme_hw_queues() -> int:
+    """The most hardware queues of a visible NVMe namespace
+    (``/sys/block/nvme*/mq`` holds one directory a queue); 0 unknown."""
+    best = 0
+    try:
+        names = os.listdir("/sys/block")
+    except OSError:
+        return 0
+    for d in names:
+        if d.startswith("nvme"):
+            try:
+                best = max(best, len(os.listdir(f"/sys/block/{d}/mq")))
+            except OSError:
+                pass
+    return best
+
+
+def auto_ring_count() -> int:
+    """Default ring count: a quarter of the CPUs, capped by the NVMe
+    hardware queues, rounded down to a power of two, at most 8.  The
+    engine caps it further by what its pool and queue depth can feed."""
+    n = max(1, min(8, (os.cpu_count() or 1) // 4))
+    mq = _nvme_hw_queues()
+    if mq:
+        n = max(1, min(n, mq))
+    p = 1
+    while p * 2 <= n:
+        p *= 2
+    return p
+
+
 _declared = False
 
 
@@ -95,8 +164,14 @@ def _lib() -> ctypes.CDLL:
     P, I, U32, U64, I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                            ctypes.c_uint64, ctypes.c_int64)
     sigs = {
-        "strom_engine_create": (P, [U32, U32, U64, U32, I, I]),
+        "strom_engine_create_rings": (P, [U32, U32, U32, U64, U32, I, I]),
+        "strom_engine_create_prealloc": (P, [U32, U32, U32, U64, U32, I,
+                                             I, P, U64]),
+        "strom_engine_pool_bytes": (U64, [U32, U32, U64, U32]),
         "strom_engine_destroy": (None, [P]),
+        "strom_get_ring_info": (I, [P, U32, ctypes.POINTER(_RingInfo)]),
+        "strom_ring_inflight": (I64, [P, U32]),
+        "strom_file_ident": (I, [P, I, ctypes.POINTER(U64)]),
         "strom_check_file": (I, [ctypes.c_char_p,
                                  ctypes.POINTER(_FileInfo)]),
         "strom_get_pool_info": (None, [P, ctypes.POINTER(_PoolInfo)]),
@@ -107,6 +182,8 @@ def _lib() -> ctypes.CDLL:
         "strom_submit_read": (I64, [P, I, U64, U64]),
         "strom_submit_readv": (I, [P, ctypes.POINTER(_RdExt), U32,
                                    ctypes.POINTER(I64)]),
+        "strom_submit_readv_ring": (I, [P, U32, ctypes.POINTER(_RdExt), U32,
+                                        ctypes.POINTER(I64)]),
         "strom_wait": (I, [P, I64, ctypes.POINTER(_Completion)]),
         "strom_wait_timeout": (I, [P, I64, ctypes.POINTER(_Completion),
                                    U64]),
@@ -139,25 +216,6 @@ def check_file(path) -> dict:
         raise OSError(-rc, os.strerror(-rc), str(path))
     return {"size": info.size, "supports_direct": bool(info.supports_direct),
             "block_size": info.block_size}
-
-
-class HostMapping:
-    """A page-locked host range with its device-visible address."""
-
-    __slots__ = ("host_base", "nbytes", "dev_base")
-
-    def __init__(self, host_base: int, nbytes: int, dev_base: int):
-        self.host_base = host_base
-        self.nbytes = nbytes
-        self.dev_base = dev_base
-
-    def device_ptr(self, host_ptr: int, nbytes: int) -> Optional[int]:
-        """Device address of [host_ptr, host_ptr+nbytes), or None when
-        the range is not inside this mapping."""
-        off = host_ptr - self.host_base
-        if 0 <= off and off + nbytes <= self.nbytes:
-            return self.dev_base + off
-        return None
 
 
 class PendingRead:
@@ -268,15 +326,20 @@ class PendingWrite:
         rc = lib.strom_wait(h, self._req_id, ctypes.byref(comp))
         lib.strom_release(h, self._req_id)
         self._keepalive = None
+        # the tier's staleness guard again at completion: a read
+        # admitted after the submit may have filled pre-write bytes
+        self._engine._hostcache_write_done(self.fh, self.offset,
+                                           self.length)
         if rc < 0:
             raise OSError(-rc, os.strerror(-rc))
         return int(comp.len)
 
 
 class StromEngine:
-    """The userspace handle to one strom-io engine: one submission ring
-    over one locked staging pool of ``config.n_buffers`` buffers of
-    ``config.chunk_bytes``."""
+    """The userspace handle to one strom-io engine: ``n_rings``
+    submission rings over one locked staging pool of ``n_buffers``
+    buffers of ``config.chunk_bytes``, and on more than one ring the
+    QoS scheduler that grants them."""
 
     def __init__(self, config: Optional[EngineConfig] = None,
                  stats: Optional[StromStats] = None):
@@ -284,33 +347,94 @@ class StromEngine:
         self.stats = stats if stats is not None else StromStats()
         self._lib = _lib()
         c = self.config
-        self.n_buffers = c.n_buffers
-        self._h = self._lib.strom_engine_create(
-            c.queue_depth, self.n_buffers, c.chunk_bytes, c.alignment,
-            1 if c.use_io_uring else 0, 1 if c.lock_buffers else 0)
+        n_buffers = c.n_buffers
+        # each ring needs two staging buffers and one queue slot: a tiny
+        # engine stays on one ring
+        n_rings = c.n_rings if c.n_rings > 0 else auto_ring_count()
+        n_rings = max(1, min(n_rings, _MAX_RINGS, n_buffers // 2,
+                             c.queue_depth))
+        qd_ring = max(1, c.queue_depth // n_rings)
+        bufs_ring = max(2, n_buffers // n_rings)
+        uring, lock = (1 if c.use_io_uring else 0), \
+            (1 if c.lock_buffers else 0)
+        pool_bytes = int(self._lib.strom_engine_pool_bytes(
+            n_rings, bufs_ring, c.chunk_bytes, c.alignment))
+        slab = (_arena.carve_or_none(pool_bytes, "staging",
+                                     stats=self.stats, lock=c.lock_buffers)
+                if pool_bytes else None)
+        self._h = None
+        if slab is not None:
+            self._h = self._lib.strom_engine_create_prealloc(
+                n_rings, qd_ring, bufs_ring, c.chunk_bytes, c.alignment,
+                uring, lock, slab.addr, slab.nbytes)
+            if not self._h:
+                slab.release()
+                slab = None
+        if slab is None:
+            self._h = self._lib.strom_engine_create_rings(
+                n_rings, qd_ring, bufs_ring, c.chunk_bytes, c.alignment,
+                uring, lock)
         if not self._h:
             err = ctypes.get_errno()
             raise OSError(err, "strom_engine_create failed: "
                           + os.strerror(err))
-        self._mappings: Dict[int, HostMapping] = {}
+        self._pool_slab = slab
+        self.n_rings = n_rings
+        self.n_buffers = bufs_ring * n_rings
+        self._qd_ring = qd_ring
+        self._ring_cap = qd_ring
+        info = self.pool_info()
+        #: the one owner of the staging pool's CUDA registration
+        self._pool_reg = (slab.cuda if slab is not None else
+                          CudaRegistration(info["pool_base"],
+                                           info["pool_bytes"],
+                                           "staging pool"))
+        #: fh → (dev, ino, mtime_ns, size), the host tier's file key
+        self._file_keys: dict = {}
         self._closed = False
+        self.scheduler = None
+        if n_rings > 1:
+            scfg = SchedConfig()
+            if scfg.enabled:
+                from nvme_strom_tpu_torch.io.sched import (QoSScheduler,
+                                                           default_policies)
+                self._ring_cap = max(1, scfg.max_inflight_per_ring
+                                     or qd_ring)
+                self.scheduler = QoSScheduler(
+                    submit_ring=self._submit_readv_ring,
+                    ring_free=self._ring_free_slots,
+                    policies=default_policies(scfg.class_weights),
+                    aging_rounds=scfg.aging_rounds, stats=self.stats,
+                    ring_cap=self._ring_cap)
 
     # -- files --------------------------------------------------------------
 
     def open(self, path, writable: bool = False) -> int:
         """A handle for engine reads (and writes when ``writable``); the
-        engine tries O_DIRECT first and falls back to buffered I/O."""
+        engine tries O_DIRECT first and falls back to buffered I/O.  The
+        file's identity comes from ``fstat`` on the engine's own
+        descriptor, never the path, so a rename racing the open cannot
+        key one file's lines under another's."""
         fh = self._lib.strom_open(self._h, os.fsencode(path),
                                   1 if writable else 0)
         if fh < 0:
             raise OSError(-fh, os.strerror(-fh), str(path))
+        ident = (ctypes.c_uint64 * 4)()
+        if self._lib.strom_file_ident(self._h, fh, ident) == 0:
+            self._file_keys[fh] = tuple(int(x) for x in ident)
         return fh
+
+    def file_key(self, fh: int) -> Optional[tuple]:
+        """The identity of the file behind ``fh`` that the host tier
+        keys lines by; None when unknown (the tier skips the fh)."""
+        return self._file_keys.get(fh)
 
     def file_is_direct(self, fh: int) -> bool:
         return self._lib.strom_file_is_direct(self._h, fh) == 1
 
     def close(self, fh: int) -> None:
         self._lib.strom_close(self._h, fh)
+        self._file_keys.pop(fh, None)
 
     def file_size(self, fh: int) -> int:
         n = self._lib.strom_file_size(self._h, fh)
@@ -318,74 +442,119 @@ class StromEngine:
             raise OSError(-n, os.strerror(-n))
         return n
 
+    # -- rings --------------------------------------------------------------
+
+    def ring_info(self, ring: int) -> dict:
+        """One ring's occupancy and counters (``strom_get_ring_info``)."""
+        info = _RingInfo()
+        rc = self._lib.strom_get_ring_info(self._h, ring, ctypes.byref(info))
+        if rc < 0:
+            raise OSError(-rc, os.strerror(-rc))
+        return {n: int(getattr(info, n)) for n, _ in _RingInfo._fields_}
+
+    def ring_depths(self) -> List[int]:
+        """Each ring's in-flight I/O (submitted minus completed) from
+        the lock-free counters: the admission poll's source."""
+        return [max(0, int(self._lib.strom_ring_inflight(self._h, r)))
+                for r in range(self.n_rings)]
+
+    def _ring_free_slots(self) -> List[int]:
+        return [max(0, self._ring_cap - d) for d in self.ring_depths()]
+
     # -- reads --------------------------------------------------------------
 
+    def _check_lengths(self, reads) -> None:
+        chunk = self.config.chunk_bytes
+        for _fh, _off, length in reads:
+            if length > chunk:
+                raise ValueError(f"read length {length} exceeds chunk_bytes "
+                                 f"{chunk}; split the range")
+
     def submit_read(self, fh: int, offset: int, length: int) -> PendingRead:
-        if length > self.config.chunk_bytes:
-            raise ValueError(f"read length {length} exceeds chunk_bytes "
-                             f"{self.config.chunk_bytes}; split the range")
+        self._check_lengths([(fh, offset, length)])
         rid = self._lib.strom_submit_read(self._h, fh, offset, length)
         if rid < 0:
             raise OSError(-rid, os.strerror(-rid))
         return PendingRead(self, rid, length, fh=fh, offset=offset)
 
-    def submit_readv(self, reads) -> list:
-        """One C call (one io_uring doorbell) for a batch of
-        ``(fh, offset, length)`` reads; validation is all-or-nothing."""
+    def _submit_readv_ring(self, reads, ring: Optional[int]) -> list:
+        """One vectored C call to ``ring`` (or the engine's round-robin
+        pick when None): the scheduler's dispatch callback."""
         reads = list(reads)
-        if not reads:
-            return []
-        for _fh, _off, length in reads:
-            if length > self.config.chunk_bytes:
-                raise ValueError(
-                    f"read length {length} exceeds chunk_bytes "
-                    f"{self.config.chunk_bytes}; split the range")
         n = len(reads)
         exts = (_RdExt * n)()
         for i, (fh, offset, length) in enumerate(reads):
             exts[i].fh, exts[i].offset, exts[i].length = fh, offset, length
         rids = (ctypes.c_int64 * n)()
-        rc = self._lib.strom_submit_readv(self._h, exts, n, rids)
+        if ring is None:
+            rc = self._lib.strom_submit_readv(self._h, exts, n, rids)
+        else:
+            rc = self._lib.strom_submit_readv_ring(self._h, ring, exts, n,
+                                                   rids)
         if rc < 0:
             raise OSError(-rc, os.strerror(-rc))
         return [PendingRead(self, int(rids[i]), reads[i][2], fh=reads[i][0],
                             offset=reads[i][1]) for i in range(n)]
+
+    def submit_readv(self, reads, klass: Optional[str] = None,
+                     ring: Optional[int] = None) -> list:
+        """One C call (one io_uring doorbell) for a batch of
+        ``(fh, offset, length)`` reads; validation is all-or-nothing.
+
+        ``klass`` is the batch's latency class: on a multi-ring engine
+        the scheduler grants it a ring, and the call may block behind
+        higher classes.  ``ring`` pins a ring and bypasses the
+        scheduler.  A one-ring engine submits at once."""
+        reads = list(reads)
+        if not reads:
+            return []
+        self._check_lengths(reads)
+        if self.scheduler is not None and ring is None:
+            return self.scheduler.submit(reads, klass)
+        return self._submit_readv_ring(reads, ring)
 
     # -- writes -------------------------------------------------------------
 
     def submit_write(self, fh: int, offset: int,
                      data: np.ndarray) -> PendingWrite:
         """Write the bytes of ``data`` at ``offset``; the returned
-        request keeps ``data`` alive until ``wait()``."""
+        request keeps ``data`` alive until ``wait()``.  The host tier's
+        lines over the range are dropped now and again at completion."""
         arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
         rid = self._lib.strom_submit_write(self._h, fh, offset,
                                            arr.ctypes.data, arr.nbytes)
         if rid < 0:
             raise OSError(-rid, os.strerror(-rid))
+        self._hostcache_write_done(fh, offset, arr.nbytes)
         return PendingWrite(self, rid, arr, fh, offset)
+
+    def _hostcache_write_done(self, fh: int, offset: int,
+                              length: int) -> None:
+        fkey = self._file_keys.get(fh)
+        if fkey is not None and length > 0:
+            from nvme_strom_tpu_torch.io.hostcache import notify_write
+            notify_write(fkey, offset, length, stats=self.stats)
 
     # -- CUDA ---------------------------------------------------------------
 
     def cuda_mapping(self, device_index: int) -> HostMapping:
         """The staging pool page-locked and mapped for CUDA device
         ``device_index`` (registered on first use)."""
-        m = self._mappings.get(device_index)
-        if m is None:
-            info = self.pool_info()
-            klib = _build.kernel_library()
-            dev_ptr = ctypes.c_void_p()
-            _build.check(klib.strom_host_register(
-                info["pool_base"], info["pool_bytes"], device_index,
-                ctypes.byref(dev_ptr)), "cudaHostRegister(staging pool)")
-            m = HostMapping(info["pool_base"], info["pool_bytes"],
-                            dev_ptr.value)
-            self._mappings[device_index] = m
-        return m
+        return self._pool_reg.mapping(device_index)
 
     def cuda_mappings(self, device_index: int) -> list:
-        """The host ranges a device copy may read in place: the staging
-        pool (a scatter serve engine adds its store)."""
-        return [self.cuda_mapping(device_index)]
+        """Every host range a device copy may read in place, each
+        registered the first time a copy reads it: the staging pool,
+        the host tier's lines, and the arena's bridge slabs."""
+        from nvme_strom_tpu_torch.io import hostcache
+        out = [self._pool_reg.on(device_index)]
+        cache = hostcache.get_cache(self)
+        if cache is not None:
+            out.append(cache.arena.cuda.on(device_index))
+        arena = _arena.get_arena()
+        if arena is not None:
+            out.extend(s.cuda.on(device_index) for s in arena.live("bridge"))
+        return out
 
     # -- stats / lifecycle --------------------------------------------------
 
@@ -395,11 +564,14 @@ class StromEngine:
         return {n: int(getattr(info, n)) for n, _ in _PoolInfo._fields_}
 
     def sync_stats(self) -> dict:
-        """Drain the C counters (read-and-zero) into ``self.stats``."""
+        """Drain the C counters (read-and-zero) into ``self.stats``; a
+        multi-ring engine also sets the ``ring_depths`` gauge."""
         blk = _StatsBlk()
         self._lib.strom_drain_stats(self._h, ctypes.byref(blk))
         snap = {n: int(getattr(blk, n)) for n, _ in _StatsBlk._fields_}
         self.stats.merge_engine(snap)
+        if self.n_rings > 1:
+            self.stats.set_gauges(ring_depths=self.ring_depths())
         return snap
 
     @property
@@ -408,21 +580,21 @@ class StromEngine:
                 else "threadpool")
 
     def close_all(self) -> None:
-        """Drain the counters, unregister the pool from CUDA (after every
-        queued device copy out of it has finished), destroy the engine."""
+        """Wake every submitter blocked in the scheduler, drain the
+        counters, unregister the pool from CUDA (after every queued
+        device copy out of it has finished), destroy the engine, and
+        return the pool's carve to the arena."""
         if self._closed:
             return
         self._closed = True
+        if self.scheduler is not None:
+            self.scheduler.close()
         self.sync_stats()
-        if self._mappings:
-            import torch
-            klib = _build.kernel_library()
-            for dev, m in self._mappings.items():
-                torch.cuda.synchronize(dev)
-                _build.check(klib.strom_host_unregister(m.host_base, dev),
-                             "cudaHostUnregister(staging pool)")
-            self._mappings.clear()
+        self._pool_reg.unregister(final=True)
         self._lib.strom_engine_destroy(self._h)
+        if self._pool_slab is not None:
+            self._pool_slab.release()
+            self._pool_slab = None
 
     def __enter__(self):
         return self

@@ -2,19 +2,32 @@
 nvme_strom_tpu/io/plan.py).
 
 * coalesce — extents on the same file that are adjacent, overlapping or
-  at most one 4 KiB block apart merge into one
-  read; each extent gets a zero-copy sub-view of the merged span;
-* split — an extent larger than ``chunk_bytes`` breaks into pieces;
-* batch — the spans enter the engine as one ``submit_readv``.
+  at most ``gap`` bytes apart (one 4 KiB block by default) merge into
+  one read; each extent gets a zero-copy sub-view of the merged span;
+* split — an extent larger than ``chunk_bytes`` (the engine's by
+  default) breaks into pieces, on multiples of ``split_unit`` from the
+  extent's start;
+* batch — the spans enter the engine as one ``submit_readv``, tagged
+  with the batch's latency class (``klass``) for the QoS scheduler of a
+  multi-ring engine (io/sched.py).
 
-The pinned host-cache tier and the QoS classes of the JAX planner are
-not part of this port yet.
+With the host-DRAM tier on (``STROM_HOSTCACHE_MB``, io/hostcache.py),
+``plan_and_submit`` first splits each extent into hit spans, served as
+zero-copy views of resident lines without the engine, and miss spans,
+which are planned and submitted as above and fill admitted lines when
+their reads complete.  ``submit_spans_tiered`` does the same for whole
+spans (``DeviceStream.stream_ranges``).  ``hot=True`` admits a batch's
+missed lines on first touch and pins them under the class's residency
+quota.  With the tier off and one ring the planner submits exactly what
+it submitted before either existed.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
+
+import inspect
 
 import numpy as np
 
@@ -50,12 +63,21 @@ class ExtentPlan:
 
 
 def plan_extents(extents: Sequence[Tuple[int, int, int]], *,
-                 chunk_bytes: int) -> ExtentPlan:
+                 chunk_bytes: int, gap: Optional[int] = None,
+                 split_unit: int = 1) -> ExtentPlan:
     """Sort + coalesce + split ``(fh, offset, length)`` extents with the
-    JAX planner's rule (its default gap, no record unit)."""
+    JAX planner's rule.  ``gap``: the most dead bytes read through to
+    merge (None: one 4 KiB block).  ``split_unit``: a split extent's
+    pieces are multiples of it from the extent's start."""
     if chunk_bytes <= 0:
         raise ValueError(f"chunk_bytes must be >= 1, got {chunk_bytes}")
-    split, gap = chunk_bytes, COALESCE_GAP
+    if split_unit <= 0:
+        raise ValueError(f"split_unit must be >= 1, got {split_unit}")
+    gap = COALESCE_GAP if gap is None else max(0, gap)
+    split = (chunk_bytes // split_unit) * split_unit
+    if split <= 0:
+        raise ValueError(f"split_unit ({split_unit}) exceeds chunk_bytes "
+                         f"({chunk_bytes})")
     n = len(extents)
     for i in range(n):
         if extents[i][2] < 0:
@@ -188,24 +210,208 @@ def join_pieces(pieces, stats=None):
     return JoinedPieces(pieces, stats)
 
 
-def plan_and_submit(engine, extents: Sequence[Tuple[int, int, int]]
-                    ) -> List[List[SpanView]]:
-    """Plan ``(fh, offset, length)`` extents in pieces of at most one
-    staging buffer, submit the spans as ONE batch, and return each
-    extent's ordered :class:`SpanView` pieces (empty for a zero-length
-    extent)."""
-    plan = plan_extents(extents, chunk_bytes=engine.config.chunk_bytes)
-    pendings = engine.submit_readv(plan.spans)
+_READV_KLASS: dict = {}
+
+
+def _readv_accepts_klass(engine) -> bool:
+    """Whether the engine's ``submit_readv`` takes ``klass`` (an engine
+    wrapper that predates it gets the batch untagged), cached per
+    type."""
+    t = type(engine)
+    ok = _READV_KLASS.get(t)
+    if ok is None:
+        try:
+            params = inspect.signature(engine.submit_readv).parameters
+            ok = "klass" in params or any(
+                p.kind is inspect.Parameter.VAR_KEYWORD
+                for p in params.values())
+        except (TypeError, ValueError):
+            ok = False
+        _READV_KLASS[t] = ok
+    return ok
+
+
+def submit_spans(engine, spans: Sequence[Tuple[int, int, int]],
+                 klass: Optional[str] = None) -> list:
+    """Submit planned spans as one vectored batch tagged ``klass``;
+    returns the pending reads aligned with ``spans``.  None rides the
+    scheduler's default class."""
+    if klass is not None and _readv_accepts_klass(engine):
+        return engine.submit_readv(spans, klass=klass)
+    return engine.submit_readv(spans)
+
+
+def _share_spans(pendings, placements) -> list:
+    """Refcount each submitted span by the pieces cut from it: its
+    request is released with the last of them."""
     refs = [0] * len(pendings)
-    for pieces in plan.placements:
+    for pieces in placements:
         for si, _, _ in pieces:
             refs[si] += 1
-    shared = [_SharedSpan(p, max(1, r)) for p, r in zip(pendings, refs)]
-    out = []
-    for (fh, off, _ln), pieces in zip(extents, plan.placements):
-        views, pos = [], 0
-        for si, lo, hi in pieces:
-            views.append(SpanView(shared[si], lo, hi, fh, off + pos))
-            pos += hi - lo
-        out.append(views)
+    return [_SharedSpan(p, max(1, r)) for p, r in zip(pendings, refs)]
+
+
+def _views_for(shared, pieces, fh: int, start_off: int) -> list:
+    """One placement's ordered pieces as SpanViews."""
+    views, pos = [], 0
+    for si, lo, hi in pieces:
+        views.append(SpanView(shared[si], lo, hi, fh, start_off + pos))
+        pos += hi - lo
+    return views
+
+
+def plan_and_submit(engine, extents: Sequence[Tuple[int, int, int]], *,
+                    gap: Optional[int] = None, split_unit: int = 1,
+                    chunk_bytes: Optional[int] = None,
+                    klass: Optional[str] = None, hot: bool = False
+                    ) -> List[list]:
+    """Plan ``(fh, offset, length)`` extents in pieces of at most
+    ``chunk_bytes`` (the engine's staging buffer by default), submit the
+    spans as ONE batch of class ``klass``, and return each extent's
+    ordered pieces (empty for a zero-length extent).
+
+    With the host tier on, each extent is split into hit pieces
+    (:class:`CacheHitRead` over resident lines) and miss pieces; a
+    record-unit plan (``split_unit > 1``) bypasses the tier, whose line
+    boundaries cannot keep pieces on records.  ``hot`` admits missed
+    lines on first touch and pins them under the class's quota."""
+    if chunk_bytes is None:
+        chunk_bytes = engine.config.chunk_bytes
+    if split_unit == 1:
+        from nvme_strom_tpu_torch.io import hostcache
+        cache = hostcache.get_cache(engine)
+        if cache is not None:
+            return _plan_and_submit_tiered(cache, engine, extents, gap=gap,
+                                           chunk_bytes=chunk_bytes,
+                                           klass=klass, hot=hot)
+    plan = plan_extents(extents, chunk_bytes=chunk_bytes, gap=gap,
+                        split_unit=split_unit)
+    shared = _share_spans(submit_spans(engine, plan.spans, klass=klass),
+                          plan.placements)
+    return [_views_for(shared, pieces, fh, off)
+            for (fh, off, _ln), pieces in zip(extents, plan.placements)]
+
+
+def _fill_keys_for_span(cache, fkey, admitted: dict, s_off: int,
+                        s_ln: int) -> dict:
+    """The admitted line keys (→ admission epoch) whose line starts this
+    span covers from their beginning."""
+    lb = cache.line_bytes
+    start = s_off if s_off % lb == 0 else s_off - s_off % lb + lb
+    return {(fkey, lo): admitted[(fkey, lo)]
+            for lo in range(start, s_off + s_ln, lb)
+            if (fkey, lo) in admitted}
+
+
+def _plan_and_submit_tiered(cache, engine, extents, *, gap, chunk_bytes,
+                            klass, hot: bool = False) -> List[list]:
+    """The tier's path of :func:`plan_and_submit`: probe each extent,
+    serve hits as pinned line views, plan and submit only the misses,
+    whose reads fill the admitted lines when waited."""
+    from nvme_strom_tpu_torch.io.hostcache import (CacheHitRead,
+                                                   _FillOnWait, file_key_of)
+    stats = getattr(engine, "stats", None)
+    for i, (_fh, _off, ln) in enumerate(extents):
+        if ln < 0:   # before probing: probes pin lines
+            raise ValueError(f"extent {i}: negative length {ln}")
+    fkeys: dict = {}
+    segs_all: List[list] = []
+    miss_exts: List[Tuple[int, int, int]] = []
+    admitted: dict = {}      # line key → admission-time epoch
+    for fh, off, ln in extents:
+        if ln == 0:
+            segs_all.append([])
+            continue
+        if fh not in fkeys:
+            fkeys[fh] = file_key_of(engine, fh)
+        fkey = fkeys[fh]
+        if fkey is None:
+            segs = [("miss", off, ln)]
+        else:
+            segs, adm = cache.probe_range(fkey, off, ln, klass, stats,
+                                          hot=hot)
+            admitted.update(adm)
+        segs_all.append(segs)
+        miss_exts.extend((fh, sg[1], sg[2]) for sg in segs
+                         if sg[0] == "miss")
+    try:
+        plan = plan_extents(miss_exts, chunk_bytes=chunk_bytes, gap=gap)
+        pendings = submit_spans(engine, plan.spans, klass=klass)
+    except BaseException:
+        for segs in segs_all:          # pinned hits must not leak
+            for sg in segs:
+                if sg[0] == "hit":
+                    cache.unpin(sg[3])
+        raise
+    wrapped = []
+    for (fh, s_off, s_ln), p in zip(plan.spans, pendings):
+        fkey = fkeys.get(fh)
+        keys = (_fill_keys_for_span(cache, fkey, admitted, s_off, s_ln)
+                if fkey is not None and admitted else {})
+        wrapped.append(_FillOnWait(p, cache, fkey, s_off, keys, klass,
+                                   stats, sticky=hot) if keys else p)
+    shared = _share_spans(wrapped, plan.placements)
+    out: List[list] = []
+    mi = 0
+    for (fh, _off, _ln), segs in zip(extents, segs_all):
+        pieces: list = []
+        for sg in segs:
+            if sg[0] == "hit":
+                _, a, sl, line = sg
+                rel = a - line.key[1]
+                pieces.append(CacheHitRead(cache, line, rel, rel + sl, fh,
+                                           a))
+            else:
+                pieces.extend(_views_for(shared, plan.placements[mi], fh,
+                                         sg[1]))
+                mi += 1
+        out.append(pieces)
+    return out
+
+
+def submit_spans_tiered(engine, spans: Sequence[Tuple[int, int, int]],
+                        klass: Optional[str] = None) -> list:
+    """:func:`submit_spans` with the host tier in front: a span inside
+    one resident line's valid bytes comes back as a ready
+    :class:`CacheHitRead`; the rest submit as one batch and fill their
+    admitted lines when waited.  With the tier off it is
+    :func:`submit_spans`."""
+    from nvme_strom_tpu_torch.io import hostcache
+    cache = hostcache.get_cache(engine)
+    if cache is None:
+        return submit_spans(engine, spans, klass=klass)
+    from nvme_strom_tpu_torch.io.hostcache import (CacheHitRead,
+                                                   _FillOnWait, file_key_of)
+    stats = getattr(engine, "stats", None)
+    spans = list(spans)
+    out: list = [None] * len(spans)
+    miss: list = []
+    meta: list = []    # (out index, fkey, admitted keys)
+    fkeys: dict = {}
+    for i, (fh, off, ln) in enumerate(spans):
+        if fh not in fkeys:
+            fkeys[fh] = file_key_of(engine, fh)
+        fkey = fkeys[fh]
+        line, adm = None, {}
+        if fkey is not None and ln > 0:
+            line, adm = cache.probe_span(fkey, off, ln, klass, stats)
+        if line is not None:
+            rel = off - line.key[1]
+            out[i] = CacheHitRead(cache, line, rel, rel + ln, fh, off)
+        else:
+            miss.append((fh, off, ln))
+            meta.append((i, fkey, adm))
+    try:
+        pendings = submit_spans(engine, miss, klass=klass)
+    except BaseException:
+        for p in out:
+            if p is not None:
+                p.release()
+        raise
+    for (i, fkey, adm), p in zip(meta, pendings):
+        _fh, off, ln = spans[i]
+        keys = (_fill_keys_for_span(cache, fkey, adm, off, ln)
+                if fkey is not None and adm else {})
+        out[i] = (_FillOnWait(p, cache, fkey, off, keys, klass, stats)
+                  if keys else p)
     return out

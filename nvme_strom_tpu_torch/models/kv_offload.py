@@ -50,10 +50,15 @@ place, so no host copy is made and ``bounce_bytes`` stays 0.  Under
 views before the copy.  A piece is released only after its copy has
 completed.  On the CPU the same code makes the plain copy.
 
+The reads carry the reference's QoS classes: the restore runs as
+``klass="decode", hot=True`` (with the host-DRAM tier on, its pages are
+admitted on first miss and pinned under the decode quota, so a repeat
+restore is served from the tier's lines, copied by ``h2d_copy`` in
+place), ``warm_pages`` as ``klass="prefetch", hot=True``, and
+``PagedKVCache``'s page stream as ``klass="decode"``.
+
 Left for the later parts of the port, each named where it would act:
-the QoS class and host-tier hot pin of the reads (``klass="decode"``,
-``hot=True``; ``warm_pages``' pin of the host-cache lines), the tenant
-charge and quota pre-pass of the eviction, the SLO governor
+the tenant charge and quota pre-pass of the eviction, the SLO governor
 (``STROM_KV_P99_MS``, refused by ``KVServeConfig``), the tracer's
 restore span, and the resilient write mirror of the eviction writes.
 Pages carry ``tenant: None``.
@@ -305,10 +310,9 @@ class PagedKVCache:
         # page file stride: [k data][k scales][v data][v scales]
         self._page_stride = 2 * (self._pb_block + self._sb_block)
         self._fh = engine.open(ocfg.path, writable=True)
-        # the reference tags these reads klass="decode" for its QoS
-        # scheduler, which the port does not have yet
         self._stream = DeviceStream(engine, device=self.device,
-                                    depth=engine.config.queue_depth)
+                                    depth=engine.config.queue_depth,
+                                    klass="decode")
         # in-flight eviction writes, a list of PendingWrites a page; each
         # keeps its host buffer alive until waited
         self._pending_writes: list = []
@@ -950,11 +954,10 @@ class PrefixStore:
             # a failed write surfacing here degrades to recompute, and
             # must not leak the pins just taken
             self._drain_writes()
-            # the QoS class (decode) and the host tier's hot lines of
-            # the JAX planner come with the scheduler and the host tier
             planned = plan_and_submit(
                 self.engine, [(self._fh, e["page"] * self.page_bytes,
-                               self.page_bytes) for _s, _i, _k, e in plan])
+                               self.page_bytes) for _s, _i, _k, e in plan],
+                klass="decode", hot=True)
         except OSError:
             with self._lock:
                 for _s, _i, _k, e in plan:
@@ -1306,10 +1309,10 @@ class PrefixStore:
     def warm_pages(self, budget_pages: int = 256) -> int:
         """Re-read the ``budget_pages`` top-benefit resident pages, the
         cold-start warming pass of a replica that just reattached a
-        manifest.  Best effort: failures warm less and never raise.
-        Returns the pages read.  Pinning their lines in the host-DRAM
-        tier, which makes the next restore a memory hit, comes with that
-        tier; until then the pass only reads."""
+        manifest, as ``klass="prefetch", hot=True``: with the host-DRAM
+        tier on, their lines are admitted and pinned, so the next
+        restore of these pages is a memory hit.  Best effort: failures
+        warm less and never raise.  Returns the pages read."""
         if budget_pages <= 0:
             return 0
         with self._lock:
@@ -1328,7 +1331,8 @@ class PrefixStore:
             extents = [(self._fh, e["page"] * self.page_bytes,
                         self.page_bytes) for _h, _s, _k, e in ranked]
             if extents:
-                for pieces in plan_and_submit(self.engine, extents):
+                for pieces in plan_and_submit(self.engine, extents,
+                                              klass="prefetch", hot=True):
                     ok = bool(pieces)
                     for p in pieces:
                         try:

@@ -4,11 +4,17 @@ nvme_strom_tpu/ops/bridge.py).
 On a CUDA device every host→device copy runs the hand-written
 ``h2d_copy`` kernel (csrc/h2d_copy.cu, replacing the TPU's
 ``_pallas_h2d`` DMA) on a side stream, reading page-locked host memory
-through its mapped device pointer: the engine's staging pool (which the
-engine registers with CUDA on first use) or a ``pin_memory`` slab.  A
-:class:`Transfer` carries the output tensor and a CUDA event recorded
-after the copy; a staging buffer or slab is released or overwritten only
-once that event has completed.
+through its mapped device pointer: the engine's staging pool, a line of
+the host-DRAM tier or an overlap slab (arena carves, each registered
+with CUDA the first time a copy reads it; ``engine.cuda_mappings``), or
+a ``pin_memory`` buffer.  A :class:`Transfer` carries the output tensor
+and a CUDA event recorded after the copy; a staging buffer, line or slab
+is released or overwritten only once that event has completed.
+
+``DeviceStream.stream_ranges`` refills through the planner's
+``submit_spans_tiered``: ranges resident in the host tier come back as
+ready line views, the rest as one batch of the stream's latency class
+(``klass``) for the QoS scheduler.
 
 Byte accounting: a byte counts as direct only when the copy reads it
 from page-locked memory CUDA has registered.  Host memory that is not
@@ -28,8 +34,10 @@ import torch
 
 from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.device import resolve_device
+from nvme_strom_tpu_torch.io import arena as _arena
 from nvme_strom_tpu_torch.io.engine import HostMapping, StromEngine
-from nvme_strom_tpu_torch.io.plan import split_spans
+from nvme_strom_tpu_torch.io.hostcache import spoil_span
+from nvme_strom_tpu_torch.io.plan import split_spans, submit_spans_tiered
 
 _SIDE_STREAMS: Dict[int, torch.cuda.Stream] = {}
 
@@ -64,8 +72,12 @@ def _host_bytes(src) -> np.ndarray:
 
 def h2d_copy_plain(src, dst: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`h2d_copy`: ``dst.copy_`` of the host
-    bytes."""
-    dst.copy_(torch.from_numpy(_host_bytes(src)))
+    bytes (a read-only source, such as a host-tier line, is copied
+    first: torch tensors are writable)."""
+    host = _host_bytes(src)
+    if not host.flags.writeable:
+        host = host.copy()
+    dst.copy_(torch.from_numpy(host))
     return dst
 
 
@@ -134,9 +146,10 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
 
     CUDA: the copy reads ``host`` in place when it lies in one of
     ``mappings`` or of the engine's (``engine.cuda_mappings``: its
-    registered staging pool, and a scatter store's rows); otherwise
-    through a pinned bounce buffer.  It runs on the side stream, then an event is
-    recorded.  CPU: a copy, counted as bounce."""
+    staging pool, the host tier's lines, the arena's bridge slabs, and
+    a scatter store's rows); otherwise through a pinned bounce buffer.
+    It runs on the side stream, then an event is recorded.  CPU: a copy,
+    counted as bounce."""
     flat = _host_bytes(host)
     n = flat.nbytes
     stats = engine.stats if engine is not None else None
@@ -192,8 +205,11 @@ class OverlapStage:
     """Double-buffered host→device stage of ``DeviceStream.stream_ranges``
     for staging pools too small to hold the stream's copies in flight.
 
-    Two slabs of ``chunk_bytes`` (``pin_memory`` on CUDA).  Per chunk:
-    the completed staging view is copied into the next slab, the staging
+    Two slabs of ``chunk_bytes`` carved from the pinned arena (tag
+    ``bridge``; registered with CUDA when a copy first reads one), or,
+    with the arena off or full (``arena_fallbacks``), ``pin_memory``
+    buffers on CUDA and plain arrays on the CPU.  Per chunk: the
+    completed staging view is copied into the next slab, the staging
     buffer can be released at once (so the NVMe read of chunk K+1
     overlaps the device copy of chunk K), and the device copy starts
     from the slab.  A slab is never overwritten before the transfer it
@@ -208,9 +224,17 @@ class OverlapStage:
         self.dev = dev
         self.chunk_bytes = chunk_bytes
         self._slabs: List[np.ndarray] = []
+        # a carve's mapping comes from engine.cuda_mappings (the arena's
+        # live bridge slabs); a pin_memory fallback's from here
         self._maps: List[HostMapping] = []
+        self._carves: list = []
         for _ in range(2):
-            if dev.type == "cuda":
+            slab = _arena.carve_or_none(chunk_bytes, "bridge",
+                                        stats=engine.stats)
+            if slab is not None:
+                self._carves.append(slab)
+                self._slabs.append(slab.view)
+            elif dev.type == "cuda":
                 t = torch.empty(chunk_bytes, dtype=torch.uint8,
                                 pin_memory=True)
                 self._maps.append(pinned_mapping(t, dev))
@@ -248,13 +272,17 @@ class OverlapStage:
         return t
 
     def close(self) -> None:
-        """Wait out the copies in flight, then drop the slabs."""
+        """Wait out the copies in flight, then return the slabs (a carve
+        is unregistered from CUDA before it goes back to the arena)."""
         for i, t in enumerate(self._busy):
             if t is not None:
                 t.synchronize()
                 self._busy[i] = None
         self._slabs = []
         self._maps = []
+        for slab in self._carves:
+            slab.release()
+        self._carves = []
 
 
 class StagingRetirePool:
@@ -305,10 +333,12 @@ class DeviceStream:
     pool would make reads wait for buffers that copies hold, so chunks
     then go through the :class:`OverlapStage`, which frees each staging
     buffer as soon as its bytes are in a slab.  ``overlap_transfer``
-    replaces the stage's transfer (tests)."""
+    replaces the stage's transfer (tests).  ``klass`` is the latency
+    class of the stream's batches (io/sched.py)."""
 
     def __init__(self, engine: StromEngine, device=None, depth: int = 3,
-                 overlap_transfer: Optional[Callable] = None):
+                 overlap_transfer: Optional[Callable] = None,
+                 klass: Optional[str] = None):
         if depth < 1:
             raise ValueError("depth must be >= 1")
         self.engine = engine
@@ -316,6 +346,7 @@ class DeviceStream:
         self.depth = depth
         self.overlap = engine.n_buffers < 3 * depth
         self.overlap_transfer = overlap_transfer
+        self.klass = klass
 
     def _put(self, view: np.ndarray, dtype, shape) -> Transfer:
         t = host_to_device(self.engine, view, self.device)
@@ -341,16 +372,23 @@ class DeviceStream:
 
     def stream_ranges(self, fh: int, ranges: Sequence[tuple],
                       dtype=None, shapes: Optional[Sequence] = None,
-                      verify: Optional[Callable] = None
+                      verify: Optional[Callable] = None,
+                      klass: Optional[str] = None
                       ) -> Iterator[torch.Tensor]:
         """Device tensors of arbitrary (offset, length) ranges of an
-        open file.
+        open file, refilled ``depth`` ranges at a time through the host
+        tier (``submit_spans_tiered``) as batches of class ``klass``
+        (the stream's own by default).
 
         ``verify``: ``fn(range_index, host_view)``, called on each
-        range's completed staging view before its copy starts (the only
-        point where the payload is on the host), so a corrupt range
-        never reaches the device; a raise ends the stream, with every
-        staging buffer released and every copy in flight waited out."""
+        range's completed view before its copy starts (the only point
+        where the payload is on the host), so a corrupt range never
+        reaches the device; a raise drops the tier's lines over the
+        range (``spoil_span``: they heal through the next read) and ends
+        the stream, with every staging buffer released and every copy in
+        flight waited out."""
+        if klass is None:
+            klass = self.klass
         pending: list = []   # (PendingRead, shape, range index)
         inflight: list = []  # (Transfer, PendingRead or None)
         stage = (OverlapStage(self.engine, self.device,
@@ -372,7 +410,12 @@ class DeviceStream:
             try:
                 view = pr.wait()
                 if verify is not None:
-                    verify(ri, view)
+                    try:
+                        verify(ri, view)
+                    except BaseException:
+                        spoil_span(self.engine, pr.fh, pr.offset, pr.length,
+                                   self.engine.stats)
+                        raise
                 if stage is None:    # the copy reads the staging buffer
                     inflight.append((self._put(view, dtype, shp), pr))
                     return
@@ -389,8 +432,9 @@ class DeviceStream:
             i = 0
             while i < len(ranges):
                 take = ranges[i:i + self.depth]
-                prs = self.engine.submit_readv([(fh, off, ln)
-                                                for off, ln in take])
+                prs = submit_spans_tiered(
+                    self.engine, [(fh, off, ln) for off, ln in take],
+                    klass=klass)
                 for j, pr in enumerate(prs):
                     shape = shapes_l[i + j] if shapes_l is not None else None
                     pending.append((pr, shape, i + j))

@@ -1,11 +1,14 @@
-"""Engine, loader and KV-store configuration (counterpart of
-nvme_strom_tpu/utils/config.py ``EngineConfig``, ``LoaderConfig`` and
+"""Engine, scheduler, host-tier, loader and KV-store configuration
+(counterpart of nvme_strom_tpu/utils/config.py ``EngineConfig``,
+``SchedConfig``, ``HostCacheConfig``, ``LoaderConfig`` and
 ``KVServeConfig``, trimmed to what the port's paths read).
 
 Engine and loader sizes are these defaults or explicit arguments: they
-are never read from the environment or from a tuning ledger.  Only
-``KVServeConfig`` reads the environment (its ``STROM_KV_*`` switches, as
-the JAX package's does)."""
+are never read from a tuning ledger, and of the engine's knobs only the
+ring count reads the environment (``STROM_RINGS``).  ``SchedConfig``,
+``HostCacheConfig`` and ``KVServeConfig`` read their ``STROM_*``
+switches at construction, as the JAX package's do; the pinned arena's
+``STROM_ARENA`` and ``STROM_ARENA_MB`` are read by ``io/arena.py``."""
 
 from __future__ import annotations
 
@@ -40,6 +43,12 @@ class EngineConfig:
     buffer_pool_bytes: int = 256 << 20
     use_io_uring: bool = True
     lock_buffers: bool = True
+    #: submission rings the engine shards into, each with its own
+    #: io_uring (or worker pool) over the one staging pool; 0 = auto
+    #: from the CPU count and the NVMe hardware queues (io/engine.py
+    #: ``auto_ring_count``), capped by what the queue depth and pool can
+    #: feed; 1 (``STROM_RINGS=1``) is the one-ring engine, no scheduler
+    n_rings: int = field(default_factory=lambda: _env_int("STROM_RINGS", 0))
 
     def __post_init__(self):
         if (self.alignment < 512 or self.alignment > (1 << 22)
@@ -58,10 +67,86 @@ class EngineConfig:
             raise ValueError(
                 f"buffer_pool_bytes ({self.buffer_pool_bytes}) must hold "
                 f"at least one chunk ({self.chunk_bytes})")
+        if not 0 <= self.n_rings <= 64:
+            raise ValueError(
+                f"n_rings ({self.n_rings}) must be in [0, 64] (0 = auto; "
+                "64 = the request ids' ring bits)")
 
     @property
     def n_buffers(self) -> int:
         return max(2, min(64, self.buffer_pool_bytes // self.chunk_bytes))
+
+
+@dataclass(frozen=True)
+class SchedConfig:
+    """QoS scheduler knobs (io/sched.py), read from the environment at
+    construction.  The scheduler sits over a multi-ring engine: classes
+    share rings by weighted fair-share in priority order, and a batch
+    queued longer than ``aging_rounds`` dispatch rounds is promoted
+    ahead of every class."""
+
+    #: STROM_SCHED=0 leaves a multi-ring engine without a scheduler
+    #: (batches then go round-robin like scalar reads)
+    enabled: bool = field(
+        default_factory=lambda: os.environ.get("STROM_SCHED", "1") != "0")
+    #: the starvation bound in dispatch rounds
+    aging_rounds: int = field(
+        default_factory=lambda: _env_int("STROM_SCHED_AGING_K", 16))
+    #: per-ring in-flight I/O budget of admission; 0 = the ring's queue
+    #: depth.  Submitted minus completed, so views held after completion
+    #: never wedge admission
+    max_inflight_per_ring: int = field(
+        default_factory=lambda: _env_int("STROM_SCHED_INFLIGHT", 0))
+    #: "decode=8,restore=4,prefetch=2,scan=2,scrub=1" overrides the
+    #: class weights
+    class_weights: str = field(
+        default_factory=lambda: os.environ.get("STROM_CLASS_WEIGHTS", ""))
+
+    def __post_init__(self):
+        if self.aging_rounds < 1:
+            raise ValueError("aging_rounds must be >= 1")
+        if self.max_inflight_per_ring < 0:
+            raise ValueError("max_inflight_per_ring must be >= 0")
+
+
+@dataclass(frozen=True)
+class HostCacheConfig:
+    """The pinned host-DRAM tier's knobs (io/hostcache.py), read from
+    the environment at construction."""
+
+    #: the tier's budget in MiB; 0 (default) disables it, and the
+    #: planner's submit path is then the tier-less one
+    budget_mb: int = field(
+        default_factory=lambda: _env_int("STROM_HOSTCACHE_MB", 0))
+    #: line size in bytes; 0 = the first engine's ``chunk_bytes``
+    #: (rounded down to a power of two, at least 64 KiB)
+    line_bytes: int = field(
+        default_factory=lambda: _env_int("STROM_HOSTCACHE_LINE_BYTES", 0))
+    #: "decode=8,restore=4,..." residency quota weights; empty = the
+    #: scheduler's class weights
+    class_quotas: str = field(
+        default_factory=lambda: os.environ.get(
+            "STROM_HOSTCACHE_CLASS_QUOTAS", ""))
+    #: the ghost list's length as a multiple of the line capacity
+    ghost_factor: int = field(
+        default_factory=lambda: _env_int("STROM_HOSTCACHE_GHOST_FACTOR", 4))
+    #: mlock the lines (the engine pool's STROM_MLOCK switch)
+    lock_arena: bool = field(
+        default_factory=lambda: os.environ.get("STROM_MLOCK", "1") != "0")
+
+    def __post_init__(self):
+        if self.budget_mb < 0:
+            raise ValueError("budget_mb must be >= 0")
+        if self.line_bytes and (self.line_bytes < 4096
+                                or self.line_bytes & (self.line_bytes - 1)):
+            raise ValueError(
+                f"line_bytes ({self.line_bytes}) must be 0 (auto) or a "
+                "power of two >= 4096 (O_DIRECT block alignment)")
+        if self.ghost_factor < 1:
+            raise ValueError("ghost_factor must be >= 1")
+        if self.class_quotas:
+            from nvme_strom_tpu_torch.io.hostcache import parse_class_quotas
+            parse_class_quotas(self.class_quotas)
 
 
 @dataclass(frozen=True)

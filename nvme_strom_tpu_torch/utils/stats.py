@@ -56,8 +56,13 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "checksum_failures", "kv_pages_written", "kv_pages_deduped",
             "kv_bytes_saved", "kv_pages_restored", "kv_prefix_hits",
             "kv_prefix_misses", "kv_restore_failures",
-            "kv_store_evictions")
-GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident")
+            "kv_store_evictions", "sched_enqueued", "sched_dispatches",
+            "sched_promotions", "arena_fallbacks", "cache_hits",
+            "cache_misses", "bytes_served_cache", "cache_admissions",
+            "cache_admission_rejections", "cache_fill_failures",
+            "cache_evictions", "cache_invalidations")
+GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
+          "cache_bytes_resident", "cache_lines_resident")
 
 
 @dataclass
@@ -85,7 +90,21 @@ class StromStats:
     kv_prefix_misses: int = 0
     kv_restore_failures: int = 0
     kv_store_evictions: int = 0
+    sched_enqueued: int = 0
+    sched_dispatches: int = 0
+    sched_promotions: int = 0
+    arena_fallbacks: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    bytes_served_cache: int = 0
+    cache_admissions: int = 0
+    cache_admission_rejections: int = 0
+    cache_fill_failures: int = 0
+    cache_evictions: int = 0
+    cache_invalidations: int = 0
     _gauges: dict = field(default_factory=dict, repr=False, compare=False)
+    _class_stats: dict = field(default_factory=dict, repr=False,
+                               compare=False)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -95,6 +114,28 @@ class StromStats:
                 if name not in COUNTERS:
                     raise KeyError(f"unknown counter {name!r}")
                 setattr(self, name, getattr(self, name) + int(d))
+
+    def add_class_stat(self, klass: str, **deltas) -> None:
+        """Accumulate per-class counters under the block's lock."""
+        with self._lock:
+            blk = self._class_stats.setdefault(klass, {})
+            for name, d in deltas.items():
+                blk[name] = blk.get(name, 0) + d
+
+    def class_stat_gauges(self, klass: str, **values: float) -> None:
+        """Per-class point-in-time values: each keeps its running max,
+        sum and count (``<name>_max``, ``_sum``, ``_n``)."""
+        with self._lock:
+            blk = self._class_stats.setdefault(klass, {})
+            for name, v in values.items():
+                blk[f"{name}_max"] = max(blk.get(f"{name}_max", 0.0), v)
+                blk[f"{name}_sum"] = blk.get(f"{name}_sum", 0.0) + v
+                blk[f"{name}_n"] = blk.get(f"{name}_n", 0) + 1
+
+    @property
+    def class_stats(self) -> dict:
+        with self._lock:
+            return {k: dict(v) for k, v in self._class_stats.items()}
 
     def set_gauges(self, **values) -> None:
         """Point-in-time values; unlike counters they overwrite."""
@@ -111,11 +152,15 @@ class StromStats:
                     if k in COUNTERS})
 
     def snapshot(self) -> dict:
-        """Every counter, and the gauges that have been set."""
+        """Every counter, the gauges that have been set, and
+        ``class_stats`` once a class has a tally."""
         with self._lock:
             snap = {f.name: getattr(self, f.name) for f in fields(self)
                     if f.name in COUNTERS}
             snap.update(self._gauges)
+            if self._class_stats:
+                snap["class_stats"] = {k: dict(v) for k, v in
+                                       self._class_stats.items()}
             return snap
 
 

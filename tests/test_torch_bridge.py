@@ -15,8 +15,11 @@ from nvme_strom_tpu_torch.utils.config import EngineConfig
 
 
 def _engine(n_buffers):
+    # one ring: a multi-ring pool rounds an odd count down to a multiple
+    # of the ring count, and these tests pick a path by the exact count
     return StromEngine(EngineConfig(chunk_bytes=1 << 20, queue_depth=8,
-                                    buffer_pool_bytes=n_buffers << 20))
+                                    buffer_pool_bytes=n_buffers << 20,
+                                    n_rings=1))
 
 
 @pytest.fixture()

@@ -522,8 +522,144 @@ def test_engine_unregisters_before_destroy(dev, tmp_path):
     assert m.dev_base and m.nbytes >= 8 << 20
     assert eng.cuda_mapping(dev.index) is m
     eng.close_all()
-    assert not eng._mappings
+    assert not eng._pool_reg.devices
     os.sync()
+
+
+# -- the arena, the host tier and the multi-ring engine (kernel 1) -----------
+
+def _h2d_from(dev, mapping, host):
+    """h2d_copy of ``host`` read in place through ``mapping``, against
+    its plain version."""
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy, h2d_copy_plain
+    ptr = mapping.device_ptr(host.ctypes.data, host.nbytes)
+    assert ptr is not None
+    got = torch.empty(host.nbytes, dtype=torch.uint8, device=dev)
+    before = h2d_copy.launches
+    h2d_copy(host, got, src_ptr=ptr)
+    torch.cuda.synchronize(dev)
+    assert h2d_copy.launches == before + 1
+    want = h2d_copy_plain(host, torch.empty(host.nbytes, dtype=torch.uint8))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_h2d_copy_from_a_host_tier_line_and_a_bridge_slab(dev):
+    """h2d_copy reads a resident line of the host tier, and an arena
+    bridge slab, in place (each carve registered on its first copy) and
+    equals its plain version byte for byte."""
+    from nvme_strom_tpu_torch.io import arena, hostcache
+    from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+    rng = np.random.default_rng(4)
+    hostcache.reset()
+    cache = hostcache.configure(HostCacheConfig(budget_mb=8,
+                                                line_bytes=1 << 20))
+    try:
+        fkey = ("f", 1)
+        payload = rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+        assert cache.fill(fkey, 0, payload, "decode")
+        segs, _ = cache.probe_range(fkey, 4096 + 3, (1 << 20) - 4099,
+                                    "decode")
+        line = segs[0][3]
+        view = cache.line_view(line, 4096 + 3, 1 << 20)
+        assert not cache.arena.cuda.devices
+        _h2d_from(dev, cache.arena.cuda.on(dev.index), view)
+        assert cache.arena.cuda.devices == [dev.index]
+        cache.unpin(line)
+    finally:
+        hostcache.reset()
+    slab = arena.carve_or_none(4 << 20, "bridge")
+    assert slab is not None
+    try:
+        slab.view[:] = rng.integers(0, 256, slab.nbytes, dtype=np.uint8)
+        _h2d_from(dev, slab.cuda.on(dev.index), slab.view[17:(3 << 20) + 5])
+    finally:
+        slab.release()
+
+
+def test_carves_register_once_and_unregister_after_their_copies(dev):
+    """A carve registers on its first copy and once only (a second
+    cudaHostRegister of the range raises); its release waits for the
+    copy queued out of it, unregisters (unregistering again raises) and
+    frees the range; the host tier refuses to free lines a hit view
+    still pins."""
+    import ctypes
+    from nvme_strom_tpu_torch import _build
+    from nvme_strom_tpu_torch.io import arena, hostcache
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+    klib = _build.kernel_library()
+    a = arena.get_arena()
+    slab = a.carve(8 << 20, "bridge")
+    slab.view[:] = 7
+    m = slab.cuda.mapping(dev.index)
+    assert slab.cuda.mapping(dev.index) is m
+    ptr = ctypes.c_void_p()
+    with pytest.raises(RuntimeError, match="cudaHostRegister"):
+        _build.check(klib.strom_host_register(slab.addr, slab.nbytes,
+                                              dev.index, ctypes.byref(ptr)),
+                     "cudaHostRegister")
+    out = torch.empty(slab.nbytes, dtype=torch.uint8, device=dev)
+    for _ in range(8):        # copies still queued when release starts
+        h2d_copy(slab.view, out, src_ptr=m.dev_base)
+    addr, offset = slab.addr, slab.offset
+    slab.release()            # waits for the copies, then unregisters
+    assert torch.all(out == 7).item()
+    assert offset not in a._carved
+    with pytest.raises(RuntimeError, match="cudaHostUnregister"):
+        _build.check(klib.strom_host_unregister(addr, dev.index),
+                     "cudaHostUnregister")
+    hostcache.reset()
+    cache = hostcache.configure(HostCacheConfig(budget_mb=2,
+                                                line_bytes=1 << 20))
+    cache.fill(("f", 1), 0, np.ones(1 << 20, np.uint8), None)
+    segs, _ = cache.probe_range(("f", 1), 0, 1 << 20, None)
+    cache.arena.cuda.mapping(dev.index)
+    with pytest.raises(RuntimeError, match="pinned"):
+        hostcache.reset()
+    cache.unpin(segs[0][3])
+    hostcache.reset()
+    assert a.carves().get("hostcache", 0) == 0
+
+
+def test_multi_ring_pieces_map_without_a_bounce(dev, tmp_path):
+    """Reads of every class over a multi-ring engine land in staging
+    buffers of every ring, and each piece's copy reads one in place
+    through the pool's one registration: nothing bounces, and the bytes
+    are the file's."""
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.io.plan import plan_and_submit
+    from nvme_strom_tpu_torch.ops.bridge import host_to_device
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    payload = np.random.default_rng(6).integers(0, 256, 24 << 20,
+                                                dtype=np.uint8)
+    path = tmp_path / "rings.bin"
+    payload.tofile(path)
+    with StromEngine(EngineConfig(chunk_bytes=1 << 20, queue_depth=16,
+                                  buffer_pool_bytes=32 << 20,
+                                  n_rings=4)) as eng:
+        assert eng.n_rings == 4 and eng.scheduler is not None
+        fh = eng.open(path)
+        for klass in ("decode", "restore", "prefetch", "scan", "scrub"):
+            for ring in range(eng.n_rings):
+                exts = [(fh, (ring * 5 + i) << 20, 1 << 20)
+                        for i in range(5)]
+                pieces = [p for ps in (plan_and_submit(eng, exts,
+                                                       klass=klass)
+                                       if ring == 0 else
+                                       [eng.submit_readv(exts, ring=ring)])
+                          for p in ps]
+                outs = [(p, host_to_device(eng, p.wait(), dev))
+                        for p in pieces]
+                for p, t in outs:
+                    t.synchronize()
+                    want = payload[p.offset:p.offset + p.length]
+                    assert torch.equal(t.tensor.cpu(),
+                                       torch.from_numpy(want))
+                    p.release()
+        eng.close(fh)
+        assert all(eng.ring_info(r)["submitted"] > 0 for r in range(4))
+        assert eng.stats.bounce_bytes == 0     # the bridge's
+        assert eng.stats.class_stats["decode"]["dispatches"] >= 1
 
 
 # -- flash attention (kernels 4-6) --------------------------------------------

@@ -17,7 +17,8 @@ from nvme_strom_tpu_torch.io.engine import StromEngine, check_file, \
 from nvme_strom_tpu_torch.ops.bridge import DeviceStream
 from nvme_strom_tpu_torch.utils.config import EngineConfig
 
-STRUCTS = ["_FileInfo", "_PoolInfo", "_StatsBlk", "_RdExt", "_Completion"]
+STRUCTS = ["_FileInfo", "_PoolInfo", "_StatsBlk", "_RdExt", "_Completion",
+           "_RingInfo"]
 
 
 @pytest.fixture()

@@ -423,9 +423,9 @@ def test_batched_multi_request_restore_single_step(setup, engine, tmp_path,
     calls = []
     real = kv_offload.plan_and_submit
 
-    def counting(eng, extents):
+    def counting(eng, extents, **kw):
         calls.append(len(extents))
-        return real(eng, extents)
+        return real(eng, extents, **kw)
 
     monkeypatch.setattr(kv_offload, "plan_and_submit", counting)
     submitted0 = engine.sync_stats()["requests_submitted"]
