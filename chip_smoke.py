@@ -61,14 +61,26 @@ It builds the port's native libraries from the checkout, then:
    through both servers (restores as ``klass="decode", hot=True``) and
    (a)'s 16 offloaded steps (``klass="decode"``), on one ring, on the
    default ring count with the QoS scheduler, both again with every read
-   padded by 2 ms, and with the host-DRAM tier (512 MiB, lines of the
-   engine's chunk); two trials a mode in alternating order, the median
-   reported: restore-batch and step p50/p99, the storm's GiB/s, ring
-   depths, the scheduler's and the tier's counters; tokens equal to the
-   earlier phases', pages bitwise, ``bounce_bytes`` 0, no arena
-   fallback, tier hits from its registered carve, a flipped byte in a
-   resident line caught and healed, a page put over a resident line's
-   slot restored fresh; then serves
+   padded by 2 ms, with the host-DRAM tier (512 MiB, lines of the
+   engine's chunk), and with the prefix store's SLO governor at
+   ``STROM_KV_P99_MS`` half the default mode's first restore p99; two
+   trials a mode in alternating order, the median reported:
+   restore-batch and step p50/p99, the storm's GiB/s, ring depths, the
+   scheduler's and the tier's counters, the governor's boosts and the
+   decode weight (it must rise, then decay back to its base once
+   single-page restores run alone); tokens equal to the earlier
+   phases', pages bitwise, ``bounce_bytes`` 0, no arena fallback, tier
+   hits from its registered carve, a flipped byte in a resident line
+   caught and healed, a page put over a resident line's slot restored
+   fresh; main path — tenants (``tenant_phase``, ``STROM_TENANTS``
+   on): the prefix store's 8 chat requests as a gold victim behind 16
+   seeded 1500-token requests of a bronze aggressor, through both
+   servers, alone, with the aggressor, with its token bucket at 2 a
+   second and with a 64-page store: the victim's tokens equal the
+   prefix phase's hit every time, every shed on the aggressor, every
+   aggressor request done, the cut store's quota evictions all the
+   aggressor's and the victim's pages restored bitwise afterwards;
+   victim TTFT p50/p99 alone and under the aggressor; then serves
    4 requests with both servers on a 2-layer model with a GQA group of
    7 at head_dim 128 (``GQA_SERVE``), whose tokens must agree;
 6. training path — seeded WebDataset shards of flagship-length samples
@@ -77,6 +89,13 @@ It builds the port's native libraries from the checkout, then:
    weights: 10 steps at seq 2048, batch 8, checkpoints every 5 steps;
    a second ``Trainer`` resumes from step 10 with bitwise-equal
    parameters and AdamW moments and runs to step 12 under the profiler;
+   then ``STROM_VERIFY`` on reads (``verify_phase``): phase 4's weights
+   loaded unverified and under ``STROM_VERIFY=full`` in turns (every
+   payload byte verified, tensors bitwise equal, both times printed), a
+   flipped payload byte in a copy raising ``ChecksumError``, both
+   servers on the verified weights; the training shards stamped with
+   ``stamp_wds``, a verified epoch equal to the unverified one, and a
+   flipped sample byte raising with the shard's name;
 7. checks one float32 train step of the flagship through the flash
    kernels against the same step through their plain versions;
 8. holds the ring all-gather (kernel 7) against its plain version on 4
@@ -108,9 +127,9 @@ It builds the port's native libraries from the checkout, then:
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
-phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos run,
-the flash kernels
-and ``h2d_copy`` in phase 6, and ``h2d_copy`` and ``ici_ring_gather`` in
+phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos and
+tenant runs, the flash kernels and ``h2d_copy`` in phase 6, kernels 1-3
+in its verify run, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
 without CUDA, or a directory without the package.
@@ -2588,7 +2607,15 @@ def offload_phase(dev, cfg, ckdir, params, shared):
 QOS_MODES = (("1 ring", "1", "0", 0), ("auto rings", "0", "0", 0),
              ("1 ring, 2 ms pad", "1", "2", 0),
              ("auto rings, 2 ms pad", "0", "2", 0),
-             ("auto rings, host tier", "0", "0", 512))
+             ("auto rings, host tier", "0", "0", 512),
+             ("auto rings, governor", "0", "0", 0))
+#: the mode whose store runs the SLO governor, its STROM_KV_P99_MS half
+#: the restore-batch p99 of QOS_GOVERNOR_BASE's first trial
+QOS_GOVERNOR = "auto rings, governor"
+QOS_GOVERNOR_BASE = "auto rings"
+#: after the storm, single-page restores alone until the governor has
+#: decayed every boost, at most this long
+QOS_DECAY_S = 20.0
 #: trials per mode, in alternating order; the median trial (by decode
 #: p99) is the mode's
 QOS_TRIALS = 2
@@ -2604,7 +2631,7 @@ QOS_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
                 "cache_admission_rejections", "cache_fill_failures",
                 "cache_evictions", "cache_invalidations",
                 "checksum_failures", "kv_restore_failures",
-                "kv_pages_restored")
+                "kv_pages_restored", "kv_slo_boosts")
 
 
 def _pct(xs, q):
@@ -2670,12 +2697,29 @@ class Storm:
         return self.bytes / secs / 2**30
 
 
-def qos_run(dev, cfg, params, mode, shared, stream_path, trial):
+def _governor_decay(store, keys, dev):
+    """Single-page restores with no storm until the store's governor has
+    decayed to no boost (its p99 falls under half the target once the
+    fast restores outnumber the storm's 100 to 1): (restores, seconds)."""
+    t0 = time.monotonic()
+    n = 0
+    while store.slo.boost and time.monotonic() - t0 < QOS_DECAY_S:
+        store.restore_many({0: (n % len(keys), [keys[n % len(keys)]])},
+                           device=dev)
+        n += 1
+    return n, time.monotonic() - t0
+
+
+def qos_run(dev, cfg, params, mode, shared, stream_path, trial,
+            p99_target_ms=0.0):
     """One run of ``mode``: a new engine with the mode's rings, pad and
     host tier; the storm; the prefix store's chat traffic through both
     servers (restores as decode, hot) and QOS_RESTORES more restores of
-    every page; offloaded decode (a), 16 timed steps.  Returns the
-    decode-class times, the storm's GiB/s, tokens and counters."""
+    every page; offloaded decode (a), 16 timed steps.  With
+    ``p99_target_ms`` the store's SLO governor runs (STROM_KV_P99_MS),
+    and after the storm single-page restores run until it has decayed.
+    Returns the decode-class times, the storm's GiB/s, tokens and
+    counters."""
     import torch
     from nvme_strom_tpu_torch.io import hostcache
     from nvme_strom_tpu_torch.io.engine import StromEngine
@@ -2684,7 +2728,8 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial):
                                                         PrefixStore)
     from nvme_strom_tpu_torch.models.serving import (DecodeServer,
                                                      PagedDecodeServer)
-    from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+    from nvme_strom_tpu_torch.utils.config import (HostCacheConfig,
+                                                   KVServeConfig)
     label, rings, pad, tier_mb = mode
     pre, off = shared["prefix"], shared["offload"]
     env = {"STROM_RINGS": rings, "STROM_FAULT_READ_DELAY_MS": pad}
@@ -2711,17 +2756,39 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial):
         out["register_s"] = time.monotonic() - t0
         eng.sync_stats()
         before = eng.stats.snapshot()
+        os.environ["STROM_KV_P99_MS"] = repr(p99_target_ms)
+        try:
+            target = KVServeConfig().p99_target_ms
+        finally:
+            os.environ.pop("STROM_KV_P99_MS", None)
         store = PrefixStore(cfg, eng, pre["store"], PREFIX_PAGE_TOKENS,
-                            PREFIX_STORE_BYTES)
+                            PREFIX_STORE_BYTES, p99_target_ms=target)
+        sched = eng.scheduler
+        base_w = sched.policies["decode"].weight if sched else None
+        peak_w = [base_w]
         restore_ms: list = []
+        boosted_ms: list = []     # restores begun with the boost on
+        observe_ms: list = []     # the governor's own time, in them
         restore = store.restore_many
 
         def timed_restore(*a, **k):
+            on = store.slo.boost > 0
             t0 = time.perf_counter()
             got = restore(*a, **k)
             restore_ms.append((time.perf_counter() - t0) * 1e3)
+            if on:
+                boosted_ms.append(restore_ms[-1])
+            if sched is not None:
+                peak_w[0] = max(peak_w[0], sched.policies["decode"].weight)
             return got
         store.restore_many = timed_restore
+        observe = store.slo.observe
+
+        def timed_observe(*a, **k):
+            t0 = time.perf_counter()
+            observe(*a, **k)
+            observe_ms.append((time.perf_counter() - t0) * 1e3)
+        store.slo.observe = timed_observe
         ocfg = OffloadConfig(path=os.path.join(DATA_DIR, "qos", "a.bin"),
                              page_len=OFFLOAD_PAGE,
                              window_pages=OFFLOAD_WINDOW_PAGES)
@@ -2766,9 +2833,27 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial):
         finally:
             storm_gib_s = storm.stop()
             kv.close()
+        try:
+            eng.sync_stats()
+            after = eng.stats.snapshot()
+            if target:
+                # alone now: the governor's decay, outside the counters
+                store.restore_many = restore
+                boosted = store.slo.boost
+                decay_n, decay_s = _governor_decay(store, list(pre["pages"]),
+                                                   dev)
+                out["governor"] = {
+                    "target_ms": target, "boost_after_storm": boosted,
+                    "boost_after_decay": store.slo.boost,
+                    "decode_weight_base": base_w,
+                    "decode_weight_peak": peak_w[0],
+                    "decode_weight_after": sched.policies["decode"].weight,
+                    "decay_restores": decay_n, "decay_s": decay_s,
+                    "restore_p99_boosted_ms": _pct(boosted_ms, 0.99),
+                    "restores_boosted": len(boosted_ms),
+                    "observe_ms_max": max(observe_ms)}
+        finally:
             store.close()
-        eng.sync_stats()
-        after = eng.stats.snapshot()
         out.update({
             "decode_s": decode_s, "storm_gib_s": storm_gib_s,
             "restore_ms": restore_ms, "step_ms": step_ms,
@@ -2888,30 +2973,42 @@ def qos_phase(dev, cfg, params, shared, stream_path):
     """Decode-class reads under a prefetch storm, every mode of
     QOS_MODES QOS_TRIALS times in alternating order, the median trial of
     each (by decode p99) reported; then the host tier's verify and
-    staleness checks.  Raises unless every trial's tokens equal the
-    prefix store's NVMe-hit tokens and the offloaded run's, the restored
-    pages are bitwise the cold run's, nothing bounced, no carve fell
-    back, and the tier served hits from its registered carve."""
+    staleness checks.  QOS_GOVERNOR's target is half the restore-batch
+    p99 of QOS_GOVERNOR_BASE's first trial, which runs before it.
+    Raises unless every trial's tokens equal the prefix store's NVMe-hit
+    tokens and the offloaded run's, the restored pages are bitwise the
+    cold run's, nothing bounced, no carve fell back, the tier served hits
+    from its registered carve, and the governor boosted the decode
+    weight and decayed it back to its base."""
     import torch
     os.makedirs(os.path.join(DATA_DIR, "qos"), exist_ok=True)
     t0 = time.monotonic()
     card = card_line()
     runs = {m[0]: [] for m in QOS_MODES}
+    target = None
     for trial in range(QOS_TRIALS):
         for mode in (QOS_MODES if trial % 2 == 0 else QOS_MODES[::-1]):
-            r = qos_run(dev, cfg, params, mode, shared, stream_path, trial)
+            r = qos_run(dev, cfg, params, mode, shared, stream_path, trial,
+                        p99_target_ms=(target if mode[0] == QOS_GOVERNOR
+                                       else 0.0))
+            if mode[0] == QOS_GOVERNOR_BASE and target is None:
+                target = r["restore_p99_ms"] / 2
             runs[mode[0]].append(r)
             log(f"qos {mode[0]} (trial {trial}, {r['n_rings']} rings; "
                 f"{card}; registered in {r['register_s']:.3f} s): "
                 f"restore-batch ms p50 {r['restore_p50_ms']:.2f} "
-                f"p99 {r['restore_p99_ms']:.2f}, offloaded step ms p50 "
+                f"p99 {r['restore_p99_ms']:.2f} (each "
+                f"{[round(x, 2) for x in r['restore_ms']]}), offloaded "
+                f"step ms p50 "
                 f"{r['step_p50_ms']:.2f} p99 {r['step_p99_ms']:.2f} (p50 "
                 f"{r['step_wait_p50_ms']:.2f} of it waiting for pages); "
                 f"decode side {r['decode_s']:.2f} s; storm "
                 f"{r['storm_gib_s']:.3f} GiB/s; ring depth max "
                 f"{r['ring_depth_max']}; class dispatches "
                 f"{r['class_dispatches']}; counters {r['stats']}"
-                + (f"; tier {r['tier']}" if "tier" in r else ""))
+                + (f"; tier {r['tier']}" if "tier" in r else "")
+                + (f"; governor {r['governor']}" if "governor" in r
+                   else ""))
             torch.cuda.empty_cache()
     report = {}
     for label, rs in runs.items():
@@ -2930,6 +3027,15 @@ def qos_phase(dev, cfg, params, shared, stream_path):
                                      not r["class_dispatches"].get("decode")):
                 raise AssertionError(f"qos {label}: the scheduler granted "
                                      f"no decode batch: {r}")
+            g = r.get("governor")
+            if label == QOS_GOVERNOR and (
+                    st["kv_slo_boosts"] < 1 or g["decode_weight_peak"] <=
+                    g["decode_weight_base"] or g["boost_after_decay"] or
+                    g["decode_weight_after"] != g["decode_weight_base"]):
+                raise AssertionError(f"qos {label}: the governor did not "
+                                     f"fire and decay: {g}, {st}")
+            if label != QOS_GOVERNOR and st["kv_slo_boosts"]:
+                raise AssertionError(f"qos {label}: a boost with no target")
             if "tier" in r and (st["cache_hits"] <= 0
                                 or st["bytes_served_cache"] <= 0
                                 or r["tier"]["registered"] != [dev.index]
@@ -2945,6 +3051,8 @@ def qos_phase(dev, cfg, params, shared, stream_path):
             "class_dispatches", "stats")}
         if "tier" in med:
             report[label]["tier"] = med["tier"]
+        if "governor" in med:
+            report[label]["governor"] = med["governor"]
         report[label]["trials"] = [
             {k: r[k] for k in ("restore_p99_ms", "step_p99_ms",
                                "storm_gib_s")} for r in rs]
@@ -2956,6 +3064,205 @@ def qos_phase(dev, cfg, params, shared, stream_path):
                       for k, r in report.items()
                       if isinstance(r, dict) and "n_rings" in r})
         + f"; phase {report['seconds']:.1f} s")
+    return report
+
+
+# -- tenants: a bronze aggressor beside a gold victim -------------------------
+
+#: the aggressor's seeded requests: long prompts, few new tokens
+TENANT_AGGR_REQUESTS = 16
+TENANT_AGGR_PROMPT = 1500
+TENANT_AGGR_NEW = 8
+#: the victim's decode TTFT p99 target
+TENANT_VICTIM_SLO_MS = 100
+TENANT_SPEC = (f"victim:tier=gold,slo_ms={TENANT_VICTIM_SLO_MS};"
+               "aggr:tier=bronze,quota=0.25")
+#: the cut store: the victim's resident pages and as many free pages
+#: again, which the aggressor's 16 × 11 pages overflow
+TENANT_CUT_PAGES = 64
+TENANT_COUNTERS = ("bounce_bytes", "bytes_fallback", "kv_pages_written",
+                   "kv_pages_restored", "kv_prefix_misses",
+                   "kv_restore_failures", "kv_store_evictions",
+                   "tenant_admissions_shed", "tenant_quota_evictions",
+                   "tenant_borrows", "tenant_slo_boosts")
+
+
+def tenant_phase(dev, cfg, params, shared):
+    """Tenants at flagship width (STROM_TENANTS on, TENANT_SPEC): the
+    prefix store's 8 chat requests as the gold victim, and
+    TENANT_AGGR_REQUESTS seeded bronze requests of TENANT_AGGR_PROMPT
+    tokens submitted ahead of them, through both servers (8 slots of
+    2048 positions) over a copy of the prefix phase's store.  Runs, each
+    on both servers: the victim alone (after a warm-up run); with the
+    aggressor; with the aggressor's bucket at rate 2, burst 2; with the
+    aggressor in a store of TENANT_CUT_PAGES pages, then the victim
+    again.  Raises unless the
+    victim's tokens equal the prefix phase's NVMe hit on every run and
+    server, every shed falls on the aggressor, every aggressor request
+    completes, the cut store's quota evictions are all the aggressor's,
+    and the victim's last pass restores every page from NVMe bitwise."""
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.io import tenants
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.utils.config import TenantConfig
+    pre = shared["prefix"]
+    victims, hit = pre["requests"], pre["hit_tokens"]
+    rng = np.random.default_rng(SEED + 21)
+    aggrs = [(f"a{i}", rng.integers(0, cfg.vocab,
+                                    TENANT_AGGR_PROMPT).tolist())
+             for i in range(TENANT_AGGR_REQUESTS)]
+    tdir = os.path.join(DATA_DIR, "tenants")
+    os.makedirs(tdir, exist_ok=True)
+    P = PREFIX_PAGE_TOKENS
+    t_phase = time.monotonic()
+    card = card_line()
+    report = {"card": card, "runs": {}}
+
+    def run(label, make, eng, store, with_aggr, spec=TENANT_SPEC):
+        reg = tenants.configure(TenantConfig(enabled=True, spec=spec))
+        eng.sync_stats()
+        before = eng.stats.snapshot()
+        h0, c0 = h2d_copy.launches, store.copies
+        srv = make(store)
+        t0 = time.monotonic()
+        if with_aggr:
+            for rid, ids in aggrs:
+                srv.submit(rid, ids, TENANT_AGGR_NEW, tenant="aggr")
+        for rid, ids in victims:
+            srv.submit(rid, ids, PREFIX_NEW_TOKENS, tenant="victim")
+        out = srv.run(lookahead=8)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        eng.sync_stats()
+        after = eng.stats.snapshot()
+        st = srv.stats()
+        ttft = [srv.request_metrics[rid]["ttft_ms"] for rid, _ in victims]
+        attft = [srv.request_metrics[rid]["ttft_ms"] for rid, _ in aggrs
+                 if with_aggr]
+        per = after.get("tenant_stats", {})
+        per0 = before.get("tenant_stats", {})
+        r = {"seconds": secs,
+             "victim_ttft_p50_ms": _pct(ttft, 0.5),
+             "victim_ttft_p99_ms": _pct(ttft, 0.99),
+             "aggr_ttft_p50_ms": _pct(attft, 0.5),
+             "tenant_sheds": st.get("tenant_sheds", {}),
+             "admissions_shed": st["admissions_shed"],
+             "victim_share_boost": reg.get("victim").share_boost,
+             "stats": {k: after[k] - before[k] for k in TENANT_COUNTERS},
+             "quota_evictions": {
+                 t: v.get("quota_evictions", 0)
+                 - per0.get(t, {}).get("quota_evictions", 0)
+                 for t, v in per.items()},
+             "h2d_launches": h2d_copy.launches - h0,
+             "store_copies": store.copies - c0}
+        vt = {rid: out[rid] for rid, _ in victims}
+        if vt != hit:
+            diff = [rid for rid in hit if vt.get(rid) != hit[rid]]
+            raise AssertionError(f"tenants {label}: victim tokens differ "
+                                 f"from the prefix store's hit for {diff}")
+        if with_aggr and (set(out) != set(vt) | {rid for rid, _ in aggrs}
+                          or any(len(out[rid]) != TENANT_AGGR_NEW
+                                 for rid, _ in aggrs)):
+            raise AssertionError(f"tenants {label}: an aggressor request "
+                                 "did not complete")
+        if set(r["tenant_sheds"]) - {"aggr"}:
+            raise AssertionError(f"tenants {label}: a shed fell on the "
+                                 f"victim: {r['tenant_sheds']}")
+        if with_aggr and not r["tenant_sheds"].get("aggr"):
+            raise AssertionError(f"tenants {label}: nothing was shed")
+        if r["stats"]["bytes_fallback"] == 0 and r["stats"]["bounce_bytes"]:
+            raise AssertionError(f"tenants {label}: bounce_bytes "
+                                 f"{r['stats']['bounce_bytes']}")
+        if r["stats"]["kv_restore_failures"] or \
+                not r["h2d_launches"] >= r["store_copies"] > 0:
+            raise AssertionError(f"tenants {label}: restores {r}")
+        report["runs"][label] = r
+        log(f"tenants {label} ({card}): {secs:.3f} s; victim TTFT ms p50 "
+            f"{r['victim_ttft_p50_ms']:.2f} p99 {r['victim_ttft_p99_ms']:.2f}"
+            f"; aggressor TTFT p50 {r['aggr_ttft_p50_ms']:.2f} ms; "
+            f"tenant_sheds {r['tenant_sheds']}, admissions_shed "
+            f"{r['admissions_shed']}; victim share_boost "
+            f"{r['victim_share_boost']}; h2d_copy {r['h2d_launches']} "
+            f"(store copies {r['store_copies']}); quota evictions "
+            f"{r['quota_evictions']}; counters {r['stats']}")
+        return srv
+
+    def dense(st):
+        return DecodeServer(params, cfg, PREFIX_REQUESTS, 2048, device=dev,
+                            kv_store=st)
+
+    def paged(st):
+        return PagedDecodeServer(params, cfg, PREFIX_REQUESTS, 2048,
+                                 total_blocks=128, block_len=P, device=dev,
+                                 kv_store=st)
+
+    try:
+        with StromEngine() as eng:
+            eng.cuda_mapping(dev.index)
+            for name, make in (("dense", dense), ("paged", paged)):
+                path = os.path.join(tdir, f"{name}.kvstore")
+                _copy_store(pre["store"], path, 1 << 20)
+                st = PrefixStore(cfg, eng, path, P, PREFIX_STORE_BYTES)
+                run(f"{name} victim alone, warm-up", make, eng, st, False)
+                run(f"{name} victim alone", make, eng, st, False)
+                run(f"{name} victim + aggressor", make, eng, st, True)
+                run(f"{name} victim + aggressor, bucket 2/s", make, eng, st,
+                    True, spec=TENANT_SPEC + ",rate=2,burst=2")
+                st.close()
+                # the cut store
+                path = os.path.join(tdir, f"{name}_cut.kvstore")
+                _copy_store(pre["store"], path, 1 << 20)
+                st = PrefixStore(cfg, eng, path, P,
+                                 TENANT_CUT_PAGES * st.page_bytes)
+                label = f"{name} victim + aggressor, {TENANT_CUT_PAGES}-page" \
+                        " store"
+                run(label, make, eng, st, True)
+                q = report["runs"][label]
+                if not q["quota_evictions"].get("aggr") or any(
+                        v for t, v in q["quota_evictions"].items()
+                        if t != "aggr"):
+                    raise AssertionError(f"tenants {label}: quota evictions "
+                                         f"{q['quota_evictions']}")
+                srv = run(f"{name} victim after the cut store", make, eng, st,
+                          False)
+                again = report["runs"][f"{name} victim after the cut store"]
+                if again["stats"]["kv_prefix_misses"] or again["stats"][
+                        "kv_pages_restored"] < len(pre["pages"]):
+                    raise AssertionError(f"tenants {name}: the victim's pages "
+                                         f"did not all survive: {again}")
+                for slot, (_, ids) in enumerate(victims):
+                    for j, kx in enumerate(st.chain_keys(ids)):
+                        k, v = pre["pages"][kx]
+                        if name == "dense":
+                            cols = slice(j * P, (j + 1) * P)
+                            gk = srv.k_cache[:, slot, :, cols]
+                            gv = srv.v_cache[:, slot, :, cols]
+                        else:   # the block the HBM cache holds the page in
+                            blk = srv._pc[srv._chain_keys(ids)[j]]["blk"]
+                            gk, gv = srv.k_pool[:, blk], srv.v_pool[:, blk]
+                        if not (torch.equal(gk, k) and torch.equal(gv, v)):
+                            raise AssertionError(
+                                f"tenants {name}: page {j} of victim {slot} "
+                                "differs after the cut store")
+                del srv
+                st.close()
+                torch.cuda.empty_cache()
+    finally:
+        tenants.reset()
+    runs = report["runs"]
+    report["victim_ttft_p99_ms"] = {
+        k: (runs[f"{k} victim alone"]["victim_ttft_p99_ms"],
+            runs[f"{k} victim + aggressor"]["victim_ttft_p99_ms"])
+        for k in ("dense", "paged")}
+    report["seconds"] = time.monotonic() - t_phase
+    log(f"tenants ({card}): victim TTFT p99 ms (alone, with the aggressor) "
+        f"{report['victim_ttft_p99_ms']}; victim tokens equal the prefix "
+        f"store's hit on every run; phase {report['seconds']:.1f} s")
     return report
 
 
@@ -3088,6 +3395,209 @@ def train_phase(dev, ckdir, cfg):
         eng.sync_stats()
         report["stats"] = eng.stats.snapshot()
     log(f"train: engine stats {report['stats']}")
+    return report
+
+
+# -- STROM_VERIFY on the weights load and the loader --------------------------
+
+def _load_timed(eng, path, dev):
+    """LazyCheckpoint(path).load onto ``dev``: (params, seconds, counter
+    deltas of the load)."""
+    import torch
+    from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
+    eng.sync_stats()
+    before = eng.stats.snapshot()
+    t0 = time.monotonic()
+    params = LazyCheckpoint(path).load(eng, device=dev)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    eng.sync_stats()
+    after = eng.stats.snapshot()
+    return params, secs, {k: after[k] - before[k] for k in (
+        "bytes_direct", "bytes_fallback", "bounce_bytes", "bytes_verified",
+        "checksum_failures")}
+
+
+def _loader_epoch(shards, eng, dev, vocab):
+    """One epoch of the training phase's batches on the card (its
+    decode), copied out: [batch tensors], h2d_copy launches."""
+    import numpy as np
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+
+    def decode(parts):
+        (payload,) = parts.values()
+        return np.frombuffer(payload, dtype=np.int32) % vocab
+    h0 = h2d_copy.launches
+    with ShardedLoader(shards, TRAIN_BATCH, decode=decode, engine=eng,
+                       device=dev) as loader:
+        out = [b.clone() for b in loader]
+    return out, h2d_copy.launches - h0
+
+
+def verify_phase(dev, ckdir, cfg):
+    """STROM_VERIFY on the two reads every user path starts with.
+    Weights: the serving checkpoint (its CRC32C stamps written by
+    ``save_checkpoint``) loaded onto the card unverified and under
+    STROM_VERIFY=full, alternately twice each, the verified load
+    checking its whole payload and bitwise the unverified one; then one
+    payload byte flipped in a copy of the file: the load must raise
+    ChecksumError with one failure counted.  Both servers then serve 4
+    requests on the verified weights (tokens equal).  Loader: the
+    training phase's 4 shards stamped with ``stamp_wds``, one epoch
+    unverified and one under STROM_VERIFY=full, batches equal and
+    copied by h2d_copy; a flipped sample byte in a copy of a shard must
+    raise ChecksumError naming it."""
+    import glob
+    import shutil
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.utils.checksum import ChecksumError, stamp_wds
+    report = {}
+    vdir = os.path.join(DATA_DIR, "verify")
+    shutil.rmtree(vdir, ignore_errors=True)
+    os.makedirs(vdir)
+    wpath = os.path.join(ckdir, "model.safetensors")
+    with StromEngine() as eng:
+        eng.cuda_mapping(dev.index)          # page-lock staging first
+        loads = {"unverified": [], "verified": []}
+        for _ in range(2):
+            for mode in ("unverified", "verified"):
+                if mode == "verified":
+                    os.environ["STROM_VERIFY"] = "full"
+                try:
+                    params, secs, st = _load_timed(eng, wpath, dev)
+                finally:
+                    os.environ.pop("STROM_VERIFY", None)
+                loads[mode].append((secs, st))
+                if mode == "unverified":
+                    plain = params
+                else:
+                    verified = params
+                del params
+        payload = sum(t.numel() * t.element_size() for t in plain.values())
+        for name, t in plain.items():
+            if not torch.equal(verified[name], t):
+                raise AssertionError(f"verified load: {name} differs")
+        for secs, st in loads["verified"]:
+            if st["bytes_verified"] < payload or st["checksum_failures"]:
+                raise AssertionError(f"verified load: {st} of {payload} B")
+        for secs, st in loads["unverified"]:
+            if st["bytes_verified"] or st["checksum_failures"]:
+                raise AssertionError(f"unverified load checked: {st}")
+        del plain
+        report["weights"] = {
+            "payload_bytes": payload,
+            "unverified_s": [s for s, _ in loads["unverified"]],
+            "verified_s": [s for s, _ in loads["verified"]],
+            "verified_stats": loads["verified"][-1][1]}
+        log(f"verify: weights load of {payload} B, unverified "
+            f"{[round(s, 4) for s in report['weights']['unverified_s']]} s, "
+            f"STROM_VERIFY=full "
+            f"{[round(s, 4) for s in report['weights']['verified_s']]} s "
+            f"(alternating); verified {loads['verified'][-1][1]}; tensors "
+            "bitwise equal")
+        # one flipped payload byte in a copy
+        bad = os.path.join(vdir, "flipped.safetensors")
+        shutil.copyfile(wpath, bad)
+        at = os.path.getsize(bad) - payload // 3
+        _flip_byte(bad, at)
+        os.environ["STROM_VERIFY"] = "full"
+        try:
+            eng.sync_stats()
+            f0 = eng.stats.snapshot()["checksum_failures"]
+            try:
+                _load_timed(eng, bad, dev)
+            except ChecksumError as e:
+                caught = str(e)
+            else:
+                raise AssertionError("a flipped weights byte loaded")
+            eng.sync_stats()
+            fails = eng.stats.snapshot()["checksum_failures"] - f0
+        finally:
+            os.environ.pop("STROM_VERIFY", None)
+        if fails != 1 or "corrupt weights" not in caught:
+            raise AssertionError(f"flipped weights: {fails} failures, "
+                                 f"{caught!r}")
+        report["weights"]["flip"] = {"at": at, "failures": fails}
+        log(f"verify: a byte flipped at {at} of a copy: {caught}")
+        # the verified weights serve
+        rng = np.random.default_rng(SEED)
+        reqs = [(f"v{i}", rng.integers(0, cfg.vocab, n).tolist())
+                for i, n in enumerate((16, 300, 700, 1500))]
+        outs = []
+        for srv in (DecodeServer(verified, cfg, 4, 2048, device=dev),
+                    PagedDecodeServer(verified, cfg, 4, 2048,
+                                      total_blocks=64, block_len=128,
+                                      device=dev)):
+            for rid, ids in reqs:
+                srv.submit(rid, ids, 8)
+            outs.append(srv.run(lookahead=8))
+            del srv
+        if outs[0] != outs[1]:
+            raise AssertionError("verified weights: dense and paged "
+                                 "tokens differ")
+        del verified
+        torch.cuda.empty_cache()
+        # the loader
+        shards = sorted(glob.glob(os.path.join(DATA_DIR, "train_shards",
+                                               "*.tar")))
+        if len(shards) != 4:
+            raise AssertionError(f"training shards: {shards}")
+        for p in shards:
+            stamp_wds(p)
+        t0 = time.monotonic()
+        plain_b, h_plain = _loader_epoch(shards, eng, dev, cfg.vocab)
+        plain_s = time.monotonic() - t0
+        os.environ["STROM_VERIFY"] = "full"
+        try:
+            eng.sync_stats()
+            before = eng.stats.snapshot()
+            t0 = time.monotonic()
+            ver_b, h_ver = _loader_epoch(shards, eng, dev, cfg.vocab)
+            ver_s = time.monotonic() - t0
+            eng.sync_stats()
+            after = eng.stats.snapshot()
+            st = {k: after[k] - before[k] for k in ("bytes_verified",
+                                                   "checksum_failures")}
+            samples = sum(b.shape[0] for b in ver_b)
+            if len(ver_b) != len(plain_b) or not ver_b or any(
+                    not torch.equal(a, b) for a, b in zip(ver_b, plain_b)):
+                raise AssertionError("verified epoch differs")
+            if st["bytes_verified"] != samples * TRAIN_SEQ * 4 or \
+                    st["checksum_failures"] or not (h_ver and h_plain):
+                raise AssertionError(f"verified epoch: {st}, h2d_copy "
+                                     f"{h_ver}")
+            # one flipped byte of a sample in a copy of shard 2
+            bad_dir = os.path.join(vdir, "shards")
+            os.makedirs(bad_dir)
+            bad_shards = []
+            for p in shards:
+                q = os.path.join(bad_dir, os.path.basename(p))
+                shutil.copyfile(p, q)
+                shutil.copyfile(p + ".crc.json", q + ".crc.json")
+                bad_shards.append(q)
+            _flip_byte(bad_shards[2], 512 + 100)
+            try:
+                _loader_epoch(bad_shards, eng, dev, cfg.vocab)
+            except ChecksumError as e:
+                caught = str(e)
+            else:
+                raise AssertionError("a flipped sample byte loaded")
+            if os.path.basename(bad_shards[2]) not in caught:
+                raise AssertionError(f"the error names no shard: {caught}")
+        finally:
+            os.environ.pop("STROM_VERIFY", None)
+        report["loader"] = {"batches": len(ver_b), "unverified_s": plain_s,
+                            "verified_s": ver_s, "stats": st,
+                            "h2d_launches": h_ver}
+        log(f"verify: loader epoch of {len(ver_b)} batches, unverified "
+            f"{plain_s:.4f} s, STROM_VERIFY=full {ver_s:.4f} s, {st}, "
+            f"batches equal, {h_ver} h2d_copy launches; a flipped sample "
+            f"byte: {caught}")
     return report
 
 
@@ -3560,6 +4070,14 @@ def main() -> int:
         lambda: qos_phase(dev, cfg, params, shared, stream_path))
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches_qos"] = counts[n]
+    torch.cuda.empty_cache()
+    # main path 1e: a bronze aggressor beside a gold victim, both servers
+    # over the prefix store, STROM_TENANTS on
+    tenant, counts = drive(
+        "tenants", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: tenant_phase(dev, cfg, params, shared))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_tenant"] = counts[n]
     del shared
     os.remove(stream_path)
     del params
@@ -3576,6 +4094,13 @@ def main() -> int:
     for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         results[n]["launches"] = counts[n]
     results["h2d_copy"]["launches_train"] = counts["h2d_copy"]
+    # main path 2b: STROM_VERIFY on the weights load (then both servers
+    # on the verified weights) and on the training loader
+    verify, counts = drive(
+        "verify", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: verify_phase(dev, ckdir, cfg))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_verify"] = counts[n]
     f32_train = f32_train_phase(dev, cfg)
 
     # kernel 7 at the width of the restore below
@@ -3605,6 +4130,7 @@ def main() -> int:
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
                                   "offload": offload, "qos": qos,
+                                  "tenants": tenant, "verify": verify,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
                                   "flash_split": flash_split,

@@ -11,9 +11,18 @@ and in the consumer, each batch leaf goes to the device through the
 bridge's ``host_to_device`` (on a CUDA device the ``h2d_copy`` kernel).
 The sample order is the JAX loader's: shards sorted, then, with
 ``LoaderConfig.shuffle_buffer``, shard order and each shard's sample
-order permuted per epoch from the seed (data/sharding.py).  Mixtures,
-the tfrecord / fixedrec / raw formats, sequence sharding and shard
-quarantine are not part of this port yet.
+order permuted per epoch from the seed (data/sharding.py).
+
+Under ``STROM_VERIFY`` (utils/checksum.py) each sample part is checked
+against its shard's ``.crc.json`` sidecar when the shard has one
+(``stamp_wds`` writes it): a mismatch is read once more, past the host
+tier, and a part that still fails raises :class:`ChecksumError` naming
+the shard.  The JAX loader's shard quarantine under
+``shard_error_budget`` comes with resilience (ROADMAP item 7a); until
+then a lasting mismatch ends the epoch with that error.  With
+``STROM_VERIFY`` off the loader does no CRC work.  Mixtures, the
+tfrecord / fixedrec / raw formats and sequence sharding are not part of
+this port yet.
 """
 
 from __future__ import annotations
@@ -31,8 +40,10 @@ from nvme_strom_tpu_torch.data.sharding import (assign_shards,
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.formats.wds import WdsShardIndex
 from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
+from nvme_strom_tpu_torch.io.hostcache import spoil_span
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import to_device
+from nvme_strom_tpu_torch.utils.checksum import VerifyPolicy, load_sidecar
 from nvme_strom_tpu_torch.utils.config import LoaderConfig
 
 _SENTINEL = object()
@@ -98,6 +109,9 @@ class ShardedLoader:
         self.epoch = 0
         self._shard_index: "OrderedDict[str, list]" = OrderedDict()
         self._shard_index_total = 0
+        self._verify = VerifyPolicy()
+        #: shard path → its Sidecar, or None when it has none
+        self._sidecars: dict = {}
 
     # -- samples (host side) -------------------------------------------------
 
@@ -121,6 +135,12 @@ class ShardedLoader:
                 self._shard_index_total -= len(old)
         return out
 
+    def _sidecar(self, path):
+        key = str(path)
+        if key not in self._sidecars:
+            self._sidecars[key] = load_sidecar(key)
+        return self._sidecars[key]
+
     def _iter_local_samples(self) -> Iterator:
         order = list(self.local_shards)
         if self.config.shuffle_buffer:
@@ -141,18 +161,46 @@ class ShardedLoader:
         depth = max(2, eng.config.queue_depth // 2)
         fh = eng.open(path)
         pend: list = []
+        policy = self._verify
+        sidecar = self._sidecar(path) if policy.enabled else None
 
-        def finish(reads):
-            parts = {}
+        def read_part(pieces) -> bytes:
+            # a short read is a truncated shard: loud
+            return b"".join(wait_exact(p).tobytes() for p in pieces)
+
+        def reread(off, ln) -> bytes:
+            (pieces,) = plan_and_submit(eng, [(fh, off, ln)])
             try:
-                for ext, pieces in reads.items():
-                    # a short read is a truncated shard: loud
-                    parts[ext] = b"".join(wait_exact(p).tobytes()
-                                          for p in pieces)
+                return read_part(pieces)
             finally:
+                for p in pieces:
+                    p.release()
+
+        def verify_part(ext, off, ln, payload: bytes) -> bytes:
+            """Check one part against the sidecar when it is stamped and
+            the policy samples it; one re-read heals a transient
+            mismatch, a second raises ChecksumError."""
+            expected = sidecar.lookup(off, ln)
+            if expected is None or not policy.want():
+                return payload
+            return policy.check_with_reread(
+                payload, expected, lambda: reread(off, ln), eng.stats,
+                where=f"sample part {ext!r} at [{off}:+{ln}] of {path}",
+                spoil=lambda: spoil_span(eng, fh, off, ln, eng.stats))
+
+        def finish(entry):
+            spans, reads = entry
+            try:
+                parts = {ext: read_part(pieces)
+                         for ext, pieces in reads.items()}
+            finally:
+                # every buffer back before a re-read takes one
                 for pieces in reads.values():
                     for p in pieces:
                         p.release()
+            if sidecar is not None:
+                parts = {ext: verify_part(ext, *spans[ext], payload)
+                         for ext, payload in parts.items()}
             eng.stats.add(bounce_bytes=sum(len(v) for v in parts.values()))
             return self.decode(parts)
 
@@ -161,14 +209,14 @@ class ShardedLoader:
                 items = list(samples[si].items())
                 planned = plan_and_submit(
                     eng, [(fh, off, ln) for _, (off, ln) in items])
-                pend.append({ext: pieces for (ext, _), pieces
-                             in zip(items, planned)})
+                pend.append((samples[si], {ext: pieces for (ext, _), pieces
+                                           in zip(items, planned)}))
                 if len(pend) >= depth:
                     yield finish(pend.pop(0))
             while pend:
                 yield finish(pend.pop(0))
         finally:
-            for reads in pend:        # in-flight reads hold pool buffers
+            for _spans, reads in pend:   # in-flight reads hold buffers
                 for pieces in reads.values():
                     for p in pieces:
                         p.release()

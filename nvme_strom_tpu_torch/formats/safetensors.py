@@ -5,10 +5,11 @@ Format: ``u64le header_len | header_json | tensor data``; the JSON maps
 tensor name → {"dtype", "shape", "data_offsets": [begin, end)} relative
 to the end of the header.  Only the header is parsed; payload bytes are
 planned as engine reads.  The writers take torch tensors (bfloat16
-included) or numpy arrays.  ``write_safetensors_engine`` writes through
-the engine's O_DIRECT path and stamps every tensor's CRC32C in
-``__metadata__`` as the JAX writer does (``tensor_checksums`` reads the
-stamps back); ``write_safetensors`` is the plain buffered writer.
+included) or numpy arrays.  Both writers stamp every tensor's CRC32C in
+``__metadata__`` as the JAX writers do (``tensor_checksums`` reads the
+stamps back, and ``STROM_VERIFY`` loads check them):
+``write_safetensors_engine`` writes through the engine's O_DIRECT path,
+``write_safetensors`` is the plain buffered writer.
 """
 
 from __future__ import annotations
@@ -182,11 +183,12 @@ def build_header(tensors: Dict[str, torch.Tensor],
 
 
 def write_safetensors(path, tensors: Dict[str, object]) -> None:
-    """Write ``tensors`` (torch or numpy) as one safetensors file.  The
-    bytes are on disk when this returns (fdatasync) and dropped from the
-    page cache, so a following engine read takes the O_DIRECT path."""
+    """Write ``tensors`` (torch or numpy) as one safetensors file, each
+    tensor's CRC32C stamped.  The bytes are on disk when this returns
+    (fdatasync) and dropped from the page cache, so a following engine
+    read takes the O_DIRECT path."""
     cpu = {n: _as_cpu_tensor(a) for n, a in tensors.items()}
-    head = build_header(cpu)
+    head = build_header(cpu, _checksum_metadata(cpu))
     with open(path, "wb") as f:
         f.write(head)
         for t in cpu.values():

@@ -84,7 +84,14 @@ class WdsShardIndex:
 def write_wds_shard(path, samples: List[Dict[str, bytes]],
                     keys: Optional[List[str]] = None) -> None:
     """Write samples (each a {ext: payload} dict) as an uncompressed tar
-    (keys default to the sample's index, 8 digits)."""
+    (keys default to the sample's index, 8 digits).  A checksum sidecar
+    of an earlier file at ``path`` is removed first: its stamps are not
+    the new bytes'."""
+    from nvme_strom_tpu_torch.utils.checksum import sidecar_path
+    try:
+        os.unlink(sidecar_path(path))
+    except OSError:
+        pass
     with tarfile.open(path, "w", format=tarfile.USTAR_FORMAT) as tf:
         for i, sample in enumerate(samples):
             key = keys[i] if keys else f"{i:08d}"

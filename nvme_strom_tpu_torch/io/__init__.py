@@ -31,6 +31,14 @@ from nvme_strom_tpu_torch.io.sched import (
     QoSScheduler,
     default_policies,
 )
+from nvme_strom_tpu_torch.io.tenants import (
+    Tenant,
+    TenantRegistry,
+    TokenBucket,
+    current_tenant,
+    tenant_context,
+    tenants_enabled,
+)
 
 __all__ = ["PinnedArena", "Slab", "get_arena",
            "StromEngine", "PendingRead", "PendingWrite", "check_file",
@@ -39,4 +47,6 @@ __all__ = ["PinnedArena", "Slab", "get_arena",
            "ExtentPlan", "SpanView", "plan_and_submit", "plan_extents",
            "split_spans", "submit_spans", "submit_spans_tiered",
            "CLASS_ORDER", "DEFAULT_CLASS", "ClassPolicy", "QoSScheduler",
-           "default_policies"]
+           "default_policies",
+           "Tenant", "TenantRegistry", "TokenBucket", "current_tenant",
+           "tenant_context", "tenants_enabled"]

@@ -44,9 +44,17 @@ registration that fails raises.  The line arena is unregistered only
 after the device has finished every copy out of it, and not while a hit
 view still pins a line (``close`` raises).
 
-The per-tenant residency quotas and the tenant eviction pre-pass of the
-reference come with tenants; its tracer spans and waste ledger with
-observability.
+  tenants    each line is stamped at fill with the tenant of the filling
+             scope (io/tenants.py) and counts against that tenant's
+             quota (``Tenant.quota_frac`` of the lines, 0 = 1/N of the
+             tenants resident); a fill past the quota while space is
+             free is a borrow (``tenant_borrows``).  Under pressure the
+             most over-quota tenant pays first (``tenant_quota_evictions``)
+             before any class does, and a ``hot`` line of an over-quota
+             tenant is not sticky.  Outside any tenant scope none of
+             this runs.
+
+The reference's tracer spans and waste ledger come with observability.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from nvme_strom_tpu_torch.io import arena as _arena
 from nvme_strom_tpu_torch.io.arena import CudaRegistration
 from nvme_strom_tpu_torch.io.sched import (CLASS_ORDER, DEFAULT_CLASS,
                                            default_policies)
+from nvme_strom_tpu_torch.io.tenants import current_tenant
 from nvme_strom_tpu_torch.utils.config import HostCacheConfig
 
 #: line key: ((dev, ino, mtime_ns, size), line_offset)
@@ -159,13 +168,17 @@ class _Line:
     """One resident line (a valid prefix of ``line_bytes``)."""
 
     __slots__ = ("key", "slot", "valid", "klass", "crc", "pins", "ref",
-                 "dead", "sticky", "hits")
+                 "dead", "sticky", "hits", "tenant")
 
     def __init__(self, key: LineKey, slot: int, klass: str):
         self.key = key
         self.slot = slot
         self.valid = 0        # valid bytes from the line's start
         self.klass = klass
+        t = current_tenant()
+        #: the filling scope's tenant id, charged for the line while it
+        #: is in the map (None outside any tenant scope)
+        self.tenant = t.id if t is not None else None
         self.crc: Optional[int] = None
         self.pins = 0         # outstanding hit views (and a fill's copy)
         self.ref = False      # the second-chance bit
@@ -305,6 +318,10 @@ class HostCache:
         self._ghost_cap = max(self.capacity * ghost_factor, 16)
         self._clock: Dict[str, deque] = {k: deque() for k in quotas}
         self._class_slots: Dict[str, int] = {k: 0 for k in quotas}
+        # resident lines per tenant id, and each tenant's declared quota
+        # fraction; both stay empty until a fill runs in a tenant scope
+        self._tenant_slots: Dict[str, int] = {}
+        self._tenant_quota_frac: Dict[str, float] = {}
         # per-line invalidation epoch: a fill whose admission predates a
         # write over its line is refused.  Bounded with a floor: a key
         # dropped from the map reads the largest epoch ever dropped, so
@@ -329,7 +346,8 @@ class HostCache:
                     "capacity_lines": self.capacity,
                     "line_bytes": self.line_bytes,
                     "arena_locked": self.arena.locked,
-                    "class_slots": dict(self._class_slots)}
+                    "class_slots": dict(self._class_slots),
+                    "tenant_slots": dict(self._tenant_slots)}
 
     def _klass(self, klass: Optional[str]) -> str:
         return klass if klass in self.quota_slots else DEFAULT_CLASS
@@ -541,6 +559,8 @@ class HostCache:
                 self._ghost.pop(key, None)
                 self._class_slots[kl] = self._class_slots.get(kl, 0) + 1
                 self._clock.setdefault(kl, deque()).append(key)
+                if line.tenant is not None:
+                    self._note_tenant_fill_locked(line, stats)
             if sticky:
                 line.sticky = True
             self._pin_locked(line)      # the copy: unevictable
@@ -572,10 +592,92 @@ class HostCache:
         return self._class_slots.get(klass, 0) > \
             self.quota_slots.get(klass, 0.0)
 
+    # -- per-tenant residency quotas ---------------------------------------
+
+    def _note_tenant_fill_locked(self, line: _Line, stats) -> None:
+        """Charge a new line to its tenant; landing past the quota while
+        a slot was free is a borrow."""
+        tid = line.tenant
+        t = current_tenant()
+        if t is not None and t.id == tid:
+            self._tenant_quota_frac[tid] = t.quota_frac
+        else:
+            self._tenant_quota_frac.setdefault(tid, 0.0)
+        self._tenant_slots[tid] = self._tenant_slots.get(tid, 0) + 1
+        if self._tenant_over(tid) and stats is not None:
+            stats.add(tenant_borrows=1)
+            stats.add_tenant_stat(tid, borrows=1)
+
+    def _tenant_quota_slots(self, tid: str) -> float:
+        """A tenant's quota in lines: its declared fraction of the tier,
+        or with fraction 0 a fair share of the tenants resident."""
+        frac = self._tenant_quota_frac.get(tid, 0.0)
+        if frac <= 0.0:
+            frac = 1.0 / max(1, len(self._tenant_slots))
+        return frac * self.capacity
+
+    def _tenant_over(self, tid: Optional[str]) -> bool:
+        if tid is None or not self._tenant_slots:
+            return False
+        return self._tenant_slots.get(tid, 0) > \
+            self._tenant_quota_slots(tid)
+
+    def _tenant_drop_locked(self, line: _Line) -> None:
+        """Refund a departing line's charge; a tenant whose last line
+        left is forgotten, so fair shares count resident tenants."""
+        tid = line.tenant
+        if tid is None:
+            return
+        n = self._tenant_slots.get(tid, 0) - 1
+        if n > 0:
+            self._tenant_slots[tid] = n
+        else:
+            self._tenant_slots.pop(tid, None)
+            self._tenant_quota_frac.pop(tid, None)
+
+    def _tenant_evict_locked(self, stats) -> Optional[int]:
+        """The quota pre-pass: reclaim a line of the most over-quota
+        tenant (largest excess), preferring one whose second-chance bit
+        is clear; sticky does not protect it.  None when no tenant is
+        over its quota or all its lines are pinned."""
+        over = [tid for tid in self._tenant_slots if self._tenant_over(tid)]
+        if not over:
+            return None
+        over.sort(key=lambda tid: (self._tenant_slots.get(tid, 0)
+                                   - self._tenant_quota_slots(tid)),
+                  reverse=True)
+        for tid in over:
+            best = None
+            for line in self._lines.values():
+                if line.tenant != tid or line.pins > 0:
+                    continue
+                if not line.ref:
+                    best = line
+                    break
+                if best is None:
+                    best = line
+            if best is None:
+                continue
+            del self._lines[best.key]
+            self._class_slots[best.klass] -= 1
+            self.bytes_resident -= best.valid
+            self._tenant_drop_locked(best)
+            if stats is not None:
+                stats.add(cache_evictions=1, tenant_quota_evictions=1)
+                stats.add_tenant_stat(tid, quota_evictions=1)
+                stats.set_gauges(cache_bytes_resident=self.bytes_resident,
+                                 cache_lines_resident=len(self._lines))
+            return best.slot
+        return None
+
     def _evict_one(self, incoming: str, stats) -> Optional[int]:
-        """Reclaim one slot (lock held): over-quota classes first, then
-        every class with lines; among them the eviction credits pick the
-        payer, and its clock the line."""
+        """Reclaim one slot (lock held): the tenant-quota pre-pass, then
+        over-quota classes, then every class with lines; among them the
+        eviction credits pick the payer, and its clock the line."""
+        if self._tenant_slots:
+            slot = self._tenant_evict_locked(stats)
+            if slot is not None:
+                return slot
         over = [k for k in self._rev_order
                 if self._over_quota(k) and self._clock.get(k)]
         every = [k for k in self._rev_order if self._clock.get(k)]
@@ -611,7 +713,8 @@ class HostCache:
                     return None
                 continue
             if line.pins > 0 or (line.sticky
-                                 and not self._over_quota(klass)):
+                                 and not self._over_quota(klass)
+                                 and not self._tenant_over(line.tenant)):
                 q.rotate(-1)
                 continue
             if line.ref:
@@ -622,6 +725,7 @@ class HostCache:
             del self._lines[key]
             self._class_slots[klass] -= 1
             self.bytes_resident -= line.valid
+            self._tenant_drop_locked(line)
             if stats is not None:
                 stats.add(cache_evictions=1)
                 stats.set_gauges(cache_bytes_resident=self.bytes_resident,
@@ -639,6 +743,7 @@ class HostCache:
         del self._lines[line.key]
         self._class_slots[line.klass] -= 1
         self.bytes_resident -= line.valid
+        self._tenant_drop_locked(line)
         if line.pins > 0:
             line.dead = True
         else:
@@ -688,6 +793,8 @@ class HostCache:
                     "still out; release them before closing the tier")
             self._lines.clear()
             self._ghost.clear()
+            self._tenant_slots.clear()
+            self._tenant_quota_frac.clear()
             self.bytes_resident = 0
         self.arena.close()
 

@@ -27,9 +27,15 @@ until its batch is granted, and the blocked thread runs grant rounds
 itself, so another thread's higher-class batch is granted first.
 ``close()`` wakes every blocked submitter with ECANCELED.
 
-The tenant level of the reference's hierarchical fair-share (its
-``_charge_tenant_locked`` and ``_Batch.tenant``) comes with tenants,
-and the tracer's queue spans with the tracer; the breaker mask of the
+Inside one class the fair share is hierarchical: each batch carries the
+tenant of the scope that queued it (io/tenants.py, taken at enqueue),
+and among one class's queued batches the tenant with the least service
+banked (a grant costs 1/effective weight) goes next, so tenants split a
+class's grants by weight ratio.  The aging pass runs before that pick,
+so the starvation bound does not depend on weights; until a batch with
+a tenant is queued the pick is the queue's head, exact FIFO.
+
+The tracer's queue spans come with the tracer; the breaker mask of the
 engine's ``ring_free`` callback comes with resilience.
 """
 
@@ -41,6 +47,8 @@ import time
 from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Sequence
+
+from nvme_strom_tpu_torch.io.tenants import current_tenant
 
 #: priority order, highest first
 CLASS_ORDER = ("decode", "restore", "prefetch", "scan", "scrub")
@@ -94,7 +102,7 @@ class _Batch:
     """One planned batch queued for a grant."""
 
     __slots__ = ("spans", "klass", "rounds", "granted", "ring",
-                 "promoted", "t_enq")
+                 "promoted", "t_enq", "tenant")
 
     def __init__(self, spans, klass: str):
         self.spans = spans
@@ -104,6 +112,8 @@ class _Batch:
         self.ring: Optional[int] = None
         self.promoted = False    # granted by the aging bound
         self.t_enq = time.monotonic()
+        #: the queuing scope's Tenant (None outside any tenant scope)
+        self.tenant = current_tenant()
 
 
 class QoSScheduler:
@@ -136,6 +146,11 @@ class QoSScheduler:
                              key=lambda k: self.policies[k].priority)
         self._queues: Dict[str, deque] = {k: deque() for k in self._order}
         self._deficit: Dict[str, float] = {k: 0.0 for k in self._order}
+        # the tenant level: per class, each tenant's banked grant cost;
+        # empty, and the pick the queue's head, until a batch with a
+        # tenant is queued
+        self._tenant_credit: Dict[str, Dict] = {}
+        self._tenant_seen = False
         #: ring → spans granted and not yet submitted to the engine
         self._granted_out: Dict[int, int] = {}
         self._closed = False
@@ -159,6 +174,8 @@ class QoSScheduler:
                 raise OSError(errno.ECANCELED,
                               "engine closing: scheduler shut down")
             self._queues[klass].append(b)
+            if b.tenant is not None:
+                self._tenant_seen = True
             self.enqueued += 1
             if self.stats is not None:
                 self.stats.add(sched_enqueued=1)
@@ -239,6 +256,42 @@ class QoSScheduler:
 
     # -- dispatch core -----------------------------------------------------
 
+    def _pick_index_locked(self, klass: str, q: deque) -> int:
+        """The tenant level: among one class's queued batches, the index
+        of the oldest batch of the tenant with the least banked cost
+        (ties go to the older batch; batches outside any tenant scope
+        share one pseudo-tenant of weight 1).  0 until a tenant is seen:
+        exact FIFO.  The aging pass never calls it."""
+        if not self._tenant_seen or len(q) <= 1:
+            return 0
+        credits = self._tenant_credit.setdefault(klass, {})
+        first: Dict = {}           # tenant id → its oldest batch's index
+        for i, b in enumerate(q):
+            tid = b.tenant.id if b.tenant is not None else None
+            if tid not in first:
+                first[tid] = i
+        for tid in list(credits):
+            if tid not in first:   # gone: a returning tenant starts even
+                del credits[tid]
+        pick = min(first,
+                   key=lambda tid: (credits.get(tid, 0.0), first[tid]))
+        return first[pick]
+
+    def _charge_tenant_locked(self, b: _Batch) -> None:
+        """Bank one grant's cost against the batch's tenant (every grant,
+        aged ones too), floored so the banks measure relative debt."""
+        if not self._tenant_seen:
+            return
+        credits = self._tenant_credit.setdefault(b.klass, {})
+        tid = b.tenant.id if b.tenant is not None else None
+        w = b.tenant.effective_weight if b.tenant is not None else 1.0
+        credits[tid] = credits.get(tid, 0.0) + 1.0 / max(w, 1e-9)
+        if len(credits) > 1:
+            base = min(credits.values())
+            if base > 0:
+                for t in credits:
+                    credits[t] -= base
+
     def _drain_locked(self) -> None:
         while any(self._queues.values()):
             if not self._dispatch_round_locked():
@@ -263,10 +316,12 @@ class QoSScheduler:
         #    while it has room, else the least-loaded ring
         top_q = self._queues[self._order[0]]
         while top_q:
-            b = top_q.popleft()
+            i = self._pick_index_locked(self._order[0], top_q)
+            b = top_q[i]
             r = 0 if slots[0] > 0 else max(range(len(slots)),
                                            key=lambda j: slots[j])
             slots[r] -= max(1, len(b.spans))
+            del top_q[i]
             self._dispatch_one(b, r)
             progress = True
         if not any(s > 0 for s in slots):
@@ -311,10 +366,13 @@ class QoSScheduler:
             q = self._queues[klass]
             reserve = 0 if klass == top else bulk_reserve
             while q and self._deficit[klass] >= 1.0:
-                r = pick_ring(len(q[0].spans), reserve)
+                i = self._pick_index_locked(klass, q)
+                b = q[i]
+                r = pick_ring(len(b.spans), reserve)
                 if r is None:
                     break
-                self._dispatch_one(q.popleft(), r)
+                del q[i]
+                self._dispatch_one(b, r)
                 self._deficit[klass] -= 1.0
                 progress = True
             if not q:
@@ -331,6 +389,7 @@ class QoSScheduler:
         b.ring = ring
         b.promoted = promoted
         b.granted = True
+        self._charge_tenant_locked(b)
         self._granted_out[ring] = (self._granted_out.get(ring, 0)
                                    + max(1, len(b.spans)))
         self.dispatches += 1
@@ -344,4 +403,7 @@ class QoSScheduler:
                                       spans=len(b.spans), **extra)
             self.stats.class_stat_gauges(
                 b.klass, queue_wait_s=time.monotonic() - b.t_enq)
+            if b.tenant is not None:
+                self.stats.add_tenant_stat(b.tenant.id, dispatches=1,
+                                           spans=len(b.spans), **extra)
         self._cv.notify_all()

@@ -57,11 +57,27 @@ restore is served from the tier's lines, copied by ``h2d_copy`` in
 place), ``warm_pages`` as ``klass="prefetch", hot=True``, and
 ``PagedKVCache``'s page stream as ``klass="decode"``.
 
+Tenants (io/tenants.py): a ``put`` charges each new page to the
+tenant of the calling scope (the entry's ``tenant``), and eviction
+first reclaims from a tenant holding more pages than its quota fraction
+of the store allows, so one tenant's prompts pay for their own
+borrowing; outside any tenant scope pages carry ``tenant: None`` and
+eviction is the benefit scan alone.  The page manifest carries no
+tenant, as the JAX store's does not.
+
+``SloGovernor`` (``STROM_KV_P99_MS``, ``KVServeConfig.p99_target_ms``)
+sees the restore-batch p99 after every restore batch and raises the
+decode class's scheduler weight one notch while it is past the target,
+and one notch back once it is under half; the servers feed its
+per-tenant lane with each tenant's TTFT p99.  Its hedge-budget lever
+and its gate on a sick device read ``engine.set_hedge_budget`` and
+``engine.supervisor``, which come with resilience (ROADMAP items 7a,
+7b); on this port's engine both are absent and stay inert, as on a JAX
+engine without them, and so are the flight-recorder dumps.
+
 Left for the later parts of the port, each named where it would act:
-the tenant charge and quota pre-pass of the eviction, the SLO governor
-(``STROM_KV_P99_MS``, refused by ``KVServeConfig``), the tracer's
-restore span, and the resilient write mirror of the eviction writes.
-Pages carry ``tenant: None``.
+the tracer's restore span and the resilient write mirror of the
+eviction writes.
 """
 
 from __future__ import annotations
@@ -81,6 +97,7 @@ import torch
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.io.engine import StromEngine, crc32c
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
+from nvme_strom_tpu_torch.io.tenants import SLO_MAX_BOOST, current_tenant
 from nvme_strom_tpu_torch.models.transformer import (
     TransformerConfig, embed, mlp, qkv_project, rms_norm, wmat)
 from nvme_strom_tpu_torch.ops.bridge import (DeviceStream, host_to_device,
@@ -793,6 +810,97 @@ def offloaded_prefill(params: Dict, tokens, cfg: TransformerConfig,
 # the serving prefix store: content-addressed cross-request KV pages on NVMe
 
 
+class SloGovernor:
+    """The restore p99 target turned into scheduling policy.
+
+    ``observe`` takes the store's restore-batch p99: past ``target_ms``
+    it raises ``klass``'s scheduler weight to (1 + boost) × its base
+    (``engine.scheduler.set_weight``), and under half the target it
+    lowers it a notch; boosts are at most SLO_MAX_BOOST and at most one
+    a ``_MIN_INTERVAL_S``.  ``observe_tenant`` does the same for one
+    tenant's TTFT p99 against its ``slo_p99_ms``, on that tenant's
+    ``share_boost`` only (never a device-wide lever).  With no target,
+    or an engine without the lever, it does nothing."""
+
+    _MAX_BOOST = SLO_MAX_BOOST
+    _MIN_INTERVAL_S = 0.5
+
+    def __init__(self, target_ms: float, klass: str = "decode"):
+        self.target_ms = float(target_ms)
+        self.klass = klass
+        self.boost = 0
+        self._base_budget: Optional[int] = None
+        self._base_weight: Optional[float] = None
+        self._last = 0.0
+        #: per-tenant rate-limit clocks (observe_tenant)
+        self._tenant_last: Dict[str, float] = {}
+
+    def observe(self, engine, p99_ms: Optional[float], stats=None) -> None:
+        """Feed one restore-p99 sample; applies or decays the boost."""
+        if self.target_ms <= 0 or not p99_ms:
+            return
+        now = time.monotonic()
+        if now - self._last < self._MIN_INTERVAL_S:
+            return
+        step = 0
+        if p99_ms > self.target_ms and self.boost < self._MAX_BOOST:
+            step = 1
+        elif p99_ms < 0.5 * self.target_ms and self.boost > 0:
+            step = -1
+        if step == 0:
+            return
+        sup = getattr(engine, "supervisor", None)
+        if step > 0 and sup is not None and sup.unhealthy():
+            # a p99 a sick device blew is not a scheduling problem
+            return
+        self._last = now
+        self.boost += step
+        set_budget = getattr(engine, "set_hedge_budget", None)
+        if set_budget is not None:
+            if self._base_budget is None:
+                self._base_budget = int(getattr(engine, "hedge_budgets",
+                                                {}).get(self.klass, 8))
+            set_budget(self.klass, self._base_budget * (2 ** self.boost))
+        sched = getattr(engine, "scheduler", None)
+        if sched is not None:
+            try:
+                if self._base_weight is None:
+                    self._base_weight = sched.policies[self.klass].weight
+                sched.set_weight(self.klass,
+                                 self._base_weight * (1 + self.boost))
+            except (KeyError, AttributeError):
+                pass
+        if step > 0 and stats is not None:
+            stats.add(kv_slo_boosts=1)
+
+    def observe_tenant(self, engine, tenant, p99_ms, stats=None) -> None:
+        """Feed one tenant's TTFT p99 against its own target: the same
+        bound, decay, rate limit and device gate as ``observe``, on the
+        tenant's ``share_boost``."""
+        if tenant is None or tenant.slo_p99_ms <= 0 or not p99_ms:
+            return
+        now = time.monotonic()
+        if now - self._tenant_last.get(tenant.id, 0.0) \
+                < self._MIN_INTERVAL_S:
+            return
+        step = 0
+        if (p99_ms > tenant.slo_p99_ms
+                and tenant.share_boost < self._MAX_BOOST):
+            step = 1
+        elif p99_ms < 0.5 * tenant.slo_p99_ms and tenant.share_boost > 0:
+            step = -1
+        if step == 0:
+            return
+        sup = getattr(engine, "supervisor", None)
+        if step > 0 and sup is not None and sup.unhealthy():
+            return
+        self._tenant_last[tenant.id] = now
+        tenant.share_boost += step
+        if step > 0 and stats is not None:
+            stats.add(tenant_slo_boosts=1)
+            stats.add_tenant_stat(tenant.id, slo_boosts=1)
+
+
 class PrefixStore:
     """Content-addressed NVMe store of prompt KV pages, shared by decode
     servers and sessions (thread-safe; one instance per page file).
@@ -813,7 +921,8 @@ class PrefixStore:
     _MAX_PENDING = 4
 
     def __init__(self, cfg: TransformerConfig, engine: StromEngine,
-                 path: str, page_tokens: int, capacity_bytes: int):
+                 path: str, page_tokens: int, capacity_bytes: int,
+                 p99_target_ms: float = 0.0):
         if page_tokens < 1:
             raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
         self.cfg = cfg
@@ -863,6 +972,11 @@ class PrefixStore:
         #: key -> {"page", "hits", "seq", "crc", "pins", "ready",
         #: "tenant"}
         self._entries: Dict[bytes, dict] = {}
+        #: tenant id -> its declared quota fraction, set as puts run in
+        #: tenant scopes (empty, and eviction tenant-blind, until one
+        #: does)
+        self._tenant_quota_frac: Dict[str, float] = {}
+        self.slo = SloGovernor(p99_target_ms)
         # reversed, so pop() hands out slot 0 first and the file grows
         # from the front
         self._free = list(range(self.capacity_pages - 1, -1, -1))
@@ -1023,6 +1137,7 @@ class PrefixStore:
         self.stats.set_gauges(
             kv_restore_p99_ms=self.restore_p99_ms() or 0.0,
             kv_store_pages_resident=self.pages_resident())
+        self.slo.observe(self.engine, self.restore_p99_ms(), self.stats)
         return out
 
     def _start_copies(self, e: dict, pieces, dev, transfers: list):
@@ -1238,11 +1353,15 @@ class PrefixStore:
                     if slot is None:
                         continue   # everything pinned: skip, not fail
                 self._seq += 1
-                # the tenant charge comes with tenants
+                t = current_tenant()
+                if t is not None:
+                    self._tenant_quota_frac[t.id] = t.quota_frac
+                # charged to the tenant whose admission computed it
                 self._entries[kx] = {"page": slot, "hits": 0,
                                      "seq": self._seq, "crc": None,
                                      "pins": 0, "ready": False,
-                                     "tenant": None}
+                                     "tenant": (t.id if t is not None
+                                                else None)}
             host = self._page_host(k, v)
             crc = crc32c(host)
             off = slot * self.page_bytes
@@ -1289,20 +1408,50 @@ class PrefixStore:
     def _evict_locked(self) -> Optional[int]:
         """Reclaim the lowest-benefit unpinned page (the caller holds the
         lock): score = reuse count × estimated restore cost, oldest
-        first on a tie.  The tenant-quota pre-pass comes with tenants."""
+        first on a tie.  While a tenant holds more pages than its quota
+        allows, the scan first looks at those tenants' pages only; a
+        pinned page counts against its owner but is never taken."""
         cost = self._restore_cost_ms()
-        victim_key = victim_score = None
-        for kx, e in self._entries.items():
-            if e["pins"] > 0 or not e["ready"]:
-                continue   # a restore in flight, or a put still writing
-            score = (e["hits"] * cost, e["seq"])
-            if victim_score is None or score < victim_score:
-                victim_score, victim_key = score, kx
-        if victim_key is None:
-            return None
-        e = self._entries.pop(victim_key)
-        self.stats.add(kv_store_evictions=1)
-        return e["page"]
+        over = (self._tenant_over_locked() if self._tenant_quota_frac
+                else None)
+        for restrict in ((over, None) if over else (None,)):
+            victim_key = victim_score = None
+            for kx, e in self._entries.items():
+                if e["pins"] > 0 or not e["ready"]:
+                    continue   # a restore in flight, or a put writing
+                if restrict is not None and e.get("tenant") not in restrict:
+                    continue
+                score = (e["hits"] * cost, e["seq"])
+                if victim_score is None or score < victim_score:
+                    victim_score, victim_key = score, kx
+            if victim_key is None:
+                continue
+            e = self._entries.pop(victim_key)
+            self.stats.add(kv_store_evictions=1)
+            if restrict is not None:
+                self.stats.add(tenant_quota_evictions=1)
+                self.stats.add_tenant_stat(e.get("tenant"),
+                                           quota_evictions=1)
+            return e["page"]
+        return None
+
+    def _tenant_over_locked(self) -> set:
+        """The tenant ids holding more resident pages than their quota
+        fraction of the store (0: a fair share of the tenants
+        resident)."""
+        counts: Dict[str, int] = {}
+        for e in self._entries.values():
+            tid = e.get("tenant")
+            if tid is not None:
+                counts[tid] = counts.get(tid, 0) + 1
+        over = set()
+        for tid, n in counts.items():
+            frac = self._tenant_quota_frac.get(tid, 0.0)
+            if frac <= 0.0:
+                frac = 1.0 / max(1, len(counts))
+            if n > frac * self.capacity_pages:
+                over.add(tid)
+        return over
 
     # -- cold-start warmup ----------------------------------------------------
 
@@ -1483,7 +1632,8 @@ def build_prefix_store(cfg: TransformerConfig, engine: StromEngine,
         return None
     return PrefixStore(cfg, engine, path,
                        page_tokens=kvcfg.page_tokens or page_tokens,
-                       capacity_bytes=kvcfg.store_mb << 20)
+                       capacity_bytes=kvcfg.store_mb << 20,
+                       p99_target_ms=kvcfg.p99_target_ms)
 
 
 def offloaded_generate(params: Dict, prompt, cfg: TransformerConfig,

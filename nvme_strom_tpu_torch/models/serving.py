@@ -27,9 +27,29 @@ first, restores all their store-resident prompt pages in one batched
 read (through ``h2d_copy`` onto the card), then finishes each one:
 restored pages head the request's cache and ``block_step`` prefills only
 the suffix.  Newly computed full pages are written back once, however
-many sessions share them.  Tenants, load shedding, drain/handoff,
-session export and cold start of the JAX server are not part of this
-port yet.
+many sessions share them.
+
+Load shedding: ``shed_probe=`` is a callable that returns True while
+new prefills should defer (queued requests wait, in-flight decode goes
+on, nothing fails); each deferred admission counts ``admissions_shed``.
+With no probe the server never sheds: the JAX server's default, the
+engine supervisor's degraded state, comes with resilience (ROADMAP item
+7b).
+
+Tenants (io/tenants.py), only under ``STROM_TENANTS=1``: ``submit(...,
+tenant=)`` resolves the request's tenant once.  While any queued request
+has one, admission is tier-aware: under backlog pressure (more queued
+than free slots) only the best tier present admits, and each admission
+spends a token of its tenant's bucket; a request passed over stays
+queued and counts in ``tenant_sheds`` and ``admissions_shed``.  The
+batched restore and each admission's prefill and store puts run in the
+tenant's scope, so the scheduler, the host tier and the store charge
+them to it, and each tenant's TTFT p99 feeds the store's
+``SloGovernor``.  With tenants off the tag is ignored and every path is
+the one without tenants, bit for bit.  The ``tenant_storm`` flight dump
+comes with resilience (item 7b); the storm windows it reads are kept.
+Drain/handoff, session export and cold start of the JAX server are not
+part of this port yet.
 """
 
 from __future__ import annotations
@@ -43,6 +63,9 @@ import numpy as np
 import torch
 
 from nvme_strom_tpu_torch.device import resolve_device
+from nvme_strom_tpu_torch.io.tenants import (TokenBucket, get_registry,
+                                             tenant_context,
+                                             tenants_enabled, tier_rank)
 from nvme_strom_tpu_torch.models import decode as _dec
 from nvme_strom_tpu_torch.models.transformer import (
     TransformerConfig, embed, mlp, qkv_project, rms_norm, wmat)
@@ -67,6 +90,8 @@ class _Request:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: Optional[float] = None
+    # the resolved io/tenants.Tenant; None while STROM_TENANTS=0
+    tenant: object = None
 
 
 def _draw_seed(seed: int, pos: int) -> int:
@@ -133,13 +158,21 @@ class DecodeServer:
 
     #: retired requests whose per-request metrics are kept
     METRICS_KEEP = 4096
+    #: TTFT samples kept per tenant for its p99, and the count before
+    #: the p99 is trusted
+    _TENANT_TTFT_WIN = 64
+    _TENANT_TTFT_MIN = 8
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  cfg: TransformerConfig, max_batch: int, max_len: int,
-                 device=None, kv_store=None):
+                 device=None, kv_store=None, shed_probe=None):
         self.device = resolve_device(device)
         #: the shared NVMe prefix store (None: the store-less path)
         self.kv_store = kv_store
+        #: True while new prefills should defer (None: never)
+        self._shed_probe = shed_probe
+        #: admission opportunities deferred by shedding, tenants' too
+        self.admissions_shed = 0
         for name, t in params.items():
             if t.device != self.device:
                 raise ValueError(f"parameter {name} is on {t.device}, the "
@@ -167,6 +200,16 @@ class DecodeServer:
         self.request_metrics: Dict[object, Dict[str, float]] = {}
         self._metrics_agg = {"n": 0, "ttft_sum": 0.0, "ttft_max": 0.0,
                              "wait_sum": 0.0, "wait_max": 0.0}
+        # tenant admission state, empty until a request with a tenant
+        # arrives
+        self._tenant_cfg = None
+        self._buckets: Dict[str, TokenBucket] = {}
+        #: requests passed over per tenant, cumulative
+        self.tenant_sheds: Dict[str, int] = {}
+        #: sheds per tenant since its last storm window closed
+        self._storm_window: Dict[str, int] = {}
+        #: recent TTFTs per tenant (its p99 feeds the SLO governor)
+        self._tenant_ttft: Dict[str, List[float]] = {}
         self._alloc_storage()
 
     def _alloc_storage(self) -> None:
@@ -181,7 +224,7 @@ class DecodeServer:
 
     def submit(self, rid, prompt_ids: List[int], max_new: int,
                eos_id: Optional[int] = None, temperature: float = 0.0,
-               top_p: float = 1.0, seed: int = 0) -> None:
+               top_p: float = 1.0, seed: int = 0, tenant=None) -> None:
         if not prompt_ids:
             raise ValueError("empty prompt")
         if max_new < 1:
@@ -197,9 +240,13 @@ class DecodeServer:
         if rid in {r.rid for r in self.queue} | {
                 r.rid for r in self.slots if r is not None}:
             raise ValueError(f"request id {rid!r} already in flight")
-        self.queue.append(_Request(
+        req = _Request(
             rid, list(prompt_ids), max_new, eos_id, temperature=temperature,
-            top_p=top_p, seed=seed & 0xFFFFFFFF, t_submit=time.monotonic()))
+            top_p=top_p, seed=seed & 0xFFFFFFFF, t_submit=time.monotonic())
+        if tenant is not None and tenants_enabled():
+            # resolved once; with tenants off the tag is ignored
+            req.tenant = get_registry().get(tenant)
+        self.queue.append(req)
 
     # -- admission ----------------------------------------------------------
     #
@@ -256,7 +303,13 @@ class DecodeServer:
             store.stats.add(kv_prefix_misses=misses)
         if not wants:
             return {}
-        return store.restore_many(wants, device=self.device)
+        # one shared read: charged to the first participating tenant
+        # (exact for a one-request step)
+        by_slot = {p["slot"]: p["req"] for p in plans}
+        ten = next((by_slot[s].tenant for s in wants
+                    if by_slot[s].tenant is not None), None)
+        with tenant_context(ten):
+            return store.restore_many(wants, device=self.device)
 
     @staticmethod
     def _contiguous_from(restored: dict, start: int) -> list:
@@ -266,6 +319,16 @@ class DecodeServer:
         while start + len(use) in restored:
             use.append(restored[start + len(use)])
         return use
+
+    def _finish(self, plan: dict, restored: dict) -> None:
+        """``_admit_finish`` in the request's tenant scope, so the lines
+        its prefill touches and the pages it puts are charged to it."""
+        req = plan["req"]
+        if req.tenant is None:
+            self._admit_finish(plan, restored)
+            return
+        with tenant_context(req.tenant):
+            self._admit_finish(plan, restored)
 
     def _admit_finish(self, plan: dict, restored: dict) -> None:
         """Prefill the prompt and place its KV in the slot's rows.  With
@@ -361,6 +424,27 @@ class DecodeServer:
         agg["ttft_max"] = max(agg["ttft_max"], ttft_ms)
         agg["wait_sum"] += wait_ms
         agg["wait_max"] = max(agg["wait_max"], wait_ms)
+        if req.tenant is not None:
+            self._observe_tenant_ttft(req.tenant, ttft_ms)
+
+    def _observe_tenant_ttft(self, tenant, ttft_ms: float) -> None:
+        """A sliding TTFT window per tenant; once it holds
+        ``_TENANT_TTFT_MIN`` samples its p99 goes to the store's
+        ``SloGovernor.observe_tenant``."""
+        win = self._tenant_ttft.setdefault(tenant.id, [])
+        win.append(ttft_ms)
+        if len(win) > self._TENANT_TTFT_WIN:
+            del win[0]
+        stats = self._engine_stats()
+        if stats is not None:
+            stats.add_tenant_stat(tenant.id, requests_finished=1)
+        if (tenant.slo_p99_ms <= 0 or self.kv_store is None
+                or len(win) < self._TENANT_TTFT_MIN):
+            return
+        w = sorted(win)
+        self.kv_store.slo.observe_tenant(
+            self.kv_store.engine, tenant,
+            w[min(len(w) - 1, int(0.99 * len(w)))], stats=stats)
 
     # -- serving ------------------------------------------------------------
 
@@ -386,12 +470,106 @@ class DecodeServer:
             "ttft_ms_max": round(agg["ttft_max"], 3),
             "admit_wait_ms_avg": round(agg["wait_sum"] / n, 3) if n else 0.0,
             "admit_wait_ms_max": round(agg["wait_max"], 3),
+            "admissions_shed": self.admissions_shed,
         }
+        if self.tenant_sheds:        # only once the tenant layer acted
+            out["tenant_sheds"] = dict(self.tenant_sheds)
         if self.kv_store is not None:
             out.update({k: v for k, v in
                         self.kv_store.stats.snapshot().items()
                         if k.startswith("kv_")})
         return out
+
+    # -- load shedding and tenant admission ---------------------------------
+
+    def _shed_now(self) -> bool:
+        """True while new prefills should defer (the probe says so)."""
+        return self._shed_probe is not None and bool(self._shed_probe())
+
+    def _engine_stats(self):
+        """The store engine's counters (None without a store)."""
+        return self.kv_store.engine.stats if self.kv_store is not None \
+            else None
+
+    def _note_shed(self, n: int) -> None:
+        self.admissions_shed += n
+        stats = self._engine_stats()
+        if stats is not None:
+            stats.add(serve_admissions_shed=n)
+
+    def _tenant_config(self):
+        if self._tenant_cfg is None:
+            # the registry's config: an explicit tenants.configure()
+            # governs here too
+            self._tenant_cfg = get_registry().config
+        return self._tenant_cfg
+
+    def _bucket(self, tenant) -> TokenBucket:
+        """The tenant's admission bucket, made on first sight from its
+        own rate and burst or the ``STROM_TENANT_*`` defaults."""
+        b = self._buckets.get(tenant.id)
+        if b is None:
+            cfg = self._tenant_config()
+            b = TokenBucket(
+                tenant.rate if tenant.rate > 0 else cfg.default_rate,
+                tenant.burst if tenant.burst > 0 else cfg.default_burst)
+            self._buckets[tenant.id] = b
+        return b
+
+    def _admit_tenants(self) -> list:
+        """Tier-aware admission.  Under backlog pressure (more queued
+        than free slots) only the best tier present admits; each
+        admission spends a token of its tenant's bucket, and an empty
+        bucket passes over that request only.  A request passed over
+        stays queued and is counted; among the admissible the queue is
+        FIFO, and a ``_can_admit`` refusal stops the scan."""
+        free = sum(s is None for s in self.slots)
+        plans: list = []
+        if not free:
+            return plans
+        pressure = len(self.queue) > free
+        best = None
+        if pressure:
+            best = min(tier_rank(r.tenant.tier) for r in self.queue
+                       if r.tenant is not None)
+        shed: Dict[str, int] = {}
+        slots = iter([s for s in range(self.B) if self.slots[s] is None])
+        i = 0
+        while free and i < len(self.queue):
+            req = self.queue[i]
+            t = req.tenant
+            if t is not None and ((pressure and tier_rank(t.tier) > best)
+                                  or not self._bucket(t).try_take()):
+                shed[t.id] = shed.get(t.id, 0) + 1
+                i += 1
+                continue
+            if not self._can_admit(req):
+                break
+            plans.append(self._admit_plan(next(slots), self.queue.pop(i)))
+            free -= 1
+        if shed:
+            self._note_tenant_shed(shed)
+        return plans
+
+    def _note_tenant_shed(self, shed: Dict[str, int]) -> None:
+        """Count one step's tenant sheds on the server, the engine and
+        each tenant, and in each tenant's storm window; a window that
+        reaches ``STROM_TENANT_STORM_SHEDS`` closes (the JAX server's
+        ``tenant_storm`` flight dump comes with the flight recorder)."""
+        n = sum(shed.values())
+        self.admissions_shed += n
+        stats = self._engine_stats()
+        if stats is not None:
+            stats.add(tenant_admissions_shed=n)
+        for tid, k in shed.items():
+            self.tenant_sheds[tid] = self.tenant_sheds.get(tid, 0) + k
+            self._storm_window[tid] = self._storm_window.get(tid, 0) + k
+            if stats is not None:
+                stats.add_tenant_stat(tid, admissions_shed=k)
+        thresh = self._tenant_config().storm_sheds
+        for tid, k in self._storm_window.items():
+            if k >= thresh:
+                self._storm_window[tid] = 0
 
     def _run_step(self) -> torch.Tensor:
         """One decode step of every slot → next tokens (B,) on device."""
@@ -424,14 +602,21 @@ class DecodeServer:
         finished: Dict[object, List[int]] = {}
         t0 = time.monotonic()
         plans = []
-        for slot in range(self.B):
-            if (self.slots[slot] is None and self.queue
-                    and self._can_admit(self.queue[0])):
-                plans.append(self._admit_plan(slot, self.queue.pop(0)))
+        if self.queue and self._shed_now():
+            # new prefills defer; in-flight decode keeps its slots
+            self._note_shed(min(sum(s is None for s in self.slots),
+                                len(self.queue)))
+        elif any(r.tenant is not None for r in self.queue):
+            plans = self._admit_tenants()
+        else:
+            for slot in range(self.B):
+                if (self.slots[slot] is None and self.queue
+                        and self._can_admit(self.queue[0])):
+                    plans.append(self._admit_plan(slot, self.queue.pop(0)))
         restored = (self._restore_prefixes(plans)
                     if plans and self.kv_store is not None else {})
         for plan in plans:
-            self._admit_finish(plan, restored.get(plan["slot"], {}))
+            self._finish(plan, restored.get(plan["slot"], {}))
         self.timings["admit_s"] += time.monotonic() - t0
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
@@ -515,7 +700,8 @@ class PagedDecodeServer(DecodeServer):
     def __init__(self, params: Dict[str, torch.Tensor],
                  cfg: TransformerConfig, max_batch: int, max_len: int,
                  total_blocks: int, block_len: int = 128,
-                 prefix_cache: bool = True, device=None, kv_store=None):
+                 prefix_cache: bool = True, device=None, kv_store=None,
+                 shed_probe=None):
         if block_len < 1 or total_blocks < 1:
             raise ValueError("block_len and total_blocks must be >= 1")
         if kv_store is not None and kv_store.page_tokens != block_len:
@@ -529,7 +715,7 @@ class PagedDecodeServer(DecodeServer):
         self.prefix_cache = prefix_cache
         self.max_blocks = -(-max_len // block_len)
         super().__init__(params, cfg, max_batch, max_len, device=device,
-                         kv_store=kv_store)
+                         kv_store=kv_store, shed_probe=shed_probe)
 
     def _alloc_storage(self) -> None:
         cfg = self.cfg

@@ -9,8 +9,17 @@ staging buffers are released by a :class:`StagingRetirePool` once the
 copies out of them have completed.  With ``STROM_ICI_SCATTER=1`` the
 files are read once across an exchange group and every tensor is read
 from the gathered bytes (ops/ici.py), copied to the card in place from
-their page-locked store.  Sharding, demand faulting and the read-side
-checksum of the JAX loader are not part of this port yet.
+their page-locked store.
+
+Under ``STROM_VERIFY`` (utils/checksum.py) each tensor's streamed chunks
+are run through a CRC32C and compared with the write-time stamp the
+file's metadata carries (``formats/safetensors.py``
+``tensor_checksums``), on the direct and the scatter path alike: the
+chunks count in ``bytes_verified``, a mismatch in ``checksum_failures``,
+and the load raises :class:`ChecksumError` before it returns any tensor.
+The copies out of the chunks are already on their way to the device by
+then; a file without stamps verifies nothing.  Sharding and demand
+faulting are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -23,13 +32,16 @@ import torch
 
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.formats.safetensors import (SafetensorsFile,
+                                                      tensor_checksums,
                                                       torch_dtype,
                                                       write_safetensors)
-from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
+from nvme_strom_tpu_torch.io.engine import StromEngine, crc32c, wait_exact
 from nvme_strom_tpu_torch.io.plan import join_pieces, plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import (StagingRetirePool,
                                              host_to_device)
 from nvme_strom_tpu_torch.ops.ici import ici_scatter_enabled, scatter_engine
+from nvme_strom_tpu_torch.utils.checksum import (ChecksumError,
+                                                 VerifyPolicy)
 
 
 class LazyCheckpoint:
@@ -70,6 +82,10 @@ class LazyCheckpoint:
         from the gathered bytes; any failure of that set-up browns out
         to reading the files directly (``ici_fallbacks``)."""
         dev = resolve_device(device)
+        policy = VerifyPolicy()
+        # file path → its tensors' write-time CRC32C stamps
+        stamps = ({sf.path: tensor_checksums(sf) for sf in self.files}
+                  if policy.enabled else {})
         own = engine is None
         base = engine if engine is not None else StromEngine()
         try:
@@ -77,17 +93,22 @@ class LazyCheckpoint:
             if ici_scatter_enabled():
                 eng = scatter_engine(base, [sf.path for sf in self.files],
                                      group=ici_group)
-            return {name: self._load_tensor(eng or base, name, dev)
+            return {name: self._load_tensor(eng or base, name, dev, policy,
+                                            stamps)
                     for name in self.keys()}
         finally:
             if own:
                 base.close_all()
 
     def _load_tensor(self, eng: StromEngine, name: str,
-                     dev: torch.device) -> torch.Tensor:
+                     dev: torch.device, policy: VerifyPolicy,
+                     stamps: Dict[str, Dict[str, int]]) -> torch.Tensor:
         sf = self._by_name[name]
         info = sf.tensors[name]
         shape = tuple(info["shape"])
+        stamp = stamps.get(sf.path, {}).get(name)
+        check = stamp is not None and policy.want()
+        crc = 0
         # the pool must keep a buffer free beyond the reads in flight and
         # the retirements it defers, or a deferred read could wait on a
         # buffer only this loader can release
@@ -99,6 +120,9 @@ class LazyCheckpoint:
         transfers = []
         try:
             for view, release in self._stream_rows(eng, fh, sf, name):
+                if check:
+                    crc = crc32c(view, crc)
+                    eng.stats.add(bytes_verified=int(view.nbytes))
                 try:
                     t = host_to_device(eng, view, dev)
                 except BaseException:
@@ -107,6 +131,12 @@ class LazyCheckpoint:
                     raise
                 transfers.append(t)
                 retire.push(release, [t])
+            if check and crc != stamp:
+                eng.stats.add(checksum_failures=1)
+                raise ChecksumError(
+                    f"tensor {name} of {sf.path} fails its stamped CRC32C "
+                    f"({crc:#010x} != {stamp:#010x}): corrupt weights must "
+                    "not reach the model")
         finally:
             retire.flush()
             for t in transfers:

@@ -11,17 +11,20 @@ default 16) or ``full`` (every eligible span).  Verified bytes count
 KV prefix store's recompute, a checkpoint restore's step back) treats it
 as a failed read.  CRC32C is the engine's (``io/engine.py`` ``crc32c``).
 
-The sidecar files of the JAX package (offset-keyed ``.crc.json`` stamps
-for record formats) belong to the loader's verify and are not part of
-this port yet.
+Record formats are stamped by an offset-keyed sidecar next to the data
+file, ``<file>.crc.json`` (``write_sidecar``, ``stamp_wds``; read back by
+``load_sidecar``), in the JAX package's format, so either package reads
+what the other wrote; the WebDataset loader checks each sample part
+against it.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
-from typing import Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +33,9 @@ from nvme_strom_tpu_torch.io.engine import crc32c
 _log = logging.getLogger(__name__)
 
 VERIFY_MODES = ("off", "sample", "full")
+
+#: the stamp algorithm a sidecar names
+CRC_ALGO = "crc32c"
 
 
 class ChecksumError(OSError):
@@ -124,3 +130,90 @@ class VerifyPolicy:
         self.check(data, expected, stats,
                    where=where + " (after a re-read)")
         return data
+
+
+# -- offset-keyed sidecars --------------------------------------------------
+
+SIDECAR_SUFFIX = ".crc.json"
+_SIDECAR_VERSION = 1
+
+
+def sidecar_path(path) -> str:
+    return str(path) + SIDECAR_SUFFIX
+
+
+def write_sidecar(path, spans: Iterable[Tuple[int, int, object]]) -> str:
+    """Stamp ``path`` with an offset-keyed checksum sidecar: ``spans``
+    are (offset, length, payload) triples, one a separately read span
+    (a tar member, a record).  Written atomically next to the file."""
+    entries: Dict[str, list] = {}
+    for off, length, payload in spans:
+        arr = (payload if isinstance(payload, np.ndarray)
+               else np.frombuffer(payload, np.uint8))
+        entries[str(int(off))] = [int(length), crc32c(arr)]
+    out = sidecar_path(path)
+    tmp = f"{out}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"version": _SIDECAR_VERSION, "algo": CRC_ALGO,
+                   "spans": entries}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, out)
+    return out
+
+
+class Sidecar:
+    """A parsed ``<file>.crc.json``: span offset → (length, crc32c)."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        with open(self.path) as f:
+            doc = json.load(f)
+        if doc.get("version") != _SIDECAR_VERSION:
+            raise ValueError(f"{self.path}: unsupported sidecar version "
+                             f"{doc.get('version')}")
+        self.algo = doc.get("algo", CRC_ALGO)
+        if self.algo != CRC_ALGO:
+            raise ValueError(f"{self.path}: sidecar algo {self.algo!r} is "
+                             f"not {CRC_ALGO!r}")
+        self.spans: Dict[int, Tuple[int, int]] = {
+            int(k): (int(v[0]), int(v[1]))
+            for k, v in doc.get("spans", {}).items()}
+
+    def lookup(self, offset: int, length: int) -> Optional[int]:
+        """The stamp of the span at ``offset``; None when there is none
+        or its length differs (an unstamped span is not a failure)."""
+        ent = self.spans.get(int(offset))
+        if ent is None or ent[0] != int(length):
+            return None
+        return ent[1]
+
+    def __len__(self) -> int:
+        return len(self.spans)
+
+
+def load_sidecar(path) -> Optional[Sidecar]:
+    """The sidecar of data file ``path``; None when it is absent or
+    unreadable (unstamped data verifies nothing)."""
+    sc = sidecar_path(path)
+    if not os.path.exists(sc):
+        return None
+    try:
+        return Sidecar(sc)
+    except (OSError, ValueError):
+        return None
+
+
+def stamp_wds(path) -> str:
+    """Stamp a WebDataset tar shard: one span a member payload."""
+    from nvme_strom_tpu_torch.formats.wds import WdsShardIndex
+    idx = WdsShardIndex(path)
+
+    def spans():
+        with open(path, "rb") as f:
+            for key in idx.order:
+                for _ext, (off, ln) in idx.samples[key].items():
+                    f.seek(off)
+                    yield off, ln, f.read(ln)
+
+    return write_sidecar(path, spans())

@@ -1,14 +1,16 @@
 """Engine, scheduler, host-tier, loader and KV-store configuration
 (counterpart of nvme_strom_tpu/utils/config.py ``EngineConfig``,
-``SchedConfig``, ``HostCacheConfig``, ``LoaderConfig`` and
-``KVServeConfig``, trimmed to what the port's paths read).
+``SchedConfig``, ``HostCacheConfig``, ``LoaderConfig``,
+``KVServeConfig`` and ``TenantConfig``, trimmed to what the port's paths
+read).
 
 Engine and loader sizes are these defaults or explicit arguments: they
 are never read from a tuning ledger, and of the engine's knobs only the
 ring count reads the environment (``STROM_RINGS``).  ``SchedConfig``,
-``HostCacheConfig`` and ``KVServeConfig`` read their ``STROM_*``
-switches at construction, as the JAX package's do; the pinned arena's
-``STROM_ARENA`` and ``STROM_ARENA_MB`` are read by ``io/arena.py``."""
+``HostCacheConfig``, ``KVServeConfig`` and ``TenantConfig`` read their
+``STROM_*`` switches at construction, as the JAX package's do; the pinned
+arena's ``STROM_ARENA`` and ``STROM_ARENA_MB`` are read by
+``io/arena.py``."""
 
 from __future__ import annotations
 
@@ -172,11 +174,7 @@ class LoaderConfig:
 class KVServeConfig:
     """The serving KV prefix store's switches (models/kv_offload.py
     ``PrefixStore`` through ``build_prefix_store``), read from the
-    environment at construction.
-
-    ``STROM_KV_P99_MS`` is the restore-latency target of the JAX
-    package's SLO governor, which this port does not have yet: a
-    non-zero target raises instead of being ignored."""
+    environment at construction."""
 
     #: STROM_KV_PREFIX=1 enables the store; 0 (default) leaves the
     #: servers on their store-less path, bit for bit
@@ -190,7 +188,9 @@ class KVServeConfig:
     #: granularity (the paged server's block_len)
     page_tokens: int = field(
         default_factory=lambda: _env_int("STROM_KV_PAGE_TOKENS", 0))
-    #: restore p99 target in ms; only 0 (no target) is supported
+    #: restore-batch p99 target in ms: past it the store's SLO governor
+    #: raises the decode class's scheduler weight until the p99
+    #: recovers; 0 (default) sets no target
     p99_target_ms: float = field(
         default_factory=lambda: _env_float("STROM_KV_P99_MS", 0.0))
 
@@ -201,8 +201,45 @@ class KVServeConfig:
             raise ValueError("page_tokens must be >= 0")
         if self.p99_target_ms < 0:
             raise ValueError("p99_target_ms must be >= 0")
-        if self.p99_target_ms:
-            raise NotImplementedError(
-                f"STROM_KV_P99_MS={self.p99_target_ms}: the restore SLO "
-                "governor comes with tenants and load shedding, which are "
-                "not ported yet")
+
+
+@dataclass(frozen=True)
+class TenantConfig:
+    """The tenant layer's switches (io/tenants.py), read from the
+    environment at construction.  ``STROM_TENANTS=1`` turns it on; 0
+    (the default) leaves every path as it is without tenants, bit for
+    bit.  ``STROM_TENANT_SPEC`` declares tenants (tier, weight, quota,
+    rate, burst and SLO per id); an id it does not name registers on
+    first sight with the ``STROM_TENANT_*`` defaults."""
+
+    enabled: bool = field(
+        default_factory=lambda: os.environ.get("STROM_TENANTS",
+                                               "0") == "1")
+    #: ";"-separated tenants, each ``<id>[:key=value,...]`` with keys
+    #: tier/weight/quota/rate/burst/slo_ms
+    spec: str = field(
+        default_factory=lambda: os.environ.get("STROM_TENANT_SPEC", ""))
+    #: admission token-bucket refill (requests/s) of a tenant the spec
+    #: does not name; 0 = unlimited
+    default_rate: float = field(
+        default_factory=lambda: _env_float("STROM_TENANT_RATE", 0.0))
+    #: token-bucket depth of an unnamed tenant (at least 1)
+    default_burst: float = field(
+        default_factory=lambda: _env_float("STROM_TENANT_BURST", 8.0))
+    #: residency-quota fraction of an unnamed tenant; 0 = a fair share
+    #: (1/N of the tenants resident)
+    default_quota_frac: float = field(
+        default_factory=lambda: _env_float("STROM_TENANT_QUOTA_FRAC",
+                                           0.0))
+    #: sheds of one tenant that close a storm window (the servers count
+    #: them in ``_storm_window``)
+    storm_sheds: int = field(
+        default_factory=lambda: _env_int("STROM_TENANT_STORM_SHEDS", 32))
+
+    def __post_init__(self):
+        if self.default_rate < 0 or self.default_burst < 0:
+            raise ValueError("tenant default rate/burst must be >= 0")
+        if not 0.0 <= self.default_quota_frac <= 1.0:
+            raise ValueError(
+                f"default_quota_frac ({self.default_quota_frac}) must "
+                f"be in [0, 1]")

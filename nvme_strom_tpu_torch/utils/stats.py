@@ -36,6 +36,17 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
   ``kv_restore_failures`` pages whose read, check or write failed (they
   heal through recompute), ``kv_store_evictions`` pages evicted for
   room.
+* the load shedding and tenants of the servers (io/tenants.py):
+  ``serve_admissions_shed`` admission opportunities a server's shed
+  probe deferred, ``tenant_admissions_shed`` the requests the tenant
+  layer passed over (tier shed under backlog pressure, or an empty
+  token bucket), ``tenant_quota_evictions`` host-tier lines and store
+  pages reclaimed from an over-quota tenant, ``tenant_borrows`` lines a
+  tenant filled past its quota while space was free, and the SLO
+  governor's boosts, ``kv_slo_boosts`` (the decode class's weight) and
+  ``tenant_slo_boosts`` (one tenant's share).  ``add_tenant_stat``
+  keeps the per-tenant breakdown, carried as ``tenant_stats`` in
+  ``snapshot()`` once a tenant has a tally.
 
 Gauges are point-in-time values that overwrite (``set_gauges``), carried
 in ``snapshot()`` beside the counters: ``kv_restore_p99_ms`` (the store's
@@ -60,7 +71,10 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "sched_promotions", "arena_fallbacks", "cache_hits",
             "cache_misses", "bytes_served_cache", "cache_admissions",
             "cache_admission_rejections", "cache_fill_failures",
-            "cache_evictions", "cache_invalidations")
+            "cache_evictions", "cache_invalidations",
+            "serve_admissions_shed", "tenant_admissions_shed",
+            "tenant_quota_evictions", "tenant_borrows", "kv_slo_boosts",
+            "tenant_slo_boosts")
 GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
           "cache_bytes_resident", "cache_lines_resident")
 
@@ -102,9 +116,17 @@ class StromStats:
     cache_fill_failures: int = 0
     cache_evictions: int = 0
     cache_invalidations: int = 0
+    serve_admissions_shed: int = 0
+    tenant_admissions_shed: int = 0
+    tenant_quota_evictions: int = 0
+    tenant_borrows: int = 0
+    kv_slo_boosts: int = 0
+    tenant_slo_boosts: int = 0
     _gauges: dict = field(default_factory=dict, repr=False, compare=False)
     _class_stats: dict = field(default_factory=dict, repr=False,
                                compare=False)
+    _tenant_stats: dict = field(default_factory=dict, repr=False,
+                                compare=False)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -137,6 +159,19 @@ class StromStats:
         with self._lock:
             return {k: dict(v) for k, v in self._class_stats.items()}
 
+    def add_tenant_stat(self, tenant: str, **deltas) -> None:
+        """Accumulate per-tenant counters (dispatches, sheds, borrows,
+        quota evictions, boosts) under the block's lock."""
+        with self._lock:
+            blk = self._tenant_stats.setdefault(tenant, {})
+            for name, d in deltas.items():
+                blk[name] = blk.get(name, 0) + d
+
+    @property
+    def tenant_stats(self) -> dict:
+        with self._lock:
+            return {k: dict(v) for k, v in self._tenant_stats.items()}
+
     def set_gauges(self, **values) -> None:
         """Point-in-time values; unlike counters they overwrite."""
         with self._lock:
@@ -153,7 +188,8 @@ class StromStats:
 
     def snapshot(self) -> dict:
         """Every counter, the gauges that have been set, and
-        ``class_stats`` once a class has a tally."""
+        ``class_stats`` / ``tenant_stats`` once a class / tenant has a
+        tally."""
         with self._lock:
             snap = {f.name: getattr(self, f.name) for f in fields(self)
                     if f.name in COUNTERS}
@@ -161,6 +197,9 @@ class StromStats:
             if self._class_stats:
                 snap["class_stats"] = {k: dict(v) for k, v in
                                        self._class_stats.items()}
+            if self._tenant_stats:
+                snap["tenant_stats"] = {k: dict(v) for k, v in
+                                        self._tenant_stats.items()}
             return snap
 
 

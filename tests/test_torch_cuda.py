@@ -441,6 +441,108 @@ def test_prefix_store_restores_through_h2d_on_the_card(dev, tmp_path):
         store.close()
 
 
+def test_tenant_tagged_restore_through_h2d_on_the_card(dev, tmp_path):
+    """Under STROM_TENANTS=1, pages put in a tenant's scope carry its id,
+    and their restore onto the card, in the tenant's scope, copies every
+    piece with h2d_copy and gives the bytes back bitwise; a tenant-tagged
+    server over the store gives the untagged server's tokens."""
+    from nvme_strom_tpu_torch.convert import params_from_jax
+    from nvme_strom_tpu_torch.io import tenants
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import PagedDecodeServer
+    from nvme_strom_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.utils.config import EngineConfig, TenantConfig
+    cfg = TransformerConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=256)
+    P = 16
+    shape = (cfg.n_layers, cfg.n_kv_heads, P, cfg.head_dim)
+    g = torch.Generator().manual_seed(2)
+    pages = [(torch.randn(shape, generator=g).bfloat16(),
+              torch.randn(shape, generator=g).bfloat16()) for _ in range(4)]
+    reg = tenants.configure(TenantConfig(
+        enabled=True, spec="gold_t:tier=gold,quota=0.5"))
+    try:
+        gold = reg.get("gold_t")
+        with StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                      buffer_pool_bytes=16 << 20)) as eng:
+            store = PrefixStore(cfg, eng, str(tmp_path / "t.kvstore"), P,
+                                1 << 20)
+            keys = store.chain_keys(list(range(4 * P + 1)))
+            with tenants.tenant_context(gold):
+                store.put([(kx, k, v) for kx, (k, v) in zip(keys, pages)])
+                store.flush()
+                before = h2d_copy.launches
+                got = store.restore_many({0: (0, keys)}, device=dev)[0]
+            assert h2d_copy.launches - before == 4
+            assert {e["tenant"] for e in store._entries.values()} == \
+                {"gold_t"}
+            for i, (k, v) in enumerate(pages):
+                assert torch.equal(got[i][0].cpu(), k)
+                assert torch.equal(got[i][1].cpu(), v)
+            store.close()
+            params = params_from_jax(init_params(0, cfg), cfg, dev)
+            rng = np.random.default_rng(3)
+            sys_prompt = rng.integers(0, 256, 3 * P).tolist()
+            outs = []
+            for tag in ("gold_t", None):
+                st = PrefixStore(cfg, eng, str(tmp_path / f"{tag}.kvstore"),
+                                 P, 1 << 20)
+                srv = PagedDecodeServer(params, cfg, 2, 256, total_blocks=64,
+                                        block_len=P, device=dev, kv_store=st)
+                for i in range(3):
+                    srv.submit(f"r{i}", sys_prompt + [i + 1], 4, tenant=tag)
+                outs.append(srv.run())
+                st.close()
+            assert outs[0] == outs[1]
+    finally:
+        tenants.reset()
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["clean", "flipped"])
+def test_verified_weights_load_on_the_card(dev, tmp_path, monkeypatch, flip):
+    """STROM_VERIFY=full: a clean load onto the card verifies its whole
+    payload and is bitwise the unverified load; one flipped payload byte
+    raises ChecksumError with one failure counted."""
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.parallel.weights import (LazyCheckpoint,
+                                                       save_checkpoint)
+    from nvme_strom_tpu_torch.utils.checksum import ChecksumError
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    params = {"a": torch.randn(300, 70), "b": torch.randn(4096).bfloat16()}
+    path = tmp_path / "m.safetensors"
+    save_checkpoint(path, params)
+    payload = sum(t.numel() * t.element_size() for t in params.values())
+    if flip:
+        with open(path, "r+b") as f:
+            f.seek(path.stat().st_size - 9)
+            b = f.read(1)
+            f.seek(path.stat().st_size - 9)
+            f.write(bytes([b[0] ^ 0x01]))
+    monkeypatch.setenv("STROM_VERIFY", "full")
+    with StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                  buffer_pool_bytes=16 << 20)) as eng:
+        if flip:
+            with pytest.raises(ChecksumError, match="corrupt weights"):
+                LazyCheckpoint(path).load(eng, device=dev)
+            assert eng.stats.checksum_failures == 1
+            return
+        out = LazyCheckpoint(path).load(eng, device=dev)
+        assert eng.stats.bytes_verified == payload
+        assert eng.stats.checksum_failures == 0
+    monkeypatch.delenv("STROM_VERIFY")
+    with StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                  buffer_pool_bytes=16 << 20)) as eng:
+        plain = LazyCheckpoint(path).load(eng, device=dev)
+        assert eng.stats.bytes_verified == 0
+    for name, t in params.items():
+        assert out[name].device == dev
+        assert torch.equal(out[name], plain[name])
+        assert torch.equal(out[name].cpu(), t)
+
+
 @pytest.mark.parametrize("quant,host_pages", [(None, 0), (None, 2),
                                               ("int8", 2)])
 def test_offload_attend_through_h2d_on_the_card(dev, tmp_path, quant,

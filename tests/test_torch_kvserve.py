@@ -37,7 +37,7 @@ from nvme_strom_tpu_torch.models.kv_offload import (PrefixStore,
                                                     build_prefix_store)
 from nvme_strom_tpu_torch.models.serving import (DecodeServer,
                                                  PagedDecodeServer)
-from nvme_strom_tpu_torch.utils.config import EngineConfig, KVServeConfig
+from nvme_strom_tpu_torch.utils.config import EngineConfig
 
 PAGE = 4
 KV_COUNTERS = ("kv_pages_written", "kv_pages_deduped", "kv_bytes_saved",
@@ -391,18 +391,6 @@ def test_kv_prefix_env_off_is_bit_for_bit_per_session(setup, engine,
     monkeypatch.setenv("STROM_KV_STORE_MB", "0")
     assert build_prefix_store(cfg, engine, str(tmp_path / "z.kvstore"),
                               page_tokens=PAGE) is None
-
-
-def test_kv_p99_target_raises_until_the_governor_is_ported(monkeypatch):
-    """A restore SLO target would be silently ignored without the
-    governor: it raises instead; 0 (no target) is fine."""
-    monkeypatch.setenv("STROM_KV_P99_MS", "5")
-    with pytest.raises(NotImplementedError, match="SLO governor"):
-        KVServeConfig()
-    with pytest.raises(NotImplementedError):
-        KVServeConfig(p99_target_ms=2.0)
-    monkeypatch.setenv("STROM_KV_P99_MS", "0")
-    assert KVServeConfig().p99_target_ms == 0.0
 
 
 def test_batched_multi_request_restore_single_step(setup, engine, tmp_path,
