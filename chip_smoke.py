@@ -63,7 +63,7 @@ It builds the port's native libraries from the checkout, then:
    default ring count with the QoS scheduler, both again with every read
    padded by 2 ms, with the host-DRAM tier (512 MiB, lines of the
    engine's chunk), and with the prefix store's SLO governor at
-   ``STROM_KV_P99_MS`` half the default mode's first restore p99; two
+   ``STROM_KV_P99_MS`` half the default mode's first restore p50; two
    trials a mode in alternating order, the median reported:
    restore-batch and step p50/p99, the storm's GiB/s, ring depths, the
    scheduler's and the tier's counters, the governor's boosts and the
@@ -80,7 +80,21 @@ It builds the port's native libraries from the checkout, then:
    prefix phase's hit every time, every shed on the aggressor, every
    aggressor request done, the cut store's quota evictions all the
    aggressor's and the victim's pages restored bitwise afterwards;
-   victim TTFT p50/p99 alone and under the aggressor; then serves
+   victim TTFT p50/p99 alone and under the aggressor; main path —
+   recovery (``resilience_phase``): engines from ``build_engine`` with
+   ``STROM_RESILIENT=1`` and a seeded ``STROM_FAULTS`` read plan (an EIO
+   every 7th read, a half read every 11th, a 50 ms straggler every
+   13th), set for each run only: (a) phase 4's weights loaded clean,
+   resilient without faults and faulted, in turns, twice, tensors
+   bitwise; (b) the prefix store's chat requests on both servers and
+   its 22-page restore batch, clean and faulted with hedging past 5 ms,
+   tokens equal to the NVMe hit's and pages bitwise; (c) offload (a)'s
+   setup, 8 timed steps, with EIO and short writes injected into the
+   eviction writes too, tokens equal and the page file byte-identical
+   to a clean run's; (e) one trial of the qos governor mode on a
+   resilient engine, its target set from the trial's own restores, the
+   decode class's hedge budget raised and decayed back; faults injected
+   and recovered, no read buffered or bounced; then serves
    4 requests with both servers on a 2-layer model with a GQA group of
    7 at head_dim 128 (``GQA_SERVE``), whose tokens must agree;
 6. training path — seeded WebDataset shards of flagship-length samples
@@ -95,7 +109,11 @@ It builds the port's native libraries from the checkout, then:
    flipped payload byte in a copy raising ``ChecksumError``, both
    servers on the verified weights; the training shards stamped with
    ``stamp_wds``, a verified epoch equal to the unverified one, and a
-   flipped sample byte raising with the shard's name;
+   flipped sample byte raising with the shard's name; then (d) of the
+   recovery phase (``resilience_loader_phase``): those shards with the
+   flipped byte on a faulted resilient engine under
+   ``STROM_VERIFY=full`` and a shard error budget of 1, the epoch
+   completing on the other 3 shards with the damaged one quarantined;
 7. checks one float32 train step of the flagship through the flash
    kernels against the same step through their plain versions;
 8. holds the ring all-gather (kernel 7) against its plain version on 4
@@ -128,8 +146,9 @@ Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
 phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos and
-tenant runs, the flash kernels and ``h2d_copy`` in phase 6, kernels 1-3
-in its verify run, and ``h2d_copy`` and ``ici_ring_gather`` in
+tenant runs and in the recovery run, the flash kernels and ``h2d_copy``
+in phase 6, kernels 1-3 in its verify run, ``h2d_copy`` in the
+recovering loader's run, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
 without CUDA, or a directory without the package.
@@ -178,6 +197,24 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+class _env:
+    """Set environment variables for a block, restoring them after."""
+
+    def __init__(self, **kv):
+        self.kv = {k: str(v) for k, v in kv.items()}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2004,10 +2041,12 @@ OFFLOAD_COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
 
 
 class Counters:
-    """Engine counter deltas since construction (or ``reset``)."""
+    """Engine counter deltas since construction (or ``reset``) of
+    ``names`` (OFFLOAD_COUNTERS by default)."""
 
-    def __init__(self, eng):
+    def __init__(self, eng, names=None):
         self.eng = eng
+        self.names = names or OFFLOAD_COUNTERS
         self.reset()
 
     def _now(self):
@@ -2019,7 +2058,7 @@ class Counters:
 
     def delta(self):
         now = self._now()
-        d = {k: now[k] - self._t0[k] for k in OFFLOAD_COUNTERS}
+        d = {k: now[k] - self._t0[k] for k in self.names}
         d["bytes_read"] = d["bytes_direct"] + d["bytes_fallback"]
         return d
 
@@ -2610,7 +2649,9 @@ QOS_MODES = (("1 ring", "1", "0", 0), ("auto rings", "0", "0", 0),
              ("auto rings, host tier", "0", "0", 512),
              ("auto rings, governor", "0", "0", 0))
 #: the mode whose store runs the SLO governor, its STROM_KV_P99_MS half
-#: the restore-batch p99 of QOS_GOVERNOR_BASE's first trial
+#: the restore-batch p50 of QOS_GOVERNOR_BASE's first trial: a trial's
+#: p99 is its slowest of six restores, and one outlier there (132 ms
+#: against a p50 of 22) set a target no governor trial reached
 QOS_GOVERNOR = "auto rings, governor"
 QOS_GOVERNOR_BASE = "auto rings"
 #: after the storm, single-page restores alone until the governor has
@@ -2711,18 +2752,25 @@ def _governor_decay(store, keys, dev):
 
 
 def qos_run(dev, cfg, params, mode, shared, stream_path, trial,
-            p99_target_ms=0.0):
+            p99_target_ms=0.0, resilient=False, own_target=False):
     """One run of ``mode``: a new engine with the mode's rings, pad and
     host tier; the storm; the prefix store's chat traffic through both
     servers (restores as decode, hot) and QOS_RESTORES more restores of
     every page; offloaded decode (a), 16 timed steps.  With
     ``p99_target_ms`` the store's SLO governor runs (STROM_KV_P99_MS),
     and after the storm single-page restores run until it has decayed.
-    Returns the decode-class times, the storm's GiB/s, tokens and
-    counters."""
+    ``resilient``: the engine is wrapped in a ResilientEngine (no
+    faults), whose decode-class hedge budget is the governor's second
+    lever; the budget's base, peak and value after the decay are
+    reported.  ``own_target``: the governor's target comes from this run
+    alone, half the p50 of its restores up to the end of the QOS_RESTORES
+    batches, and the governor is fed their p99 once there, so whether
+    it fires depends on no other trial's spread.  Returns the decode-class times, the storm's GiB/s, tokens
+    and counters."""
     import torch
     from nvme_strom_tpu_torch.io import hostcache
     from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.io.resilient import ResilientEngine
     from nvme_strom_tpu_torch.models.kv_offload import (OffloadConfig,
                                                         PagedKVCache,
                                                         PrefixStore)
@@ -2732,17 +2780,10 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial,
                                                    KVServeConfig)
     label, rings, pad, tier_mb = mode
     pre, off = shared["prefix"], shared["offload"]
-    env = {"STROM_RINGS": rings, "STROM_FAULT_READ_DELAY_MS": pad}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with _env(STROM_RINGS=rings, STROM_FAULT_READ_DELAY_MS=pad):
         eng = StromEngine()          # both are read when it is made
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    if resilient:
+        eng = ResilientEngine(eng)
     out = {"mode": label, "trial": trial, "n_rings": eng.n_rings}
     try:
         cache = (hostcache.configure(HostCacheConfig(budget_mb=tier_mb),
@@ -2766,6 +2807,8 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial,
         sched = eng.scheduler
         base_w = sched.policies["decode"].weight if sched else None
         peak_w = [base_w]
+        base_hb = eng.hedge_budgets["decode"] if resilient else None
+        peak_hb = [base_hb]
         restore_ms: list = []
         boosted_ms: list = []     # restores begun with the boost on
         observe_ms: list = []     # the governor's own time, in them
@@ -2780,6 +2823,8 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial,
                 boosted_ms.append(restore_ms[-1])
             if sched is not None:
                 peak_w[0] = max(peak_w[0], sched.policies["decode"].weight)
+            if resilient:
+                peak_hb[0] = max(peak_hb[0], eng.hedge_budgets["decode"])
             return got
         store.restore_many = timed_restore
         observe = store.slo.observe
@@ -2817,6 +2862,15 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial,
                 and torch.equal(got[j][1], pre["pages"][kx][1])
                 for j, kx in enumerate(keys))
             del got
+            if own_target:
+                store.slo.target_ms = target = _pct(restore_ms, 0.5) / 2
+                store.slo.observe(eng, _pct(restore_ms, 0.99), eng.stats)
+                if sched is not None:
+                    peak_w[0] = max(peak_w[0],
+                                    sched.policies["decode"].weight)
+                if resilient:
+                    peak_hb[0] = max(peak_hb[0],
+                                     eng.hedge_budgets["decode"])
             kv.append(off["k0"], off["v0"])
             kv.flush()
             tok = _greedy_steps(params, cfg, kv, off["tok0"], 1)
@@ -2852,6 +2906,17 @@ def qos_run(dev, cfg, params, mode, shared, stream_path, trial,
                     "restore_p99_boosted_ms": _pct(boosted_ms, 0.99),
                     "restores_boosted": len(boosted_ms),
                     "observe_ms_max": max(observe_ms)}
+                if resilient:
+                    dec_a = after.get("class_stats", {}).get("decode", {})
+                    dec_b = before.get("class_stats", {}).get("decode", {})
+                    out["governor"].update({
+                        "hedge_budget_base": base_hb,
+                        "hedge_budget_peak": peak_hb[0],
+                        "hedge_budget_after": eng.hedge_budgets["decode"],
+                        "decode_hedges": {
+                            k: dec_a.get(k, 0) - dec_b.get(k, 0)
+                            for k in ("hedges_issued", "hedges_won",
+                                      "hedges_denied")}})
         finally:
             store.close()
         out.update({
@@ -2974,7 +3039,7 @@ def qos_phase(dev, cfg, params, shared, stream_path):
     QOS_MODES QOS_TRIALS times in alternating order, the median trial of
     each (by decode p99) reported; then the host tier's verify and
     staleness checks.  QOS_GOVERNOR's target is half the restore-batch
-    p99 of QOS_GOVERNOR_BASE's first trial, which runs before it.
+    p50 of QOS_GOVERNOR_BASE's first trial, which runs before it.
     Raises unless every trial's tokens equal the prefix store's NVMe-hit
     tokens and the offloaded run's, the restored pages are bitwise the
     cold run's, nothing bounced, no carve fell back, the tier served hits
@@ -2992,7 +3057,7 @@ def qos_phase(dev, cfg, params, shared, stream_path):
                         p99_target_ms=(target if mode[0] == QOS_GOVERNOR
                                        else 0.0))
             if mode[0] == QOS_GOVERNOR_BASE and target is None:
-                target = r["restore_p99_ms"] / 2
+                target = r["restore_p50_ms"] / 2
             runs[mode[0]].append(r)
             log(f"qos {mode[0]} (trial {trial}, {r['n_rings']} rings; "
                 f"{card}; registered in {r['register_s']:.3f} s): "
@@ -3057,6 +3122,8 @@ def qos_phase(dev, cfg, params, shared, stream_path):
             {k: r[k] for k in ("restore_p99_ms", "step_p99_ms",
                                "storm_gib_s")} for r in rs]
     report["tier_checks"] = _qos_tier_checks(dev, cfg, shared)
+    # resilience_phase's (e) sets its numbers beside this mode's
+    shared["qos"] = {"governor": report[QOS_GOVERNOR]}
     report["seconds"] = time.monotonic() - t0
     report["card"] = card
     log(f"qos ({card}): median trial per mode "
@@ -3447,7 +3514,8 @@ def verify_phase(dev, ckdir, cfg):
     training phase's 4 shards stamped with ``stamp_wds``, one epoch
     unverified and one under STROM_VERIFY=full, batches equal and
     copied by h2d_copy; a flipped sample byte in a copy of a shard must
-    raise ChecksumError naming it."""
+    raise (ShardReadError over a ChecksumError) naming it; the copies
+    stay under DATA_DIR/verify/shards for resilience_loader_phase."""
     import glob
     import shutil
     import numpy as np
@@ -3455,6 +3523,7 @@ def verify_phase(dev, ckdir, cfg):
     from nvme_strom_tpu_torch.io.engine import StromEngine
     from nvme_strom_tpu_torch.models.serving import (DecodeServer,
                                                      PagedDecodeServer)
+    from nvme_strom_tpu_torch.data.loader import ShardReadError
     from nvme_strom_tpu_torch.utils.checksum import ChecksumError, stamp_wds
     report = {}
     vdir = os.path.join(DATA_DIR, "verify")
@@ -3583,7 +3652,9 @@ def verify_phase(dev, ckdir, cfg):
             _flip_byte(bad_shards[2], 512 + 100)
             try:
                 _loader_epoch(bad_shards, eng, dev, cfg.vocab)
-            except ChecksumError as e:
+            except ShardReadError as e:
+                if not isinstance(e.__cause__, ChecksumError):
+                    raise
                 caught = str(e)
             else:
                 raise AssertionError("a flipped sample byte loaded")
@@ -3947,6 +4018,321 @@ def restore_phase(dev, ckdir, cpu_params):
     return report
 
 
+# -- resilience: fault injection and recovery on the main paths -------------
+
+#: the read plan of every faulted run: an EIO every 7th read, a half
+#: read every 11th, a 50 ms straggler every 13th (seeded: SEED).  The
+#: resilient wait polls in 20 ms slices (io/resilient.py ``_POLL_S``), so
+#: a straggler must outlast one slice to be hedged
+RESILIENCE_READ_FAULTS = ("eio:every=7, short:every=11:frac=0.5, "
+                          "delay:every=13:delay_s=0.05")
+#: the eviction writes' plan in (c)
+RESILIENCE_WRITE_FAULTS = "weio:every=5:max_count=4, wshort:every=9:frac=0.5"
+#: hedge a read in flight past this, below the injected 50 ms, in (b)
+RESILIENCE_HEDGE_AFTER_S = "0.005"
+#: timed offloaded steps of (c), after one warm step
+RESILIENCE_STEPS = 8
+RESILIENCE_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
+                       "bytes_written_direct", "faults_injected",
+                       "resilient_retries", "hedges_issued", "hedges_won",
+                       "hedges_denied", "stuck_cancelled", "write_retries",
+                       "waste_hedge_loss_bytes", "waste_retry_reread_bytes",
+                       "shards_quarantined", "checksum_failures",
+                       "kv_restore_failures")
+
+
+#: (label, environment) of each engine the resilience phase builds with
+#: ``build_engine``: the bare engine, the resilient wrapper alone, and
+#: the resilient wrapper over the seeded read plan
+_RES_MODES = (
+    ("clean", {}),
+    ("resilient", {"STROM_RESILIENT": "1"}),
+    ("faulted", {"STROM_RESILIENT": "1",
+                 "STROM_FAULTS": RESILIENCE_READ_FAULTS,
+                 "STROM_FAULTS_SEED": SEED}))
+
+
+def _res_engine(dev, env):
+    """``build_engine()`` under ``env``, its staging pool page-locked."""
+    from nvme_strom_tpu_torch.io.faults import build_engine
+    with _env(**env):
+        eng = build_engine()
+    eng.cuda_mapping(dev.index)
+    return eng
+
+
+def _res_direct_ok(st):
+    """Every recovered read stayed on the direct path: no byte read
+    buffered, none bounced."""
+    return st["bytes_fallback"] == 0 and st["bounce_bytes"] == 0
+
+
+def _resilience_weights(dev, ckdir):
+    """(a) the serving checkpoint loaded in the three modes of
+    _RES_MODES, in turns, twice: tensors bitwise the first clean load's;
+    the faulted loads injected and recovered faults with no bounce."""
+    import torch
+    from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
+    wpath = os.path.join(ckdir, "model.safetensors")
+    times = {m: [] for m, _ in _RES_MODES}
+    stats = {}
+    ref = None
+    for _ in range(2):
+        for label, env in _RES_MODES:
+            with _res_engine(dev, env) as eng:
+                ctr = Counters(eng, RESILIENCE_COUNTERS)
+                t0 = time.monotonic()
+                params = LazyCheckpoint(wpath).load(eng, device=dev)
+                torch.cuda.synchronize()
+                times[label].append(time.monotonic() - t0)
+                st = ctr.delta()
+            stats.setdefault(label, []).append(st)
+            if ref is None:
+                ref = params
+            elif any(not torch.equal(params[k], ref[k]) for k in ref):
+                raise AssertionError(f"resilience (a) {label}: tensors "
+                                     "differ from the clean load's")
+            if not _res_direct_ok(st):
+                raise AssertionError(f"resilience (a) {label}: {st}")
+            del params
+    for st in stats["faulted"]:
+        if st["faults_injected"] < 1 or st["resilient_retries"] < 1:
+            raise AssertionError(f"resilience (a): no fault recovered {st}")
+    del ref
+    return {"load_s": times, "faulted_stats": stats["faulted"]}
+
+
+def _resilience_store(dev, cfg, params, shared):
+    """(b) the prefix phase's chat requests over its store copy through
+    both servers, then the 22-page restore batch three times, on the
+    clean engine and under the read plan with hedging past
+    RESILIENCE_HEDGE_AFTER_S: tokens equal the prefix phase's NVMe hit,
+    pages bitwise, no bounce, hedges issued."""
+    import torch
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    pre = shared["prefix"]
+    keys = list(pre["pages"])
+    out = {}
+    for label, env in (_RES_MODES[0], (_RES_MODES[2][0], {
+            **_RES_MODES[2][1],
+            "STROM_HEDGE_AFTER_S": RESILIENCE_HEDGE_AFTER_S})):
+        with _res_engine(dev, env) as eng:
+            ctr = Counters(eng, RESILIENCE_COUNTERS)
+            store = PrefixStore(cfg, eng, pre["store"], PREFIX_PAGE_TOKENS,
+                                PREFIX_STORE_BYTES)
+            toks = {}
+            for name, srv in (
+                    ("dense", DecodeServer(params, cfg, PREFIX_REQUESTS,
+                                           2048, device=dev,
+                                           kv_store=store)),
+                    ("paged", PagedDecodeServer(
+                        params, cfg, PREFIX_REQUESTS, 2048,
+                        total_blocks=128, block_len=PREFIX_PAGE_TOKENS,
+                        device=dev, kv_store=store))):
+                for rid, ids in pre["requests"]:
+                    srv.submit(rid, ids, PREFIX_NEW_TOKENS)
+                toks[name] = srv.run(lookahead=8)
+                del srv
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = store.restore_many({0: (0, keys)}, device=dev)[0]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            pages_equal = all(
+                torch.equal(got[j][0], pre["pages"][kx][0])
+                and torch.equal(got[j][1], pre["pages"][kx][1])
+                for j, kx in enumerate(keys))
+            del got
+            store.close()
+            st = ctr.delta()
+        out[label] = {"restore_ms": ms, "stats": st,
+                      "tokens_equal": {n: t == pre["hit_tokens"]
+                                       for n, t in toks.items()},
+                      "pages_equal": pages_equal}
+        if not (all(out[label]["tokens_equal"].values()) and pages_equal):
+            raise AssertionError(f"resilience (b) {label}: tokens or pages "
+                                 f"differ: {out[label]}")
+        if not _res_direct_ok(st) or st["kv_restore_failures"]:
+            raise AssertionError(f"resilience (b) {label}: {st}")
+    st = out["faulted"]["stats"]
+    if st["faults_injected"] < 1 or st["resilient_retries"] < 1 or \
+            st["hedges_issued"] < 1:
+        raise AssertionError(f"resilience (b): no hedge or retry {st}")
+    return out
+
+
+def _resilience_offload(dev, cfg, params, shared):
+    """(c) offload (a)'s setup (b 8 over 7 cold 8 MiB pages), one warm
+    and RESILIENCE_STEPS timed steps, clean and under the read plan with
+    RESILIENCE_WRITE_FAULTS on the eviction writes: tokens equal offload
+    (a)'s, the faulted page file byte-identical to the clean one, writes
+    retried, no bounce on the page reads."""
+    import torch
+    from nvme_strom_tpu_torch.models.kv_offload import (OffloadConfig,
+                                                        PagedKVCache)
+    off = shared["offload"]
+    odir = os.path.join(DATA_DIR, "resilience")
+    os.makedirs(odir, exist_ok=True)
+    want = off["toks"][:1 + RESILIENCE_STEPS]
+    out, files = {}, {}
+    for label, env in (_RES_MODES[0], (_RES_MODES[2][0], {
+            **_RES_MODES[2][1], "STROM_FAULTS": RESILIENCE_READ_FAULTS
+            + ", " + RESILIENCE_WRITE_FAULTS})):
+        path = os.path.join(odir, f"{label}.bin")
+        if os.path.exists(path):
+            os.remove(path)
+        with _res_engine(dev, env) as eng:
+            ctr = Counters(eng, RESILIENCE_COUNTERS)
+            with PagedKVCache(cfg, OffloadConfig(
+                    path=path, page_len=OFFLOAD_PAGE,
+                    window_pages=OFFLOAD_WINDOW_PAGES), eng, OFFLOAD_BATCH,
+                    device=dev) as cache:
+                cache.append(off["k0"], off["v0"])
+                cache.flush()
+                written = ctr.delta()
+                wrote = cache.n_cold * cache._page_stride
+                toks = _greedy_steps(params, cfg, cache, off["tok0"], 1)
+                torch.cuda.synchronize()
+                ctr.reset()
+                t0 = time.monotonic()
+                toks += _greedy_steps(params, cfg, cache, toks[-1],
+                                      RESILIENCE_STEPS)
+                torch.cuda.synchronize()
+                secs = time.monotonic() - t0
+                reads = ctr.delta()
+        with open(path, "rb") as f:
+            files[label] = f.read()
+        out[label] = {"ms_step": secs / RESILIENCE_STEPS * 1e3,
+                      "bytes_written": wrote, "write_stats": written,
+                      "read_stats": reads,
+                      "tokens_equal": all(torch.equal(a, c)
+                                          for a, c in zip(toks, want))}
+        if not out[label]["tokens_equal"] or not _res_direct_ok(reads):
+            raise AssertionError(f"resilience (c) {label}: {out[label]}")
+    out["page_files_equal"] = files["clean"] == files["faulted"]
+    w = out["faulted"]["write_stats"]
+    if not out["page_files_equal"] or w["write_retries"] < 1 or \
+            out["faulted"]["read_stats"]["faults_injected"] < 1:
+        raise AssertionError(f"resilience (c): page files equal "
+                             f"{out['page_files_equal']}, {out}")
+    return out
+
+
+def _resilience_governor(dev, cfg, params, shared, stream_path):
+    """(e) one trial of qos_phase's governor mode on a resilient engine
+    (no faults), its target set inside the trial (qos_run
+    ``own_target``): the decode class's hedge budget must rise with the
+    governor's boost and decay back to its base."""
+    r = qos_run(dev, cfg, params, ("auto rings, governor, resilient", "0",
+                                   "0", 0), shared, stream_path, 0,
+                resilient=True, own_target=True)
+    g = r["governor"]
+    if not (r["tokens_equal"] and r["offload_tokens_equal"]
+            and r["pages_equal"]):
+        raise AssertionError(f"resilience (e): tokens or pages differ {r}")
+    if not (g["hedge_budget_peak"] > g["hedge_budget_base"]
+            == g["hedge_budget_after"]):
+        raise AssertionError(f"resilience (e): the hedge budget did not "
+                             f"rise and decay back: {g}")
+    base = shared["qos"]["governor"]
+    return {"governor": g, "restore_p99_ms": r["restore_p99_ms"],
+            "step_p99_ms": r["step_p99_ms"],
+            "without_resilience": {**{k: base[k] for k in (
+                "restore_p99_ms", "step_p99_ms")},
+                "target_ms": base["governor"]["target_ms"]}}
+
+
+def resilience_phase(dev, cfg, ckdir, params, shared, stream_path):
+    """Fault injection and recovery under the serving paths at flagship
+    width, every engine from ``build_engine`` with STROM_RESILIENT=1 and
+    the seeded STROM_FAULTS plan set for its run only: (a) the weights
+    load, (b) the prefix store's restores on both servers, (c) offloaded
+    decode with faulted eviction writes, (e) the SLO governor's hedge
+    lever.  (d), the loader, runs after the training phase
+    (resilience_loader_phase).  Every check raises."""
+    t0 = time.monotonic()
+    card = card_line()
+    rep = {"weights": _resilience_weights(dev, ckdir)}
+    w = rep["weights"]["load_s"]
+    log(f"resilience (a) weights load ({card}), s in turns: clean "
+        f"{[round(x, 4) for x in w['clean']]}, resilient "
+        f"{[round(x, 4) for x in w['resilient']]}, faulted "
+        f"{[round(x, 4) for x in w['faulted']]}; tensors bitwise; faulted "
+        f"counters {rep['weights']['faulted_stats']}")
+    rep["store"] = _resilience_store(dev, cfg, params, shared)
+    log(f"resilience (b) prefix store, both servers: restore batch ms "
+        f"clean {[round(x, 2) for x in rep['store']['clean']['restore_ms']]}"
+        f", faulted "
+        f"{[round(x, 2) for x in rep['store']['faulted']['restore_ms']]}; "
+        f"tokens and pages equal; faulted counters "
+        f"{rep['store']['faulted']['stats']}")
+    rep["offload"] = _resilience_offload(dev, cfg, params, shared)
+    o = rep["offload"]
+    log(f"resilience (c) offloaded decode: ms a step clean "
+        f"{o['clean']['ms_step']:.2f}, faulted {o['faulted']['ms_step']:.2f};"
+        f" page files equal; eviction writes {o['faulted']['write_stats']}"
+        f" of {o['faulted']['bytes_written']} B; page reads "
+        f"{o['faulted']['read_stats']}")
+    rep["governor"] = _resilience_governor(dev, cfg, params, shared,
+                                           stream_path)
+    g = rep["governor"]
+    log(f"resilience (e) governor on a resilient engine: {g}")
+    rep["seconds"] = time.monotonic() - t0
+    rep["card"] = card
+    return rep
+
+
+def resilience_loader_phase(dev, cfg):
+    """(d) the 4 stamped training shards of verify_phase's copy, one
+    sample byte of shard 2 flipped on disk, under STROM_VERIFY=full on
+    a resilient, faulted engine, ``shard_error_budget`` 1: the epoch
+    completes on the other 3 shards through h2d_copy, shard 2
+    quarantined."""
+    import glob
+    import numpy as np
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.formats.wds import WdsShardIndex
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.utils.config import LoaderConfig
+    shards = sorted(glob.glob(os.path.join(DATA_DIR, "verify", "shards",
+                                           "*.tar")))
+    if len(shards) != 4:
+        raise AssertionError(f"resilience (d): shards {shards}")
+    per = [len(WdsShardIndex(p).order) for p in shards]
+    want = sum(per[:2] + per[3:]) // TRAIN_BATCH
+
+    def decode(parts):
+        (payload,) = parts.values()
+        return np.frombuffer(payload, dtype=np.int32) % cfg.vocab
+    env = {**_RES_MODES[2][1], "STROM_VERIFY": "full"}
+    h0 = h2d_copy.launches
+    t0 = time.monotonic()
+    with _env(**env):
+        eng = _res_engine(dev, {})
+        ctr = Counters(eng, RESILIENCE_COUNTERS)
+        with ShardedLoader(shards, TRAIN_BATCH, decode=decode, engine=eng,
+                           config=LoaderConfig(shard_error_budget=1),
+                           device=dev) as loader:
+            batches = [b.clone() for b in loader]
+            quarantined = list(loader.quarantined)
+        st = ctr.delta()
+        eng.close_all()
+    rep = {"batches": len(batches), "want_batches": want,
+           "quarantined": [os.path.basename(p) for p in quarantined],
+           "seconds": time.monotonic() - t0,
+           "h2d_launches": h2d_copy.launches - h0, "stats": st}
+    if (quarantined != [shards[2]] or len(batches) != want
+            or st["shards_quarantined"] != 1 or not rep["h2d_launches"]
+            or st["checksum_failures"] < 2):
+        raise AssertionError(f"resilience (d): {rep}")
+    log(f"resilience (d) loader: {rep}")
+    return rep
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -4078,6 +4464,16 @@ def main() -> int:
         lambda: tenant_phase(dev, cfg, params, shared))
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches_tenant"] = counts[n]
+    torch.cuda.empty_cache()
+    # main path 1f: the serving paths under injected faults, recovered
+    # by the resilient engine: restored reads through h2d_copy, decode
+    # steps on kernels 2-3
+    resilience, counts = drive(
+        "resilience", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: resilience_phase(dev, cfg, ckdir, params, shared,
+                                 stream_path))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_resilience"] = counts[n]
     del shared
     os.remove(stream_path)
     del params
@@ -4101,6 +4497,11 @@ def main() -> int:
         lambda: verify_phase(dev, ckdir, cfg))
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches_verify"] = counts[n]
+    # main path 2c: the loader's shard quarantine on a faulted engine
+    resilience["loader"], counts = drive(
+        "resilience loader", ("h2d_copy",),
+        lambda: resilience_loader_phase(dev, cfg))
+    results["h2d_copy"]["launches_resilience_loader"] = counts["h2d_copy"]
     f32_train = f32_train_phase(dev, cfg)
 
     # kernel 7 at the width of the restore below
@@ -4126,11 +4527,19 @@ def main() -> int:
     results["h2d_copy"]["launches_restore"] = counts["h2d_copy"]
     for n in counters:
         results[n]["kernel_ms"] = results[n]["ms"]
+    log("resilience " + json.dumps({
+        "weights_faulted": resilience["weights"]["faulted_stats"],
+        "store_faulted": resilience["store"]["faulted"]["stats"],
+        "offload_writes": resilience["offload"]["faulted"]["write_stats"],
+        "offload_reads": resilience["offload"]["faulted"]["read_stats"],
+        "loader": resilience["loader"]["stats"],
+        "governor": resilience["governor"]["governor"]}))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
                                   "offload": offload, "qos": qos,
                                   "tenants": tenant, "verify": verify,
+                                  "resilience": resilience,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
                                   "flash_split": flash_split,

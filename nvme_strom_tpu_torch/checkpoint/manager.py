@@ -17,7 +17,16 @@ several tiles (the JAX package's saves from a mesh) and assembles them.
 Saves are atomic: the step is staged in ``.tmp_step_XXXXXXXX`` and
 renamed into place once every byte is on disk; a staging directory left
 by a crashed save is never taken for a checkpoint and is removed at
-startup once it is older than ``gc_min_age_s``.  Restore steps past a
+startup once it is older than ``gc_min_age_s``.  The save's crash
+windows are marked for ``STROM_CRASH_POINT`` (io/faults.py
+``crash_point``): ``ckpt.tiles`` after the data write, ``ckpt.meta``
+once the manifest is staged and ``ckpt.rename`` before the commit.  In
+this one-process format nothing happens between the last two (the
+reference syncs its processes there), so ``ckpt.meta`` and
+``ckpt.rename`` name one crash window, and the second is kept only so
+that a ``STROM_CRASH_POINT`` set for the reference works here too; its
+multi-process ``ckpt.marker`` has no counterpart, as this format writes
+no marker.  Restore steps past a
 damaged step to an older one, and can read the step once across an
 exchange group (``STROM_ICI_SCATTER``, ops/ici.py).  Under
 ``STROM_VERIFY`` (utils/checksum.py) every whole stored tile read is
@@ -46,6 +55,7 @@ from nvme_strom_tpu_torch.checkpoint.scatter import build_restore_manifest
 from nvme_strom_tpu_torch.formats.safetensors import (
     SafetensorsFile, tensor_checksums, torch_dtype, write_safetensors_engine)
 from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
+from nvme_strom_tpu_torch.io.faults import build_engine, crash_point
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import host_to_device, pinned_mapping
 from nvme_strom_tpu_torch.ops.ici import (ici_hosts, ici_scatter_enabled,
@@ -284,6 +294,7 @@ class CheckpointManager:
         finally:
             if own:
                 eng.close_all()
+        crash_point("ckpt.tiles")        # data written, no commit
         t1 = time.monotonic()
         meta = {"format": 2, "step": step, "time": time.time(),
                 "process_count": 1, "tensors": index}
@@ -291,6 +302,8 @@ class CheckpointManager:
             json.dump(meta, f)
             f.flush()
             os.fsync(f.fileno())
+        crash_point("ckpt.meta")         # manifest staged, rename pending
+        crash_point("ckpt.rename")       # the same window (see above)
         os.replace(tmp, final)
         dfd = os.open(self.directory, os.O_RDONLY)
         try:
@@ -582,4 +595,4 @@ class CheckpointManager:
     def _get_engine(self):
         if self._engine is not None:
             return self._engine, False
-        return StromEngine(), True
+        return build_engine(), True

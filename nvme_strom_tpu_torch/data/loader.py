@@ -17,18 +17,27 @@ Under ``STROM_VERIFY`` (utils/checksum.py) each sample part is checked
 against its shard's ``.crc.json`` sidecar when the shard has one
 (``stamp_wds`` writes it): a mismatch is read once more, past the host
 tier, and a part that still fails raises :class:`ChecksumError` naming
-the shard.  The JAX loader's shard quarantine under
-``shard_error_budget`` comes with resilience (ROADMAP item 7a); until
-then a lasting mismatch ends the epoch with that error.  With
-``STROM_VERIFY`` off the loader does no CRC work.  Mixtures, the
+the shard.  With ``STROM_VERIFY`` off the loader does no CRC work.
+
+Shard quarantine (``LoaderConfig.shard_error_budget``): a shard whose
+index, read, check or decode fails is skipped for this epoch and every
+later one, counted ``shards_quarantined``, logged and traced as a
+``strom.loader.quarantine`` span, while fewer than the budget are out;
+past it, or with the default budget of 0, the failure raises
+:class:`ShardReadError` naming the shard (and, past a budget, the
+quarantine list).  Under ``STROM_RESILIENT=1`` the engine's own retries
+come first, so only a failure they could not heal reaches the
+quarantine.  Mixtures, the
 tfrecord / fixedrec / raw formats and sequence sharding are not part of
 this port yet.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Iterator, List, Optional, Sequence
 
@@ -40,6 +49,7 @@ from nvme_strom_tpu_torch.data.sharding import (assign_shards,
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.formats.wds import WdsShardIndex
 from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
+from nvme_strom_tpu_torch.io.faults import build_engine
 from nvme_strom_tpu_torch.io.hostcache import spoil_span
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import to_device
@@ -47,6 +57,30 @@ from nvme_strom_tpu_torch.utils.checksum import VerifyPolicy, load_sidecar
 from nvme_strom_tpu_torch.utils.config import LoaderConfig
 
 _SENTINEL = object()
+_log = logging.getLogger(__name__)
+
+
+class ShardReadError(RuntimeError):
+    """A shard failed (index, read, check or decode) and could not be
+    quarantined.  Names the shard (``path``); the failure is the
+    ``__cause__``."""
+
+    def __init__(self, path, exc: BaseException, detail: str = ""):
+        self.path = str(path)
+        super().__init__(
+            f"shard {self.path}: {type(exc).__name__}: {exc}"
+            + (f" ({detail})" if detail else ""))
+
+
+class LoaderErrors(RuntimeError):
+    """Several producer-side errors queued before the consumer saw any:
+    all of them in ``errors`` (oldest first) and in the message."""
+
+    def __init__(self, errors):
+        self.errors = list(errors)
+        super().__init__(
+            f"{len(self.errors)} loader errors: "
+            + "; ".join(f"{type(e).__name__}: {e}" for e in self.errors))
 
 
 def _default_decode(parts: dict) -> np.ndarray:
@@ -81,9 +115,11 @@ class ShardedLoader:
     """Iterate device batches of ``global_batch`` samples from
     WebDataset shards.  ``decode(parts: {ext: bytes}) -> array`` (or a
     dict / tuple of arrays); ``exts`` keeps only these member
-    extensions; ``engine``: a shared StromEngine (one is created and
-    owned otherwise); ``device``: where batches go (default
-    ``cuda:0``).  Each ``iter()`` is one epoch."""
+    extensions; ``engine``: a shared StromEngine (one is created by
+    ``io/faults.py`` ``build_engine`` and owned otherwise); ``device``:
+    where batches go (default ``cuda:0``).  Each ``iter()`` is one
+    epoch.  ``quarantined`` lists the shards skipped under
+    ``config.shard_error_budget``, in failure order."""
 
     def __init__(self, shard_paths: Sequence, global_batch: int,
                  fmt: str = "wds", decode: Optional[Callable] = None,
@@ -105,8 +141,10 @@ class ShardedLoader:
         self.local_batch = global_batch
         self.local_shards = assign_shards(shard_paths, 0, 1)
         self._owns_engine = engine is None
-        self._engine = engine if engine is not None else StromEngine()
+        self._engine = engine if engine is not None else build_engine()
         self.epoch = 0
+        self.quarantined: List[str] = []
+        self._quarantined_set: set = set()
         self._shard_index: "OrderedDict[str, list]" = OrderedDict()
         self._shard_index_total = 0
         self._verify = VerifyPolicy()
@@ -147,7 +185,37 @@ class ShardedLoader:
             perm = shuffled_indices(len(order), self.config.seed, self.epoch)
             order = [order[i] for i in perm]
         for path in order:
-            yield from self._shard_samples(path)
+            if str(path) in self._quarantined_set:
+                continue               # out since an earlier failure
+            try:
+                yield from self._shard_samples(path)
+            except Exception as e:     # GeneratorExit passes
+                self._quarantine_or_raise(path, e)
+
+    def _quarantine_or_raise(self, path, e: Exception) -> None:
+        """Skip the failing shard from now on while the error budget
+        lasts; otherwise raise, naming it."""
+        budget = self.config.shard_error_budget
+        if budget <= 0:
+            raise ShardReadError(path, e) from e
+        if len(self.quarantined) >= budget:
+            raise ShardReadError(
+                path, e,
+                f"shard error budget ({budget}) exhausted; already "
+                f"quarantined: {self.quarantined}") from e
+        self.quarantined.append(str(path))
+        self._quarantined_set.add(str(path))
+        self._engine.stats.add(shards_quarantined=1)
+        tracer = self._engine.tracer
+        if tracer.enabled:
+            now = time.monotonic_ns()
+            tracer.add_span("strom.loader.quarantine", now, now,
+                            category="strom.resilient", shard=str(path),
+                            error=f"{type(e).__name__}: {e}")
+        _log.warning(
+            "quarantining shard %s after %s: %s (%d/%d of error budget "
+            "used)", path, type(e).__name__, e, len(self.quarantined),
+            budget)
 
     def _shard_samples(self, path) -> Iterator:
         """Index → pipelined reads (one planned batch per sample, half
@@ -270,8 +338,10 @@ class ShardedLoader:
             while True:
                 hb = q.get()
                 if hb is _SENTINEL:
-                    if err:
+                    if len(err) == 1:
                         raise err[0]
+                    if err:
+                        raise LoaderErrors(err) from err[0]
                     break
                 yield _map(lambda x: to_device(self._engine, x,
                                                self.device), hb)

@@ -65,7 +65,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.io.faults import build_engine
     from nvme_strom_tpu_torch.models.transformer import TransformerConfig
     from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
 
@@ -85,7 +85,7 @@ def main(argv=None) -> int:
             ap.error("--offload-chunked-prefill needs --offload-window "
                      ">= 8 (at least two pages)")
 
-    engine = StromEngine()
+    engine = build_engine()
     try:
         t0 = time.monotonic()
         params = LazyCheckpoint(args.weights).load(engine,

@@ -10,6 +10,13 @@ from nvme_strom_tpu_torch.io.engine import (
     check_file,
     wait_exact,
 )
+from nvme_strom_tpu_torch.io.faults import (
+    FaultPlan,
+    FaultSpec,
+    FaultyEngine,
+    build_engine,
+    crash_point,
+)
 from nvme_strom_tpu_torch.io.hostcache import (
     CacheHitRead,
     HostCache,
@@ -23,6 +30,13 @@ from nvme_strom_tpu_torch.io.plan import (
     split_spans,
     submit_spans,
     submit_spans_tiered,
+)
+from nvme_strom_tpu_torch.io.resilient import (
+    ReadError,
+    ResilientEngine,
+    ResilientRead,
+    ResilientWrite,
+    WriteError,
 )
 from nvme_strom_tpu_torch.io.sched import (
     CLASS_ORDER,
@@ -43,9 +57,13 @@ from nvme_strom_tpu_torch.io.tenants import (
 __all__ = ["PinnedArena", "Slab", "get_arena",
            "StromEngine", "PendingRead", "PendingWrite", "check_file",
            "wait_exact",
+           "FaultPlan", "FaultSpec", "FaultyEngine", "build_engine",
+           "crash_point",
            "CacheHitRead", "HostCache", "get_cache",
            "ExtentPlan", "SpanView", "plan_and_submit", "plan_extents",
            "split_spans", "submit_spans", "submit_spans_tiered",
+           "ReadError", "ResilientEngine", "ResilientRead",
+           "ResilientWrite", "WriteError",
            "CLASS_ORDER", "DEFAULT_CLASS", "ClassPolicy", "QoSScheduler",
            "default_policies",
            "Tenant", "TenantRegistry", "TokenBucket", "current_tenant",

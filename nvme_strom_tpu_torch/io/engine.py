@@ -24,8 +24,23 @@ New for CUDA: the staging pool is registered with CUDA (mapped) the
 first time a device copy reads it (:meth:`StromEngine.cuda_mapping`), so
 the host→device kernel reads staging buffers in place; it is
 unregistered, after the device has finished every copy out of it,
-before the engine is destroyed.  The breaker mask and supervision tick
-of the reference's admission poll come with resilience.
+before the engine is destroyed.
+
+Observability: each completed read and write is a ``strom.read`` /
+``strom.write`` span (``strom.read.fallback`` for a buffered read) on
+the engine's tracer (``global_tracer`` by default, utils/trace.py),
+stamped with the C engine's own submit and completion nanoseconds and
+carrying the causal context current at submit; disabled, it costs one
+attribute test.  ``latency_histogram`` / ``latency_percentiles`` read
+the engine's log2 latency histogram (``strom_get_latency``), which the
+resilient engine derives its default hedge threshold from.
+
+Recovery wraps this engine rather than living in it: ``io/faults.py``
+``build_engine`` stacks ``FaultyEngine`` and ``ResilientEngine``
+(retries, hedges, the write mirror) on it under ``STROM_FAULTS`` /
+``STROM_RESILIENT``.  The breaker mask and supervision tick of the
+reference's admission poll come with its supervisor, ``io/health.py``
+(ROADMAP item 7b).
 """
 
 from __future__ import annotations
@@ -41,10 +56,15 @@ from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.io import arena as _arena
 from nvme_strom_tpu_torch.io.arena import CudaRegistration, HostMapping
 from nvme_strom_tpu_torch.utils.config import EngineConfig, SchedConfig
-from nvme_strom_tpu_torch.utils.stats import StromStats
+from nvme_strom_tpu_torch.utils.stats import (StromStats,
+                                              percentiles_from_log2_hist)
+from nvme_strom_tpu_torch.utils.trace import (NO_CONTEXT, attach_context,
+                                              global_tracer)
 
 #: the request ids' ring bits bound the ring count (STROM_MAX_RINGS)
 _MAX_RINGS = 64
+#: buckets of the engine's log2-ns latency histograms (STROM_LAT_BUCKETS)
+_LAT_BUCKETS = 64
 
 
 class _FileInfo(ctypes.Structure):
@@ -192,6 +212,8 @@ def _lib() -> ctypes.CDLL:
         "strom_crc32c": (U32, [P, U64, U32]),
         "strom_drain_stats": (None, [P, ctypes.POINTER(_StatsBlk)]),
         "strom_backend_is_uring": (I, [P]),
+        "strom_get_latency": (None, [P, ctypes.POINTER(U64),
+                                     ctypes.POINTER(U64)]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -232,6 +254,10 @@ class PendingRead:
         self._released = False
         self._view: Optional[np.ndarray] = None
         self._error: Optional[OSError] = None
+        #: True once the completion came from the buffered path
+        self.was_fallback = False
+        #: the span's causal identity, taken at submit (utils/trace.py)
+        self.trace_ctx = NO_CONTEXT
 
     @property
     def length(self) -> int:
@@ -261,6 +287,13 @@ class PendingRead:
             self.release()
             raise OSError(-rc, os.strerror(-rc))
         n = int(comp.len)
+        self.was_fallback = bool(comp.was_fallback)
+        tracer = self._engine.tracer
+        if tracer.enabled:
+            tracer.add_span(
+                "strom.read.fallback" if comp.was_fallback else "strom.read",
+                int(comp.submit_ns), int(comp.complete_ns),
+                ctx=self.trace_ctx, bytes=n)
         self._view = (np.empty(0, dtype=np.uint8) if n == 0
                       else np.ctypeslib.as_array(comp.data, shape=(n,)))
         return self._view
@@ -319,20 +352,50 @@ class PendingWrite:
         self.fh = fh
         self.offset = offset
         self.length = keepalive.nbytes
+        self.trace_ctx = NO_CONTEXT
+        self._done = False
 
-    def wait(self) -> int:
+    def wait(self, timeout: Optional[float] = None) -> int:
+        """Block until the write completes; the bytes written.
+        ``timeout`` (seconds) raises TimeoutError with the write still
+        live: wait again, or ``release()``."""
         lib, h = self._engine._lib, self._engine._h
         comp = _Completion()
-        rc = lib.strom_wait(h, self._req_id, ctypes.byref(comp))
-        lib.strom_release(h, self._req_id)
+        if timeout is None:
+            rc = lib.strom_wait(h, self._req_id, ctypes.byref(comp))
+        else:
+            ns = min(int(max(0.0, timeout) * 1e9), (1 << 63) - 1)
+            rc = lib.strom_wait_timeout(h, self._req_id, ctypes.byref(comp),
+                                        ns)
+            if rc == -errno.ETIMEDOUT:
+                raise TimeoutError(f"write {self._req_id} still in flight "
+                                   f"after {timeout}s")
+        self._finish()
+        if rc < 0:
+            raise OSError(-rc, os.strerror(-rc))
+        n = int(comp.len)
+        tracer = self._engine.tracer
+        if tracer.enabled:
+            tracer.add_span("strom.write", int(comp.submit_ns),
+                            int(comp.complete_ns), ctx=self.trace_ctx,
+                            bytes=n)
+        return n
+
+    def release(self) -> None:
+        """Abort: waits for the write to leave flight, frees it."""
+        if not self._done:
+            self._engine._lib.strom_wait(self._engine._h, self._req_id,
+                                         None)
+            self._finish()
+
+    def _finish(self) -> None:
+        self._engine._lib.strom_release(self._engine._h, self._req_id)
+        self._done = True
         self._keepalive = None
         # the tier's staleness guard again at completion: a read
         # admitted after the submit may have filled pre-write bytes
         self._engine._hostcache_write_done(self.fh, self.offset,
                                            self.length)
-        if rc < 0:
-            raise OSError(-rc, os.strerror(-rc))
-        return int(comp.len)
 
 
 class StromEngine:
@@ -342,9 +405,14 @@ class StromEngine:
     QoS scheduler that grants them."""
 
     def __init__(self, config: Optional[EngineConfig] = None,
-                 stats: Optional[StromStats] = None):
+                 stats: Optional[StromStats] = None, tracer=None):
         self.config = config or EngineConfig()
         self.stats = stats if stats is not None else StromStats()
+        #: where the read and write spans go (utils/trace.py); the first
+        #: engine on a tracer charges its dropped spans
+        self.tracer = tracer if tracer is not None else global_tracer
+        if self.tracer.stats is None:
+            self.tracer.stats = self.stats
         self._lib = _lib()
         c = self.config
         n_buffers = c.n_buffers
@@ -470,12 +538,21 @@ class StromEngine:
                 raise ValueError(f"read length {length} exceeds chunk_bytes "
                                  f"{chunk}; split the range")
 
-    def submit_read(self, fh: int, offset: int, length: int) -> PendingRead:
+    def submit_read(self, fh: int, offset: int, length: int,
+                    klass: Optional[str] = None) -> PendingRead:
+        """One read, round-robin over the rings.  ``klass`` is accepted
+        for the engine contract the wrappers share and routes nothing:
+        scalar reads bypass the scheduler."""
         self._check_lengths([(fh, offset, length)])
         rid = self._lib.strom_submit_read(self._h, fh, offset, length)
         if rid < 0:
             raise OSError(-rid, os.strerror(-rid))
-        return PendingRead(self, rid, length, fh=fh, offset=offset)
+        pending = PendingRead(self, rid, length, fh=fh, offset=offset)
+        if self.tracer.enabled:
+            # the span may be waited on another thread: carry the
+            # context from here
+            pending.trace_ctx = attach_context()
+        return pending
 
     def _submit_readv_ring(self, reads, ring: Optional[int]) -> list:
         """One vectored C call to ``ring`` (or the engine's round-robin
@@ -493,8 +570,12 @@ class StromEngine:
                                                    rids)
         if rc < 0:
             raise OSError(-rc, os.strerror(-rc))
-        return [PendingRead(self, int(rids[i]), reads[i][2], fh=reads[i][0],
-                            offset=reads[i][1]) for i in range(n)]
+        out = [PendingRead(self, int(rids[i]), reads[i][2], fh=reads[i][0],
+                           offset=reads[i][1]) for i in range(n)]
+        if self.tracer.enabled:
+            for p in out:
+                p.trace_ctx = attach_context()
+        return out
 
     def submit_readv(self, reads, klass: Optional[str] = None,
                      ring: Optional[int] = None) -> list:
@@ -526,7 +607,10 @@ class StromEngine:
         if rid < 0:
             raise OSError(-rid, os.strerror(-rid))
         self._hostcache_write_done(fh, offset, arr.nbytes)
-        return PendingWrite(self, rid, arr, fh, offset)
+        pending = PendingWrite(self, rid, arr, fh, offset)
+        if self.tracer.enabled:
+            pending.trace_ctx = attach_context()
+        return pending
 
     def _hostcache_write_done(self, fh: int, offset: int,
                               length: int) -> None:
@@ -557,6 +641,21 @@ class StromEngine:
         return out
 
     # -- stats / lifecycle --------------------------------------------------
+
+    def latency_histogram(self) -> dict:
+        """Submit→complete latency of the engine's successful requests,
+        log2-ns buckets: entry i of each list counts requests in
+        [2^i, 2^(i+1)) ns (``strom_get_latency``)."""
+        rd = (ctypes.c_uint64 * _LAT_BUCKETS)()
+        wr = (ctypes.c_uint64 * _LAT_BUCKETS)()
+        self._lib.strom_get_latency(self._h, rd, wr)
+        return {"read": [int(x) for x in rd], "write": [int(x) for x in wr]}
+
+    def latency_percentiles(self, kind: str = "read",
+                            ps=(50, 90, 99)) -> dict:
+        """Approximate percentiles (ns) of ``kind`` ("read" or "write")
+        from the log2 histogram; 0 while it is empty."""
+        return percentiles_from_log2_hist(self.latency_histogram()[kind], ps)
 
     def pool_info(self) -> dict:
         info = _PoolInfo()

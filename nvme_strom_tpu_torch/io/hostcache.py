@@ -54,7 +54,14 @@ view still pins a line (``close`` raises).
              tenant is not sticky.  Outside any tenant scope none of
              this runs.
 
-The reference's tracer spans and waste ledger come with observability.
+Hit spans never enter ``FaultyEngine`` or ``ResilientEngine``
+(io/faults.py, io/resilient.py): the planner (io/plan.py) probes the
+tier before it submits, so a DRAM hit takes no fault decision, retry or
+hedge budget, while the misses are submitted through whatever wrapper
+the caller holds and get its recovery.  The tier is the process's one,
+whichever engine in a wrapper stack finds it.  The reference's fill and
+hit spans and its ``evicted_unused`` waste charge come with ROADMAP
+item 14.
 """
 
 from __future__ import annotations

@@ -35,8 +35,9 @@ class's grants by weight ratio.  The aging pass runs before that pick,
 so the starvation bound does not depend on weights; until a batch with
 a tenant is queued the pick is the queue's head, exact FIFO.
 
-The tracer's queue spans come with the tracer; the breaker mask of the
-engine's ``ring_free`` callback comes with resilience.
+The tracer's queue spans come with ROADMAP item 14; the breaker mask of
+the engine's ``ring_free`` callback comes with the supervisor of
+``io/health.py`` (item 7b).
 """
 
 from __future__ import annotations
@@ -61,8 +62,9 @@ DEFAULT_CLASS = "prefetch"
 class ClassPolicy:
     """One class's scheduling policy: ``weight`` is its fair-share
     credit in batches a round.  ``hedge_budget`` and ``max_retries``
-    are the reference's per-class resilience budgets, read by the
-    resilient engine that comes with resilience."""
+    are the class's recovery budgets, read by io/resilient.py's
+    ``ResilientEngine``: its concurrent hedges, and (when set) its
+    retries in place of ``ResilientConfig.max_retries``."""
 
     name: str
     priority: int          # position in CLASS_ORDER; lower serves first

@@ -69,15 +69,24 @@ tenant, as the JAX store's does not.
 sees the restore-batch p99 after every restore batch and raises the
 decode class's scheduler weight one notch while it is past the target,
 and one notch back once it is under half; the servers feed its
-per-tenant lane with each tenant's TTFT p99.  Its hedge-budget lever
-and its gate on a sick device read ``engine.set_hedge_budget`` and
-``engine.supervisor``, which come with resilience (ROADMAP items 7a,
-7b); on this port's engine both are absent and stay inert, as on a JAX
-engine without them, and so are the flight-recorder dumps.
+per-tenant lane with each tenant's TTFT p99.  On a resilient engine
+(``STROM_RESILIENT=1``, io/resilient.py) it also doubles the decode
+class's concurrent-hedge budget a notch (``engine.set_hedge_budget``)
+and halves it back as it decays; on a bare engine that lever is absent
+and only the weight moves.
 
-Left for the later parts of the port, each named where it would act:
-the tracer's restore span and the resilient write mirror of the
-eviction writes.
+Recovery (io/faults.py, io/resilient.py): on a resilient engine every
+page read above (the restore, ``warm_pages``, the offloaded page
+stream) retries and hedges inside the engine and hands back the
+winning attempt's staging view, so the copy still reads registered
+memory; the eviction writes go through ``engine.submit_write`` and so
+get the write mirror (a failed write resubmitted, a short one finished
+from where it stopped).
+
+Left for the later parts of the port: the governor's gate on a sick
+device and its flight-recorder dumps, which read the supervisor of
+``io/health.py`` (``engine.supervisor``, ROADMAP item 7b) and stay
+inert until it exists, and the tracer's restore span (item 14).
 """
 
 from __future__ import annotations

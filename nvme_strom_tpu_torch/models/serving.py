@@ -33,8 +33,8 @@ Load shedding: ``shed_probe=`` is a callable that returns True while
 new prefills should defer (queued requests wait, in-flight decode goes
 on, nothing fails); each deferred admission counts ``admissions_shed``.
 With no probe the server never sheds: the JAX server's default, the
-engine supervisor's degraded state, comes with resilience (ROADMAP item
-7b).
+engine supervisor's degraded state, comes with io/health.py (ROADMAP
+item 7b).
 
 Tenants (io/tenants.py), only under ``STROM_TENANTS=1``: ``submit(...,
 tenant=)`` resolves the request's tenant once.  While any queued request
@@ -47,7 +47,8 @@ tenant's scope, so the scheduler, the host tier and the store charge
 them to it, and each tenant's TTFT p99 feeds the store's
 ``SloGovernor``.  With tenants off the tag is ignored and every path is
 the one without tenants, bit for bit.  The ``tenant_storm`` flight dump
-comes with resilience (item 7b); the storm windows it reads are kept.
+comes with the flight recorder (item 7b); the storm windows it reads
+are kept.
 Drain/handoff, session export and cold start of the JAX server are not
 part of this port yet.
 """

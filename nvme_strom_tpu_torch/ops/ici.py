@@ -47,6 +47,7 @@ from nvme_strom_tpu_torch.io.scatter import (ScatterServeEngine,
 from nvme_strom_tpu_torch.device import current_stream
 from nvme_strom_tpu_torch.ops.bridge import h2d_copy, pinned_mapping
 from nvme_strom_tpu_torch.parallel.mesh import ExchangeGroup, exchange_group
+from nvme_strom_tpu_torch.utils.trace import global_tracer
 
 _log = logging.getLogger(__name__)
 
@@ -295,7 +296,8 @@ class IciExchange:
             ici_hosts())
         self.n = self.group.n
         self.stats = stats
-        self.tracer = tracer
+        #: utils/trace.py Tracer of the ``strom.ici.exchange`` span
+        self.tracer = tracer if tracer is not None else global_tracer
 
     def host_rows(self, row_bytes: int) -> torch.Tensor:
         """A zeroed ``(n, row_bytes)`` host tensor to pack the share rows
@@ -345,8 +347,7 @@ class IciExchange:
         if got.shape != host.shape:
             raise RuntimeError(f"ici: gather returned {tuple(got.shape)}, "
                                f"expected {tuple(host.shape)}")
-        if self.tracer is not None and getattr(self.tracer, "enabled",
-                                               False):
+        if self.tracer.enabled:
             t3 = time.monotonic_ns()
             # ring_s: the priming copies and the ring (it waits for
             # both); out_s: the host buffer and the copy out of rank 0
@@ -392,13 +393,15 @@ def scatter_engine(engine, paths: Sequence[str],
     :class:`ScatterServeEngine` serving every later read of those files
     from the gathered bytes.  One process reads all ranks' shares, so
     ``ici_bytes_read`` is the payload total and ``ici_bytes_received``
-    stays 0.  When ``engine`` carries a ``tracer``, the set-up and the
-    exchange are recorded as ``strom.ici.scatter`` and
-    ``strom.ici.exchange`` spans.  Returns None, counted in
-    ``ici_fallbacks`` and logged, for a group of one rank or on any
-    failure."""
+    stays 0.  The set-up and the exchange are recorded as
+    ``strom.ici.scatter`` and ``strom.ici.exchange`` spans on the
+    engine's tracer (utils/trace.py) when it is enabled.  Returns None,
+    counted in ``ici_fallbacks`` and logged, for a group of one rank or
+    on any failure."""
     stats = engine.stats
     tracer = getattr(engine, "tracer", None)
+    if tracer is None:
+        tracer = global_tracer
 
     def fall_back(why: str) -> None:
         _log.warning("ici scatter disabled for this restore: %s (falling "
@@ -446,7 +449,7 @@ def scatter_engine(engine, paths: Sequence[str],
                              host_bytes_read=dict(enumerate(
                                  manifest.host_bytes)))
         stats.add(ici_bytes_read=int(manifest.total_bytes))
-        if tracer is not None and getattr(tracer, "enabled", False):
+        if tracer.enabled:
             tracer.add_span(
                 "strom.ici.scatter", t0, time.monotonic_ns(),
                 category="strom.ici", hosts=exchange.n, files=len(paths),

@@ -36,6 +36,7 @@ from nvme_strom_tpu_torch.formats.safetensors import (SafetensorsFile,
                                                       torch_dtype,
                                                       write_safetensors)
 from nvme_strom_tpu_torch.io.engine import StromEngine, crc32c, wait_exact
+from nvme_strom_tpu_torch.io.faults import build_engine
 from nvme_strom_tpu_torch.io.plan import join_pieces, plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import (StagingRetirePool,
                                              host_to_device)
@@ -87,7 +88,7 @@ class LazyCheckpoint:
         stamps = ({sf.path: tensor_checksums(sf) for sf in self.files}
                   if policy.enabled else {})
         own = engine is None
-        base = engine if engine is not None else StromEngine()
+        base = engine if engine is not None else build_engine()
         try:
             eng = None
             if ici_scatter_enabled():

@@ -51,7 +51,7 @@ def main(argv=None) -> int:
     if not os.path.exists(cfg_path):
         ap.error(f"{cfg_path} not found")
 
-    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.io.faults import build_engine
     from nvme_strom_tpu_torch.models.serving import (DecodeServer,
                                                      PagedDecodeServer)
     from nvme_strom_tpu_torch.models.transformer import TransformerConfig
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
                      f"MAX_NEW <= {max_len}")
         reqs.append((f"r{i}", ids, max_new))
 
-    engine = StromEngine()
+    engine = build_engine()
     try:
         t0 = time.monotonic()
         params = LazyCheckpoint(args.weights).load(engine,

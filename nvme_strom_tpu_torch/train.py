@@ -27,6 +27,7 @@ import torch
 
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.io.engine import StromEngine
+from nvme_strom_tpu_torch.io.faults import build_engine
 from nvme_strom_tpu_torch.models.transformer import (
     adamw, init_params, make_train_step, param_shapes, trainable_params)
 from nvme_strom_tpu_torch.ops.bridge import to_device
@@ -80,7 +81,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.hooks = list(hooks)
         self._own_engine = engine is None
-        self.engine = engine if engine is not None else StromEngine()
+        self.engine = engine if engine is not None else build_engine()
         self.save_every = int(save_every)
         self.async_save = bool(async_save)
         self._closed = False

@@ -97,7 +97,7 @@ def main(argv=None) -> int:
                     help="default cuda:0; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
 
-    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.io.faults import build_engine
     from nvme_strom_tpu_torch.data.prefetch import prefetch_to_device
     from nvme_strom_tpu_torch.models.transformer import (flagship_config,
                                                          tiny_config)
@@ -131,7 +131,7 @@ def main(argv=None) -> int:
     ckpt_dir = args.ckpt_dir or os.path.join(tmp.name if tmp else ".",
                                              "ckpt")
 
-    engine = StromEngine()
+    engine = build_engine()
     try:
         with Trainer(cfg, lr=args.lr, ckpt_dir=ckpt_dir, engine=engine,
                      attn_fn=attn_fn, accum_steps=args.accum_steps,

@@ -1,16 +1,17 @@
-"""Engine, scheduler, host-tier, loader and KV-store configuration
-(counterpart of nvme_strom_tpu/utils/config.py ``EngineConfig``,
-``SchedConfig``, ``HostCacheConfig``, ``LoaderConfig``,
-``KVServeConfig`` and ``TenantConfig``, trimmed to what the port's paths
-read).
+"""Engine, scheduler, host-tier, recovery, loader and KV-store
+configuration (counterpart of nvme_strom_tpu/utils/config.py
+``EngineConfig``, ``SchedConfig``, ``HostCacheConfig``,
+``ResilientConfig``, ``LoaderConfig``, ``KVServeConfig`` and
+``TenantConfig``, trimmed to what the port's paths read).
 
 Engine and loader sizes are these defaults or explicit arguments: they
 are never read from a tuning ledger, and of the engine's knobs only the
 ring count reads the environment (``STROM_RINGS``).  ``SchedConfig``,
-``HostCacheConfig``, ``KVServeConfig`` and ``TenantConfig`` read their
-``STROM_*`` switches at construction, as the JAX package's do; the pinned
-arena's ``STROM_ARENA`` and ``STROM_ARENA_MB`` are read by
-``io/arena.py``."""
+``HostCacheConfig``, ``ResilientConfig``, ``KVServeConfig`` and
+``TenantConfig`` read their ``STROM_*`` switches at construction, as the
+JAX package's do; the pinned arena's ``STROM_ARENA`` and
+``STROM_ARENA_MB`` are read by ``io/arena.py``, and ``STROM_FAULTS`` /
+``STROM_RESILIENT`` by ``io/faults.py`` ``build_engine``."""
 
 from __future__ import annotations
 
@@ -152,12 +153,65 @@ class HostCacheConfig:
 
 
 @dataclass(frozen=True)
+class ResilientConfig:
+    """Recovery policy of ``io/resilient.py``'s ``ResilientEngine``:
+    bounded retry with exponential backoff and seeded jitter, a hedged
+    duplicate read past a latency threshold, and cancel-and-resubmit of
+    a stuck request (the reference's knobs and defaults)."""
+
+    #: failed, short or stuck read resubmissions before a loud error
+    max_retries: int = field(
+        default_factory=lambda: _env_int("STROM_RETRY_MAX", 3))
+    #: first backoff sleep; doubles an attempt up to backoff_max_s
+    backoff_base_s: float = field(
+        default_factory=lambda: _env_float("STROM_RETRY_BACKOFF_S", 0.01))
+    backoff_max_s: float = field(
+        default_factory=lambda: _env_float("STROM_RETRY_BACKOFF_MAX_S", 1.0))
+    #: uniform jitter fraction of every backoff sleep (0..1), from a
+    #: generator seeded with ``seed``
+    jitter: float = field(
+        default_factory=lambda: _env_float("STROM_RETRY_JITTER", 0.5))
+    #: hedge a read still in flight after this many seconds; 0 = derive
+    #: it from the engine's latency histogram (hedge_percentile ×
+    #: hedge_multiplier, at least hedge_min_s)
+    hedge_after_s: float = field(
+        default_factory=lambda: _env_float("STROM_HEDGE_AFTER_S", 0.0))
+    hedge_percentile: int = 99
+    hedge_multiplier: float = field(
+        default_factory=lambda: _env_float("STROM_HEDGE_MULTIPLIER", 3.0))
+    hedge_min_s: float = field(
+        default_factory=lambda: _env_float("STROM_HEDGE_MIN_S", 0.005))
+    #: STROM_HEDGE=0 turns hedging off (retries and stuck handling stay)
+    hedging: bool = field(
+        default_factory=lambda: os.environ.get("STROM_HEDGE", "1") != "0")
+    #: a request in flight this long is presumed wedged: it is released
+    #: and resubmitted, against the retry budget
+    stuck_timeout_s: float = field(
+        default_factory=lambda: _env_float("STROM_STUCK_TIMEOUT_S", 30.0))
+    #: seed of the backoff jitter
+    seed: int = field(
+        default_factory=lambda: _env_int("STROM_RETRY_SEED", 0))
+
+    def __post_init__(self):
+        if self.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if self.backoff_base_s < 0 or self.backoff_max_s < 0:
+            raise ValueError("backoff times must be >= 0")
+        if not 0 <= self.jitter <= 1:
+            raise ValueError(f"jitter ({self.jitter}) must be in [0, 1]")
+        if self.hedge_after_s < 0 or self.hedge_min_s < 0:
+            raise ValueError("hedge thresholds must be >= 0")
+        if self.stuck_timeout_s <= 0:
+            raise ValueError("stuck_timeout_s must be > 0")
+
+
+@dataclass(frozen=True)
 class LoaderConfig:
     """Dataloader knobs (the JAX package's ``LoaderConfig`` without its
-    shard-quarantine budget and tfrecord index switch, which this port
-    does not have, and without ``batch_size`` and ``drop_remainder``:
-    the batch is ``ShardedLoader``'s ``global_batch``, and a partial
-    final batch is always dropped)."""
+    tfrecord index switch, which this port does not have, and without
+    ``batch_size`` and ``drop_remainder``: the batch is
+    ``ShardedLoader``'s ``global_batch``, and a partial final batch is
+    always dropped)."""
 
     #: host batches assembled ahead of the consumer
     prefetch: int = 4
@@ -168,6 +222,12 @@ class LoaderConfig:
     #: cached index entries (samples) across shards before the oldest
     #: shard's index is dropped
     index_cache_samples: int = 1_000_000
+    #: shards the loader may quarantine: a shard whose index, read,
+    #: check or decode fails is skipped for this and every later epoch
+    #: (counted ``shards_quarantined``) while fewer than this many are
+    #: out; past it the failure raises with the quarantine list.  0
+    #: (default) raises at the first failure, naming the shard
+    shard_error_budget: int = 0
 
 
 @dataclass(frozen=True)

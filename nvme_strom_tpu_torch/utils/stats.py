@@ -47,6 +47,23 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
   ``tenant_slo_boosts`` (one tenant's share).  ``add_tenant_stat``
   keeps the per-tenant breakdown, carried as ``tenant_stats`` in
   ``snapshot()`` once a tenant has a tally.
+* recovery (io/faults.py, io/resilient.py): ``faults_injected`` faults
+  a ``FaultPlan`` injected; ``resilient_retries`` failed, short or stuck
+  reads resubmitted after backoff, ``stuck_cancelled`` of them stuck;
+  ``hedges_issued`` duplicate reads of a straggler, ``hedges_won`` of
+  them first to complete, ``hedges_denied`` refused by their class's
+  hedge budget; ``write_retries`` failed or short writes resubmitted;
+  ``shards_quarantined`` loader shards skipped under
+  ``shard_error_budget``; ``requests_failed`` requests the C engine
+  completed with an error (drained from it).  ``add_class_stat`` keeps
+  the per-class ``hedges_issued``, ``hedges_won``, ``hedges_denied``
+  and ``retries``.
+* the waste ledger (obs/ledger.py): ``waste_hedge_loss_bytes`` (the
+  losing side of a hedge), ``waste_retry_reread_bytes`` (bytes a retry
+  read again), and ``waste_coalesce_gap_bytes``,
+  ``waste_evicted_unused_bytes``, ``waste_degraded_bytes``, which no
+  port path charges yet; ``trace_spans_dropped`` spans the tracer
+  dropped at its cap (utils/trace.py).
 
 Gauges are point-in-time values that overwrite (``set_gauges``), carried
 in ``snapshot()`` beside the counters: ``kv_restore_p99_ms`` (the store's
@@ -74,7 +91,13 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "cache_evictions", "cache_invalidations",
             "serve_admissions_shed", "tenant_admissions_shed",
             "tenant_quota_evictions", "tenant_borrows", "kv_slo_boosts",
-            "tenant_slo_boosts")
+            "tenant_slo_boosts", "requests_failed", "faults_injected",
+            "resilient_retries", "hedges_issued", "hedges_won",
+            "hedges_denied", "stuck_cancelled", "write_retries",
+            "shards_quarantined", "trace_spans_dropped",
+            "waste_hedge_loss_bytes", "waste_retry_reread_bytes",
+            "waste_coalesce_gap_bytes", "waste_evicted_unused_bytes",
+            "waste_degraded_bytes")
 GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
           "cache_bytes_resident", "cache_lines_resident")
 
@@ -122,6 +145,21 @@ class StromStats:
     tenant_borrows: int = 0
     kv_slo_boosts: int = 0
     tenant_slo_boosts: int = 0
+    requests_failed: int = 0
+    faults_injected: int = 0
+    resilient_retries: int = 0
+    hedges_issued: int = 0
+    hedges_won: int = 0
+    hedges_denied: int = 0
+    stuck_cancelled: int = 0
+    write_retries: int = 0
+    shards_quarantined: int = 0
+    trace_spans_dropped: int = 0
+    waste_hedge_loss_bytes: int = 0
+    waste_retry_reread_bytes: int = 0
+    waste_coalesce_gap_bytes: int = 0
+    waste_evicted_unused_bytes: int = 0
+    waste_degraded_bytes: int = 0
     _gauges: dict = field(default_factory=dict, repr=False, compare=False)
     _class_stats: dict = field(default_factory=dict, repr=False,
                                compare=False)

@@ -142,6 +142,15 @@ class StepWatchdog:
                 traceback.print_stack(frame, file=w)
         if self.engine is not None:
             self.engine.sync_stats()
-            print(f"engine: {self.engine.stats.snapshot()}", file=w,
+            s = self.engine.stats
+            print(f"engine: {s.snapshot()}", file=w, flush=True)
+            # recovery counters that move mean a step fighting the
+            # device, not a wedged one
+            print(f"resilience: retries={s.resilient_retries} "
+                  f"hedges={s.hedges_issued}/{s.hedges_won} "
+                  f"stuck_cancelled={s.stuck_cancelled} "
+                  f"write_retries={s.write_retries} "
+                  f"quarantined={s.shards_quarantined} "
+                  f"faults_injected={s.faults_injected}", file=w,
                   flush=True)
         print("=== end watchdog dump ===", file=w, flush=True)

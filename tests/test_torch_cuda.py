@@ -1133,3 +1133,102 @@ def test_scatter_restore_on_one_card(dev, tmp_path, monkeypatch):
         assert torch.equal(w_on["a"], w_off["a"])
         eng.sync_stats()
         assert eng.stats.ici_fallbacks == 0 and eng.stats.ici_bytes_read > 0
+
+
+# -- recovered reads into the card (io/faults.py, io/resilient.py) ----------
+
+#: name → (read plan, ResilientConfig fields, the counter that must move)
+_RESILIENT_CASES = {
+    "retry": ("eio:every=3", dict(max_retries=4), "resilient_retries"),
+    "short": ("short:every=3:frac=0.5", dict(max_retries=4),
+              "waste_retry_reread_bytes"),
+    # every read delayed, 30 or 120 ms by turns: a primary and its hedge
+    # may draw different delays, so hedges win at depth 1 and lose at
+    # both depths (at depth 3 every hedge's primary has mostly waited
+    # out its delay while the reads before it were consumed)
+    "hedge": ("delay:every=2:delay_s=0.03, delay:delay_s=0.12",
+              dict(hedging=True, hedge_after_s=0.01, max_retries=2),
+              "hedges_issued"),
+}
+
+
+@pytest.mark.parametrize("case", list(_RESILIENT_CASES))
+@pytest.mark.parametrize("depth", [1, 3])
+def test_resilient_stream_ranges_on_the_card(dev, tmp_path, monkeypatch,
+                                             case, depth):
+    """Ranges streamed through ``ResilientEngine(FaultyEngine(...))`` into
+    ``DeviceStream.stream_ranges``: the device bytes are the file's, the
+    bridge copied every recovered read from the staging buffer in place
+    (its ``bounce_bytes`` 0), and no staging buffer went back to the
+    engine while a copy out of it was still in flight: each copy is
+    held ~0.5 ms on the side stream, and every release checks the copy
+    events over its buffer."""
+    from nvme_strom_tpu_torch.io import (FaultPlan, FaultyEngine,
+                                         ResilientEngine, StromEngine)
+    from nvme_strom_tpu_torch.io.engine import PendingRead
+    from nvme_strom_tpu_torch.ops import bridge
+    from nvme_strom_tpu_torch.ops.bridge import DeviceStream
+    from nvme_strom_tpu_torch.utils.config import (EngineConfig,
+                                                   ResilientConfig)
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    plan, rkw, moved = _RESILIENT_CASES[case]
+    mib = 1 << 20
+    data = np.random.default_rng(3).integers(0, 256, 12 * mib,
+                                             dtype=np.uint8)
+    path = tmp_path / "x.bin"
+    data.tofile(path)
+    copies = []                         # (lo, hi, event) of every copy
+    real_put, real_release = DeviceStream._put, PendingRead.release
+
+    def put(self, view, dtype, shape):
+        t = real_put(self, view, dtype, shape)
+        copies.append((view.ctypes.data, view.ctypes.data + view.nbytes,
+                       t.event))
+        return t
+
+    def release(self):
+        v = self._view
+        if v is not None and not self._released:
+            lo, hi = v.ctypes.data, v.ctypes.data + v.nbytes
+            for a, b, ev in copies:
+                assert not (a < hi and lo < b) or ev.query(), \
+                    "a staging buffer went back under a copy in flight"
+        real_release(self)
+    real_copy = bridge.h2d_copy
+
+    def slow_copy(*a, **k):
+        torch.cuda._sleep(1_000_000)    # on the side stream, first
+        return real_copy(*a, **k)
+    # the kernel's wrapper counts into the module's h2d_copy: this one
+    slow_copy.launches = 0
+    monkeypatch.setattr(DeviceStream, "_put", put)
+    monkeypatch.setattr(PendingRead, "release", release)
+    monkeypatch.setattr(bridge, "h2d_copy", slow_copy)
+    base = StromEngine(EngineConfig(chunk_bytes=mib,
+                                    buffer_pool_bytes=16 * mib))
+    eng = ResilientEngine(FaultyEngine(base, FaultPlan.parse(plan, seed=1)),
+                          ResilientConfig(backoff_base_s=0.001, **rkw))
+    ranges = [(o, mib - 512 * (i % 3)) for i, o in
+              enumerate(range(0, 12 * mib, mib))]
+    with eng:
+        eng.cuda_mapping(dev.index)
+        fh = eng.open(path)
+        ds = DeviceStream(eng, device=dev, depth=depth, klass="decode")
+        assert not ds.overlap             # copies read staging in place
+        got = [t.cpu() for t in ds.stream_ranges(fh, ranges)]
+        eng.close(fh)
+        assert eng.stats.bounce_bytes == 0      # the bridge's, before
+        eng.sync_stats()                        # the engine's counters
+        st = eng.stats.snapshot()
+        info = base.pool_info()
+        assert info["free_buffers"] == info["n_buffers"]
+    for (off, ln), t in zip(ranges, got):
+        assert torch.equal(t, torch.from_numpy(data[off:off + ln]))
+    assert slow_copy.launches == len(ranges)
+    assert len(copies) == len(ranges)
+    assert st["faults_injected"] >= 1 and st[moved] >= 1, st
+    if case == "hedge":
+        assert st["hedges_issued"] > st["hedges_won"], st    # some lost
+        assert depth > 1 or st["hedges_won"] >= 1, st
+    if st["bytes_fallback"] == 0:
+        assert st["bounce_bytes"] == 0

@@ -15,7 +15,7 @@ from nvme_strom_tpu.data import sharding as jsharding
 from nvme_strom_tpu.formats.wds import WdsShardIndex as JaxIndex
 from nvme_strom_tpu.utils.config import LoaderConfig as JaxLoaderConfig
 from nvme_strom_tpu_torch.data import sharding as tsharding
-from nvme_strom_tpu_torch.data.loader import ShardedLoader
+from nvme_strom_tpu_torch.data.loader import ShardReadError, ShardedLoader
 from nvme_strom_tpu_torch.data.prefetch import prefetch_to_device
 from nvme_strom_tpu_torch.formats.wds import WdsShardIndex, write_wds_shard
 from nvme_strom_tpu_torch.io.engine import StromEngine
@@ -126,5 +126,8 @@ def test_loader_validation(tmp_path, engine):
         ShardedLoader(paths, 4, fmt="tfrecord", engine=engine,
                       device="cpu")
     with ShardedLoader(paths, 4, engine=engine, device="cpu") as tl:
-        with pytest.raises(ValueError, match="decode"):
-            list(tl)                       # two parts, no decode=
+        # two parts, no decode=: the shard fails, and with no error
+        # budget the epoch raises naming it, the ValueError its cause
+        with pytest.raises(ShardReadError, match="decode") as ei:
+            list(tl)
+        assert isinstance(ei.value.__cause__, ValueError)

@@ -312,14 +312,19 @@ def test_loader_transient_bitflip_healed_by_reread(tmp_path, monkeypatch):
 
 
 def test_loader_persistent_corruption_raises(tmp_path, monkeypatch):
-    """On-disk damage survives the re-read: the epoch raises a
-    ChecksumError naming the shard (quarantine comes with resilience)."""
+    """On-disk damage survives the re-read: with the default shard error
+    budget of 0 the epoch raises a ShardReadError naming the shard, its
+    cause the ChecksumError (tests/test_torch_faults.py holds the
+    quarantine under a budget)."""
+    from nvme_strom_tpu_torch.data.loader import ShardReadError
     monkeypatch.setenv("STROM_VERIFY", "full")
     paths = _stamped_shards(tmp_path)
     _flip(paths[0], 520, 0x20)        # the first member's payload
     eng = _engine()
-    with pytest.raises(ChecksumError, match="shard-00000"):
+    with pytest.raises(ShardReadError, match="shard-00000") as ei:
         _epoch(paths, eng)
+    assert isinstance(ei.value.__cause__, ChecksumError)
+    assert "shard-00000" in str(ei.value.__cause__)
     assert eng.stats.checksum_failures == 2
     eng.close_all()
 
