@@ -94,9 +94,39 @@ It builds the port's native libraries from the checkout, then:
    to a clean run's; (e) one trial of the qos governor mode on a
    resilient engine, its target set from the trial's own restores, the
    decode class's hedge budget raised and decayed back; faults injected
-   and recovered, no read buffered or bounced; then serves
-   4 requests with both servers on a 2-layer model with a GQA group of
-   7 at head_dim 128 (``GQA_SERVE``), whose tokens must agree;
+   and recovered, no read buffered or bounced (its faulted engines'
+   breaker budgets sit above what the plan injects); main path —
+   failure domains (``health_phase``, the supervisor of io/health.py
+   and the flight recorder on by default): (a) phase 4's weights on a
+   resilient engine, clean, then with ring 1 wedged after 4 dispatches
+   (``STROM_FAULT_RING_STALL_*``): the stall trips ring 1, it restarts,
+   its parked reads requeue, tensors bitwise, nothing buffered or
+   bounced; (b) the prefix store's requests on both servers under an
+   ``estorm`` of the store file: the first four requests' restore opens
+   the device breaker and browns out to buffered preads, the last four,
+   queued while degraded, are shed by the server's own probe of the
+   supervisor until a probe recovers the device; ``bounce_bytes`` equals
+   ``degraded_bytes`` and grows no more after recovery, tokens equal the
+   NVMe hit's; (c) the ``breaker_trip``, ``ring_restart`` and
+   ``device_degraded`` flight dumps parse and carry op records with
+   class and ring; (d) the stream file's second GiB to the card direct
+   and degraded, bitwise equal; main path — cold start
+   (``coldstart_phase``): the serving replica booted eagerly (load,
+   then 256 MiB of the stream file and the prefix store's pages as its
+   warm state, then the server) and on a ``FaultingCheckpoint`` (the
+   server at once, its first step faulting weights in at decode class
+   from the first tensor while the bulk lane restores from the last,
+   the warm state a warm-up thunk), two trials each in turns, every
+   read padded 2 ms: TTFT from boot and time to steady, tokens
+   identical, each tensor read once, both lanes used; then the chaos
+   drill, ring 1 wedged under the bulk lane, whose restore-class reads
+   are not retried, so a failed claim is re-claimed at decode class;
+   then the cost of
+   the default supervisor and recorder against none, in turns: a 2 GiB
+   stream pass and the prefix store's requests on both servers; then
+   serves 4 requests with both servers on a 2-layer model with a GQA
+   group of 7 at head_dim 128 (``GQA_SERVE``), whose tokens must
+   agree;
 6. training path — seeded WebDataset shards of flagship-length samples
    through ``ShardedLoader`` and ``prefetch_to_device`` into a
    ``Trainer`` with the flash kernels, warm-started from phase 4's
@@ -127,7 +157,9 @@ It builds the port's native libraries from the checkout, then:
    over an exchange group of 4 ranks on the card (each rank reads a
    quarter of the payload, the ring gathers them), and loads phase 4's
    weights both ways: every tensor bitwise equal;
-10. prints one JSON line of per-kernel results, the card again, and the
+10. prints a ``health {json}`` and a ``coldstart {json}`` line among
+   the summaries, then one JSON line of per-kernel results, the card
+   again, and the
    result line ``{"ok": true, "device": {...}}`` last.  Each kernel's
    entry has ``name``, ``route``, ``source``, ``replaces``,
    ``launches``, ``max_abs_err``, ``ms`` (and the same time again as
@@ -146,7 +178,8 @@ Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
 phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos and
-tenant runs and in the recovery run, the flash kernels and ``h2d_copy``
+tenant runs, in the recovery run and in the failure-domain run,
+kernels 1-2 in the cold-start run, the flash kernels and ``h2d_copy``
 in phase 6, kernels 1-3 in its verify run, ``h2d_copy`` in the
 recovering loader's run, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
@@ -4041,6 +4074,16 @@ RESILIENCE_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
                        "kv_restore_failures")
 
 
+#: the supervisor's error budgets of the faulted runs: the read plan
+#: fails about one read in four, far past the defaults (8 errors of a
+#: ring, 16 of the device, in 5 s), which would brown the device out to
+#: buffered reads; the phase measures recovery by retry and hedge, so its
+#: budgets sit above what the plan injects (the brown-out is
+#: health_phase's)
+RESILIENCE_BREAKER = {"STROM_BREAKER_ERRORS": "1000000",
+                      "STROM_BREAKER_DEVICE_ERRORS": "1000000"}
+
+
 #: (label, environment) of each engine the resilience phase builds with
 #: ``build_engine``: the bare engine, the resilient wrapper alone, and
 #: the resilient wrapper over the seeded read plan
@@ -4049,7 +4092,7 @@ _RES_MODES = (
     ("resilient", {"STROM_RESILIENT": "1"}),
     ("faulted", {"STROM_RESILIENT": "1",
                  "STROM_FAULTS": RESILIENCE_READ_FAULTS,
-                 "STROM_FAULTS_SEED": SEED}))
+                 "STROM_FAULTS_SEED": SEED, **RESILIENCE_BREAKER}))
 
 
 def _res_engine(dev, env):
@@ -4333,6 +4376,529 @@ def resilience_loader_phase(dev, cfg):
     return rep
 
 
+#: the health phase's breaker knobs, set for its engines only: a stall is
+#: a ring whose oldest request waits past 0.2 s, a tripped ring restarts
+#: at once, a degraded device is probed every 2 s (so a queued prefill
+#: sheds for a while), and 4 errors in the window open the device breaker
+HEALTH_BREAKER = {"STROM_BREAKER_STALL_S": "0.2",
+                  "STROM_BREAKER_RESTART_S": "0",
+                  "STROM_BREAKER_HALF_OPEN_S": "0.05",
+                  "STROM_BREAKER_DEVICE_ERRORS": "4",
+                  "STROM_DEGRADED_PROBE_S": "2"}
+#: (a): ring 1 parks every dispatch after its first HEALTH_STALL_AFTER
+HEALTH_STALL_AFTER = 4
+#: (b): the first reads of the prefix store's page file fail, as many as
+#: open the device breaker; a read retries up to 8 times, so the one
+#: whose failure opens it browns out on its next attempt
+HEALTH_ESTORM = "estorm:max_count=4:path=kvstore"
+HEALTH_RETRIES = "8"
+HEALTH_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
+                   "breaker_trips", "ring_restarts", "extents_requeued",
+                   "degraded_reads", "degraded_bytes", "degraded_probes",
+                   "faults_injected", "resilient_retries", "flight_dumps",
+                   "serve_admissions_shed", "waste_degraded_bytes")
+
+
+def _health_weights(dev, ckdir, fdir):
+    """(a) the serving checkpoint loaded on a resilient default engine,
+    clean, then with ring 1 wedged after HEALTH_STALL_AFTER dispatches:
+    the stall trips ring 1's breaker, the ring restarts, its parked reads
+    requeue; tensors bitwise the clean load's, no byte buffered or
+    bounced."""
+    import torch
+    from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
+    wpath = os.path.join(ckdir, "model.safetensors")
+    out, ref = {}, None
+    for label, env in (("clean", {}), ("stalled", {
+            "STROM_FAULT_RING_STALL_RING": "1",
+            "STROM_FAULT_RING_STALL_AFTER": HEALTH_STALL_AFTER})):
+        with _res_engine(dev, {"STROM_RESILIENT": "1",
+                               "STROM_FLIGHT_DIR": fdir,
+                               **HEALTH_BREAKER, **env}) as eng:
+            if eng.n_rings < 2:
+                raise AssertionError(f"health (a): {eng.n_rings} ring")
+            ctr = Counters(eng, HEALTH_COUNTERS)
+            t0 = time.monotonic()
+            params = LazyCheckpoint(wpath).load(eng, device=dev)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            st = ctr.delta()
+            states = eng.supervisor.ring_states()
+        if ref is None:
+            ref = params
+        elif any(not torch.equal(params[k], ref[k]) for k in ref):
+            raise AssertionError("health (a): the stalled load's tensors "
+                                 "differ from the clean load's")
+        out[label] = {"load_s": secs, "stats": st, "ring_states": states}
+        if st["bounce_bytes"] or st["bytes_fallback"]:
+            raise AssertionError(f"health (a) {label}: {st}")
+    st = out["stalled"]["stats"]
+    if st["breaker_trips"] < 1 or st["ring_restarts"] < 1 or \
+            st["extents_requeued"] < 1:
+        raise AssertionError(f"health (a): the stall was not tripped, "
+                             f"restarted and requeued: {st}")
+    return out
+
+
+def _health_store(dev, cfg, params, shared, fdir):
+    """(b) the prefix store's requests on each server over a resilient
+    engine under HEALTH_ESTORM: the first four requests' restore meets
+    the storm and opens the device breaker; the last four, queued while
+    degraded, are shed by the server's own probe of the supervisor until
+    a probe recovers the device.  The degraded pages reach the card
+    through the pinned buffer: bounce_bytes equals degraded_bytes, and
+    grows no more after recovery; tokens equal the prefix phase's."""
+    import torch
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    pre = shared["prefix"]
+    reqs = pre["requests"]
+    out = {}
+    for name in ("dense", "paged"):
+        with _res_engine(dev, {"STROM_RESILIENT": "1",
+                               "STROM_FAULTS": HEALTH_ESTORM,
+                               "STROM_RETRY_MAX": HEALTH_RETRIES,
+                               "STROM_FLIGHT_DIR": fdir,
+                               **HEALTH_BREAKER}) as eng:
+            ctr = Counters(eng, HEALTH_COUNTERS)
+            at_recovery = {}
+
+            def on_degraded(on, ctr=ctr, at=at_recovery):
+                if not on:
+                    at.update(ctr.delta(), t=time.monotonic())
+            eng.supervisor.add_degraded_listener(on_degraded)
+            store = PrefixStore(cfg, eng, pre["store"], PREFIX_PAGE_TOKENS,
+                                PREFIX_STORE_BYTES)
+            srv = (DecodeServer(params, cfg, PREFIX_REQUESTS, 2048,
+                                device=dev, kv_store=store)
+                   if name == "dense" else
+                   PagedDecodeServer(params, cfg, PREFIX_REQUESTS, 2048,
+                                     total_blocks=128,
+                                     block_len=PREFIX_PAGE_TOKENS,
+                                     device=dev, kv_store=store))
+            h0 = h2d_copy.launches
+            t0 = time.monotonic()
+            half = len(reqs) // 2
+            for rid, ids in reqs[:half]:
+                srv.submit(rid, ids, PREFIX_NEW_TOKENS)
+            toks = dict(srv.step_many(8))
+            degraded_after_wave1 = eng.supervisor.degraded()
+            for rid, ids in reqs[half:]:
+                srv.submit(rid, ids, PREFIX_NEW_TOKENS)
+            toks.update(srv.run(lookahead=8))
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            st = ctr.delta()
+            store.close()
+            del srv
+        rep = {"seconds": secs, "stats": st,
+               "degraded_after_wave1": degraded_after_wave1,
+               "recovered": bool(at_recovery),
+               "recovered_after_s": at_recovery.get("t", t0) - t0,
+               "bounce_at_recovery": at_recovery.get("bounce_bytes"),
+               "h2d_launches": h2d_copy.launches - h0,
+               "tokens_equal": toks == pre["hit_tokens"]}
+        out[name] = rep
+        log(f"health (b) {name}: {rep}")
+        if not (rep["tokens_equal"] and degraded_after_wave1
+                and rep["recovered"]):
+            raise AssertionError(f"health (b) {name}: {rep}")
+        if not (st["breaker_trips"] >= 1 and st["degraded_reads"] >= 1
+                and st["serve_admissions_shed"] >= 1
+                and st["degraded_bytes"] > 0
+                and st["bounce_bytes"] == st["degraded_bytes"]
+                and st["bounce_bytes"] == rep["bounce_at_recovery"]):
+            raise AssertionError(f"health (b) {name}: {st}, bounce at "
+                                 f"recovery {rep['bounce_at_recovery']}")
+    return out
+
+
+def _health_dumps(fdir, n_dumped):
+    """(c) the flight dumps (a) and (b) wrote: every file parses, each of
+    breaker_trip, ring_restart and device_degraded has a dump whose op
+    records carry their class and ring, and flight_dumps counted every
+    file."""
+    import glob
+    paths = sorted(glob.glob(os.path.join(fdir, "strom_flight_*.json")))
+    docs: dict = {}
+    for p in paths:
+        with open(p) as f:
+            doc = json.load(f)
+        docs.setdefault(doc["reason"], []).append(doc)
+    rep = {"files": len(paths), "flight_dumps": n_dumped, "reasons": {}}
+    for reason in ("breaker_trip", "ring_restart", "device_degraded"):
+        usable = [d for d in docs.get(reason, []) if d["ops"] and all(
+            "klass" in o and "ring" in o for o in d["ops"])]
+        if not usable:
+            raise AssertionError(f"health (c): no {reason} dump with op "
+                                 f"records in {paths}")
+        doc = max(usable, key=lambda d: d["n_ops"])
+        rep["reasons"][reason] = {
+            "dumps": len(docs[reason]), "n_ops": doc["n_ops"],
+            "extra": doc.get("extra"),
+            "classes": sorted({str(o["klass"]) for o in doc["ops"]}),
+            "rings": sorted({o["ring"] for o in doc["ops"]})}
+    if n_dumped < len(paths):
+        raise AssertionError(f"health (c): {len(paths)} dumps, "
+                             f"flight_dumps {n_dumped}")
+    return rep
+
+
+#: (d): the degraded path's rate over this span of the stream file (its
+#: second GiB, which the cold start's warm payload does not read; the
+#: buffered reads fill the page cache)
+HEALTH_RATE_SPAN = (1 << 30, 1 << 30)
+
+
+def _health_degraded_rate(dev, stream_path, fdir):
+    """(d) HEALTH_RATE_SPAN of the stream file to the card through
+    ``DeviceStream.stream_ranges`` on a healthy engine, then on one whose
+    device breaker is open (probes held off): every range a buffered
+    pread, bounced through the pinned buffer, copied by h2d_copy.  The
+    bytes on the card equal the direct run's; bounce_bytes equals
+    degraded_bytes."""
+    import torch
+    from nvme_strom_tpu_torch.ops.bridge import DeviceStream, h2d_copy
+    off0, n = HEALTH_RATE_SPAN
+    out, ref = {}, None
+    for label in ("direct", "degraded"):
+        with _res_engine(dev, {"STROM_DEGRADED_PROBE_S": "3600",
+                               "STROM_FLIGHT_DIR": fdir}) as eng:
+            chunk = eng.config.chunk_bytes
+            ranges = [(off0 + o, chunk) for o in range(0, n, chunk)]
+            if label == "degraded":
+                sup = eng.supervisor   # every ring trips, then the device
+                for _ in range(sup.cfg.device_errors):
+                    sup.note_error(ring=0, err=5)
+                if not sup.degraded():
+                    raise AssertionError("health (d): not degraded")
+            ctr = Counters(eng, HEALTH_COUNTERS)
+            fh = eng.open(stream_path)
+            h0 = h2d_copy.launches
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            got = [t.clone() for t in DeviceStream(eng, device=dev)
+                   .stream_ranges(fh, ranges)]
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            eng.close(fh)
+            st = ctr.delta()
+        out[label] = {"seconds": secs, "gib_per_s": n / secs / 2**30,
+                      "h2d_launches": h2d_copy.launches - h0, "stats": st}
+        if ref is None:
+            ref = got
+        elif any(not torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError("health (d): degraded bytes differ")
+        del got
+    st = out["degraded"]["stats"]
+    if not (st["degraded_bytes"] == n == st["bounce_bytes"]
+            and st["degraded_reads"] == len(ranges)
+            and out["degraded"]["h2d_launches"] == len(ranges)):
+        raise AssertionError(f"health (d): {out}")
+    return out
+
+
+def health_phase(dev, cfg, ckdir, params, shared, stream_path):
+    """Failure domains on the card: (a) a wedged ring under the weights
+    load, (b) an EIO storm under both servers' prefix-store restores,
+    (c) the flight dumps they left under a temporary directory
+    (``TMPDIR``, /tmp by default), (d) the degraded path's rate to the
+    card.  Every check raises."""
+    import shutil
+    import tempfile
+    t0 = time.monotonic()
+    fdir = tempfile.mkdtemp(prefix="strom_flight_")
+    try:
+        rep = {"card": card_line(),
+               "weights": _health_weights(dev, ckdir, fdir)}
+        w = rep["weights"]
+        log(f"health (a) weights load ({rep['card']}): clean "
+            f"{w['clean']['load_s']:.4f} s, ring 1 stalled "
+            f"{w['stalled']['load_s']:.4f} s; tensors bitwise; stalled "
+            f"{w['stalled']['stats']}, rings {w['stalled']['ring_states']}")
+        rep["store"] = _health_store(dev, cfg, params, shared, fdir)
+        dumped = (sum(w[k]["stats"]["flight_dumps"] for k in w)
+                  + sum(r["stats"]["flight_dumps"]
+                        for r in rep["store"].values()))
+        rep["dumps"] = _health_dumps(fdir, dumped)
+        log(f"health (c) flight dumps: {rep['dumps']}")
+        rep["degraded_rate"] = _health_degraded_rate(dev, stream_path,
+                                                     fdir)
+        d = rep["degraded_rate"]
+        log(f"health (d) {HEALTH_RATE_SPAN[1]} B to the card: direct "
+            f"{d['direct']['gib_per_s']:.3f} GiB/s, degraded "
+            f"{d['degraded']['gib_per_s']:.3f} GiB/s; degraded stats "
+            f"{d['degraded']['stats']}")
+    finally:
+        shutil.rmtree(fdir, ignore_errors=True)
+    rep["seconds"] = time.monotonic() - t0
+    return rep
+
+
+#: the cold start's warm payload: the stream file's first COLDSTART_WARM
+#: bytes and the prefix store's pages (``warm_pages``)
+COLDSTART_WARM = 256 << 20
+#: the read pad of the cold-start arms (ms, the C engine's
+#: STROM_FAULT_READ_DELAY_MS, as the reference's bench_coldstart sets it)
+COLDSTART_PAD_MS = "2"
+#: the arms' order: two trials each, in turns
+COLDSTART_ORDER = ("off", "on", "on", "off")
+#: the chaos drill: ring 1 parks every dispatch after its first N
+COLDSTART_STALL_AFTER = 6
+#: the chaos drill's bulk lane: a restore-class read is neither retried
+#: nor hedged, so the read the ring's restart cancels fails its claim
+#: and the demand lane re-claims the tensor at decode class
+COLDSTART_DRILL_RESTORE = {"max_retries": 0, "hedging": False}
+COLDSTART_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
+                      "coldstart_faults", "coldstart_fault_bytes",
+                      "coldstart_bulk_tensors", "coldstart_warm_spans",
+                      "coldstart_warm_pages", "coldstart_brownouts",
+                      "breaker_trips", "ring_restarts", "extents_requeued",
+                      "degraded_reads", "hedges_issued",
+                      "resilient_retries")
+
+
+def _coldstart_warm(eng, stream_path, store, klass):
+    """The warm payload: the stream file's first COLDSTART_WARM bytes in
+    batches of 8 chunks at ``klass``, then the store's warm_pages; the
+    bytes read."""
+    from nvme_strom_tpu_torch.io.plan import plan_and_submit
+    chunk = eng.config.chunk_bytes
+    fh = eng.open(stream_path)
+    try:
+        off = 0
+        while off < COLDSTART_WARM:
+            exts = []
+            while off < COLDSTART_WARM and len(exts) < 8:
+                exts.append((fh, off, min(chunk, COLDSTART_WARM - off)))
+                off += exts[-1][2]
+            for pieces in plan_and_submit(eng, exts, klass=klass):
+                for p in pieces:
+                    p.wait()
+                    p.release()
+    finally:
+        eng.close(fh)
+    return COLDSTART_WARM + store.warm_pages() * store.page_bytes
+
+
+def _coldstart_arm(dev, cfg, wpath, stream_path, pre, arm, env,
+                   restore_policy=None):
+    """One boot of the serving replica, timed from before its engine is
+    made to its first token (``ttft_boot_s``) and to the steady phase,
+    its warm state resident (``steady_s``; the off arm's is its TTFT),
+    then the request run to its end.  ``off``:
+    the eager load, the warm payload at restore class, the server.
+    ``on``: the coordinator, a FaultingCheckpoint and the server on it at
+    once, the warm payload a warm-up thunk at prefetch class.
+    ``restore_policy``: ResilientConfig fields of the restore class."""
+    import dataclasses
+
+    import torch
+    from nvme_strom_tpu_torch.io.coldstart import ColdStartCoordinator
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import DecodeServer
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.parallel.weights import (FaultingCheckpoint,
+                                                       LazyCheckpoint)
+    rid, ids = pre["requests"][0]
+    h0 = h2d_copy.launches
+    t0 = time.monotonic()
+    eng = _res_engine(dev, {"STROM_RESILIENT": "1",
+                            "STROM_FAULT_READ_DELAY_MS": COLDSTART_PAD_MS,
+                            **env})
+    if restore_policy:
+        eng.class_configs["restore"] = dataclasses.replace(
+            eng.config_for("restore"), **restore_policy)
+    marks = {"engine_s": time.monotonic() - t0}
+    ctr = Counters(eng, COLDSTART_COUNTERS)
+    store = PrefixStore(cfg, eng, pre["store"], PREFIX_PAGE_TOKENS,
+                        PREFIX_STORE_BYTES)
+    warm = {}
+    fck = coord = None
+    try:
+        if arm == "off":
+            params = LazyCheckpoint(wpath).load(eng, device=dev)
+            marks["weights_s"] = time.monotonic() - t0
+            weights_read = ctr.delta()["bytes_read"]
+            warm["bytes"] = _coldstart_warm(eng, stream_path, store,
+                                            "restore")
+            marks["warm_s"] = time.monotonic() - t0
+            srv = DecodeServer(params, cfg, PREFIX_REQUESTS, 2048,
+                               device=dev)
+        else:
+            coord = ColdStartCoordinator(eng)
+            coord.add_warmup(lambda: warm.update(bytes=_coldstart_warm(
+                eng, stream_path, store, "prefetch")))
+            fck = FaultingCheckpoint(wpath, device=dev, engine=eng,
+                                     coordinator=coord)
+            srv = DecodeServer(fck, cfg, PREFIX_REQUESTS, 2048, device=dev)
+        t_submit = time.monotonic()
+        srv.submit(rid, ids, PREFIX_NEW_TOKENS)
+        toks = srv.run(lookahead=8)[rid]
+        torch.cuda.synchronize()
+        ttft = t_submit - t0 + srv.request_metrics[rid]["ttft_ms"] / 1e3
+        if coord is not None:
+            if not coord.wait_steady(600):
+                raise AssertionError("coldstart: never steady")
+            fck.join_bulk(600)
+            # the coordinator's clock starts after the engine is made
+            ph = coord.phase_times()
+            marks["weights_s"] = marks["engine_s"] + ph["warming"]
+            marks["warm_s"] = marks["engine_s"] + ph["steady"]
+        # time to steady: the on arm's boot to its steady phase; the off
+        # arm is steady before it serves (the reference's definition)
+        steady = marks["warm_s"] if coord is not None else ttft
+        st = ctr.delta()
+        phase = coord.phase if coord is not None else None
+        bulk_errors = dict(fck.bulk_errors) if fck is not None else {}
+        faulted = fck.fault_names() if fck is not None else []
+        if arm == "on":
+            weights_read = st["bytes_read"] - warm["bytes"]
+    finally:
+        if fck is not None:
+            fck.close()
+        store.close()
+        eng.close_all()
+    return {"ttft_boot_s": ttft, "steady_s": steady, "tokens": toks,
+            "marks_s": marks, "boot_phase": phase,
+            "weights_bytes_read": weights_read,
+            "warm_bytes": warm.get("bytes"), "bulk_errors": bulk_errors,
+            "reclaimed": sorted(n for n in bulk_errors if n in faulted),
+            "h2d_launches": h2d_copy.launches - h0, "stats": st}
+
+
+def coldstart_phase(dev, cfg, ckdir, shared, stream_path):
+    """Serve-while-restoring at flagship width with the serving
+    checkpoint, after the reference's bench_coldstart: the off and on
+    arms, two trials each in turns (COLDSTART_ORDER), every read
+    padded COLDSTART_PAD_MS; greedy tokens identical across every trial,
+    and every tensor read from NVMe once (the weights' bytes read equal
+    the file's tensor bytes); every on trial demand-faults at least one
+    tensor and bulk-loads at least one.  Then the chaos drill: the on
+    arm with ring 1 wedged after COLDSTART_STALL_AFTER dispatches and
+    the bulk lane's reads best-effort (COLDSTART_DRILL_RESTORE): the
+    ring tripped and restarted, at least one bulk claim failed, every
+    failed claim re-claimed at decode class, no consumer error, the
+    same tokens.  Every check raises."""
+    from nvme_strom_tpu_torch.formats.safetensors import SafetensorsFile
+    t0 = time.monotonic()
+    pre = shared["prefix"]
+    wpath = os.path.join(ckdir, "model.safetensors")
+    tensor_bytes = sum(info["nbytes"] for info in
+                       SafetensorsFile(wpath).tensors.values())
+    runs = {"off": [], "on": []}
+    for arm in COLDSTART_ORDER:
+        r = _coldstart_arm(dev, cfg, wpath, stream_path, pre, arm, {})
+        runs[arm].append(r)
+        log(f"coldstart {arm} (trial {len(runs[arm])}): ttft_boot_s "
+            f"{r['ttft_boot_s']:.4f}, steady_s {r['steady_s']:.4f}, "
+            f"phase {r['boot_phase']}, from boot (s) {r['marks_s']}, "
+            f"weights read "
+            f"{r['weights_bytes_read']} of {tensor_bytes} B, warm "
+            f"{r['warm_bytes']} B, h2d_copy launches {r['h2d_launches']}; "
+            f"{r['stats']}")
+    want = runs["off"][0]["tokens"]
+    for arm, rs in runs.items():
+        for r in rs:
+            if r["tokens"] != want:
+                raise AssertionError(f"coldstart {arm}: tokens differ "
+                                     f"from the eager arm's")
+            if r["weights_bytes_read"] != tensor_bytes:
+                raise AssertionError(
+                    f"coldstart {arm}: read {r['weights_bytes_read']} B of "
+                    f"weights for {tensor_bytes} B of tensors")
+            if r["stats"]["bounce_bytes"] or r["stats"]["bytes_fallback"]:
+                raise AssertionError(f"coldstart {arm}: {r['stats']}")
+        if arm == "on" and any(
+                r["boot_phase"] != "steady" or r["bulk_errors"]
+                or r["stats"]["coldstart_faults"] < 1
+                or r["stats"]["coldstart_bulk_tensors"] < 1 for r in rs):
+            raise AssertionError(f"coldstart on: {rs}")
+    chaos = _coldstart_arm(dev, cfg, wpath, stream_path, pre, "on", {
+        **HEALTH_BREAKER, "STROM_FAULT_RING_STALL_RING": "1",
+        "STROM_FAULT_RING_STALL_AFTER": COLDSTART_STALL_AFTER},
+        restore_policy=COLDSTART_DRILL_RESTORE)
+    log(f"coldstart chaos drill (ring 1 stalled after "
+        f"{COLDSTART_STALL_AFTER} dispatches, restore class "
+        f"{COLDSTART_DRILL_RESTORE}): ttft_boot_s "
+        f"{chaos['ttft_boot_s']:.4f}, steady_s {chaos['steady_s']:.4f}, "
+        f"failed bulk claims {sorted(chaos['bulk_errors'])}, re-claimed "
+        f"at decode {chaos['reclaimed']}, {chaos['stats']}")
+    st = chaos["stats"]
+    if chaos["tokens"] != want or chaos["boot_phase"] != "steady" or \
+            st["breaker_trips"] < 1 or st["ring_restarts"] < 1 or \
+            not chaos["bulk_errors"] or \
+            chaos["reclaimed"] != sorted(chaos["bulk_errors"]) or \
+            chaos["weights_bytes_read"] < tensor_bytes:
+        raise AssertionError(f"coldstart chaos drill: {chaos}")
+
+    def med(arm, key):
+        xs = sorted(r[key] for r in runs[arm])
+        return xs[len(xs) // 2]
+    return {"card": card_line(), "tensor_bytes": tensor_bytes,
+            "trials": {a: [{k: v for k, v in r.items() if k != "tokens"}
+                           for r in rs] for a, rs in runs.items()},
+            "ttft_boot_s": {a: med(a, "ttft_boot_s") for a in runs},
+            "steady_s": {a: med(a, "steady_s") for a in runs},
+            "chaos": {k: v for k, v in chaos.items() if k != "tokens"},
+            "tokens_identical": True, "seconds": time.monotonic() - t0}
+
+
+#: the supervisor-cost runs' order: three of each setting, in turns
+SUPERVISOR_COST_ORDER = ("none", "default", "default", "none", "none",
+                         "default")
+
+
+def supervisor_cost_phase(dev, cfg, params, shared, stream_path, want):
+    """The default supervisor and flight recorder against none
+    (``STROM_BREAKER=0 STROM_FLIGHT=0``), in turns
+    (SUPERVISOR_COST_ORDER): a first pass of the 2 GiB stream on a fresh engine,
+    then the prefix store's requests through the dense and the paged
+    server over it (the supervision tick in every admission poll, a
+    flight record a read).  Tokens equal the prefix phase's hit."""
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.ops.bridge import DeviceStream
+    pre = shared["prefix"]
+    modes = {"none": {"STROM_BREAKER": "0", "STROM_FLIGHT": "0"},
+             "default": {}}
+    out = {m: {"stream_gib_per_s": [], "dense_tok_per_s": [],
+               "paged_tok_per_s": []} for m in modes}
+    for mode in SUPERVISOR_COST_ORDER:
+        with _res_engine(dev, modes[mode]) as eng:
+            if (eng.supervisor is None) != (mode == "none") or \
+                    (eng.flight is None) != (mode == "none"):
+                raise AssertionError(f"supervisor cost: {mode} engine")
+            dt, _ = stream_once(DeviceStream(eng, device=dev), stream_path,
+                                dev, want)
+            out[mode]["stream_gib_per_s"].append(STREAM_BYTES / dt / 2**30)
+            store = PrefixStore(cfg, eng, pre["store"], PREFIX_PAGE_TOKENS,
+                                PREFIX_STORE_BYTES)
+            for name, srv in (
+                    ("dense", DecodeServer(params, cfg, PREFIX_REQUESTS,
+                                           2048, device=dev,
+                                           kv_store=store)),
+                    ("paged", PagedDecodeServer(
+                        params, cfg, PREFIX_REQUESTS, 2048,
+                        total_blocks=128, block_len=PREFIX_PAGE_TOKENS,
+                        device=dev, kv_store=store))):
+                toks, rep = store_run(f"supervisor {mode} {name}", srv,
+                                      pre["requests"], eng, store)
+                if toks != pre["hit_tokens"]:
+                    raise AssertionError(f"supervisor cost {mode} {name}: "
+                                         "tokens differ")
+                out[mode][f"{name}_tok_per_s"].append(rep["tok_per_s"])
+                del srv
+            store.close()
+    out["card"] = card_line()
+    log(f"supervisor cost ({out['card']}), in turns "
+        f"{SUPERVISOR_COST_ORDER}: {out}")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -4351,6 +4917,11 @@ def main() -> int:
     # would route every read there; the engine reads this switch when it
     # is created.
     os.environ.setdefault("STROM_NO_RESIDENCY_PROBE", "1")
+    # the flight recorder is on by default: its trigger dumps (an SLO
+    # governor's boost, a breaker trip) land inside the checkout
+    os.environ.setdefault("STROM_FLIGHT_DIR", os.path.join(DATA_DIR,
+                                                           "flight"))
+    os.makedirs(os.environ["STROM_FLIGHT_DIR"], exist_ok=True)
     from nvme_strom_tpu_torch import _build
     from nvme_strom_tpu_torch.models.transformer import flagship_config
     from nvme_strom_tpu_torch.ops.bridge import h2d_copy
@@ -4474,6 +5045,25 @@ def main() -> int:
                                  stream_path))
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches_resilience"] = counts[n]
+    torch.cuda.empty_cache()
+    # main path 1g: failure domains: a wedged ring under the weights
+    # load, an EIO storm under both servers (degraded reads through
+    # h2d_copy), the flight dumps, the degraded rate
+    health, counts = drive(
+        "health", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: health_phase(dev, cfg, ckdir, params, shared, stream_path))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_health"] = counts[n]
+    # main path 1h: serve-while-restoring cold start, weights faulted in
+    # and bulk-restored through h2d_copy, the dense server on kernel 2
+    coldstart, counts = drive(
+        "coldstart", ("h2d_copy", "decode_attention"),
+        lambda: coldstart_phase(dev, cfg, ckdir, shared, stream_path))
+    for n in ("h2d_copy", "decode_attention"):
+        results[n]["launches_coldstart"] = counts[n]
+    supervisor_cost = supervisor_cost_phase(dev, cfg, params, shared,
+                                            stream_path, want)
+    torch.cuda.empty_cache()
     del shared
     os.remove(stream_path)
     del params
@@ -4534,12 +5124,28 @@ def main() -> int:
         "offload_reads": resilience["offload"]["faulted"]["read_stats"],
         "loader": resilience["loader"]["stats"],
         "governor": resilience["governor"]["governor"]}))
+    log("health " + json.dumps({
+        "load_s": {k: v["load_s"] for k, v in health["weights"].items()},
+        "stalled": health["weights"]["stalled"]["stats"],
+        "store": {k: {"stats": v["stats"], "seconds": v["seconds"],
+                      "recovered_after_s": v["recovered_after_s"]}
+                  for k, v in health["store"].items()},
+        "dumps": health["dumps"],
+        "degraded_gib_per_s": health["degraded_rate"]["degraded"][
+            "gib_per_s"],
+        "direct_gib_per_s": health["degraded_rate"]["direct"]["gib_per_s"],
+        "supervisor_cost": supervisor_cost}))
+    log("coldstart " + json.dumps({
+        k: coldstart[k] for k in ("ttft_boot_s", "steady_s", "tensor_bytes",
+                                  "tokens_identical", "trials", "chaos")}))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
                                   "offload": offload, "qos": qos,
                                   "tenants": tenant, "verify": verify,
                                   "resilience": resilience,
+                                  "health": health, "coldstart": coldstart,
+                                  "supervisor_cost": supervisor_cost,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
                                   "flash_split": flash_split,

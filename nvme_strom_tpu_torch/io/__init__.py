@@ -16,6 +16,12 @@ from nvme_strom_tpu_torch.io.faults import (
     FaultyEngine,
     build_engine,
     crash_point,
+    set_ring_stall,
+)
+from nvme_strom_tpu_torch.io.flightrec import FlightRecorder, flight_of
+from nvme_strom_tpu_torch.io.health import (
+    DegradedRead,
+    EngineSupervisor,
 )
 from nvme_strom_tpu_torch.io.hostcache import (
     CacheHitRead,
@@ -58,7 +64,8 @@ __all__ = ["PinnedArena", "Slab", "get_arena",
            "StromEngine", "PendingRead", "PendingWrite", "check_file",
            "wait_exact",
            "FaultPlan", "FaultSpec", "FaultyEngine", "build_engine",
-           "crash_point",
+           "crash_point", "set_ring_stall", "FlightRecorder", "flight_of",
+           "DegradedRead", "EngineSupervisor",
            "CacheHitRead", "HostCache", "get_cache",
            "ExtentPlan", "SpanView", "plan_and_submit", "plan_extents",
            "split_spans", "submit_spans", "submit_spans_tiered",

@@ -38,9 +38,16 @@ resilient engine derives its default hedge threshold from.
 Recovery wraps this engine rather than living in it: ``io/faults.py``
 ``build_engine`` stacks ``FaultyEngine`` and ``ResilientEngine``
 (retries, hedges, the write mirror) on it under ``STROM_FAULTS`` /
-``STROM_RESILIENT``.  The breaker mask and supervision tick of the
-reference's admission poll come with its supervisor, ``io/health.py``
-(ROADMAP item 7b).
+``STROM_RESILIENT``.  The engine owns its failure-domain supervisor
+(``self.supervisor``, io/health.py; ``STROM_BREAKER=0`` builds none)
+and its flight recorder (``self.flight``, io/flightrec.py;
+``STROM_FLIGHT=0`` builds none).  The scheduler's admission poll
+(``_ring_free_slots``) runs the supervision tick and masks the rings
+whose breaker is open; scalar reads and writes go to a healthy ring
+(``pick_ring``).  Each completed read and write is one flight record,
+with its class (``op_klass``) and ring.  ``ring_restart``,
+``set_ring_stall`` and ``read_buffered`` bind the C engine's hot
+restart, stall injection and degraded pread.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ import numpy as np
 from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.io import arena as _arena
 from nvme_strom_tpu_torch.io.arena import CudaRegistration, HostMapping
-from nvme_strom_tpu_torch.utils.config import EngineConfig, SchedConfig
+from nvme_strom_tpu_torch.utils.config import (BreakerConfig, EngineConfig,
+                                               FlightConfig, SchedConfig)
 from nvme_strom_tpu_torch.utils.stats import (StromStats,
                                               percentiles_from_log2_hist)
 from nvme_strom_tpu_torch.utils.trace import (NO_CONTEXT, attach_context,
@@ -200,6 +208,7 @@ def _lib() -> ctypes.CDLL:
         "strom_close": (I, [P, I]),
         "strom_file_size": (I64, [P, I]),
         "strom_submit_read": (I64, [P, I, U64, U64]),
+        "strom_submit_read_ring": (I64, [P, U32, I, U64, U64]),
         "strom_submit_readv": (I, [P, ctypes.POINTER(_RdExt), U32,
                                    ctypes.POINTER(I64)]),
         "strom_submit_readv_ring": (I, [P, U32, ctypes.POINTER(_RdExt), U32,
@@ -209,6 +218,10 @@ def _lib() -> ctypes.CDLL:
                                    U64]),
         "strom_release": (I, [P, I64]),
         "strom_submit_write": (I64, [P, I, U64, P, U64]),
+        "strom_submit_write_ring": (I64, [P, U32, I, U64, P, U64]),
+        "strom_ring_restart": (I64, [P, U32, U64]),
+        "strom_set_ring_stall": (I, [P, U32, I]),
+        "strom_read_buffered": (I64, [P, I, U64, U64, P]),
         "strom_crc32c": (U32, [P, U64, U32]),
         "strom_drain_stats": (None, [P, ctypes.POINTER(_StatsBlk)]),
         "strom_backend_is_uring": (I, [P]),
@@ -240,6 +253,19 @@ def check_file(path) -> dict:
             "block_size": info.block_size}
 
 
+class BouncedBytes(np.ndarray):
+    """Host bytes the engine already copied and counted in
+    ``bounce_bytes`` (a degraded pread, :meth:`StromEngine.read_buffered`):
+    pageable memory, which the bridge copies to the card through its
+    pinned buffer without counting the bytes again.  Views and slices
+    keep the type."""
+
+
+def _ring_of(req_id: int) -> int:
+    """The ring a request rode: its id carries it in the low bits."""
+    return int(req_id) & (_MAX_RINGS - 1)
+
+
 class PendingRead:
     """An in-flight read.  ``wait()`` returns a zero-copy numpy view into
     the staging buffer, valid until ``release()``."""
@@ -258,11 +284,19 @@ class PendingRead:
         self.was_fallback = False
         #: the span's causal identity, taken at submit (utils/trace.py)
         self.trace_ctx = NO_CONTEXT
+        #: the latency class, for the flight recorder
+        self.op_klass: Optional[str] = None
 
     @property
     def length(self) -> int:
         """Bytes requested at submit (the view is shorter only at EOF)."""
         return self._length
+
+    @property
+    def ring(self) -> int:
+        """The submission ring this request rode (failure-domain
+        attribution, io/health.py)."""
+        return _ring_of(self._req_id)
 
     def wait(self, timeout: Optional[float] = None) -> np.ndarray:
         """Block for the completed staging view.  ``timeout`` (seconds)
@@ -283,9 +317,17 @@ class PendingRead:
             if rc == -errno.ETIMEDOUT:
                 raise TimeoutError(f"read {self._req_id} still in flight "
                                    f"after {timeout}s")
+        flight = self._engine.flight
         if rc < 0:
             self.release()
-            raise OSError(-rc, os.strerror(-rc))
+            e = OSError(-rc, os.strerror(-rc))
+            # the C ring counter has this failure: the supervisor must
+            # not count it again through note_error
+            e.engine_counted = True
+            if flight is not None:
+                flight.record("read", self.op_klass, self.ring, self.fh,
+                              self.offset, 0, 0, "error", err=-rc)
+            raise e
         n = int(comp.len)
         self.was_fallback = bool(comp.was_fallback)
         tracer = self._engine.tracer
@@ -294,6 +336,12 @@ class PendingRead:
                 "strom.read.fallback" if comp.was_fallback else "strom.read",
                 int(comp.submit_ns), int(comp.complete_ns),
                 ctx=self.trace_ctx, bytes=n)
+        if flight is not None:
+            flight.record("read", self.op_klass, self.ring, self.fh,
+                          self.offset, n,
+                          max(0, int(comp.complete_ns - comp.submit_ns))
+                          // 1000,
+                          "fallback" if comp.was_fallback else "ok")
         self._view = (np.empty(0, dtype=np.uint8) if n == 0
                       else np.ctypeslib.as_array(comp.data, shape=(n,)))
         return self._view
@@ -325,6 +373,12 @@ class PendingRead:
         self._released = True
         self._view = None
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
 
 def wait_exact(pending, timeout: Optional[float] = None) -> np.ndarray:
     """``pending.wait(timeout)`` plus a strict length check: for plans
@@ -353,7 +407,12 @@ class PendingWrite:
         self.offset = offset
         self.length = keepalive.nbytes
         self.trace_ctx = NO_CONTEXT
+        self.op_klass: Optional[str] = None
         self._done = False
+
+    @property
+    def ring(self) -> int:
+        return _ring_of(self._req_id)
 
     def wait(self, timeout: Optional[float] = None) -> int:
         """Block until the write completes; the bytes written.
@@ -371,14 +430,25 @@ class PendingWrite:
                 raise TimeoutError(f"write {self._req_id} still in flight "
                                    f"after {timeout}s")
         self._finish()
+        flight = self._engine.flight
         if rc < 0:
-            raise OSError(-rc, os.strerror(-rc))
+            e = OSError(-rc, os.strerror(-rc))
+            e.engine_counted = True   # as PendingRead.wait's
+            if flight is not None:
+                flight.record("write", self.op_klass, self.ring, self.fh,
+                              self.offset, 0, 0, "error", err=-rc)
+            raise e
         n = int(comp.len)
         tracer = self._engine.tracer
         if tracer.enabled:
             tracer.add_span("strom.write", int(comp.submit_ns),
                             int(comp.complete_ns), ctx=self.trace_ctx,
                             bytes=n)
+        if flight is not None:
+            flight.record("write", self.op_klass, self.ring, self.fh,
+                          self.offset, n,
+                          max(0, int(comp.complete_ns - comp.submit_ns))
+                          // 1000, "ok")
         return n
 
     def release(self) -> None:
@@ -460,6 +530,19 @@ class StromEngine:
         #: fh → (dev, ino, mtime_ns, size), the host tier's file key
         self._file_keys: dict = {}
         self._closed = False
+        #: failure-domain supervisor (io/health.py); None under
+        #: STROM_BREAKER=0, the engine without supervision
+        self.supervisor = None
+        bcfg = BreakerConfig()
+        if bcfg.enabled:
+            from nvme_strom_tpu_torch.io.health import EngineSupervisor
+            self.supervisor = EngineSupervisor(self, bcfg)
+        #: recent-op recorder (io/flightrec.py); None under STROM_FLIGHT=0
+        self.flight = None
+        fcfg = FlightConfig()
+        if fcfg.enabled:
+            from nvme_strom_tpu_torch.io.flightrec import FlightRecorder
+            self.flight = FlightRecorder(fcfg, self.stats)
         self.scheduler = None
         if n_rings > 1:
             scfg = SchedConfig()
@@ -527,7 +610,53 @@ class StromEngine:
                 for r in range(self.n_rings)]
 
     def _ring_free_slots(self) -> List[int]:
-        return [max(0, self._ring_cap - d) for d in self.ring_depths()]
+        free = [max(0, self._ring_cap - d) for d in self.ring_depths()]
+        if self.supervisor is not None:
+            # the admission poll is the supervision heartbeat (gated
+            # inside), and an open ring reports no headroom
+            self.supervisor.tick()
+            free = self.supervisor.mask_free_slots(free)
+        return free
+
+    def ring_restart(self, ring: int, drain_timeout_s: float = 0.5) -> int:
+        """Hot-restart one ring (``strom_ring_restart``): its parked
+        requests complete -ECANCELED (their waiters' retry is the
+        requeue), dispatched I/O drains within ``drain_timeout_s``, the
+        ring is rebuilt.  Returns the requests cancelled; raises
+        TimeoutError when in-flight I/O would not drain (the ring goes
+        on untouched), OSError otherwise."""
+        rc = self._lib.strom_ring_restart(self._h, ring,
+                                          max(1, int(drain_timeout_s * 1e9)))
+        if rc == -errno.ETIMEDOUT:
+            raise TimeoutError(f"ring {ring}: in-flight I/O did not drain "
+                               f"within {drain_timeout_s}s; restart "
+                               "aborted")
+        if rc < 0:
+            raise OSError(-rc, os.strerror(-rc))
+        return int(rc)
+
+    def set_ring_stall(self, ring: int, on: bool = True) -> None:
+        """Arm or disarm the C engine's stall injection on ``ring``:
+        armed, the ring parks every dispatch (a wedged ring as its
+        waiters see it); disarmed, the parked requests dispatch."""
+        rc = self._lib.strom_set_ring_stall(self._h, ring, 1 if on else 0)
+        if rc < 0:
+            raise OSError(-rc, os.strerror(-rc))
+
+    def read_buffered(self, fh: int, offset: int,
+                      length: int) -> BouncedBytes:
+        """The degraded mode's read: one synchronous buffered pread into
+        a new pageable array, with no ring and no staging buffer (the C
+        engine counts the bytes as fallback and bounce).  Short only at
+        EOF."""
+        arr = np.empty(max(0, length), dtype=np.uint8).view(BouncedBytes)
+        if length <= 0:
+            return arr
+        n = self._lib.strom_read_buffered(self._h, fh, offset, length,
+                                          arr.ctypes.data)
+        if n < 0:
+            raise OSError(-n, os.strerror(-n))
+        return arr[:int(n)]
 
     # -- reads --------------------------------------------------------------
 
@@ -539,15 +668,24 @@ class StromEngine:
                                  f"{chunk}; split the range")
 
     def submit_read(self, fh: int, offset: int, length: int,
-                    klass: Optional[str] = None) -> PendingRead:
-        """One read, round-robin over the rings.  ``klass`` is accepted
-        for the engine contract the wrappers share and routes nothing:
-        scalar reads bypass the scheduler."""
+                    klass: Optional[str] = None,
+                    ring: Optional[int] = None) -> PendingRead:
+        """One read, round-robin over the rings whose breaker is not open
+        (``ring`` pins one).  Scalar reads are the retry, hedge and probe
+        path and bypass the scheduler; ``klass`` routes nothing and is
+        kept for the flight recorder."""
         self._check_lengths([(fh, offset, length)])
-        rid = self._lib.strom_submit_read(self._h, fh, offset, length)
+        if ring is None and self.supervisor is not None:
+            ring = self.supervisor.pick_ring()
+        if ring is None:
+            rid = self._lib.strom_submit_read(self._h, fh, offset, length)
+        else:
+            rid = self._lib.strom_submit_read_ring(self._h, ring, fh,
+                                                   offset, length)
         if rid < 0:
             raise OSError(-rid, os.strerror(-rid))
         pending = PendingRead(self, rid, length, fh=fh, offset=offset)
+        pending.op_klass = klass
         if self.tracer.enabled:
             # the span may be waited on another thread: carry the
             # context from here
@@ -563,6 +701,9 @@ class StromEngine:
         for i, (fh, offset, length) in enumerate(reads):
             exts[i].fh, exts[i].offset, exts[i].length = fh, offset, length
         rids = (ctypes.c_int64 * n)()
+        if ring is None and self.supervisor is not None:
+            # batches without a scheduler avoid open rings too
+            ring = self.supervisor.pick_ring()
         if ring is None:
             rc = self._lib.strom_submit_readv(self._h, exts, n, rids)
         else:
@@ -592,7 +733,10 @@ class StromEngine:
         self._check_lengths(reads)
         if self.scheduler is not None and ring is None:
             return self.scheduler.submit(reads, klass)
-        return self._submit_readv_ring(reads, ring)
+        out = self._submit_readv_ring(reads, ring)
+        for p in out:
+            p.op_klass = klass
+        return out
 
     # -- writes -------------------------------------------------------------
 
@@ -602,8 +746,15 @@ class StromEngine:
         request keeps ``data`` alive until ``wait()``.  The host tier's
         lines over the range are dropped now and again at completion."""
         arr = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
-        rid = self._lib.strom_submit_write(self._h, fh, offset,
-                                           arr.ctypes.data, arr.nbytes)
+        ring = (self.supervisor.pick_ring()
+                if self.supervisor is not None else None)
+        if ring is None:
+            rid = self._lib.strom_submit_write(self._h, fh, offset,
+                                               arr.ctypes.data, arr.nbytes)
+        else:
+            # a write retry never resubmits into an open ring
+            rid = self._lib.strom_submit_write_ring(
+                self._h, ring, fh, offset, arr.ctypes.data, arr.nbytes)
         if rid < 0:
             raise OSError(-rid, os.strerror(-rid))
         self._hostcache_write_done(fh, offset, arr.nbytes)
@@ -686,6 +837,8 @@ class StromEngine:
         if self._closed:
             return
         self._closed = True
+        if self.supervisor is not None:
+            self.supervisor.close()
         if self.scheduler is not None:
             self.scheduler.close()
         self.sync_stats()

@@ -36,9 +36,12 @@ submit order, the same decisions in the same order as the JAX package's
 plan for the same text and seed.  Below Python, the C engine honours
 ``STROM_FAULT_READ_EIO_EVERY`` / ``_SHORT_EVERY`` / ``_DELAY_MS`` and
 ``STROM_FAULT_WRITE_EIO_EVERY`` / ``_ENOSPC_EVERY`` / ``_SHORT_EVERY`` /
-``_DELAY_MS`` at engine creation (csrc/strom_io.cc).  The ring-stall
-injection (``set_ring_stall``) comes with the supervisor of
-``io/health.py`` (ROADMAP item 7b).  Every injected fault is counted
+``_DELAY_MS`` at engine creation (csrc/strom_io.cc), and
+``STROM_FAULT_RING_STALL_RING`` / ``_AFTER`` wedge one ring after its
+first N dispatches; :func:`set_ring_stall` arms or disarms that stall on
+a live engine.  An ``estorm`` drives the supervisor's device breaker
+(io/health.py) through the resilient engine's failed attempts.  Every
+injected fault is counted
 (``StromStats.faults_injected``), tallied per kind on the plan and
 traced as a ``strom.fault.<kind>`` span.
 """
@@ -59,6 +62,19 @@ READ_FAULT_KINDS = ("eio", "short", "delay", "stuck", "bitflip",
                     "estorm")
 WRITE_FAULT_KINDS = ("weio", "wenospc", "wshort", "wdelay")
 FAULT_KINDS = READ_FAULT_KINDS + WRITE_FAULT_KINDS
+
+
+def set_ring_stall(engine, ring: int, on: bool = True) -> None:
+    """Arm or disarm the C engine's stall injection on ``ring`` of a live
+    engine, under any FaultyEngine or ResilientEngine wrappers (the stall
+    lives below them all: the ring's requests park at dispatch and never
+    complete).  The env twins ``STROM_FAULT_RING_STALL_RING`` /
+    ``STROM_FAULT_RING_STALL_AFTER`` arm it at engine creation."""
+    base = engine
+    while getattr(base, "_engine", None) is not None \
+            and not hasattr(base, "set_ring_stall"):
+        base = base._engine
+    base.set_ring_stall(ring, on)
 
 
 def crash_point(name: str) -> None:

@@ -59,9 +59,14 @@ Hit spans never enter ``FaultyEngine`` or ``ResilientEngine``
 tier before it submits, so a DRAM hit takes no fault decision, retry or
 hedge budget, while the misses are submitted through whatever wrapper
 the caller holds and get its recovery.  The tier is the process's one,
-whichever engine in a wrapper stack finds it.  The reference's fill and
-hit spans and its ``evicted_unused`` waste charge come with ROADMAP
-item 14.
+whichever engine in a wrapper stack finds it.  A fill copies only a
+view its read completed: a miss whose read a ring restart cancels fills
+nothing until the resubmitted read's view arrives, so no torn line is
+published, and a degraded read (io/health.py) fills its admitted lines
+from its pread like any other read.  ``resident_spans`` lists a file's
+resident bytes for the warm-hint manifests (io/warmup.py).  The
+reference's fill and hit spans and its ``evicted_unused`` waste charge
+come with ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -355,6 +360,25 @@ class HostCache:
                     "arena_locked": self.arena.locked,
                     "class_slots": dict(self._class_slots),
                     "tenant_slots": dict(self._tenant_slots)}
+
+    def resident_spans(self, fkey: tuple) -> list:
+        """Merged ``(offset, length)`` spans of one file resident in the
+        tier, largest first: a ``.warmhints.json`` manifest's content
+        (io/warmup.py)."""
+        with self._lock:
+            raw = sorted((key[1], line.valid)
+                         for key, line in self._lines.items()
+                         if key[0] == fkey and line.valid > 0
+                         and not line.dead)
+        merged: list = []
+        for off, ln in raw:
+            if merged and off <= merged[-1][0] + merged[-1][1]:
+                last_off, last_len = merged[-1]
+                merged[-1] = (last_off, max(last_len, off + ln - last_off))
+            else:
+                merged.append((off, ln))
+        merged.sort(key=lambda sp: (-sp[1], sp[0]))
+        return merged
 
     def _klass(self, klass: Optional[str]) -> str:
         return klass if klass in self.quota_slots else DEFAULT_CLASS

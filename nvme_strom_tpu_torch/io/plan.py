@@ -20,6 +20,10 @@ spans (``DeviceStream.stream_ranges``).  ``hot=True`` admits a batch's
 missed lines on first touch and pins them under the class's residency
 quota.  With the tier off and one ring the planner submits exactly what
 it submitted before either existed.
+
+While the engine's supervisor (io/health.py) has the device degraded,
+``submit_spans`` serves every batch as buffered preads past the engine
+and its wrappers, and each submit is a time-gated supervision tick.
 """
 
 from __future__ import annotations
@@ -235,7 +239,20 @@ def submit_spans(engine, spans: Sequence[Tuple[int, int, int]],
                  klass: Optional[str] = None) -> list:
     """Submit planned spans as one vectored batch tagged ``klass``;
     returns the pending reads aligned with ``spans``.  None rides the
-    scheduler's default class."""
+    scheduler's default class.
+
+    While the engine's supervisor (io/health.py) has the device
+    degraded, the spans are served as synchronous buffered preads
+    (``DegradedRead``) past the engine, the scheduler and any wrapper,
+    as host-tier hits are; one probe every ``probe_s`` rides the real path,
+    and its success sends this very batch down it."""
+    sup = getattr(engine, "supervisor", None)
+    if sup is not None:
+        sup.tick()
+        if sup.degraded():
+            out = sup.serve_degraded(engine, list(spans))
+            if out is not None:
+                return out      # still degraded (None: the probe healed)
     if klass is not None and _readv_accepts_klass(engine):
         return engine.submit_readv(spans, klass=klass)
     return engine.submit_readv(spans)

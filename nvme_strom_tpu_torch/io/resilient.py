@@ -45,9 +45,20 @@ Every action is counted (``resilient_retries``, ``hedges_issued``,
 ``hedges_won``, ``hedges_denied``, ``stuck_cancelled``,
 ``write_retries``, per class in ``class_stats``), charged to the waste
 ledger (obs/ledger.py: ``hedge_loss``, ``retry_reread``) and traced
-(``strom.resilient.*`` spans).  The reference's failure-domain
-supervisor hooks (breakers, the degraded buffered brown-out) come with
-``io/health.py`` (ROADMAP item 7b).
+(``strom.resilient.*`` spans).
+
+The base engine's failure-domain supervisor (io/health.py) hears every
+failed attempt of a read or write (``note_error``, attributed to the
+attempt's ring; a cancellation is a requeue and the C engine's own
+failures are counted once), and the wait loop runs its time-gated
+``tick`` while a read straggles: the stall detector and the hot restart
+run on the threads stuck on the wedged ring; so does a blocking release
+or ``close(fh)`` that waits out an attempt still in flight (a hedge's
+losing twin parked on a stalled ring would otherwise hold it forever).
+Once the device breaker
+is open, a read's next retry browns out onto a degraded buffered pread
+(``degraded_pending``, an attempt marked ``degraded`` in the trace)
+instead of spending its retries on the sick device.
 
 The wrapper keeps the engine contract: ``wait(timeout=...)`` raises
 TimeoutError with the read still live; ``release()`` frees every
@@ -97,6 +108,28 @@ class WriteError(OSError):
     def __init__(self, msg: str, attempts):
         super().__init__(msg)
         self.attempts = list(attempts)
+
+
+def _release_supervised(pending, sup) -> None:
+    """``pending.release()``, which waits out a request still in flight;
+    with a supervisor the wait for the engine's own request (under any
+    fault wrapper, whose injected delay a release does not wait out) is
+    taken in ``_POLL_S`` slices, each returning as soon as the request
+    completes, with a supervision heartbeat between them, so a request
+    parked on a wedged ring is cancelled by the ring's restart instead
+    of holding the caller forever."""
+    if sup is not None:
+        inner = pending
+        while getattr(inner, "_inner", None) is not None:
+            inner = inner._inner
+        while not inner.is_ready():
+            try:
+                inner.wait(timeout=_POLL_S)
+            except TimeoutError:
+                sup.tick()
+            except OSError:
+                break     # completed with an error: nothing to wait for
+    pending.release()
 
 
 class _Attempt:
@@ -251,6 +284,11 @@ class ResilientRead:
                 raise TimeoutError(
                     f"read fh={self._fh} off={self._offset} still in "
                     f"flight (recovery continues on the next wait)")
+            # supervision heartbeat on the thread waiting on a straggler
+            # (time-gated inside)
+            sup = eng._supervisor
+            if sup is not None:
+                sup.tick()
             elapsed = now - self._primary.t0
             # hedge: the primary is a straggler — race ONE duplicate
             if (self._hedge is None and self._hedges == 0
@@ -348,6 +386,14 @@ class ResilientRead:
             "kind": kind or ("stuck" if isinstance(e, _Stuck) else "io"),
             "elapsed_s": round(time.monotonic() - self._primary.t0, 4),
         })
+        # a Python fault plan never moves the C ring counters, yet must
+        # reach the same breakers
+        sup = self._engine._supervisor
+        if sup is not None:
+            sup.note_error(getattr(self._primary.pending, "ring", -1),
+                           err=getattr(e, "errno", None),
+                           engine_counted=getattr(e, "engine_counted",
+                                                  False))
 
     def _retry(self, deadline) -> None:
         """Release the failed/stuck attempt, back off, resubmit."""
@@ -374,6 +420,20 @@ class ResilientRead:
         self._retries += 1
         self._hedges = 0     # a fresh primary earns a fresh hedge budget
         self._hedge_denied = False
+        sup = eng._supervisor
+        if sup is not None and sup.degraded():
+            # the device breaker opened while this read recovered: its
+            # next attempt browns out instead of spending its retries
+            # on a device already condemned
+            self._primary = _Attempt(
+                sup.degraded_pending(self._fh, self._offset, self._length,
+                                     eng.stats, probe_engine=eng._engine),
+                time.monotonic())
+            eng._trace("strom.resilient.retry", t0, ctx=self._ctx,
+                       fh=self._fh, offset=self._offset,
+                       attempt=self._retries, stuck=stuck, degraded=True,
+                       error=self._attempts[-1]["error"])
+            return
         try:
             pending = eng._engine.submit_read(self._fh, self._offset,
                                               self._length,
@@ -427,9 +487,10 @@ class ResilientRead:
             return
         self._released = True
         self._view = None
-        self._primary.pending.release()   # waits if still in flight
+        sup = self._engine._supervisor
+        _release_supervised(self._primary.pending, sup)
         if self._hedge is not None:
-            self._hedge.pending.release()
+            _release_supervised(self._hedge.pending, sup)
         self._drop_hedge()
 
     def __enter__(self):
@@ -529,6 +590,12 @@ class ResilientWrite:
         self._attempts.append({
             "error": str(e), "kind": kind,
             "elapsed_s": round(time.monotonic() - self._t0, 4)})
+        sup = self._engine._supervisor
+        if sup is not None:   # write failures feed the same breakers
+            sup.note_error(getattr(self._pending, "ring", -1),
+                           err=getattr(e, "errno", None),
+                           engine_counted=getattr(e, "engine_counted",
+                                                  False))
 
     def _retry_or_raise(self, cfg, deadline, resubmit_from: int) -> None:
         eng = self._engine
@@ -609,6 +676,9 @@ class ResilientEngine:
             if p.max_retries is not None and name not in self.class_configs:
                 self.class_configs[name] = replace(
                     self.rconfig, max_retries=p.max_retries)
+        #: the base engine's failure-domain supervisor (reached through
+        #: the wrappers' delegation), read on every poll slice
+        self._supervisor = getattr(engine, "supervisor", None)
         self._hedge_out: dict = {}           # class -> outstanding hedges
         self._hedge_lock = threading.Lock()
         self._rng = random.Random(self.rconfig.seed)
@@ -726,7 +796,9 @@ class ResilientEngine:
         survivors = []
         for zfh, p in zombies:
             if block and (fh is None or zfh == fh):
-                p.release()               # waits if still in flight
+                # waits if still in flight (a lost hedge's twin may be
+                # parked on a wedged ring: the wait ticks the supervisor)
+                _release_supervised(p, self._supervisor)
             elif p.is_ready():
                 p.release()
             else:

@@ -35,9 +35,12 @@ class's grants by weight ratio.  The aging pass runs before that pick,
 so the starvation bound does not depend on weights; until a batch with
 a tenant is queued the pick is the queue's head, exact FIFO.
 
-The tracer's queue spans come with ROADMAP item 14; the breaker mask of
-the engine's ``ring_free`` callback comes with the supervisor of
-``io/health.py`` (item 7b).
+The engine's ``ring_free`` callback is masked by its supervisor
+(io/health.py): a ring whose breaker is open reports no headroom, so
+batches are granted to the healthy rings, and each poll of it is a
+time-gated supervision round.  A granted batch's pending reads carry
+its class (``op_klass``) for the flight recorder.  The tracer's queue
+spans come with ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -203,7 +206,13 @@ class QoSScheduler:
                     break
                 self._cv.wait(timeout=self._POLL_S)
         try:
-            return self._submit_ring(b.spans, b.ring)
+            out = self._submit_ring(b.spans, b.ring)
+            for p in out:
+                try:
+                    p.op_klass = b.klass   # the flight recorder's class
+                except AttributeError:
+                    break   # a test double without a __dict__
+            return out
         finally:
             self.ack_submitted(b)
 

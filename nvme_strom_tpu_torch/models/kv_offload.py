@@ -83,10 +83,13 @@ memory; the eviction writes go through ``engine.submit_write`` and so
 get the write mirror (a failed write resubmitted, a short one finished
 from where it stopped).
 
-Left for the later parts of the port: the governor's gate on a sick
-device and its flight-recorder dumps, which read the supervisor of
-``io/health.py`` (``engine.supervisor``, ROADMAP item 7b) and stay
-inert until it exists, and the tracer's restore span (item 14).
+The governor does not boost into a sick device: while the engine's
+supervisor (io/health.py) reports any breaker not closed, or the device
+degraded, a p99 past the target moves nothing, on either lane.  Each
+boost dumps the engine's flight recorder (``slo_violation``,
+io/flightrec.py).  ``PrefixStore.warm_pages`` is the cold-start warming
+pass (io/coldstart.py) and counts ``coldstart_warm_pages``.  The
+tracer's restore span comes with ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -879,8 +882,16 @@ class SloGovernor:
                                  self._base_weight * (1 + self.boost))
             except (KeyError, AttributeError):
                 pass
-        if step > 0 and stats is not None:
-            stats.add(kv_slo_boosts=1)
+        if step > 0:
+            if stats is not None:
+                stats.add(kv_slo_boosts=1)
+            # the post-mortem wants the reads that blew the p99, now
+            flight = getattr(engine, "flight", None)
+            if flight is not None:
+                flight.dump("slo_violation",
+                            extra={"p99_ms": p99_ms,
+                                   "target_ms": self.target_ms,
+                                   "boost": self.boost})
 
     def observe_tenant(self, engine, tenant, p99_ms, stats=None) -> None:
         """Feed one tenant's TTFT p99 against its own target: the same
@@ -905,9 +916,16 @@ class SloGovernor:
             return
         self._tenant_last[tenant.id] = now
         tenant.share_boost += step
-        if step > 0 and stats is not None:
-            stats.add(tenant_slo_boosts=1)
-            stats.add_tenant_stat(tenant.id, slo_boosts=1)
+        if step > 0:
+            if stats is not None:
+                stats.add(tenant_slo_boosts=1)
+                stats.add_tenant_stat(tenant.id, slo_boosts=1)
+            flight = getattr(engine, "flight", None)
+            if flight is not None:
+                flight.dump("slo_violation",
+                            extra={"tenant": tenant.id, "p99_ms": p99_ms,
+                                   "target_ms": tenant.slo_p99_ms,
+                                   "share_boost": tenant.share_boost})
 
 
 class PrefixStore:
@@ -1510,6 +1528,8 @@ class PrefixStore:
                 self._io_inflight -= 1
                 if self._io_inflight == 0:
                     self._io_cv.notify_all()
+        if warmed and self.stats is not None:
+            self.stats.add(coldstart_warm_pages=warmed)
         return warmed
 
     # -- the manifest -------------------------------------------------------

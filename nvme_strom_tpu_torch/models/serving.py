@@ -32,9 +32,10 @@ many sessions share them.
 Load shedding: ``shed_probe=`` is a callable that returns True while
 new prefills should defer (queued requests wait, in-flight decode goes
 on, nothing fails); each deferred admission counts ``admissions_shed``.
-With no probe the server never sheds: the JAX server's default, the
-engine supervisor's degraded state, comes with io/health.py (ROADMAP
-item 7b).
+With no probe and a ``kv_store``, the server sheds while the store
+engine's supervisor (io/health.py) has the device degraded, and each
+check is a supervision tick: with admissions deferred no other read
+may be left to carry the recovery probe.
 
 Tenants (io/tenants.py), only under ``STROM_TENANTS=1``: ``submit(...,
 tenant=)`` resolves the request's tenant once.  While any queued request
@@ -46,11 +47,19 @@ batched restore and each admission's prefill and store puts run in the
 tenant's scope, so the scheduler, the host tier and the store charge
 them to it, and each tenant's TTFT p99 feeds the store's
 ``SloGovernor``.  With tenants off the tag is ignored and every path is
-the one without tenants, bit for bit.  The ``tenant_storm`` flight dump
-comes with the flight recorder (item 7b); the storm windows it reads
-are kept.
-Drain/handoff, session export and cold start of the JAX server are not
-part of this port yet.
+the one without tenants, bit for bit.  A tenant whose sheds since its
+last window reach ``STROM_TENANT_STORM_SHEDS`` trips a ``tenant_storm``
+dump of the store engine's flight recorder (io/flightrec.py), counted
+in ``tenant_storm_dumps`` when one is written.
+
+Cold start: ``params`` may be a lazy source, anything with
+``materialize()`` (parallel/weights.py ``FaultingCheckpoint``).  The
+server then accepts submissions at once, tells the source's
+coordinator that serving started, starts its bulk lane, and resolves
+the params at the first step with ``materialize(klass="decode")``: the
+first step makes every parameter resident, as the JAX server's does.
+Drain/handoff and session export of the JAX server are not part of this
+port yet.
 """
 
 from __future__ import annotations
@@ -174,10 +183,19 @@ class DecodeServer:
         self._shed_probe = shed_probe
         #: admission opportunities deferred by shedding, tenants' too
         self.admissions_shed = 0
-        for name, t in params.items():
-            if t.device != self.device:
-                raise ValueError(f"parameter {name} is on {t.device}, the "
-                                 f"server on {self.device}")
+        #: a lazy params source, resolved at the first step
+        self._param_source = None
+        if not isinstance(params, dict) and hasattr(params, "materialize"):
+            self._param_source = params
+            params = None
+            coord = getattr(self._param_source, "coordinator", None)
+            if coord is not None:
+                coord.note_serving_started()
+            start = getattr(self._param_source, "start_bulk", None)
+            if start is not None:
+                start()   # serve while restoring, from the first moment
+        else:
+            self._check_devices(params)
         self.params = params
         self.cfg = cfg
         self.B = max_batch
@@ -212,6 +230,22 @@ class DecodeServer:
         #: recent TTFTs per tenant (its p99 feeds the SLO governor)
         self._tenant_ttft: Dict[str, List[float]] = {}
         self._alloc_storage()
+
+    def _check_devices(self, params: Dict[str, torch.Tensor]) -> None:
+        for name, t in params.items():
+            if t.device != self.device:
+                raise ValueError(f"parameter {name} is on {t.device}, the "
+                                 f"server on {self.device}")
+
+    def _ensure_params(self) -> None:
+        """Resolve a lazy params source: every tensor not yet resident
+        is faulted in at ``decode`` class, ahead of the bulk and warmup
+        streams; what the bulk lane landed comes from its claim table
+        without another read."""
+        if self.params is None and self._param_source is not None:
+            params = self._param_source.materialize(klass="decode")
+            self._check_devices(params)
+            self.params = params
 
     def _alloc_storage(self) -> None:
         cfg = self.cfg
@@ -484,8 +518,18 @@ class DecodeServer:
     # -- load shedding and tenant admission ---------------------------------
 
     def _shed_now(self) -> bool:
-        """True while new prefills should defer (the probe says so)."""
-        return self._shed_probe is not None and bool(self._shed_probe())
+        """True while new prefills should defer: the explicit probe says
+        so, or without one the store engine's device is degraded."""
+        if self._shed_probe is not None:
+            return bool(self._shed_probe())
+        sup = (getattr(self.kv_store.engine, "supervisor", None)
+               if self.kv_store is not None else None)
+        if sup is None:
+            return False
+        # a shedding server is a supervision heartbeat: tick() probes
+        # from the last degraded span (time-gated inside)
+        sup.tick()
+        return sup.degraded()
 
     def _engine_stats(self):
         """The store engine's counters (None without a store)."""
@@ -554,9 +598,9 @@ class DecodeServer:
 
     def _note_tenant_shed(self, shed: Dict[str, int]) -> None:
         """Count one step's tenant sheds on the server, the engine and
-        each tenant, and in each tenant's storm window; a window that
-        reaches ``STROM_TENANT_STORM_SHEDS`` closes (the JAX server's
-        ``tenant_storm`` flight dump comes with the flight recorder)."""
+        each tenant, and in each tenant's storm window; the tenants
+        whose window reaches ``STROM_TENANT_STORM_SHEDS`` close it and
+        trip one ``tenant_storm`` flight dump naming them."""
         n = sum(shed.values())
         self.admissions_shed += n
         stats = self._engine_stats()
@@ -568,9 +612,25 @@ class DecodeServer:
             if stats is not None:
                 stats.add_tenant_stat(tid, admissions_shed=k)
         thresh = self._tenant_config().storm_sheds
-        for tid, k in self._storm_window.items():
-            if k >= thresh:
-                self._storm_window[tid] = 0
+        hot = [t for t, k in self._storm_window.items() if k >= thresh]
+        if not hot:
+            return
+        for tid in hot:
+            self._storm_window[tid] = 0
+        flight = (getattr(self.kv_store.engine, "flight", None)
+                  if self.kv_store is not None else None)
+        if flight is None:
+            return
+        path = flight.dump("tenant_storm",
+                           extra={"tenants": hot,
+                                  "sheds": dict(self.tenant_sheds),
+                                  "queued": len(self.queue)})
+        # only dumps written count: the recorder's per-reason rate limit
+        # swallows a sustained storm's re-triggers
+        if path is not None and stats is not None:
+            stats.add(tenant_storm_dumps=1)
+            for tid in hot:
+                stats.add_tenant_stat(tid, storm_dumps=1)
 
     def _run_step(self) -> torch.Tensor:
         """One decode step of every slot → next tokens (B,) on device."""
@@ -600,6 +660,7 @@ class DecodeServer:
         decoding to the batch end; its surplus tokens are discarded, and
         each slot's sub-steps are capped at its max_new remainder, so
         positions never pass its reservation."""
+        self._ensure_params()
         finished: Dict[object, List[int]] = {}
         t0 = time.monotonic()
         plans = []

@@ -12,10 +12,13 @@ Each completed byte is goodput or one waste class:
   degraded        bytes served by the buffered brown-out of io/health.py.
 
 Goodput is derived (delivered minus waste), so the classes never count
-it twice.  The counters are ``StromStats.waste_*_bytes``.  Of the
-port's paths only the resilient engine charges waste so far; the
-planner's, the tier's and the brown-out's charges, and the reference's
-per-ring ``RingTimeLedger``, come with ROADMAP Queue 1 items 7b and 14.
+it twice.  The counters are ``StromStats.waste_*_bytes``.  The
+resilient engine charges ``hedge_loss`` and ``retry_reread``; a
+degraded read (io/health.py ``DegradedRead``) charges the bytes its
+pread returned to ``degraded``, once, when it is first waited, as the
+reference does.  The planner's and the tier's charges, and the
+reference's per-ring ``RingTimeLedger``, come with ROADMAP Queue 1 item
+14.
 """
 
 from __future__ import annotations

@@ -21,12 +21,17 @@ from page-locked memory CUDA has registered.  Host memory that is not
 (a host-side join, an owning array) is first copied into a pinned
 buffer and counted in ``bounce_bytes``.  On the CPU ``torch.from_numpy``
 would alias the staging buffer, so the CPU path copies and counts the
-copy as bounce, as the JAX package does for PJRT's CPU client.
+copy as bounce, as the JAX package does for PJRT's CPU client.  A
+degraded read's bytes (io/health.py, ``engine.BouncedBytes``) were
+counted as bounce by the engine at their pread: they take the pinned
+buffer (or the CPU copy) all the same, and are not counted twice, so
+over a degraded run ``bounce_bytes`` equals ``degraded_bytes``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -35,7 +40,8 @@ import torch
 from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.device import resolve_device
 from nvme_strom_tpu_torch.io import arena as _arena
-from nvme_strom_tpu_torch.io.engine import HostMapping, StromEngine
+from nvme_strom_tpu_torch.io.engine import (BouncedBytes, HostMapping,
+                                            StromEngine)
 from nvme_strom_tpu_torch.io.hostcache import spoil_span
 from nvme_strom_tpu_torch.io.plan import split_spans, submit_spans_tiered
 
@@ -110,12 +116,14 @@ def h2d_copy(src, dst: torch.Tensor, src_ptr: Optional[int] = None
         _build.check(_build.kernel_library().strom_h2d_copy(
             src_ptr, dst.data_ptr(), host.nbytes, stream,
             dst.device.index), "h2d_copy")
-        h2d_copy.launches += 1
+        with _LAUNCHES_LOCK:    # a cold start's bulk lane copies from
+            h2d_copy.launches += 1   # its own thread
     return dst
 
 
 #: launches of the h2d_copy kernel (CUDA only)
 h2d_copy.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 class Transfer:
@@ -140,7 +148,9 @@ class Transfer:
 
 
 def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
-                   mappings: Sequence[HostMapping] = ()) -> Transfer:
+                   mappings: Sequence[HostMapping] = (),
+                   stream: Optional["torch.cuda.Stream"] = None
+                   ) -> Transfer:
     """Host bytes → a flat uint8 tensor on ``dev``, with the byte
     accounting of the module docstring.
 
@@ -148,14 +158,19 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
     ``mappings`` or of the engine's (``engine.cuda_mappings``: its
     staging pool, the host tier's lines, the arena's bridge slabs, and
     a scatter store's rows); otherwise through a pinned bounce buffer.
-    It runs on the side stream, then an event is recorded.  CPU: a copy,
-    counted as bounce."""
+    It runs on ``stream`` (default: the bridge's side stream), then an
+    event is recorded.  CPU: a copy, counted as bounce.  Bytes the
+    engine already counted as bounce (:class:`BouncedBytes`) are not
+    counted again."""
+    counted = isinstance(host, BouncedBytes)
     flat = _host_bytes(host)
     n = flat.nbytes
     stats = engine.stats if engine is not None else None
     if dev.type == "cpu":
         if stats is not None:
-            stats.add(bounce_bytes=n, bytes_to_device=n)
+            stats.add(bytes_to_device=n)
+            if not counted:
+                stats.add(bounce_bytes=n)
         return Transfer(torch.from_numpy(flat.copy()))
     ptr = flat.ctypes.data
     maps = list(mappings)
@@ -168,14 +183,16 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
         keep = torch.empty(n, dtype=torch.uint8, pin_memory=True)
         keep.numpy()[:] = flat
         src_ptr = pinned_mapping(keep, dev).dev_base
-        if stats is not None:
+        if stats is not None and not counted:
             stats.add(bounce_bytes=n)
-    side = side_stream(dev)
+    side = stream if stream is not None else side_stream(dev)
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     # The allocator may hand back a block that work already queued on
     # the current stream still reads (a consumer of an earlier chunk):
     # the copy waits for that work before it writes.
-    side.wait_stream(torch.cuda.current_stream(dev))
+    cur = torch.cuda.current_stream(dev)
+    if side != cur:
+        side.wait_stream(cur)
     with torch.cuda.stream(side):
         h2d_copy(flat, out, src_ptr=src_ptr)
         event = torch.cuda.Event()

@@ -18,14 +18,23 @@ file's metadata carries (``formats/safetensors.py``
 chunks count in ``bytes_verified``, a mismatch in ``checksum_failures``,
 and the load raises :class:`ChecksumError` before it returns any tensor.
 The copies out of the chunks are already on their way to the device by
-then; a file without stamps verifies nothing.  Sharding and demand
-faulting are not part of this port yet.
+then; a file without stamps verifies nothing.
+
+:class:`FaultingCheckpoint` is the weights half of serve-while-restoring
+cold start (io/coldstart.py): a server starts on it before any tensor is
+resident, a request's first step faults the missing tensors in at
+``decode`` class from the first, while a bulk thread streams them at
+``restore`` class from the last, each tensor read from NVMe once across
+the two lanes.
+Sharded loads wait for ROADMAP Queue 1 item 12: one device here.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence, Union
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -103,7 +112,13 @@ class LazyCheckpoint:
 
     def _load_tensor(self, eng: StromEngine, name: str,
                      dev: torch.device, policy: VerifyPolicy,
-                     stamps: Dict[str, Dict[str, int]]) -> torch.Tensor:
+                     stamps: Dict[str, Dict[str, int]],
+                     klass: Optional[str] = None,
+                     stream=None) -> torch.Tensor:
+        """One tensor on ``dev``, its reads of QoS class ``klass`` and
+        its copies on ``stream`` (default: the bridge's side stream);
+        the copies have completed when it returns (its bytes are on the
+        device in stream order of the caller's current stream)."""
         sf = self._by_name[name]
         info = sf.tensors[name]
         shape = tuple(info["shape"])
@@ -120,12 +135,13 @@ class LazyCheckpoint:
         fh = eng.open(sf.path)
         transfers = []
         try:
-            for view, release in self._stream_rows(eng, fh, sf, name):
+            for view, release in self._stream_rows(eng, fh, sf, name,
+                                                   klass):
                 if check:
                     crc = crc32c(view, crc)
                     eng.stats.add(bytes_verified=int(view.nbytes))
                 try:
-                    t = host_to_device(eng, view, dev)
+                    t = host_to_device(eng, view, dev, stream=stream)
                 except BaseException:
                     if release is not None:
                         release()
@@ -150,7 +166,7 @@ class LazyCheckpoint:
         return flat.view(torch_dtype(info["dtype"])).reshape(shape)
 
     def _stream_rows(self, eng: StromEngine, fh: int, sf: SafetensorsFile,
-                     name: str):
+                     name: str, klass: Optional[str] = None):
         """Yield (host view, release callback or None) per row chunk of
         ``name``, each at most one staging buffer.  The consumer calls
         the callback once the copies out of the view have completed;
@@ -161,7 +177,8 @@ class LazyCheckpoint:
             if info["nbytes"] == 0:
                 return
             (pieces,) = plan_and_submit(eng, [(fh, info["offset"],
-                                               info["nbytes"])])
+                                               info["nbytes"])],
+                                        klass=klass)
             p = join_pieces(pieces, eng.stats)
             try:
                 view = wait_exact(p)
@@ -179,7 +196,8 @@ class LazyCheckpoint:
                 ent = sf.slice_plan(name, r, 1)
                 buf = np.empty(ent.length, dtype=np.uint8)
                 (pieces,) = plan_and_submit(eng, [(fh, ent.offset,
-                                                   ent.length)])
+                                                   ent.length)],
+                                            klass=klass)
                 pos = 0
                 for p in pieces:
                     try:
@@ -195,7 +213,7 @@ class LazyCheckpoint:
         slices = [sf.slice_plan(name, r, min(rows, shape[0] - r))
                   for r in range(0, shape[0], rows)]
         planned = plan_and_submit(eng, [(fh, e.offset, e.length)
-                                        for e in slices])
+                                        for e in slices], klass=klass)
         pend = [join_pieces(pieces, eng.stats) for pieces in planned]
         try:
             while pend:
@@ -206,6 +224,200 @@ class LazyCheckpoint:
         finally:
             for p in pend:
                 p.release()
+
+
+class FaultingCheckpoint:
+    """Demand-faulting front end over :class:`LazyCheckpoint` on one
+    device (counterpart of the JAX package's ``FaultingCheckpoint``,
+    which takes shardings where this takes ``device``).
+
+    A server built on it (models/serving.py) takes traffic at once.  Two
+    lanes then race on one claim table, each tensor read from NVMe at
+    most once whichever gets there first:
+
+    * demand faults: :meth:`get` / :meth:`materialize` load a missing
+      tensor at ``decode`` class, ahead of what the QoS scheduler holds;
+    * the bulk lane: :meth:`start_bulk` streams the tensors on a thread
+      at ``restore`` class, from the last key back, through the
+      read-once scatter under ``STROM_ICI_SCATTER=1`` (over
+      ``ici_group``) as :meth:`LazyCheckpoint.load` does.  The JAX
+      package's bulk lane walks the keys from the first, as its demand
+      lane does, so a request arriving at boot only ever waits on the
+      bulk lane's claims; walking from the other end, the two lanes
+      read disjoint tensors at once and meet in the middle.
+
+    A waiter blocks on the claimant's event instead of reading again.  A
+    failed claim (the bulk lane's ring tripped) wakes its waiters and
+    is dropped, so a demand fault claims the tensor again and loads it
+    at ``decode`` class: the breakers brown the bulk lane out with no
+    consumer error.  ``STROM_VERIFY`` applies as on the eager load.
+
+    Every byte reaches the card through ``h2d_copy`` straight from the
+    engine's staging buffers.  The bulk lane's copies and joins run on
+    its own CUDA stream, apart from the bridge's side stream that a
+    demand fault's copies take, and it records an event after each
+    tensor; a tensor it loaded is handed out only after the caller's
+    current stream waits on that event."""
+
+    def __init__(self, source, device=None,
+                 engine: Optional[StromEngine] = None, coordinator=None,
+                 ici_group=None):
+        self.ckpt = (source if isinstance(source, LazyCheckpoint)
+                     else LazyCheckpoint(source))
+        self.device = resolve_device(device)
+        self.coordinator = coordinator
+        self._ici_group = ici_group
+        self._own = engine is None
+        self.engine = engine if engine is not None else build_engine()
+        self._policy = VerifyPolicy()
+        self._stamps = ({sf.path: tensor_checksums(sf)
+                         for sf in self.ckpt.files}
+                        if self._policy.enabled else {})
+        self._lock = threading.Lock()
+        self._tensors: Dict[str, torch.Tensor] = {}
+        #: name → the bulk stream's event after its copies (CUDA only)
+        self._events: Dict[str, object] = {}
+        self._claims: Dict[str, threading.Event] = {}
+        #: tensors faulted at decode class, in fault order
+        self._fault_names: List[str] = []
+        self._resident_ev = threading.Event()
+        self._bulk_thread: Optional[threading.Thread] = None
+        #: what the bulk lane raised, per tensor it gave up on
+        self.bulk_errors: Dict[str, str] = {}
+
+    def keys(self):
+        return self.ckpt.keys()
+
+    def resident(self) -> bool:
+        """True once every tensor is on the device."""
+        return self._resident_ev.is_set()
+
+    def wait_resident(self, timeout: Optional[float] = None) -> bool:
+        return self._resident_ev.wait(timeout)
+
+    def fault_names(self) -> List[str]:
+        """Tensors demand-faulted at decode class, in fault order."""
+        with self._lock:
+            return list(self._fault_names)
+
+    def _ready(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` usable on the caller's current stream: a bulk-lane
+        tensor's event is waited on by that stream first."""
+        ev = self._events.get(name)
+        if ev is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ev)
+            t.record_stream(cur)
+        return t
+
+    def _acquire(self, name: str, eng, klass: str, stream=None):
+        """Load ``name`` under the claim table: (tensor, loaded by this
+        call), its copies on ``stream``.  A failed claim is dropped for
+        the next caller."""
+        while True:
+            with self._lock:
+                t = self._tensors.get(name)
+                if t is not None:
+                    return t, False
+                ev = self._claims.get(name)
+                mine = ev is None
+                if mine:
+                    ev = self._claims[name] = threading.Event()
+            if not mine:
+                ev.wait()
+                continue   # loaded (returned above) or failed (reclaim)
+            try:
+                t = self.ckpt._load_tensor(eng, name, self.device,
+                                           self._policy, self._stamps,
+                                           klass=klass, stream=stream)
+                done_ev = None
+                if self.device.type == "cuda":
+                    done_ev = torch.cuda.Event()
+                    done_ev.record(torch.cuda.current_stream(self.device))
+            except BaseException:
+                with self._lock:
+                    self._claims.pop(name, None)
+                ev.set()
+                raise
+            with self._lock:
+                self._tensors[name] = t
+                if done_ev is not None:
+                    self._events[name] = done_ev
+                self._claims.pop(name, None)
+                done = len(self._tensors) == len(self.ckpt.keys())
+            ev.set()
+            if done:
+                self._resident_ev.set()
+                if self.coordinator is not None:
+                    self.coordinator.note_weights_resident()
+            return t, True
+
+    def get(self, name: str, klass: str = "decode") -> torch.Tensor:
+        """``name`` on the device, faulted in at ``klass`` if missing."""
+        t0 = time.monotonic()
+        t, loaded = self._acquire(name, self.engine, klass)
+        if loaded and klass == "decode":
+            ms = (time.monotonic() - t0) * 1e3
+            with self._lock:
+                self._fault_names.append(name)
+            self.engine.stats.add(
+                coldstart_faults=1,
+                coldstart_fault_bytes=t.numel() * t.element_size())
+            if self.coordinator is not None:
+                self.coordinator.note_fault_ms(ms)
+        return self._ready(name, t)
+
+    def materialize(self, klass: str = "decode") -> Dict[str, torch.Tensor]:
+        """Every tensor, faulting the missing ones in at ``klass``: the
+        servers' first step makes the whole dict resident."""
+        return {name: self.get(name, klass=klass)
+                for name in self.ckpt.keys()}
+
+    def start_bulk(self) -> threading.Thread:
+        """Start the bulk lane (idempotent); returns its thread."""
+        with self._lock:
+            if self._bulk_thread is not None:
+                return self._bulk_thread
+            t = threading.Thread(target=self._bulk_run,
+                                 name="strom-coldstart-bulk", daemon=True)
+            self._bulk_thread = t
+        t.start()
+        return t
+
+    def _bulk_run(self) -> None:
+        eng = self.engine
+        if ici_scatter_enabled():
+            eng = scatter_engine(self.engine,
+                                 [sf.path for sf in self.ckpt.files],
+                                 group=self._ici_group) or self.engine
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+        for name in reversed(list(self.ckpt.keys())):
+            try:
+                if stream is not None:
+                    with torch.cuda.stream(stream):
+                        _, loaded = self._acquire(name, eng, "restore",
+                                                  stream=stream)
+                else:
+                    _, loaded = self._acquire(name, eng, "restore")
+            except Exception as e:   # noqa: BLE001 — the lane never takes
+                # the replica down: the tensor is left to a demand fault
+                self.bulk_errors[name] = repr(e)
+                loaded = False
+            if loaded:
+                self.engine.stats.add(coldstart_bulk_tensors=1)
+
+    def join_bulk(self, timeout: Optional[float] = None) -> None:
+        with self._lock:
+            t = self._bulk_thread
+        if t is not None:
+            t.join(timeout)
+
+    def close(self) -> None:
+        """Join the bulk lane, then close an engine this object built."""
+        self.join_bulk()
+        if self._own:
+            self.engine.close_all()
 
 
 def save_checkpoint(path, params: Dict[str, object]) -> None:

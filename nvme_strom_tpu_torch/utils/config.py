@@ -1,15 +1,15 @@
-"""Engine, scheduler, host-tier, recovery, loader and KV-store
-configuration (counterpart of nvme_strom_tpu/utils/config.py
-``EngineConfig``, ``SchedConfig``, ``HostCacheConfig``,
-``ResilientConfig``, ``LoaderConfig``, ``KVServeConfig`` and
-``TenantConfig``, trimmed to what the port's paths read).
+"""Engine, scheduler, host-tier, recovery, supervision, loader, KV-store
+and cold-start configuration (counterpart of
+nvme_strom_tpu/utils/config.py ``EngineConfig``, ``SchedConfig``,
+``HostCacheConfig``, ``ResilientConfig``, ``BreakerConfig``,
+``FlightConfig``, ``LoaderConfig``, ``KVServeConfig``, ``TenantConfig``
+and ``ColdStartConfig``, trimmed to what the port's paths read).
 
 Engine and loader sizes are these defaults or explicit arguments: they
 are never read from a tuning ledger, and of the engine's knobs only the
-ring count reads the environment (``STROM_RINGS``).  ``SchedConfig``,
-``HostCacheConfig``, ``ResilientConfig``, ``KVServeConfig`` and
-``TenantConfig`` read their ``STROM_*`` switches at construction, as the
-JAX package's do; the pinned arena's ``STROM_ARENA`` and
+ring count reads the environment (``STROM_RINGS``).  The other configs
+read their ``STROM_*`` switches at construction, as the JAX package's
+do; the pinned arena's ``STROM_ARENA`` and
 ``STROM_ARENA_MB`` are read by ``io/arena.py``, and ``STROM_FAULTS`` /
 ``STROM_RESILIENT`` by ``io/faults.py`` ``build_engine``."""
 
@@ -303,3 +303,116 @@ class TenantConfig:
             raise ValueError(
                 f"default_quota_frac ({self.default_quota_frac}) must "
                 f"be in [0, 1]")
+
+
+@dataclass(frozen=True)
+class BreakerConfig:
+    """Failure-domain supervision (io/health.py), read from the
+    environment at construction.  Per-ring rolling error windows and a
+    completion-stall detector feed one circuit breaker a ring (trip →
+    routed around → hot restart → half-open → closed) and a device
+    breaker whose open state is the degraded buffered mode."""
+
+    #: master switch; ``STROM_BREAKER=0`` builds no supervisor at all
+    enabled: bool = field(
+        default_factory=lambda: os.environ.get("STROM_BREAKER",
+                                               "1") != "0")
+    #: span of the rolling error windows (s)
+    window_s: float = field(
+        default_factory=lambda: _env_float("STROM_BREAKER_WINDOW_S", 5.0))
+    #: errors of one ring inside the window that trip its breaker
+    ring_errors: int = field(
+        default_factory=lambda: _env_int("STROM_BREAKER_ERRORS", 8))
+    #: errors across all rings inside the window that open the device
+    #: breaker (degraded mode)
+    device_errors: int = field(
+        default_factory=lambda: _env_int("STROM_BREAKER_DEVICE_ERRORS",
+                                         16))
+    #: a ring whose oldest request in flight is older than this (s) is
+    #: stalled and trips
+    stall_s: float = field(
+        default_factory=lambda: _env_float("STROM_BREAKER_STALL_S", 5.0))
+    #: how long a hot restart waits for dispatched I/O to drain (s)
+    drain_s: float = field(
+        default_factory=lambda: _env_float("STROM_BREAKER_DRAIN_S", 0.5))
+    #: clean time a restarted (half-open) ring serves before it closes
+    half_open_s: float = field(
+        default_factory=lambda: _env_float("STROM_BREAKER_HALF_OPEN_S",
+                                           2.0))
+    #: least time between two restarts of one ring (s)
+    restart_backoff_s: float = field(
+        default_factory=lambda: _env_float("STROM_BREAKER_RESTART_S", 5.0))
+    #: while degraded, one probe read every ``probe_s`` rides the real
+    #: path; its success restores it
+    probe_s: float = field(
+        default_factory=lambda: _env_float("STROM_DEGRADED_PROBE_S", 1.0))
+    #: wait budget of one probe (s)
+    probe_timeout_s: float = field(
+        default_factory=lambda: _env_float(
+            "STROM_DEGRADED_PROBE_TIMEOUT_S", 2.0))
+
+    def __post_init__(self):
+        if self.window_s <= 0:
+            raise ValueError("window_s must be > 0")
+        if self.ring_errors < 1 or self.device_errors < 1:
+            raise ValueError("error budgets must be >= 1")
+        if self.stall_s <= 0 or self.drain_s <= 0:
+            raise ValueError("stall_s/drain_s must be > 0")
+        if self.half_open_s < 0 or self.restart_backoff_s < 0:
+            raise ValueError("half_open_s/restart_backoff_s must be >= 0")
+        if self.probe_s < 0 or self.probe_timeout_s <= 0:
+            raise ValueError("probe_s must be >= 0, probe_timeout_s > 0")
+
+
+@dataclass(frozen=True)
+class FlightConfig:
+    """The flight recorder (io/flightrec.py), read from the environment
+    at construction: a bounded ring of recent op records that dumps
+    itself to a JSON file when a failure trigger fires."""
+
+    #: master switch; ``STROM_FLIGHT=0`` builds no recorder at all
+    enabled: bool = field(
+        default_factory=lambda: os.environ.get("STROM_FLIGHT",
+                                               "1") != "0")
+    #: op records kept
+    ops: int = field(
+        default_factory=lambda: _env_int("STROM_FLIGHT_OPS", 4096))
+    #: dump directory; empty = the system temp directory (dumps are
+    #: ``strom_flight_<pid>_<reason>_<n>.json``)
+    dir: str = field(
+        default_factory=lambda: os.environ.get("STROM_FLIGHT_DIR", ""))
+    #: least seconds between two dumps of one reason
+    min_interval_s: float = field(
+        default_factory=lambda: _env_float("STROM_FLIGHT_MIN_S", 5.0))
+
+    def __post_init__(self):
+        if self.ops < 16:
+            raise ValueError(f"ops ({self.ops}) must be >= 16 — a "
+                             "post-mortem of 15 ops explains nothing")
+        if self.min_interval_s < 0:
+            raise ValueError("min_interval_s must be >= 0")
+
+
+@dataclass(frozen=True)
+class ColdStartConfig:
+    """The cold-start coordinator's stall trigger (io/coldstart.py),
+    read from the environment at construction.  The JAX package's gate
+    and warming budgets (``STROM_COLDSTART``, ``STROM_WARM_HINT_SPANS``,
+    ``STROM_WARM_PAGES``) wait for a consumer in the port: a server on a
+    ``FaultingCheckpoint`` is the cold start here, and the warming
+    passes take their budgets as arguments."""
+
+    #: demand-fault p99 target (ms) of the ``faulting`` phase; past it
+    #: the coordinator dumps ``coldstart_stall``; 0 = no trigger
+    fault_slo_ms: float = field(
+        default_factory=lambda: _env_float("STROM_COLDSTART_FAULT_SLO_MS",
+                                           0.0))
+    #: demand-fault latencies kept for that p99
+    fault_window: int = field(
+        default_factory=lambda: _env_int("STROM_COLDSTART_WINDOW", 64))
+
+    def __post_init__(self):
+        if self.fault_slo_ms < 0:
+            raise ValueError("fault_slo_ms must be >= 0")
+        if self.fault_window < 8:
+            raise ValueError("fault_window must be >= 8")

@@ -60,22 +60,43 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
   and ``retries``.
 * the waste ledger (obs/ledger.py): ``waste_hedge_loss_bytes`` (the
   losing side of a hedge), ``waste_retry_reread_bytes`` (bytes a retry
-  read again), and ``waste_coalesce_gap_bytes``,
-  ``waste_evicted_unused_bytes``, ``waste_degraded_bytes``, which no
-  port path charges yet; ``trace_spans_dropped`` spans the tracer
-  dropped at its cap (utils/trace.py).
+  read again), ``waste_degraded_bytes`` (bytes served by the degraded
+  brown-out),
+  and ``waste_coalesce_gap_bytes`` and ``waste_evicted_unused_bytes``,
+  which no port path charges yet; ``trace_spans_dropped`` spans the
+  tracer dropped at its cap (utils/trace.py).
+* failure domains (io/health.py): ``breaker_trips`` ring and device
+  breakers opened, ``ring_restarts`` hot restarts, ``extents_requeued``
+  requests a restart cancelled for their waiters to resubmit,
+  ``degraded_reads`` / ``degraded_bytes`` reads and bytes served by
+  buffered preads while the device was degraded, ``degraded_probes``
+  half-open probes; ``flight_dumps`` flight-recorder dumps written
+  (io/flightrec.py), ``tenant_storm_dumps`` of them by the servers'
+  storm trigger.
+* cold start (io/coldstart.py, io/warmup.py, parallel/weights.py
+  ``FaultingCheckpoint``): ``coldstart_faults`` / ``_fault_bytes``
+  tensors and bytes demand-faulted at decode class,
+  ``coldstart_bulk_tensors`` tensors the bulk lane loaded,
+  ``coldstart_warm_spans`` / ``_warm_pages`` hint spans and store pages
+  warmed, ``coldstart_stall_dumps`` stall dumps, ``coldstart_brownouts``
+  degraded entries during a cold start.
 
 Gauges are point-in-time values that overwrite (``set_gauges``), carried
 in ``snapshot()`` beside the counters: ``kv_restore_p99_ms`` (the store's
-restore-batch p99 from its log2 histogram) and
-``kv_store_pages_resident``.
+restore-batch p99 from its log2 histogram),
+``kv_store_pages_resident``, ``ring_health`` (each ring's breaker
+state) and ``engine_degraded``, and ``boot_phase`` /
+``boot_phase_code``.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import os
 import threading
 from dataclasses import dataclass, field, fields
+from typing import List
 
 COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "bounce_bytes", "bytes_to_device", "overlap_chunks",
@@ -97,9 +118,16 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "shards_quarantined", "trace_spans_dropped",
             "waste_hedge_loss_bytes", "waste_retry_reread_bytes",
             "waste_coalesce_gap_bytes", "waste_evicted_unused_bytes",
-            "waste_degraded_bytes")
+            "waste_degraded_bytes", "breaker_trips", "ring_restarts",
+            "extents_requeued", "degraded_reads", "degraded_bytes",
+            "degraded_probes", "flight_dumps", "tenant_storm_dumps",
+            "coldstart_faults", "coldstart_fault_bytes",
+            "coldstart_bulk_tensors", "coldstart_warm_spans",
+            "coldstart_warm_pages", "coldstart_stall_dumps",
+            "coldstart_brownouts")
 GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
-          "cache_bytes_resident", "cache_lines_resident")
+          "cache_bytes_resident", "cache_lines_resident", "ring_health",
+          "engine_degraded", "boot_phase", "boot_phase_code")
 
 
 @dataclass
@@ -160,6 +188,21 @@ class StromStats:
     waste_coalesce_gap_bytes: int = 0
     waste_evicted_unused_bytes: int = 0
     waste_degraded_bytes: int = 0
+    breaker_trips: int = 0
+    ring_restarts: int = 0
+    extents_requeued: int = 0
+    degraded_reads: int = 0
+    degraded_bytes: int = 0
+    degraded_probes: int = 0
+    flight_dumps: int = 0
+    tenant_storm_dumps: int = 0
+    coldstart_faults: int = 0
+    coldstart_fault_bytes: int = 0
+    coldstart_bulk_tensors: int = 0
+    coldstart_warm_spans: int = 0
+    coldstart_warm_pages: int = 0
+    coldstart_stall_dumps: int = 0
+    coldstart_brownouts: int = 0
     _gauges: dict = field(default_factory=dict, repr=False, compare=False)
     _class_stats: dict = field(default_factory=dict, repr=False,
                                compare=False)
@@ -266,3 +309,47 @@ def percentiles_from_log2_hist(hist: list, ps=(50, 90, 99)) -> dict:
                 break
         out[p] = val
     return out
+
+
+class Log2Histogram:
+    """Log2-bucketed histogram: ``observe(v)`` lands v in bucket
+    ``floor(log2(v))``, the convention of the engine's latency histogram
+    and :func:`percentiles_from_log2_hist`.  Thread-safe."""
+
+    def __init__(self, buckets: int = 40):
+        self._lock = threading.Lock()
+        self._counts = [0] * buckets
+
+    def observe(self, v: float) -> None:
+        i = max(0, int(v).bit_length() - 1) if v >= 1 else 0
+        with self._lock:
+            self._counts[min(i, len(self._counts) - 1)] += 1
+
+    def counts(self) -> List[int]:
+        with self._lock:
+            return list(self._counts)
+
+    def percentile(self, p: int) -> int:
+        return percentiles_from_log2_hist(self.counts(), ps=(p,))[p]
+
+
+_write_seq = itertools.count()
+
+
+def atomic_write_text(path: str, text: str) -> None:
+    """Publish ``text`` at ``path`` atomically: written to a temp file
+    unique to this process, thread and call, then renamed over ``path``
+    (a reader sees the old file or the new one, never a prefix).  The
+    temp file is removed on failure; OSError propagates."""
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}." \
+          f"{next(_write_seq)}"
+    try:
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise

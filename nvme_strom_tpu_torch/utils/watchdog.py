@@ -4,8 +4,11 @@ plain ``threading`` locks).
 
 A daemon thread holds a deadline around each armed section; past it, it
 dumps every Python thread's stack and the engine's counters to the
-stream, then keeps waiting (``on_timeout="report"``) or ends the process
-with code 124 for a supervisor to restart (``"abort"``).
+stream (with a health line once a breaker or the degraded mode has
+acted), writes a ``watchdog_stall`` flight-recorder dump
+(io/flightrec.py) when the engine has a recorder, then keeps waiting
+(``on_timeout="report"``) or ends the process with code 124 for a
+supervisor to restart (``"abort"``).
 
     wd = StepWatchdog(deadline_s=120, engine=engine)
     for batch in loader:
@@ -144,6 +147,25 @@ class StepWatchdog:
             self.engine.sync_stats()
             s = self.engine.stats
             print(f"engine: {s.snapshot()}", file=w, flush=True)
+            # an open breaker or the degraded flag is a supervised
+            # brown-out in progress, not a silent wedge
+            snap = s.snapshot()
+            ring_health = snap.get("ring_health")
+            if (s.breaker_trips or s.ring_restarts or s.degraded_reads
+                    or s.serve_admissions_shed
+                    or (ring_health and any(x != "closed"
+                                            for x in ring_health))):
+                states = " ".join(ring_health) if ring_health else "-"
+                print(f"health: breakers=[{states}] "
+                      f"degraded={int(snap.get('engine_degraded', 0))} "
+                      f"trips={s.breaker_trips} "
+                      f"restarts={s.ring_restarts} "
+                      f"requeued={s.extents_requeued} "
+                      f"degraded_reads={s.degraded_reads} "
+                      f"degraded_bytes={s.degraded_bytes} "
+                      f"probes={s.degraded_probes} "
+                      f"shed={s.serve_admissions_shed}", file=w,
+                      flush=True)
             # recovery counters that move mean a step fighting the
             # device, not a wedged one
             print(f"resilience: retries={s.resilient_retries} "
@@ -153,4 +175,18 @@ class StepWatchdog:
                   f"quarantined={s.shards_quarantined} "
                   f"faults_injected={s.faults_injected}", file=w,
                   flush=True)
+            if s.trace_spans_dropped or s.flight_dumps:
+                print(f"observability: "
+                      f"trace_spans_dropped={s.trace_spans_dropped} "
+                      f"flight_dumps={s.flight_dumps}", file=w, flush=True)
+            # a stalled step is a flight-recorder trigger (forced: the
+            # abort path must not rate-limit away its last evidence)
+            flight = getattr(self.engine, "flight", None)
+            if flight is not None:
+                fpath = flight.dump("watchdog_stall", force=True,
+                                    extra={"label": label,
+                                           "running_s": round(total, 3)})
+                if fpath:
+                    print(f"flight recorder: dumped {fpath}", file=w,
+                          flush=True)
         print("=== end watchdog dump ===", file=w, flush=True)

@@ -1232,3 +1232,113 @@ def test_resilient_stream_ranges_on_the_card(dev, tmp_path, monkeypatch,
         assert depth > 1 or st["hedges_won"] >= 1, st
     if st["bytes_fallback"] == 0:
         assert st["bounce_bytes"] == 0
+
+
+@pytest.mark.parametrize("n_buffers", [8, 16])
+def test_degraded_reads_reach_the_card_counted_as_bounce(dev, tmp_path,
+                                                         monkeypatch,
+                                                         n_buffers):
+    """With the device breaker open, ``stream_ranges`` serves buffered
+    preads (io/health.py ``DegradedRead``): the bytes reach the card
+    through ``h2d_copy`` bitwise, in place from the pinned buffer (16
+    staging buffers) or through the overlap stage's slabs (8), and
+    ``bounce_bytes`` equals ``degraded_bytes``: each byte counted once,
+    by the engine's pread."""
+    from nvme_strom_tpu_torch.io import StromEngine
+    from nvme_strom_tpu_torch.ops import bridge
+    from nvme_strom_tpu_torch.ops.bridge import DeviceStream
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    monkeypatch.setenv("STROM_DEGRADED_PROBE_S", "3600")
+    monkeypatch.setenv("STROM_FLIGHT_DIR", str(tmp_path))
+    mib = 1 << 20
+    data = np.random.default_rng(5).integers(0, 256, 6 * mib + 333,
+                                             dtype=np.uint8)
+    path = tmp_path / "x.bin"
+    data.tofile(path)
+    ranges = [(0, mib), (mib, mib - 5), (3 * mib + 1, mib),
+              (5 * mib, mib + 333)]
+    with StromEngine(EngineConfig(chunk_bytes=2 * mib,
+                                  buffer_pool_bytes=n_buffers * 2 * mib)
+                     ) as eng:
+        sup = eng.supervisor
+        for _ in range(sup.cfg.device_errors):
+            sup.note_error(ring=0, err=5)
+        assert sup.degraded()
+        fh = eng.open(path)
+        before = bridge.h2d_copy.launches
+        got = [t.cpu() for t in DeviceStream(eng, device=dev)
+               .stream_ranges(fh, ranges)]
+        eng.close(fh)
+        assert bridge.h2d_copy.launches - before == len(ranges)
+        eng.sync_stats()
+        st = eng.stats.snapshot()
+    for (off, ln), t in zip(ranges, got):
+        assert torch.equal(t, torch.from_numpy(data[off:off + ln]))
+    total = sum(ln for _, ln in ranges)
+    assert st["degraded_reads"] == len(ranges)
+    assert st["degraded_bytes"] == st["bounce_bytes"] == total
+    assert st["bytes_fallback"] == total
+
+
+def test_faulting_checkpoint_on_the_card(dev, tmp_path, monkeypatch):
+    """A demand fault and the bulk lane land the same tensors on
+    ``cuda:0`` as ``LazyCheckpoint.load``; each tensor is read once
+    across the lanes, every byte through ``h2d_copy``: a demand fault's
+    copies on the bridge's side stream, the bulk lane's on its own."""
+    import threading
+    from nvme_strom_tpu_torch.io import StromEngine
+    from nvme_strom_tpu_torch.io.coldstart import ColdStartCoordinator
+    from nvme_strom_tpu_torch.ops import bridge
+    from nvme_strom_tpu_torch.parallel.weights import (FaultingCheckpoint,
+                                                       LazyCheckpoint,
+                                                       save_checkpoint)
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    gen = torch.Generator().manual_seed(7)
+    params = {f"w{i}": torch.randn(256 + 64 * i, 384, generator=gen)
+              .to(torch.bfloat16) for i in range(12)}
+    params["norm"] = torch.randn(384, generator=gen)
+    path = tmp_path / "m.safetensors"
+    save_checkpoint(path, params)
+    cfg = EngineConfig(chunk_bytes=1 << 20, buffer_pool_bytes=32 << 20)
+    with StromEngine(cfg) as eng:
+        want = LazyCheckpoint(path).load(eng, device=dev)
+    with StromEngine(cfg) as eng:
+        coord = ColdStartCoordinator(eng)
+        fck = FaultingCheckpoint(path, device=dev, engine=eng,
+                                 coordinator=coord)
+        real = bridge.h2d_copy
+        seen = []
+
+        def spy(*a, **kw):
+            seen.append((threading.current_thread().name,
+                         torch.cuda.current_stream(dev)))
+            return real(*a, **kw)
+        # the kernel counts its launches on the module's h2d_copy
+        spy.launches = before = real.launches
+        monkeypatch.setattr(bridge, "h2d_copy", spy)
+        coord.note_serving_started()
+        first = fck.get("w11")                    # a demand fault
+        fck.start_bulk()
+        got = fck.materialize()
+        fck.join_bulk(60.0)
+        torch.cuda.synchronize()
+        assert spy.launches - before == len(seen) > 0
+        side = bridge.side_stream(dev)
+        bulk = [s for n, s in seen if n == "strom-coldstart-bulk"]
+        assert all(s == side for n, s in seen
+                   if n != "strom-coldstart-bulk")
+        assert all(s != side for s in bulk)
+        st = eng.stats
+        assert bool(bulk) == (st.coldstart_bulk_tensors > 0)
+        assert st.coldstart_faults >= 1
+        assert st.coldstart_faults + st.coldstart_bulk_tensors == len(params)
+        assert fck.resident() and coord.phase == "steady"
+        assert torch.equal(first, want["w11"])
+        eng.sync_stats()
+        snap = eng.stats.snapshot()
+        assert snap["bytes_direct"] + snap["bytes_fallback"] == sum(
+            t.numel() * t.element_size() for t in params.values())
+    for name, t in want.items():
+        assert got[name].device == dev
+        assert torch.equal(got[name], t), name

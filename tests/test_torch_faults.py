@@ -10,14 +10,15 @@ byte; the same plan over the same file through both packages' stacks
 the same attempt history (kind and error of every failed attempt, in
 order) and the same recovery counters; the KV page file written under
 write faults is the JAX cache's byte for byte; the loader quarantines
-the same shard.  The JAX engines run with ``STROM_BREAKER=0``: the
-failure-domain supervisor (io/health.py) is not ported yet, and with it
-off both stacks run the same recovery code.
+the same shard.  Both packages run with their failure-domain supervisor
+(io/health.py) on, its default: every failed attempt reaches the same
+breakers on both sides.
 
 Every other case of tests/test_faults.py that the port's modules can run
 has a counterpart here; the ``strom_stat`` rendering case waits for the
-port's tools (ROADMAP item 15) and the ring-stall cases for io/health.py
-(item 7b).  Stuck and delay faults are tens of milliseconds."""
+port's tools (ROADMAP item 15), and the ring-stall cases are in
+tests/test_torch_health.py.  Stuck and delay faults are tens of
+milliseconds."""
 
 import dataclasses
 import errno
@@ -66,10 +67,9 @@ RECOVERY = ("faults_injected", "resilient_retries", "hedges_issued",
 
 
 @pytest.fixture(autouse=True)
-def _no_supervisor(monkeypatch):
-    """The JAX engine without io/health.py's supervisor (the port has
-    none yet), and no fault environment leaking in."""
-    monkeypatch.setenv("STROM_BREAKER", "0")
+def _no_fault_env(monkeypatch):
+    """No fault environment leaking in (the supervisors stay at their
+    default, on)."""
     for k in ("STROM_FAULTS", "STROM_RESILIENT", "STROM_CRASH_POINT"):
         monkeypatch.delenv(k, raising=False)
 
