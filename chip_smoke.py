@@ -192,6 +192,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -2494,8 +2495,9 @@ def offload_chunked(dev, cfg, params, odir):
 
 def _card_params(cfg, seed, dev):
     """Seeded random weights made on the card (the JAX init scheme:
-    norms ones, matrices normal / sqrt(fan_in), fan_in 1 for the token
-    embedding), in the model dtype; norms float32."""
+    norms ones, matrices normal / sqrt(fan_in), fan_in the input dim and
+    1 for the token embedding), in the model dtype; norms and MoE routers
+    float32, as ``convert.params_from_jax`` holds them."""
     import torch
     from nvme_strom_tpu_torch.models.transformer import param_shapes
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2504,9 +2506,10 @@ def _card_params(cfg, seed, dev):
         if len(shape) == 1:
             out[name] = torch.ones(shape, device=dev)
         else:
-            fan = 1.0 if name == "tok_embed" else shape[0]
+            fan = 1.0 if name == "tok_embed" else shape[-2]
+            dtype = torch.float32 if name.endswith(".router") else cfg.dtype
             out[name] = (torch.randn(shape, generator=gen, device=dev)
-                         / fan ** 0.5).to(cfg.dtype)
+                         / fan ** 0.5).to(dtype)
     return out
 
 
@@ -4899,6 +4902,557 @@ def supervisor_cost_phase(dev, cfg, params, shared, stream_path, want):
     return out
 
 
+# -- drain and warm handoff -----------------------------------------------------
+
+#: the handoff requests: the serve phase's prompt lengths, the long ones
+#: first, so the sessions in flight at the drain hold store pages
+HANDOFF_LENGTHS = (1500, 1000, 400, 16, 1250, 700, 250, 100)
+HANDOFF_NEW = 32
+#: slots a replica serves: 4 decode, 4 wait in the queue
+HANDOFF_SLOTS = 4
+#: the retiring replica's steps before the drain, and the drain's
+#: deadline: short enough that slots are still decoding and requests
+#: still queued when it passes
+HANDOFF_STEPS = 8
+HANDOFF_DEADLINE_S = 0.01
+#: each replacement boots after a retirement of its own, from the bundle
+#: or with it deleted (a brown-out), in turns
+HANDOFF_ORDER = ("bundle", "brownout", "brownout", "bundle")
+HANDOFF_COUNTERS = ("bytes_direct", "bytes_fallback", "bounce_bytes",
+                    "kv_pages_restored", "kv_prefix_hits",
+                    "kv_pages_written", "coldstart_faults",
+                    "coldstart_bulk_tensors", "handoff_drains",
+                    "handoff_deferred", "handoff_sessions_exported",
+                    "handoff_sessions_restored", "handoff_bundles",
+                    "handoff_bundle_bytes", "handoff_brownouts",
+                    "handoff_stall_dumps")
+
+
+def _handoff_server(kind, params, cfg, dev, store=None):
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    if kind == "paged":
+        return PagedDecodeServer(params, cfg, HANDOFF_SLOTS, 2048,
+                                 total_blocks=128,
+                                 block_len=PREFIX_PAGE_TOKENS, device=dev,
+                                 kv_store=store)
+    return DecodeServer(params, cfg, HANDOFF_SLOTS, 2048, device=dev,
+                        kv_store=store)
+
+
+def _handoff_retire(kind, p32, cfg32, dev, store_path, requests):
+    """The retiring replica: the requests on a fresh store, HANDOFF_STEPS
+    steps, then ``DrainCoordinator.drain`` under HANDOFF_DEADLINE_S.
+    Returns (tokens it delivered, its report)."""
+    import torch
+    from nvme_strom_tpu_torch.io.handoff import (DrainCoordinator,
+                                                 load_handoff_bundle)
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    for p in (store_path, store_path + ".kvman.json",
+              store_path + ".handoff.json"):
+        if os.path.exists(p):
+            os.remove(p)
+    eng = _res_engine(dev, {})
+    ctr = Counters(eng, HANDOFF_COUNTERS)
+    store = PrefixStore(cfg32, eng, store_path, PREFIX_PAGE_TOKENS,
+                        PREFIX_STORE_BYTES)
+    try:
+        srv = _handoff_server(kind, p32, cfg32, dev, store)
+        for rid, ids in requests:
+            srv.submit(rid, ids, HANDOFF_NEW)
+        done = {}
+        for _ in range(HANDOFF_STEPS):
+            done.update(srv.step_many(1))
+        coord = DrainCoordinator(eng, server=srv)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = coord.drain(lookahead=4, deadline_s=HANDOFF_DEADLINE_S)
+        drain_s = time.monotonic() - t0
+        done.update(res["results"])
+        doc = load_handoff_bundle(store_path)
+        st = ctr.delta()
+        idle = srv.idle
+        store.close()
+    finally:
+        eng.close_all()
+    if doc is None or not idle or coord.phase != "retired":
+        raise AssertionError(f"handoff {kind}: no bundle or not idle "
+                             f"({coord.phase}, {res})")
+    sessions = doc["sessions"]
+    decoding = [s for s in sessions if s["emitted"]]
+    queued = [s for s in sessions if not s["emitted"]]
+    if len(decoding) < 2 or len(queued) < 1:
+        raise AssertionError(f"handoff {kind}: the deadline left "
+                             f"{len(decoding)} decoding, {len(queued)} "
+                             f"queued")
+    return done, {"drain_s": drain_s,
+                  "bundle_bytes": os.path.getsize(res["bundle"]),
+                  "exported_decoding": len(decoding),
+                  "exported_queued": len(queued),
+                  "finished_before_export": len(done),
+                  "kv_keys": sum(len(s["kv_keys"]) for s in sessions),
+                  "hot_tensors": len(doc["hot_tensors"]), "stats": st}
+
+
+def _handoff_boot(kind, cfg32, dev, wpath, store_path, requests, done):
+    """The replacement: engine, coordinator, FaultingCheckpoint, store
+    and server, then ``consume_handoff``; with no usable bundle the
+    client re-sends what it has not received.  Returns (every request's
+    tokens, the report)."""
+    import torch
+    from nvme_strom_tpu_torch.io.coldstart import ColdStartCoordinator
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.parallel.weights import FaultingCheckpoint
+    h0 = h2d_copy.launches
+    t_boot = time.monotonic()
+    eng = _res_engine(dev, {})
+    ctr = Counters(eng, HANDOFF_COUNTERS)
+    coord = ColdStartCoordinator(eng)
+    fck = FaultingCheckpoint(wpath, device=dev, engine=eng,
+                             coordinator=coord)
+    store = PrefixStore(cfg32, eng, store_path, PREFIX_PAGE_TOKENS,
+                        PREFIX_STORE_BYTES)
+    consumed = None
+    try:
+        srv = _handoff_server(kind, fck, cfg32, dev, store)
+        # TTFT from boot: to here, then each request's own from submit
+        t_submit = time.monotonic()
+        consumed = coord.consume_handoff(store_path, server=srv,
+                                         checkpoint=fck)
+        if consumed is None:
+            # the brown-out: the client re-sends from scratch
+            for rid, ids in requests:
+                if rid not in done:
+                    srv.submit(rid, ids, HANDOFF_NEW)
+        cont = srv.run(lookahead=8)
+        torch.cuda.synchronize()
+        complete_s = time.monotonic() - t_boot
+        final = dict(done)
+        for rid, toks in cont.items():
+            emitted = consumed["sessions"][rid] if consumed else []
+            final[rid] = list(emitted) + list(toks)
+        ttft = [t_submit - t_boot + srv.request_metrics[r]["ttft_ms"] / 1e3
+                for r in cont]
+        if consumed and consumed.get("prefault_thread"):
+            consumed["prefault_thread"].join(600)
+        fck.join_bulk(600)
+        st = ctr.delta()
+        store.close()
+    finally:
+        fck.close()
+        eng.close_all()
+    return final, {"readmitted": len(cont), "complete_s": complete_s,
+                   "ttft_boot_s_avg": sum(ttft) / len(ttft),
+                   "ttft_boot_s_max": max(ttft),
+                   "h2d_launches": h2d_copy.launches - h0, "stats": st}
+
+
+def _handoff_sigterm(dev, cfg32, p32, sdir, requests):
+    """``install_drain_signals`` then SIGTERM to this process: the
+    handler drains, publishes a bundle with the exported sessions and
+    retires; the uninstall puts the previous handler back."""
+    import signal
+    from nvme_strom_tpu_torch.io.handoff import (DrainCoordinator,
+                                                 install_drain_signals,
+                                                 load_handoff_bundle,
+                                                 uninstall_drain_signals)
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    path = os.path.join(sdir, "sigterm.kvstore")
+    for p in (path, path + ".kvman.json", path + ".handoff.json"):
+        if os.path.exists(p):
+            os.remove(p)
+    eng = _res_engine(dev, {})
+    store = PrefixStore(cfg32, eng, path, PREFIX_PAGE_TOKENS,
+                        PREFIX_STORE_BYTES)
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        srv = _handoff_server("dense", p32, cfg32, dev, store)
+        for rid, ids in requests[:2]:
+            srv.submit(rid, ids, HANDOFF_NEW)
+        srv.step_many(1)
+        with _env(STROM_DRAIN_ON_SIGTERM=1, STROM_DRAIN_DEADLINE_S=0):
+            coord = DrainCoordinator(eng, server=srv)
+        prev = install_drain_signals(coord, chain=False)
+        if prev is None:
+            raise AssertionError("handoff: drain signals not installed")
+        try:
+            os.kill(os.getpid(), signal.SIGTERM)
+            for _ in range(500):      # the handler runs at a bytecode
+                if coord.phase == "retired":     # boundary of this thread
+                    break
+                time.sleep(0.01)
+        finally:
+            uninstall_drain_signals(prev)
+        doc = load_handoff_bundle(path)
+        store.close()
+    finally:
+        eng.close_all()
+    restored = signal.getsignal(signal.SIGTERM) is before
+    if coord.phase != "retired" or doc is None or \
+            len(doc["sessions"]) != 2 or not restored:
+        raise AssertionError(f"handoff SIGTERM: phase {coord.phase}, "
+                             f"bundle {doc is not None}, handler restored "
+                             f"{restored}")
+    return {"phase": coord.phase, "sessions": len(doc["sessions"]),
+            "handler_restored": restored}
+
+
+def _handoff_bf16(dev, cfg, params, sdir, requests):
+    """One bundle trial on the dense server in bf16, the serving dtype:
+    none dropped, and a count, not a failure, of the requests whose
+    tokens differ from the undisturbed bf16 run's (a re-admitted
+    session's delivered tokens are prefilled in one block step, where
+    the undisturbed run decoded them one at a time)."""
+    from nvme_strom_tpu_torch.parallel.weights import save_checkpoint
+    wpath = os.path.join(sdir, "model_bf16.safetensors")
+    save_checkpoint(wpath, params)
+    srv = _handoff_server("dense", params, cfg, dev)
+    for rid, ids in requests:
+        srv.submit(rid, ids, HANDOFF_NEW)
+    want = srv.run(lookahead=8)
+    del srv
+    store_path = os.path.join(sdir, "bf16.kvstore")
+    done, retire = _handoff_retire("dense", params, cfg, dev, store_path,
+                                   requests)
+    got, boot = _handoff_boot("dense", cfg, dev, wpath, store_path,
+                              requests, done)
+    if set(got) != set(want) or any(len(got[r]) != HANDOFF_NEW
+                                    for r in want):
+        raise AssertionError(f"handoff bf16: requests dropped or cut: "
+                             f"{ {r: len(v) for r, v in got.items()} }")
+    exported = sorted(set(want) - set(done))
+    differ = sorted(r for r in want if got[r] != want[r])
+    first = {r: next(i for i, (a, b) in enumerate(zip(got[r], want[r]))
+                     if a != b) for r in differ}
+    rep = {"requests": len(want), "exported": exported,
+           "readmitted": boot["readmitted"], "differ": differ,
+           "first_differing_token": first,
+           "handoff_sessions_restored":
+               boot["stats"]["handoff_sessions_restored"]}
+    log(f"handoff dense bf16: {len(differ)} of {len(exported)} exported "
+        f"requests ({len(want)} in all) differ from the undisturbed bf16 "
+        f"run: {rep}")
+    return rep
+
+
+def handoff_phase(dev, cfg, params):
+    """Drain and warm handoff at flagship width, in float32 (the
+    re-admitted suffix prefills in a block step where the undisturbed
+    run decoded it token by token: bitwise only in float32, as
+    prefix_store_f32_phase found), ``STROM_HANDOFF=1`` and
+    ``STROM_COLDSTART=1``, the prefix store under DATA_DIR, for each
+    server: an undisturbed run of the 8 requests (HANDOFF_LENGTHS,
+    HANDOFF_NEW new tokens, greedy); a retiring replica on the same
+    submissions that drains after HANDOFF_STEPS steps under
+    HANDOFF_DEADLINE_S, exports its live sessions and publishes the
+    bundle; a replacement booted on a FaultingCheckpoint of the float32
+    weights that consumes the bundle, or, the bundle deleted, browns out
+    (exactly one ``handoff_brownouts``) and serves the client's re-sent
+    requests (two trials each, HANDOFF_ORDER).  Every request's delivered
+    tokens must equal the undisturbed run's both ways, none dropped;
+    sessions exported == restored >= 3; the exported sessions' pages
+    restored from the store through h2d_copy with ``bounce_bytes`` 0.
+    Then one bundle trial in bf16 that counts the requests whose tokens
+    differ (``_handoff_bf16``), and the SIGTERM hook."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.parallel.weights import save_checkpoint
+    t0 = time.monotonic()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items()}
+    sdir = os.path.join(DATA_DIR, "handoff")
+    shutil.rmtree(sdir, ignore_errors=True)
+    os.makedirs(sdir)
+    wpath = os.path.join(sdir, "model_f32.safetensors")
+    save_checkpoint(wpath, p32)
+    rng = np.random.default_rng(SEED + 21)
+    requests = [(f"h{i}", rng.integers(0, cfg.vocab, n).tolist())
+                for i, n in enumerate(HANDOFF_LENGTHS)]
+    report = {"card": card_line()}
+    with _env(STROM_HANDOFF=1, STROM_COLDSTART=1):
+        for kind in ("dense", "paged"):
+            srv = _handoff_server(kind, p32, cfg32, dev)
+            for rid, ids in requests:
+                srv.submit(rid, ids, HANDOFF_NEW)
+            want = srv.run(lookahead=8)
+            del srv
+            store_path = os.path.join(sdir, f"{kind}.kvstore")
+            trials = {"bundle": [], "brownout": []}
+            for mode in HANDOFF_ORDER:
+                done, retire = _handoff_retire(kind, p32, cfg32, dev,
+                                               store_path, requests)
+                if mode == "brownout":
+                    os.remove(store_path + ".handoff.json")
+                got, boot = _handoff_boot(kind, cfg32, dev, wpath,
+                                          store_path, requests, done)
+                st = boot["stats"]
+                log(f"handoff {kind} {mode} (trial "
+                    f"{len(trials[mode]) + 1}): drain "
+                    f"{retire['drain_s']:.4f} s, bundle "
+                    f"{retire['bundle_bytes']} B, exported "
+                    f"{retire['exported_decoding']} decoding + "
+                    f"{retire['exported_queued']} queued "
+                    f"({retire['finished_before_export']} finished first, "
+                    f"{retire['kv_keys']} page keys); replacement TTFT "
+                    f"from boot avg {boot['ttft_boot_s_avg']:.4f} s max "
+                    f"{boot['ttft_boot_s_max']:.4f} s, every request done "
+                    f"{boot['complete_s']:.4f} s from boot, h2d_copy "
+                    f"launches {boot['h2d_launches']}; retire "
+                    f"{retire['stats']}; boot {st}")
+                if set(got) != set(want) or any(got[r] != want[r]
+                                                for r in want):
+                    diff = sorted(r for r in want if got.get(r) != want[r])
+                    raise AssertionError(f"handoff {kind} {mode}: tokens "
+                                         f"differ or dropped for {diff}")
+                exported = retire["stats"]["handoff_sessions_exported"]
+                if st["bounce_bytes"] or st["bytes_fallback"] or \
+                        boot["h2d_launches"] < 1:
+                    raise AssertionError(f"handoff {kind} {mode}: {boot}")
+                if mode == "bundle" and (
+                        exported < 3 or st["handoff_brownouts"] != 0
+                        or st["handoff_sessions_restored"] != exported
+                        or st["kv_pages_restored"] < 1):
+                    raise AssertionError(f"handoff {kind}: {retire}, {boot}")
+                if mode == "brownout" and (
+                        st["handoff_brownouts"] != 1
+                        or st["handoff_sessions_restored"] != 0):
+                    raise AssertionError(f"handoff {kind} brown-out: {boot}")
+                trials[mode].append({"retire": retire, "boot": boot})
+            report[kind] = {"trials": trials, "tokens_identical": True}
+            for key in ("ttft_boot_s_avg", "complete_s"):
+                report[kind][key] = {
+                    m: statistics.median(t["boot"][key] for t in ts)
+                    for m, ts in trials.items()}
+            log(f"handoff {kind}: medians, bundle against brown-out: TTFT "
+                f"from boot avg {report[kind]['ttft_boot_s_avg']}, every "
+                f"request done {report[kind]['complete_s']} s")
+        report["bf16"] = _handoff_bf16(dev, cfg, params, sdir, requests)
+        report["sigterm"] = _handoff_sigterm(dev, cfg32, p32, sdir, requests)
+    log(f"handoff SIGTERM: {report['sigterm']}")
+    del p32
+    torch.cuda.empty_cache()
+    report["seconds"] = time.monotonic() - t0
+    return report
+
+
+# -- mixture of experts and weight-only quantization ----------------------------
+
+#: mistralai/Mixtral-8x7B-v0.1 config.json, cut from 32 to 2 layers; every
+#: layer MoE, capacity factor E / k = 4.0 (dropless routing, as Mixtral's)
+MIXTRAL_8X7B_2L = dict(vocab=32000, d_model=4096, n_layers=2, n_heads=32,
+                       n_kv_heads=8, d_ff=14336, max_seq=4096,
+                       rope_theta=1e6, norm_eps=1e-5, n_experts=8,
+                       expert_top_k=2, moe_every=1, capacity_factor=4.0)
+#: the flagship with 8 experts (layers 1 and 3), saved and streamed back
+MOE_FLAGSHIP = dict(n_experts=8, expert_top_k=2)
+#: first-step logits' max-abs relative error against bf16: the JAX
+#: tests' rails (tests/test_quant.py: int8 0.05, int8 MoE 0.08, int4
+#: 0.25)
+QUANT_RAILS = {"int8": 0.05, "int8_moe": 0.08, "int4": 0.25}
+#: decode tok/s runs: 8 prompts of 128 tokens admitted in one untimed
+#: step, then the rest of QUANT_NEW new tokens each timed apart from the
+#: prefills, the modes in turns
+QUANT_PROMPT = 128
+QUANT_NEW = 256
+QUANT_ORDER = {"llama": ("bf16", "int8", "int4", "int4", "int8", "bf16"),
+               "mixtral": ("bf16", "int8", "int8", "bf16")}
+
+
+def _first_logits(params, cfg, ids, dev):
+    import torch
+    from nvme_strom_tpu_torch.models import decode as dec
+    cache = dec.init_cache(cfg, 1, len(ids), device=dev)
+    logits, _ = dec.prefill(params, torch.tensor([ids], device=dev), cfg,
+                            cache)
+    return logits.float()
+
+
+def _quant_tok_s(params, cfg, dev, requests):
+    """Decode tok/s of a DecodeServer: the requests admitted and
+    prefilled in one step, untimed, then the rest of their QUANT_NEW
+    tokens timed from a synchronised start, so the prefills (and a
+    quantized mode's dequantization in them) stay out of the window."""
+    import torch
+    from nvme_strom_tpu_torch.models.serving import DecodeServer
+    srv = DecodeServer(params, cfg, len(requests), 1024, device=dev)
+    for rid, ids in requests:
+        srv.submit(rid, ids, QUANT_NEW)
+    srv.step_many(1)
+    if srv.queue or any(s is None for s in srv.slots):
+        raise AssertionError("quant: the requests did not all admit in "
+                             "one step")
+    before = sum(len(s.out) for s in srv.slots)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = srv.run(lookahead=8)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    return (sum(len(v) for v in out.values()) - before) / secs, out
+
+
+def _quant_modes(name, cfg, full, modes, dev, rail_int8):
+    """Each mode's params (quantized on the card), its bytes against
+    bf16, its first-step logits against bf16 within the rail, then
+    decode tok/s of the modes in QUANT_ORDER's turns: the ratio of the
+    medians against bf16, and its spread (the lowest turn over bf16's
+    highest, the highest over bf16's lowest)."""
+    import numpy as np
+    from nvme_strom_tpu_torch.models.quant import (quantize_weights_int4,
+                                                   quantize_weights_int8,
+                                                   quantized_nbytes)
+    make = {"bf16": lambda: full,
+            "int8": lambda: quantize_weights_int8(full),
+            "int4": lambda: quantize_weights_int4(full)}
+    rng = np.random.default_rng(SEED + 23)
+    ids = rng.integers(0, cfg.vocab, 64).tolist()
+    ref = _first_logits(full, cfg, ids, dev)
+    params, rep = {}, {}
+    for mode in modes:
+        params[mode] = make[mode]()
+        if mode == "bf16":
+            continue
+        q, fp = quantized_nbytes(params[mode])
+        rel = ((_first_logits(params[mode], cfg, ids, dev) - ref).abs().max()
+               / ref.abs().max()).item()
+        rail = rail_int8 if mode == "int8" else QUANT_RAILS["int4"]
+        rep[mode] = {"quantized_bytes": q, "bf16_bytes": fp // 2,
+                     "logits_max_rel": rel, "rail": rail}
+        log(f"quant {name} {mode}: {q} B quantized against {fp // 2} B in "
+            f"bf16 ({q / (fp // 2):.3f}); first-step logits max-abs rel "
+            f"{rel:.4g} (rail {rail})")
+        if not rel < rail:
+            raise AssertionError(f"quant {name} {mode}: logits {rel} past "
+                                 f"the rail {rail}")
+    requests = [(f"q{i}", rng.integers(0, cfg.vocab,
+                                       QUANT_PROMPT).tolist())
+                for i in range(8)]
+    tps = {m: [] for m in modes}
+    for mode in QUANT_ORDER[name]:
+        rate, _ = _quant_tok_s(params[mode], cfg, dev, requests)
+        tps[mode].append(rate)
+    for mode in modes:
+        rep.setdefault(mode, {})["tok_per_s"] = tps[mode]
+    med = {m: statistics.median(v) for m, v in tps.items()}
+    rep["tok_s_ratio"] = {m: med[m] / med["bf16"] for m in modes}
+    rep["tok_s_ratio_spread"] = {
+        m: (min(tps[m]) / max(tps["bf16"]), max(tps[m]) / min(tps["bf16"]))
+        for m in modes}
+    log(f"quant {name}: decode tok/s ({len(requests)} x {QUANT_PROMPT} "
+        f"prompts, {QUANT_NEW} new, prefills untimed) in turns {tps}; "
+        f"against bf16 {rep['tok_s_ratio']}, spread "
+        f"{rep['tok_s_ratio_spread']}")
+    return rep
+
+
+def _moe_stream(dev, cfg):
+    """The flagship with 8 experts: seeded on the card, saved with
+    save_checkpoint, streamed back with LazyCheckpoint.load; every
+    tensor, the 3-D expert ones included, bitwise, ``bounce_bytes`` 0."""
+    import dataclasses
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.parallel.weights import (LazyCheckpoint,
+                                                       save_checkpoint)
+    mcfg = dataclasses.replace(cfg, **MOE_FLAGSHIP)
+    params = _card_params(mcfg, SEED + 24, dev)
+    path = os.path.join(DATA_DIR, "moe_flagship.safetensors")
+    save_checkpoint(path, params)
+    with StromEngine() as eng:
+        ctr = Counters(eng)
+        t0 = time.monotonic()
+        got = LazyCheckpoint(path).load(eng, device=dev)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        st = ctr.delta()
+    os.remove(path)
+    experts = [n for n in params if params[n].dim() == 3]
+    bad = [n for n in params if not torch.equal(got[n], params[n])]
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    log(f"moe stream: {len(params)} tensors ({len(experts)} 3-D expert "
+        f"tensors), {nbytes} B in {secs:.3f} s; {st}")
+    if bad or not experts or st["bounce_bytes"] or \
+            st["bytes_to_device"] < nbytes:
+        raise AssertionError(f"moe stream: differ {bad}, {st}")
+    return {"tensors": len(params), "expert_tensors": len(experts),
+            "bytes": nbytes, "load_s": secs, "stats": st}
+
+
+def moe_quant_phase(dev, cfg):
+    """(1) Mixtral-8x7B's widths cut to 2 layers (MIXTRAL_8X7B_2L, ~3.2 G
+    parameters in bf16, seeded on the card): the 8 serve-phase requests
+    (prompts 16-1500, 32 new tokens) through both servers, tokens equal,
+    then the dense run again under torch.profiler;
+    (2) the flagship with 8 experts through save and the stream
+    (``_moe_stream``); (3) int8 and int4 of LLAMA3_8B_2L and int8 of (1):
+    bytes against bf16, first-step logits within QUANT_RAILS, decode
+    tok/s against bf16 in turns."""
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.models.transformer import TransformerConfig
+    t0 = time.monotonic()
+    report = {"card": card_line()}
+    mcfg = TransformerConfig(**MIXTRAL_8X7B_2L)
+    full = _card_params(mcfg, SEED + 22, dev)
+    n_params = sum(t.numel() for t in full.values())
+    rng = np.random.default_rng(SEED)
+    lengths = [16, 100, 250, 400, 700, 1000, 1250, 1500]
+    requests = [(f"m{i}", rng.integers(0, mcfg.vocab, n).tolist())
+                for i, n in enumerate(lengths)]
+    outs = {}
+    # the first run meets every GEMM shape for the first time: reported
+    # apart, as serve_phase's dense_cold
+    for label in ("dense_cold", "dense", "paged"):
+        srv = (DecodeServer(full, mcfg, 8, 2048, device=dev)
+               if label != "paged" else
+               PagedDecodeServer(full, mcfg, 8, 2048, total_blocks=128,
+                                 block_len=128, device=dev))
+        out, secs = serve(srv, requests)
+        s = srv.stats()
+        toks = sum(len(v) for v in out.values())
+        outs[label] = out
+        report[f"mixtral_{label}"] = {
+            "tokens": toks, "seconds": secs, "tok_per_s": toks / secs,
+            "ttft_ms_avg": s["ttft_ms_avg"], "ttft_ms_max": s["ttft_ms_max"]}
+        log(f"moe Mixtral-8x7B widths, 2 layers ({n_params} parameters) "
+            f"{label}: {toks} tokens in {secs:.3f} s = {toks / secs:.1f} "
+            f"tok/s, TTFT avg {s['ttft_ms_avg']} ms max {s['ttft_ms_max']} "
+            f"ms")
+        del srv
+    if outs["dense"] != outs["paged"] or outs["dense_cold"] != \
+            outs["dense"] or any(len(v) != 32 for v in outs["dense"].values()):
+        diff = [r for r in outs["dense"]
+                if outs["dense"][r] != outs["paged"].get(r)]
+        raise AssertionError(f"moe Mixtral: dense and paged tokens differ "
+                             f"for {diff}")
+    # where a serve run's device time goes: the experts' batched
+    # products against the dispatch and combine einsums
+    report["mixtral_profile"] = profile_run(
+        lambda done: serve(DecodeServer(full, mcfg, 8, 2048, device=dev),
+                           requests), "Mixtral dense serve")
+    report["mixtral_params"] = n_params
+    report["mixtral_quant"] = _quant_modes(
+        "mixtral", mcfg, full, ("bf16", "int8"), dev,
+        QUANT_RAILS["int8_moe"])
+    del full
+    torch.cuda.empty_cache()
+    report["moe_stream"] = _moe_stream(dev, cfg)
+    torch.cuda.empty_cache()
+    lcfg = TransformerConfig(**LLAMA3_8B_2L)
+    full = _card_params(lcfg, SEED + 11, dev)
+    report["llama_quant"] = _quant_modes(
+        "llama", lcfg, full, ("bf16", "int8", "int4"), dev,
+        QUANT_RAILS["int8"])
+    del full
+    torch.cuda.empty_cache()
+    report["seconds"] = time.monotonic() - t0
+    return report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -5061,6 +5615,13 @@ def main() -> int:
         lambda: coldstart_phase(dev, cfg, ckdir, shared, stream_path))
     for n in ("h2d_copy", "decode_attention"):
         results[n]["launches_coldstart"] = counts[n]
+    # main path 1i: drain and warm handoff on both servers: the exported
+    # sessions' pages restored through h2d_copy, decoded on kernels 2-3
+    handoff, counts = drive(
+        "handoff", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: handoff_phase(dev, cfg, params))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_handoff"] = counts[n]
     supervisor_cost = supervisor_cost_phase(dev, cfg, params, shared,
                                             stream_path, want)
     torch.cuda.empty_cache()
@@ -5071,6 +5632,14 @@ def main() -> int:
     # a group of 7 at head_dim 128 through both servers
     gqa, _ = drive("GQA serve", ("decode_attention", "paged_attention"),
                    lambda: gqa_serve_phase(dev, cfg))
+    torch.cuda.empty_cache()
+    # main path 1j: Mixtral-8x7B widths (2 layers) on both servers, a MoE
+    # flagship streamed through h2d_copy, int8 / int4 serving
+    moe_quant, counts = drive(
+        "moe quant", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: moe_quant_phase(dev, cfg))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_moe_quant"] = counts[n]
     torch.cuda.empty_cache()
 
     # main path 2: training with the flash kernels, batches through h2d
@@ -5138,6 +5707,8 @@ def main() -> int:
     log("coldstart " + json.dumps({
         k: coldstart[k] for k in ("ttft_boot_s", "steady_s", "tensor_bytes",
                                   "tokens_identical", "trials", "chaos")}))
+    log("handoff " + json.dumps(handoff))
+    log("moe quant " + json.dumps(moe_quant))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -5145,6 +5716,7 @@ def main() -> int:
                                   "tenants": tenant, "verify": verify,
                                   "resilience": resilience,
                                   "health": health, "coldstart": coldstart,
+                                  "handoff": handoff, "moe_quant": moe_quant,
                                   "supervisor_cost": supervisor_cost,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,

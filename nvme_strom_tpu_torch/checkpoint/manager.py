@@ -17,8 +17,12 @@ several tiles (the JAX package's saves from a mesh) and assembles them.
 Saves are atomic: the step is staged in ``.tmp_step_XXXXXXXX`` and
 renamed into place once every byte is on disk; a staging directory left
 by a crashed save is never taken for a checkpoint and is removed at
-startup once it is older than ``gc_min_age_s``.  The save's crash
-windows are marked for ``STROM_CRASH_POINT`` (io/faults.py
+startup once it is older than ``gc_min_age_s`` (``STROM_CKPT_GC_AGE_S``,
+default 3600 s).  The same age gate sweeps orphaned sidecars at the
+directory's top level: a prefix store's ``.kvman.json``, a host-tier
+``.warmhints.json`` or a ``.handoff.json`` bundle whose base file is
+gone (:func:`find_orphan_manifests`, :func:`sweep_orphan_manifests`).
+The save's crash windows are marked for ``STROM_CRASH_POINT`` (io/faults.py
 ``crash_point``): ``ckpt.tiles`` after the data write, ``ckpt.meta``
 once the manifest is staged and ``ckpt.rename`` before the commit.  In
 this one-process format nothing happens between the last two (the
@@ -67,6 +71,68 @@ _STEP_RE = re.compile(r"^step_(\d{8})$")
 _TMP_RE = re.compile(r"^\.tmp_step_(\d{8})$")
 _FILE = "state-00000.safetensors"
 _log = logging.getLogger(__name__)
+
+#: sidecars whose base file is the path less the suffix: the prefix
+#: store's manifest (models/kv_offload.py), host-tier warm hints
+#: (io/warmup.py) and handoff bundles (io/handoff.py).  A sidecar whose
+#: base is gone can never validate again: debris under the age gate
+SIDECAR_SUFFIXES = (".kvman.json", ".warmhints.json", ".handoff.json")
+
+
+def _gc_min_age() -> float:
+    """The age gate of both sweeps, ``STROM_CKPT_GC_AGE_S`` (default
+    3600 s): a live save or a store being recreated keeps its files
+    younger."""
+    try:
+        return float(os.environ.get("STROM_CKPT_GC_AGE_S", 3600))
+    except ValueError:
+        return 3600.0
+
+
+def _is_orphan_sidecar(path: str, suffixes) -> bool:
+    for suf in suffixes:
+        if path.endswith(suf):
+            return not os.path.exists(path[:-len(suf)])
+    return False
+
+
+def find_orphan_manifests(root: str, recursive: bool = True,
+                          suffixes=SIDECAR_SUFFIXES) -> list:
+    """Sidecars under ``root`` whose base file is gone, sorted; the walk
+    skips crashed saves' staging directories.  ``recursive=False`` scans
+    ``root`` alone (the manager's startup scope)."""
+    out = []
+    if recursive:
+        for dirpath, dirnames, names in os.walk(root):
+            dirnames[:] = [d for d in dirnames if not _TMP_RE.match(d)]
+            out.extend(os.path.join(dirpath, n) for n in names
+                       if _is_orphan_sidecar(os.path.join(dirpath, n),
+                                             suffixes))
+    else:
+        try:
+            names = os.listdir(root)
+        except OSError:
+            return []
+        out = [os.path.join(root, n) for n in names
+               if _is_orphan_sidecar(os.path.join(root, n), suffixes)]
+    return sorted(out)
+
+
+def sweep_orphan_manifests(paths, min_age: float) -> list:
+    """Remove those of ``paths`` older than ``min_age`` seconds; the
+    paths removed.  A race (removed meanwhile, no permission) skips the
+    entry: debris is harmless, a wrong removal is not."""
+    removed = []
+    now = time.time()
+    for p in paths:
+        try:
+            if now - os.path.getmtime(p) < min_age:
+                continue
+            os.unlink(p)
+        except OSError:
+            continue
+        removed.append(p)
+    return removed
 
 
 def flatten_with_names(tree, prefix: str = "") -> Dict[str, object]:
@@ -137,15 +203,17 @@ class CheckpointManager:
 
     ``max_to_keep``: the newest steps kept after a save (None keeps
     all).  ``engine``: a shared StromEngine (a temporary one per save or
-    restore otherwise).  ``gc_min_age_s``: a ``.tmp_step_*`` staging
+    restore otherwise).  ``gc_min_age_s`` (default
+    ``STROM_CKPT_GC_AGE_S``, 3600 s): a ``.tmp_step_*`` staging
     directory untouched this long is a crashed save's debris and is
     removed when the manager is created (a live save keeps its files'
-    mtimes moving)."""
+    mtimes moving); so is an orphaned sidecar at the top level
+    (``manifest_gc`` lists them)."""
 
     def __init__(self, directory: Union[str, os.PathLike],
                  max_to_keep: Optional[int] = 3,
                  engine: Optional[StromEngine] = None,
-                 gc_min_age_s: float = 3600.0):
+                 gc_min_age_s: Optional[float] = None):
         self.directory = str(directory)
         self.max_to_keep = max_to_keep
         self._engine = engine
@@ -159,7 +227,14 @@ class CheckpointManager:
         self.last_restore_step: Optional[int] = None
         #: STROM_VERIFY, read once per manager
         self._verify = VerifyPolicy()
-        self._gc_tmp_dirs(gc_min_age_s)
+        min_age = _gc_min_age() if gc_min_age_s is None else gc_min_age_s
+        self._gc_tmp_dirs(min_age)
+        #: orphaned sidecars removed at startup
+        self.manifest_gc = sweep_orphan_manifests(
+            find_orphan_manifests(self.directory, recursive=False), min_age)
+        for path in self.manifest_gc:
+            _log.warning("removed orphaned sidecar %s (its base file is "
+                         "gone)", path)
 
     def _gc_tmp_dirs(self, min_age: float) -> None:
         now = time.time()

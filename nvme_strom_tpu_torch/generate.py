@@ -9,6 +9,10 @@ sampled decode, optionally with the SSD-backed KV cache.
     python -m nvme_strom_tpu_torch.generate --weights DIR \\
         --prompt 1,2,3 --new 32 --offload PAGEFILE --offload-window 256
 
+    # weight-only int8 after the load; --int4 packs int4 instead, and
+    # --int8 --int4 is the mixed recipe (int8 lm_head, int4 the rest)
+    python -m nvme_strom_tpu_torch.generate --weights DIR --int8
+
 ``DIR`` holds ``*.safetensors`` and ``strom_config.json`` (the model
 config).  Token ids in, token ids out.  Runs on ``cuda:0`` unless
 ``--device`` says otherwise.
@@ -37,6 +41,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="sampling seed")
     ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--int8", action="store_true",
+                    help="weight-only int8 quantization after the load "
+                         "(models/quant.py)")
+    ap.add_argument("--int4", action="store_true",
+                    help="packed int4 (with --int8: the mixed recipe, "
+                         "int8 lm_head and int4 everything else)")
     ap.add_argument("--offload", default=None, metavar="PAGEFILE",
                     help="decode with the SSD-backed KV cache, spilling "
                          "pages to this file (greedy only; the device "
@@ -92,7 +102,8 @@ def main(argv=None) -> int:
                                                    device=args.device)
         print(f"weights: {len(params)} tensors in "
               f"{time.monotonic() - t0:.2f}s", flush=True)
-        dev = next(iter(params.values())).device
+        params = _quantize(params, args)
+        dev = params["tok_embed"].device
         prompt = torch.tensor([prompt_ids], dtype=torch.int32, device=dev)
         sync = (torch.cuda.synchronize if dev.type == "cuda"
                 else (lambda: None))
@@ -131,6 +142,28 @@ def main(argv=None) -> int:
     finally:
         engine.close_all()
     return 0
+
+
+def _quantize(params, args):
+    """``--int8`` / ``--int4`` on the loaded params, printing the
+    quantized leaves' MiB against the same weights' in float32."""
+    from nvme_strom_tpu_torch.models.quant import (quantize_weights_int4,
+                                                   quantize_weights_int8,
+                                                   quantized_nbytes)
+    if args.int8:
+        params = quantize_weights_int8(
+            params, suffixes=("lm_head",) if args.int4 else None)
+        q, fp = quantized_nbytes(params)
+        what = ("lm_head only (mixed recipe)" if args.int4
+                else "matmul weights")
+        print(f"int8: {what} {q >> 20} MiB (vs {fp >> 20} MiB fp32)",
+              flush=True)
+    if args.int4:
+        params = quantize_weights_int4(params)
+        q, fp = quantized_nbytes(params)
+        print(f"int4: all quantized leaves now {q >> 20} MiB (vs "
+              f"{fp >> 20} MiB fp32; incl. any int8 lm_head)", flush=True)
+    return params
 
 
 if __name__ == "__main__":

@@ -27,8 +27,10 @@ listener on the engine supervisor's degraded mode (io/health.py) counts
 rather than surfaced.  Engine work (dumps, backlog reads, warm-up I/O)
 runs outside the lock.
 
-``consume_handoff`` (booting from a retiring replica's bundle) needs the
-drain and handoff module, ROADMAP Queue 1 item 9, and raises until then.
+``consume_handoff`` boots from a retiring replica's handoff bundle
+(io/handoff.py) under ``STROM_COLDSTART=1`` and ``STROM_HANDOFF=1``:
+its exported sessions are re-admitted first, its hot set pre-faulted,
+and its warm hints queued on this coordinator's warming phase.
 """
 
 from __future__ import annotations
@@ -125,12 +127,22 @@ class ColdStartCoordinator:
                 pass            # later hits, never correctness
         self._advance("steady")
 
-    def consume_handoff(self, base: str, server=None, checkpoint=None):
-        """Boot from a retiring replica's handoff bundle: waits for the
-        port of ``io/handoff.py`` (ROADMAP Queue 1 item 9)."""
-        raise NotImplementedError(
-            "consume_handoff needs io/handoff.py, ROADMAP Queue 1 item 9 "
-            "(drain and warm handoff), which the port does not have yet")
+    def consume_handoff(self, base: str, server=None, checkpoint=None
+                        ) -> Optional[dict]:
+        """Boot from a retiring replica's handoff bundle (io/handoff.py
+        ``consume_bundle``): exported sessions are re-admitted first at
+        decode class, the shipped hot set is pre-faulted at restore class
+        ahead of the bulk lane, and the warm-hint replays run in this
+        coordinator's warming phase at prefetch class.  A torn, stale or
+        missing bundle returns None and counts one ``handoff_brownouts``:
+        the boot goes on as the plain cold start it already is.  With
+        this config's gate off (``STROM_COLDSTART``), or the handoff's
+        (``STROM_HANDOFF``), it returns None and counts nothing."""
+        if not self.cfg.enabled:
+            return None
+        from nvme_strom_tpu_torch.io.handoff import consume_bundle
+        return consume_bundle(base, engine=self.engine, server=server,
+                              coordinator=self, checkpoint=checkpoint)
 
     def wait_steady(self, timeout: Optional[float] = None) -> bool:
         """Block until the warm-up drain finishes; True once steady."""

@@ -1,6 +1,5 @@
 """Host-tier warm-state manifests, ``.warmhints.json`` (counterpart of
-nvme_strom_tpu/io/warmup.py, with the reference's age-gated orphan sweep
-of ``checkpoint/manager.py`` beside it).
+nvme_strom_tpu/io/warmup.py).
 
 A long-running replica's host-DRAM tier (io/hostcache.py) has learned
 which spans the workload reads again; a restart loses that.
@@ -13,27 +12,23 @@ class with ``hot=True`` during the cold start's warming phase
 A manifest records its file's size and mtime_ns: one written for an
 older version of the file loads as empty, and so does a corrupt one,
 another version's or one with a span past the file's end.  A manifest
-whose file is gone is an orphan (:func:`find_orphan_manifests`, which
-also lists the prefix store's ``.kvman.json``), removed only once older
-than an age gate (:func:`sweep_orphan_manifests`), so a store being
-recreated is never swept from under its process.
+whose file is gone is an orphan, swept with the other sidecars by
+checkpoint/manager.py ``find_orphan_manifests`` and
+``sweep_orphan_manifests`` once older than their age gate.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import time
 from typing import List, Optional, Sequence, Tuple
 
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
+from nvme_strom_tpu_torch.utils.config import ColdStartConfig
 from nvme_strom_tpu_torch.utils.stats import atomic_write_text
 
 #: the manifest's suffix beside its file
 WARMHINT_SUFFIX = ".warmhints.json"
-#: the prefix store's manifest (models/kv_offload.py), swept alike
-KVMAN_SUFFIX = ".kvman.json"
-SIDECAR_SUFFIXES = (KVMAN_SUFFIX, WARMHINT_SUFFIX)
 
 _VERSION = 1
 
@@ -44,11 +39,14 @@ def hint_path(path: str) -> str:
 
 
 def collect_warm_hints(engine, path: str,
-                       max_spans: int = 1024) -> Optional[str]:
+                       max_spans: Optional[int] = None) -> Optional[str]:
     """Write ``path``'s spans resident in the host tier (largest first,
-    at most ``max_spans``) into its manifest; the manifest's path, or
-    None when there is nothing to write (tier off, no resident span,
+    at most ``max_spans``, default ``ColdStartConfig.warm_hint_spans``,
+    ``STROM_WARM_HINT_SPANS``) into its manifest; the manifest's path,
+    or None when there is nothing to write (tier off, no resident span,
     a zero budget, no such file)."""
+    if max_spans is None:
+        max_spans = ColdStartConfig().warm_hint_spans
     if max_spans <= 0:
         return None
     from nvme_strom_tpu_torch.io import hostcache
@@ -69,7 +67,7 @@ def collect_warm_hints(engine, path: str,
 
 
 def refresh_hints(engine, paths: Sequence[str],
-                  max_spans: int = 1024) -> List[str]:
+                  max_spans: Optional[int] = None) -> List[str]:
     """:func:`collect_warm_hints` for each of ``paths`` (duplicates and
     empty names skipped); the paths whose manifest was written."""
     out: List[str] = []
@@ -151,45 +149,3 @@ def prefetch_hints(engine, path: str,
     if stats is not None and warmed:
         stats.add(coldstart_warm_spans=warmed)
     return warmed
-
-
-def _is_orphan(path: str, suffixes) -> bool:
-    for suf in suffixes:
-        if path.endswith(suf):
-            return not os.path.exists(path[:-len(suf)])
-    return False
-
-
-def find_orphan_manifests(root: str, recursive: bool = True,
-                          suffixes=SIDECAR_SUFFIXES) -> list:
-    """Manifests under ``root`` whose file is gone, sorted."""
-    out = []
-    if recursive:
-        for dirpath, _dirs, names in os.walk(root):
-            out.extend(os.path.join(dirpath, n) for n in names
-                       if _is_orphan(os.path.join(dirpath, n), suffixes))
-    else:
-        try:
-            names = os.listdir(root)
-        except OSError:
-            return []
-        out = [os.path.join(root, n) for n in names
-               if _is_orphan(os.path.join(root, n), suffixes)]
-    return sorted(out)
-
-
-def sweep_orphan_manifests(paths, min_age: float) -> list:
-    """Remove those of ``paths`` older than ``min_age`` seconds; the
-    paths removed.  A race (removed meanwhile, no permission) skips the
-    entry: debris is harmless, a wrong removal is not."""
-    removed = []
-    now = time.time()
-    for p in paths:
-        try:
-            if now - os.path.getmtime(p) < min_age:
-                continue
-            os.unlink(p)
-        except OSError:
-            continue
-        removed.append(p)
-    return removed

@@ -16,7 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from nvme_strom_tpu_torch.models.transformer import (
-    TransformerConfig, attention, embed, expand_gqa, mlp, qkv_project,
+    TransformerConfig, attention, embed, expand_gqa, mlp_block, qkv_project,
     rms_norm, wmat)
 
 
@@ -51,7 +51,7 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
         cache["v"][i, :, :, :s] = v.to(cfg.dtype)
         x = x + a
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
-        x = (x + mlp(h, params, L)).to(cfg.dtype)
+        x = (x + mlp_block(h, params, L, cfg)).to(cfg.dtype)
     cache["pos"] = s
     return _lm_head(params, x[:, s - 1 if last is None else last], cfg), \
         cache
@@ -97,7 +97,7 @@ def decode_step(params: Dict, token: torch.Tensor, cfg: TransformerConfig,
         a = a.transpose(1, 2).reshape(b, 1, -1)
         x = x + a @ wmat(params, L + "wo", a.dtype)
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
-        x = (x + mlp(h, params, L)).to(cfg.dtype)
+        x = (x + mlp_block(h, params, L, cfg)).to(cfg.dtype)
     cache["pos"] = pos + 1
     return _lm_head(params, x[:, 0], cfg), cache
 
@@ -123,7 +123,7 @@ def block_step(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
         a = a.transpose(1, 2).reshape(b, m, -1)
         x = x + a @ wmat(params, L + "wo", a.dtype)
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
-        x = (x + mlp(h, params, L)).to(cfg.dtype)
+        x = (x + mlp_block(h, params, L, cfg)).to(cfg.dtype)
     cache["pos"] = pos + m
     if last is not None:
         x = x[:, last]

@@ -111,17 +111,14 @@ from nvme_strom_tpu_torch.io.engine import StromEngine, crc32c
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.io.tenants import SLO_MAX_BOOST, current_tenant
 from nvme_strom_tpu_torch.models.transformer import (
-    TransformerConfig, embed, mlp, qkv_project, rms_norm, wmat)
+    TransformerConfig, embed, mlp_block, qkv_project, rms_norm, wmat)
 from nvme_strom_tpu_torch.ops.bridge import (DeviceStream, host_to_device,
                                              pinned_mapping, split_ranges,
                                              write_from_device)
 from nvme_strom_tpu_torch.utils.checksum import ChecksumError, VerifyPolicy
+from nvme_strom_tpu_torch.utils.config import ColdStartConfig
 from nvme_strom_tpu_torch.utils.stats import percentiles_from_log2_hist
 
-#: the JAX config's mixture-of-experts fields that the chain seed hashes;
-#: the port has no MoE, and a dense model keeps their defaults
-_DENSE_EXPERT_TOP_K = 2
-_DENSE_MOE_EVERY = 2
 #: an O_DIRECT write needs its source, offset and length on this boundary
 _ALIGN = 4096
 
@@ -757,7 +754,7 @@ def _layer_forward(params: Dict, i: int, x, cfg: TransformerConfig,
     a = a.transpose(1, 2).reshape(b, s, -1)
     x = x + a @ wmat(params, Lk + "wo", a.dtype)
     h = rms_norm(x, params[Lk + "mlp_norm"], cfg.norm_eps)
-    return (x + mlp(h, params, Lk)).to(cfg.dtype)
+    return (x + mlp_block(h, params, Lk, cfg)).to(cfg.dtype)
 
 
 def _final_logits(params: Dict, x_last, cfg: TransformerConfig):
@@ -971,7 +968,7 @@ class PrefixStore:
             "kvprefix-v1", cfg.vocab, cfg.d_model, cfg.n_layers,
             cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, float(cfg.rope_theta),
             cfg.rope_scaling, cfg.norm_eps, _dtype_name(cfg.dtype),
-            cfg.n_experts, _DENSE_EXPERT_TOP_K, _DENSE_MOE_EVERY,
+            cfg.n_experts, cfg.expert_top_k, cfg.moe_every,
             page_tokens)).encode()).digest()
         d = os.path.dirname(self.path)
         if d:
@@ -1482,13 +1479,17 @@ class PrefixStore:
 
     # -- cold-start warmup ----------------------------------------------------
 
-    def warm_pages(self, budget_pages: int = 256) -> int:
-        """Re-read the ``budget_pages`` top-benefit resident pages, the
-        cold-start warming pass of a replica that just reattached a
-        manifest, as ``klass="prefetch", hot=True``: with the host-DRAM
-        tier on, their lines are admitted and pinned, so the next
-        restore of these pages is a memory hit.  Best effort: failures
-        warm less and never raise.  Returns the pages read."""
+    def warm_pages(self, budget_pages: Optional[int] = None) -> int:
+        """Re-read the ``budget_pages`` (default
+        ``ColdStartConfig.warm_pages``, ``STROM_WARM_PAGES``) top-benefit
+        resident pages, the cold-start warming pass of a replica that
+        just reattached a manifest, as ``klass="prefetch", hot=True``:
+        with the host-DRAM tier on, their lines are admitted and pinned,
+        so the next restore of these pages is a memory hit.  Best
+        effort: failures warm less and never raise.  Returns the pages
+        read."""
+        if budget_pages is None:
+            budget_pages = ColdStartConfig().warm_pages
         if budget_pages <= 0:
             return 0
         with self._lock:

@@ -19,7 +19,11 @@ one device.
 
 Admission prefills the exact prompt: PyTorch runs eagerly, so the JAX
 server's power-of-two prompt buckets, which bound its compile count,
-are not needed.
+are not needed.  A model with mixture-of-experts layers whose expert
+capacity can bind is the exception (``moe.prefill_len`` decides): there
+the capacity couples the tokens of a routing group, pad tokens included,
+so the prompt (or the suffix past restored pages) is right-padded
+exactly as the JAX server pads it, and both route alike.
 
 ``kv_store`` attaches the SSD-backed KV prefix store
 (models/kv_offload.py ``PrefixStore``): a step plans every admission
@@ -58,8 +62,18 @@ server then accepts submissions at once, tells the source's
 coordinator that serving started, starts its bulk lane, and resolves
 the params at the first step with ``materialize(klass="decode")``: the
 first step makes every parameter resident, as the JAX server's does.
-Drain/handoff and session export of the JAX server are not part of this
-port yet.
+
+Drain (io/handoff.py ``DrainCoordinator``): ``begin_drain`` closes the
+admission gate for the rest of the server's life.  New prefills defer
+with the shed path's semantics (they stay queued, counted in
+``admissions_deferred`` and ``handoff_deferred``) while in-flight slots
+decode on; ``run`` returns once only deferred requests are left.
+``export_sessions`` hands the live sessions (in-flight slots first,
+then the queue) to a handoff bundle as their prompt, the tokens
+already delivered, the remaining budget, the sampling parameters and
+their prefix-store page keys, and with ``pop`` takes them off the
+server, freeing their slots (and the paged server's blocks).  Until a
+drain begins none of this state shows in ``stats()``.
 """
 
 from __future__ import annotations
@@ -77,8 +91,9 @@ from nvme_strom_tpu_torch.io.tenants import (TokenBucket, get_registry,
                                              tenant_context,
                                              tenants_enabled, tier_rank)
 from nvme_strom_tpu_torch.models import decode as _dec
+from nvme_strom_tpu_torch.models.moe import prefill_len
 from nvme_strom_tpu_torch.models.transformer import (
-    TransformerConfig, embed, mlp, qkv_project, rms_norm, wmat)
+    TransformerConfig, embed, mlp_block, qkv_project, rms_norm, wmat)
 from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
 from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
 
@@ -151,7 +166,7 @@ def _batched_step(params: Dict, cfg: TransformerConfig, tok: torch.Tensor,
         a = a.transpose(1, 2).reshape(B, 1, -1)
         x = x + a @ wmat(params, L + "wo", a.dtype)
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
-        x = (x + mlp(h, params, L)).to(cfg.dtype)
+        x = (x + mlp_block(h, params, L, cfg)).to(cfg.dtype)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     return (x @ wmat(params, "lm_head", x.dtype)).float()
 
@@ -183,6 +198,10 @@ class DecodeServer:
         self._shed_probe = shed_probe
         #: admission opportunities deferred by shedding, tenants' too
         self.admissions_shed = 0
+        #: the drain's closed admission gate (set once, by begin_drain)
+        self._draining = False
+        #: admission opportunities deferred by the drain
+        self.admissions_deferred = 0
         #: a lazy params source, resolved at the first step
         self._param_source = None
         if not isinstance(params, dict) and hasattr(params, "materialize"):
@@ -232,10 +251,12 @@ class DecodeServer:
         self._alloc_storage()
 
     def _check_devices(self, params: Dict[str, torch.Tensor]) -> None:
-        for name, t in params.items():
-            if t.device != self.device:
-                raise ValueError(f"parameter {name} is on {t.device}, the "
-                                 f"server on {self.device}")
+        for name, leaf in params.items():
+            # a quantized leaf is a dict of tensors (models/quant.py)
+            for t in (leaf.values() if isinstance(leaf, dict) else (leaf,)):
+                if t.device != self.device:
+                    raise ValueError(f"parameter {name} is on {t.device}, "
+                                     f"the server on {self.device}")
 
     def _ensure_params(self) -> None:
         """Resolve a lazy params source: every tensor not yet resident
@@ -294,7 +315,12 @@ class DecodeServer:
         before any of them prefills)."""
         return {"slot": slot, "req": req}
 
-    def _prompt(self, ids: List[int]) -> torch.Tensor:
+    def _prompt(self, ids: List[int], padded: int) -> torch.Tensor:
+        """``ids`` as a (1, n) tensor, right-padded with 0 to the
+        ``moe.prefill_len`` of ``padded``, the JAX server's length for
+        this prefill (see the module docstring)."""
+        n = prefill_len(self.cfg, len(ids), padded)
+        ids = list(ids) + [0] * (n - len(ids))
         return torch.tensor([ids], dtype=torch.long, device=self.device)
 
     def _store_keys(self, req: _Request) -> list:
@@ -381,14 +407,21 @@ class DecodeServer:
                 cache["v"][:, 0, :, j * P:(j + 1) * P] = v
             cache["pos"] = len(use) * P
             suffix = req.prompt[len(use) * P:]
-            logits, cache = _dec.block_step(self.params, self._prompt(suffix),
-                                            self.cfg, cache,
-                                            last=len(suffix) - 1)
+            logits, cache = _dec.block_step(
+                self.params, self._prompt(suffix, cache["k"].shape[3]
+                                          - cache["pos"]),
+                self.cfg, cache, last=len(suffix) - 1)
         else:
-            cache = _dec.init_cache(self.cfg, 1, s, device=self.device)
-            logits, cache = _dec.prefill(self.params,
-                                         self._prompt(req.prompt), self.cfg,
-                                         cache)
+            # the JAX server's bucket: a power of two >= 16, at most
+            # max_len
+            bucket = 16
+            while bucket < s:
+                bucket *= 2
+            ids = self._prompt(req.prompt, min(bucket, self.max_len))
+            cache = _dec.init_cache(self.cfg, 1, ids.shape[1],
+                                    device=self.device)
+            logits, cache = _dec.prefill(self.params, ids, self.cfg, cache,
+                                         last=s - 1)
         self.k_cache[:, slot, :, :s] = cache["k"][:, 0, :, :s]
         self.v_cache[:, slot, :, :s] = cache["v"][:, 0, :, :s]
         if self.kv_store is not None:
@@ -509,6 +542,9 @@ class DecodeServer:
         }
         if self.tenant_sheds:        # only once the tenant layer acted
             out["tenant_sheds"] = dict(self.tenant_sheds)
+        if self._draining:           # and these once a drain began
+            out["draining"] = True
+            out["admissions_deferred"] = self.admissions_deferred
         if self.kv_store is not None:
             out.update({k: v for k, v in
                         self.kv_store.stats.snapshot().items()
@@ -541,6 +577,73 @@ class DecodeServer:
         stats = self._engine_stats()
         if stats is not None:
             stats.add(serve_admissions_shed=n)
+
+    # -- drain and handoff (io/handoff.py) -----------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def begin_drain(self) -> None:
+        """Close the admission gate for the rest of this server's life:
+        queued prefills defer (kept for export, never dropped) while
+        in-flight slots decode to completion."""
+        self._draining = True
+
+    def _note_drain_defer(self, n: int) -> None:
+        self.admissions_deferred += n
+        stats = self._engine_stats()
+        if stats is not None:
+            stats.add(handoff_deferred=n)
+
+    def export_sessions(self, limit: int = 256,
+                        pop: bool = False) -> List[dict]:
+        """The live sessions for a handoff bundle, in-flight slots first
+        (their decode progress is the costly part), then the queue, at
+        most ``limit``.  Each carries its prompt, the tokens already
+        delivered (``emitted``), the remaining ``max_new``, its sampling
+        parameters (a seeded draw is keyed by position, so the
+        replacement continues identically) and the prefix-store page
+        keys of ``prompt + emitted`` (hex).  ``pop`` takes the exported
+        sessions off this server: their results are the replacement's
+        to deliver."""
+        out: List[dict] = []
+        taken_slots: List[int] = []
+        taken_q: List[_Request] = []
+        for i, r in enumerate(self.slots):
+            if len(out) >= limit:
+                break
+            if r is None or r.max_new - len(r.out) < 1:
+                continue          # retiring this step anyway
+            out.append(self._export_one(r, emitted=list(r.out)))
+            taken_slots.append(i)
+        for r in self.queue:
+            if len(out) >= limit:
+                break
+            out.append(self._export_one(r, emitted=[]))
+            taken_q.append(r)
+        if pop:
+            for i in taken_slots:
+                self._release_slot(i)
+                self.slots[i] = None
+            self.queue = [r for r in self.queue if r not in taken_q]
+        return out
+
+    def _export_one(self, r: _Request, emitted: List[int]) -> dict:
+        doc = {"rid": r.rid, "prompt": list(r.prompt), "emitted": emitted,
+               "max_new": r.max_new - len(emitted), "eos_id": r.eos_id,
+               "temperature": r.temperature, "top_p": r.top_p,
+               "seed": int(r.seed),
+               "tenant": r.tenant.id if r.tenant is not None else None,
+               "kv_keys": []}
+        if self.kv_store is not None:
+            doc["kv_keys"] = [k.hex() for k in self.kv_store.chain_keys(
+                list(r.prompt) + emitted)]
+        return doc
+
+    def _release_slot(self, slot: int) -> None:
+        """Capacity a slot holds besides its dense rows; the paged
+        server frees its blocks."""
 
     def _tenant_config(self):
         if self._tenant_cfg is None:
@@ -664,7 +767,12 @@ class DecodeServer:
         finished: Dict[object, List[int]] = {}
         t0 = time.monotonic()
         plans = []
-        if self.queue and self._shed_now():
+        if self.queue and self._draining:
+            # the drain's closed gate: queued requests wait for export
+            # while the in-flight slots run out
+            self._note_drain_defer(min(sum(s is None for s in self.slots),
+                                       len(self.queue)))
+        elif self.queue and self._shed_now():
             # new prefills defer; in-flight decode keeps its slots
             self._note_shed(min(sum(s is None for s in self.slots),
                                 len(self.queue)))
@@ -729,13 +837,18 @@ class DecodeServer:
         return finished
 
     def run(self, lookahead: int = 1) -> Dict[object, List[int]]:
-        """Step until every request finished; ``lookahead`` decode steps
-        per host readback.  Raises when the queue head can never be
-        admitted and nothing in flight can free capacity."""
+        """Step until every request finished (draining: until only
+        deferred requests are left); ``lookahead`` decode steps per host
+        readback.  Raises when the queue head can never be admitted and
+        nothing in flight can free capacity."""
         if lookahead < 1:
             raise ValueError(f"lookahead must be >= 1, got {lookahead}")
         results: Dict[object, List[int]] = {}
         while not self.idle:
+            if self._draining and all(s is None for s in self.slots):
+                # only drain-deferred requests are left: they belong to
+                # the handoff bundle, and the closed gate admits none
+                break
             if (self.queue and all(s is None for s in self.slots)
                     and not self._can_admit(self.queue[0])):
                 raise RuntimeError(
@@ -930,13 +1043,14 @@ class PagedDecodeServer(DecodeServer):
                                           .reshape(L, nkv, ct * bk, hd))
             cache["pos"] = ct * bk
             suffix = req.prompt[ct * bk:]
-            logits, cache = _dec.block_step(self.params,
-                                            self._prompt(suffix), cfg,
-                                            cache, last=len(suffix) - 1)
+            logits, cache = _dec.block_step(
+                self.params, self._prompt(suffix, (n_pb - ct) * bk), cfg,
+                cache, last=len(suffix) - 1)
         else:
             logits, cache = _dec.prefill(self.params,
-                                         self._prompt(req.prompt), cfg,
-                                         cache)
+                                         self._prompt(req.prompt,
+                                                      n_pb * bk),
+                                         cfg, cache, last=s - 1)
         idx = torch.tensor(blks[ct:n_pb], device=self.device)
         for pool, src in ((self.k_pool, cache["k"]),
                           (self.v_pool, cache["v"])):
@@ -963,12 +1077,19 @@ class PagedDecodeServer(DecodeServer):
     def _retire_or_keep(self, slot: int):
         ret = super()._retire_or_keep(slot)
         if ret is not None:
-            for blk in self.blocks[slot]:
-                if not self._pc_release(blk):
-                    self.free.append(blk)
-            self.blocks[slot] = []
-            self._table_dev = None
+            self._release_slot(slot)
         return ret
+
+    def _release_slot(self, slot: int) -> None:
+        """The slot's blocks back to the pool (a cache-registered block
+        drops a ref and stays evictable), on retirement and on a drain's
+        export alike.  Nothing is written back: the store's pages were
+        put at admission."""
+        for blk in self.blocks[slot]:
+            if not self._pc_release(blk):
+                self.free.append(blk)
+        self.blocks[slot] = []
+        self._table_dev = None
 
     def stats(self) -> Dict[str, float]:
         out = super().stats()

@@ -8,8 +8,13 @@ namespace and layout: matmul weights are ``(d_in, d_out)`` and apply as
 weights in float32; for training, every parameter is a float32 master
 weight and ``wmat`` casts matrices to the compute dtype at use, as the
 JAX model does.  Attention scores and softmax run in float32; the output
-of every matmul is in the compute dtype.  Mixture-of-experts layers and
-quantized weights are not part of this port yet.
+of every matmul is in the compute dtype.
+
+Mixture-of-experts layers (models/moe.py) replace the dense MLP of every
+layer ``i`` with ``i % moe_every == moe_every - 1`` when ``n_experts`` >
+0; their router weights stay float32.  Weight-only quantized leaves
+(models/quant.py) dequantize in ``wmat``; training takes full-precision
+weights only.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from nvme_strom_tpu_torch.models import moe as _moe
 
 
 @dataclass(frozen=True)
@@ -41,7 +48,15 @@ class TransformerConfig:
     rope_scaling: object = None
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # mixture-of-experts (models/moe.py): 0 experts is a dense model
     n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_every: int = 2            # layer i is MoE iff i % moe_every ==
+    #                               moe_every - 1
+    # tokens per routing group; 0 = one batch row
+    moe_group_size: int = 0
     # "full" recomputes each layer in the backward
     # (torch.utils.checkpoint); "none" keeps every activation
     remat_policy: str = "none"
@@ -53,9 +68,6 @@ class TransformerConfig:
         if isinstance(self.rope_scaling, dict):
             object.__setattr__(self, "rope_scaling",
                                tuple(sorted(self.rope_scaling.items())))
-        if self.n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.n_heads} heads not divisible by "
                              f"{self.n_kv_heads} kv heads")
@@ -68,6 +80,10 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    def is_moe_layer(self, i: int) -> bool:
+        return (self.n_experts > 0
+                and i % self.moe_every == self.moe_every - 1)
+
 
 def flagship_config() -> TransformerConfig:
     return TransformerConfig()
@@ -76,6 +92,12 @@ def flagship_config() -> TransformerConfig:
 def tiny_config() -> TransformerConfig:
     return TransformerConfig(vocab=128, d_model=64, n_layers=2, n_heads=4,
                              n_kv_heads=2, d_ff=128, max_seq=64)
+
+
+def tiny_moe_config() -> TransformerConfig:
+    return TransformerConfig(vocab=128, d_model=64, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_ff=128, max_seq=64,
+                             n_experts=4, expert_top_k=2)
 
 
 def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
@@ -88,23 +110,33 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
         shapes.update({
             L + "attn_norm": (d,), L + "wq": (d, nh * hd),
             L + "wk": (d, nkv * hd), L + "wv": (d, nkv * hd),
-            L + "wo": (nh * hd, d), L + "mlp_norm": (d,),
-            L + "w_gate": (d, cfg.d_ff), L + "w_up": (d, cfg.d_ff),
-            L + "w_down": (cfg.d_ff, d)})
+            L + "wo": (nh * hd, d), L + "mlp_norm": (d,)})
+        if cfg.is_moe_layer(i):
+            shapes.update(_moe.moe_param_shapes(cfg, L))
+        else:
+            shapes.update({L + "w_gate": (d, cfg.d_ff),
+                           L + "w_up": (d, cfg.d_ff),
+                           L + "w_down": (cfg.d_ff, d)})
     return shapes
 
 
 def init_params(seed: int, cfg: TransformerConfig) -> Dict[str, np.ndarray]:
     """Float32 numpy parameters made from ``seed``: norms are ones,
-    every matrix is normal / sqrt(fan_in) (the JAX init scheme; the
-    token embedding uses fan_in 1)."""
+    every matrix is normal / sqrt(fan_in), fan_in its input dim (the JAX
+    init scheme; the token embedding uses fan_in 1); an MoE layer's
+    weights come from ``moe.init_moe_params``."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, shape in param_shapes(cfg).items():
-        if len(shape) == 1:
+        if name in out:
+            continue
+        if name.endswith(".router"):
+            out.update(_moe.init_moe_params(rng, cfg,
+                                            name[:-len("router")]))
+        elif len(shape) == 1:
             out[name] = np.ones(shape, np.float32)
         else:
-            fan_in = 1.0 if name == "tok_embed" else shape[0]
+            fan_in = 1.0 if name == "tok_embed" else shape[-2]
             out[name] = (rng.standard_normal(shape, dtype=np.float32)
                          / np.float32(np.sqrt(fan_in)))
     return out
@@ -161,11 +193,28 @@ def _apply_rope(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 def wmat(p: Dict[str, torch.Tensor], name: str, dtype: torch.dtype
          ) -> torch.Tensor:
-    """Matmul weight by name in ``dtype`` (dense weights only)."""
+    """Matmul weight by name in ``dtype``, dequantizing a weight-only
+    quantized leaf (models/quant.py) in ``dtype`` as the JAX ``wmat``
+    does: int8 ``{"q8" (..., d_in, d_out), "scale" (..., 1, d_out)}`` is
+    ``q8 * scale``; packed int4 ``{"q4" (..., d_in / 2, d_out), "scale4"
+    (..., n_groups, 1, d_out)}`` unpacks byte i's low nibble to row 2i
+    and its high nibble to row 2i + 1 (each stored as q + 8), then
+    scales each group of rows.  The dequantized weight is a new tensor
+    of the full weight's size in ``dtype``."""
     w = p[name]
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"{name}: quantized weights are not ported yet")
+    if isinstance(w, dict):
+        if "q8" in w:
+            return w["q8"].to(dtype) * w["scale"].to(dtype)
+        pk, sc = w["q4"], w["scale4"]
+        lead = tuple(pk.shape[:-2])
+        dhalf, dout = pk.shape[-2], pk.shape[-1]
+        lo = (pk & 0xF).to(torch.int8) - 8
+        hi = (pk >> 4).to(torch.int8) - 8
+        q = torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * dhalf, dout)
+        ngroup = sc.shape[-3]
+        g = (2 * dhalf) // ngroup
+        wf = q.to(dtype).reshape(*lead, ngroup, g, dout) * sc.to(dtype)
+        return wf.reshape(*lead, 2 * dhalf, dout)
     return w if w.dtype == dtype else w.to(dtype)
 
 
@@ -268,6 +317,15 @@ def mlp(x, p, prefix) -> torch.Tensor:
     return (gate * up) @ wmat(p, prefix + "w_down", x.dtype)
 
 
+def mlp_block(h, p, prefix: str, cfg: TransformerConfig) -> torch.Tensor:
+    """The layer's MLP, dense or MoE by its index in ``prefix``
+    (``layers.<i>.``); the one dispatch every inference path shares.
+    The MoE aux loss is dropped: inference has no use for it."""
+    if cfg.is_moe_layer(int(prefix.split(".")[1])):
+        return _moe.moe_mlp(h, p, prefix, cfg)[0]
+    return mlp(h, p, prefix)
+
+
 def embed(p, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     return F.embedding(tokens.long(), p["tok_embed"]).to(cfg.dtype)
 
@@ -289,23 +347,28 @@ def forward_hidden(params: Dict, tokens: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) → (final-norm hidden (b, s, d) in cfg.dtype,
     aux_loss scalar), everything short of the lm_head.  aux_loss is the
-    MoE balancing loss of the JAX model, 0 for the dense layers this
-    port has.  ``remat_policy="full"`` recomputes each layer in the
-    backward (``torch.utils.checkpoint``)."""
+    summed MoE load-balancing loss, 0 for a dense model.
+    ``remat_policy="full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``)."""
     policy = _remat_policy(cfg)
     x = wmat(params, "tok_embed", cfg.dtype)[tokens.long()]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer(x, i):
         L = f"layers.{i}."
         x = x + attention(rms_norm(x, params[L + "attn_norm"], cfg.norm_eps),
                           params, L, cfg, attn_fn)
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
-        return x + mlp(h, params, L)
+        if cfg.is_moe_layer(i):
+            h, a = _moe.moe_mlp(h, params, L, cfg)
+        else:
+            h, a = mlp(h, params, L), torch.zeros_like(aux)
+        return x + h, a
 
     for i in range(cfg.n_layers):
-        x = (checkpoint(layer, x, i, use_reentrant=False)
-             if policy == "full" else layer(x, i))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = (checkpoint(layer, x, i, use_reentrant=False)
+                if policy == "full" else layer(x, i))
+        aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -361,14 +424,16 @@ def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
             attn_fn=None) -> torch.Tensor:
     """Next-token cross-entropy; tokens are input and target.  The full
     sequence is forwarded and the last logit dropped.  ``xent_chunks``
-    > 1 takes :func:`chunked_xent`."""
+    > 1 takes :func:`chunked_xent`.  The MoE aux loss is added times
+    ``router_aux_coef``."""
     if cfg.xent_chunks > 1:
-        hidden, _ = forward_hidden(params, tokens, cfg, attn_fn)
-        return chunked_xent(params, hidden, tokens, cfg)
-    logits, _ = forward_with_aux(params, tokens, cfg, attn_fn)
+        hidden, aux = forward_hidden(params, tokens, cfg, attn_fn)
+        return (chunked_xent(params, hidden, tokens, cfg)
+                + cfg.router_aux_coef * aux)
+    logits, aux = forward_with_aux(params, tokens, cfg, attn_fn)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = logp.gather(-1, tokens[:, 1:].long()[..., None])
-    return -ll.mean()
+    return -ll.mean() + cfg.router_aux_coef * aux
 
 
 def value_and_grad(params: Dict, tokens: torch.Tensor,
@@ -437,9 +502,15 @@ def adamw(params, lr: float) -> torch.optim.AdamW:
 def trainable_params(np_params: Dict[str, np.ndarray],
                      device: torch.device) -> Dict[str, torch.Tensor]:
     """float32 leaf tensors on ``device`` that require grad, from
-    :func:`init_params`' numpy arrays or any tensors."""
+    :func:`init_params`' numpy arrays or any tensors.  A quantized leaf
+    raises: the optimizer would update its integers and scales as
+    independent tensors."""
     out = {}
     for name, arr in np_params.items():
+        if isinstance(arr, dict):
+            raise ValueError(
+                f"{name} is a quantized leaf: training takes "
+                "full-precision weights (quantize after training)")
         t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(arr))
         out[name] = t.detach().to(device=device, dtype=torch.float32

@@ -1,9 +1,10 @@
-"""Engine, scheduler, host-tier, recovery, supervision, loader, KV-store
-and cold-start configuration (counterpart of
+"""Engine, scheduler, host-tier, recovery, supervision, loader, KV-store,
+cold-start and handoff configuration (counterpart of
 nvme_strom_tpu/utils/config.py ``EngineConfig``, ``SchedConfig``,
 ``HostCacheConfig``, ``ResilientConfig``, ``BreakerConfig``,
-``FlightConfig``, ``LoaderConfig``, ``KVServeConfig``, ``TenantConfig``
-and ``ColdStartConfig``, trimmed to what the port's paths read).
+``FlightConfig``, ``LoaderConfig``, ``KVServeConfig``, ``TenantConfig``,
+``ColdStartConfig`` and ``HandoffConfig``, trimmed to what the port's
+paths read).
 
 Engine and loader sizes are these defaults or explicit arguments: they
 are never read from a tuning ledger, and of the engine's knobs only the
@@ -393,15 +394,29 @@ class FlightConfig:
             raise ValueError("min_interval_s must be >= 0")
 
 
+def coldstart_enabled() -> bool:
+    """The ``STROM_COLDSTART`` gate: ``ColdStartConfig.enabled``'s
+    default."""
+    return os.environ.get("STROM_COLDSTART", "0") == "1"
+
+
 @dataclass(frozen=True)
 class ColdStartConfig:
-    """The cold-start coordinator's stall trigger (io/coldstart.py),
-    read from the environment at construction.  The JAX package's gate
-    and warming budgets (``STROM_COLDSTART``, ``STROM_WARM_HINT_SPANS``,
-    ``STROM_WARM_PAGES``) wait for a consumer in the port: a server on a
-    ``FaultingCheckpoint`` is the cold start here, and the warming
-    passes take their budgets as arguments."""
+    """Cold-start knobs (io/coldstart.py, io/warmup.py,
+    parallel/weights.py ``FaultingCheckpoint``), read from the
+    environment at construction.
 
+    ``STROM_COLDSTART=1`` arms the boot from a retiring replica's
+    handoff bundle: with the default 0,
+    ``ColdStartCoordinator.consume_handoff`` replays nothing and returns
+    None, and the replica boots as the plain stack it was given.  The
+    warming budgets are honoured by the code that warms:
+    ``warm_hint_spans`` by io/warmup.py ``collect_warm_hints`` /
+    ``refresh_hints`` (a handoff bundle's hint snapshots included),
+    ``warm_pages`` by models/kv_offload.py ``PrefixStore.warm_pages``."""
+
+    #: the gate; 0 (default) = no bundle replay at boot
+    enabled: bool = field(default_factory=coldstart_enabled)
     #: demand-fault p99 target (ms) of the ``faulting`` phase; past it
     #: the coordinator dumps ``coldstart_stall``; 0 = no trigger
     fault_slo_ms: float = field(
@@ -410,9 +425,67 @@ class ColdStartConfig:
     #: demand-fault latencies kept for that p99
     fault_window: int = field(
         default_factory=lambda: _env_int("STROM_COLDSTART_WINDOW", 64))
+    #: host-tier spans kept per ``.warmhints.json`` manifest, largest
+    #: first
+    warm_hint_spans: int = field(
+        default_factory=lambda: _env_int("STROM_WARM_HINT_SPANS", 1024))
+    #: prefix-store pages the warming phase re-reads at ``prefetch``
+    #: class, most reused first
+    warm_pages: int = field(
+        default_factory=lambda: _env_int("STROM_WARM_PAGES", 256))
 
     def __post_init__(self):
         if self.fault_slo_ms < 0:
             raise ValueError("fault_slo_ms must be >= 0")
         if self.fault_window < 8:
             raise ValueError("fault_window must be >= 8")
+        if self.warm_hint_spans < 0 or self.warm_pages < 0:
+            raise ValueError("warm hint/page budgets must be >= 0")
+
+
+def handoff_enabled() -> bool:
+    """The ``STROM_HANDOFF`` gate: ``HandoffConfig.enabled``'s
+    default."""
+    return os.environ.get("STROM_HANDOFF", "0") == "1"
+
+
+@dataclass(frozen=True)
+class HandoffConfig:
+    """Drain and warm handoff knobs (io/handoff.py), read from the
+    environment at construction.
+
+    ``STROM_HANDOFF=1`` arms the rolling replacement: a retiring
+    replica defers new prefills (never drops them), lets in-flight
+    sessions run for up to ``deadline_s``, then publishes an atomic
+    ``.handoff.json`` bundle that the replacement consumes at boot.
+    With the default 0 a ``DrainCoordinator`` never leaves ``serving``
+    (its drain, publish and signal hooks do nothing) and
+    ``consume_bundle`` replays nothing.  The JAX
+    config's ``poll_ms`` (``STROM_DRAIN_POLL_MS``) is left out: its drain
+    loop only yields between serving steps, and the port's steps pace the
+    loop themselves."""
+
+    #: the gate; 0 (default) = no drain, no bundle, no ``drain_phase``
+    #: gauge
+    enabled: bool = field(default_factory=handoff_enabled)
+    #: seconds the draining phase waits for in-flight sessions before
+    #: exporting the rest into the bundle; 0 = export at once
+    deadline_s: float = field(
+        default_factory=lambda: _env_float("STROM_DRAIN_DEADLINE_S",
+                                           30.0))
+    #: 1 = ``install_drain_signals`` hooks SIGTERM/SIGINT: drain,
+    #: publish, then a forced flight dump on the way out
+    drain_on_sigterm: bool = field(
+        default_factory=lambda: os.environ.get("STROM_DRAIN_ON_SIGTERM",
+                                               "0") == "1")
+    #: sessions one bundle exports at most, in-flight slots first
+    max_sessions: int = field(
+        default_factory=lambda: _env_int("STROM_HANDOFF_MAX_SESSIONS",
+                                         256))
+
+    def __post_init__(self):
+        if self.deadline_s < 0:
+            raise ValueError("deadline_s must be >= 0")
+        if self.max_sessions < 0:
+            raise ValueError("max_sessions must be >= 0")
+

@@ -80,13 +80,21 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
   ``coldstart_warm_spans`` / ``_warm_pages`` hint spans and store pages
   warmed, ``coldstart_stall_dumps`` stall dumps, ``coldstart_brownouts``
   degraded entries during a cold start.
+* drain and handoff (io/handoff.py, the servers' drain gate):
+  ``handoff_drains`` drains begun, ``handoff_deferred`` admissions the
+  closed gate deferred, ``handoff_sessions_exported`` /
+  ``_restored`` sessions shipped in a bundle and re-admitted from one,
+  ``handoff_bundles`` / ``_bundle_bytes`` bundles published and their
+  size, ``handoff_brownouts`` boots whose bundle was missing, torn or
+  stale, ``handoff_stall_dumps`` drains that outlived their deadline.
 
 Gauges are point-in-time values that overwrite (``set_gauges``), carried
 in ``snapshot()`` beside the counters: ``kv_restore_p99_ms`` (the store's
 restore-batch p99 from its log2 histogram),
 ``kv_store_pages_resident``, ``ring_health`` (each ring's breaker
-state) and ``engine_degraded``, and ``boot_phase`` /
-``boot_phase_code``.
+state) and ``engine_degraded``, ``boot_phase`` /
+``boot_phase_code``, ``drain_phase`` / ``drain_phase_code`` and
+``handoff_source`` (``bundle`` once a boot consumed one).
 """
 
 from __future__ import annotations
@@ -124,10 +132,14 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "coldstart_faults", "coldstart_fault_bytes",
             "coldstart_bulk_tensors", "coldstart_warm_spans",
             "coldstart_warm_pages", "coldstart_stall_dumps",
-            "coldstart_brownouts")
+            "coldstart_brownouts", "handoff_drains", "handoff_deferred",
+            "handoff_sessions_exported", "handoff_sessions_restored",
+            "handoff_bundles", "handoff_bundle_bytes", "handoff_brownouts",
+            "handoff_stall_dumps")
 GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
           "cache_bytes_resident", "cache_lines_resident", "ring_health",
-          "engine_degraded", "boot_phase", "boot_phase_code")
+          "engine_degraded", "boot_phase", "boot_phase_code", "drain_phase",
+          "drain_phase_code", "handoff_source")
 
 
 @dataclass
@@ -203,6 +215,14 @@ class StromStats:
     coldstart_warm_pages: int = 0
     coldstart_stall_dumps: int = 0
     coldstart_brownouts: int = 0
+    handoff_drains: int = 0
+    handoff_deferred: int = 0
+    handoff_sessions_exported: int = 0
+    handoff_sessions_restored: int = 0
+    handoff_bundles: int = 0
+    handoff_bundle_bytes: int = 0
+    handoff_brownouts: int = 0
+    handoff_stall_dumps: int = 0
     _gauges: dict = field(default_factory=dict, repr=False, compare=False)
     _class_stats: dict = field(default_factory=dict, repr=False,
                                compare=False)

@@ -8,9 +8,10 @@ greedy tokens compared exactly.
 
 The checkpoint is one safetensors file of the JAX tiny model's float32
 parameters; the port reads it onto the CPU, the JAX package onto its
-CPU device.  ``consume_handoff`` waits for the port of io/handoff.py
-(ROADMAP item 9), and ``strom-scrub --gc`` for the port's tools (item
-15): the orphan sweep is held against the JAX sweep functions."""
+CPU device.  ``consume_handoff`` is held against the JAX package in
+tests/test_torch_handoff.py; ``strom-scrub --gc`` waits for the port's
+tools (ROADMAP item 15), so the orphan sweep is held against the JAX
+sweep functions."""
 
 import dataclasses
 import json
@@ -46,6 +47,7 @@ from nvme_strom_tpu.models import transformer as jtr
 from nvme_strom_tpu.parallel import weights as j_weights
 from nvme_strom_tpu.utils import config as j_config
 from nvme_strom_tpu.utils.stats import StromStats as JaxStats
+from nvme_strom_tpu_torch.checkpoint import manager as p_manager
 from nvme_strom_tpu_torch.convert import params_from_jax
 from nvme_strom_tpu_torch.io import coldstart as p_cs
 from nvme_strom_tpu_torch.io import faults as p_faults
@@ -149,27 +151,34 @@ def _serve(m, cfg, params, prompt, max_new):
 
 # -- config and the inert default ----------------------------------------------
 
-def test_config_defaults_and_validation():
-    """The port keeps the stall trigger's fields of the JAX config (its
-    gate and warming budgets wait for a consumer in the port): same
-    defaults, same errors."""
-    keep = ("fault_slo_ms", "fault_window")
-
+def test_config_defaults_and_validation(monkeypatch):
+    """The port's config is the JAX config: same fields, defaults,
+    gate, environment and errors."""
     def case(m):
-        # the JAX config's other fields, where it has them
-        extra = ({} if m.name == "port" else
-                 dict(enabled=False, warm_hint_spans=1, warm_pages=1))
-        cfg = dataclasses.asdict(m.config.ColdStartConfig())
-        out = [{k: cfg[k] for k in keep}]
-        for bad in (dict(fault_slo_ms=-1.0, fault_window=64),
-                    dict(fault_slo_ms=0.0, fault_window=4)):
+        out = [dataclasses.asdict(m.config.ColdStartConfig()),
+               m.config.coldstart_enabled()]
+        for bad in (dict(fault_slo_ms=-1.0), dict(fault_window=4),
+                    dict(warm_hint_spans=-1), dict(warm_pages=-1)):
             with pytest.raises(ValueError) as e:
-                m.config.ColdStartConfig(**extra, **bad)
+                m.config.ColdStartConfig(**{
+                    **dict(enabled=False, fault_slo_ms=0.0,
+                           fault_window=64, warm_hint_spans=1,
+                           warm_pages=1), **bad})
             out.append(str(e.value))
         return out
     got = _both(case)
-    assert got[0] == {"fault_slo_ms": 0.0, "fault_window": 64}
-    assert set(dataclasses.asdict(p_config.ColdStartConfig())) == set(keep)
+    assert got[0] == {"enabled": False, "fault_slo_ms": 0.0,
+                      "fault_window": 64, "warm_hint_spans": 1024,
+                      "warm_pages": 256}
+    assert got[1] is False
+    for k, v in (("STROM_COLDSTART", "1"), ("STROM_WARM_HINT_SPANS", "7"),
+                 ("STROM_WARM_PAGES", "5")):
+        monkeypatch.setenv(k, v)
+    got = _both(lambda m: (dataclasses.asdict(m.config.ColdStartConfig()),
+                           m.config.coldstart_enabled()))
+    assert got == ({"enabled": True, "fault_slo_ms": 0.0,
+                    "fault_window": 64, "warm_hint_spans": 7,
+                    "warm_pages": 5}, True)
 
 
 def test_gate_off_is_bit_for_bit_inert(models):
@@ -251,10 +260,9 @@ def test_stall_trigger_dumps_flight_with_backlog(tmp_path):
         d = tmp_path / m.name
         os.makedirs(d)
         eng = _FakeEngine(m, d)
-        extra = ({} if m.name == "port" else
-                 dict(enabled=True, warm_hint_spans=1, warm_pages=1))
         coord = m.cs.ColdStartCoordinator(eng, cfg=m.config.ColdStartConfig(
-            fault_slo_ms=1.0, fault_window=16, **extra))
+            enabled=True, fault_slo_ms=1.0, fault_window=16,
+            warm_hint_spans=1, warm_pages=1))
         coord.note_fault_ms(100.0)         # cold: disarmed
         out = [eng.stats.coldstart_stall_dumps]
         coord.note_serving_started()
@@ -315,9 +323,22 @@ def test_coordinator_listens_to_a_real_supervisor(tmp_path, monkeypatch):
     assert _both(case) == (True, 1)
 
 
-def test_consume_handoff_waits_for_the_handoff_port():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        p_cs.ColdStartCoordinator().consume_handoff("/nonexistent")
+def test_consume_handoff_waits_for_the_handoff_port(tmp_path,
+                                                    monkeypatch):
+    """The handoff port has landed: a coordinator booting from a missing
+    bundle under both gates browns out to the plain cold start, as the
+    JAX one does (the whole protocol, and the gates off, are
+    tests/test_torch_handoff.py)."""
+    monkeypatch.setenv("STROM_COLDSTART", "1")
+    monkeypatch.setenv("STROM_HANDOFF", "1")
+
+    def case(m):
+        eng = _FakeEngine(m, tmp_path)
+        got = m.cs.ColdStartCoordinator(eng).consume_handoff(
+            str(tmp_path / "nonexistent"))
+        return got, eng.stats.handoff_brownouts, \
+            eng.stats.handoff_sessions_restored
+    assert _both(case) == (None, 1, 0)
 
 
 def test_scheduler_backlog_shape():
@@ -617,8 +638,8 @@ def test_orphan_warmhints_swept_by_age_gated_gc(tmp_path):
         return gone, live
 
     out = {}
-    for name, find, sweep in (("port", p_warm.find_orphan_manifests,
-                               p_warm.sweep_orphan_manifests),
+    for name, find, sweep in (("port", p_manager.find_orphan_manifests,
+                               p_manager.sweep_orphan_manifests),
                               ("jax", j_find_orphans, j_sweep_orphans)):
         root = tmp_path / name
         gone, live = make(root)

@@ -374,6 +374,101 @@ def test_dense_and_paged_servers_agree_on_the_card(dev):
     torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("quant,rail", [(None, 0.0), ("int8", 0.05),
+                                        ("int4", 0.25)])
+def test_moe_and_quantized_serving_on_the_card(dev, quant, rail):
+    """A MoE model (dropless: capacity factor E / k), full precision or
+    with weight-only int8 / int4 leaves made on the card: both servers
+    give the same tokens, decode and paged attention launch, and the
+    quantized first-step logits stay within the JAX tests' rails of the
+    full-precision ones."""
+    from nvme_strom_tpu_torch.convert import params_from_jax
+    from nvme_strom_tpu_torch.models import decode as dec
+    from nvme_strom_tpu_torch.models import quant as q
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+    cfg = TransformerConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=256,
+                            n_experts=4, expert_top_k=2, capacity_factor=2.0)
+    full = params_from_jax(init_params(0, cfg), cfg, dev)
+    params = {None: lambda p: p, "int8": q.quantize_weights_int8,
+              "int4": lambda p: q.quantize_weights_int4(p, group=32)
+              }[quant](full)
+    assert params["layers.1.router"].dtype == torch.float32
+    if quant:
+        assert isinstance(params["layers.1.moe_w_up"], dict)
+        assert params["layers.1.moe_w_up"][
+            "q8" if quant == "int8" else "q4"].device == dev
+    rng = np.random.default_rng(0)
+    reqs = [(f"r{i}", rng.integers(0, 256, n).tolist(), 12)
+            for i, n in enumerate([3, 40, 90, 7, 130])]
+    outs = []
+    d0, p0 = decode_attention.launches, paged_attention.launches
+    for srv in (DecodeServer(params, cfg, 3, 256, device=dev),
+                PagedDecodeServer(params, cfg, 3, 256, total_blocks=20,
+                                  block_len=32, device=dev)):
+        for rid, p, m in reqs:
+            srv.submit(rid, p, m)
+        outs.append(srv.run(lookahead=4))
+    assert outs[0] == outs[1]
+    assert decode_attention.launches > d0 and paged_attention.launches > p0
+    if quant:
+        prompt = torch.tensor([reqs[2][1]], device=dev)
+        lg = []
+        for p in (full, params):
+            cache = dec.init_cache(cfg, 1, 96, device=dev)
+            lg.append(dec.prefill(p, prompt, cfg, cache)[0].float())
+        rel = ((lg[1] - lg[0]).abs().max() / lg[0].abs().max()).item()
+        assert rel < rail, rel
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_moe_padded_prefill_serving_on_the_card(dev, kind, monkeypatch):
+    """A MoE model whose expert capacity binds (capacity factor 1.25,
+    below E / k = 2): each prefill is padded as the JAX server pads it
+    (``moe.prefill_len``), so pad tokens take expert slots from real
+    ones.  In float32 the server's greedy tokens on the card equal its
+    tokens on the CPU (where tests/test_torch_quant_moe.py holds them
+    against the JAX servers), and its attention kernel launches."""
+    from nvme_strom_tpu_torch.convert import params_from_jax
+    from nvme_strom_tpu_torch.models.moe import prefill_len
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = TransformerConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=256,
+                            n_experts=4, expert_top_k=2,
+                            capacity_factor=1.25, dtype=torch.float32)
+    assert prefill_len(cfg, 40, 64) == 64           # the padded path
+    np_params = init_params(0, cfg)
+    rng = np.random.default_rng(1)
+    reqs = [(f"r{i}", rng.integers(0, 256, n).tolist(), 12)
+            for i, n in enumerate([3, 40, 90, 7, 130])]
+    kernel = decode_attention if kind == "dense" else paged_attention
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        params = params_from_jax(np_params, cfg, d)
+        srv = (DecodeServer(params, cfg, 3, 256, device=d)
+               if kind == "dense" else
+               PagedDecodeServer(params, cfg, 3, 256, total_blocks=20,
+                                 block_len=32, device=d))
+        for rid, p, m in reqs:
+            srv.submit(rid, p, m)
+        n0 = kernel.launches
+        outs.append(srv.run(lookahead=4))
+        if d.type == "cuda":
+            assert kernel.launches > n0
+    assert outs[0] == outs[1]
+
+
 def test_prefix_store_restores_through_h2d_on_the_card(dev, tmp_path):
     """Pages put from the host restore onto the card bitwise, each piece
     copied by h2d_copy from its staging buffer in place (the bridge

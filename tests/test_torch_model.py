@@ -173,11 +173,17 @@ def test_params_from_jax_checks():
     with pytest.raises(ValueError, match="shape"):
         params_from_jax({**good, "lm_head": np.zeros((3, 3), np.float32)},
                         cfg_t, "cpu")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        params_from_jax({**good, "lm_head": {"q8": 0, "scale": 1}}, cfg_t,
-                        "cpu")
-    with pytest.raises(NotImplementedError, match="experts"):
-        ttr.TransformerConfig(n_experts=4)
+    # quantized leaves are ported now (tests/test_torch_quant_moe.py):
+    # one whose logical shape is not the config's raises like a tensor
+    with pytest.raises(ValueError, match="lm_head: shape"):
+        params_from_jax({**good, "lm_head": {"q8": np.zeros((3, 3), np.int8),
+                                             "scale": np.ones((1, 3))}},
+                        cfg_t, "cpu")
+    # and so are MoE layers: the config builds, its shapes convert
+    moe = dataclasses.replace(cfg_t, n_experts=4)
+    out = params_from_jax({n: np.zeros(s, np.float32) for n, s in
+                           ttr.param_shapes(moe).items()}, moe, "cpu")
+    assert out["layers.1.moe_w_up"].shape == (4, 64, 128)
     # bf16 arrays carry over bit for bit; norms stay float32
     cfg16 = dataclasses.replace(cfg_t, dtype=torch.bfloat16)
     rng = np.random.default_rng(0)

@@ -128,8 +128,13 @@ def test_remat_dots_and_moe_are_refused():
                                   torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="dots"):
         ttr.loss_fn(params, torch.zeros(1, 8, dtype=torch.int64), cfg)
-    with pytest.raises(NotImplementedError, match="mixture"):
-        ttr.TransformerConfig(n_experts=4)
+    cfg = dataclasses.replace(cfg, remat_policy="nvme")
+    with pytest.raises(NotImplementedError, match="nvme"):
+        ttr.loss_fn(params, torch.zeros(1, 8, dtype=torch.int64), cfg)
+    # mixture-of-experts layers are ported now (models/moe.py; the
+    # parity cases are tests/test_torch_quant_moe.py): the config builds
+    moe = ttr.TransformerConfig(n_experts=4)
+    assert [moe.is_moe_layer(i) for i in range(4)] == [False, True] * 2
 
 
 # -- Trainer (tests/test_trainer.py's cases) --------------------------------
