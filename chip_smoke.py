@@ -145,7 +145,28 @@ It builds the port's native libraries from the checkout, then:
    ``STROM_VERIFY=full`` and a shard error budget of 1, the epoch
    completing on the other 3 shards with the damaged one quarantined;
 7. checks one float32 train step of the flagship through the flash
-   kernels against the same step through their plain versions;
+   kernels against the same step through their plain versions; then
+   training beyond device memory (``train_offload_phase``): one step of
+   the flagship's widths at 16 layers under remat none, full, dots and
+   nvme (layer inputs through the NVMe activation store), loss and
+   gradients against none's, activation peaks in that order, nvme's
+   writes and reads one a layer, O_DIRECT, nothing bounced;
+   ``OffloadedAdam`` (64 MiB groups) against the in-HBM AdamW over 10
+   flagship steps fed the same gradients, the moments' device memory
+   within twice a peak group, every moment byte written O_DIRECT, the
+   moment file resumed bitwise and a dirty manifest refused; QLoRA rank
+   16 over an int4 base of Llama-3-8B widths (2 layers): t=0 logits,
+   a falling loss, the base untouched and without gradients, the
+   adapter checkpoint resumed bitwise, ms a step against a bf16 base in
+   turns; ``python -m nvme_strom_tpu_torch.train_lm`` with both
+   offloads, a 3:1 ``--mix``, warmup + cosine and a clip for 2 steps,
+   then resumed to 3; then the data path (``data_formats_phase``):
+   64 MiB of seeded token samples as wds, tfrecord and fixedrec shards,
+   one epoch each and one of wds_raw over the wds shards, every batch
+   bitwise the wds path's, GiB/s and host CPU seconds, zero-copy pieces
+   one ``h2d_copy`` each; ``MixtureLoader``'s 256 draws against numpy's;
+   ``prefetch_to_device``'s copies running beside a held consumer
+   stream, bitwise the loader's;
 8. holds the ring all-gather (kernel 7) against its plain version on 4
    ranks of the card at the row width of phase 9's restore (and on a
    small ragged width), three calls in a row, and times it back to back,
@@ -181,7 +202,9 @@ phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos and
 tenant runs, in the recovery run and in the failure-domain run,
 kernels 1-2 in the cold-start run, the flash kernels and ``h2d_copy``
 in phase 6, kernels 1-3 in its verify run, ``h2d_copy`` in the
-recovering loader's run, and ``h2d_copy`` and ``ici_ring_gather`` in
+recovering loader's run, ``h2d_copy`` and the flash kernels in
+the training-beyond-device-memory run, ``h2d_copy`` in the data-format
+run, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
 without CUDA, or a directory without the package.
@@ -5453,6 +5476,591 @@ def moe_quant_phase(dev, cfg):
     return report
 
 
+# -- training beyond device memory ---------------------------------------------
+
+#: the remat sweep: the flagship's widths at 16 layers, so that full
+#: remat's one (b, s, d) input a layer (16 MiB) outweighs the noise
+REMAT_LAYERS = 16
+REMAT_POLICIES = ("none", "full", "dots", "nvme")
+REMAT_TOL = (1e-4, 1e-5)
+REMAT_TIMED = 3
+OPT_STEPS = 10
+OPT_GROUP_BYTES = 64 << 20
+OPT_TOL = (1e-5, 1e-6)
+QLORA_BATCH = 2
+QLORA_STEPS = 6
+QLORA_RANK = 16
+QLORA_TOL = (3e-2, 3e-2)
+QLORA_TIMED = 3
+
+
+def _step_peak(fn):
+    """(fn's result, device bytes it allocated above the start at its
+    peak, seconds), synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base, \
+        time.monotonic() - t0
+
+
+def _remat_sweep(dev, flagship, toks, attn):
+    """One step under each remat policy from the same init and batch:
+    loss and gradients against ``none``'s, the activation peak, the
+    median ms of the timed steps, and nvme's store traffic."""
+    import dataclasses
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel.act_offload import ActivationStore
+    cfg = dataclasses.replace(flagship, n_layers=REMAT_LAYERS,
+                              xent_chunks=8)
+    params = _card_params(dataclasses.replace(cfg, dtype=torch.float32),
+                          SEED, dev)
+    params = {n: p.requires_grad_() for n, p in params.items()}
+    report: dict = {}
+    ref = None
+    with StromEngine() as eng, ActivationStore(
+            os.path.join(DATA_DIR, "acts", "acts.bin"), cfg.n_layers,
+            engine=eng) as store:
+        for policy in REMAT_POLICIES:
+            c = dataclasses.replace(cfg, remat_policy=policy)
+            st = store if policy == "nvme" else None
+
+            def step():
+                return ttr.value_and_grad(params, toks, c, attn,
+                                          act_store=st)
+            eng.sync_stats()
+            before = eng.stats.snapshot()
+            w0, r0 = store.writes, store.reads
+            (loss, grads), peak, _ = _step_peak(step)
+            eng.sync_stats()
+            after = eng.stats.snapshot()
+            d = {k: after[k] - before[k] for k in (
+                "bytes_direct", "bytes_fallback", "bytes_written_direct",
+                "bounce_bytes")}
+            if ref is None:
+                ref = (loss, grads)
+                worst, bitwise = 0.0, True
+            else:
+                worst, bitwise = 0.0, bool(torch.equal(loss, ref[0]))
+                torch.testing.assert_close(loss, ref[0], rtol=REMAT_TOL[0],
+                                           atol=REMAT_TOL[1])
+                for n, g in grads.items():
+                    torch.testing.assert_close(
+                        g, ref[1][n], rtol=REMAT_TOL[0], atol=REMAT_TOL[1],
+                        msg=f"remat {policy}: gradient of {n}")
+                    worst = max(worst, float((g - ref[1][n]).abs().max()))
+                    bitwise = bitwise and bool(torch.equal(g, ref[1][n]))
+            del grads
+            ms = []
+            for _ in range(REMAT_TIMED):
+                _, _, secs = _step_peak(lambda: step()[0].item())
+                ms.append(secs * 1e3)
+            entry = {"peak_bytes": peak, "loss": loss.item(),
+                     "max_abs_grad_diff": worst, "bitwise": bitwise,
+                     "ms_median": statistics.median(ms), "ms": ms}
+            if policy == "nvme":
+                steps = 1 + REMAT_TIMED
+                entry.update(writes=store.writes - w0,
+                             reads=store.reads - r0, step_stats=d,
+                             prefetch_hits=store.prefetch_hits)
+                if entry["writes"] != entry["reads"] or \
+                        entry["writes"] != steps * cfg.n_layers:
+                    raise AssertionError(f"remat nvme: store counted "
+                                         f"{entry['writes']} writes, "
+                                         f"{entry['reads']} reads")
+                slot = toks.numel() * cfg.d_model * 2
+                if d["bytes_written_direct"] < cfg.n_layers * slot:
+                    raise AssertionError(f"remat nvme: {d} wrote less "
+                                         "than the layer inputs O_DIRECT")
+                if d["bounce_bytes"] or d["bytes_fallback"]:
+                    raise AssertionError(f"remat nvme: reads bounced {d}")
+            report[policy] = entry
+            log(f"remat {policy} ({cfg.n_layers} layers, seq "
+                f"{toks.shape[1]}, batch {toks.shape[0]}, flash, bf16): "
+                f"activation peak {peak / 2**20:.1f} MiB, median step "
+                f"{entry['ms_median']:.2f} ms {[round(x, 2) for x in ms]}, "
+                f"loss {entry['loss']:.6f}, largest gradient difference "
+                f"from none {worst:.3e}, bitwise {bitwise}"
+                + (f"; store {entry['writes']} writes, {entry['reads']} "
+                   f"reads, {entry['prefetch_hits']} prefetch hits, first "
+                   f"step {d}" if policy == "nvme" else ""))
+            del loss
+            torch.cuda.empty_cache()
+    p = {k: v["peak_bytes"] for k, v in report.items()}
+    if not p["nvme"] < p["full"] <= p["dots"] <= p["none"]:
+        raise AssertionError(f"remat peaks out of order: {p}")
+    return report
+
+
+def _opt_offload(dev, flagship, batches, attn):
+    """``OffloadedAdam`` against the in-HBM AdamW over the same steps."""
+    import json as _json
+    import shutil
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel.opt_offload import OffloadedAdam
+    odir = os.path.join(DATA_DIR, "opt_moments")
+    shutil.rmtree(odir, ignore_errors=True)
+    init = _card_params(flagship, SEED, dev)
+    init = {n: p.float() for n, p in init.items()}
+
+    def fresh():
+        return {n: p.clone().requires_grad_() for n, p in init.items()}
+    lr = 3e-4
+    hbm = fresh()
+    opt = ttr.adamw(hbm, lr)
+    ms_hbm = []
+    # in bf16 two optimizers that round differently drift apart within
+    # a few steps (a flipped bf16 rounding of a weight changes the next
+    # gradient), so the offloaded run applies the gradients recorded
+    # here: the optimizer is then the only difference between the runs
+    recorded = []
+    for toks in batches:
+        t0 = time.monotonic()
+        loss, grads = ttr.value_and_grad(hbm, toks, flagship, attn)
+        ttr.apply_gradients(opt, hbm, grads)
+        torch.cuda.synchronize()
+        ms_hbm.append((time.monotonic() - t0) * 1e3)
+        recorded.append(grads)
+    hbm_moments = sum(t.numel() * t.element_size()
+                      for s in opt.state.values() for k, t in s.items()
+                      if k != "step")
+    off = fresh()
+    report = {}
+    with StromEngine() as eng, OffloadedAdam(
+            odir, off, lr=lr, weight_decay=1e-4,
+            group_bytes=OPT_GROUP_BYTES, engine=eng) as offl:
+        ms, upd_s, peaks = [], [], []
+        eng.sync_stats()
+        s0 = eng.stats.snapshot()
+        for toks, grads in zip(batches, recorded):
+            t0 = time.monotonic()
+            loss, own = ttr.value_and_grad(off, toks, flagship, attn)
+            del own
+            _, peak, secs = _step_peak(lambda: offl.update(off, grads))
+            ms.append((time.monotonic() - t0) * 1e3)
+            upd_s.append(secs)
+            peaks.append(peak)
+        del recorded, grads
+        eng.sync_stats()
+        s1 = eng.stats.snapshot()
+        d = {k: s1[k] - s0[k] for k in ("bytes_direct", "bytes_fallback",
+                                         "bytes_written_direct",
+                                         "bounce_bytes")}
+        mb = offl.moment_bytes()
+        worst = max(float((off[n] - hbm[n]).detach().abs().max())
+                    for n in hbm)
+        for n in hbm:
+            torch.testing.assert_close(off[n], hbm[n], rtol=OPT_TOL[0],
+                                       atol=OPT_TOL[1],
+                                       msg=f"offloaded AdamW: {n}")
+        if max(peaks) > 2 * offl.peak_group_bytes():
+            raise AssertionError(f"offloaded moments took {max(peaks)} B "
+                                 f"of device memory, over twice "
+                                 f"{offl.peak_group_bytes()}")
+        if d["bytes_written_direct"] < len(batches) * mb or d["bounce_bytes"]:
+            raise AssertionError(f"moment traffic {d} for {len(batches)} "
+                                 f"steps of {mb} B")
+        # what the file holds, read back on the card by a resumed one
+        groups = [offl._read_group(g) for g in offl._groups]
+        report.update(
+            moment_bytes=mb, groups=offl.num_groups(),
+            peak_group_bytes=offl.peak_group_bytes(),
+            update_peak_bytes=max(peaks), hbm_moment_bytes=hbm_moments,
+            ms_median=statistics.median(ms[1:]),
+            hbm_ms_median=statistics.median(ms_hbm[1:]),
+            update_ms_median=statistics.median(upd_s[1:]) * 1e3,
+            read_gib_s=(d["bytes_direct"] + d["bytes_fallback"])
+            / sum(upd_s) / 2**30,
+            write_gib_s=d["bytes_written_direct"] / sum(upd_s) / 2**30,
+            max_abs_param_diff=worst, stats=d)
+    with StromEngine() as eng, OffloadedAdam(
+            odir, fresh(), lr=lr, weight_decay=1e-4,
+            group_bytes=OPT_GROUP_BYTES, engine=eng) as again:
+        if again.step != len(batches):
+            raise AssertionError(f"resumed at step {again.step}")
+        for g, (ms_, vs_) in zip(again._groups, groups):
+            m2, v2 = again._read_group(g)
+            for a, b in zip(ms_ + vs_, m2 + v2):
+                if not torch.equal(a, b):
+                    raise AssertionError("resumed moments differ")
+        mpath = again.manifest_path
+    good = open(mpath).read()
+    m = _json.loads(good)
+    m["dirty"] = True
+    with open(mpath, "w") as f:
+        _json.dump(m, f)
+    try:
+        OffloadedAdam(odir, fresh(), lr=lr, group_bytes=OPT_GROUP_BYTES)
+    except ValueError as e:
+        if "dirty" not in str(e):
+            raise
+    else:
+        raise AssertionError("a dirty moment manifest was not refused")
+    finally:
+        with open(mpath, "w") as f:
+            f.write(good)
+    log(f"offload-opt (flagship, {len(batches)} steps, seq "
+        f"{batches[0].shape[1]}, batch {batches[0].shape[0]}, flash): "
+        f"{report['moment_bytes']} B of moments in {report['groups']} "
+        f"groups on NVMe, peak {report['update_peak_bytes']} B on the "
+        f"card during an update (2 x peak group {report['peak_group_bytes']}"
+        f"; in-HBM AdamW holds {hbm_moments} B); median step "
+        f"{report['ms_median']:.2f} ms (update {report['update_ms_median']:.2f}"
+        f" ms) against in-HBM {report['hbm_ms_median']:.2f} ms; moments "
+        f"{report['read_gib_s']:.3f} GiB/s in, {report['write_gib_s']:.3f} "
+        f"GiB/s out; params after {len(batches)} steps within "
+        f"{report['max_abs_param_diff']:.3e} of in-HBM AdamW; resumed at "
+        f"step {len(batches)} with moments bitwise; a dirty manifest "
+        f"refused; {d}")
+    return report
+
+
+def _qlora(dev, toks):
+    """LoRA rank 16 over Llama-3-8B widths (2 layers): the int4 base
+    against a bf16 base, in turns; t=0 logits, falling loss, a base
+    left alone and an adapter checkpoint resumed bitwise."""
+    import dataclasses
+    import shutil
+    import torch
+    from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
+    from nvme_strom_tpu_torch.models import lora
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.models.quant import (quantize_weights_int4,
+                                                   quantized_nbytes)
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    from nvme_strom_tpu_torch.train import optimizer_state, restore_state
+    cfg = dataclasses.replace(ttr.TransformerConfig(**LLAMA3_8B_2L),
+                              max_seq=toks.shape[1], xent_chunks=8)
+    attn = make_flash_attn()
+    bf16 = {n: p.requires_grad_(False)
+            for n, p in _card_params(cfg, SEED, dev).items()}
+    int4 = quantize_weights_int4(bf16)
+    sched = ttr.lr_schedule(1e-3, "cosine", 2, QLORA_STEPS)
+    q_before = {n: {k: t.clone() for k, t in w.items()}
+                for n, w in int4.items() if isinstance(w, dict)}
+    alpha = float(QLORA_RANK)
+
+    def setup(base):
+        ad = lora.lora_init(torch.Generator().manual_seed(1), base,
+                            QLORA_RANK, device=dev)
+        leaves = lora.adapter_leaves(ad)
+        opt = ttr.adamw(list(leaves.values()), 1e-3)
+        step = lora.make_lora_train_step(cfg, opt, alpha=alpha,
+                                         attn_fn=attn, lr=sched,
+                                         grad_clip=1.0)
+        return ad, leaves, opt, step
+
+    ad, leaves, opt, step = setup(int4)
+    # t=0: B is zero, so the adapted model is the base up to the merge's
+    # one bfloat16 rounding of each dequantized target.  Compared in
+    # float32 compute, where that rounding is the only difference (in
+    # bf16 compute the two paths also round their activations apart)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    t0_err = {}
+    with torch.no_grad():
+        for name, c in (("float32", f32), ("bfloat16", cfg)):
+            l0 = ttr.forward(lora.merge_lora(int4, ad, alpha), toks, c,
+                             attn)
+            lb = ttr.forward(int4, toks, c, attn)
+            t0_err[name] = float((l0 - lb).abs().max())
+            if name == "float32":
+                torch.testing.assert_close(l0, lb, rtol=QLORA_TOL[0],
+                                           atol=QLORA_TOL[1])
+            del l0, lb
+    losses = [step(ad, int4, toks).item() for _ in range(QLORA_STEPS)]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"QLoRA loss did not fall: {losses}")
+    for n, w in q_before.items():
+        for k, t in w.items():
+            if not torch.equal(int4[n][k], t):
+                raise AssertionError(f"QLoRA changed the base's {n}.{k}")
+    for n, w in int4.items():
+        for t in (w.values() if isinstance(w, dict) else [w]):
+            if t.grad is not None or t.requires_grad:
+                raise AssertionError(f"base tensor {n} has a gradient")
+    cdir = os.path.join(DATA_DIR, "qlora_ckpt")
+    shutil.rmtree(cdir, ignore_errors=True)
+    mgr = CheckpointManager(cdir)
+    try:
+        path = mgr.save(QLORA_STEPS, (leaves, optimizer_state(opt, leaves)))
+        ck_bytes = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+        ad2, leaves2, opt2, _ = setup(int4)
+        restore_state(mgr, QLORA_STEPS, leaves2, opt2, dev)
+    finally:
+        mgr.close()
+    for n, t in leaves.items():
+        if not torch.equal(t, leaves2[n]):
+            raise AssertionError(f"adapter {n} did not resume bitwise")
+    s1, s2 = optimizer_state(opt, leaves), optimizer_state(opt2, leaves2)
+    for key in s1:
+        for n in s1[key]:
+            if not torch.equal(s1[key][n].cpu(), s2[key][n].cpu()):
+                raise AssertionError(f"optimizer {key} of {n} differs")
+    # ms a step and peak memory, int4 base against bf16, in turns
+    turns = {"int4": [], "bf16": []}
+    peaks = {"int4": 0, "bf16": 0}
+    for kind in ("int4", "bf16", "bf16", "int4"):
+        base = int4 if kind == "int4" else bf16
+        a, _, _, st = setup(base)
+        st(a, base, toks)                       # warm
+        for _ in range(QLORA_TIMED):
+            _, peak, secs = _step_peak(lambda: st(a, base, toks).item())
+            turns[kind].append(secs * 1e3)
+            peaks[kind] = max(peaks[kind], peak)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    report = {"adapter_params": lora.count_params(ad),
+              "base_params": lora.count_params(bf16),
+              "base_bytes": quantized_nbytes(int4),
+              "checkpoint_bytes": ck_bytes, "t0_max_abs_err": t0_err,
+              "losses": losses, "ms": turns, "ms_median": med,
+              "peak_bytes": peaks, "int4_over_bf16": med["int4"]
+              / med["bf16"]}
+    log(f"qlora (Llama-3-8B widths, 2 layers, rank {QLORA_RANK}, seq "
+        f"{toks.shape[1]}, batch {toks.shape[0]}, flash): "
+        f"{report['adapter_params']} adapter parameters over "
+        f"{report['base_params']} base (int4 base bytes "
+        f"{report['base_bytes']}); t=0 logits' largest difference from "
+        f"the base {t0_err}; losses {[round(x, 4) for x in losses]}; adapter "
+        f"checkpoint {ck_bytes} B resumed bitwise; ms a step int4 "
+        f"{med['int4']:.2f} {[round(x, 2) for x in turns['int4']]}, bf16 "
+        f"{med['bf16']:.2f} {[round(x, 2) for x in turns['bf16']]} = "
+        f"{report['int4_over_bf16']:.3f}x; step peak int4 "
+        f"{peaks['int4'] / 2**20:.1f} MiB, bf16 {peaks['bf16'] / 2**20:.1f}"
+        " MiB")
+    return report
+
+
+def _train_lm_triad(dev):
+    """``python -m nvme_strom_tpu_torch.train_lm`` with the moments and
+    the layer inputs on NVMe over a 3:1 mixture, warmup + cosine and a
+    clip, 2 steps, then resumed to 3."""
+    import shutil
+    from nvme_strom_tpu_torch.train_lm import synthesize_shards
+    root = os.path.join(DATA_DIR, "triad")
+    shutil.rmtree(root, ignore_errors=True)
+    for i, name in enumerate("AB"):
+        os.makedirs(os.path.join(root, name))
+        synthesize_shards(os.path.join(root, name), 32000, 2048,
+                          n_shards=2, per_shard=16, seed=SEED + i)
+    args = [sys.executable, "-m", "nvme_strom_tpu_torch.train_lm",
+            "--flash", "--save-every", "2",
+            "--mix", f"{root}/A:3,{root}/B:1",
+            "--offload-opt", f"{root}/opt", "--remat", "nvme",
+            "--offload-acts", f"{root}/acts", "--lr-schedule", "cosine",
+            "--warmup-steps", "2", "--grad-clip", "1.0",
+            "--ckpt-dir", f"{root}/ckpt"]
+    out = {}
+    for steps in (2, 3):
+        t0 = time.monotonic()
+        r = subprocess.run(args + ["--steps", str(steps)], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        secs = time.monotonic() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"train_lm --steps {steps} exited "
+                                 f"{r.returncode}: {r.stderr[-3000:]}")
+        lines = [x for x in r.stdout.splitlines()
+                 if x.startswith(("offload", "resumed", "engine stats"))
+                 or " steps in " in x]
+        out[steps] = {"seconds": secs, "lines": lines}
+        log(f"train_lm triad --steps {steps}: {secs:.1f} s; {lines}")
+    if not any("resumed from step 2" in x for x in out[3]["lines"]):
+        raise AssertionError(f"the rerun did not resume: {out[3]}")
+    return out
+
+
+def train_offload_phase(dev):
+    """Training beyond device memory at flagship widths: the remat sweep
+    at 16 layers, ``OffloadedAdam`` against in-HBM AdamW, QLoRA at
+    Llama-3-8B widths, and the train_lm triad."""
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.models.transformer import flagship_config
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    t0 = time.monotonic()
+    flagship = flagship_config()
+    rng = np.random.default_rng(SEED)
+
+    def tokens(b, vocab):
+        return torch.from_numpy(rng.integers(
+            0, vocab, (b, TRAIN_SEQ), dtype=np.int64)).to(dev)
+    attn = make_flash_attn()
+    report = {"remat": _remat_sweep(dev, flagship,
+                                    tokens(TRAIN_BATCH, flagship.vocab),
+                                    attn)}
+    torch.cuda.empty_cache()
+    report["offload_opt"] = _opt_offload(
+        dev, flagship, [tokens(TRAIN_BATCH, flagship.vocab)
+                        for _ in range(OPT_STEPS)], attn)
+    torch.cuda.empty_cache()
+    report["qlora"] = _qlora(dev, tokens(QLORA_BATCH, 32000))
+    torch.cuda.empty_cache()
+    report["triad"] = _train_lm_triad(dev)
+    report["seconds"] = time.monotonic() - t0
+    return report
+
+
+# -- the zero-copy data formats, mixtures and the prefetch --------------------
+
+FORMAT_SAMPLES = 8192           # 8 KiB int32 samples: 64 MiB
+FORMAT_SHARDS = 8
+MIX_DRAWS = 256
+
+
+def _format_epoch(shards, fmt, eng, dev, decode=None):
+    """One unshuffled epoch at batch 8: (batches joined on the card, GiB/s,
+    host CPU s, counter deltas, h2d launches, pieces)."""
+    import torch
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    eng.sync_stats()
+    s0 = eng.stats.snapshot()
+    h0 = h2d_copy.launches
+    c0, t0 = time.process_time(), time.monotonic()
+    with ShardedLoader(shards, TRAIN_BATCH, fmt=fmt, decode=decode,
+                       engine=eng, device=dev) as ld:
+        out = [b.reshape(TRAIN_BATCH, -1).view(torch.int32).clone()
+               for b in ld]
+        pieces = ld.pieces_copied
+    torch.cuda.synchronize()
+    secs, cpu = time.monotonic() - t0, time.process_time() - c0
+    eng.sync_stats()
+    s1 = eng.stats.snapshot()
+    d = {k: s1[k] - s0[k] for k in ("bytes_direct", "bytes_fallback",
+                                    "bounce_bytes", "bytes_to_device")}
+    got = torch.cat(out)
+    return got, {"gib_s": got.numel() * 4 / secs / 2**30, "seconds": secs,
+                 "cpu_s": cpu, "stats": d,
+                 "h2d_launches": h2d_copy.launches - h0, "pieces": pieces}
+
+
+def data_formats_phase(dev, training):
+    """64 MiB of seeded token samples at seq 2048 as wds, tfrecord and
+    fixedrec shards (wds_raw reads the wds shards: one member a sample,
+    a constant stride); one epoch of each, batches bitwise the wds
+    path's; the mixture's draws; the overlapping prefetch."""
+    import shutil
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.data.mixture import MixtureLoader
+    from nvme_strom_tpu_torch.data.prefetch import prefetch_to_device
+    from nvme_strom_tpu_torch.formats.fixedrec import write_fixedrec
+    from nvme_strom_tpu_torch.formats.tfrecord import write_tfrecords
+    from nvme_strom_tpu_torch.formats.wds import write_wds_shard
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy, side_stream
+    root = os.path.join(DATA_DIR, "formats")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rows = np.random.default_rng(SEED).integers(
+        0, 32000, (FORMAT_SAMPLES, TRAIN_SEQ), dtype=np.int32)
+    per = FORMAT_SAMPLES // FORMAT_SHARDS
+    paths = {"wds": [], "tfrecord": [], "fixedrec": []}
+    t0 = time.monotonic()
+    for s in range(FORMAT_SHARDS):
+        part = rows[s * per:(s + 1) * per]
+        p = os.path.join(root, f"s{s:02d}")
+        write_wds_shard(p + ".tar", [{"bin": r.tobytes()} for r in part])
+        write_tfrecords(p + ".tfrecord", (r.tobytes() for r in part))
+        write_fixedrec(p + ".sfr", part)
+        paths["wds"].append(p + ".tar")
+        paths["tfrecord"].append(p + ".tfrecord")
+        paths["fixedrec"].append(p + ".sfr")
+    write_s = time.monotonic() - t0
+
+    def decode(parts):
+        (payload,) = parts.values()
+        return np.frombuffer(payload, dtype=np.int32)
+    report = {"write_s": write_s, "bytes": rows.nbytes}
+    with StromEngine() as eng:
+        ref, report["wds"] = _format_epoch(paths["wds"], "wds", eng, dev,
+                                           decode)
+        if not torch.equal(ref.cpu(), torch.from_numpy(rows)):
+            raise AssertionError("the wds epoch is not the data")
+        for name, fmt, shards, dec in (
+                ("tfrecord", "tfrecord", paths["tfrecord"], decode),
+                ("fixedrec", "fixedrec", paths["fixedrec"], None),
+                ("wds_raw", "wds_raw", paths["wds"], None)):
+            got, r = _format_epoch(shards, fmt, eng, dev, dec)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{name} batches differ from wds's")
+            if dec is None:
+                st = r["stats"]
+                if r["h2d_launches"] != r["pieces"]:
+                    raise AssertionError(f"{name}: {r['h2d_launches']} "
+                                         f"h2d launches for "
+                                         f"{r['pieces']} pieces")
+                if st["bytes_fallback"] == 0 and st["bounce_bytes"]:
+                    raise AssertionError(f"{name}: direct reads bounced "
+                                         f"{st}")
+            report[name] = r
+            del got
+        for name in ("wds", "tfrecord", "fixedrec", "wds_raw"):
+            r = report[name]
+            log(f"formats {name}: one epoch ({rows.nbytes} B, batch "
+                f"{TRAIN_BATCH}) {r['gib_s']:.3f} GiB/s in "
+                f"{r['seconds']:.2f} s, host CPU {r['cpu_s']:.2f} s, "
+                f"h2d launches {r['h2d_launches']}, pieces "
+                f"{r['pieces']}, {r['stats']}")
+        # the mixture: sources 3:1 over the fixedrec shards' two halves
+        half = FORMAT_SHARDS // 2
+        with ShardedLoader(paths["fixedrec"][:half], TRAIN_BATCH,
+                           fmt="fixedrec", engine=eng, device=dev) as a, \
+                ShardedLoader(paths["fixedrec"][half:], TRAIN_BATCH,
+                              fmt="fixedrec", engine=eng,
+                              device=dev) as b:
+            mix = MixtureLoader([(a, 3.0), (b, 1.0)], seed=0)
+            it = iter(mix)
+            seq = [next(it)[1] for _ in range(MIX_DRAWS)]
+            it.close()
+        want = [int(np.random.default_rng((0, t)).choice(
+            2, p=[0.75, 0.25])) for t in range(MIX_DRAWS)]
+        if seq != want or mix.counts != [want.count(0), want.count(1)]:
+            raise AssertionError(f"mixture draws {seq[:16]}... != "
+                                 f"{want[:16]}...")
+        report["mixture"] = {"counts": mix.counts, "draws": MIX_DRAWS}
+        log(f"formats mixture: {MIX_DRAWS} draws at 3:1 equal numpy's "
+            f"default_rng((0, step)); counts {mix.counts}")
+    # the prefetch: host batches copied on the side stream while the
+    # consumer's stream is held, bitwise the loader's
+    host = [rows[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for i in range(64)]
+    for _ in prefetch_to_device(iter(host[:4]), size=2, device=dev):
+        pass
+    torch.cuda.synchronize()
+    cur, side = torch.cuda.current_stream(dev), side_stream(dev)
+    torch.cuda._sleep(1 << 28)
+    h0 = h2d_copy.launches
+    it = prefetch_to_device(iter(host), size=2, device=dev)
+    first = next(it)
+    side.synchronize()
+    # the first pull keeps two batches ahead after the one it yields
+    on_side = h2d_copy.launches - h0 == 3 and not cur.query()
+    got = torch.cat([first] + list(it))
+    torch.cuda.synchronize()
+    if not on_side:
+        raise AssertionError("the prefetch copies did not run beside the "
+                             "consumer's stream")
+    if not torch.equal(got, ref[:64 * TRAIN_BATCH]):
+        raise AssertionError("prefetched batches differ from the loader's")
+    busy = training["profile"]["device_busy_share"]
+    report["prefetch"] = {"batches": 64, "on_side_stream": on_side}
+    report["train_device_busy_share"] = busy
+    log(f"formats prefetch: 64 host batches copied on the side stream "
+        f"while the consumer's stream spun, bitwise the loader's; train "
+        f"steps 11-12 device busy {busy:.4f}")
+    shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -5662,6 +6270,25 @@ def main() -> int:
         lambda: resilience_loader_phase(dev, cfg))
     results["h2d_copy"]["launches_resilience_loader"] = counts["h2d_copy"]
     f32_train = f32_train_phase(dev, cfg)
+    torch.cuda.empty_cache()
+    # main path 2d: training beyond device memory: remat dots and nvme
+    # (layer inputs through the engine and h2d_copy), the NVMe-offloaded
+    # optimizer (moments streamed through h2d_copy), QLoRA, the train_lm
+    # triad; every path on the flash kernels
+    train_offload, counts = drive(
+        "train offload", ("h2d_copy", "flash_fwd", "flash_bwd_dq",
+                          "flash_bwd_dkv"),
+        lambda: train_offload_phase(dev))
+    for n in ("h2d_copy", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        results[n]["launches_train_offload"] = counts[n]
+    torch.cuda.empty_cache()
+    # main path 2e: the zero-copy formats, the mixture and the prefetch,
+    # every batch through h2d_copy
+    data_formats, counts = drive(
+        "data formats", ("h2d_copy",),
+        lambda: data_formats_phase(dev, training))
+    results["h2d_copy"]["launches_data_formats"] = counts["h2d_copy"]
+    torch.cuda.empty_cache()
 
     # kernel 7 at the width of the restore below
     from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
@@ -5709,6 +6336,8 @@ def main() -> int:
                                   "tokens_identical", "trials", "chaos")}))
     log("handoff " + json.dumps(handoff))
     log("moe quant " + json.dumps(moe_quant))
+    log("train offload " + json.dumps(train_offload))
+    log("data formats " + json.dumps(data_formats))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -5720,6 +6349,8 @@ def main() -> int:
                                   "supervisor_cost": supervisor_cost,
                                   "f32_logits_err": f32, "train": training,
                                   "f32_train": f32_train, "restore": restore,
+                                  "train_offload": train_offload,
+                                  "data_formats": data_formats,
                                   "flash_split": flash_split,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))

@@ -65,3 +65,16 @@ def params_from_jax(np_params: Dict[str, np.ndarray], cfg: TransformerConfig,
                  else cfg.dtype)
         out[name] = _to_tensor(arr).to(device=dev, dtype=dtype)
     return out
+
+
+def adapters_from_jax(np_adapters: Dict[str, tuple], device=None,
+                      dtype: torch.dtype = torch.float32) -> Dict[str, tuple]:
+    """LoRA adapters of the JAX package (``{name: (A, B)}``, numpy
+    arrays) → the port's: ``dtype`` leaf tensors on ``device`` (default
+    ``cuda:0``) that require grad.  The two packages draw their adapters
+    from different random streams, so a parity test carries one set
+    across instead of drawing twice."""
+    dev = resolve_device(device)
+    return {n: tuple(_to_tensor(np.asarray(t)).to(device=dev, dtype=dtype)
+                     .requires_grad_() for t in ab)
+            for n, ab in np_adapters.items()}

@@ -1,40 +1,56 @@
-"""Sharded dataloader for one process and one device: WebDataset shards
-on NVMe → device batches (counterpart of nvme_strom_tpu/data/loader.py
-``ShardedLoader`` with ``fmt="wds"``).
+"""Sharded dataloader for one process and one device: shards on NVMe →
+device batches (counterpart of nvme_strom_tpu/data/loader.py
+``ShardedLoader``; the mesh and process spans shrink to one device and
+one process, and sequence sharding waits for the multi-GPU slice).
 
-Per batch, in a producer thread:
+Formats (``fmt``):
 
-    shard index (tar headers only) → planned member reads through the
-    engine → decode (user fn) → host batch (np.stack)
+- ``wds`` (WebDataset tar shards) and ``tfrecord`` (``parts == {"":
+  payload}``) run per sample: in a producer thread, shard index →
+  planned member reads through the engine → decode (user fn) → host
+  batch (np.stack); in the consumer each batch leaf starts its device
+  copy on the bridge's side stream (``h2d_copy`` on a card), and the
+  consumer's stream waits on the copy's event instead of the host
+  (``ops/bridge.py`` ``AsyncPut``).
+- ``fixedrec`` (formats/fixedrec.py) and ``wds_raw`` (single-part tar
+  samples of one byte length) are the zero-copy paths: a batch is one
+  contiguous span (for ``wds_raw``, one strided span of members, or one
+  read a member when the stride is not uniform), read O_DIRECT into the
+  engine's staging and copied to the device by ``h2d_copy`` with no host
+  decode; a staging buffer is released once its copy's event has
+  completed.  They take no ``decode`` and no ``shard_error_budget``,
+  and shuffle shard order only.  Their payload never reaches the host,
+  so their integrity check is the offline scrubber's, against the
+  shards' ``.crc.json`` stamps (``write_fixedrec(checksums=True)``).
 
-and in the consumer, each batch leaf goes to the device through the
-bridge's ``host_to_device`` (on a CUDA device the ``h2d_copy`` kernel).
 The sample order is the JAX loader's: shards sorted, then, with
-``LoaderConfig.shuffle_buffer``, shard order and each shard's sample
-order permuted per epoch from the seed (data/sharding.py).
+``LoaderConfig.shuffle_buffer``, shard order and (per-sample formats)
+each shard's sample order permuted per epoch from the seed
+(data/sharding.py).  A partial final batch is dropped, or raises with
+``LoaderConfig.drop_remainder=False``.
 
-Under ``STROM_VERIFY`` (utils/checksum.py) each sample part is checked
-against its shard's ``.crc.json`` sidecar when the shard has one
-(``stamp_wds`` writes it): a mismatch is read once more, past the host
-tier, and a part that still fails raises :class:`ChecksumError` naming
-the shard.  With ``STROM_VERIFY`` off the loader does no CRC work.
+Under ``STROM_VERIFY`` (utils/checksum.py) each sample part of the
+per-sample formats is checked against its shard's ``.crc.json`` sidecar
+when the shard has one (``stamp_wds`` writes it): a mismatch is read
+once more, past the host tier, and a part that still fails raises
+:class:`ChecksumError` naming the shard.  With ``STROM_VERIFY`` off the
+loader does no CRC work.
 
-Shard quarantine (``LoaderConfig.shard_error_budget``): a shard whose
-index, read, check or decode fails is skipped for this epoch and every
-later one, counted ``shards_quarantined``, logged and traced as a
-``strom.loader.quarantine`` span, while fewer than the budget are out;
-past it, or with the default budget of 0, the failure raises
-:class:`ShardReadError` naming the shard (and, past a budget, the
-quarantine list).  Under ``STROM_RESILIENT=1`` the engine's own retries
-come first, so only a failure they could not heal reaches the
-quarantine.  Mixtures, the
-tfrecord / fixedrec / raw formats and sequence sharding are not part of
-this port yet.
+Shard quarantine (``LoaderConfig.shard_error_budget``, per-sample
+formats): a shard whose index, read, check or decode fails is skipped
+for this epoch and every later one, counted ``shards_quarantined``,
+logged and traced as a ``strom.loader.quarantine`` span, while fewer
+than the budget are out; past it, or with the default budget of 0, the
+failure raises :class:`ShardReadError` naming the shard (and, past a
+budget, the quarantine list).  Under ``STROM_RESILIENT=1`` the engine's
+own retries come first, so only a failure they could not heal reaches
+the quarantine.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -47,12 +63,14 @@ import torch
 from nvme_strom_tpu_torch.data.sharding import (assign_shards,
                                                 shuffled_indices)
 from nvme_strom_tpu_torch.device import resolve_device
+from nvme_strom_tpu_torch.formats.tfrecord import TFRecordIndex
 from nvme_strom_tpu_torch.formats.wds import WdsShardIndex
 from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
 from nvme_strom_tpu_torch.io.faults import build_engine
 from nvme_strom_tpu_torch.io.hostcache import spoil_span
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
-from nvme_strom_tpu_torch.ops.bridge import to_device
+from nvme_strom_tpu_torch.ops.bridge import (AsyncPut, StagingRetirePool,
+                                             host_to_device, torch_dtype)
 from nvme_strom_tpu_torch.utils.checksum import VerifyPolicy, load_sidecar
 from nvme_strom_tpu_torch.utils.config import LoaderConfig
 
@@ -111,24 +129,45 @@ def _map(fn, tree):
     return fn(tree)
 
 
+class _Span(list):
+    """The PendingReads of one strided run of ``k`` tar members."""
+
+    def __init__(self, pieces, k: int):
+        super().__init__(pieces)
+        self.k = k
+
+
 class ShardedLoader:
-    """Iterate device batches of ``global_batch`` samples from
-    WebDataset shards.  ``decode(parts: {ext: bytes}) -> array`` (or a
-    dict / tuple of arrays); ``exts`` keeps only these member
-    extensions; ``engine``: a shared StromEngine (one is created by
-    ``io/faults.py`` ``build_engine`` and owned otherwise); ``device``:
-    where batches go (default ``cuda:0``).  Each ``iter()`` is one
-    epoch.  ``quarantined`` lists the shards skipped under
-    ``config.shard_error_budget``, in failure order."""
+    """Iterate device batches of ``global_batch`` samples from shards of
+    format ``fmt`` (``wds``, ``wds_raw``, ``tfrecord`` or ``fixedrec``;
+    see the module docstring).  ``decode(parts: {ext: bytes}) -> array``
+    (or a dict / tuple of arrays; per-sample formats only); ``exts``
+    keeps only these member extensions (tar formats); ``engine``: a
+    shared StromEngine (one is created by ``io/faults.py``
+    ``build_engine`` and owned otherwise); ``device``: where batches go
+    (default ``cuda:0``).  Each ``iter()`` is one epoch.  ``quarantined``
+    lists the shards skipped under ``config.shard_error_budget``, in
+    failure order; ``pieces_copied`` counts the zero-copy paths' staging
+    pieces copied to the device (one ``h2d_copy`` launch each on a
+    card)."""
 
     def __init__(self, shard_paths: Sequence, global_batch: int,
                  fmt: str = "wds", decode: Optional[Callable] = None,
                  engine: Optional[StromEngine] = None,
                  exts: Optional[List[str]] = None,
                  config: Optional[LoaderConfig] = None, device=None):
-        if fmt != "wds":
-            raise NotImplementedError(f"fmt {fmt!r} is not ported yet "
-                                      "(wds only)")
+        if fmt not in ("wds", "wds_raw", "tfrecord", "fixedrec"):
+            raise ValueError(f"unknown fmt {fmt!r}")
+        if fmt in ("fixedrec", "wds_raw"):
+            if decode is not None:
+                raise ValueError(
+                    f"{fmt} is a zero-copy raw path: payload goes "
+                    "staging→device untouched; decode on device instead")
+            if config is not None and config.shard_error_budget > 0:
+                raise ValueError(
+                    f"{fmt} does not support shard_error_budget: its "
+                    "batch spans coalesce across shards, so per-shard "
+                    "quarantine isolation does not exist")
         if global_batch < 1:
             raise ValueError(f"global_batch must be >= 1, got "
                              f"{global_batch}")
@@ -150,6 +189,7 @@ class ShardedLoader:
         self._verify = VerifyPolicy()
         #: shard path → its Sidecar, or None when it has none
         self._sidecars: dict = {}
+        self.pieces_copied = 0
 
     # -- samples (host side) -------------------------------------------------
 
@@ -159,10 +199,24 @@ class ShardedLoader:
         if cached is not None:
             self._shard_index.move_to_end(key)
             return cached
-        idx = WdsShardIndex(path)
-        out = [{ext: rng for ext, rng in idx.samples[k].items()
-                if self.exts is None or ext in self.exts}
-               for k in idx.order]
+        if self.fmt in ("wds", "wds_raw"):
+            idx = WdsShardIndex(path)
+            out = [{ext: rng for ext, rng in idx.samples[k].items()
+                    if self.exts is None or ext in self.exts}
+                   for k in idx.order]
+        else:
+            idx = TFRecordIndex(path)
+            out = [{"": (off, ln)} for off, ln in zip(idx.offsets,
+                                                      idx.lengths)]
+            # the record walk faulted the file resident; a resident span
+            # would send every record read down the buffered path
+            fd = os.open(key, os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            except OSError:
+                pass
+            finally:
+                os.close(fd)
         cap = self.config.index_cache_samples
         if cap > 0:
             self._shard_index[key] = out
@@ -297,12 +351,23 @@ class ShardedLoader:
             if len(batch) == self.local_batch:
                 yield _stack(batch)
                 batch = []
-        # a partial final batch is dropped: batches keep one shape
+        if batch and not self.config.drop_remainder:
+            raise ValueError(
+                "partial final batch with drop_remainder=False is not "
+                "representable as a fixed batch shape; pad your dataset "
+                "or use drop_remainder=True")
 
     # -- batches on the device ---------------------------------------------
 
     def __iter__(self) -> Iterator:
         """One epoch of batches on ``self.device``."""
+        if self.fmt == "fixedrec":
+            return self._iter_fixedrec()
+        if self.fmt == "wds_raw":
+            return self._iter_wds_raw()
+        return self._iter_samples()
+
+    def _iter_samples(self) -> Iterator:
         q: queue.Queue = queue.Queue(maxsize=self.config.prefetch)
         err: list = []
         stop = threading.Event()
@@ -334,6 +399,7 @@ class ShardedLoader:
         t = threading.Thread(target=producer, daemon=True,
                              name="strom-loader")
         t.start()
+        put = AsyncPut(self._engine, self.device)
         try:
             while True:
                 hb = q.get()
@@ -343,9 +409,9 @@ class ShardedLoader:
                     if err:
                         raise LoaderErrors(err) from err[0]
                     break
-                yield _map(lambda x: to_device(self._engine, x,
-                                               self.device), hb)
+                yield _map(put.finish, _map(put.start, hb))
         finally:
+            put.close()
             # an abandoned iterator stops the producer before returning,
             # so close() never races a thread still submitting reads
             stop.set()
@@ -356,6 +422,301 @@ class ShardedLoader:
                     break
             t.join(timeout=30)
         self.epoch += 1
+
+    # -- the zero-copy paths: fixedrec and wds_raw -------------------------
+
+    def _epoch_shard_order(self) -> List:
+        """This epoch's shard order: the zero-copy paths shuffle whole
+        shards only (shuffle records when the dataset is written)."""
+        order = list(self.local_shards)
+        if self.config.shuffle_buffer:
+            perm = shuffled_indices(len(order), self.config.seed, self.epoch)
+            order = [order[i] for i in perm]
+        return order
+
+    def _count_batches(self, total: int) -> int:
+        if total % self.local_batch and not self.config.drop_remainder:
+            raise ValueError(
+                f"{total} local records do not fill batches of "
+                f"{self.local_batch}; pad the dataset or set "
+                "drop_remainder=True")
+        return total // self.local_batch
+
+    def _copy_pieces(self, pieces, transfers: list) -> torch.Tensor:
+        """Completed staging pieces → one flat uint8 device tensor on the
+        current stream; each piece's copy (``h2d_copy`` on a card) runs
+        on the bridge's side stream and is appended to ``transfers``."""
+        parts = []
+        for pr in pieces:
+            # a plan never crosses EOF: a short read is truncation
+            t = host_to_device(self._engine, wait_exact(pr), self.device)
+            transfers.append(t)
+            self.pieces_copied += 1
+            if t.event is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(t.event)
+                t.tensor.record_stream(cur)
+            parts.append(t.tensor)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _zero_copy_batches(self, n_batches: int, batch_pieces: int,
+                           plan_reads, assemble, fhs) -> Iterator:
+        """The read-ahead shared by fixedrec and wds_raw.
+        ``plan_reads(r0, r1)`` submits the reads of local records [r0,
+        r1) and returns them as nested lists of PendingReads;
+        ``assemble(reads, transfers)`` turns them into the batch tensor,
+        appending each copy's Transfer.  Up to ``config.prefetch``
+        batches are planned ahead; a batch's staging buffers go back to
+        the pool once its copies' events have completed, and the pool
+        must hold one batch's pieces or the reads could never all be
+        served.  Closes ``fhs`` and counts the epoch on exit."""
+        eng = self._engine
+        if batch_pieces > eng.n_buffers:
+            raise ValueError(
+                f"one batch needs {batch_pieces} staging buffers but the "
+                f"pool has {eng.n_buffers}; raise EngineConfig."
+                "chunk_bytes or lower the batch size")
+
+        def flat(reads) -> list:
+            out = []
+            for x in reads:
+                out.extend(flat(x) if isinstance(x, list) else [x])
+            return out
+
+        depth = max(1, self.config.prefetch)
+        retire = StagingRetirePool(depth)
+        held = [0]
+
+        def finish(reads):
+            prs = flat(reads)
+            transfers: list = []
+            try:
+                out = assemble(reads, transfers)
+            except BaseException:
+                for t in transfers:      # copies out of the staging first
+                    t.synchronize()
+                for pr in prs:
+                    pr.release()
+                held[0] -= len(prs)
+                raise
+
+            def release_all():
+                for pr in prs:
+                    pr.release()
+                held[0] -= len(prs)
+            retire.push(release_all, transfers)
+            return out
+
+        pending: list = []       # planned batches, reads in flight
+        ready: list = []         # batches whose copies are dispatched
+        try:
+            for b in range(n_batches):
+                b0 = b * self.local_batch
+                retire.drain_ready()
+                while held[0] + batch_pieces > eng.n_buffers:
+                    if pending:
+                        ready.append(finish(pending.pop(0)))
+                    elif not retire.retire_oldest():
+                        break
+                reads = plan_reads(b0, b0 + self.local_batch)
+                pending.append(reads)
+                held[0] += len(flat(reads))
+                while pending and all(pr.is_ready()
+                                      for pr in flat(pending[0])):
+                    ready.append(finish(pending.pop(0)))
+                if len(pending) + len(ready) > depth:
+                    if not ready:
+                        ready.append(finish(pending.pop(0)))
+                    yield ready.pop(0)
+            while pending:
+                ready.append(finish(pending.pop(0)))
+            while ready:
+                yield ready.pop(0)
+        finally:
+            retire.flush()
+            for reads in pending:
+                for pr in flat(reads):
+                    pr.release()
+            for fh in fhs:
+                eng.close(fh)
+        self.epoch += 1
+
+    def _iter_fixedrec(self) -> Iterator:
+        """One epoch of fixedrec batches: a batch's records are one
+        contiguous span of a shard (split only at shard ends and, by the
+        planner, at whole records within a staging buffer), copied to
+        the device piece by piece and viewed as the records' dtype and
+        shape there."""
+        from nvme_strom_tpu_torch.formats.fixedrec import FixedRecIndex
+        eng = self._engine
+        order = self._epoch_shard_order()
+        idxs = [FixedRecIndex(p) for p in order]
+        if not idxs:
+            self.epoch += 1
+            return
+        rec_bytes, dtype, rshape = (idxs[0].record_bytes, idxs[0].dtype,
+                                    idxs[0].shape)
+        for ix in idxs[1:]:
+            if (ix.record_bytes, ix.dtype, ix.shape) != (rec_bytes, dtype,
+                                                         rshape):
+                raise ValueError(f"{ix.path}: record layout differs from "
+                                 f"{idxs[0].path}")
+        max_read = (eng.config.chunk_bytes // rec_bytes) * rec_bytes
+        if max_read == 0:
+            raise ValueError(
+                f"record ({rec_bytes}B) exceeds engine chunk_bytes "
+                f"({eng.config.chunk_bytes}B); raise EngineConfig."
+                "chunk_bytes")
+        base, total = [], 0
+        for ix in idxs:
+            base.append(total)
+            total += ix.count
+        n_batches = self._count_batches(total)
+
+        def row_spans(r0, r1):
+            """Records [r0, r1) → [(shard, offset, nbytes)] contiguous
+            extents, split at shard ends only."""
+            out, si = [], 0
+            while r0 < r1:
+                while base[si] + idxs[si].count <= r0:
+                    si += 1
+                take = min(r1, base[si] + idxs[si].count) - r0
+                out.append((si, (r0 - base[si]) * rec_bytes,
+                            take * rec_bytes))
+                r0 += take
+            return out
+
+        fhs = [eng.open(p) for p in order]
+
+        def plan_reads(r0, r1):
+            parts = plan_and_submit(
+                eng, [(fhs[si], off, nb) for si, off, nb
+                      in row_spans(r0, r1)],
+                split_unit=rec_bytes, chunk_bytes=max_read,
+                klass="prefetch")
+            return [p for pieces in parts for p in pieces]
+
+        tdtype = torch_dtype(dtype)
+
+        def assemble(reads, transfers):
+            out = self._copy_pieces(reads, transfers)
+            return out.view(tdtype).reshape((self.local_batch,) + rshape)
+
+        batch_pieces = max(
+            (sum(-(-nb // max_read) for _, _, nb in row_spans(
+                b * self.local_batch, (b + 1) * self.local_batch))
+             for b in range(n_batches)), default=1)
+        yield from self._zero_copy_batches(n_batches, batch_pieces,
+                                           plan_reads, assemble, fhs)
+
+    def _iter_wds_raw(self) -> Iterator:
+        """One epoch of raw-member WebDataset batches, (batch, member
+        bytes) uint8.  Members of one payload size sit at a constant
+        stride (header + padded payload), so a run of consecutive
+        members is one strided span, read and copied as one piece and
+        cut to rows on the device (``view(k, stride)[:, :mlen]``); when
+        the stride is not uniform each member is its own read."""
+        eng = self._engine
+        order = self._epoch_shard_order()
+        recs: list = []          # (shard, offset, length) per record
+        mlen = None
+        for si, path in enumerate(order):
+            for parts in self._index_shard(path):
+                if len(parts) != 1:
+                    raise ValueError(
+                        f"{path}: wds_raw needs single-part samples (got "
+                        f"{sorted(parts)}); restrict with exts= or use the "
+                        "standard wds path")
+                ((off, ln),) = parts.values()
+                if mlen is None:
+                    mlen = ln
+                elif ln != mlen:
+                    raise ValueError(
+                        f"{path}: member length {ln} != {mlen}; wds_raw "
+                        "stacks fixed-size members: variable-size samples "
+                        "need the standard wds path")
+                recs.append((si, off, ln))
+        if mlen is None:
+            self.epoch += 1
+            return
+        n_batches = self._count_batches(len(recs))
+        chunk = eng.config.chunk_bytes
+        stride = None
+        uniform = True
+        for (s0, o0, _), (s1, o1, _) in zip(recs, recs[1:]):
+            if s0 == s1:
+                if stride is None:
+                    stride = o1 - o0
+                elif o1 - o0 != stride:
+                    uniform = False
+                    break
+        uniform = uniform and stride is not None and stride >= mlen
+        if uniform:
+            last = {si: off for si, off, _ in recs}
+            # reading one header gap past the last member stays inside
+            # tar's end-of-archive blocks
+            uniform = all(off + stride <= os.path.getsize(order[si])
+                          for si, off in last.items())
+        if uniform:
+            sis = np.fromiter((r[0] for r in recs), np.int64, len(recs))
+            offs = np.fromiter((r[1] for r in recs), np.int64, len(recs))
+            #: brk[r]: record r starts a new strided group
+            brk = np.ones(len(recs), bool)
+            brk[1:] = (sis[1:] != sis[:-1]) | (offs[1:]
+                                               != offs[:-1] + stride)
+        fhs = [eng.open(p) for p in order]
+
+        def groups(r0, r1):
+            out = []
+            for r in range(r0, r1):
+                si, off, _ = recs[r]
+                if out and not brk[r]:
+                    out[-1][2] += 1
+                else:
+                    out.append([si, off, 1])
+            return out
+
+        if uniform:
+            def plan_reads(r0, r1):
+                gs = groups(r0, r1)
+                planned = plan_and_submit(
+                    eng, [(fhs[si], off, k * stride) for si, off, k in gs],
+                    chunk_bytes=chunk, klass="prefetch")
+                return [_Span(p, k) for p, (_, _, k) in zip(planned, gs)]
+
+            def assemble(reads, transfers):
+                blocks = [self._copy_pieces(prs, transfers)
+                          .view(prs.k, stride)[:, :mlen] for prs in reads]
+                return torch.cat(blocks) if len(blocks) > 1 \
+                    else blocks[0].contiguous()
+
+            def batch_pieces_of(a, b):
+                starts = np.flatnonzero(brk[a:b])
+                if starts.size == 0 or starts[0] != 0:
+                    starts = np.concatenate(([0], starts))
+                k = np.diff(np.append(starts, b - a))
+                return int(np.sum(-(-(k * stride) // chunk)))
+
+            batch_pieces = max(
+                (batch_pieces_of(b * self.local_batch,
+                                 (b + 1) * self.local_batch)
+                 for b in range(n_batches)), default=1)
+        else:
+            def plan_reads(r0, r1):
+                planned = plan_and_submit(
+                    eng, [(fhs[recs[r][0]], recs[r][1], recs[r][2])
+                          for r in range(r0, r1)],
+                    chunk_bytes=chunk, klass="prefetch")
+                return [list(p) for p in planned]
+
+            def assemble(reads, transfers):
+                return torch.stack([self._copy_pieces(prs, transfers)
+                                    for prs in reads])
+
+            batch_pieces = self.local_batch * -(-mlen // chunk)
+
+        yield from self._zero_copy_batches(n_batches, batch_pieces,
+                                           plan_reads, assemble, fhs)
 
     def close(self) -> None:
         if self._owns_engine:

@@ -172,6 +172,9 @@ class SpanView:
         view = self._span.pending.wait(timeout)
         return view[min(self._lo, view.nbytes):min(self._hi, view.nbytes)]
 
+    def is_ready(self) -> bool:
+        return self._span.pending.is_ready()
+
     def release(self) -> None:
         if not self._released:
             self._released = True

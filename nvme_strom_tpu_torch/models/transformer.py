@@ -332,51 +332,104 @@ def embed(p, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
 
 # ----------------------------- training -----------------------------
 
+REMAT_POLICIES = ("none", "full", "dots", "nvme")
+
+#: the products ``dots`` keeps: the weight matmuls, which reach aten as
+#: a 2-D ``mm`` / ``addmm`` after ``x @ w`` folds (b, s, d) to (b·s, d)
+#: (JAX's ``dots_with_no_batch_dims_saveable``); attention's batched
+#: products, the norms and the activations are recomputed
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat_policy(cfg: TransformerConfig) -> str:
     policy = cfg.remat_policy
-    if policy in ("dots", "nvme"):
-        raise NotImplementedError(
-            f"remat_policy {policy!r} is not ported yet (none|full)")
-    if policy not in ("none", "full"):
-        raise ValueError(f"remat_policy {policy!r}: expected none|full")
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}: expected "
+                         f"{'|'.join(REMAT_POLICIES)}")
     return policy
 
 
+def layer_body(p: Dict, x: torch.Tensor, i: int, cfg: TransformerConfig,
+               attn_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decoder layer ``i`` on x (b, s, d) with the parameters in ``p``
+    (every name the layer reads): (output, MoE aux loss, 0 when
+    dense)."""
+    L = f"layers.{i}."
+    x = x + attention(rms_norm(x, p[L + "attn_norm"], cfg.norm_eps),
+                      p, L, cfg, attn_fn)
+    h = rms_norm(x, p[L + "mlp_norm"], cfg.norm_eps)
+    if cfg.is_moe_layer(i):
+        h, a = _moe.moe_mlp(h, p, L, cfg)
+    else:
+        h = mlp(h, p, L)
+        a = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, a
+
+
 def forward_hidden(params: Dict, tokens: torch.Tensor,
-                   cfg: TransformerConfig, attn_fn=None
+                   cfg: TransformerConfig, attn_fn=None, act_store=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) → (final-norm hidden (b, s, d) in cfg.dtype,
     aux_loss scalar), everything short of the lm_head.  aux_loss is the
     summed MoE load-balancing loss, 0 for a dense model.
-    ``remat_policy="full"`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``)."""
+
+    ``remat_policy``: ``full`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``); ``dots`` keeps the weight products'
+    outputs and recomputes the rest (selective checkpointing);
+    ``nvme`` needs ``act_store`` (parallel/act_offload.py
+    ``ActivationStore``): each layer's input lives on NVMe between
+    forward and backward, and the backward recomputes the layer from the
+    bytes read back, so activations take one layer's worth of device
+    memory whatever the depth."""
     policy = _remat_policy(cfg)
     x = wmat(params, "tok_embed", cfg.dtype)[tokens.long()]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if policy == "nvme":
+        if act_store is None:
+            raise ValueError("remat_policy='nvme' needs an act_store= "
+                             "(parallel/act_offload.ActivationStore)")
+        from nvme_strom_tpu_torch.parallel.act_offload import offload_layer
+        for i in range(cfg.n_layers):
+            L = f"layers.{i}."
+            lp = {k: v for k, v in params.items() if k.startswith(L)}
+            x, a = offload_layer(
+                lambda p, h, i=i: layer_body(p, h, i, cfg, attn_fn),
+                act_store, i, lp, x)
+            aux = aux + a
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def layer(x, i):
-        L = f"layers.{i}."
-        x = x + attention(rms_norm(x, params[L + "attn_norm"], cfg.norm_eps),
-                          params, L, cfg, attn_fn)
-        h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
-        if cfg.is_moe_layer(i):
-            h, a = _moe.moe_mlp(h, params, L, cfg)
-        else:
-            h, a = mlp(h, params, L), torch.zeros_like(aux)
-        return x + h, a
+        return layer_body(params, x, i, cfg, attn_fn)
 
     for i in range(cfg.n_layers):
-        x, a = (checkpoint(layer, x, i, use_reentrant=False)
-                if policy == "full" else layer(x, i))
+        if policy == "full":
+            x, a = checkpoint(layer, x, i, use_reentrant=False)
+        elif policy == "dots":
+            x, a = checkpoint(layer, x, i, use_reentrant=False,
+                              context_fn=_dots_context)
+        else:
+            x, a = layer(x, i)
         aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward_with_aux(params: Dict, tokens: torch.Tensor,
-                     cfg: TransformerConfig, attn_fn=None
+                     cfg: TransformerConfig, attn_fn=None, act_store=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) → (logits (b, s, vocab) float32, aux_loss)."""
-    x, aux = forward_hidden(params, tokens, cfg, attn_fn)
+    x, aux = forward_hidden(params, tokens, cfg, attn_fn,
+                            act_store=act_store)
     return (x @ wmat(params, "lm_head", x.dtype)).float(), aux
 
 
@@ -421,26 +474,29 @@ def chunked_xent(params: Dict, hidden: torch.Tensor, tokens: torch.Tensor,
 
 
 def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            attn_fn=None) -> torch.Tensor:
+            attn_fn=None, act_store=None) -> torch.Tensor:
     """Next-token cross-entropy; tokens are input and target.  The full
     sequence is forwarded and the last logit dropped.  ``xent_chunks``
     > 1 takes :func:`chunked_xent`.  The MoE aux loss is added times
-    ``router_aux_coef``."""
+    ``router_aux_coef``.  ``act_store`` serves ``remat_policy="nvme"``
+    (see :func:`forward_hidden`)."""
     if cfg.xent_chunks > 1:
-        hidden, aux = forward_hidden(params, tokens, cfg, attn_fn)
+        hidden, aux = forward_hidden(params, tokens, cfg, attn_fn,
+                                     act_store=act_store)
         return (chunked_xent(params, hidden, tokens, cfg)
                 + cfg.router_aux_coef * aux)
-    logits, aux = forward_with_aux(params, tokens, cfg, attn_fn)
+    logits, aux = forward_with_aux(params, tokens, cfg, attn_fn,
+                                   act_store=act_store)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = logp.gather(-1, tokens[:, 1:].long()[..., None])
     return -ll.mean() + cfg.router_aux_coef * aux
 
 
 def value_and_grad(params: Dict, tokens: torch.Tensor,
-                   cfg: TransformerConfig, attn_fn=None):
+                   cfg: TransformerConfig, attn_fn=None, act_store=None):
     """(loss, {name: gradient}) of :func:`loss_fn` at ``params``."""
     names = list(params)
-    loss = loss_fn(params, tokens, cfg, attn_fn)
+    loss = loss_fn(params, tokens, cfg, attn_fn, act_store=act_store)
     grads = torch.autograd.grad(loss, [params[n] for n in names])
     return loss.detach(), dict(zip(names, grads))
 
@@ -470,20 +526,104 @@ def accumulate_grads(grad_fn: Callable, like: Dict, tokens: torch.Tensor,
     return loss_sum * inv, {n: g * inv for n, g in grads.items()}
 
 
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
+                        ) -> Dict[str, torch.Tensor]:
+    """``optax.clip_by_global_norm``: with ‖g‖ the L2 norm over every
+    gradient, each becomes ``g / ‖g‖ * max_norm`` unless ‖g‖ <
+    ``max_norm``.  (``torch.nn.utils.clip_grad_norm_`` divides by ‖g‖ +
+    1e-6, which is another function.)"""
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+    if bool(norm < max_norm):
+        return grads
+    return {n: g / norm.to(g.dtype) * max_norm for n, g in grads.items()}
+
+
+def lr_schedule(lr: float, kind: str = "constant", warmup_steps: int = 0,
+                total_steps: int = 0):
+    """The learning rate at each optimizer step, as the JAX
+    ``train_lm`` builds it with optax: a linear warmup from 0 over
+    ``warmup_steps``, then ``constant``, or ``cosine`` decay to 10% of
+    ``lr`` at step max(total_steps, warmup_steps + 1).  A plain float
+    when there is neither warmup nor decay, else ``fn(count) -> float``
+    computed in float32 as optax does; ``count`` is the number of
+    updates already taken (an optimizer's step count, so a resumed run
+    continues the schedule)."""
+    if kind not in ("constant", "cosine"):
+        raise ValueError(f"lr schedule {kind!r}: expected constant|cosine")
+    if kind == "constant" and warmup_steps <= 0:
+        return float(lr)
+    f32 = np.float32
+    peak = f32(lr)
+    decay = max(total_steps, warmup_steps + 1) - warmup_steps
+
+    def warm(c):
+        if warmup_steps <= 0:
+            return f32(0.0)
+        frac = f32(1) - f32(min(max(c, 0), warmup_steps)) / f32(warmup_steps)
+        return (f32(0.0) - peak) * frac + peak
+
+    def after(c):
+        if kind == "constant":
+            return peak
+        alpha = 0.1                     # end_value / peak_value
+        t = f32(min(float(c), float(decay)))
+        cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(decay)))
+        return peak * (f32(1 - alpha) * cos + f32(alpha))
+
+    def schedule(count: int) -> float:
+        count = int(count)
+        return float(warm(count) if count < warmup_steps
+                     else after(count - warmup_steps))
+
+    return schedule
+
+
+def optimizer_count(optimizer: torch.optim.Optimizer) -> int:
+    """Updates a torch optimizer has taken (its per-parameter ``step``,
+    which a checkpoint restores); 0 before the first."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            step = optimizer.state.get(p, {}).get("step")
+            if step is not None:
+                return int(step)
+    return 0
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, params: Dict,
+                    grads: Dict, lr=None, grad_clip: float = 0.0) -> None:
+    """One optimizer update of the tensors in ``params`` ({name: tensor})
+    from ``grads`` (same names): clipped to ``grad_clip`` global norm
+    first when it is > 0 (:func:`clip_by_global_norm`), and with ``lr``
+    (a float, or ``fn(count)`` from :func:`lr_schedule`) set on every
+    parameter group when given."""
+    if grad_clip > 0:
+        grads = clip_by_global_norm(grads, grad_clip)
+    if lr is not None:
+        value = lr(optimizer_count(optimizer)) if callable(lr) else lr
+        for group in optimizer.param_groups:
+            group["lr"] = value
+    for n, p in params.items():
+        p.grad = grads[n].to(p.dtype)
+    optimizer.step()
+
+
 def make_train_step(cfg: TransformerConfig, optimizer, attn_fn=None,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, act_store=None, lr=None,
+                    grad_clip: float = 0.0):
     """``step(params, tokens) -> loss``: gradients of the mean loss over
-    ``accum_steps`` microbatches, then one ``optimizer.step()``.
+    ``accum_steps`` microbatches, then one ``optimizer.step()`` through
+    :func:`apply_gradients` (``lr`` and ``grad_clip`` as there).
     ``optimizer`` is a torch optimizer over ``params``' tensors, which
-    it updates in place (where the JAX step returns new params)."""
+    it updates in place (where the JAX step returns new params).
+    ``act_store``: the NVMe activation store of ``remat_policy="nvme"``."""
 
     def step(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         loss, grads = accumulate_grads(
-            lambda mb: value_and_grad(params, mb, cfg, attn_fn), params,
+            lambda mb: value_and_grad(params, mb, cfg, attn_fn,
+                                      act_store=act_store), params,
             tokens, accum_steps)
-        for n, p in params.items():
-            p.grad = grads[n].to(p.dtype)
-        optimizer.step()
+        apply_gradients(optimizer, params, grads, lr=lr,
+                        grad_clip=grad_clip)
         return loss
 
     return step

@@ -326,6 +326,14 @@ class StagingRetirePool:
         while self._q and all(t.is_ready() for t in self._q[0][1]):
             self._q.pop(0)[0]()
 
+    def retire_oldest(self) -> bool:
+        """Wait out and release the oldest entry; False when there is
+        none."""
+        if not self._q:
+            return False
+        self._retire_oldest()
+        return True
+
     def _retire_oldest(self) -> None:
         release, transfers = self._q.pop(0)
         for t in transfers:
@@ -545,6 +553,127 @@ def write_from_device(engine: StromEngine, tensor: torch.Tensor, path,
                 pass
         engine.close(fh)
     return total
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+class AsyncPut:
+    """Host arrays → device tensors whose copies overlap the consumer's
+    work, in two halves.  ``start(array)`` begins the copy on ``stream``
+    (default the bridge's side stream), the output allocated there, and
+    returns its :class:`Transfer` at once.  ``finish(transfer)`` hands
+    the tensor to the caller's current stream: that stream waits on the
+    copy's event (no host synchronise), the tensor records the stream
+    for the allocator, and the host memory the copy reads is kept until
+    the event has completed.  On the CPU both halves are plain copies.
+    ``close()`` waits out every copy still in flight."""
+
+    def __init__(self, engine: Optional[StromEngine], dev: torch.device):
+        self.engine = engine
+        self.dev = dev
+        self._inflight: list = []
+
+    def start(self, host: np.ndarray) -> Transfer:
+        arr = np.ascontiguousarray(host)
+        if self.dev.type == "cuda":
+            side = side_stream(self.dev)
+            with torch.cuda.stream(side):
+                t = host_to_device(self.engine, arr, self.dev, stream=side)
+        else:
+            t = host_to_device(self.engine, arr, self.dev)
+        t.tensor = t.tensor.view(torch_dtype(arr.dtype)).reshape(arr.shape)
+        return t
+
+    def finish(self, t):
+        """The tensor of a :meth:`start` Transfer, usable on the current
+        stream; anything else passes through."""
+        if not isinstance(t, Transfer):
+            return t
+        if t.event is not None:
+            cur = torch.cuda.current_stream(self.dev)
+            cur.wait_event(t.event)
+            t.tensor.record_stream(cur)
+            self._inflight = [x for x in self._inflight if not x.is_ready()]
+            self._inflight.append(t)
+        return t.tensor
+
+    def close(self) -> None:
+        for t in self._inflight:
+            t.synchronize()
+        self._inflight = []
+
+
+class HostStage:
+    """A tensor's bytes on their way into a 4096-aligned host buffer,
+    from :func:`stage_to_host`.  ``view`` (uint8) holds them once
+    :meth:`synchronize` returns; ``keep`` owns the buffer."""
+
+    __slots__ = ("view", "event", "keep")
+
+    def __init__(self, view: np.ndarray, event=None, keep=None):
+        self.view = view
+        self.event = event
+        self.keep = keep
+
+    def is_ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def synchronize(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+
+
+def host_buffer(nbytes: int, dev: torch.device):
+    """(uint8 numpy view of ``nbytes`` starting on a 4096-byte boundary,
+    its owner): page-locked for a CUDA ``dev`` (a device copy
+    can write it asynchronously, and the engine can write it O_DIRECT),
+    plain memory on the CPU."""
+    align = 4096
+    if dev.type == "cuda":
+        owner = torch.empty(nbytes + align, dtype=torch.uint8,
+                            pin_memory=True)
+        raw = owner.numpy()
+    else:
+        raw = owner = np.empty(nbytes + align, dtype=np.uint8)
+    off = -raw.ctypes.data % align
+    return raw[off:off + nbytes], owner
+
+
+def stage_to_host(tensor: torch.Tensor, out: Optional[np.ndarray] = None,
+                  pad_to: int = 1, keep=None) -> HostStage:
+    """Start copying ``tensor``'s bytes into host memory: ``out`` (uint8,
+    at least the bytes rounded up to ``pad_to``), else a new
+    :func:`host_buffer`.  The bytes past the tensor's up to that round
+    size are zeroed, so a padded write stays O_DIRECT.  From a CUDA
+    tensor the copy runs on the bridge's side stream after the work
+    already queued on the current stream, and ``synchronize()`` waits
+    for it; from a CPU tensor it is done on return."""
+    flat = tensor.detach().reshape(-1)
+    if not flat.is_contiguous():
+        flat = flat.contiguous()
+    src = flat.view(torch.uint8)
+    n = src.numel()
+    padded = -(-n // pad_to) * pad_to
+    if out is None:
+        out, keep = host_buffer(padded, tensor.device)
+    view = out[:padded]
+    view[n:] = 0
+    if tensor.device.type == "cpu":
+        view[:n] = src.numpy()
+        return HostStage(view, None, keep)
+    dst = torch.from_numpy(view[:n])
+    side = side_stream(tensor.device)
+    side.wait_stream(torch.cuda.current_stream(tensor.device))
+    with torch.cuda.stream(side):
+        dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(side)
+    src.record_stream(side)
+    return HostStage(view, event, keep)
 
 
 def to_device(engine: Optional[StromEngine], host: np.ndarray,

@@ -32,7 +32,7 @@ from nvme_strom_tpu_torch.models.transformer import (
     adamw, init_params, make_train_step, param_shapes, trainable_params)
 from nvme_strom_tpu_torch.ops.bridge import to_device
 
-__all__ = ["Trainer", "FitResult", "optimizer_state"]
+__all__ = ["Trainer", "FitResult", "optimizer_state", "restore_state"]
 
 
 @dataclass
@@ -54,6 +54,25 @@ def optimizer_state(optimizer: torch.optim.Optimizer, params: dict) -> dict:
     return out
 
 
+def restore_state(manager, step: int, params: dict,
+                  optimizer: torch.optim.Optimizer, device) -> None:
+    """Checkpoint ``step`` of ``(params, optimizer_state(...))`` copied
+    into the live tensors of ``params`` and the optimizer's state (the
+    optimizer keeps its references)."""
+    flat = manager.restore(step=step, device=device)
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(flat.pop(f"0|{name}"))
+    for key_name, t in flat.items():
+        part, key, name = key_name.split("|", 2)
+        if part != "1" or name not in params:
+            raise KeyError(f"checkpoint tensor {key_name!r} is not "
+                           "this trainer's state")
+        # AdamW keeps its step count on the host
+        optimizer.state[params[name]][key] = (
+            t.cpu() if key == "step" else t)
+
+
 class Trainer:
     """See the module docstring.  Parameters:
 
@@ -68,7 +87,11 @@ class Trainer:
     ``watchdog_s``: per-step deadline; a hung step dumps stacks and the
     engine's counters.  ``hooks``: callables ``(step, loss, dt_s)`` run
     after every step (StopIteration from one stops the run).
-    ``device``: default ``cuda:0``."""
+    ``device``: default ``cuda:0``.  ``lr_schedule``: ``fn(count) ->
+    lr`` (``transformer.lr_schedule``), set before each update from the
+    optimizer's own step count, so a resumed run continues it;
+    ``grad_clip`` > 0 clips the gradients to that global norm first;
+    ``act_store``: the activation store of ``remat_policy="nvme"``."""
 
     def __init__(self, cfg, *, optimizer: Optional[Callable] = None,
                  lr: float = 3e-4, ckpt_dir=None,
@@ -76,7 +99,9 @@ class Trainer:
                  accum_steps: int = 1, init_weights=None,
                  save_every: int = 0, async_save: bool = False,
                  watchdog_s: float = 0.0, seed: int = 0,
-                 hooks: Sequence[Callable] = (), device=None):
+                 hooks: Sequence[Callable] = (), device=None,
+                 lr_schedule: Optional[Callable] = None,
+                 grad_clip: float = 0.0, act_store=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.hooks = list(hooks)
@@ -121,24 +146,13 @@ class Trainer:
         self._last_saved = start       # a resumed step is already on disk
         self._step_fn = make_train_step(cfg, self.optimizer,
                                         attn_fn=attn_fn,
-                                        accum_steps=accum_steps)
+                                        accum_steps=accum_steps,
+                                        act_store=act_store,
+                                        lr=lr_schedule, grad_clip=grad_clip)
 
     def _restore(self, step: int) -> None:
-        """Parameters and optimizer state from checkpoint ``step``,
-        copied into the live tensors (the optimizer keeps its
-        references)."""
-        flat = self.manager.restore(step=step, device=self.device)
-        with torch.no_grad():
-            for name, p in self.params.items():
-                p.copy_(flat.pop(f"0|{name}"))
-        for key_name, t in flat.items():
-            part, key, name = key_name.split("|", 2)
-            if part != "1" or name not in self.params:
-                raise KeyError(f"checkpoint tensor {key_name!r} is not "
-                               "this trainer's state")
-            # AdamW keeps its step count on the host
-            self.optimizer.state[self.params[name]][key] = (
-                t.cpu() if key == "step" else t)
+        restore_state(self.manager, step, self.params, self.optimizer,
+                      self.device)
 
     def state(self):
         """(params, optimizer state): what a checkpoint holds."""

@@ -2,18 +2,27 @@
 (counterpart of examples/train_lm.py):
 
     WebDataset shards ─ engine ─► ShardedLoader ─► prefetch ─► Trainer
-    safetensors ─ engine ─► warm start            │
-    CheckpointManager (O_DIRECT writes) ◄─────────┘
+    (--mix: MixtureLoader)                              │   (or the LoRA
+    safetensors ─ engine ─► warm start                  │    loop)
+    CheckpointManager (O_DIRECT writes) ◄───────────────┘
+    --offload-opt: Adam moments on NVMe (parallel/opt_offload.py)
+    --remat nvme --offload-acts: layer inputs on NVMe
+                                  (parallel/act_offload.py)
 
     python -m nvme_strom_tpu_torch.train_lm --flash --steps 20
     python -m nvme_strom_tpu_torch.train_lm --tiny --steps 5 --device cpu
 
-Without ``--data-dir`` it writes seeded synthetic shards of int32 token
-samples (4 shards of 8·global-batch samples) to a temporary directory.
-At the end it prints the engine's stats line.  The JAX example's
-``--mix``, ``--from-hf``, ``--tp``, ``--lora``, ``--offload-opt``,
-``--offload-acts``, ``--lr-schedule`` and ``--grad-clip`` are not ported
-yet.
+Without ``--data-dir`` or ``--mix`` it writes seeded synthetic shards of
+int32 token samples (4 shards of 8·global-batch samples) to a temporary
+directory.  ``--lora RANK`` trains adapters over a frozen base (reloaded
+on every resume; checkpoints hold the adapters and their optimizer state
+only); ``--offload-opt DIR`` keeps the AdamW moments on NVMe, refusing a
+moment manifest whose step differs from the resumed checkpoint's;
+``--lr-schedule``, ``--warmup-steps`` and ``--grad-clip`` are optax's
+warmup / cosine schedule and global-norm clip.  At the end it prints the
+engine's stats line.  The JAX example's ``--tp`` (tensor parallel, with
+the multi-GPU slice, ROADMAP Queue 1 item 12) and ``--from-hf`` (with
+the converter, item 15) are not here.
 """
 
 from __future__ import annotations
@@ -70,8 +79,136 @@ def token_batches(shards, global_batch: int, vocab: int, engine, device):
                                f"{global_batch}")
 
 
+def _mixture_batches(specs, global_batch: int, vocab: int, engine,
+                     device):
+    """Endless (global_batch, seq) token batches drawn from the
+    ``(shards, weight)`` corpora by ``MixtureLoader`` (seed 0)."""
+    from contextlib import ExitStack
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.data.mixture import MixtureLoader
+
+    def decode(parts):
+        (payload,) = parts.values()
+        return np.frombuffer(payload, dtype=np.int32) % vocab
+
+    with ExitStack() as stack:
+        loaders = [(stack.enter_context(ShardedLoader(
+            shards, global_batch, decode=decode, engine=engine,
+            device=device)), w) for shards, w in specs]
+        for b, _src in MixtureLoader(loaders, seed=0):
+            yield b
+
+
+def _parse_mix(ap, text: str) -> list:
+    specs = []
+    for part in text.split(","):
+        d, _, w = part.rpartition(":")
+        try:
+            weight = float(w)
+        except ValueError:
+            weight = -1.0
+        if not d or weight <= 0:
+            ap.error(f"--mix entry {part!r}: want DIR:WEIGHT with a "
+                     "positive weight")
+        shards = sorted(os.path.join(d, f) for f in os.listdir(d)
+                        if f.endswith(".tar"))
+        if not shards:
+            ap.error(f"--mix: no .tar shards under {d}")
+        specs.append((shards, weight))
+    return specs
+
+
+class _OffloadStep:
+    """The torch-optimizer face ``Trainer`` drives for --offload-opt:
+    ``step()`` hands the gradients to ``OffloadedAdam.update``; the
+    moments are on NVMe, so there is no ``state`` to checkpoint."""
+
+    def __init__(self):
+        self.state: dict = {}
+        self.offl = None
+        self.params = None
+
+    def step(self) -> None:
+        self.offl.update(self.params,
+                         {n: p.grad for n, p in self.params.items()})
+
+
+def _train_lora(args, cfg, attn_fn, engine, batches, lr) -> int:
+    """The LoRA loop: a frozen base (the warm start, else seed-0
+    weights, loaded on every run), rank-``args.lora`` adapters drawn
+    from seed 1, AdamW over the adapters; checkpoints hold the adapters
+    and their optimizer state."""
+    import contextlib
+    import torch
+    from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
+    from nvme_strom_tpu_torch.device import resolve_device
+    from nvme_strom_tpu_torch.models.lora import (
+        adapter_leaves, count_params, lora_init, make_lora_train_step)
+    from nvme_strom_tpu_torch.models.transformer import adamw, init_params
+    from nvme_strom_tpu_torch.train import optimizer_state, restore_state
+    from nvme_strom_tpu_torch.utils.watchdog import StepWatchdog
+
+    dev = resolve_device(args.device)
+    mgr = CheckpointManager(args.ckpt_dir, engine=engine)
+    start = mgr.latest_step()
+    if args.init_weights:
+        from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
+        loaded = LazyCheckpoint(args.init_weights).load(engine, device=dev)
+        base = {n: t.float() for n, t in loaded.items()}
+    else:
+        base = {n: torch.from_numpy(a).to(dev)
+                for n, a in init_params(0, cfg).items()}
+    alpha = args.lora_alpha if args.lora_alpha is not None \
+        else float(args.lora)
+    adapters = lora_init(torch.Generator().manual_seed(1), base, args.lora,
+                         device=dev)
+    leaves = adapter_leaves(adapters)
+    opt = adamw(list(leaves.values()), args.lr)
+    step_fn = make_lora_train_step(cfg, opt, alpha=alpha, attn_fn=attn_fn,
+                                   accum_steps=args.accum_steps, lr=lr,
+                                   grad_clip=args.grad_clip)
+    print(f"lora: rank {args.lora} alpha {alpha:g} — "
+          f"{count_params(adapters)} trainable of {count_params(base)} "
+          "base params")
+    if start is not None:
+        restore_state(mgr, start, leaves, opt, dev)
+        print(f"resumed from step {start}")
+    start = start or 0
+    wd = (StepWatchdog(args.watchdog, engine=engine)
+          if args.watchdog > 0 else None)
+    t0 = time.monotonic()
+    loss = None
+    try:
+        for step in range(start, args.steps):
+            with (wd.step(f"step {step + 1}") if wd
+                  else contextlib.nullcontext()):
+                loss = step_fn(adapters, base, next(batches))
+                if ((step + 1) % args.save_every == 0
+                        or step + 1 == args.steps):
+                    mgr.save_async(step + 1,
+                                   (leaves, optimizer_state(opt, leaves)))
+                    print(f"step {step + 1}: loss={float(loss):.4f} "
+                          "(checkpointed)")
+                elif (step + 1) % 5 == 0:
+                    print(f"step {step + 1}: loss={float(loss):.4f}")
+        mgr.wait_pending()
+    finally:
+        if wd is not None:
+            wd.close()
+        mgr.close()
+    dt = time.monotonic() - t0
+    n = args.steps - start
+    print(f"{n} steps in {dt:.2f}s ({n / max(dt, 1e-9):.2f} steps/s), "
+          f"last loss {float('nan') if loss is None else float(loss):.4f}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mix", default=None, metavar="DIR:W,DIR:W",
+                    help="train on a weighted mixture of shard dirs "
+                         "(seeded per-step source draws) instead of one "
+                         "--data-dir")
     ap.add_argument("--data-dir", default=None,
                     help="dir of WebDataset .tar shards of int32 token "
                          "samples (seq-len each); synthesized if omitted")
@@ -82,10 +219,34 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--lr-schedule", choices=("constant", "cosine"),
+                    default="constant",
+                    help="after the warmup: constant, or cosine decay to "
+                         "10%% of --lr over --steps")
+    ap.add_argument("--warmup-steps", type=int, default=0,
+                    help="linear warmup from 0 to --lr over N steps")
+    ap.add_argument("--grad-clip", type=float, default=0.0,
+                    metavar="NORM",
+                    help="clip gradients to this global L2 norm before "
+                         "the update (0 = off)")
     ap.add_argument("--xent-chunks", type=int, default=0,
                     help="cross-entropy over N sequence slices (0 = off)")
     ap.add_argument("--accum-steps", type=int, default=1)
-    ap.add_argument("--remat", default="none", choices=("none", "full"))
+    ap.add_argument("--remat", default="none",
+                    choices=("none", "full", "dots", "nvme"),
+                    help="'dots' keeps the weight products and recomputes "
+                         "the rest; 'full' recomputes whole layers; "
+                         "'nvme' also moves the layer inputs to NVMe "
+                         "(--offload-acts DIR)")
+    ap.add_argument("--offload-acts", default=None, metavar="DIR",
+                    help="backing dir of --remat nvme")
+    ap.add_argument("--offload-opt", default=None, metavar="DIR",
+                    help="keep the AdamW moments on NVMe under DIR")
+    ap.add_argument("--lora", type=int, default=0, metavar="RANK",
+                    help="train rank-RANK LoRA adapters over a frozen "
+                         "base instead of every weight")
+    ap.add_argument("--lora-alpha", type=float, default=None,
+                    help="LoRA scale numerator (default: RANK)")
     ap.add_argument("--flash", action="store_true",
                     help="attention through the flash kernels")
     ap.add_argument("--watchdog", type=float, default=0.0,
@@ -96,11 +257,23 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="default cuda:0; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
+    if args.offload_opt and args.lora:
+        ap.error("--offload-opt is for full fine-tunes; LoRA optimizer "
+                 "state is adapter-sized and fits in device memory")
+    if (args.remat == "nvme") != bool(args.offload_acts):
+        ap.error("--remat nvme and --offload-acts DIR go together")
+    if args.remat == "nvme" and args.lora:
+        ap.error("--remat nvme is for full fine-tunes; LoRA's frozen "
+                 "base already skips most activation memory")
+    if args.mix and args.data_dir:
+        ap.error("--mix and --data-dir conflict: list every corpus in "
+                 "--mix (DIR:W,DIR:W)")
 
     from nvme_strom_tpu_torch.io.faults import build_engine
     from nvme_strom_tpu_torch.data.prefetch import prefetch_to_device
-    from nvme_strom_tpu_torch.models.transformer import (flagship_config,
-                                                         tiny_config)
+    from nvme_strom_tpu_torch.device import resolve_device
+    from nvme_strom_tpu_torch.models.transformer import (
+        flagship_config, lr_schedule, tiny_config)
     from nvme_strom_tpu_torch.train import Trainer
 
     cfg = dataclasses.replace(
@@ -112,47 +285,94 @@ def main(argv=None) -> int:
     if args.flash:
         from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
         attn_fn = make_flash_attn()
+    lr = lr_schedule(args.lr, args.lr_schedule, args.warmup_steps,
+                     args.steps)
     print(f"model: d={cfg.d_model} L={cfg.n_layers} vocab={cfg.vocab} "
           f"seq={args.seq_len} batch={args.global_batch} "
-          f"flash={args.flash}")
+          f"flash={args.flash} remat={args.remat}")
 
     tmp = None
+    mix = _parse_mix(ap, args.mix) if args.mix else None
     data_dir = args.data_dir
-    if data_dir is None:
+    if mix is None and data_dir is None:
         tmp = tempfile.TemporaryDirectory(prefix="strom_lm_")
         data_dir = tmp.name
         synthesize_shards(data_dir, cfg.vocab, args.seq_len, n_shards=4,
                           per_shard=8 * args.global_batch)
         print(f"data: synthesized 4 shards under {data_dir}")
-    shards = sorted(os.path.join(data_dir, f) for f in os.listdir(data_dir)
-                    if f.endswith(".tar"))
-    if not shards:
-        ap.error(f"no .tar shards found under {data_dir}")
-    ckpt_dir = args.ckpt_dir or os.path.join(tmp.name if tmp else ".",
-                                             "ckpt")
+    if mix is None:
+        shards = sorted(os.path.join(data_dir, f)
+                        for f in os.listdir(data_dir) if f.endswith(".tar"))
+        if not shards:
+            ap.error(f"no .tar shards found under {data_dir}")
+    args.ckpt_dir = args.ckpt_dir or os.path.join(
+        tmp.name if tmp else ".", "ckpt")
 
     engine = build_engine()
+    act_store = offl = it = None
     try:
-        with Trainer(cfg, lr=args.lr, ckpt_dir=ckpt_dir, engine=engine,
-                     attn_fn=attn_fn, accum_steps=args.accum_steps,
-                     init_weights=args.init_weights,
-                     save_every=args.save_every, async_save=True,
-                     watchdog_s=args.watchdog, device=args.device,
-                     hooks=[_log_step]) as tr:
-            if tr.resumed_from is not None:
-                print(f"resumed from step {tr.resumed_from}")
-            it = prefetch_to_device(
-                token_batches(shards, args.global_batch, cfg.vocab, engine,
-                              tr.device), size=2)
-            t0 = time.monotonic()
-            try:
+        dev = resolve_device(args.device)
+        it = prefetch_to_device(
+            _mixture_batches(mix, args.global_batch, cfg.vocab, engine, dev)
+            if mix is not None else
+            token_batches(shards, args.global_batch, cfg.vocab, engine,
+                          dev), size=2)
+        t0 = time.monotonic()
+        if args.lora:
+            _train_lora(args, cfg, attn_fn, engine, it, lr)
+        else:
+            if args.offload_acts:
+                from nvme_strom_tpu_torch.parallel.act_offload import (
+                    ActivationStore)
+                act_store = ActivationStore(
+                    os.path.join(args.offload_acts, "acts.bin"),
+                    cfg.n_layers, engine=engine)
+                print(f"offload-acts: {cfg.n_layers} layer slots under "
+                      f"{args.offload_acts}")
+            opt_step = _OffloadStep() if args.offload_opt else None
+            with Trainer(cfg, lr=args.lr, ckpt_dir=args.ckpt_dir,
+                         engine=engine, attn_fn=attn_fn,
+                         accum_steps=args.accum_steps,
+                         init_weights=args.init_weights,
+                         save_every=args.save_every, async_save=True,
+                         watchdog_s=args.watchdog, device=dev,
+                         hooks=[_log_step],
+                         optimizer=(lambda ps: opt_step) if opt_step is not None
+                         else None,
+                         lr_schedule=None if opt_step is not None or not callable(lr)
+                         else lr,
+                         grad_clip=args.grad_clip,
+                         act_store=act_store) as tr:
+                if tr.resumed_from is not None:
+                    print(f"resumed from step {tr.resumed_from}")
+                if opt_step is not None:
+                    from nvme_strom_tpu_torch.parallel.opt_offload import (
+                        OffloadedAdam)
+                    offl = OffloadedAdam(args.offload_opt, tr.params, lr=lr,
+                                         weight_decay=1e-4, engine=engine)
+                    opt_step.offl, opt_step.params = offl, tr.params
+                    print(f"offload-opt: {offl.moment_bytes() >> 20} MiB "
+                          f"of moments on NVMe, peak "
+                          f"{offl.peak_group_bytes() >> 20} MiB on the "
+                          f"device, {offl.num_groups()} groups, resumed at "
+                          f"step {offl.step}")
+                    if offl.step != (tr.resumed_from or 0):
+                        # step-M params with step-N moments (and the
+                        # t = N+1 bias correction) diverge silently
+                        raise SystemExit(
+                            f"offload-opt: moment manifest is at step "
+                            f"{offl.step} but params resume at step "
+                            f"{tr.resumed_from or 0}: Adam would run a "
+                            "divergent trajectory.  Restore the params "
+                            f"checkpoint matching step {offl.step}, or "
+                            "start a fresh moment dir")
                 res = tr.fit(it, steps=args.steps)
-            finally:
-                it.close()          # stop the loader before the engine
+            n = res.steps - (res.resumed_from or 0)
             dt = time.monotonic() - t0
-        n = res.steps - (res.resumed_from or 0)
-        print(f"{n} steps in {dt:.2f}s ({n / max(dt, 1e-9):.2f} steps/s), "
-              f"last loss {res.last_loss:.4f}")
+            print(f"{n} steps in {dt:.2f}s ({n / max(dt, 1e-9):.2f} "
+                  f"steps/s), last loss {res.last_loss:.4f}")
+        it.close()              # stop the loader before the engine
+        it = None
         engine.sync_stats()
         s = engine.stats
         print(f"engine stats: direct={s.bytes_direct} "
@@ -160,6 +380,12 @@ def main(argv=None) -> int:
               f"written_direct={s.bytes_written_direct} "
               f"to_device={s.bytes_to_device}")
     finally:
+        if it is not None:
+            it.close()
+        if offl is not None:
+            offl.close()
+        if act_store is not None:
+            act_store.close()
         engine.close_all()
         if tmp:
             tmp.cleanup()

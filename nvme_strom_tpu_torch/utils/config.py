@@ -208,14 +208,16 @@ class ResilientConfig:
 
 @dataclass(frozen=True)
 class LoaderConfig:
-    """Dataloader knobs (the JAX package's ``LoaderConfig`` without its
-    tfrecord index switch, which this port does not have, and without
-    ``batch_size`` and ``drop_remainder``: the batch is
-    ``ShardedLoader``'s ``global_batch``, and a partial final batch is
-    always dropped)."""
+    """Dataloader knobs (the JAX package's ``LoaderConfig`` without
+    ``batch_size``, which is ``ShardedLoader``'s ``global_batch``, and
+    without ``drop_index_pollution``: the port's TFRecord index walk
+    always drops its page-cache residue)."""
 
     #: host batches assembled ahead of the consumer
     prefetch: int = 4
+    #: a partial final batch is dropped (True) or raises ValueError
+    #: (False): batches keep one shape
+    drop_remainder: bool = True
     #: nonzero: shard order and sample order are permuted per epoch
     #: from ``seed`` (data/sharding.shuffled_indices)
     shuffle_buffer: int = 0

@@ -1437,3 +1437,84 @@ def test_faulting_checkpoint_on_the_card(dev, tmp_path, monkeypatch):
     for name, t in want.items():
         assert got[name].device == dev
         assert torch.equal(got[name], t), name
+
+
+# -- training beyond device memory and the zero-copy data path ---------------
+
+@pytest.mark.parametrize("policy", ["dots", "nvme"])
+def test_remat_with_flash_equals_none(dev, tmp_path, policy):
+    """The flash kernels recompute correctly under selective
+    checkpointing and under the NVMe activation store: loss and every
+    gradient equal remat none's (float32, 1e-4 relative / 1e-5)."""
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    from nvme_strom_tpu_torch.parallel.act_offload import ActivationStore
+    cfg = ttr.TransformerConfig(vocab=512, d_model=256, n_layers=3,
+                                n_heads=4, n_kv_heads=2, d_ff=512,
+                                max_seq=256, dtype=torch.float32)
+    params = ttr.trainable_params(ttr.init_params(0, cfg), dev)
+    toks = torch.randint(0, cfg.vocab, (2, 256),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    attn = fa.make_flash_attn()
+    l0, g0 = ttr.value_and_grad(params, toks, cfg, attn)
+    before = fa.flash_fwd.launches
+    with ActivationStore(tmp_path / "acts.bin", cfg.n_layers) as st:
+        l1, g1 = ttr.value_and_grad(
+            params, toks, dataclasses.replace(cfg, remat_policy=policy),
+            attn, act_store=st if policy == "nvme" else None)
+        if policy == "nvme":
+            assert st.writes == st.reads == cfg.n_layers
+    # the forward and its recompute both ran the kernel
+    assert fa.flash_fwd.launches - before == 2 * cfg.n_layers
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-5)
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=1e-4, atol=1e-5,
+                                   msg=n)
+
+
+def test_fixedrec_zero_copy_batch_through_h2d(dev, tmp_path):
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.formats.fixedrec import write_fixedrec
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    rng = np.random.default_rng(0)
+    rec = rng.integers(0, 1 << 30, (64, 2048), dtype=np.int32)
+    paths = []
+    for s in range(2):
+        p = str(tmp_path / f"s{s}.sfr")
+        write_fixedrec(p, rec[32 * s:32 * (s + 1)])
+        paths.append(p)
+    before = h2d_copy.launches
+    with ShardedLoader(paths, 8, fmt="fixedrec", device=dev) as ld:
+        got = [b.clone() for b in ld]
+        pieces = ld.pieces_copied
+    torch.cuda.synchronize()
+    assert h2d_copy.launches - before == pieces == 8
+    assert torch.equal(torch.cat(got).cpu(), torch.from_numpy(rec))
+
+
+def test_prefetched_batch_copies_on_the_side_stream(dev):
+    """The copy of a pulled batch runs on the side stream while the
+    consumer's stream is held by a spin kernel; the yielded tensor is
+    the batch, read after the consumer's stream waited for it."""
+    from nvme_strom_tpu_torch.data.prefetch import prefetch_to_device
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy, side_stream
+    batches = [np.full((8, 2048), i, np.int32) for i in range(3)]
+    side = side_stream(dev)
+    cur = torch.cuda.current_stream(dev)
+    # warm the allocators: a first cudaMalloc / cudaHostAlloc may wait
+    # for the device
+    for _ in prefetch_to_device(iter(batches), size=2, device=dev):
+        pass
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)             # ~0.1 s on the consumer
+    before = h2d_copy.launches
+    it = prefetch_to_device(iter(batches), size=2, device=dev)
+    first = next(it)
+    side.synchronize()                         # the copies, not the spin
+    # the first pull keeps two batches ahead after the one it yields
+    assert h2d_copy.launches - before == 3
+    assert not cur.query()                     # still spinning
+    got = [first.clone()] + [b.clone() for b in it]
+    torch.cuda.synchronize()
+    for g, b in zip(got, batches):
+        assert torch.equal(g.cpu(), torch.from_numpy(b))

@@ -123,14 +123,22 @@ def test_adamw_matches_optax():
 
 
 def test_remat_dots_and_moe_are_refused():
+    """Remat ``dots`` and ``nvme`` are ported now (the parity cases are
+    tests/test_torch_train_offload.py): ``dots`` gives ``none``'s loss,
+    ``nvme`` refuses to run without an activation store, and an unknown
+    policy is refused by name."""
     cfg = dataclasses.replace(ttr.tiny_config(), remat_policy="dots")
     params = ttr.trainable_params(ttr.init_params(0, cfg),
                                   torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="dots"):
-        ttr.loss_fn(params, torch.zeros(1, 8, dtype=torch.int64), cfg)
+    toks = torch.zeros(1, 8, dtype=torch.int64)
+    assert ttr.loss_fn(params, toks, cfg).item() == ttr.loss_fn(
+        params, toks, dataclasses.replace(cfg, remat_policy="none")).item()
     cfg = dataclasses.replace(cfg, remat_policy="nvme")
-    with pytest.raises(NotImplementedError, match="nvme"):
-        ttr.loss_fn(params, torch.zeros(1, 8, dtype=torch.int64), cfg)
+    with pytest.raises(ValueError, match="act_store"):
+        ttr.loss_fn(params, toks, cfg)
+    with pytest.raises(ValueError, match="expected none"):
+        ttr.loss_fn(params, toks,
+                    dataclasses.replace(cfg, remat_policy="dot"))
     # mixture-of-experts layers are ported now (models/moe.py; the
     # parity cases are tests/test_torch_quant_moe.py): the config builds
     moe = ttr.TransformerConfig(n_experts=4)
