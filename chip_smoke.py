@@ -121,9 +121,19 @@ It builds the port's native libraries from the checkout, then:
    identical, each tensor read once, both lanes used; then the chaos
    drill, ring 1 wedged under the bulk lane, whose restore-class reads
    are not retried, so a failed claim is re-claimed at decode class;
-   then the cost of
+   main path — critical-path attribution (``attrib_phase``): the prefix
+   store's NVMe hit on both servers under ``STROM_ATTRIB=1`` and
+   ``STROM_DEBUG_PORT=0``, attribution on and off in turns, every
+   retired request folded (coverage + unattributed within 1% of wall,
+   ``nvme_read`` and ``bridge`` nonzero), every debug route answering,
+   a flight dump carrying ``attrib``; then the cost of
    the default supervisor and recorder against none, in turns: a 2 GiB
-   stream pass and the prefix store's requests on both servers; then
+   stream pass and the prefix store's requests on both servers; main
+   path — speculative decoding (``speculative_phase``): Llama-3-8B
+   widths at 2 layers drafted by the flagship, the draft's steps on
+   ``decode_attention``: float32 tokens equal ``decode.generate``'s
+   (also for a self draft, acceptance >= 0.9), bf16 tok/s against
+   ``decode.generate`` on kernel 2 in turns; then
    serves 4 requests with both servers on a 2-layer model with a GQA
    group of 7 at head_dim 128 (``GQA_SERVE``), whose tokens must
    agree;
@@ -166,7 +176,15 @@ It builds the port's native libraries from the checkout, then:
    bitwise the wds path's, GiB/s and host CPU seconds, zero-copy pieces
    one ``h2d_copy`` each; ``MixtureLoader``'s 256 draws against numpy's;
    ``prefetch_to_device``'s copies running beside a held consumer
-   stream, bitwise the loader's;
+   stream, bitwise the loader's; then the ViT trainer (``vit_phase``):
+   the reference ViT's default widths on fixedrec shards of 150,532-byte
+   records, one loader epoch (GiB/s, one ``h2d_copy`` a piece, nothing
+   bounced), the first batch's logits decoded on the card against a
+   float32 CPU forward, 20 AdamW steps of batch 64 (img/s, finite
+   losses) and two profiled (the device-busy share); and
+   ``eval_ppl --npy`` over phase 4's weights (``eval_ppl_phase``): card
+   and CPU float32 cross-entropies within 1e-3 relative, then bf16,
+   ``--int8`` and ``--int4``, no card run bouncing a byte;
 8. holds the ring all-gather (kernel 7) against its plain version on 4
    ranks of the card at the row width of phase 9's restore (and on a
    small ragged width), three calls in a row, and times it back to back,
@@ -200,11 +218,13 @@ read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
 phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos and
 tenant runs, in the recovery run and in the failure-domain run,
-kernels 1-2 in the cold-start run, the flash kernels and ``h2d_copy``
+kernels 1-2 in the cold-start run, kernels 1-3 in the attribution
+run, ``decode_attention`` in the speculative run, the flash kernels
+and ``h2d_copy``
 in phase 6, kernels 1-3 in its verify run, ``h2d_copy`` in the
 recovering loader's run, ``h2d_copy`` and the flash kernels in
-the training-beyond-device-memory run, ``h2d_copy`` in the data-format
-run, and ``h2d_copy`` and ``ici_ring_gather`` in
+the training-beyond-device-memory run, ``h2d_copy`` in the data-format,
+ViT and eval_ppl runs, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
 without CUDA, or a directory without the package.
@@ -214,6 +234,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -6061,6 +6082,499 @@ def data_formats_phase(dev, training):
     return report
 
 
+# -- speculative decoding, the ViT trainer, eval_ppl, attribution ------------
+
+SPEC_PROMPT = 128
+SPEC_NEW = 64
+SPEC_K = 4
+#: bf16 tok/s turns: speculative (flagship draft, kernel 2) against the
+#: target's own decode on kernel 2
+SPEC_ORDER = ("spec", "plain", "plain", "spec")
+
+
+def _spec_run(draft, target, prompt, cfg, dcfg, cache_attn):
+    """One greedy speculative decode: (tokens, SpecStats, seconds)."""
+    import torch
+    from nvme_strom_tpu_torch.models.speculative import (SpecStats,
+                                                         speculative_generate)
+    st = SpecStats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = speculative_generate(draft, target, prompt, cfg, SPEC_NEW,
+                               k=SPEC_K, draft_cfg=dcfg, stats=st,
+                               cache_attn=cache_attn)
+    torch.cuda.synchronize()
+    return out, st, time.monotonic() - t0
+
+
+def _spec_report(st, secs):
+    return {"target_forwards": st.target_forwards, "drafted": st.drafted,
+            "accepted": st.accepted, "accept_rate": st.accept_rate,
+            "seconds": secs, "tok_per_s": SPEC_NEW / secs}
+
+
+def speculative_phase(dev, flagship):
+    """Greedy speculative decoding with the draft's steps on kernel 2
+    (``cache_attn=decode_attention``): the target is Llama-3-8B's widths
+    at 2 layers (``LLAMA3_8B_2L``), the draft the flagship (same 32000
+    vocabulary), a SPEC_PROMPT-token prompt, SPEC_NEW new tokens, k
+    SPEC_K, batch 1, seeded random weights made on the card.
+    1. float32, TF32 off: the tokens must equal the target's own greedy
+       ``decode.generate`` on the dense path, for the flagship draft and
+       for a self draft, whose acceptance must be >= 0.9 with at most
+       ceil((SPEC_NEW - 1) / SPEC_K) + 1 target forwards (a near-tie the
+       draft's kernel and the dense verify order differently costs a
+       round, never a token);
+    2. bf16: speculative against ``decode.generate`` on kernel 2, in
+       turns (SPEC_ORDER), tok/s of each and the tokens that differ
+       (the k+1-row verify and one-row steps may round apart in bf16)."""
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.models import decode as dec
+    from nvme_strom_tpu_torch.models.transformer import TransformerConfig
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    t_phase = time.monotonic()
+    tcfg = TransformerConfig(**LLAMA3_8B_2L)
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 16).integers(
+        0, tcfg.vocab, (1, SPEC_PROMPT)).astype(np.int32)).to(dev)
+    report = {"f32": {}, "bf16": {}}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t32 = dataclasses.replace(tcfg, dtype=torch.float32)
+        d32 = dataclasses.replace(flagship, dtype=torch.float32)
+        target = _card_params(t32, SEED + 16, dev)
+        draft = _card_params(d32, SEED + 17, dev)
+        want = dec.generate(target, prompt, t32, SPEC_NEW)
+        for label, dp, dc in (("flagship draft", draft, d32),
+                              ("self draft", target, t32)):
+            got, st, secs = _spec_run(dp, target, prompt, t32, dc,
+                                      decode_attention)
+            differ = int((got != want).sum())
+            report["f32"][label] = dict(_spec_report(st, secs),
+                                        tokens_differ=differ)
+            log(f"speculative f32 {label}: {report['f32'][label]}")
+            if differ:
+                raise AssertionError(f"speculative f32 {label}: {differ} "
+                                     "tokens differ from decode.generate")
+        selfd = report["f32"]["self draft"]
+        bound = math.ceil((SPEC_NEW - 1) / SPEC_K) + 1
+        if selfd["accept_rate"] < 0.9 or selfd["target_forwards"] > bound:
+            raise AssertionError(f"speculative self draft: {selfd} (want "
+                                 f"accept >= 0.9, forwards <= {bound})")
+        del target, draft, want
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    target = _card_params(tcfg, SEED + 16, dev)
+    draft = _card_params(flagship, SEED + 17, dev)
+    # warm both paths (cuBLAS handles, the allocator) once, untimed
+    _spec_run(draft, target, prompt, tcfg, flagship, decode_attention)
+    dec.generate(target, prompt, tcfg, SPEC_NEW, cache_attn=decode_attention)
+    tps = {"spec": [], "plain": []}
+    outs = {}
+    for mode in SPEC_ORDER:
+        if mode == "spec":
+            outs[mode], st, secs = _spec_run(draft, target, prompt, tcfg,
+                                             flagship, decode_attention)
+            report["bf16"]["spec_stats"] = _spec_report(st, secs)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            outs[mode] = dec.generate(target, prompt, tcfg, SPEC_NEW,
+                                      cache_attn=decode_attention)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+        tps[mode].append(SPEC_NEW / secs)
+    differ = int((outs["spec"] != outs["plain"]).sum())
+    ratio = float(np.median(tps["spec"]) / np.median(tps["plain"]))
+    report["bf16"].update(tok_per_s=tps, tokens_differ=differ,
+                          spec_over_plain=ratio)
+    report["seconds"] = time.monotonic() - t_phase
+    log(f"speculative bf16 (turns {SPEC_ORDER}): tok/s {tps}, spec / plain "
+        f"{ratio:.3f}, {differ} of {SPEC_NEW} tokens differ; stats "
+        f"{report['bf16']['spec_stats']}; phase {report['seconds']:.1f} s")
+    return report
+
+
+VIT_BATCH = 64
+VIT_STEPS = 20
+VIT_SHARDS = 4
+#: the card's float32 logits against the CPU's float32 forward, over the
+#: first VIT_CPU_ROWS images of the first batch
+VIT_F32_TOL = (1e-3, 1e-3)
+VIT_BF16_TOL = (2e-2, 2e-2)
+VIT_CPU_ROWS = 8
+
+
+def vit_phase(dev):
+    """The reference ViT's default widths (224², patch 16, d 384, 6
+    layers, 6 heads, d_ff 1536, 1000 classes, bf16) on fixedrec shards
+    of 150,532-byte records (image ++ int32 label) under DATA_DIR/vit,
+    through the loader's zero-copy path:
+    1. one epoch of the loader alone: GiB/s, one h2d_copy a piece,
+       ``bounce_bytes`` 0;
+    2. the first batch decoded on the card: float32 logits (TF32 off)
+       within VIT_F32_TOL of a float32 CPU forward of the same params on
+       its first VIT_CPU_ROWS images; the bf16 logits' error against it
+       reported, with the count past VIT_BF16_TOL;
+    3. VIT_STEPS AdamW steps of batch VIT_BATCH, decode on the card:
+       img/s, every loss finite, launches = pieces;
+    4. two more steps under torch.profiler: the device-busy share."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch import train_vit
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.transformer import (adamw,
+                                                         trainable_params)
+    from nvme_strom_tpu_torch.models.vit import (ViTConfig, init_vit_params,
+                                                 make_vit_train_step,
+                                                 vit_forward)
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    t_phase = time.monotonic()
+    cfg = ViTConfig()
+    img_bytes = cfg.channels * cfg.image_size ** 2
+    if img_bytes + 4 != 150532:
+        raise AssertionError(f"record bytes {img_bytes + 4}")
+    vdir = os.path.join(DATA_DIR, "vit")
+    shutil.rmtree(vdir, ignore_errors=True)
+    os.makedirs(vdir)
+    t0 = time.monotonic()
+    shards = train_vit.synthesize_shards(
+        vdir, img_bytes, cfg.n_classes, VIT_SHARDS,
+        VIT_BATCH * VIT_STEPS // VIT_SHARDS, seed=SEED)
+    report = {"write_s": time.monotonic() - t0,
+              "record_bytes": img_bytes + 4}
+    np_params = init_vit_params(SEED, cfg)
+    with StromEngine() as eng:
+        eng.cuda_mapping(dev.index)
+
+        def epoch(consume):
+            eng.sync_stats()
+            b0, h0 = eng.stats.bounce_bytes, h2d_copy.launches
+            t0 = time.monotonic()
+            with ShardedLoader(shards, VIT_BATCH, fmt="fixedrec",
+                               engine=eng, device=dev) as ld:
+                n = 0
+                for rec in ld:
+                    consume(n, rec)
+                    n += 1
+                torch.cuda.synchronize()
+                pieces = ld.pieces_copied
+            secs = time.monotonic() - t0
+            eng.sync_stats()
+            launches = h2d_copy.launches - h0
+            bounce = eng.stats.bounce_bytes - b0
+            if launches != pieces or bounce or n != VIT_STEPS:
+                raise AssertionError(f"vit epoch: {n} batches, {launches} "
+                                     f"h2d_copy launches for {pieces} "
+                                     f"pieces, bounce {bounce}")
+            return {"batches": n, "seconds": secs, "pieces": pieces,
+                    "h2d_launches": launches, "bounce_bytes": bounce}
+
+        first = []
+        report["loader"] = epoch(
+            lambda i, rec: first.append(rec.clone()) if i == 0 else None)
+        report["loader"]["gib_per_s"] = (
+            VIT_STEPS * VIT_BATCH * (img_bytes + 4)
+            / report["loader"]["seconds"] / 2**30)
+        # 2. logits of the first batch against the CPU
+        imgs, _ = train_vit.decode_records(first[0], cfg)
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            params = trainable_params(np_params, dev)
+            with torch.no_grad():
+                x = imgs[:VIT_CPU_ROWS].float()
+                card32 = vit_forward(params, x, c32).cpu()
+                card16 = vit_forward(params, imgs[:VIT_CPU_ROWS],
+                                     cfg).cpu()
+                cpu32 = vit_forward(
+                    trainable_params(np_params, torch.device("cpu")),
+                    x.cpu(), c32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        rtol, atol = VIT_BF16_TOL
+        err16 = (card16 - cpu32).abs()
+        report["logits"] = {
+            "f32_max_abs_err": float((card32 - cpu32).abs().max()),
+            "bf16_max_abs_err": float(err16.max()),
+            "bf16_past_tol": int((err16 > atol + rtol * cpu32.abs()).sum()),
+            "n": int(cpu32.numel())}
+        torch.testing.assert_close(card32, cpu32, rtol=VIT_F32_TOL[0],
+                                   atol=VIT_F32_TOL[1])
+        # 3. the training steps
+        step = make_vit_train_step(cfg, adamw(params, 1e-3))
+        losses = []
+        report["train"] = epoch(lambda i, rec: losses.append(
+            step(params, *train_vit.decode_records(rec, cfg))))
+        losses = [float(x) for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"vit losses {losses}")
+        secs = report["train"]["seconds"]
+        report["train"].update(losses=losses,
+                               img_per_s=VIT_STEPS * VIT_BATCH / secs)
+        # 4. two steps profiled
+        batches = first * 2
+
+        def run(done):
+            for rec in batches:
+                step(params, *train_vit.decode_records(rec, cfg))
+            done()
+        prof = profile_run(run, "vit, 2 steps")
+        report["busy_share"] = prof["device_busy_share"]
+        report["top_kernels"] = prof["top_kernels"]
+    report["seconds"] = time.monotonic() - t_phase
+    log(f"vit: loader {report['loader']['gib_per_s']:.3f} GiB/s "
+        f"({report['loader']}); logits {report['logits']}; train "
+        f"{report['train']['img_per_s']:.1f} img/s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; busy "
+        f"{report['busy_share']:.3f}; phase {report['seconds']:.1f} s")
+    return report
+
+
+EVAL_ROWS = 16
+EVAL_SEQ = 1024
+EVAL_BATCH = 4
+EVAL_BATCHES = 2
+EVAL_CE_RTOL = 1e-3
+
+
+def _eval_main(args):
+    """``eval_ppl.main(args)`` with its output captured: (cross-entropy,
+    perplexity, bounce bytes, output)."""
+    import contextlib
+    import io
+    import re
+    from nvme_strom_tpu_torch import eval_ppl
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_ppl.main(args)
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"eval_ppl {args}: rc {rc}\n{out}")
+    ce = float(re.search(r"cross-entropy: ([\d.]+)", out).group(1))
+    ppl = float(re.search(r"perplexity: ([\d.]+)", out).group(1))
+    bounce = int(re.search(r"bounce=(\d+)", out).group(1))
+    return ce, ppl, bounce, out
+
+
+def eval_ppl_phase(dev, ckdir):
+    """``python -m nvme_strom_tpu_torch.eval_ppl --npy`` in process over
+    the flagship's serving weights (``ckdir``) and EVAL_ROWS rows of
+    EVAL_SEQ seeded token ids, EVAL_BATCHES batches of EVAL_BATCH rows,
+    each batch streamed NVMe → h2d_copy: in float32 on the card (TF32
+    off) and on the CPU, whose cross-entropies must agree within
+    EVAL_CE_RTOL relative; then bf16, --int8 and --int4 on the card.
+    Every card run's ``bounce_bytes`` is 0."""
+    import numpy as np
+    import torch
+    t_phase = time.monotonic()
+    edir = os.path.join(DATA_DIR, "eval")
+    os.makedirs(edir, exist_ok=True)
+    path = os.path.join(edir, "tokens.npy")
+    np.save(path, np.random.default_rng(SEED + 18).integers(
+        0, 32000, (EVAL_ROWS, EVAL_SEQ)).astype(np.int32))
+    base = ["--weights", ckdir, "--npy", path, "--batch", str(EVAL_BATCH),
+            "--batches", str(EVAL_BATCHES)]
+    runs = {"card f32": ["--dtype", "float32", "--device", "cuda:0"],
+            "cpu f32": ["--dtype", "float32", "--device", "cpu"],
+            "card bf16": ["--device", "cuda:0"],
+            "card int8": ["--int8", "--device", "cuda:0"],
+            "card int4": ["--int4", "--device", "cuda:0"]}
+    report = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for label, extra in runs.items():
+            t0 = time.monotonic()
+            ce, ppl, bounce, _ = _eval_main(base + extra)
+            report[label] = {"cross_entropy": ce, "perplexity": ppl,
+                             "bounce_bytes": bounce,
+                             "seconds": time.monotonic() - t0}
+            log(f"eval_ppl {label}: {report[label]}")
+            if label.startswith("card") and bounce:
+                raise AssertionError(f"eval_ppl {label}: bounce {bounce}")
+            if not math.isfinite(ce):
+                raise AssertionError(f"eval_ppl {label}: ce {ce}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    a, b = report["card f32"]["cross_entropy"], \
+        report["cpu f32"]["cross_entropy"]
+    report["f32_rel_diff"] = abs(a - b) / abs(b)
+    if report["f32_rel_diff"] > EVAL_CE_RTOL:
+        raise AssertionError(f"eval_ppl: card {a} against cpu {b}")
+    report["seconds"] = time.monotonic() - t_phase
+    log(f"eval_ppl: card / cpu float32 cross-entropy {a} / {b} (rel "
+        f"{report['f32_rel_diff']:.2e}); phase {report['seconds']:.1f} s")
+    return report
+
+
+#: tok/s turns with attribution on and off (the collector a sink of the
+#: store engine's tracer, or detached)
+ATTRIB_ORDER = ("on", "off", "off", "on")
+ATTRIB_ROUTES = ("/", "/metrics", "/attrib", "/ledger", "/flight",
+                 "/health")
+
+
+def attrib_phase(dev, cfg, params, shared):
+    """Critical-path attribution and the debug server on the prefix
+    store's NVMe hit (a copy of prefix_store_phase's cold store), both
+    servers, under STROM_ATTRIB=1 and STROM_DEBUG_PORT=0:
+    1. attribution on and off in turns (ATTRIB_ORDER) on each server:
+       tokens equal the prefix store's NVMe-hit tokens either way; every
+       request retired with it on folds, with coverage + unattributed
+       within 1% of its wall; ``nvme_read`` and ``bridge`` nonzero over
+       the decode class; ``attrib_spans_dropped`` reported; tok/s of
+       each mode;
+    2. every debug route answers 200 and parses, ``/health`` with the
+       ``boot_phase`` and ``drain_phase`` keys;
+    3. a flight dump carries ``attrib``."""
+    import urllib.request
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.obs import attrib, debugsrv
+    from nvme_strom_tpu_torch.utils.trace import Tracer
+    t_phase = time.monotonic()
+    pre = shared["prefix"]
+    requests, hit = pre["requests"], pre["hit_tokens"]
+    P = PREFIX_PAGE_TOKENS
+    path = os.path.join(DATA_DIR, "kv_store", "attrib.kvstore")
+    _copy_store(pre["store"], path, 1 << 20)
+    saved = {k: os.environ.get(k) for k in ("STROM_ATTRIB",
+                                            "STROM_DEBUG_PORT")}
+    os.environ.update(STROM_ATTRIB="1", STROM_DEBUG_PORT="0")
+    attrib.reset()
+    debugsrv.reset()
+    tracer = Tracer()
+    report = {"runs": {}}
+    try:
+        with StromEngine(tracer=tracer) as eng:
+            eng.cuda_mapping(dev.index)
+            col = attrib.get_collector()
+            if col is None or eng._attrib is not col or \
+                    eng._debug_srv is None:
+                raise AssertionError("STROM_ATTRIB / STROM_DEBUG_PORT "
+                                     "did not attach")
+            st = PrefixStore(cfg, eng, path, P, PREFIX_STORE_BYTES)
+            makers = {
+                "dense": lambda: DecodeServer(params, cfg, PREFIX_REQUESTS,
+                                              2048, device=dev, kv_store=st),
+                "paged": lambda: PagedDecodeServer(
+                    params, cfg, PREFIX_REQUESTS, 2048, total_blocks=128,
+                    block_len=P, device=dev, kv_store=st)}
+            tps = {f"{k} {m}": [] for k in makers for m in ("on", "off")}
+            for trial, mode in enumerate(ATTRIB_ORDER):
+                for kind, make in makers.items():
+                    if mode == "on":
+                        tracer.add_sink(col.sink)
+                    else:
+                        tracer.remove_sink(col.sink)
+                    n0 = col.requests
+                    toks, rep = store_run(f"attrib {kind} {mode} (trial "
+                                          f"{trial})", make(), requests, eng,
+                                          st)
+                    if toks != hit:
+                        raise AssertionError(f"attrib {kind} {mode}: tokens "
+                                             "differ from the NVMe hit's")
+                    folds = list(col._recent)[-(col.requests - n0):] \
+                        if col.requests > n0 else []
+                    want = len(requests) if mode == "on" else 0
+                    if len(folds) != want:
+                        raise AssertionError(f"attrib {kind} {mode}: "
+                                             f"{len(folds)} folds, want "
+                                             f"{want}")
+                    for f in folds:
+                        if abs(f["coverage_us"] + f["unattributed_us"]
+                               - f["wall_us"]) > 0.01 * f["wall_us"]:
+                            raise AssertionError(f"attrib fold {f}")
+                    tps[f"{kind} {mode}"].append(rep["tok_per_s"])
+                    if mode == "on":
+                        report["runs"].setdefault(kind, []).append({
+                            "wall_us": [f["wall_us"] for f in folds],
+                            "components": {c: sum(f["components"][c]
+                                                  for f in folds)
+                                           for c in attrib.COMPONENTS},
+                            "unattributed_us": sum(f["unattributed_us"]
+                                                   for f in folds)})
+            tracer.add_sink(col.sink)
+            prof = col.profiles()
+            comps = prof["classes"]["decode"]["components"]
+            if not (comps["nvme_read"]["total_us"] > 0
+                    and comps["bridge"]["total_us"] > 0):
+                raise AssertionError(f"attrib: no nvme_read / bridge time "
+                                     f"{comps}")
+            eng.sync_stats()
+            report["profiles"] = prof
+            report["attrib_spans_dropped"] = eng.stats.attrib_spans_dropped
+            report["tok_per_s"] = tps
+            report["on_over_off"] = {
+                k: float(np.median(tps[f"{k} on"])
+                         / np.median(tps[f"{k} off"])) for k in makers}
+            # 2. the debug routes on the live engine
+            port = eng._debug_srv.port
+            routes = {}
+            for route in ATTRIB_ROUTES:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{route}", timeout=10) as r:
+                    body = r.read().decode()
+                    if r.status != 200:
+                        raise AssertionError(f"{route}: {r.status}")
+                if route == "/metrics":
+                    if not body.rstrip().endswith("# EOF"):
+                        raise AssertionError("/metrics: no # EOF")
+                    routes[route] = len(body)
+                    continue
+                doc = json.loads(body)
+                if "error" in doc:
+                    raise AssertionError(f"{route}: {doc}")
+                routes[route] = sorted(doc)[:12]
+            health = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/health", timeout=10).read())
+            if "boot_phase" not in health or "drain_phase" not in health:
+                raise AssertionError(f"/health: {health}")
+            report["routes"] = routes
+            # 3. a flight dump with the attribution summary
+            dump = eng.flight.dump("attrib_check", force=True)
+            with open(dump) as f:
+                doc = json.load(f)
+            if "attrib" not in doc or not doc["attrib"]["requests"]:
+                raise AssertionError(f"flight dump without attrib: "
+                                     f"{sorted(doc)}")
+            report["flight_dump"] = {"path": os.path.basename(dump),
+                                     "attrib_requests":
+                                         doc["attrib"]["requests"]}
+            st.close()
+            torch.cuda.synchronize()
+    finally:
+        tracer._sinks.clear()
+        attrib.reset()
+        debugsrv.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shares = {c: v["share"] for c, v in comps.items()}
+    report["shares"] = shares
+    report["seconds"] = time.monotonic() - t_phase
+    log(f"attrib: decode shares {shares}; spans dropped "
+        f"{report['attrib_spans_dropped']}; tok/s {tps}; on / off "
+        f"{report['on_over_off']}; routes {report['routes']}; phase "
+        f"{report['seconds']:.1f} s")
+    return report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -6230,12 +6744,25 @@ def main() -> int:
         lambda: handoff_phase(dev, cfg, params))
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches_handoff"] = counts[n]
+    # main path 1k: critical-path attribution and the debug server on
+    # the prefix store's NVMe hit, both servers (kernels 1-3)
+    attrib_rep, counts = drive(
+        "attrib", ("h2d_copy", "decode_attention", "paged_attention"),
+        lambda: attrib_phase(dev, cfg, params, shared))
+    for n in ("h2d_copy", "decode_attention", "paged_attention"):
+        results[n]["launches_attrib"] = counts[n]
     supervisor_cost = supervisor_cost_phase(dev, cfg, params, shared,
                                             stream_path, want)
     torch.cuda.empty_cache()
     del shared
     os.remove(stream_path)
     del params
+    torch.cuda.empty_cache()
+    # main path 1l: speculative decoding, the draft's steps on kernel 2
+    speculative, counts = drive("speculative", ("decode_attention",),
+                                lambda: speculative_phase(dev, cfg))
+    results["decode_attention"]["launches_speculative"] = \
+        counts["decode_attention"]
     torch.cuda.empty_cache()
     # a group of 7 at head_dim 128 through both servers
     gqa, _ = drive("GQA serve", ("decode_attention", "paged_attention"),
@@ -6289,6 +6816,16 @@ def main() -> int:
         lambda: data_formats_phase(dev, training))
     results["h2d_copy"]["launches_data_formats"] = counts["h2d_copy"]
     torch.cuda.empty_cache()
+    # main path 2f: the ViT trainer on the zero-copy fixedrec path,
+    # records decoded on the card
+    vit, counts = drive("vit", ("h2d_copy",), lambda: vit_phase(dev))
+    results["h2d_copy"]["launches_vit"] = counts["h2d_copy"]
+    torch.cuda.empty_cache()
+    # main path 2g: eval_ppl --npy, token batches through h2d_copy
+    eval_rep, counts = drive("eval_ppl", ("h2d_copy",),
+                             lambda: eval_ppl_phase(dev, ckdir))
+    results["h2d_copy"]["launches_eval_ppl"] = counts["h2d_copy"]
+    torch.cuda.empty_cache()
 
     # kernel 7 at the width of the restore below
     from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
@@ -6338,6 +6875,12 @@ def main() -> int:
     log("moe quant " + json.dumps(moe_quant))
     log("train offload " + json.dumps(train_offload))
     log("data formats " + json.dumps(data_formats))
+    log("speculative " + json.dumps(speculative))
+    log("vit " + json.dumps({k: v for k, v in vit.items()
+                             if k != "top_kernels"}))
+    log("eval_ppl " + json.dumps(eval_rep))
+    log("attrib " + json.dumps({k: v for k, v in attrib_rep.items()
+                                if k != "profiles"}))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -6351,6 +6894,11 @@ def main() -> int:
                                   "f32_train": f32_train, "restore": restore,
                                   "train_offload": train_offload,
                                   "data_formats": data_formats,
+                                  "speculative": speculative, "vit": vit,
+                                  "eval_ppl": eval_rep,
+                                  "attrib": {k: v for k, v in
+                                             attrib_rep.items()
+                                             if k != "profiles"},
                                   "flash_split": flash_split,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))

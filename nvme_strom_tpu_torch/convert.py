@@ -78,3 +78,29 @@ def adapters_from_jax(np_adapters: Dict[str, tuple], device=None,
     return {n: tuple(_to_tensor(np.asarray(t)).to(device=dev, dtype=dtype)
                      .requires_grad_() for t in ab)
             for n, ab in np_adapters.items()}
+
+
+def vit_params_from_jax(np_params: Dict[str, np.ndarray], cfg,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """``{name: numpy array}`` of the JAX ViT (models/vit.py) → float32
+    master tensors on ``device`` (default ``cuda:0``), which the port's
+    ViT casts to ``cfg.dtype`` at each product as the JAX model does.
+    Raises on a missing or unknown name, or a shape that differs from
+    ``cfg``'s."""
+    from nvme_strom_tpu_torch.models.vit import vit_param_shapes
+    dev = resolve_device(device)
+    want = vit_param_shapes(cfg)
+    unknown = sorted(set(np_params) - set(want))
+    if unknown:
+        raise KeyError(f"parameters this port does not know: {unknown}")
+    missing = sorted(set(want) - set(np_params))
+    if missing:
+        raise KeyError(f"parameters missing for this config: {missing}")
+    out = {}
+    for name, shape in want.items():
+        arr = np.asarray(np_params[name])
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, config wants "
+                             f"{shape}")
+        out[name] = _to_tensor(arr).to(device=dev, dtype=torch.float32)
+    return out

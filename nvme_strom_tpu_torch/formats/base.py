@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 
 def pread_nopollute(path: str, length: int, offset: int = 0,
@@ -52,3 +52,17 @@ class PlanEntry:
 class ReadPlan:
     path: str
     entries: tuple
+
+    def ranges(self) -> list:
+        """Each entry's (offset, length), in plan order."""
+        return [(e.offset, e.length) for e in self.entries]
+
+    def subset(self, keys: Sequence[str]) -> "ReadPlan":
+        """The entries named in ``keys``, in plan order; raises KeyError
+        naming any key the plan lacks."""
+        keep = set(keys)
+        entries = tuple(e for e in self.entries if e.key in keep)
+        missing = keep - {e.key for e in entries}
+        if missing:
+            raise KeyError(f"keys not in plan: {sorted(missing)}")
+        return ReadPlan(self.path, entries)

@@ -24,6 +24,9 @@ of it.  ``Slab.release`` waits for the device (every copy queued out of
 the carve has finished), unregisters, and only then returns the range to
 the free list.  Carves are page-aligned and page-sized, so two carves
 never share a page and their registrations never overlap.
+
+While a trace file is being written (utils/trace.py), every carve and
+release samples the ``strom.arena.occupancy`` counter track.
 """
 
 from __future__ import annotations
@@ -260,7 +263,20 @@ class PinnedArena:
         if want_lock and self._lib.strom_arena_lock(self.base + off,
                                                     need) == 0:
             slab.locked = True
+        self._emit_occupancy()
         return slab
+
+    def _emit_occupancy(self) -> None:
+        """The ``strom.arena.occupancy`` counter track (bytes carved per
+        tag, and free) at every carve and release, while a trace file is
+        being written.  Called without the arena lock, which
+        ``carves()`` and ``bytes_free`` take."""
+        from nvme_strom_tpu_torch.utils.trace import global_tracer
+        if not global_tracer.exports:
+            return
+        vals = {f"carved_{t}": n for t, n in self.carves().items()}
+        vals["free"] = self.bytes_free
+        global_tracer.add_counter("strom.arena.occupancy", vals)
 
     def _free(self, offset: int, nbytes: int) -> None:
         with self._lock:
@@ -283,6 +299,7 @@ class PinnedArena:
             if lo > 0 and fl[lo - 1][0] + fl[lo - 1][1] == fl[lo][0]:
                 fl[lo - 1] = (fl[lo - 1][0], fl[lo - 1][1] + fl[lo][1])
                 fl.pop(lo)
+        self._emit_occupancy()
 
     # -- introspection -----------------------------------------------------
 

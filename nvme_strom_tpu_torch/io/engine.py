@@ -48,6 +48,17 @@ whose breaker is open; scalar reads and writes go to a healthy ring
 with its class (``op_klass``) and ring.  ``ring_restart``,
 ``set_ring_stall`` and ``read_buffered`` bind the C engine's hot
 restart, stall injection and degraded pread.
+
+Observability (obs/): under ``STROM_ATTRIB=1`` the engine attaches the
+process's attribution collector to its tracer as a span sink, and its
+flight dumps carry the collector's summary; ``ring_ledger``
+(``RingTimeLedger``) integrates each ring's time busy, idle, stalled
+and restarting, sampled at completion reaping (time-gated) and
+exported as the ``ring_state_s`` gauge at every ``sync_stats``, which
+also samples the ``strom.ring.inflight`` counter track while a trace
+file is written; under ``STROM_DEBUG_PORT`` the first engine starts the
+process's debug server (obs/debugsrv.py) and each engine attaches as
+its live one until ``close_all``.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import errno
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -62,6 +74,9 @@ import numpy as np
 from nvme_strom_tpu_torch import _build
 from nvme_strom_tpu_torch.io import arena as _arena
 from nvme_strom_tpu_torch.io.arena import CudaRegistration, HostMapping
+from nvme_strom_tpu_torch.obs.attrib import attach as attach_attrib
+from nvme_strom_tpu_torch.obs.debugsrv import maybe_start_debug_server
+from nvme_strom_tpu_torch.obs.ledger import RingTimeLedger
 from nvme_strom_tpu_torch.utils.config import (BreakerConfig, EngineConfig,
                                                FlightConfig, SchedConfig)
 from nvme_strom_tpu_torch.utils.stats import (StromStats,
@@ -342,6 +357,7 @@ class PendingRead:
                           max(0, int(comp.complete_ns - comp.submit_ns))
                           // 1000,
                           "fallback" if comp.was_fallback else "ok")
+        self._engine._sample_ring_states()
         self._view = (np.empty(0, dtype=np.uint8) if n == 0
                       else np.ctypeslib.as_array(comp.data, shape=(n,)))
         return self._view
@@ -543,6 +559,17 @@ class StromEngine:
         if fcfg.enabled:
             from nvme_strom_tpu_torch.io.flightrec import FlightRecorder
             self.flight = FlightRecorder(fcfg, self.stats)
+        #: the process's attribution collector (obs/attrib.py) on this
+        #: engine's tracer as a span sink, under STROM_ATTRIB=1; each
+        #: flight dump then opens with its summary
+        self._attrib = attach_attrib(self.tracer, self.stats)
+        if self._attrib is not None and self.flight is not None:
+            self.flight.attrib = self._attrib
+        #: per-ring time in state (obs/ledger.py), sampled at completion
+        #: reaping (time-gated) and exported at every sync_stats
+        self.ring_ledger = RingTimeLedger(n_rings)
+        self._ring_sample_next = 0.0
+        self._ring_counter_live = False
         self.scheduler = None
         if n_rings > 1:
             scfg = SchedConfig()
@@ -556,7 +583,10 @@ class StromEngine:
                     ring_free=self._ring_free_slots,
                     policies=default_policies(scfg.class_weights),
                     aging_rounds=scfg.aging_rounds, stats=self.stats,
-                    ring_cap=self._ring_cap)
+                    ring_cap=self._ring_cap, tracer=self.tracer)
+        #: the process's debug server (obs/debugsrv.py) under
+        #: STROM_DEBUG_PORT, with this engine as its live one
+        self._debug_srv = maybe_start_debug_server(self.stats, engine=self)
 
     # -- files --------------------------------------------------------------
 
@@ -625,8 +655,11 @@ class StromEngine:
         ring is rebuilt.  Returns the requests cancelled; raises
         TimeoutError when in-flight I/O would not drain (the ring goes
         on untouched), OSError otherwise."""
+        t0 = time.monotonic()
         rc = self._lib.strom_ring_restart(self._h, ring,
                                           max(1, int(drain_timeout_s * 1e9)))
+        # charged explicitly: the ~10 Hz sampler would mostly miss it
+        self.ring_ledger.note_restart(ring, time.monotonic() - t0)
         if rc == -errno.ETIMEDOUT:
             raise TimeoutError(f"ring {ring}: in-flight I/O did not drain "
                                f"within {drain_timeout_s}s; restart "
@@ -634,6 +667,18 @@ class StromEngine:
         if rc < 0:
             raise OSError(-rc, os.strerror(-rc))
         return int(rc)
+
+    def _sample_ring_states(self) -> None:
+        """Charge the time since the last sample to each ring's state
+        (obs/ledger.py): from completion reaping and stats syncs, at
+        most ~10 times a second."""
+        now = time.monotonic()
+        if now < self._ring_sample_next or self._closed:
+            return
+        self._ring_sample_next = now + 0.1
+        states = (self.supervisor.ring_states()
+                  if self.supervisor is not None else None)
+        self.ring_ledger.sample(self.ring_depths(), states, now=now)
 
     def set_ring_stall(self, ring: int, on: bool = True) -> None:
         """Arm or disarm the C engine's stall injection on ``ring``:
@@ -822,6 +867,20 @@ class StromEngine:
         self.stats.merge_engine(snap)
         if self.n_rings > 1:
             self.stats.set_gauges(ring_depths=self.ring_depths())
+        self._sample_ring_states()
+        self.ring_ledger.export(self.stats)
+        # ``exports`` read defensively: a caller may swap in its own
+        # span sink as ``tracer`` (one with ``enabled`` and ``add_span``)
+        if self.n_rings > 1 and getattr(self.tracer, "exports", False):
+            # per-ring in-flight on the spans' timeline while I/O is in
+            # flight, then one zero sample that returns the track to 0
+            depths = self.ring_depths()
+            live = any(depths)
+            if live or self._ring_counter_live:
+                self.tracer.add_counter(
+                    "strom.ring.inflight",
+                    {str(i): d for i, d in enumerate(depths)})
+            self._ring_counter_live = live
         return snap
 
     @property
@@ -837,6 +896,10 @@ class StromEngine:
         if self._closed:
             return
         self._closed = True
+        if self._debug_srv is not None:
+            # the server outlives engines: it only stops routing here
+            self._debug_srv.detach_engine(self)
+            self._debug_srv = None
         if self.supervisor is not None:
             self.supervisor.close()
         if self.scheduler is not None:

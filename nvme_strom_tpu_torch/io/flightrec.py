@@ -19,9 +19,10 @@ dumps of one reason overwrote each other).
 
 Knobs (``FlightConfig``): ``STROM_FLIGHT`` (default on),
 ``STROM_FLIGHT_OPS``, ``STROM_FLIGHT_DIR`` (default the system temp
-directory), ``STROM_FLIGHT_MIN_S``.  The reference's ``attrib`` summary
-in a dump comes with ``obs/attrib.py`` (ROADMAP Queue 1 item 14): the
-port's dumps leave the field out.
+directory), ``STROM_FLIGHT_MIN_S``.  With an attribution collector
+attached (``attrib``: the engine sets it under ``STROM_ATTRIB=1``,
+obs/attrib.py), each dump also carries its ``summary()``: where recent
+requests' time went when the trigger fired.
 """
 
 from __future__ import annotations
@@ -65,6 +66,9 @@ class FlightRecorder:
         self.dumps = 0
         #: paths written, newest last (the last 16)
         self.dump_paths: list = []
+        #: an obs/attrib.py AttributionCollector whose summary each dump
+        #: embeds (None: no ``attrib`` field)
+        self.attrib = None
 
     def record(self, kind: str, klass: Optional[str], ring: int,
                fh: int, offset: int, nbytes: int, latency_us: int,
@@ -103,6 +107,11 @@ class FlightRecorder:
                 doc["extra"] = dict(extra)
             if self.stats is not None:
                 doc["stats"] = self.stats.snapshot()
+            if self.attrib is not None:
+                try:
+                    doc["attrib"] = self.attrib.summary()
+                except Exception:
+                    pass     # a dump never fails on its summary
             safe = "".join(c if c.isalnum() or c in "-_" else "_"
                            for c in reason)[:48]
             path = os.path.join(self.cfg.dir or tempfile.gettempdir(),

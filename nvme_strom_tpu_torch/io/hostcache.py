@@ -64,9 +64,11 @@ view its read completed: a miss whose read a ring restart cancels fills
 nothing until the resubmitted read's view arrives, so no torn line is
 published, and a degraded read (io/health.py) fills its admitted lines
 from its pread like any other read.  ``resident_spans`` lists a file's
-resident bytes for the warm-hint manifests (io/warmup.py).  The
-reference's fill and hit spans and its ``evicted_unused`` waste charge
-come with ROADMAP item 14.
+resident bytes for the warm-hint manifests (io/warmup.py).  With the
+tracer on, a fill is a ``strom.cache.fill`` span under the requester's
+causal context (the planner emits ``strom.cache.hit``); a line evicted
+before its first hit charges its bytes to the ledger's
+``evicted_unused`` class (obs/ledger.py).
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import time
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
@@ -85,7 +88,9 @@ from nvme_strom_tpu_torch.io.arena import CudaRegistration
 from nvme_strom_tpu_torch.io.sched import (CLASS_ORDER, DEFAULT_CLASS,
                                            default_policies)
 from nvme_strom_tpu_torch.io.tenants import current_tenant
+from nvme_strom_tpu_torch.obs.ledger import charge_waste
 from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+from nvme_strom_tpu_torch.utils.trace import attach_context
 
 #: line key: ((dev, ino, mtime_ns, size), line_offset)
 LineKey = Tuple[tuple, int]
@@ -247,11 +252,12 @@ class _FillOnWait:
     fails the read."""
 
     __slots__ = ("_pending", "_cache", "_fkey", "_off", "_keys",
-                 "_klass", "_stats", "_filled", "_sticky")
+                 "_klass", "_stats", "_filled", "_sticky", "_tracer",
+                 "_ctx")
 
     def __init__(self, pending, cache: "HostCache", fkey: tuple,
                  span_off: int, keys: Dict[LineKey, int], klass, stats,
-                 sticky: bool = False):
+                 sticky: bool = False, tracer=None):
         self._pending = pending
         self._cache = cache
         self._fkey = fkey
@@ -261,6 +267,11 @@ class _FillOnWait:
         self._stats = stats
         self._filled = False
         self._sticky = sticky
+        # the fill span's tracer and causal identity, taken here: the
+        # fill runs at wait(), maybe on another thread
+        self._tracer = tracer if (tracer is not None
+                                  and tracer.enabled) else None
+        self._ctx = attach_context() if self._tracer is not None else None
 
     @property
     def length(self) -> int:
@@ -278,12 +289,19 @@ class _FillOnWait:
         view = self._pending.wait(timeout)
         if not self._filled:
             self._filled = True
+            t0 = time.monotonic_ns()
             try:
                 self._cache.fill_from_view(self._fkey, self._off, view,
                                            self._keys, self._klass,
                                            self._stats, sticky=self._sticky)
             except (OSError, ValueError):
                 pass   # the tier accelerates; it never fails a read
+            if self._tracer is not None:
+                self._tracer.add_span(
+                    "strom.cache.fill", t0, time.monotonic_ns(),
+                    category="strom.cache", ctx=self._ctx,
+                    lines=len(self._keys), bytes=int(view.nbytes),
+                    klass=self._klass)
         return view
 
     def is_ready(self) -> bool:
@@ -696,6 +714,8 @@ class HostCache:
             if stats is not None:
                 stats.add(cache_evictions=1, tenant_quota_evictions=1)
                 stats.add_tenant_stat(tid, quota_evictions=1)
+                if best.hits == 0 and best.valid:
+                    charge_waste(stats, "evicted_unused", best.valid)
                 stats.set_gauges(cache_bytes_resident=self.bytes_resident,
                                  cache_lines_resident=len(self._lines))
             return best.slot
@@ -759,6 +779,9 @@ class HostCache:
             self._tenant_drop_locked(line)
             if stats is not None:
                 stats.add(cache_evictions=1)
+                if line.hits == 0 and line.valid:
+                    # filled and never hit: the fill bought nothing
+                    charge_waste(stats, "evicted_unused", line.valid)
                 stats.set_gauges(cache_bytes_resident=self.bytes_resident,
                                  cache_lines_resident=len(self._lines))
             return line.slot

@@ -24,6 +24,10 @@ it submitted before either existed.
 While the engine's supervisor (io/health.py) has the device degraded,
 ``submit_spans`` serves every batch as buffered preads past the engine
 and its wrappers, and each submit is a time-gated supervision tick.
+
+The gap bytes a merge reads through are charged to the ledger's
+``coalesce_gap`` class (obs/ledger.py); with the tracer on, each batch's
+tier hits are one ``strom.cache.hit`` span.
 """
 
 from __future__ import annotations
@@ -32,8 +36,12 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import inspect
+import time
 
 import numpy as np
+
+from nvme_strom_tpu_torch.obs.ledger import charge_waste
+from nvme_strom_tpu_torch.utils.trace import live_tracer
 
 #: one O_DIRECT logical block: reading it through beats a second read
 COALESCE_GAP = 4096
@@ -59,11 +67,13 @@ class ExtentPlan:
     """``spans``: (fh, offset, length) engine reads in submission order.
     ``placements``: per input extent, its ordered (span_index, lo, hi)
     pieces relative to that span's view.  ``spans_coalesced``: extents
-    that merged into a span opened by an earlier one."""
+    that merged into a span opened by an earlier one.  ``gap_bytes``:
+    dead bytes read through to merge (the ledger's ``coalesce_gap``)."""
 
     spans: List[Tuple[int, int, int]]
     placements: List[List[Tuple[int, int, int]]]
     spans_coalesced: int
+    gap_bytes: int = 0
 
 
 def plan_extents(extents: Sequence[Tuple[int, int, int]], *,
@@ -117,10 +127,13 @@ def plan_extents(extents: Sequence[Tuple[int, int, int]], *,
 
     group: list = []
     g_fh = g_start = g_end = 0
+    gap_bytes = 0
     for i in order:
         fh, off, ln = extents[i]
         if group and fh == g_fh and off <= g_end + gap \
                 and max(g_end, off + ln) - g_start <= split:
+            if off > g_end:
+                gap_bytes += off - g_end
             group.append(i)
             g_end = max(g_end, off + ln)
             continue
@@ -131,7 +144,7 @@ def plan_extents(extents: Sequence[Tuple[int, int, int]], *,
     if group:
         emit(group)
     return ExtentPlan(spans=spans, placements=placements,
-                      spans_coalesced=coalesced)
+                      spans_coalesced=coalesced, gap_bytes=gap_bytes)
 
 
 class _SharedSpan:
@@ -308,6 +321,8 @@ def plan_and_submit(engine, extents: Sequence[Tuple[int, int, int]], *,
                         split_unit=split_unit)
     shared = _share_spans(submit_spans(engine, plan.spans, klass=klass),
                           plan.placements)
+    charge_waste(getattr(engine, "stats", None), "coalesce_gap",
+                 plan.gap_bytes)
     return [_views_for(shared, pieces, fh, off)
             for (fh, off, _ln), pieces in zip(extents, plan.placements)]
 
@@ -331,6 +346,7 @@ def _plan_and_submit_tiered(cache, engine, extents, *, gap, chunk_bytes,
     from nvme_strom_tpu_torch.io.hostcache import (CacheHitRead,
                                                    _FillOnWait, file_key_of)
     stats = getattr(engine, "stats", None)
+    tracer = live_tracer(engine)
     for i, (_fh, _off, ln) in enumerate(extents):
         if ln < 0:   # before probing: probes pin lines
             raise ValueError(f"extent {i}: negative length {ln}")
@@ -369,10 +385,12 @@ def _plan_and_submit_tiered(cache, engine, extents, *, gap, chunk_bytes,
         keys = (_fill_keys_for_span(cache, fkey, admitted, s_off, s_ln)
                 if fkey is not None and admitted else {})
         wrapped.append(_FillOnWait(p, cache, fkey, s_off, keys, klass,
-                                   stats, sticky=hot) if keys else p)
+                                   stats, sticky=hot, tracer=tracer)
+                       if keys else p)
     shared = _share_spans(wrapped, plan.placements)
     out: List[list] = []
     mi = 0
+    hit_count = hit_bytes = 0
     for (fh, _off, _ln), segs in zip(extents, segs_all):
         pieces: list = []
         for sg in segs:
@@ -381,11 +399,15 @@ def _plan_and_submit_tiered(cache, engine, extents, *, gap, chunk_bytes,
                 rel = a - line.key[1]
                 pieces.append(CacheHitRead(cache, line, rel, rel + sl, fh,
                                            a))
+                hit_count += 1
+                hit_bytes += sl
             else:
                 pieces.extend(_views_for(shared, plan.placements[mi], fh,
                                          sg[1]))
                 mi += 1
         out.append(pieces)
+    _hit_span(tracer, klass, hit_count, hit_bytes)
+    charge_waste(stats, "coalesce_gap", plan.gap_bytes)
     return out
 
 
@@ -403,11 +425,13 @@ def submit_spans_tiered(engine, spans: Sequence[Tuple[int, int, int]],
     from nvme_strom_tpu_torch.io.hostcache import (CacheHitRead,
                                                    _FillOnWait, file_key_of)
     stats = getattr(engine, "stats", None)
+    tracer = live_tracer(engine)
     spans = list(spans)
     out: list = [None] * len(spans)
     miss: list = []
     meta: list = []    # (out index, fkey, admitted keys)
     fkeys: dict = {}
+    hit_count = hit_bytes = 0
     for i, (fh, off, ln) in enumerate(spans):
         if fh not in fkeys:
             fkeys[fh] = file_key_of(engine, fh)
@@ -418,9 +442,12 @@ def submit_spans_tiered(engine, spans: Sequence[Tuple[int, int, int]],
         if line is not None:
             rel = off - line.key[1]
             out[i] = CacheHitRead(cache, line, rel, rel + ln, fh, off)
+            hit_count += 1
+            hit_bytes += ln
         else:
             miss.append((fh, off, ln))
             meta.append((i, fkey, adm))
+    _hit_span(tracer, klass, hit_count, hit_bytes)
     try:
         pendings = submit_spans(engine, miss, klass=klass)
     except BaseException:
@@ -432,6 +459,16 @@ def submit_spans_tiered(engine, spans: Sequence[Tuple[int, int, int]],
         _fh, off, ln = spans[i]
         keys = (_fill_keys_for_span(cache, fkey, adm, off, ln)
                 if fkey is not None and adm else {})
-        out[i] = (_FillOnWait(p, cache, fkey, off, keys, klass, stats)
-                  if keys else p)
+        out[i] = (_FillOnWait(p, cache, fkey, off, keys, klass, stats,
+                              tracer=tracer) if keys else p)
     return out
+
+
+def _hit_span(tracer, klass, hits: int, nbytes: int) -> None:
+    """One ``strom.cache.hit`` span for a batch's tier hits (a span a
+    line would swamp the trace on a hot run), under the requester's
+    context."""
+    if tracer is not None and hits:
+        now = time.monotonic_ns()
+        tracer.add_span("strom.cache.hit", now, now, category="strom.cache",
+                        klass=klass, hits=hits, bytes=nbytes)

@@ -39,8 +39,14 @@ The engine's ``ring_free`` callback is masked by its supervisor
 (io/health.py): a ring whose breaker is open reports no headroom, so
 batches are granted to the healthy rings, and each poll of it is a
 time-gated supervision round.  A granted batch's pending reads carry
-its class (``op_klass``) for the flight recorder.  The tracer's queue
-spans come with ROADMAP item 14.
+its class (``op_klass``) for the flight recorder.
+
+With the tracer on, each grant is a ``strom.sched.queue`` span from
+enqueue to grant under the requester's causal context (taken at
+enqueue: the grant may run on another thread), the ``sched_queue``
+component of obs/attrib.py; with a trace file, every dispatch round
+also samples each class's queue depth as the
+``strom.sched.queue_depth`` counter track (at most every 20 ms).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Sequence
 
 from nvme_strom_tpu_torch.io.tenants import current_tenant
+from nvme_strom_tpu_torch.utils.trace import NO_CONTEXT, attach_context
 
 #: priority order, highest first
 CLASS_ORDER = ("decode", "restore", "prefetch", "scan", "scrub")
@@ -107,9 +114,9 @@ class _Batch:
     """One planned batch queued for a grant."""
 
     __slots__ = ("spans", "klass", "rounds", "granted", "ring",
-                 "promoted", "t_enq", "tenant")
+                 "promoted", "t_enq", "t_enq_ns", "ctx", "tenant")
 
-    def __init__(self, spans, klass: str):
+    def __init__(self, spans, klass: str, ctx=None):
         self.spans = spans
         self.klass = klass
         self.rounds = 0          # dispatch rounds survived ungranted
@@ -117,6 +124,9 @@ class _Batch:
         self.ring: Optional[int] = None
         self.promoted = False    # granted by the aging bound
         self.t_enq = time.monotonic()
+        self.t_enq_ns = time.monotonic_ns()
+        #: the requester's TraceContext, taken at enqueue
+        self.ctx = ctx
         #: the queuing scope's Tenant (None outside any tenant scope)
         self.tenant = current_tenant()
 
@@ -136,7 +146,7 @@ class QoSScheduler:
                  ring_free: Callable[[], List[int]],
                  policies: Optional[Dict[str, ClassPolicy]] = None,
                  aging_rounds: int = 16, stats=None,
-                 ring_cap: Optional[int] = None):
+                 ring_cap: Optional[int] = None, tracer=None):
         if aging_rounds < 1:
             raise ValueError("aging_rounds must be >= 1")
         self._submit_ring = submit_ring
@@ -144,6 +154,9 @@ class QoSScheduler:
         self.policies = policies or default_policies()
         self.aging_rounds = aging_rounds
         self.stats = stats
+        #: where the queue spans and the depth track go (utils/trace.py)
+        self.tracer = tracer
+        self._next_counter_t = 0.0
         #: what a fully idle ring reports free: tells "ring 0 is idle"
         #: from "every ring is equally busy"
         self.ring_cap = ring_cap
@@ -173,7 +186,12 @@ class QoSScheduler:
         against this; ``submit()`` is the blocking path)."""
         if klass not in self.policies:
             klass = DEFAULT_CLASS
-        b = _Batch(list(spans), klass)
+        # NO_CONTEXT, not None, out of scope: the grant may run on
+        # another request's thread, whose context must not be adopted
+        ctx = NO_CONTEXT
+        if self.tracer is not None and self.tracer.enabled:
+            ctx = attach_context()
+        b = _Batch(list(spans), klass, ctx=ctx)
         with self._cv:
             if self._closed:
                 raise OSError(errno.ECANCELED,
@@ -392,6 +410,13 @@ class QoSScheduler:
         for q in self._queues.values():
             for b in q:
                 b.rounds += 1
+        if self.tracer is not None and self.tracer.exports:
+            now = time.monotonic()
+            if now >= self._next_counter_t:
+                self._next_counter_t = now + 0.02
+                self.tracer.add_counter(
+                    "strom.sched.queue_depth",
+                    {k: len(q) for k, q in self._queues.items()})
         return progress
 
     def _dispatch_one(self, b: _Batch, ring: int,
@@ -406,6 +431,11 @@ class QoSScheduler:
         self.dispatches += 1
         if promoted:
             self.promotions += 1
+        if self.tracer is not None and self.tracer.enabled:
+            self.tracer.add_span(
+                "strom.sched.queue", b.t_enq_ns, time.monotonic_ns(),
+                category="strom.sched", ctx=b.ctx, klass=b.klass,
+                ring=ring, spans=len(b.spans), promoted=promoted)
         if self.stats is not None:
             extra = {"promotions": 1} if promoted else {}
             self.stats.add(sched_dispatches=1,

@@ -88,8 +88,9 @@ supervisor (io/health.py) reports any breaker not closed, or the device
 degraded, a p99 past the target moves nothing, on either lane.  Each
 boost dumps the engine's flight recorder (``slo_violation``,
 io/flightrec.py).  ``PrefixStore.warm_pages`` is the cold-start warming
-pass (io/coldstart.py) and counts ``coldstart_warm_pages``.  The
-tracer's restore span comes with ROADMAP Queue 1 item 14.
+pass (io/coldstart.py) and counts ``coldstart_warm_pages``.  With the
+engine's tracer on, each ``restore_many`` is a ``strom.kv.restore``
+span, and its wait for the page copies a ``strom.h2d.sync`` span.
 """
 
 from __future__ import annotations
@@ -118,6 +119,7 @@ from nvme_strom_tpu_torch.ops.bridge import (DeviceStream, host_to_device,
 from nvme_strom_tpu_torch.utils.checksum import ChecksumError, VerifyPolicy
 from nvme_strom_tpu_torch.utils.config import ColdStartConfig
 from nvme_strom_tpu_torch.utils.stats import percentiles_from_log2_hist
+from nvme_strom_tpu_torch.utils.trace import live_tracer
 
 #: an O_DIRECT write needs its source, offset and length on this boundary
 _ALIGN = 4096
@@ -1088,6 +1090,8 @@ class PrefixStore:
         if not plan:
             return {}
         t0 = time.monotonic()
+        tracer = live_tracer(self.engine)
+        t0_ns = time.monotonic_ns()
         try:
             # a failed write surfacing here degrades to recompute, and
             # must not leak the pins just taken
@@ -1113,8 +1117,13 @@ class PrefixStore:
                 if e["page"] not in pages:
                     pages[e["page"]] = self._start_copies(e, pieces, dev,
                                                           transfers)
+            t_sync = time.monotonic_ns()
             for t in transfers:
                 t.synchronize()
+            if tracer is not None:
+                tracer.add_span("strom.h2d.sync", t_sync,
+                                time.monotonic_ns(), category="strom.h2d",
+                                copies=len(transfers))
             half = self.page_bytes // 2
             views: dict = {}
             for slot, idx, kx, e in plan:
@@ -1140,6 +1149,13 @@ class PrefixStore:
                     self._unpin_locked(e)
         elapsed_us = max(1, int((time.monotonic() - t0) * 1e6))
         n_ok = sum(len(v) for v in out.values())
+        if tracer is not None:
+            # the store's own restore (NVMe reads, checks, copies), under
+            # the serving restore's context
+            tracer.add_span("strom.kv.restore", t0_ns, time.monotonic_ns(),
+                            category="strom.kv", pages=len(plan), ok=n_ok,
+                            failed=len(failed),
+                            bytes=len(plan) * self.page_bytes)
         with self._lock:
             # hist[i] counts [2^i, 2^(i+1)) µs; halved past 512 samples,
             # so the estimate follows current latency

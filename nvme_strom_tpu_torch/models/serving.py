@@ -74,10 +74,21 @@ already delivered, the remaining budget, the sampling parameters and
 their prefix-store page keys, and with ``pop`` takes them off the
 server, freeing their slots (and the paged server's blocks).  Until a
 drain begins none of this state shows in ``stats()``.
+
+Request traces: while the server's tracer is on (the store engine's, or
+the global one), ``submit`` gives each request a root ``TraceContext``;
+its admission runs under a child context (the ``strom.serve.admit``
+span, the batched restore's ``strom.serve.kv_restore`` under the first
+traced request), so the store's, the scheduler's and the engine's spans
+hang under the request, and its retirement emits the root
+``strom.serve.request`` span and, under ``STROM_ATTRIB=1``, folds the
+request's spans into the attribution profiles (obs/attrib.py,
+class ``decode``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 from dataclasses import dataclass, field
@@ -94,8 +105,11 @@ from nvme_strom_tpu_torch.models import decode as _dec
 from nvme_strom_tpu_torch.models.moe import prefill_len
 from nvme_strom_tpu_torch.models.transformer import (
     TransformerConfig, embed, mlp_block, qkv_project, rms_norm, wmat)
+from nvme_strom_tpu_torch.obs.attrib import get_collector
 from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
 from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+from nvme_strom_tpu_torch.utils.trace import (TraceContext, global_tracer,
+                                              use_context)
 
 
 @dataclass
@@ -117,6 +131,10 @@ class _Request:
     t_first: Optional[float] = None
     # the resolved io/tenants.Tenant; None while STROM_TENANTS=0
     tenant: object = None
+    # the request's root TraceContext (utils/trace.py) and its submit
+    # time in ns, while a tracer is on at submit
+    trace: object = None
+    t_submit_ns: int = 0
 
 
 def _draw_seed(seed: int, pos: int) -> int:
@@ -302,7 +320,21 @@ class DecodeServer:
         if tenant is not None and tenants_enabled():
             # resolved once; with tenants off the tag is ignored
             req.tenant = get_registry().get(tenant)
+        if self._tracer() is not None:
+            req.trace = TraceContext.new()
+            req.t_submit_ns = time.monotonic_ns()
         self.queue.append(req)
+
+    def _tracer(self):
+        """The server's span sink: the store engine's tracer with a
+        store (one trace for the whole stack), else the global tracer;
+        None while it is off, so each call site is one test."""
+        store = self.kv_store
+        tracer = (getattr(getattr(store, "engine", None), "tracer", None)
+                  if store is not None else None)
+        if tracer is None:
+            tracer = global_tracer
+        return tracer if tracer.enabled else None
 
     # -- admission ----------------------------------------------------------
     #
@@ -364,13 +396,28 @@ class DecodeServer:
             store.stats.add(kv_prefix_misses=misses)
         if not wants:
             return {}
-        # one shared read: charged to the first participating tenant
-        # (exact for a one-request step)
+        # one shared read: charged to the first participating tenant,
+        # and traced under the first traced request's tree (exact for a
+        # one-request step; the span names every trace id it served)
         by_slot = {p["slot"]: p["req"] for p in plans}
         ten = next((by_slot[s].tenant for s in wants
                     if by_slot[s].tenant is not None), None)
-        with tenant_context(ten):
-            return store.restore_many(wants, device=self.device)
+        tracer = self._tracer()
+        if tracer is None:
+            with tenant_context(ten):
+                return store.restore_many(wants, device=self.device)
+        traced = [by_slot[s].trace for s in wants
+                  if by_slot[s].trace is not None]
+        ctx = traced[0].child() if traced else None
+        t0 = time.monotonic_ns()
+        with use_context(ctx), tenant_context(ten):
+            restored = store.restore_many(wants, device=self.device)
+        tracer.add_span(
+            "strom.serve.kv_restore", t0, time.monotonic_ns(),
+            category="strom.serve", ctx=ctx, slots=len(wants),
+            pages=sum(len(k) for _s, k in wants.values()),
+            traces=[f"{t.trace_id:x}" for t in traced])
+        return restored
 
     @staticmethod
     def _contiguous_from(restored: dict, start: int) -> list:
@@ -383,13 +430,28 @@ class DecodeServer:
 
     def _finish(self, plan: dict, restored: dict) -> None:
         """``_admit_finish`` in the request's tenant scope, so the lines
-        its prefill touches and the pages it puts are charged to it."""
+        its prefill touches and the pages it puts are charged to it, and
+        in its trace: the ``strom.serve.admit`` span, with every span
+        the finish causes (store puts, engine writes) under it."""
         req = plan["req"]
-        if req.tenant is None:
-            self._admit_finish(plan, restored)
+        scope = (tenant_context(req.tenant) if req.tenant is not None
+                 else contextlib.nullcontext())
+        tracer = self._tracer()
+        if tracer is None or req.trace is None:
+            with scope:
+                self._admit_finish(plan, restored)
             return
-        with tenant_context(req.tenant):
+        ctx = req.trace.child()
+        t0 = time.monotonic_ns()
+        with use_context(ctx), scope:
             self._admit_finish(plan, restored)
+        tracer.add_span(
+            "strom.serve.admit", t0, time.monotonic_ns(),
+            category="strom.serve", ctx=ctx, rid=str(req.rid),
+            slot=plan["slot"], prompt_tokens=len(req.prompt),
+            restored_pages=len(restored),
+            queue_wait_ms=round(1000.0 * (time.monotonic() - req.t_submit),
+                                3))
 
     def _admit_finish(self, plan: dict, restored: dict) -> None:
         """Prefill the prompt and place its KV in the slot's rows.  With
@@ -482,6 +544,23 @@ class DecodeServer:
         ttft_ms = (1000.0 * (req.t_first - req.t_submit)
                    if req.t_first is not None else 0.0)
         wait_ms = 1000.0 * (req.t_admit - req.t_submit)
+        tracer = self._tracer()
+        if tracer is not None and req.trace is not None:
+            end_ns = time.monotonic_ns()
+            # the request's root span, submit to retirement: the tree
+            # every admit, restore, queue and engine span hangs under
+            tracer.add_span("strom.serve.request", req.t_submit_ns, end_ns,
+                            category="strom.serve", ctx=req.trace,
+                            rid=str(req.rid), ttft_ms=round(ttft_ms, 3),
+                            admit_wait_ms=round(wait_ms, 3),
+                            tokens=len(req.out))
+            col = get_collector()
+            if col is not None:
+                # serving requests are the decode class
+                col.request_retired(req.trace.trace_id, req.t_submit_ns,
+                                    end_ns, klass="decode",
+                                    extra={"rid": str(req.rid),
+                                           "ttft_ms": round(ttft_ms, 3)})
         self.request_metrics[req.rid] = {"ttft_ms": round(ttft_ms, 3),
                                          "admit_wait_ms": round(wait_ms, 3)}
         while len(self.request_metrics) > self.METRICS_KEEP:

@@ -26,12 +26,18 @@ degraded read's bytes (io/health.py, ``engine.BouncedBytes``) were
 counted as bounce by the engine at their pread: they take the pinned
 buffer (or the CPU copy) all the same, and are not counted twice, so
 over a degraded run ``bounce_bytes`` equals ``degraded_bytes``.
+
+With the engine's tracer on, each copy's launch is a
+``strom.h2d.dispatch`` span, each wait for a stream's copy a
+``strom.h2d.sync`` span and each overlap-stage chunk a
+``strom.bridge.hop`` span: the ``bridge`` component of obs/attrib.py.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -44,6 +50,7 @@ from nvme_strom_tpu_torch.io.engine import (BouncedBytes, HostMapping,
                                             StromEngine)
 from nvme_strom_tpu_torch.io.hostcache import spoil_span
 from nvme_strom_tpu_torch.io.plan import split_spans, submit_spans_tiered
+from nvme_strom_tpu_torch.utils.trace import live_tracer
 
 _SIDE_STREAMS: Dict[int, torch.cuda.Stream] = {}
 
@@ -166,12 +173,16 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
     flat = _host_bytes(host)
     n = flat.nbytes
     stats = engine.stats if engine is not None else None
+    tracer = live_tracer(engine)
+    t0 = time.monotonic_ns() if tracer is not None else 0
     if dev.type == "cpu":
         if stats is not None:
             stats.add(bytes_to_device=n)
             if not counted:
                 stats.add(bounce_bytes=n)
-        return Transfer(torch.from_numpy(flat.copy()))
+        out = Transfer(torch.from_numpy(flat.copy()))
+        _dispatch_span(tracer, t0, n)
+        return out
     ptr = flat.ctypes.data
     maps = list(mappings)
     if engine is not None:
@@ -200,7 +211,14 @@ def host_to_device(engine: Optional[StromEngine], host, dev: torch.device,
     out.record_stream(side)
     if stats is not None:
         stats.add(bytes_to_device=n)
+    _dispatch_span(tracer, t0, n)
     return Transfer(out, event, keep)
+
+
+def _dispatch_span(tracer, t0: int, nbytes: int) -> None:
+    if tracer is not None:
+        tracer.add_span("strom.h2d.dispatch", t0, time.monotonic_ns(),
+                        category="strom.h2d", bytes=nbytes)
 
 
 def split_ranges(spans, chunk: int):
@@ -281,11 +299,17 @@ class OverlapStage:
         if prev is not None:
             prev.synchronize()      # the slab's last copy is done
             self._busy[k] = None
+        tracer = live_tracer(self.engine)
+        t0 = time.monotonic_ns() if tracer is not None else 0
         slab = self._slabs[k][:n]
         slab[:] = view.reshape(-1).view(np.uint8)
         t = self._transfer(slab, dtype, shape)
         self._busy[k] = t
         self.engine.stats.add(overlap_chunks=1, overlap_bytes=n)
+        if tracer is not None:
+            # the chunk's host→device hop: the slab copy and the launch
+            tracer.add_span("strom.bridge.hop", t0, time.monotonic_ns(),
+                            category="strom.bridge", bytes=n, slab=k)
         return t
 
     def close(self) -> None:
@@ -421,9 +445,19 @@ class DeviceStream:
                               transfer=self.overlap_transfer)
                  if self.overlap else None)
 
+        tracer = live_tracer(self.engine)
+
         def drain_one():
             t, pr = inflight.pop(0)
-            t.synchronize()          # the device owns the bytes now
+            if tracer is None:
+                t.synchronize()      # the device owns the bytes now
+            else:
+                t0 = time.monotonic_ns()
+                t.synchronize()
+                tracer.add_span("strom.h2d.sync", t0, time.monotonic_ns(),
+                                category="strom.h2d",
+                                bytes=t.tensor.numel()
+                                * t.tensor.element_size())
             if pr is not None:
                 pr.release()
             return t.tensor

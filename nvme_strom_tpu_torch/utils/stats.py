@@ -61,10 +61,12 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
 * the waste ledger (obs/ledger.py): ``waste_hedge_loss_bytes`` (the
   losing side of a hedge), ``waste_retry_reread_bytes`` (bytes a retry
   read again), ``waste_degraded_bytes`` (bytes served by the degraded
-  brown-out),
-  and ``waste_coalesce_gap_bytes`` and ``waste_evicted_unused_bytes``,
-  which no port path charges yet; ``trace_spans_dropped`` spans the
+  brown-out), ``waste_coalesce_gap_bytes`` (gap bytes the planner read
+  through to merge extents), ``waste_evicted_unused_bytes`` (host-tier
+  lines evicted before a hit); ``trace_spans_dropped`` spans the
   tracer dropped at its cap (utils/trace.py).
+* attribution (obs/attrib.py): ``attrib_requests`` requests folded at
+  retirement, ``attrib_spans_dropped`` spans past a trace's bound.
 * failure domains (io/health.py): ``breaker_trips`` ring and device
   breakers opened, ``ring_restarts`` hot restarts, ``extents_requeued``
   requests a restart cancelled for their waiters to resubmit,
@@ -94,7 +96,11 @@ restore-batch p99 from its log2 histogram),
 ``kv_store_pages_resident``, ``ring_health`` (each ring's breaker
 state) and ``engine_degraded``, ``boot_phase`` /
 ``boot_phase_code``, ``drain_phase`` / ``drain_phase_code`` and
-``handoff_source`` (``bundle`` once a boot consumed one).
+``handoff_source`` (``bundle`` once a boot consumed one), and
+``ring_state_s`` (each ring's cumulative seconds per state,
+obs/ledger.py ``RingTimeLedger``).  :func:`openmetrics_from_snapshot`
+renders a snapshot as OpenMetrics text (the debug server's
+``/metrics``).
 """
 
 from __future__ import annotations
@@ -135,11 +141,12 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "coldstart_brownouts", "handoff_drains", "handoff_deferred",
             "handoff_sessions_exported", "handoff_sessions_restored",
             "handoff_bundles", "handoff_bundle_bytes", "handoff_brownouts",
-            "handoff_stall_dumps")
+            "handoff_stall_dumps", "attrib_requests",
+            "attrib_spans_dropped")
 GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
           "cache_bytes_resident", "cache_lines_resident", "ring_health",
           "engine_degraded", "boot_phase", "boot_phase_code", "drain_phase",
-          "drain_phase_code", "handoff_source")
+          "drain_phase_code", "handoff_source", "ring_state_s")
 
 
 @dataclass
@@ -223,6 +230,8 @@ class StromStats:
     handoff_bundle_bytes: int = 0
     handoff_brownouts: int = 0
     handoff_stall_dumps: int = 0
+    attrib_requests: int = 0
+    attrib_spans_dropped: int = 0
     _gauges: dict = field(default_factory=dict, repr=False, compare=False)
     _class_stats: dict = field(default_factory=dict, repr=False,
                                compare=False)
@@ -351,6 +360,86 @@ class Log2Histogram:
 
     def percentile(self, p: int) -> int:
         return percentiles_from_log2_hist(self.counts(), ps=(p,))[p]
+
+
+def _om_escape(v) -> str:
+    return str(v).replace("\\", r"\\").replace('"', r'\"') \
+        .replace("\n", r"\n")
+
+
+def _om_value(v) -> str:
+    f = float(v)
+    return str(int(f)) if f == int(f) else repr(f)
+
+
+def _om_labels(pairs) -> str:
+    if not pairs:
+        return ""
+    return "{" + ",".join(f'{k}="{_om_escape(v)}"' for k, v in pairs) + "}"
+
+
+#: the class_stats entries that are running max / sum / n triplets,
+#: exported as gauges (the rest are counters)
+_CLASS_GAUGE_SUFFIXES = ("_max", "_sum", "_n")
+
+
+def openmetrics_from_snapshot(snap: dict) -> str:
+    """A :meth:`StromStats.snapshot` as OpenMetrics text, with the JAX
+    package's family names: counters ``strom_<name>_total``, gauges
+    ``strom_<name>``, ``class_stats`` labelled ``{klass=}``,
+    ``tenant_stats`` as ``strom_by_tenant_<name>{tenant=}``,
+    ``ring_depths`` / ``ring_health`` / ``ring_state_s`` per ``{ring=}``;
+    families sorted by name, ``# EOF`` last."""
+    fams: dict = {}    # name → (kind, help, [(label pairs, value)])
+
+    def add(name, kind, help_, value, pairs=()):
+        fams.setdefault(name, (kind, help_, []))[2].append((pairs, value))
+
+    for name in COUNTERS:
+        add(f"strom_{name}", "counter", f"strom-io counter {name}",
+            int(snap.get(name, 0)))
+    for key, label, word, prefix in (
+            ("class_stats", "klass", "class", "strom_class_"),
+            ("tenant_stats", "tenant", "tenant", "strom_by_tenant_")):
+        blocks = snap.get(key) or {}
+        for n in sorted({n for blk in blocks.values() for n in blk}):
+            gauge = (key == "class_stats"
+                     and n.endswith(_CLASS_GAUGE_SUFFIXES))
+            what = "gauge" if gauge else "counter"
+            for owner, blk in sorted(blocks.items()):
+                if n in blk:
+                    add(prefix + n, what, f"per-{word} {what} {n}", blk[n],
+                        ((label, owner),))
+    for i, d in enumerate(snap.get("ring_depths") or ()):
+        add("strom_ring_depth", "gauge", "in-flight I/O per ring", int(d),
+            (("ring", i),))
+    for i, st in enumerate(snap.get("ring_health") or ()):
+        add("strom_ring_breaker_open", "gauge",
+            "1 while the ring's circuit breaker is not closed",
+            0 if st == "closed" else 1, (("ring", i), ("state", st)))
+    for state, per_ring in sorted((snap.get("ring_state_s") or {}).items()):
+        for i, v in enumerate(per_ring):
+            add("strom_ring_state_seconds", "gauge",
+                "cumulative seconds per ring per state",
+                round(float(v), 3), (("ring", i), ("state", state)))
+    skip = set(COUNTERS) | {"class_stats", "tenant_stats", "ring_depths",
+                            "ring_health", "ring_state_s"}
+    for name in sorted(snap):
+        v = snap[name]
+        if name not in skip and isinstance(v, (int, float)) \
+                and not isinstance(v, bool):
+            add(f"strom_{name}", "gauge", f"strom-io gauge {name}", v)
+    lines = []
+    for name in sorted(fams):
+        kind, help_, samples = fams[name]
+        lines.append(f"# TYPE {name} {kind}")
+        lines.append(f"# HELP {name} {_om_escape(help_)}")
+        suffix = "_total" if kind == "counter" else ""
+        for pairs, v in samples:
+            lines.append(f"{name}{suffix}{_om_labels(pairs)} "
+                         f"{_om_value(v)}")
+    lines.append("# EOF")
+    return "\n".join(lines) + "\n"
 
 
 _write_seq = itertools.count()

@@ -22,8 +22,8 @@ Activation: ``STROM_TRACE=/path/out.trace.json`` enables the process's
 atomically by ``export()`` and at exit; or a ``Tracer(path)`` handed to
 an engine.  Disabled, a call site costs one attribute test
 (``tracer.enabled``).  Span sinks (``add_sink``) receive every span
-without an export path: the attribution collector of the reference's
-``obs/attrib.py`` uses them (not ported yet)."""
+without an export path: the attribution collector (obs/attrib.py,
+``STROM_ATTRIB=1``) is one."""
 
 from __future__ import annotations
 
@@ -152,7 +152,7 @@ class Tracer:
         #: (None: the first engine built on this tracer sets its own;
         #: until then drops are only counted in ``dropped``)
         self.stats = stats
-        #: span SINKS (the reference's obs/attrib.py): callables handed
+        #: span SINKS (obs/attrib.py): callables handed
         #: every completed span event dict.  A sink-only tracer (no
         #: export path) records nothing in memory: spans flow to the
         #: sinks and are gone, so always-on attribution never grows the
@@ -182,7 +182,7 @@ class Tracer:
 
     def add_sink(self, sink) -> None:
         """Attach a span sink (``sink(event_dict)`` per completed span —
-        the reference's obs/attrib.py collector).  Enables the tracer for sink
+        the obs/attrib.py collector).  Enables the tracer for sink
         delivery even with no export path; idempotent per callable."""
         with self._lock:
             if sink not in self._sinks:
@@ -350,6 +350,13 @@ class _SpanCtx:
                               category=self._cat, ctx=self._ctx,
                               **self._args)
         return False
+
+
+def live_tracer(engine) -> Optional[Tracer]:
+    """``engine``'s tracer while it is on, else None: one attribute test
+    a call site with tracing off."""
+    tracer = getattr(engine, "tracer", None)
+    return tracer if tracer is not None and tracer.enabled else None
 
 
 def connected_tree(events, trace_id: Optional[str] = None) -> bool:

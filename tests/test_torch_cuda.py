@@ -1518,3 +1518,150 @@ def test_prefetched_batch_copies_on_the_side_stream(dev):
     torch.cuda.synchronize()
     for g, b in zip(got, batches):
         assert torch.equal(g.cpu(), torch.from_numpy(b))
+
+
+# -- speculative decoding, the npy reader, the ViT, the debug server ---------
+
+@pytest.fixture()
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_speculative_draft_on_kernel_2_equals_generate(dev, no_tf32):
+    """Float32 greedy speculation with the draft's steps on the decode
+    kernel: the tokens of the target's own dense greedy decode, and the
+    kernel launched once a draft step and layer."""
+    from nvme_strom_tpu_torch.convert import params_from_jax
+    from nvme_strom_tpu_torch.models import decode as dec
+    from nvme_strom_tpu_torch.models.speculative import (SpecStats,
+                                                         speculative_generate)
+    from nvme_strom_tpu_torch.models.transformer import (init_params,
+                                                         tiny_config)
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    cfg = dataclasses.replace(tiny_config(), dtype=torch.float32)
+    target = params_from_jax(init_params(0, cfg), cfg, dev)
+    draft = params_from_jax(init_params(7, cfg), cfg, dev)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, 8)).astype(np.int32)).to(dev)
+    want = dec.generate(target, prompt, cfg, 24)
+    for d, k in ((draft, 3), (target, 4)):
+        st = SpecStats()
+        before = decode_attention.launches
+        got = speculative_generate(d, target, prompt, cfg, 24, k=k,
+                                   stats=st, cache_attn=decode_attention)
+        assert torch.equal(got, want)
+        assert decode_attention.launches - before == \
+            st.drafted * cfg.n_layers
+    assert st.accept_rate >= 0.9
+
+
+def test_read_npy_to_device_bitwise_without_bounce(dev, tmp_path,
+                                                   monkeypatch):
+    """.npy and .npz payloads onto the card through h2d_copy, bitwise,
+    with no host copy (``bounce_bytes`` 0)."""
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    from nvme_strom_tpu_torch.formats import (read_npy_to_device,
+                                              read_npz_to_device)
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    rng = np.random.default_rng(0)
+    arrays = {"f32": rng.standard_normal((700, 1100)).astype(np.float32),
+              "i64": rng.integers(-2**40, 2**40, (5, 333)),
+              "u8": rng.integers(0, 256, 4099, dtype=np.uint8)}
+    with StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                  buffer_pool_bytes=16 << 20)) as eng:
+        before = h2d_copy.launches
+        for name, arr in arrays.items():
+            p = str(tmp_path / f"{name}.npy")
+            np.save(p, arr)
+            got = read_npy_to_device(eng, p, device=dev)
+            assert got.device == dev
+            np.testing.assert_array_equal(got.cpu().numpy(), arr)
+        p = str(tmp_path / "pack.npz")
+        np.savez(p, **arrays)
+        out = read_npz_to_device(eng, p, device=dev)
+        for name, arr in arrays.items():
+            np.testing.assert_array_equal(out[name].cpu().numpy(), arr)
+        eng.sync_stats()
+        assert h2d_copy.launches > before
+        assert eng.stats.bounce_bytes == 0
+
+
+def test_vit_step_on_the_card_against_the_cpu(dev, no_tf32):
+    """One float32 ViT train step on the card and on the CPU from the
+    same parameters: the loss and every updated parameter agree."""
+    from nvme_strom_tpu_torch.models.transformer import adamw, trainable_params
+    from nvme_strom_tpu_torch.models.vit import (init_vit_params,
+                                                 make_vit_train_step,
+                                                 tiny_vit_config)
+    cfg = dataclasses.replace(tiny_vit_config(), dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    images = rng.random((8, cfg.image_size, cfg.image_size, 3),
+                        dtype=np.float32)
+    labels = rng.integers(0, cfg.n_classes, 8).astype(np.int32)
+    np_params = init_vit_params(0, cfg)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        params = trainable_params(np_params, d)
+        step = make_vit_train_step(cfg, adamw(params, 1e-3))
+        loss = step(params, torch.from_numpy(images).to(d),
+                    torch.from_numpy(labels).to(d))
+        out[d.type] = (float(loss), {n: p.detach().cpu()
+                                     for n, p in params.items()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for n, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][n], p, rtol=1e-4,
+                                   atol=1e-5, msg=n)
+
+
+def test_debug_server_routes_on_a_live_engine(dev, tmp_path, monkeypatch):
+    """With STROM_DEBUG_PORT and STROM_ATTRIB set, an engine streaming
+    onto the card serves every route, 200 and parseable."""
+    import json
+    import urllib.request
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.obs import attrib, debugsrv
+    from nvme_strom_tpu_torch.ops.bridge import DeviceStream
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    from nvme_strom_tpu_torch.utils.trace import Tracer
+    monkeypatch.setenv("STROM_DEBUG_PORT", "0")
+    monkeypatch.setenv("STROM_ATTRIB", "1")
+    attrib.reset()
+    debugsrv.reset()
+    path = tmp_path / "data.bin"
+    payload = np.random.default_rng(3).integers(0, 256, 4 << 20,
+                                                dtype=np.uint8)
+    payload.tofile(path)
+    tracer = Tracer()
+    try:
+        with StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                      buffer_pool_bytes=16 << 20),
+                         tracer=tracer) as eng:
+            got = DeviceStream(eng, device=dev).read_to_device(str(path))
+            assert torch.equal(got.cpu(), torch.from_numpy(payload))
+            port = eng._debug_srv.port
+            for route in ("/", "/metrics", "/attrib", "/ledger", "/flight",
+                          "/health"):
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{route}", timeout=5) as r:
+                    assert r.status == 200
+                    body = r.read().decode()
+                if route == "/metrics":
+                    assert body.rstrip().endswith("# EOF")
+                    continue
+                doc = json.loads(body)
+                assert "error" not in doc, (route, doc)
+                if route == "/health":
+                    assert "boot_phase" in doc and "drain_phase" in doc
+                if route == "/attrib":
+                    assert doc["enabled"]
+                if route == "/ledger":
+                    assert doc["delivered_bytes"] >= payload.nbytes
+    finally:
+        tracer._sinks.clear()
+        attrib.reset()
+        debugsrv.reset()
