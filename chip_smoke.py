@@ -213,6 +213,14 @@ It builds the port's native libraries from the checkout, then:
    ``host_us``, ``design`` and, on two or four cards, ``two_cards`` and
    ``four_cards``.
 
+Main path 4, after phase 9, is data and tensor parallel across
+processes (``multigpu_phase``): the one-rank references on ``cuda:0``,
+then every count at 0 and the ranks started as ``chip_smoke.py
+--multigpu-worker``, two on ``cuda:0`` over gloo on one card, one a card
+over NCCL on 2-4 cards; every rank must launch kernels 1, 2 and 4-6
+(and kernel 7 across cards).  ``python3 chip_smoke.py --multigpu`` runs
+that path alone after the build.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
@@ -293,6 +301,21 @@ class _env:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+class _uncounted:
+    """A block whose kernel launches are checks against a reference or
+    timings, not the main path's: each wrapper's count is put back."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def __enter__(self):
+        self.saved = {n: fn.launches for n, fn in self.kernels.items()}
+
+    def __exit__(self, *exc):
+        for n, fn in self.kernels.items():
+            fn.launches = self.saved[n]
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -6575,6 +6598,571 @@ def attrib_phase(dev, cfg, params, shared):
     return report
 
 
+# -- multi-GPU: data and tensor parallel, one process a rank ------------------
+
+#: the phase's wall-clock budget (s) and its parts' shapes: (a) parity at
+#: the flagship's widths in float32, (c) sharded generate, (f) a bf16
+#: step at Llama-3-8B's widths (2 layers) with the flash kernels
+MG_BUDGET_S = 90
+MG_PARITY_SEQ = 512
+MG_PARITY_BATCH = 4
+MG_STEPS = 3
+MG_GEN_PROMPT = 32
+MG_GEN_NEW = 16
+MG_F_SEQ = 2048
+MG_F_STEPS = 4
+#: the one-card run's two ranks share cuda:0 over gloo; a rank's join
+#: limit (s), then every rank is killed and the phase fails
+MG_JOIN_S = 420
+#: parity (a): each step's loss, and every parameter after the last
+#: step, against the one-rank run; step-1 gradients at the same
+#: tolerance.  Adam's first update is lr·g/(|g|+eps), a whole lr·sign(g)
+#: step whatever |g|: where a step-1 gradient is below MG_NOISE_G of its
+#: tensor's rms the float summation order alone decides that sign, so
+#: those elements are counted, not held to the parameter tolerance; more
+#: of them on a rank than MG_EXEMPT_MAX of its elements fails (a card
+#: run exempts about 1e-6 of them)
+MG_LOSS_RTOL = 1e-4
+MG_PARAM_TOL = (1e-4, 1e-5)
+MG_NOISE_G = 1e-3
+MG_EXEMPT_MAX = 1e-5
+#: NVLink 4 per direction between two H100 SXM cards (NVIDIA data sheet)
+NVLINK_BYTES_PER_S = 450e9
+
+
+def _mg_cfg(dtype):
+    import dataclasses
+    import torch
+    from nvme_strom_tpu_torch.models.transformer import flagship_config
+    return dataclasses.replace(flagship_config(), dtype=dtype,
+                               max_seq=max(MG_PARITY_SEQ,
+                                           MG_GEN_PROMPT + MG_GEN_NEW))
+
+
+def _mg_tokens(cfg):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 17)
+    return (rng.integers(0, cfg.vocab, (MG_PARITY_BATCH, MG_PARITY_SEQ))
+            .astype(np.int64),
+            rng.integers(0, cfg.vocab, (4, MG_GEN_PROMPT)).astype(np.int64))
+
+
+def _llama_step(dev, mesh, tokens, iters, profile_steps=0):
+    """Median ms of a bf16 train step at Llama-3-8B's widths (2 layers,
+    flash kernels) on this rank's slices (one rank: the whole model),
+    and, with ``profile_steps``, the collectives' share of the device
+    time of that many more steps (torch.profiler)."""
+    import dataclasses
+    import statistics
+    import torch
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    from nvme_strom_tpu_torch.parallel.shardings import (param_shardings,
+                                                         shard_params)
+    cfg = ttr.TransformerConfig(**dict(LLAMA3_8B_2L, max_seq=MG_F_SEQ),
+                                dtype=torch.bfloat16)
+    full = _card_params(cfg, SEED + 23, dev)
+    sh = None
+    if mesh is not None:
+        sh = param_shardings(cfg, mesh)
+        full = shard_params(full, cfg, mesh, shardings=sh)
+    params = ttr.trainable_params(full, dev)
+    del full
+    torch.cuda.empty_cache()
+    step = ttr.make_train_step(cfg, ttr.adamw(params, 1e-4),
+                               attn_fn=make_flash_attn(), mesh=mesh,
+                               shardings=sh)
+    for _ in range(2):
+        step(params, tokens)
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        loss = float(step(params, tokens))
+        times.append((time.monotonic() - t0) * 1e3)
+    out = {"step_ms": statistics.median(times), "loss": loss,
+           "step_ms_all": times}
+    if profile_steps:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(profile_steps):
+                step(params, tokens)
+            torch.cuda.synchronize(dev)
+        ev = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in ev)
+        coll = sum(e.self_device_time_total for e in ev
+                   if "nccl" in e.key.lower())
+        out["collective_share"] = coll / busy if busy else None
+        out["device_busy_ms"] = busy / 1e3 / profile_steps
+    del params, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mg_gather_whole(local, sharding, shape, mesh):
+    """The whole tensor from every rank's slice (all-gathered)."""
+    import torch
+    from nvme_strom_tpu_torch.parallel import collectives as coll
+    out = torch.empty(shape, dtype=local.dtype, device=local.device)
+    parts = coll.all_gather(local.contiguous(), coll.world_group())
+    for r, part in enumerate(parts):
+        coords = mesh.devices_coords()[r]
+        b = sharding.bounds(shape, coords)
+        out[tuple(slice(a, c) for a, c in b)] = part
+    return out
+
+
+def _mg_close(name, got, want, tol, g1=None):
+    """(elements outside (rtol, atol), of them the ones a near-zero
+    step-1 gradient exempts, worst |err| / limit among the rest)."""
+    import torch
+    rtol, atol = tol
+    err = (got.float() - want.float()).abs()
+    lim = atol + rtol * want.float().abs()
+    bad = err > lim
+    n_bad = int(bad.sum())
+    exempt = 0
+    if n_bad and g1 is not None:
+        rms = g1.float().square().mean().sqrt()
+        quiet = g1.float().abs() < MG_NOISE_G * rms
+        exempt = int((bad & quiet).sum())
+        bad = bad & ~quiet
+    worst = float((err / lim)[bad].max()) if bool(bad.any()) else 0.0
+    if bool(bad.any()):
+        raise AssertionError(f"multigpu: {name}: {int(bad.sum())} elements "
+                             f"outside (rtol {rtol}, atol {atol}), worst "
+                             f"{worst:.3f}x the limit")
+    return n_bad, exempt
+
+
+def multigpu_worker(rank: int, world: int, workdir: str, backend: str,
+                    ckdir: str) -> None:
+    """One rank of ``multigpu_phase``: parts (a)-(f) under the mesh;
+    writes its report and kernel launches to ``workdir``."""
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import decode as tdec
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
+    from nvme_strom_tpu_torch.ops.ici import (ProcessExchange, ici_ring_gather,
+                                              ici_unit_bytes)
+    from nvme_strom_tpu_torch.parallel import collectives as coll
+    from nvme_strom_tpu_torch.parallel.mesh import (
+        barrier, init_distributed, make_mesh, shutdown_distributed)
+    from nvme_strom_tpu_torch.parallel.shardings import (
+        Shard, local_slice, param_shardings, shard_params)
+    from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
+    from nvme_strom_tpu_torch.train import Trainer
+    kernels = {"h2d_copy": h2d_copy, "decode_attention": decode_attention,
+               "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+               "flash_bwd_dkv": fa.flash_bwd_dkv,
+               "ici_ring_gather": ici_ring_gather}
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    init_distributed("file://" + os.path.join(workdir, "store"), world,
+                     rank, backend=backend, device=dev, timeout_s=180)
+    for fn in kernels.values():
+        fn.launches = 0
+    rep: dict = {"rank": rank}
+    t0 = time.monotonic()
+    ref = torch.load(os.path.join(workdir, "ref.pt"), map_location=dev)
+    cfg32 = _mg_cfg(torch.float32)
+    shapes = ttr.param_shapes(cfg32)
+    tp_mesh = make_mesh({"dp": world // 2, "tp": 2})
+    dp_mesh = make_mesh({"dp": world})
+    sh = param_shardings(cfg32, tp_mesh)
+    tokens = ref["tokens"].to(dev)
+    mine = local_slice(tokens, tp_mesh)
+    eng = StromEngine()
+
+    # (a) parity: step-1 gradients, 3 AdamW steps, the flash kernels
+    ckpt = os.path.join(workdir, "ckpt")
+    losses = []
+    attn = fa.make_flash_attn()
+    tr = Trainer(cfg32, mesh=tp_mesh, attn_fn=attn, device=dev,
+                 ckpt_dir=ckpt, engine=eng, seed=SEED,
+                 hooks=[lambda s, l, dt: losses.append(l)])
+    with coll.use_mesh(tp_mesh):
+        _, grads = ttr.value_and_grad(tr.params, mine, cfg32, attn)
+    g = list(grads.values())
+    coll.dp_mean_(g, tp_mesh.group("dp"))
+    n_g = 0
+    for (name, gr) in zip(grads, g):
+        b = sh[name].local_bounds(shapes[name])
+        want = ref["grads"][name][tuple(slice(x, y) for x, y in b)]
+        n_g += _mg_close(f"step-1 gradient {name}", gr, want,
+                         MG_PARAM_TOL)[0]
+    torch.cuda.synchronize(dev)
+    ta = time.monotonic()
+    tr.fit(iter([mine] * MG_STEPS), steps=MG_STEPS)
+    torch.cuda.synchronize(dev)
+    fit_s = time.monotonic() - ta
+    for got, want in zip(losses, ref["losses"]):
+        if abs(got - want) > MG_LOSS_RTOL * abs(want):
+            raise AssertionError(f"multigpu (a): losses {losses} against "
+                                 f"the one-rank run's {ref['losses']}")
+    outside = exempt = 0
+    for name, p in tr.params.items():
+        b = sh[name].local_bounds(shapes[name])
+        cut = tuple(slice(x, y) for x, y in b)
+        o, e = _mg_close(f"parameter {name} after step {MG_STEPS}",
+                         p.detach(), ref["params"][name][cut],
+                         MG_PARAM_TOL, ref["grads"][name][cut])
+        outside += o
+        exempt += e
+    n_params = sum(p.numel() for p in tr.params.values())
+    if exempt > MG_EXEMPT_MAX * n_params:
+        raise AssertionError(f"multigpu (a): {exempt} of {n_params} "
+                             "parameter elements outside the tolerance "
+                             "under a near-zero step-1 gradient, above "
+                             f"the limit {MG_EXEMPT_MAX * n_params:.0f}")
+    rep["a"] = {"losses": losses, "ref_losses": ref["losses"],
+                "grad_outside": n_g, "param_outside": outside,
+                "param_exempt_near_zero_grad": exempt,
+                "param_exempt_limit": MG_EXEMPT_MAX * n_params,
+                "params": n_params, "fit_s": fit_s}
+    # (d) the state of (a), saved by every rank
+    tr.save()
+    state_params = {n: p.detach().clone() for n, p in tr.params.items()}
+    state_mu = {n: tr.optimizer.state[p]["exp_avg"].clone()
+                for n, p in tr.params.items()}
+    tr.close()
+    whole = {n: _mg_gather_whole(state_params[n], sh[n], shapes[n],
+                                 tp_mesh) for n in shapes}
+    whole_mu = {n: _mg_gather_whole(state_mu[n], sh[n], shapes[n], tp_mesh)
+                for n in shapes}
+    if rank == 0:
+        flat = CheckpointManager(ckpt, engine=eng).restore(step=MG_STEPS,
+                                                           device=dev)
+        for n in shapes:
+            if not (torch.equal(flat[f"0|{n}"], whole[n]) and
+                    torch.equal(flat[f"1|exp_avg|{n}"], whole_mu[n])):
+                raise AssertionError(f"multigpu (d): one-rank restore of "
+                                     f"{n} differs")
+        del flat
+    with Trainer(cfg32, mesh=dp_mesh, device=dev, ckpt_dir=ckpt,
+                 engine=eng) as tr2:
+        if tr2.resumed_from != MG_STEPS:
+            raise AssertionError(f"multigpu (d): resumed from "
+                                 f"{tr2.resumed_from}")
+        for n, p in tr2.params.items():
+            if not (torch.equal(p.detach(), whole[n]) and torch.equal(
+                    tr2.optimizer.state[p]["exp_avg"], whole_mu[n])):
+                raise AssertionError(f"multigpu (d): {n} restored under "
+                                     "dp differs")
+    rep["d"] = {"restored_one_rank": rank == 0, "restored_dp": True,
+                "tensors": len(shapes)}
+
+    # (e) the read-once restore across processes, kernel 7 over IPC
+    if backend == "nccl":
+        ex = ProcessExchange(stats=eng.stats)
+        eng.sync_stats()
+        before = eng.stats.snapshot()
+        target = {f"0|{n}": Shard(torch.empty_like(state_params[n]), sh[n],
+                                  shapes[n]) for n in shapes}
+        mgr = CheckpointManager(ckpt, engine=eng)
+        with _env(STROM_ICI_SCATTER=1):
+            got = mgr.restore(target, step=MG_STEPS, fallback=False)
+        eng.sync_stats()
+        after = eng.stats.snapshot()
+        for n in shapes:
+            if not torch.equal(got[f"0|{n}"], state_params[n]):
+                raise AssertionError(f"multigpu (e): scattered {n} differs")
+        files = [os.path.join(mgr.step_dir(MG_STEPS), f) for f in
+                 os.listdir(mgr.step_dir(MG_STEPS))
+                 if f.endswith(".safetensors")]
+        payload = sum(os.path.getsize(f) for f in files)
+        share = after["ici_bytes_read"] - before["ici_bytes_read"]
+        fallbacks = after["ici_fallbacks"] - before["ici_fallbacks"]
+        # the partition (io/scatter.py partition_files, the reference's
+        # rule) balances each file within one unit: one file a rank here
+        slack = len(files) * ici_unit_bytes()
+        if fallbacks or share > payload / world + slack:
+            raise AssertionError(f"multigpu (e): share {share} of {payload} "
+                                 f"B (slack {slack}), {fallbacks} "
+                                 "fallbacks")
+        width = -(-payload // world // 4096) * 4096
+        rows = ex.host_rows(width)
+        rows[rank] = rank + 1
+        kms, walls = [], []
+        with _uncounted(kernels):
+            for _ in range(3):
+                g_rows = ex.all_gather(rows)
+                if not all(bool((g_rows[r] == r + 1).all())
+                           for r in range(world)):
+                    raise AssertionError("multigpu (e): the exchange "
+                                         "differs")
+            for _ in range(5):
+                tw = time.monotonic()
+                ex.all_gather(rows)
+                walls.append((time.monotonic() - tw) * 1e3)
+                kms.append(ex.last_kernel_ms)
+        inp = torch.full((width,), rank, dtype=torch.uint8, device=dev)
+        out = torch.empty(world * width, dtype=torch.uint8, device=dev)
+        nccl = []
+        for i in range(7):
+            barrier()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            torch.distributed.all_gather_into_tensor(out, inp)
+            e1.record()
+            torch.cuda.synchronize(dev)
+            if i >= 2:
+                nccl.append(e0.elapsed_time(e1))
+        ex.close()
+        rep["e"] = {"payload_bytes": payload, "share_bytes": share,
+                    "files": len(files),
+                    "received_bytes": after["ici_bytes_received"]
+                    - before["ici_bytes_received"],
+                    "fallbacks": fallbacks, "row_bytes": width,
+                    "kernel_ms": sorted(kms)[len(kms) // 2],
+                    "call_wall_ms": sorted(walls)[len(walls) // 2],
+                    "nccl_all_gather_ms": sorted(nccl)[len(nccl) // 2],
+                    "bound_ms": (world - 1) * width
+                    / NVLINK_BYTES_PER_S * 1e3}
+    del state_params, state_mu, whole, whole_mu
+    torch.cuda.empty_cache()
+
+    # (b) the serving weights through load_sharded (bf16 flagship)
+    cfg16 = _mg_cfg(torch.bfloat16)
+    sh16 = param_shardings(cfg16, tp_mesh)
+    with StromEngine() as e1:
+        tb = time.monotonic()
+        part = LazyCheckpoint(ckdir).load_sharded(sh16, engine=e1,
+                                                  device=dev)
+        load_s = time.monotonic() - tb
+        e1.sync_stats()
+        st = e1.stats.snapshot()
+    with StromEngine() as e2, _uncounted(kernels):
+        whole16 = LazyCheckpoint(ckdir).load(e2, device=dev)
+    for n, t in part.items():
+        b = sh16[n].local_bounds(tuple(whole16[n].shape))
+        if not torch.equal(t, whole16[n][tuple(slice(x, y)
+                                               for x, y in b)]):
+            raise AssertionError(f"multigpu (b): {n} differs from a whole "
+                                 "load sliced")
+    if st["bounce_bytes"]:
+        raise AssertionError(f"multigpu (b): bounce_bytes "
+                             f"{st['bounce_bytes']}")
+    rep["b"] = {"nvme_bytes": st["bytes_direct"] + st["bytes_fallback"],
+                "bytes_direct": st["bytes_direct"],
+                "bounce_bytes": st["bounce_bytes"],
+                "slice_bytes": sum(t.numel() * t.element_size()
+                                   for t in part.values()),
+                "load_s": load_s}
+    del part, whole16
+
+    # (c) sharded generate, kernel 2 on the local heads, float32
+    full = shard_params(ttr.init_params(SEED, cfg32), cfg32, tp_mesh,
+                        device=dev)
+    prompt = local_slice(ref["prompt"].to(dev), tp_mesh)
+    with coll.use_mesh(tp_mesh), torch.no_grad():
+        toks = tdec.generate(full, prompt, cfg32, MG_GEN_NEW,
+                             cache_attn=decode_attention)
+    want = local_slice(ref["gen"].to(dev), tp_mesh)
+    if not torch.equal(toks, want):
+        raise AssertionError("multigpu (c): sharded tokens differ from the "
+                             "one-rank run's")
+    rep["c"] = {"rows": int(toks.shape[0]), "new_tokens": MG_GEN_NEW}
+    del full
+    torch.cuda.empty_cache()
+
+    # (f) throughput at Llama-3-8B's widths, dp × tp over the ranks
+    ftoks = ref["f_tokens"].to(dev)
+    # every rank runs the profiled steps: their collectives need them all
+    rep["f"] = _llama_step(dev, tp_mesh, local_slice(ftoks, tp_mesh),
+                           MG_F_STEPS,
+                           profile_steps=2 if backend == "nccl" else 0)
+    rep["seconds"] = time.monotonic() - t0
+    rep["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    eng.close_all()
+    barrier()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    shutdown_distributed()
+
+
+def multigpu_phase(dev, ckdir, counters):
+    """Data and tensor parallel across processes, one rank a process:
+    one rank a card over NCCL on 2-4 cards, else two ranks on cuda:0
+    over gloo (a one-card correctness run).  The one-rank references
+    run here first; each rank then checks (a) a float32 flagship
+    Trainer's step-1 gradients, 3 AdamW steps' losses and parameters
+    (flash kernels) against them; (d) that state saved by every rank and
+    restored bitwise on one rank and under dp; (e) with 2+ cards the
+    read-once restore over kernel 7 across processes; (b) the serving
+    weights through ``load_sharded``, bitwise a whole load sliced, with
+    no bounce; (c) sharded ``generate`` on kernel 2, tokens equal the
+    one-rank run's; (f) a bf16 step at Llama-3-8B's widths.  Their
+    launches are added to ``counters``."""
+    import shutil
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.models import decode as tdec
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    from nvme_strom_tpu_torch.train import Trainer
+    t0 = time.monotonic()
+    cards = torch.cuda.device_count()
+    world = 2 if cards < 4 else 4
+    backend = "nccl" if cards >= 2 else "gloo"
+    workdir = os.path.join(DATA_DIR, "multigpu")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+
+    # the one-rank references, on cuda:0 (their launches are not the
+    # path's: every count restarts at 0 before the ranks start)
+    cfg32 = _mg_cfg(torch.float32)
+    tokens, prompt = _mg_tokens(cfg32)
+    attn = make_flash_attn()
+    losses = []
+    with Trainer(cfg32, attn_fn=attn, device=dev, seed=SEED,
+                 hooks=[lambda s, l, dt: losses.append(l)]) as tr:
+        tt = torch.from_numpy(tokens).to(dev)
+        _, grads = ttr.value_and_grad(tr.params, tt, cfg32, attn)
+        grads = {n: g.detach() for n, g in grads.items()}
+        ta = time.monotonic()
+        tr.fit(iter([tt] * MG_STEPS), steps=MG_STEPS)
+        torch.cuda.synchronize(dev)
+        one_fit_s = time.monotonic() - ta
+        params = {n: p.detach().clone() for n, p in tr.params.items()}
+    full = {n: torch.from_numpy(a).to(dev)
+            for n, a in ttr.init_params(SEED, cfg32).items()}
+    with torch.no_grad():
+        gen = tdec.generate(full, torch.from_numpy(prompt).to(dev), cfg32,
+                            MG_GEN_NEW).cpu().numpy()
+    del full
+    f_batch = world // 2
+    f_tokens = np.random.default_rng(SEED + 29).integers(
+        0, LLAMA3_8B_2L["vocab"], (f_batch, MG_F_SEQ)).astype(np.int64)
+    one = _llama_step(dev, None, torch.from_numpy(f_tokens[:1]).to(dev),
+                      MG_F_STEPS, profile_steps=0)
+    torch.save({"tokens": torch.from_numpy(tokens),
+                "prompt": torch.from_numpy(prompt),
+                "gen": torch.from_numpy(gen), "losses": losses,
+                "grads": grads, "params": params,
+                "f_tokens": torch.from_numpy(f_tokens)},
+               os.path.join(workdir, "ref.pt"))
+    del grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.monotonic() - t0
+    for fn in counters.values():
+        fn.launches = 0
+
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = []
+    for r in range(world):
+        logf = open(os.path.join(workdir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multigpu-worker",
+             str(r), str(world), workdir, backend, ckdir], env=env,
+            stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT), logf))
+    deadline = time.monotonic() + MG_JOIN_S
+    failed = []
+    try:
+        for r, (p, _) in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.01))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} outlived the {MG_JOIN_S} s limit")
+                break
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    failed += [f"rank {r} exited {p.returncode}"
+               for r, (p, _) in enumerate(procs)
+               if p.returncode not in (0, None) and not any(
+                   f.startswith(f"rank {r} ") for f in failed)]
+    if failed:
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                log(f"multigpu rank {r} log:\n" + f.read()[-4000:])
+        raise AssertionError("multigpu: " + "; ".join(failed))
+    reps = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    # the counts are the ranks' own: every rank launches every kernel of
+    # the path (kernel 7 only across cards)
+    need = ("h2d_copy", "decode_attention", "flash_fwd", "flash_bwd_dq",
+            "flash_bwd_dkv") + (("ici_ring_gather",) if backend == "nccl"
+                                else ())
+    for rep in reps:
+        for n in need:
+            if rep["launches"][n] <= 0:
+                raise AssertionError(f"multigpu: rank {rep['rank']} never "
+                                     f"launched {n}")
+        for n, c in rep["launches"].items():
+            counters[n].launches += c
+    seconds = time.monotonic() - t0
+    label = ("one-card correctness run (2 ranks on cuda:0, gloo)"
+             if backend == "gloo" else f"{world} cards, NCCL")
+    a = reps[0]["a"]
+    log(f"multigpu (a) {label}: tp 2 x dp {world // 2}, flagship float32 "
+        f"seq {MG_PARITY_SEQ} batch {MG_PARITY_BATCH}, flash: losses "
+        f"{a['losses']} against one rank's {losses}; step-1 gradients and "
+        f"{sum(r['a']['params'] for r in reps)} parameter elements within "
+        f"(1e-4, 1e-5) but {sum(r['a']['param_exempt_near_zero_grad'] for r in reps)} "
+        f"whose step-1 gradient is below {MG_NOISE_G} of its tensor's rms "
+        f"(limit {MG_EXEMPT_MAX} of a rank's elements: "
+        f"{[round(r['a']['param_exempt_limit']) for r in reps]}); "
+        f"3 steps {max(r['a']['fit_s'] for r in reps):.3f} s against one "
+        f"rank's {one_fit_s:.3f} s")
+    log(f"multigpu (b) serving weights through load_sharded: per-rank NVMe "
+        f"bytes {[r['b']['nvme_bytes'] for r in reps]}, slice bytes "
+        f"{[r['b']['slice_bytes'] for r in reps]}, bounce "
+        f"{[r['b']['bounce_bytes'] for r in reps]}, load s "
+        f"{[round(r['b']['load_s'], 4) for r in reps]}; bitwise a whole "
+        "load sliced")
+    log(f"multigpu (c) generate dp x tp, kernel 2 on local heads: tokens "
+        f"equal the one-rank run's ({MG_GEN_NEW} new, rows "
+        f"{[r['c']['rows'] for r in reps]})")
+    log(f"multigpu (d) checkpoint of (a) saved by {world} ranks: restored "
+        "bitwise on one rank and under dp")
+    if backend == "nccl":
+        e = reps[0]["e"]
+        log(f"multigpu (e) read-once restore across processes: shares "
+            f"{[r['e']['share_bytes'] for r in reps]} of {e['payload_bytes']}"
+            f" B, fallbacks 0, bitwise; kernel 7 over IPC "
+            f"{[round(r['e']['kernel_ms'], 4) for r in reps]} ms (a whole "
+            f"call {[round(r['e']['call_wall_ms'], 2) for r in reps]} ms "
+            "on the host's clock), "
+            f"nccl.all_gather {[round(r['e']['nccl_all_gather_ms'], 4) for r in reps]} "
+            f"ms, NVLink bound {e['bound_ms']:.4f} ms ({e['row_bytes']} B "
+            "rows)")
+    else:
+        log("multigpu (e) read-once restore across processes: not run "
+            "(1 card)")
+    f = reps[0]["f"]
+    share = ("not run (1 card)" if backend == "gloo"
+             else f"{f.get('collective_share'):.4f}")
+    tok_card = (world // 2) * MG_F_SEQ / (f["step_ms"] / 1e3) / max(
+        1, min(cards, world))
+    log(f"multigpu (f) Llama-3-8B widths 2 layers bf16 seq {MG_F_SEQ}, "
+        f"flash: {label}: step {f['step_ms']:.2f} ms, "
+        f"{tok_card:.0f} tokens/s a card, collectives' share of device "
+        f"time {share}; one rank alone: step {one['step_ms']:.2f} ms, "
+        f"{MG_F_SEQ / (one['step_ms'] / 1e3):.0f} tokens/s")
+    log(f"multigpu: {seconds:.1f} s (references {t_ref:.1f} s), budget "
+        f"{MG_BUDGET_S} s; rank seconds "
+        f"{[round(r['seconds'], 1) for r in reps]}; rank launches "
+        f"{[r['launches'] for r in reps]}")
+    return {"label": label, "world": world, "backend": backend,
+            "cards": cards, "seconds": seconds, "ref_seconds": t_ref,
+            "one_rank": {"fit_s": one_fit_s, "losses": losses,
+                         "llama_step_ms": one["step_ms"]},
+            "tokens_per_s_card": tok_card, "ranks": reps}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -6587,6 +7175,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--multigpu-worker"]:
+        # one rank of multigpu_phase, started by the phase itself
+        rank, world, workdir, backend, ckdir = sys.argv[2:7]
+        multigpu_worker(int(rank), int(world), workdir, backend, ckdir)
+        return 0
     # The engine's submit-time residency probe (mincore) sends spans it
     # finds in the page cache down the buffered path.  On filesystems
     # whose mincore reports every page resident (9p mounts, for one) it
@@ -6613,6 +7206,25 @@ def main() -> int:
     _build.engine_library()
     _build.kernel_library()
     log(f"build seconds: {_build.build_seconds}")
+    counters = {"h2d_copy": h2d_copy, "decode_attention": decode_attention,
+                "paged_attention": paged_attention,
+                "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "ici_ring_gather": ici_ring_gather}
+    if sys.argv[1:2] == ["--multigpu"]:
+        # main path 4 alone (on a machine with 2-4 cards, the phase's
+        # NCCL run without the rest of the script)
+        os.makedirs(DATA_DIR, exist_ok=True)
+        ckdir = os.path.join(DATA_DIR, "ckpt")
+        write_checkpoint(ckdir, flagship_config())
+        for fn in counters.values():
+            fn.launches = 0
+        multigpu = multigpu_phase(dev, ckdir, counters)
+        log("multigpu launches: " + json.dumps(
+            {n: fn.launches for n, fn in counters.items()}))
+        log("multigpu " + json.dumps(multigpu))
+        print(card_line())
+        return 0
 
     results: dict = {}
     check_h2d(dev, results)
@@ -6645,12 +7257,6 @@ def main() -> int:
     cfg = flagship_config()
     want = write_stream_file(stream_path)
     cpu_params = write_checkpoint(ckdir, cfg)
-
-    counters = {"h2d_copy": h2d_copy, "decode_attention": decode_attention,
-                "paged_attention": paged_attention,
-                "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
-                "flash_bwd_dkv": fa.flash_bwd_dkv,
-                "ici_ring_gather": ici_ring_gather}
 
     def drive(path, kernels, run):
         """Run one main path with every count at 0; each of ``kernels``
@@ -6848,6 +7454,25 @@ def main() -> int:
         lambda: restore_phase(dev, ckdir, cpu_params))
     results["ici_ring_gather"]["launches"] = counts["ici_ring_gather"]
     results["h2d_copy"]["launches_restore"] = counts["h2d_copy"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # main path 4: data and tensor parallel over processes (the weights
+    # load, the trainer with the flash kernels, generate on kernel 2,
+    # the checkpoint, and with 2+ cards kernel 7 across processes)
+    mg_kernels = ("h2d_copy", "decode_attention", "flash_fwd",
+                  "flash_bwd_dq", "flash_bwd_dkv")
+    if torch.cuda.device_count() >= 2:
+        mg_kernels += ("ici_ring_gather",)
+    multigpu, counts = drive("multigpu", mg_kernels,
+                             lambda: multigpu_phase(dev, ckdir, counters))
+    for n in mg_kernels:
+        results[n]["launches_multigpu"] = counts[n]
+    if multigpu["backend"] == "nccl":
+        e = [r["e"] for r in multigpu["ranks"]]
+        results["ici_ring_gather"].update(
+            processes_kernel_ms=[x["kernel_ms"] for x in e],
+            processes_nccl_ms=[x["nccl_all_gather_ms"] for x in e],
+            processes_bound_ms=e[0]["bound_ms"])
     for n in counters:
         results[n]["kernel_ms"] = results[n]["ms"]
     log("resilience " + json.dumps({
@@ -6881,6 +7506,7 @@ def main() -> int:
     log("eval_ppl " + json.dumps(eval_rep))
     log("attrib " + json.dumps({k: v for k, v in attrib_rep.items()
                                 if k != "profiles"}))
+    log("multigpu " + json.dumps(multigpu))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -6899,6 +7525,9 @@ def main() -> int:
                                   "attrib": {k: v for k, v in
                                              attrib_rep.items()
                                              if k != "profiles"},
+                                  "multigpu": {k: v for k, v in
+                                               multigpu.items()
+                                               if k != "ranks"},
                                   "flash_split": flash_split,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))

@@ -213,6 +213,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     ctypes.POINTER(ctypes.c_uint)],
         "strom_stream_synchronize": [P, I],
         "strom_enable_peer_access": [I, I],
+        # dev, bytes, ptr (written), 64-byte handle (written)
+        "strom_ipc_alloc": [I, U64, ctypes.POINTER(P), P],
+        # dev, handle, ptr (written)
+        "strom_ipc_open": [I, P, ctypes.POINTER(P)],
+        "strom_ipc_close": [I, P],
+        "strom_ipc_free": [I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

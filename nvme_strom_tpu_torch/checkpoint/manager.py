@@ -1,20 +1,26 @@
 """Step-numbered checkpoints of training state through the engine's
-O_DIRECT writer, for one process (counterpart of
+O_DIRECT writer, from one process or many (counterpart of
 nvme_strom_tpu/checkpoint/manager.py ``CheckpointManager``).
 
 Layout of one checkpoint, the JAX package's format 2:
 
-    <dir>/step_00000100/state-00000.safetensors   every tensor
+    <dir>/step_00000100/state-00000.safetensors   process 0's tiles
+    <dir>/step_00000100/state-00001.safetensors   process 1's, ...
     <dir>/step_00000100/meta.json                 {"format": 2, "step",
+                                                   "process_count",
                                                    "tensors": index}
 
 A state is any nesting of dicts, lists and tuples with tensors, numpy
 arrays or Python scalars at the leaves; a leaf is named by its path,
 keys joined with ``|`` as the JAX package's ``flatten_with_names`` joins
-them, so a params-only checkpoint is readable by both packages.  Each
-tensor saves as one whole tile; restore also reads tensors stored as
-several tiles (the JAX package's saves from a mesh) and assembles them.
-Saves are atomic: the step is staged in ``.tmp_step_XXXXXXXX`` and
+them, so a params-only checkpoint is readable by both packages.  A
+plain tensor saves as one whole tile owned by process 0; a
+:class:`~nvme_strom_tpu_torch.parallel.shardings.Shard` leaf (a rank's
+slice of a sharded tensor) saves one tile a distinct slice, written by
+its owner, the lowest rank holding it (the JAX ``_leaf_tiles``).
+Restore assembles any region from the stored tiles: a plain target
+leaf gets the whole tensor, a ``Shard`` target its own slice, under
+whatever mesh it was built on.  Saves are atomic: the step is staged in ``.tmp_step_XXXXXXXX`` and
 renamed into place once every byte is on disk; a staging directory left
 by a crashed save is never taken for a checkpoint and is removed at
 startup once it is older than ``gc_min_age_s`` (``STROM_CKPT_GC_AGE_S``,
@@ -22,22 +28,29 @@ default 3600 s).  The same age gate sweeps orphaned sidecars at the
 directory's top level: a prefix store's ``.kvman.json``, a host-tier
 ``.warmhints.json`` or a ``.handoff.json`` bundle whose base file is
 gone (:func:`find_orphan_manifests`, :func:`sweep_orphan_manifests`).
+With several processes (``torch.distributed``, parallel/mesh.py) the
+synchronous save stages the directory on rank 0, syncs every rank
+(:meth:`CheckpointManager._sync`, a barrier on the gloo control group),
+writes each rank's tiles, syncs, and rank 0 writes the manifest and
+renames the step in.  ``save_async`` runs the JAX package's
+collective-free protocol on its background thread instead: each rank
+writes its tiles and a durable ``done-{proc}`` marker, rank 0 waits for
+every marker (``STROM_CKPT_WAIT_S``, default 600 s), writes the
+manifest and renames; the other ranks' futures resolve once the rename
+is visible to them.  Unlike the JAX package it keeps the entry barrier
+(a gloo barrier on the caller's thread, which no device collective can
+race), so no rank stages into a directory rank 0 is still clearing.
 The save's crash windows are marked for ``STROM_CRASH_POINT`` (io/faults.py
-``crash_point``): ``ckpt.tiles`` after the data write, ``ckpt.meta``
-once the manifest is staged and ``ckpt.rename`` before the commit.  In
-this one-process format nothing happens between the last two (the
-reference syncs its processes there), so ``ckpt.meta`` and
-``ckpt.rename`` name one crash window, and the second is kept only so
-that a ``STROM_CRASH_POINT`` set for the reference works here too; its
-multi-process ``ckpt.marker`` has no counterpart, as this format writes
-no marker.  Restore steps past a
+``crash_point``): ``ckpt.tiles`` after the data write, ``ckpt.marker``
+once a rank's done marker is durable (the collective-free save),
+``ckpt.meta`` once the manifest is staged and ``ckpt.rename`` before the
+commit.  Restore steps past a
 damaged step to an older one, and can read the step once across an
 exchange group (``STROM_ICI_SCATTER``, ops/ici.py).  Under
 ``STROM_VERIFY`` (utils/checksum.py) every whole stored tile read is
 checked against its write-time CRC32C stamp; a mismatch re-reads the
 tile once, and a second one raises ``ChecksumError``, an OSError, so the
-restore steps back to the previous intact step.  Multi-host saves are
-not part of this port yet.
+restore steps back to the previous intact step.
 """
 
 from __future__ import annotations
@@ -62,14 +75,21 @@ from nvme_strom_tpu_torch.io.engine import StromEngine, wait_exact
 from nvme_strom_tpu_torch.io.faults import build_engine, crash_point
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import host_to_device, pinned_mapping
-from nvme_strom_tpu_torch.ops.ici import (ici_hosts, ici_scatter_enabled,
+from nvme_strom_tpu_torch.ops.ici import (ExchangeError, ici_hosts,
+                                          ici_scatter_enabled,
                                           ici_unit_bytes, scatter_engine)
-from nvme_strom_tpu_torch.parallel.mesh import exchange_group
+from nvme_strom_tpu_torch.parallel.mesh import (barrier, exchange_group,
+                                                process_info)
+from nvme_strom_tpu_torch.parallel.shardings import Shard
 from nvme_strom_tpu_torch.utils.checksum import VerifyPolicy
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _TMP_RE = re.compile(r"^\.tmp_step_(\d{8})$")
 _FILE = "state-00000.safetensors"
+
+
+def _file(proc: int) -> str:
+    return f"state-{proc:05d}.safetensors"
 _log = logging.getLogger(__name__)
 
 #: sidecars whose base file is the path less the suffix: the prefix
@@ -298,11 +318,17 @@ class CheckpointManager:
         restore first waits for the previous one and re-raises its
         error.  Returns a future of the final path."""
         self.wait_pending()
+        multi = process_info()[1] > 1
+        # the entry barrier is a host-side gloo one on the caller's
+        # thread, so a peer never stages into a directory rank 0 is
+        # still clearing; the background half takes no collective
         args = self._snapshot(step, state, force)
         if self._executor is None:
             self._executor = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="strom-ckpt")
-        self._pending = self._executor.submit(self._write, step, *args)
+        self._pending = self._executor.submit(
+            self._write_collective_free if multi else self._write, step,
+            *args)
         return self._pending
 
     def wait_pending(self) -> None:
@@ -319,79 +345,200 @@ class CheckpointManager:
             self._executor = None
 
     def _snapshot(self, step: int, state, force: bool):
-        """Validate, stage the temp dir, and copy every leaf to host
-        memory: device tensors through pinned buffers, one synchronise
-        for all.  The copy is the checkpoint's consistency point."""
+        """Validate, stage the temp dir, and copy every tile this
+        process owns to host memory: device tensors through pinned
+        buffers, one synchronise for all.  The copy is the checkpoint's
+        consistency point.  Rank 0 clears and makes the directories,
+        and the ranks sync before any of them writes."""
+        proc = process_info()[0]
         final = self.step_dir(step)
         if os.path.exists(final):
             if not force:
                 raise FileExistsError(f"checkpoint step {step} exists")
-            shutil.rmtree(final)
+            if proc == 0:       # one deleter on a shared filesystem
+                shutil.rmtree(final)
         tmp = os.path.join(self.directory, f".tmp_step_{step:08d}")
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
+        if proc == 0:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        self._sync()
         host: Dict[str, torch.Tensor] = {}
         index: Dict[str, dict] = {}
         cuda = False
+
+        def to_host(t: torch.Tensor) -> torch.Tensor:
+            nonlocal cuda
+            t = t.detach()
+            if t.device.type == "cuda":
+                cp = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                cp.copy_(t, non_blocking=True)
+                cuda = True
+                return cp
+            return t.to("cpu", copy=True).contiguous()
+
         for name, leaf in flatten_with_names(state).items():
             if leaf is None:
                 continue
-            if isinstance(leaf, torch.Tensor):
-                t = leaf.detach()
-                if t.device.type == "cuda":
-                    cp = torch.empty(t.shape, dtype=t.dtype,
-                                     pin_memory=True)
-                    cp.copy_(t, non_blocking=True)
-                    cuda = True
-                else:
-                    cp = t.to("cpu", copy=True).contiguous()
-            else:
-                cp = torch.from_numpy(np.array(leaf))
-            host[name] = cp
+            if isinstance(leaf, Shard):
+                tiles = []
+                for bounds, owner in leaf.tiles:
+                    tiles.append({"file": _file(owner),
+                                  "idx": [list(b) for b in bounds]})
+                    if owner == proc and bounds == leaf.bounds:
+                        host[_tile_key(name, bounds, leaf.shape)] = \
+                            to_host(leaf.local)
+                index[name] = {"shape": list(leaf.shape),
+                               "dtype": _dtype_name(leaf.local),
+                               "scalar": False, "tiles": tiles}
+                continue
+            shape = tuple(np.shape(leaf))
+            if proc == 0:
+                host[name] = (to_host(leaf) if isinstance(leaf, torch.Tensor)
+                              else torch.from_numpy(np.array(leaf)))
             index[name] = {
-                "shape": list(cp.shape), "dtype": _dtype_name(leaf),
+                "shape": list(shape), "dtype": _dtype_name(leaf),
                 "scalar": not isinstance(leaf, (torch.Tensor, np.ndarray)),
-                "tiles": [{"file": _FILE,
-                           "idx": [[0, d] for d in cp.shape]}]}
+                "tiles": [{"file": _FILE, "idx": [[0, d] for d in shape]}]}
         if cuda:
             torch.cuda.synchronize()
         return tmp, final, host, index
 
     def _write(self, step: int, tmp: str, final: str,
                host: Dict[str, torch.Tensor], index: Dict[str, dict]) -> str:
-        """Engine writes, the manifest, the durable rename, pruning."""
-        eng, own = self._get_engine()
+        """Engine writes, the manifest, the durable rename, pruning; the
+        ranks sync before the rename and after it."""
+        proc = process_info()[0]
         t0 = time.monotonic()
+        self._write_tiles(step, tmp, host, proc)
+        crash_point("ckpt.tiles")        # data written, no commit
+        t1 = time.monotonic()
+        if proc == 0:
+            self._write_meta(tmp, step, index)
+        crash_point("ckpt.meta")         # manifest staged, rename pending
+        self._sync()                     # every rank's tiles are durable
+        crash_point("ckpt.rename")       # the instant before the commit
+        if proc == 0:
+            self._publish(tmp, final)
+        self._sync()
+        #: seconds of the last save's tensor writes and of its commit
+        #: (with several ranks, the commit includes the barriers' waits)
+        self.last_save_phases = {"tiles_s": t1 - t0,
+                                 "commit_s": time.monotonic() - t1}
+        if proc == 0:
+            self._prune()
+        return final
+
+    def _write_tiles(self, step: int, tmp: str, host: Dict, proc: int
+                     ) -> str:
+        eng, own = self._get_engine()
+        path = os.path.join(tmp, _file(proc))
         try:
-            write_safetensors_engine(os.path.join(tmp, _FILE), host, eng,
-                                     metadata={"step": step, "process": 0})
+            write_safetensors_engine(path, host, eng,
+                                     metadata={"step": step,
+                                               "process": proc})
         finally:
             if own:
                 eng.close_all()
-        crash_point("ckpt.tiles")        # data written, no commit
-        t1 = time.monotonic()
+        return path
+
+    def _write_meta(self, tmp: str, step: int, index: Dict) -> None:
+        """The manifest, the checkpoint's commit record."""
         meta = {"format": 2, "step": step, "time": time.time(),
-                "process_count": 1, "tensors": index}
+                "process_count": process_info()[1], "tensors": index}
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
             f.flush()
             os.fsync(f.fileno())
-        crash_point("ckpt.meta")         # manifest staged, rename pending
-        crash_point("ckpt.rename")       # the same window (see above)
+
+    def _publish(self, tmp: str, final: str) -> None:
+        """The atomic, durable rename of the staged step."""
         os.replace(tmp, final)
         dfd = os.open(self.directory, os.O_RDONLY)
         try:
             os.fsync(dfd)                # the rename itself is durable
         finally:
             os.close(dfd)
-        #: seconds of the last save's tensor writes and of its commit
-        self.last_save_phases = {"tiles_s": t1 - t0,
-                                 "commit_s": time.monotonic() - t1}
+
+    def _prune(self) -> None:
         if self.max_to_keep:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(self.step_dir(old), ignore_errors=True)
+
+    def _write_collective_free(self, step: int, tmp: str, final: str,
+                               host: Dict, index: Dict) -> str:
+        """The background half of a multi-process ``save_async``: no
+        collective anywhere.  Tiles and a done marker, then rank 0
+        waits for every marker, writes the manifest and renames; the
+        other ranks wait until the rename is visible."""
+        self._write_data_and_marker(step, tmp, host)
+        if process_info()[0] != 0:
+            self._await_commit(step, tmp, final)
+            return final
+        return self._finalize(step, tmp, final, index)
+
+    @staticmethod
+    def _wait_s() -> float:
+        return float(os.environ.get("STROM_CKPT_WAIT_S", 600))
+
+    def _write_data_and_marker(self, step: int, tmp: str,
+                               host: Dict) -> None:
+        """This rank's tiles, then its durable ``done-{proc}`` marker."""
+        proc = process_info()[0]
+        path = self._write_tiles(step, tmp, host, proc)
+        crash_point("ckpt.tiles")       # data durable, no marker yet
+        marker = os.path.join(tmp, f"done-{proc:05d}.json")
+        with open(marker, "w") as f:
+            json.dump({"step": step, "process": proc,
+                       "nbytes": os.path.getsize(path)}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        crash_point("ckpt.marker")      # marker durable, commit pending
+
+    def _await_commit(self, step: int, tmp: str, final: str) -> None:
+        """A rank other than 0: wait for rank 0's commit (the final
+        directory there and the staging one gone); a dead rank 0 turns
+        into a TimeoutError here."""
+        deadline = time.monotonic() + self._wait_s()
+        while not (os.path.isdir(final) and not os.path.exists(tmp)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"checkpoint step {step}: rank 0 never published "
+                    f"{os.path.basename(final)} (STROM_CKPT_WAIT_S)")
+            time.sleep(0.05)
+
+    def _finalize(self, step: int, tmp: str, final: str,
+                  index: Dict) -> str:
+        """Rank 0: every rank's marker, the manifest, the markers
+        unlinked, the rename."""
+        n = process_info()[1]
+        markers = [os.path.join(tmp, f"done-{p:05d}.json")
+                   for p in range(n)]
+        deadline = time.monotonic() + self._wait_s()
+        while True:
+            missing = [m for m in markers if not os.path.exists(m)]
+            if not missing:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"checkpoint step {step}: ranks "
+                    f"{[os.path.basename(m) for m in missing]} never "
+                    "wrote their done markers (STROM_CKPT_WAIT_S)")
+            time.sleep(0.05)
+        self._write_meta(tmp, step, index)
+        crash_point("ckpt.meta")        # manifest staged, rename pending
+        for m in markers:
+            os.unlink(m)
+        crash_point("ckpt.rename")      # the instant before the commit
+        self._publish(tmp, final)
+        self._prune()
         return final
+
+    @staticmethod
+    def _sync() -> None:
+        """Every rank reaches this point (a barrier of the gloo control
+        group, parallel/mesh.py); a no-op with one process."""
+        barrier()
 
     # -- restore -----------------------------------------------------------
 
@@ -423,9 +570,10 @@ class CheckpointManager:
 
         ``STROM_ICI_SCATTER=1``: the step's payload is read once, each
         of the ``ici_group``'s ranks (default
-        ``exchange_group(STROM_ICI_HOSTS)``) reading a 1/N share, and
-        all-gathered (ops/ici.py); every tile read is then served from
-        the gathered bytes.  Any failure of that set-up browns out to
+        ``exchange_group(STROM_ICI_HOSTS)``, or one rank a process with
+        several processes) reading a 1/N share, and all-gathered
+        (ops/ici.py); every tile read is then served from the gathered
+        bytes.  Any failure of that set-up browns out to
         the read-all path (``ici_fallbacks``)."""
         self.wait_pending()
         steps = self.all_steps()
@@ -468,16 +616,23 @@ class CheckpointManager:
     def _scatter_engine(self, eng: StromEngine, step: int, group=None):
         """The read-once scatter front-end over ``eng`` for ``step``, or
         None for the read-all path (mode off, or any failure to set it
-        up, counted in ``ici_fallbacks``)."""
+        up, counted in ``ici_fallbacks``, but for a fault of the exchange
+        across processes: ops/ici.py ``ExchangeError`` raises)."""
         if not ici_scatter_enabled():
             return None
         try:
-            if group is None:
+            # several processes: scatter_engine makes (and closes) the
+            # exchange of one rank a process
+            n = process_info()[1]
+            if group is None and n == 1:
                 group = exchange_group(ici_hosts())
-            man = build_restore_manifest(self.step_dir(step), group.n,
-                                         ici_unit_bytes())
+            man = build_restore_manifest(self.step_dir(step),
+                                         group.n if group is not None
+                                         else n, ici_unit_bytes())
             return scatter_engine(eng, list(man.paths), group=group,
                                   manifest=man.shares)
+        except ExchangeError:
+            raise
         except Exception as e:      # brown-out: the caller reads it all
             _log.warning("ici scatter disabled for step %d: %s: %s (falling "
                          "back to local full reads)", step,
@@ -509,10 +664,18 @@ class CheckpointManager:
                 raise KeyError(f"checkpoint step {step} lacks tensor "
                                f"{name!r}")
             shape = tuple(info["shape"])
-            if tuple(np.shape(tleaf)) != shape:
+            tshape = (tleaf.shape if isinstance(tleaf, Shard)
+                      else tuple(np.shape(tleaf)))
+            if tuple(tshape) != shape:
                 raise TargetMismatchError(
                     f"{name}: checkpoint shape {shape} != target "
-                    f"{tuple(np.shape(tleaf))}")
+                    f"{tuple(tshape)}")
+            if isinstance(tleaf, Shard):
+                dev = tleaf.local.device if device is None else \
+                    torch.device(device)
+                out[name] = self._read(eng, d, files, name, info, dev,
+                                       tleaf.bounds).to(tleaf.dtype)
+                continue
             if isinstance(tleaf, torch.Tensor):
                 dev = tleaf.device if device is None else \
                     torch.device(device)
@@ -525,14 +688,15 @@ class CheckpointManager:
         return _unflatten_like(target, out)
 
     def _read(self, eng, cdir: str, files: dict, name: str, info: dict,
-              dev: torch.device) -> torch.Tensor:
-        """One tensor on ``dev``, assembled on the host from its stored
-        tiles (page-locked when bound for a CUDA device), then through
-        the bridge onto the card."""
-        shape = tuple(info["shape"])
+              dev: torch.device, bounds=None) -> torch.Tensor:
+        """One tensor, or its region ``bounds``, on ``dev``, assembled on
+        the host from its stored tiles (page-locked when bound for a
+        CUDA device), then through the bridge onto the card."""
         read_region = self._region_reader(eng, cdir, files, name, info)
-        host = read_region(tuple((0, n) for n in shape),
-                           pin=dev.type == "cuda")
+        if bounds is None:
+            bounds = tuple((0, n) for n in info["shape"])
+        host = read_region(tuple(bounds), pin=dev.type == "cuda")
+        shape = tuple(host.shape)
         if dev.type != "cuda" or host.numel() == 0:
             return host.to(dev)
         flat = host.reshape(-1).view(torch.uint8)

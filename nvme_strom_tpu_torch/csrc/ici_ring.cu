@@ -45,6 +45,13 @@
 // and stores, 8 a thread in flight, in the same order were slower on one
 // card and across two (PERF.md has both, and the sizes of chunk tried).
 //
+// Across processes (one rank a process and a card, ops/ici.py
+// ProcessExchange) each process launches its own rank's blocks on its
+// card with every peer's slots and flags mapped through CUDA IPC
+// handles (strom_ipc_*), and every flag is at system scope.  Two ranks
+// on one card would be time-sliced, each spinning on the other, so the
+// wrapper refuses that layout.
+//
 // Spin-waiting blocks must all be resident or the ring deadlocks: all
 // ranks on one card run in one grid (gridDim.y = ranks on the card)
 // launched with cudaLaunchCooperativeKernel, which refuses a grid that
@@ -63,6 +70,7 @@
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -280,6 +288,48 @@ int strom_ici_ring(const uint64_t* slots, const uint64_t* flags,
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+// CUDA IPC for the ring across processes, one rank a process and a card.
+// A rank's slots and flags are an allocation of their own (cudaMalloc,
+// zeroed), so the handle a peer opens maps exactly them and nothing of
+// PyTorch's caching allocator.  `handle` is the 64-byte
+// cudaIpcMemHandle_t, written by strom_ipc_alloc and read by
+// strom_ipc_open (a process cannot open its own handle).
+int strom_ipc_alloc(int device, uint64_t bytes, void** ptr, void* handle) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMalloc(ptr, bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(*ptr, 0, bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  if (e != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return (int)e;
+}
+
+int strom_ipc_open(int device, const void* handle, void** ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+int strom_ipc_close(int device, void* ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+int strom_ipc_free(int device, void* ptr) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFree(ptr);
 }
 
 }  // extern "C"

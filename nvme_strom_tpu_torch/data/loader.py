@@ -1,7 +1,18 @@
-"""Sharded dataloader for one process and one device: shards on NVMe →
-device batches (counterpart of nvme_strom_tpu/data/loader.py
-``ShardedLoader``; the mesh and process spans shrink to one device and
-one process, and sequence sharding waits for the multi-GPU slice).
+"""Sharded dataloader: shards on NVMe → device batches, one process a
+device (counterpart of nvme_strom_tpu/data/loader.py ``ShardedLoader``).
+
+Each process reads only its own rows.  Under a ``mesh``
+(parallel/mesh.py) the processes that hold the same block of the batch
+axis (``dp``) form one group (:func:`_batch_groups`): a group reads its
+own round-robin share of the shards and yields its ``global_batch / dp``
+rows, and the ranks of one group (its ``tp`` peers) read the same
+shards in the same order.  Without a mesh every process is a group of
+its own (``process_index`` / ``process_count``, default the
+``torch.distributed`` rank and world size).  Batches are this process's
+rows: the port has no global array to assemble, and with one device a
+process the JAX ``_process_span`` / ``_device_row_spans`` are the
+group's block of rows.  Sequence sharding (``seq_axis``) waits for
+ROADMAP Queue 1 item 12b.
 
 Formats (``fmt``):
 
@@ -101,6 +112,32 @@ class LoaderErrors(RuntimeError):
             + "; ".join(f"{type(e).__name__}: {e}" for e in self.errors))
 
 
+def _group_blocks(blocks: dict, n_blk: int, pi: int, axis: str) -> tuple:
+    """(this process's group index, group count) from ``blocks``,
+    process → the set of batch-axis blocks its devices cover.  The
+    groups must tile the blocks equally: overlapping or unequal cover
+    would hand different shards to processes that feed the same rows."""
+    groups = sorted({frozenset(b) for b in blocks.values()}, key=min)
+    all_blocks = [b for g in groups for b in g]
+    if (len(all_blocks) != len(set(all_blocks))
+            or set(all_blocks) != set(range(n_blk))
+            or len({len(g) for g in groups}) != 1):
+        raise ValueError(
+            f"batch axis {axis!r}: process groups do not tile the "
+            f"axis blocks equally ({[sorted(g) for g in groups]}); "
+            "unsupported mesh layout")
+    return groups.index(frozenset(blocks[pi])), len(groups)
+
+
+def _batch_groups(mesh, axis: str, pi: int) -> tuple:
+    """(group index, group count): processes whose devices cover the
+    same blocks of ``axis`` share a group (the mesh's other axes)."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh {mesh.shape} has no batch axis {axis!r}")
+    blocks = {r: {c[axis]} for r, c in enumerate(mesh.devices_coords())}
+    return _group_blocks(blocks, mesh.shape[axis], pi, axis)
+
+
 def _default_decode(parts: dict) -> np.ndarray:
     """A single-part sample → its bytes as uint8."""
     if len(parts) != 1:
@@ -155,9 +192,16 @@ class ShardedLoader:
                  fmt: str = "wds", decode: Optional[Callable] = None,
                  engine: Optional[StromEngine] = None,
                  exts: Optional[List[str]] = None,
-                 config: Optional[LoaderConfig] = None, device=None):
+                 config: Optional[LoaderConfig] = None, device=None,
+                 mesh=None, seq_axis: Optional[str] = None,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         if fmt not in ("wds", "wds_raw", "tfrecord", "fixedrec"):
             raise ValueError(f"unknown fmt {fmt!r}")
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "seq_axis: sequence sharding waits for ROADMAP Queue 1 "
+                "item 12b")
         if fmt in ("fixedrec", "wds_raw"):
             if decode is not None:
                 raise ValueError(
@@ -171,14 +215,31 @@ class ShardedLoader:
         if global_batch < 1:
             raise ValueError(f"global_batch must be >= 1, got "
                              f"{global_batch}")
-        self.device = resolve_device(device)
+        from nvme_strom_tpu_torch.parallel.mesh import (local_device,
+                                                        process_info)
+        self.device = resolve_device(device if device is not None or
+                                     mesh is None else local_device())
+        self.mesh = mesh
         self.fmt = fmt
         self.decode = decode or _default_decode
         self.exts = exts
         self.config = config or LoaderConfig()
         self.global_batch = global_batch
-        self.local_batch = global_batch
-        self.local_shards = assign_shards(shard_paths, 0, 1)
+        if mesh is not None and process_index is None and \
+                process_count is None:
+            group_idx, n_groups = _batch_groups(mesh, "dp", mesh.rank)
+        else:
+            rank, world = process_info()
+            group_idx = rank if process_index is None else process_index
+            n_groups = world if process_count is None else process_count
+        if global_batch % n_groups:
+            raise ValueError(
+                f"global_batch {global_batch} not divisible by "
+                f"{n_groups} batch-axis groups")
+        #: this process's batch-axis group and the number of groups
+        self.group_index, self.group_count = group_idx, n_groups
+        self.local_batch = global_batch // n_groups
+        self.local_shards = assign_shards(shard_paths, group_idx, n_groups)
         self._owns_engine = engine is None
         self._engine = engine if engine is not None else build_engine()
         self.epoch = 0

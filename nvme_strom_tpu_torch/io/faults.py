@@ -82,10 +82,10 @@ def crash_point(name: str) -> None:
     ``name``, the process dies HERE (``os._exit`` — no atexit, no
     flushes, exactly what a power loss or OOM-kill leaves behind).
     Instrumented at the checkpoint commit sequence's crash windows
-    (checkpoint/manager.py): ``ckpt.tiles``, ``ckpt.meta``,
-    ``ckpt.rename`` (the reference's multi-process ``ckpt.marker`` has
-    no counterpart in the port's one-process format).  One environment
-    read when the variable is unset."""
+    (checkpoint/manager.py): ``ckpt.tiles``, ``ckpt.marker`` (a
+    multi-process ``save_async``'s done marker durable, the commit
+    pending), ``ckpt.meta``, ``ckpt.rename``.  One environment read when
+    the variable is unset."""
     want = os.environ.get("STROM_CRASH_POINT")
     if want and want == name:
         os._exit(137)

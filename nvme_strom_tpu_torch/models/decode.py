@@ -6,6 +6,14 @@ The cache is ``{"k", "v": (n_layers, b, n_kv_heads, max_len, head_dim),
 ``pos`` counts the valid positions and lives on the host.  GQA keeps the
 cache at kv-head width.  Sampling draws from an explicit
 ``torch.Generator``; greedy decoding takes the exact argmax.
+
+Under ``collectives.use_mesh(mesh)`` with this rank's parameter slices
+(parallel/shardings.py ``shard_params``) the same functions run
+tensor-parallel: the cache holds the rank's kv heads
+(:func:`cache_shardings`, heads over ``tp`` like the weights, rows over
+``dp``), a ``cache_attn`` such as kernel 2 runs on the local heads, and
+the logits are gathered whole, so every ``tp`` rank samples the same
+token.  A ``dp`` rank generates its own rows of the batch.
 """
 
 from __future__ import annotations
@@ -16,22 +24,37 @@ from typing import Dict, Optional
 import torch
 
 from nvme_strom_tpu_torch.models.transformer import (
-    TransformerConfig, attention, embed, expand_gqa, mlp_block, qkv_project,
-    rms_norm, wmat)
+    TransformerConfig, attention, embed, expand_gqa, lm_logits, mlp_block,
+    qkv_project, rms_norm, row_parallel)
+from nvme_strom_tpu_torch.parallel import collectives as _coll
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device=None) -> Dict:
-    """Empty KV cache; callers push at most ``max_len`` positions."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    """Empty KV cache; callers push at most ``max_len`` positions.  Under
+    a mesh it holds this rank's ``n_kv_heads / tp`` heads."""
+    tp = _coll.group_size(_coll.tp_group())
+    if cfg.n_kv_heads % tp:
+        raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over "
+                         f"tp={tp}")
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads // tp, max_len,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "pos": 0}
 
 
+def cache_shardings(mesh, tp_axis: str = "tp", dp_axis: str = "dp"):
+    """The cache laid out like attention: rows over ``dp``, kv heads over
+    ``tp`` (parallel/shardings.py ``Sharding``s; ``pos`` replicated)."""
+    from nvme_strom_tpu_torch.parallel.shardings import P, Sharding
+    kv = Sharding(mesh, P(None, dp_axis, tp_axis, None, None))
+    return {"k": kv, "v": kv, "pos": Sharding(mesh, P())}
+
+
 def _lm_head(params, x: torch.Tensor, cfg: TransformerConfig):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ wmat(params, "lm_head", x.dtype)).float()
+    return lm_logits(x, params)
 
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -95,7 +118,7 @@ def decode_step(params: Dict, token: torch.Tensor, cfg: TransformerConfig,
         cache["v"][i, :, :, pos:pos + 1] = v.to(cfg.dtype)
         a = cache_attn(q.contiguous(), cache["k"][i], cache["v"][i], pos)
         a = a.transpose(1, 2).reshape(b, 1, -1)
-        x = x + a @ wmat(params, L + "wo", a.dtype)
+        x = x + row_parallel(a, params, L + "wo")
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
         x = (x + mlp_block(h, params, L, cfg)).to(cfg.dtype)
     cache["pos"] = pos + 1
@@ -121,7 +144,7 @@ def block_step(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
         cache["v"][i, :, :, pos:pos + m] = v.to(cfg.dtype)
         a = cache_attention(q, cache["k"][i], cache["v"][i], limit, cfg)
         a = a.transpose(1, 2).reshape(b, m, -1)
-        x = x + a @ wmat(params, L + "wo", a.dtype)
+        x = x + row_parallel(a, params, L + "wo")
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
         x = (x + mlp_block(h, params, L, cfg)).to(cfg.dtype)
     cache["pos"] = pos + m

@@ -12,8 +12,13 @@ expert.  Tokens route in groups of ``moe_group_size`` (0: one batch
 row), so the dispatch tensors are (G, S, E, C): linear in the token
 count.  The router runs in float32.
 
-Expert sharding (the JAX module's ``moe_param_specs``) belongs to the
-port's multi-GPU slice.
+Expert parallelism (:func:`moe_param_specs`, the JAX module's specs):
+experts split over ``ep`` and each expert's FFN over ``tp``.  Under a
+mesh (parallel/collectives.py ``use_mesh``) every rank routes the tokens
+it holds to all experts, runs only its own experts' slice, and the
+combine is summed over ``ep`` × ``tp``; the expert inputs and the
+combine weights enter through ``copy_to``, so their gradients are summed
+over the same ranks and the router's gradient is whole on each.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from nvme_strom_tpu_torch.parallel import collectives as _coll
 
 
 def _dispatch_groups(probs: torch.Tensor, top_k: int, capacity: int):
@@ -122,18 +129,40 @@ def moe_mlp(x: torch.Tensor, p: Dict, prefix: str, cfg) -> tuple:
     dispatch, combine, aux = _dispatch_groups(probs, k, C)
     aux = aux.mean()
 
+    w_gate = wmat(p, prefix + "moe_w_gate", x.dtype)
+    group = _coll.moe_group()
+    if group is not None:
+        # this rank's experts, on the tokens it holds
+        el = w_gate.shape[0]
+        e0 = _coll.ep_index() * el
+        xg = _coll.copy_to(xg, group)
+        combine = _coll.copy_to(combine, group)
+        dispatch = dispatch[:, :, e0:e0 + el]
+        combine = combine[:, :, e0:e0 + el]
+        E = el
     # each expert sees G·C slots, wherever the group boundaries fell
     xd = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
     xd = xd.reshape(E, G * C, d)
-    gate = F.silu(torch.einsum("ecd,edf->ecf", xd,
-                               wmat(p, prefix + "moe_w_gate", x.dtype)))
+    gate = F.silu(torch.einsum("ecd,edf->ecf", xd, w_gate))
     up = torch.einsum("ecd,edf->ecf", xd,
                       wmat(p, prefix + "moe_w_up", x.dtype))
     h = torch.einsum("ecf,efd->ecd", gate * up,
                      wmat(p, prefix + "moe_w_down", x.dtype))
     h = h.reshape(E, G, C, d)
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), h)
+    out = _coll.reduce_from(out, group)
     return out.reshape(b, s, d), aux
+
+
+def moe_param_specs(cfg, layer_prefix: str) -> Dict[str, tuple]:
+    """Partition specs of one MoE layer (parallel/shardings.py): experts
+    over ``ep``, each expert's FFN Megatron-split over ``tp``
+    (column-parallel gate / up, row-parallel down)."""
+    L = layer_prefix
+    return {L + "router": (),
+            L + "moe_w_gate": ("ep", None, "tp"),
+            L + "moe_w_up": ("ep", None, "tp"),
+            L + "moe_w_down": ("ep", "tp", None)}
 
 
 def moe_param_shapes(cfg, prefix: str) -> Dict[str, tuple]:

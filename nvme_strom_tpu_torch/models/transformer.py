@@ -15,6 +15,17 @@ layer ``i`` with ``i % moe_every == moe_every - 1`` when ``n_experts`` >
 0; their router weights stay float32.  Weight-only quantized leaves
 (models/quant.py) dequantize in ``wmat``; training takes full-precision
 weights only.
+
+Tensor parallelism (parallel/shardings.py ``param_specs``): inside
+``collectives.use_mesh(mesh)`` the parameters are this rank's slices and
+each layer runs Megatron's scheme with explicit collectives.  q / k / v,
+gate and up are column-parallel on the local heads and features, their
+input entering through ``copy_to``; ``wo`` and ``w_down`` are
+row-parallel, summed over ``tp`` by ``reduce_from``; the token
+embedding's feature slice is gathered; the lm_head's vocabulary slice
+feeds a vocabulary-parallel cross-entropy, or is gathered into whole
+logits.  Head counts come from the local weights' widths, so the same
+code runs every tp size.  Without a mesh none of this runs.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nvme_strom_tpu_torch.models import moe as _moe
+from nvme_strom_tpu_torch.parallel import collectives as _coll
 
 
 @dataclass(frozen=True)
@@ -223,10 +235,11 @@ def qkv_project(x: torch.Tensor, p, prefix: str, cfg: TransformerConfig,
     """q (b, nh, s, hd) and post-RoPE k / v at kv-head width
     (b, nkv, s, hd).  ``positions``: float32 (s,) or per-row (b, s)."""
     b, s, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = (x @ wmat(p, prefix + "wq", x.dtype)).view(b, s, nh, hd)
-    k = (x @ wmat(p, prefix + "wk", x.dtype)).view(b, s, nkv, hd)
-    v = (x @ wmat(p, prefix + "wv", x.dtype)).view(b, s, nkv, hd)
+    hd = cfg.head_dim
+    x = _coll.copy_to(x, _coll.tp_group())
+    q = (x @ wmat(p, prefix + "wq", x.dtype)).view(b, s, -1, hd)
+    k = (x @ wmat(p, prefix + "wk", x.dtype)).view(b, s, -1, hd)
+    v = (x @ wmat(p, prefix + "wv", x.dtype)).view(b, s, -1, hd)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     cos, sin = _rope_cos_sin(hd // 2, cfg.rope_theta, positions,
                              cfg.rope_scaling_dict)
@@ -306,15 +319,21 @@ def attention(x, p, prefix, cfg: TransformerConfig, attn_fn=None,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     else:
         out = attn_fn(q, expand_gqa(k, cfg), expand_gqa(v, cfg))
-        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    out = out @ wmat(p, prefix + "wo", x.dtype)
+        out = out.transpose(1, 2).reshape(b, s, -1)
+    out = row_parallel(out, p, prefix + "wo")
     return (out, k, v) if return_kv else out
 
 
+def row_parallel(x, p, name: str) -> torch.Tensor:
+    """``x @ w`` of a row-parallel weight, summed over ``tp``."""
+    return _coll.reduce_from(x @ wmat(p, name, x.dtype), _coll.tp_group())
+
+
 def mlp(x, p, prefix) -> torch.Tensor:
+    x = _coll.copy_to(x, _coll.tp_group())
     gate = F.silu(x @ wmat(p, prefix + "w_gate", x.dtype))
     up = x @ wmat(p, prefix + "w_up", x.dtype)
-    return (gate * up) @ wmat(p, prefix + "w_down", x.dtype)
+    return row_parallel(gate * up, p, prefix + "w_down")
 
 
 def mlp_block(h, p, prefix: str, cfg: TransformerConfig) -> torch.Tensor:
@@ -327,7 +346,22 @@ def mlp_block(h, p, prefix: str, cfg: TransformerConfig) -> torch.Tensor:
 
 
 def embed(p, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["tok_embed"]).to(cfg.dtype)
+    return _coll.gather_from(F.embedding(tokens.long(), p["tok_embed"]),
+                             _coll.tp_group()).to(cfg.dtype)
+
+
+def lm_logits(x: torch.Tensor, p, gather: bool = True) -> torch.Tensor:
+    """float32 logits of ``x`` through the lm_head: whole, or with
+    ``gather=False`` this rank's vocabulary slice under tp."""
+    g = _coll.tp_group()
+    logits = (_coll.copy_to(x, g) @ wmat(p, "lm_head", x.dtype)).float()
+    return _coll.gather_from(logits, g) if gather else logits
+
+
+def _vocab_start(p) -> int:
+    """The first vocabulary column of this rank's lm_head slice."""
+    return _coll.group_rank(_coll.tp_group()) * p["lm_head"].shape[-1] \
+        if not isinstance(p["lm_head"], dict) else 0
 
 
 # ----------------------------- training -----------------------------
@@ -393,7 +427,8 @@ def forward_hidden(params: Dict, tokens: torch.Tensor,
     bytes read back, so activations take one layer's worth of device
     memory whatever the depth."""
     policy = _remat_policy(cfg)
-    x = wmat(params, "tok_embed", cfg.dtype)[tokens.long()]
+    x = _coll.gather_from(wmat(params, "tok_embed", cfg.dtype)[tokens.long()],
+                          _coll.tp_group())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if policy == "nvme":
         if act_store is None:
@@ -430,7 +465,7 @@ def forward_with_aux(params: Dict, tokens: torch.Tensor,
     """tokens (b, s) → (logits (b, s, vocab) float32, aux_loss)."""
     x, aux = forward_hidden(params, tokens, cfg, attn_fn,
                             act_store=act_store)
-    return (x @ wmat(params, "lm_head", x.dtype)).float(), aux
+    return lm_logits(x, params), aux
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -439,7 +474,11 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
     return forward_with_aux(params, tokens, cfg, attn_fn)[0]
 
 
-def _chunk_nll(h, w, t, wt):
+def _chunk_nll(h, w, t, wt, group=None, start=0):
+    if group is not None:
+        nll = _coll.vocab_parallel_xent(
+            (_coll.copy_to(h, group) @ w).float(), t, group, start)
+        return (nll * wt).sum()
     logits = (h @ w).float()                        # (b, c, vocab)
     lse = torch.logsumexp(logits, dim=-1)
     tl = logits.gather(-1, t[..., None])[..., 0]
@@ -464,12 +503,13 @@ def chunked_xent(params: Dict, hidden: torch.Tensor, tokens: torch.Tensor,
     weights = torch.ones(b, s, dtype=torch.float32, device=hidden.device)
     weights[:, -1] = 0.0
     w = wmat(params, "lm_head", hidden.dtype)
+    group, start = _coll.tp_group(), _vocab_start(params)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n):
         sl = slice(i * c, (i + 1) * c)
         total = total + checkpoint(_chunk_nll, hidden[:, sl], w,
-                                   targets[:, sl], weights[:, sl],
-                                   use_reentrant=False)
+                                   targets[:, sl], weights[:, sl], group,
+                                   start, use_reentrant=False)
     return total / (b * (s - 1))
 
 
@@ -485,6 +525,14 @@ def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
                                      act_store=act_store)
         return (chunked_xent(params, hidden, tokens, cfg)
                 + cfg.router_aux_coef * aux)
+    group = _coll.tp_group()
+    if group is not None:
+        hidden, aux = forward_hidden(params, tokens, cfg, attn_fn,
+                                     act_store=act_store)
+        nll = _coll.vocab_parallel_xent(
+            lm_logits(hidden[:, :-1], params, gather=False),
+            tokens[:, 1:], group, _vocab_start(params))
+        return nll.mean() + cfg.router_aux_coef * aux
     logits, aux = forward_with_aux(params, tokens, cfg, attn_fn,
                                    act_store=act_store)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
@@ -526,13 +574,41 @@ def accumulate_grads(grad_fn: Callable, like: Dict, tokens: torch.Tensor,
     return loss_sum * inv, {n: g * inv for n, g in grads.items()}
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
-                        ) -> Dict[str, torch.Tensor]:
+def _sq_norm(grads: Dict[str, torch.Tensor], shardings=None
+             ) -> torch.Tensor:
+    """Σ g² over every gradient of the global model.  With
+    ``shardings`` (parallel/shardings.py, gradients this rank's slices,
+    already averaged over ``dp``) each distinct slice counts once: a
+    rank adds a slice only where it is the first of its replicas among
+    the ranks of its ``dp`` block, and the sum is all-reduced over the
+    mesh's other axes."""
+    if not shardings:
+        return sum(g.float().square().sum() for g in grads.values())
+    mesh = next(iter(shardings.values())).mesh
+    mp = tuple(a for a in mesh.axis_names if a != "dp")
+    total = None
+    for n, g in grads.items():
+        used = {a for e in shardings[n].spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        if any(mesh.coords[a] for a in mp if a not in used):
+            continue                # a replica another rank counts
+        sq = g.float().square().sum()
+        total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=next(iter(grads.values())).device)
+    return _coll.all_reduce(total.reshape(1), mesh.group(mp))[0]
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        shardings=None) -> Dict[str, torch.Tensor]:
     """``optax.clip_by_global_norm``: with ‖g‖ the L2 norm over every
     gradient, each becomes ``g / ‖g‖ * max_norm`` unless ‖g‖ <
     ``max_norm``.  (``torch.nn.utils.clip_grad_norm_`` divides by ‖g‖ +
-    1e-6, which is another function.)"""
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+    1e-6, which is another function.)  Under a mesh, ``shardings``
+    names each gradient's slice, so ‖g‖ is the whole model's norm on
+    every rank (:func:`_sq_norm`)."""
+    norm = torch.sqrt(_sq_norm(grads, shardings))
     if bool(norm < max_norm):
         return grads
     return {n: g / norm.to(g.dtype) * max_norm for n, g in grads.items()}
@@ -590,14 +666,16 @@ def optimizer_count(optimizer: torch.optim.Optimizer) -> int:
 
 
 def apply_gradients(optimizer: torch.optim.Optimizer, params: Dict,
-                    grads: Dict, lr=None, grad_clip: float = 0.0) -> None:
+                    grads: Dict, lr=None, grad_clip: float = 0.0,
+                    shardings=None) -> None:
     """One optimizer update of the tensors in ``params`` ({name: tensor})
     from ``grads`` (same names): clipped to ``grad_clip`` global norm
-    first when it is > 0 (:func:`clip_by_global_norm`), and with ``lr``
-    (a float, or ``fn(count)`` from :func:`lr_schedule`) set on every
-    parameter group when given."""
+    first when it is > 0 (:func:`clip_by_global_norm`, over the slices
+    ``shardings`` names under a mesh), and with ``lr`` (a float, or
+    ``fn(count)`` from :func:`lr_schedule`) set on every parameter
+    group when given."""
     if grad_clip > 0:
-        grads = clip_by_global_norm(grads, grad_clip)
+        grads = clip_by_global_norm(grads, grad_clip, shardings)
     if lr is not None:
         value = lr(optimizer_count(optimizer)) if callable(lr) else lr
         for group in optimizer.param_groups:
@@ -609,21 +687,33 @@ def apply_gradients(optimizer: torch.optim.Optimizer, params: Dict,
 
 def make_train_step(cfg: TransformerConfig, optimizer, attn_fn=None,
                     accum_steps: int = 1, act_store=None, lr=None,
-                    grad_clip: float = 0.0):
+                    grad_clip: float = 0.0, mesh=None, shardings=None):
     """``step(params, tokens) -> loss``: gradients of the mean loss over
     ``accum_steps`` microbatches, then one ``optimizer.step()`` through
     :func:`apply_gradients` (``lr`` and ``grad_clip`` as there).
     ``optimizer`` is a torch optimizer over ``params``' tensors, which
     it updates in place (where the JAX step returns new params).
-    ``act_store``: the NVMe activation store of ``remat_policy="nvme"``."""
+    ``act_store``: the NVMe activation store of ``remat_policy="nvme"``.
+
+    Under a ``mesh`` (parallel/mesh.py) ``params`` are this rank's
+    slices (``shardings``, parallel/shardings.py ``param_shardings``)
+    and ``tokens`` its ``dp`` block of the batch: the model runs inside
+    ``use_mesh(mesh)``, the gradients and the loss are averaged over
+    ``dp``, and the returned loss is the whole batch's."""
 
     def step(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-        loss, grads = accumulate_grads(
-            lambda mb: value_and_grad(params, mb, cfg, attn_fn,
-                                      act_store=act_store), params,
-            tokens, accum_steps)
-        apply_gradients(optimizer, params, grads, lr=lr,
-                        grad_clip=grad_clip)
+        with _coll.use_mesh(mesh):
+            loss, grads = accumulate_grads(
+                lambda mb: value_and_grad(params, mb, cfg, attn_fn,
+                                          act_store=act_store), params,
+                tokens, accum_steps)
+        if mesh is not None and mesh.group("dp") is not None:
+            loss = loss.reshape(1).clone()
+            _coll.dp_mean_(list(grads.values()) + [loss], mesh.group("dp"))
+            loss = loss[0]
+        with _coll.use_mesh(mesh):
+            apply_gradients(optimizer, params, grads, lr=lr,
+                            grad_clip=grad_clip, shardings=shardings)
         return loss
 
     return step

@@ -20,8 +20,14 @@ dS in float32 and would not match it.
 
 Numerics that follow JAX: ``jax.nn.gelu`` is the tanh approximation
 (``F.gelu(..., approximate="tanh")``), and ``jnp.var`` is the population
-variance.  The tensor-parallel specs of the reference
-(``vit_param_specs``) wait for multi-GPU support.
+variance.
+
+Tensor parallelism follows the LM's scheme (:func:`vit_param_specs`,
+the reference's): under ``collectives.use_mesh(mesh)`` with this rank's
+slices, q / k / v and ``w_up`` are column-parallel on local heads and
+features, ``wo`` and ``w_down`` row-parallel and summed over ``tp``,
+and the patch embedding's feature slice and the head's class slice are
+gathered whole.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nvme_strom_tpu_torch.models.transformer import apply_gradients
+from nvme_strom_tpu_torch.parallel import collectives as _coll
 
 
 @dataclass(frozen=True)
@@ -158,12 +165,14 @@ class _SDPA(torch.autograd.Function):
 
 def _attention(x: torch.Tensor, p: Dict, L: str, cfg: ViTConfig):
     b, s, _ = x.shape
-    hd, nh = cfg.head_dim, cfg.n_heads
-    q, k, v = ((x @ p[L + w].to(x.dtype)).reshape(b, s, nh, hd)
+    hd = cfg.head_dim
+    g = _coll.tp_group()
+    x = _coll.copy_to(x, g)
+    q, k, v = ((x @ p[L + w].to(x.dtype)).reshape(b, s, -1, hd)
                .transpose(1, 2) for w in ("wq", "wk", "wv"))
     o = _SDPA.apply(q, k, v)
-    o = o.transpose(1, 2).reshape(b, s, nh * hd)
-    return o @ p[L + "wo"].to(x.dtype)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return _coll.reduce_from(o @ p[L + "wo"].to(x.dtype), g)
 
 
 def _layer(params: Dict, x: torch.Tensor, i: int, cfg: ViTConfig):
@@ -173,16 +182,20 @@ def _layer(params: Dict, x: torch.Tensor, i: int, cfg: ViTConfig):
     x = x + _attention(h, params, L, cfg)
     h = layer_norm(x, params[L + "mlp_norm"], params[L + "mlp_bias"],
                    cfg.norm_eps)
-    h = F.gelu(h @ params[L + "w_up"].to(h.dtype), approximate="tanh")
-    return (x + h @ params[L + "w_down"].to(h.dtype)).to(cfg.dtype)
+    g = _coll.tp_group()
+    h = F.gelu(_coll.copy_to(h, g) @ params[L + "w_up"].to(h.dtype),
+               approximate="tanh")
+    h = _coll.reduce_from(h @ params[L + "w_down"].to(h.dtype), g)
+    return (x + h).to(cfg.dtype)
 
 
 def vit_forward(params: Dict, images: torch.Tensor,
                 cfg: ViTConfig) -> torch.Tensor:
     """images (b, H, W, C) of any real dtype → logits (b, n_classes)
     float32."""
+    g = _coll.tp_group()
     x = patchify(images.to(cfg.dtype), cfg)
-    x = x @ params["patch_embed"].to(cfg.dtype)
+    x = _coll.gather_from(x @ params["patch_embed"].to(cfg.dtype), g)
     cls = params["cls_token"].to(cfg.dtype).expand(x.shape[0], 1,
                                                    cfg.d_model)
     x = torch.cat([cls, x], dim=1)
@@ -194,7 +207,31 @@ def vit_forward(params: Dict, images: torch.Tensor,
             x = _layer(params, x, i, cfg)
     x = layer_norm(x[:, 0], params["final_norm"], params["final_bias"],
                    cfg.norm_eps)
-    return (x @ params["head"].to(x.dtype)).float()
+    return _coll.gather_from(
+        (_coll.copy_to(x, g) @ params["head"].to(x.dtype)).float(), g)
+
+
+def vit_param_specs(cfg: ViTConfig) -> Dict:
+    """Megatron tp specs, the LM's scheme (parallel/shardings.py)."""
+    from nvme_strom_tpu_torch.parallel.shardings import P
+    specs = {"patch_embed": P(None, "tp"), "pos_embed": P(),
+             "cls_token": P(), "final_norm": P(), "final_bias": P(),
+             "head": P(None, "tp")}
+    for i in range(cfg.n_layers):
+        L = f"layers.{i}."
+        specs.update({
+            L + "attn_norm": P(), L + "attn_bias": P(),
+            L + "wq": P(None, "tp"), L + "wk": P(None, "tp"),
+            L + "wv": P(None, "tp"), L + "wo": P("tp", None),
+            L + "mlp_norm": P(), L + "mlp_bias": P(),
+            L + "w_up": P(None, "tp"), L + "w_down": P("tp", None),
+        })
+    return specs
+
+
+def vit_param_shardings(cfg: ViTConfig, mesh) -> Dict:
+    from nvme_strom_tpu_torch.parallel.shardings import Sharding
+    return {k: Sharding(mesh, s) for k, s in vit_param_specs(cfg).items()}
 
 
 def vit_loss(params: Dict, images: torch.Tensor, labels: torch.Tensor,
@@ -204,18 +241,26 @@ def vit_loss(params: Dict, images: torch.Tensor, labels: torch.Tensor,
     return -logp.gather(-1, labels.long()[:, None]).mean()
 
 
-def make_vit_train_step(cfg: ViTConfig, optimizer):
+def make_vit_train_step(cfg: ViTConfig, optimizer, mesh=None):
     """``step(params, images, labels) -> loss``: the gradient of
     :func:`vit_loss`, then one ``optimizer.step()``.  ``optimizer`` is
     a torch optimizer over ``params``' tensors (``transformer.adamw``
-    for optax's AdamW), which it updates in place."""
+    for optax's AdamW), which it updates in place.  Under a ``mesh``
+    the params are this rank's slices (:func:`vit_param_shardings`) and
+    the images its ``dp`` block; gradients and loss are averaged over
+    ``dp``."""
 
     def step(params: Dict, images: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
         names = list(params)
-        loss = vit_loss(params, images, labels, cfg)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        with _coll.use_mesh(mesh):
+            loss = vit_loss(params, images, labels, cfg)
+            grads = list(torch.autograd.grad(loss, [params[n]
+                                                    for n in names]))
+        loss = loss.detach().reshape(1).clone()
+        if mesh is not None:
+            _coll.dp_mean_(grads + [loss], mesh.group("dp"))
         apply_gradients(optimizer, params, dict(zip(names, grads)))
-        return loss.detach()
+        return loss[0]
 
     return step

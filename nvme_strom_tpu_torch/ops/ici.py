@@ -17,19 +17,32 @@ is served from the gathered bytes (io/scatter.py).
 :func:`scatter_engine`
     Partition a file set into per-host shares, read them, exchange, and
     return a :class:`~nvme_strom_tpu_torch.io.scatter.ScatterServeEngine`.
-    Any failure returns None, counted in ``ici_fallbacks`` and logged, so
+    A failure returns None, counted in ``ici_fallbacks`` and logged, so
     the caller reads everything itself: the restore browns out to the
-    read-all path and never fails for the exchange's sake.
+    read-all path.  Across processes only a failed share read browns
+    out; a fault of the exchange itself raises :class:`ExchangeError`.
 
-One process drives every rank (the JAX package's single-process
-emulation): several ranks may share one card, each with its own
-buffers.  Knobs: ``STROM_ICI_SCATTER`` (default off), ``STROM_ICI_HOSTS``,
+Two layouts.  With one process (an :class:`ExchangeGroup`), the process
+drives every rank (the JAX package's single-process emulation): several
+ranks may share one card, each with its own buffers, and the process
+reads every share.  With ``torch.distributed`` up and more than one
+process (:class:`ProcessExchange`, one rank a process), each process
+reads only its own share (the JAX ``my_hosts``), the peers' slots and
+flags are mapped through CUDA IPC handles swapped over the process
+group, and each process launches kernel 7 for its own rank; on the CPU
+the rows are all-gathered over gloo.  Two ranks on one card are refused:
+the ring's spinning kernels would be time-sliced against each other.
+That refusal, a failed IPC allocation or open, a failed launch and a ring
+wait past its budget raise :class:`ExchangeError` and fail the restore.
+Knobs: ``STROM_ICI_SCATTER`` (default off), ``STROM_ICI_HOSTS``,
 ``STROM_ICI_UNIT_BYTES``.  Counters: ``ici_bytes_read``,
-``ici_bytes_received`` (0 here: no peers), ``ici_fallbacks``.
+``ici_bytes_received`` (the peers' bytes, 0 with one process),
+``ici_fallbacks``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import logging
 import os
@@ -46,7 +59,9 @@ from nvme_strom_tpu_torch.io.scatter import (ScatterServeEngine,
                                              ScatterStore, partition_files)
 from nvme_strom_tpu_torch.device import current_stream
 from nvme_strom_tpu_torch.ops.bridge import h2d_copy, pinned_mapping
-from nvme_strom_tpu_torch.parallel.mesh import ExchangeGroup, exchange_group
+from nvme_strom_tpu_torch.parallel.mesh import (
+    ExchangeGroup, all_gather_object, barrier, control_group, exchange_group,
+    local_device, process_info)
 from nvme_strom_tpu_torch.utils.trace import global_tracer
 
 _log = logging.getLogger(__name__)
@@ -359,6 +374,230 @@ class IciExchange:
         return got
 
 
+class _CudaArray:
+    """A raw device allocation seen by torch (``__cuda_array_interface__``),
+    kept alive by the tensor made from it."""
+
+    def __init__(self, ptr: int, shape: tuple):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 2}
+
+
+class ExchangeError(RuntimeError):
+    """A fault of the exchange across processes itself: two ranks on one
+    card, CUDA IPC, kernel 7's launch or a ring wait past its budget.
+    Never browned out: the restore fails with it."""
+
+
+@contextlib.contextmanager
+def _exchange_faults(what: str):
+    """Raise what fails inside as an :class:`ExchangeError`."""
+    try:
+        yield
+    except ExchangeError:
+        raise
+    except Exception as e:
+        raise ExchangeError(f"ici: {what}: {type(e).__name__}: {e}") from e
+
+
+class _IpcBuffer:
+    """A zeroed device allocation of this rank, its IPC handle, and the
+    peers' allocations opened from theirs (``ptrs[r]``, this rank's
+    own at ``ptrs[rank]``)."""
+
+    def __init__(self, device: torch.device, nbytes: int, rank: int):
+        lib = _build.kernel_library()
+        self.device, self.lib, self.nbytes = device, lib, nbytes
+        ptr = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(64)
+        _build.check(lib.strom_ipc_alloc(device.index, nbytes,
+                                         ctypes.byref(ptr), handle),
+                     "ici ipc alloc")
+        self.ptr = ptr.value
+        self.opened: List[int] = []
+        try:
+            handles = all_gather_object(handle.raw)
+            self.ptrs = []
+            for r, h in enumerate(handles):
+                if r == rank:
+                    self.ptrs.append(self.ptr)
+                    continue
+                peer = ctypes.c_void_p()
+                _build.check(lib.strom_ipc_open(
+                    device.index, ctypes.create_string_buffer(h, 64),
+                    ctypes.byref(peer)), f"ici ipc open of rank {r}")
+                self.opened.append(peer.value)
+                self.ptrs.append(peer.value)
+        except BaseException:
+            self.close()
+            raise
+
+    def tensor(self, shape: tuple) -> torch.Tensor:
+        return torch.as_tensor(_CudaArray(self.ptr, shape),
+                               device=self.device)
+
+    def close(self) -> None:
+        for p in self.opened:
+            self.lib.strom_ipc_close(self.device.index, p)
+        self.opened = []
+        if self.ptr:
+            self.lib.strom_ipc_free(self.device.index, self.ptr)
+            self.ptr = 0
+
+
+class ProcessExchange:
+    """All-gather of byte rows, one rank a process (``torch.distributed``
+    up with ``n`` > 1 processes): rank r contributes row r.
+
+    On a card each rank's slots ``(n, width)`` and its ring flags are IPC
+    allocations of its own, made once (the slots again only when a call
+    is wider than any before) and freed by :meth:`close`; the handles
+    are swapped over the gloo control group, each process primes its
+    own row through kernel 1, the ranks meet at a barrier, and each
+    launches kernel 7 for its own rank with system-scope flags (every
+    neighbour is another card).  On the CPU the rows are all-gathered
+    over gloo.  Every fault raises :class:`ExchangeError`, two ranks on
+    one card at construction."""
+
+    def __init__(self, stats=None, tracer=None):
+        self.rank, self.n = process_info()
+        self.device = local_device()
+        self.stats = stats
+        self.tracer = tracer if tracer is not None else global_tracer
+        self.is_cuda = self.device.type == "cuda"
+        self._flags = None
+        self._slots = None
+        self.base = 0
+        self.calls = 0
+        self.last_kernel_ms = None
+        if self.is_cuda:
+            with _exchange_faults("set-up across processes"):
+                self._open_cuda()
+
+    def _open_cuda(self) -> None:
+        uuid = str(torch.cuda.get_device_properties(self.device).uuid)
+        cards = all_gather_object(uuid)
+        if len(set(cards)) != len(cards):
+            raise ExchangeError(
+                f"ici: ranks {cards} share a card; the ring across "
+                "processes needs one rank a card (two spinning ranks "
+                "on one card are time-sliced against each other)")
+        lib = _build.kernel_library()
+        cap, chunk = ctypes.c_int(), ctypes.c_uint()
+        _build.check(lib.strom_ici_ring_capacity(
+            self.device.index, ctypes.byref(cap), ctypes.byref(chunk)),
+            "ici_ring_gather capacity")
+        self.blocks = min(all_gather_object(cap.value))
+        self.chunk = chunk.value
+        self._flags = _IpcBuffer(self.device, 4 * self.blocks, self.rank)
+        self._err = torch.zeros(1, dtype=torch.int32, device=self.device)
+        host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        self._err_host = host
+        with torch.cuda.device(self.device):
+            self._err_ptr = pinned_mapping(host, self.device).dev_base
+
+    def host_rows(self, row_bytes: int) -> torch.Tensor:
+        """A zeroed ``(n, row_bytes)`` host tensor; this rank fills its
+        own row (page-locked on a card)."""
+        buf = torch.zeros((self.n, _padded(row_bytes)), dtype=torch.uint8,
+                          pin_memory=self.is_cuda)
+        return buf[:, :row_bytes]
+
+    def all_gather(self, rows) -> torch.Tensor:
+        """Every rank's row ``rows[r]`` of its own ``(n, row_bytes)``
+        host tensor, gathered: the same host tensor on every rank."""
+        nbytes = rows.shape[1]
+        width = _padded(nbytes)
+        t0 = time.monotonic_ns()
+        with _exchange_faults("exchange across processes"):
+            if not self.is_cuda:
+                mine = torch.zeros(width, dtype=torch.uint8)
+                mine[:nbytes] = rows[self.rank]
+                parts = [torch.empty_like(mine) for _ in range(self.n)]
+                torch.distributed.all_gather(parts, mine,
+                                             group=control_group())
+                got = torch.stack(parts)[:, :nbytes]
+                backend = "plain"
+            else:
+                got = self._ring(rows, nbytes, width)
+                backend = "cuda"
+        if self.tracer.enabled:
+            self.tracer.add_span(
+                "strom.ici.exchange", t0, time.monotonic_ns(),
+                category="strom.ici", hosts=self.n,
+                bytes=int(self.n * nbytes), backend=backend,
+                rank=self.rank)
+        return got
+
+    def _ring(self, rows, nbytes: int, width: int) -> torch.Tensor:
+        lib = _build.kernel_library()
+        dev = self.device
+        host = rows
+        if not host.is_pinned():
+            staged = self.host_rows(nbytes)
+            staged.copy_(host)
+            host = staged
+            if self.stats is not None:
+                self.stats.add(bounce_bytes=int(nbytes))
+        n = self.n
+        if self._slots is None or self._slots.nbytes < n * width:
+            # every rank grows at the same call: the widths agree, and
+            # the last call's closing barrier has passed on every rank
+            if self._slots is not None:
+                self._slots.close()
+                self._slots = None
+            self._slots = _IpcBuffer(dev, n * width, self.rank)
+        slots = self._slots
+        mine = slots.tensor((n, width))
+        with torch.cuda.device(dev):
+            if nbytes:
+                h2d_copy(host[self.rank], mine[self.rank, :nbytes],
+                         src_ptr=pinned_mapping(host, dev).device_ptr(
+                             host[self.rank].data_ptr(), nbytes))
+            torch.cuda.current_stream(dev).synchronize()
+        barrier()                       # every rank's own row is primed
+        C = ring_chunks(width, self.blocks, self.chunk)
+        with torch.cuda.device(dev):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            _build.check(lib.strom_ici_ring(
+                (ctypes.c_uint64 * n)(*slots.ptrs),
+                (ctypes.c_uint64 * n)(*self._flags.ptrs),
+                (ctypes.c_int * 1)(self.rank), 1, n, (1 << n) - 1,
+                width, self.blocks, self.base, RING_BUDGET_NS,
+                self._err.data_ptr(), self._err_ptr,
+                current_stream(dev.index), dev.index), "ici_ring_gather")
+            ici_ring_gather.launches += 1
+            ev1.record()
+            _build.check(lib.strom_stream_synchronize(
+                current_stream(dev.index), dev.index),
+                "ici_ring_gather wait")
+        #: milliseconds of the last call's kernel on this rank's card
+        self.last_kernel_ms = ev0.elapsed_time(ev1)
+        if int(self._err_host[0]):
+            raise ExchangeError(
+                f"ici_ring_gather: a ring wait on {dev} ran out of its "
+                f"{RING_BUDGET_NS / 1e9:.0f} s budget")
+        self.base = (self.base + (n - 1) * C) & 0xFFFFFFFF
+        self.calls += 1
+        out = torch.empty((n, width), dtype=torch.uint8, pin_memory=True)
+        out.copy_(mine)
+        barrier()       # no rank writes the next call's rows before this
+        return out[:, :nbytes]
+
+    def close(self) -> None:
+        for buf in (self._slots, self._flags):
+            if buf is not None:
+                buf.close()
+        self._slots = self._flags = None
+
+
+def _multi_process() -> bool:
+    return process_info()[1] > 1
+
+
 def _read_share(engine, fhs: Sequence[int], units, row: torch.Tensor) -> int:
     """Pack one host's ``(file_idx, offset, length)`` units, in order,
     into ``row`` through the planner; returns the bytes packed.  The
@@ -391,13 +630,18 @@ def scatter_engine(engine, paths: Sequence[str],
     ``manifest``), reads every rank's share through ``plan_and_submit``,
     exchanges the shares over ``group``, and returns a
     :class:`ScatterServeEngine` serving every later read of those files
-    from the gathered bytes.  One process reads all ranks' shares, so
-    ``ici_bytes_read`` is the payload total and ``ici_bytes_received``
-    stays 0.  The set-up and the exchange are recorded as
+    from the gathered bytes.  With one process it reads all ranks'
+    shares, so ``ici_bytes_read`` is the payload total and
+    ``ici_bytes_received`` stays 0.  With several processes and no
+    ``group`` (or a :class:`ProcessExchange`) each process reads only
+    its own share and receives the rest; the processes agree before the
+    exchange, so a share that fails on one browns every one out.  The
+    set-up and the exchange are recorded as
     ``strom.ici.scatter`` and ``strom.ici.exchange`` spans on the
     engine's tracer (utils/trace.py) when it is enabled.  Returns None,
     counted in ``ici_fallbacks`` and logged, for a group of one rank or
-    on any failure."""
+    on any failure but one: a fault of the exchange across processes
+    (:class:`ExchangeError`, two ranks on one card among them) raises."""
     stats = engine.stats
     tracer = getattr(engine, "tracer", None)
     if tracer is None:
@@ -409,8 +653,13 @@ def scatter_engine(engine, paths: Sequence[str],
         stats.add(ici_fallbacks=1)
 
     t0 = time.monotonic_ns()
+    own = None
+    if group is None and _multi_process():
+        group = own = ProcessExchange(stats=stats, tracer=tracer)
+    per_process = isinstance(group, ProcessExchange)
     try:
-        exchange = IciExchange(group, stats=stats, tracer=tracer)
+        exchange = (group if per_process
+                    else IciExchange(group, stats=stats, tracer=tracer))
         if exchange.n < 2:
             fall_back(f"exchange group has {exchange.n} rank(s)")
             return None
@@ -429,32 +678,52 @@ def scatter_engine(engine, paths: Sequence[str],
         rows = exchange.host_rows(row_bytes)
         t_read = time.monotonic_ns()
         fhs: List[int] = []
+        mine = [exchange.rank] if per_process else range(exchange.n)
+        failed = None
         try:
             for p in paths:
                 fhs.append(engine.open(p))
-            for h in range(exchange.n):
+            for h in mine:
                 _read_share(engine, fhs, manifest.units_for(h), rows[h])
+        except Exception as e:
+            if not per_process:
+                raise
+            failed = f"{type(e).__name__}: {e}"
         finally:
             for fh in fhs:
                 engine.close(fh)
+        if per_process:
+            # every rank takes the same road: a peer left waiting in the
+            # exchange would hang until the group's timeout
+            verdicts = all_gather_object(failed)
+            if any(verdicts):
+                fall_back(f"a share read failed: {verdicts}")
+                return None
         t_read = time.monotonic_ns() - t_read
         gathered = exchange.all_gather(rows)
-        for h in range(exchange.n):
+        for h in mine:
             # every row was read here: each must come back bit-identical,
             # or the exchange is not trusted with the restore
             if not torch.equal(gathered[h], rows[h]):
-                raise RuntimeError(
+                raise (ExchangeError if per_process else RuntimeError)(
                     f"ici: exchange corrupted host {h}'s share row")
         store = ScatterStore(paths, manifest, gathered,
-                             host_bytes_read=dict(enumerate(
-                                 manifest.host_bytes)))
-        stats.add(ici_bytes_read=int(manifest.total_bytes))
+                             host_bytes_read={h: manifest.host_bytes[h]
+                                              for h in mine})
+        read = sum(manifest.host_bytes[h] for h in mine)
+        stats.add(ici_bytes_read=int(read),
+                  ici_bytes_received=int(manifest.total_bytes - read))
         if tracer.enabled:
             tracer.add_span(
                 "strom.ici.scatter", t0, time.monotonic_ns(),
                 category="strom.ici", hosts=exchange.n, files=len(paths),
                 total_bytes=int(manifest.total_bytes), read_s=t_read / 1e9)
         return ScatterServeEngine(engine, store)
+    except ExchangeError:
+        raise
     except Exception as e:          # brown-out: the caller reads it all
         fall_back(f"{type(e).__name__}: {e}")
         return None
+    finally:
+        if own is not None:         # the gathered rows are host copies
+            own.close()

@@ -1,6 +1,6 @@
 """NVMe-offloaded optimizer state (counterpart of
-nvme_strom_tpu/parallel/opt_offload.py, single-process): AdamW whose
-moments live in an engine-backed file, not in device memory.
+nvme_strom_tpu/parallel/opt_offload.py): AdamW whose moments live in an
+engine-backed file, not in device memory.
 
 Per ``update(params, grads)``:
 
@@ -22,10 +22,18 @@ Durability: moments update in place.  Each update commits a ``dirty``
 manifest before its first slot write and clears it, with the advanced
 ``step``, only after every write has drained, so a crash mid-step is
 refused at resume instead of silently mixing steps.  The moment file and
-manifest keep the JAX package's single-process layout (leaf names as
+manifest keep the JAX package's layouts (leaf names as
 ``jax.tree_util.keystr`` prints them, sorted; 4096-aligned m / v slots),
 so a directory written by the JAX ``OffloadedAdam`` resumes here and the
-other way round.  Slot writes are padded to the 4096-byte slot size
+other way round.  With one process a leaf is one slot pair in
+``moments.bin`` / ``moments.json``.  With several (``torch.distributed``)
+each process keeps the moments of its own parameter slices in
+``moments-{proc:05d}.bin`` / ``.json``: a leaf is one piece, keyed by its
+slice's global bounds (``shardings``, parallel/shardings.py), groups are
+cut on global bytes so every process runs the same rounds, and a resume
+all-gathers each process's step and refusal, so the processes resume
+from one step or all refuse (the JAX ``_local_pieces`` layout and its
+all-gather check).  Slot writes are padded to the 4096-byte slot size
 with zeros (the file's padding is zero either way) so every write is
 O_DIRECT.
 """
@@ -68,6 +76,20 @@ def named_leaves(tree, path: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def _global_shape(sharding, local_shape) -> tuple:
+    """The global shape whose slice under ``sharding`` is
+    ``local_shape`` (each split dimension times its ranks)."""
+    mesh = sharding.mesh
+    out = []
+    for d, n in enumerate(local_shape):
+        entry = sharding.spec[d] if d < len(sharding.spec) else None
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        out.append(n * int(np.prod([mesh.shape[a] for a in axes],
+                                   dtype=np.int64)))
+    return tuple(out)
+
+
 class OffloadedAdam:
     """AdamW whose m / v moments live in ``path/moments.bin`` (manifest
     ``path/moments.json``).
@@ -84,13 +106,14 @@ class OffloadedAdam:
     float or ``fn(step) -> float``, evaluated at each update's
     ``step``.  ``moment_dtype`` bfloat16 halves the NVMe traffic; the
     parity with optax holds for float32.  ``group_bytes`` bounds one
-    group's moments on the device."""
+    group's moments on the device.  ``shardings`` (needed with several
+    processes): {param key: Sharding} of each leaf's slice."""
 
     def __init__(self, path, params, *, lr, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, group_bytes: int = 64 << 20,
                  moment_dtype: torch.dtype = torch.float32, engine=None,
-                 depth: int = 4):
+                 depth: int = 4, shardings=None):
         if moment_dtype not in _DTYPE_NAMES:
             raise ValueError(f"moment_dtype {moment_dtype}: expected "
                              "torch.float32 or torch.bfloat16")
@@ -111,7 +134,7 @@ class OffloadedAdam:
             self.device = next(iter(leaves.values())).device
             self.stream = DeviceStream(engine, self.device, depth=depth,
                                        klass="restore")
-            self._init_state(path, leaves, group_bytes)
+            self._init_state(path, leaves, group_bytes, shardings)
         except BaseException:
             # a refusal must not leak the engine built here
             if self._own_engine:
@@ -119,16 +142,40 @@ class OffloadedAdam:
             raise
 
     def _init_state(self, path, leaves: Dict[str, torch.Tensor],
-                    group_bytes: int) -> None:
+                    group_bytes: int, shardings=None) -> None:
+        from nvme_strom_tpu_torch.parallel.mesh import (all_gather_object,
+                                                        process_info)
+        proc, nproc = process_info()
+        self._multi = nproc > 1
+        if self._multi and shardings is None:
+            raise ValueError("OffloadedAdam across processes needs "
+                             "shardings= (each leaf's slice)")
         isz = torch.empty(0, dtype=self.moment_dtype).element_size()
         self._layout: Dict[str, dict] = {}
         off = 0
         for name in sorted(leaves):
             shape = tuple(int(s) for s in leaves[name].shape)
             nbytes = int(np.prod(shape, dtype=np.int64)) * isz
-            self._layout[name] = {"shape": shape, "nbytes": nbytes,
-                                  "off_m": off,
-                                  "off_v": off + _align_up(nbytes)}
+            if not self._multi:
+                self._layout[name] = {"shape": shape, "nbytes": nbytes,
+                                      "off_m": off,
+                                      "off_v": off + _align_up(nbytes)}
+                off += 2 * _align_up(nbytes)
+                continue
+            sh = shardings.get(name[2:-2] if name.startswith("['") else
+                               name) if isinstance(shardings, dict) \
+                else shardings(name)
+            if sh is None:
+                raise KeyError(f"no sharding for leaf {name}")
+            # one device a process: the leaf's one piece is its slice
+            gshape = _global_shape(sh, shape)
+            bounds = sh.local_bounds(gshape)
+            self._layout[name] = {
+                "shape": gshape,
+                "pieces": [{"key": [list(b) for b in bounds],
+                            "shape": shape, "nbytes": nbytes, "fanout": 1,
+                            "off_m": off,
+                            "off_v": off + _align_up(nbytes)}]}
             off += 2 * _align_up(nbytes)
         self._total_bytes = off
         # groups: consecutive slots, about group_bytes of device memory
@@ -136,7 +183,8 @@ class OffloadedAdam:
         cur: list = []
         cur_b = 0
         for name, d in self._layout.items():
-            b = 2 * d["nbytes"]
+            # global bytes: every process must cut the same groups
+            b = 2 * isz * int(np.prod(d["shape"], dtype=np.int64))
             if cur and cur_b + b > group_bytes:
                 self._groups.append(cur)
                 cur, cur_b = [], 0
@@ -145,12 +193,40 @@ class OffloadedAdam:
         if cur:
             self._groups.append(cur)
         os.makedirs(path, exist_ok=True)
-        self.data_path = os.path.join(path, "moments.bin")
-        self.manifest_path = os.path.join(path, "moments.json")
+        suffix = f"-{proc:05d}" if self._multi else ""
+        self.data_path = os.path.join(path, f"moments{suffix}.bin")
+        self.manifest_path = os.path.join(path, f"moments{suffix}.json")
         self.step = 0
-        if not self._try_resume():
-            self._create_zeroed()
+        local_err = None
+        try:
+            if not self._try_resume():
+                self._create_zeroed()
+        except Exception as e:      # every rank must reach the gather
+            if not self._multi:
+                raise
+            local_err = f"{type(e).__name__}: {e}"
+        if self._multi:
+            seen = all_gather_object((self.step, local_err))
+            if any(err for _, err in seen):
+                raise ValueError(
+                    local_err or "another process refused to resume its "
+                    "moment file (dirty or layout mismatch): every process "
+                    "must resume from matching state")
+            steps = sorted({st for st, _ in seen})
+            if len(steps) > 1:
+                raise ValueError(
+                    f"moment files disagree on the optimizer step across "
+                    f"processes ({steps}): a previous run crashed between "
+                    "per-process commits; restore params from the "
+                    "matching checkpoint into fresh moment dirs")
         self._fh = self.engine.open(self.data_path, writable=True)
+
+    def _slot(self, name: str) -> tuple:
+        """(off_m, off_v, nbytes, local shape) of a leaf's slot pair."""
+        d = self._layout[name]
+        if "pieces" in d:
+            d = d["pieces"][0]
+        return d["off_m"], d["off_v"], d["nbytes"], tuple(d["shape"])
 
     # -- the manifest --------------------------------------------------
 
@@ -221,16 +297,16 @@ class OffloadedAdam:
         counts: list = []
         chunk = self.engine.config.chunk_bytes
         for n in names:
-            d = self._layout[n]
-            for off in (d["off_m"], d["off_v"]):
-                flat, cnt = split_ranges([(off, d["nbytes"])], chunk)
+            off_m, off_v, nbytes, _ = self._slot(n)
+            for off in (off_m, off_v):
+                flat, cnt = split_ranges([(off, nbytes)], chunk)
                 ranges.extend(flat)
                 counts.append(cnt[0])
         it = iter(self.stream.stream_ranges(self._fh, ranges))
         ci = iter(counts)
         ms, vs = [], []
         for n in names:
-            shape = self._layout[n]["shape"]
+            shape = self._slot(n)[3]
             for out in (ms, vs):
                 parts = [next(it) for _ in range(next(ci))]
                 flat = parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -267,9 +343,9 @@ class OffloadedAdam:
         to their slots' 4096 bytes)."""
         staged = []
         for n, m, v in zip(names, ms, vs):
-            d = self._layout[n]
-            staged.append((d["off_m"], stage_to_host(m, pad_to=_ALIGN)))
-            staged.append((d["off_v"], stage_to_host(v, pad_to=_ALIGN)))
+            off_m, off_v, _, _ = self._slot(n)
+            staged.append((off_m, stage_to_host(m, pad_to=_ALIGN)))
+            staged.append((off_v, stage_to_host(v, pad_to=_ALIGN)))
         return staged
 
     def _write(self, staged, pend: list, keep: list) -> None:
@@ -345,7 +421,7 @@ class OffloadedAdam:
         """The most device memory the moments take during a step: the
         group updating plus the previous one whose copy home is still in
         flight."""
-        per = [sum(2 * self._layout[n]["nbytes"] for n in g)
+        per = [sum(2 * self._slot(n)[2] for n in g)
                for g in self._groups]
         if len(per) == 1:
             return per[0]

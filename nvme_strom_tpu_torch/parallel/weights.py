@@ -26,7 +26,16 @@ resident, a request's first step faults the missing tensors in at
 ``decode`` class from the first, while a bulk thread streams them at
 ``restore`` class from the last, each tensor read from NVMe once across
 the two lanes.
-Sharded loads wait for ROADMAP Queue 1 item 12: one device here.
+
+:meth:`LazyCheckpoint.load_sharded` is the multi-process load: each
+process reads only the row span of its own slice of every tensor (its
+``Sharding``, parallel/shardings.py), once, even where a column split
+cuts the span, copies the span's chunks to its device through kernel 1
+and cuts its columns out there.  So a process holding a column slice
+reads the whole row span, as each host of the JAX package does, but
+bounces nothing.  ``STROM_VERIFY`` checks a span that covers the whole
+tensor; ``STROM_ICI_SCATTER=1`` serves the spans from the read-once
+exchange (ops/ici.py), one rank a process.
 """
 
 from __future__ import annotations
@@ -49,9 +58,20 @@ from nvme_strom_tpu_torch.io.faults import build_engine
 from nvme_strom_tpu_torch.io.plan import join_pieces, plan_and_submit
 from nvme_strom_tpu_torch.ops.bridge import (StagingRetirePool,
                                              host_to_device)
-from nvme_strom_tpu_torch.ops.ici import ici_scatter_enabled, scatter_engine
+from nvme_strom_tpu_torch.ops.ici import (ExchangeError, ici_scatter_enabled,
+                                          scatter_engine)
 from nvme_strom_tpu_torch.utils.checksum import (ChecksumError,
                                                  VerifyPolicy)
+
+
+def _sharding_of(shardings, name: str, shape):
+    """``name``'s Sharding from {name: Sharding} or ``fn(name, shape)``
+    (the JAX ``_sharding_for``); KeyError without one."""
+    sh = (shardings.get(name) if isinstance(shardings, dict)
+          else shardings(name, shape))
+    if sh is None:
+        raise KeyError(f"no sharding for tensor {name}")
+    return sh
 
 
 class LazyCheckpoint:
@@ -110,20 +130,65 @@ class LazyCheckpoint:
             if own:
                 base.close_all()
 
+    def shape(self, name) -> tuple:
+        return tuple(self._by_name[name].tensors[name]["shape"])
+
+    def load_sharded(self, shardings, engine: Optional[StromEngine] = None,
+                     device=None) -> Dict[str, torch.Tensor]:
+        """This process's slice of every tensor, on ``device`` (default
+        the process's own, parallel/mesh.py ``local_device``).
+
+        ``shardings``: {name: Sharding} or ``fn(name, shape) ->
+        Sharding`` (parallel/shardings.py); a tensor without one raises.
+        Only the rows of the slice are read, each span once; a column
+        slice is cut on the device from its span's rows.
+        ``STROM_ICI_SCATTER=1``: the files are read once across the
+        processes (each reading its share, ops/ici.py
+        ``ProcessExchange``) and every span is served from the
+        exchanged bytes."""
+        from nvme_strom_tpu_torch.parallel.mesh import local_device
+        dev = resolve_device(device if device is not None
+                             else local_device())
+        policy = VerifyPolicy()
+        stamps = ({sf.path: tensor_checksums(sf) for sf in self.files}
+                  if policy.enabled else {})
+        own = engine is None
+        base = engine if engine is not None else build_engine()
+        try:
+            eng = None
+            if ici_scatter_enabled():
+                eng = scatter_engine(base, [sf.path for sf in self.files])
+            out = {}
+            for name in self.keys():
+                bounds = _sharding_of(shardings, name, self.shape(name)
+                                      ).local_bounds(self.shape(name))
+                out[name] = self._load_tensor(eng or base, name, dev,
+                                              policy, stamps, bounds=bounds)
+            return out
+        finally:
+            if own:
+                base.close_all()
+
     def _load_tensor(self, eng: StromEngine, name: str,
                      dev: torch.device, policy: VerifyPolicy,
                      stamps: Dict[str, Dict[str, int]],
                      klass: Optional[str] = None,
-                     stream=None) -> torch.Tensor:
+                     stream=None, bounds=None) -> torch.Tensor:
         """One tensor on ``dev``, its reads of QoS class ``klass`` and
         its copies on ``stream`` (default: the bridge's side stream);
         the copies have completed when it returns (its bytes are on the
-        device in stream order of the caller's current stream)."""
+        device in stream order of the caller's current stream).
+        ``bounds`` ((lo, hi) a dimension) loads that slice: its rows
+        are read, its columns cut on the device."""
         sf = self._by_name[name]
         info = sf.tensors[name]
         shape = tuple(info["shape"])
+        r0, r1 = (0, shape[0]) if shape else (0, 1)
+        if bounds is not None and shape:
+            r0, r1 = bounds[0]
         stamp = stamps.get(sf.path, {}).get(name)
-        check = stamp is not None and policy.want()
+        check = (stamp is not None and policy.want()
+                 and (r0, r1) == ((0, shape[0]) if shape else (0, 1)))
         crc = 0
         # the pool must keep a buffer free beyond the reads in flight and
         # the retirements it defers, or a deferred read could wait on a
@@ -136,7 +201,7 @@ class LazyCheckpoint:
         transfers = []
         try:
             for view, release in self._stream_rows(eng, fh, sf, name,
-                                                   klass):
+                                                   klass, r0, r1):
                 if check:
                     crc = crc32c(view, crc)
                     eng.stats.add(bytes_verified=int(view.nbytes))
@@ -163,14 +228,23 @@ class LazyCheckpoint:
         flat = (parts[0] if len(parts) == 1 else
                 torch.cat(parts) if parts else
                 torch.empty(0, dtype=torch.uint8, device=dev))
-        return flat.view(torch_dtype(info["dtype"])).reshape(shape)
+        if bounds is None or not shape:
+            return flat.view(torch_dtype(info["dtype"])).reshape(shape)
+        rows = flat.view(torch_dtype(info["dtype"])).reshape(
+            (r1 - r0,) + shape[1:])
+        tail = tuple(slice(a, b) for a, b in bounds[1:])
+        if any((a, b) != (0, n) for (a, b), n in zip(bounds[1:],
+                                                     shape[1:])):
+            rows = rows[(slice(None),) + tail].contiguous()
+        return rows
 
     def _stream_rows(self, eng: StromEngine, fh: int, sf: SafetensorsFile,
-                     name: str, klass: Optional[str] = None):
+                     name: str, klass: Optional[str] = None,
+                     r0: int = 0, r1: Optional[int] = None):
         """Yield (host view, release callback or None) per row chunk of
-        ``name``, each at most one staging buffer.  The consumer calls
-        the callback once the copies out of the view have completed;
-        None marks host-owned memory."""
+        rows [r0, r1) of ``name`` (default all), each at most one
+        staging buffer.  The consumer calls the callback once the copies
+        out of the view have completed; None marks host-owned memory."""
         info = sf.tensors[name]
         shape = info["shape"]
         if not shape or info["nbytes"] == 0:
@@ -192,7 +266,7 @@ class LazyCheckpoint:
         if row_bytes > chunk:
             # one row outgrows a staging buffer: assemble rows on the
             # host (a bounce — raise chunk_bytes to avoid it)
-            for r in range(shape[0]):
+            for r in range(r0, shape[0] if r1 is None else r1):
                 ent = sf.slice_plan(name, r, 1)
                 buf = np.empty(ent.length, dtype=np.uint8)
                 (pieces,) = plan_and_submit(eng, [(fh, ent.offset,
@@ -210,8 +284,9 @@ class LazyCheckpoint:
                 yield buf, None
             return
         rows = max(1, chunk // row_bytes)
-        slices = [sf.slice_plan(name, r, min(rows, shape[0] - r))
-                  for r in range(0, shape[0], rows)]
+        end = shape[0] if r1 is None else r1
+        slices = [sf.slice_plan(name, r, min(rows, end - r))
+                  for r in range(r0, end, rows)]
         planned = plan_and_submit(eng, [(fh, e.offset, e.length)
                                         for e in slices], klass=klass)
         pend = [join_pieces(pieces, eng.stats) for pieces in planned]
@@ -257,14 +332,19 @@ class FaultingCheckpoint:
     its own CUDA stream, apart from the bridge's side stream that a
     demand fault's copies take, and it records an event after each
     tensor; a tensor it loaded is handed out only after the caller's
-    current stream waits on that event."""
+    current stream waits on that event.
+
+    ``shardings`` ({name: Sharding} or ``fn(name, shape)``,
+    parallel/shardings.py) makes each tensor this process's slice, read
+    as :meth:`LazyCheckpoint.load_sharded` reads it."""
 
     def __init__(self, source, device=None,
                  engine: Optional[StromEngine] = None, coordinator=None,
-                 ici_group=None):
+                 ici_group=None, shardings=None):
         self.ckpt = (source if isinstance(source, LazyCheckpoint)
                      else LazyCheckpoint(source))
         self.device = resolve_device(device)
+        self._shardings = shardings
         self.coordinator = coordinator
         self._ici_group = ici_group
         self._own = engine is None
@@ -284,6 +364,9 @@ class FaultingCheckpoint:
         self._bulk_thread: Optional[threading.Thread] = None
         #: what the bulk lane raised, per tensor it gave up on
         self.bulk_errors: Dict[str, str] = {}
+        #: a fault of the exchange across processes that stopped the bulk
+        #: lane (ops/ici.py ``ExchangeError``): :meth:`join_bulk` raises it
+        self.bulk_failure: Optional[BaseException] = None
 
     def keys(self):
         return self.ckpt.keys()
@@ -299,6 +382,13 @@ class FaultingCheckpoint:
         """Tensors demand-faulted at decode class, in fault order."""
         with self._lock:
             return list(self._fault_names)
+
+    def _bounds(self, name: str):
+        """This process's slice of ``name``, or None (the whole)."""
+        if self._shardings is None:
+            return None
+        shape = self.ckpt.shape(name)
+        return _sharding_of(self._shardings, name, shape).local_bounds(shape)
 
     def _ready(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """``t`` usable on the caller's current stream: a bulk-lane
@@ -327,9 +417,11 @@ class FaultingCheckpoint:
                 ev.wait()
                 continue   # loaded (returned above) or failed (reclaim)
             try:
-                t = self.ckpt._load_tensor(eng, name, self.device,
-                                           self._policy, self._stamps,
-                                           klass=klass, stream=stream)
+                bounds = self._bounds(name)
+                t = self.ckpt._load_tensor(
+                    eng, name, self.device, self._policy, self._stamps,
+                    klass=klass, stream=stream,
+                    **({} if bounds is None else {"bounds": bounds}))
                 done_ev = None
                 if self.device.type == "cuda":
                     done_ev = torch.cuda.Event()
@@ -387,9 +479,13 @@ class FaultingCheckpoint:
     def _bulk_run(self) -> None:
         eng = self.engine
         if ici_scatter_enabled():
-            eng = scatter_engine(self.engine,
-                                 [sf.path for sf in self.ckpt.files],
-                                 group=self._ici_group) or self.engine
+            try:
+                eng = scatter_engine(self.engine,
+                                     [sf.path for sf in self.ckpt.files],
+                                     group=self._ici_group) or self.engine
+            except ExchangeError as e:
+                self.bulk_failure = e
+                return
         stream = (torch.cuda.Stream(self.device)
                   if self.device.type == "cuda" else None)
         for name in reversed(list(self.ckpt.keys())):
@@ -408,16 +504,22 @@ class FaultingCheckpoint:
                 self.engine.stats.add(coldstart_bulk_tensors=1)
 
     def join_bulk(self, timeout: Optional[float] = None) -> None:
+        """Wait for the bulk lane; raise the exchange fault that stopped
+        it, if one did."""
         with self._lock:
             t = self._bulk_thread
         if t is not None:
             t.join(timeout)
+        if self.bulk_failure is not None:
+            raise self.bulk_failure
 
     def close(self) -> None:
         """Join the bulk lane, then close an engine this object built."""
-        self.join_bulk()
-        if self._own:
-            self.engine.close_all()
+        try:
+            self.join_bulk()
+        finally:
+            if self._own:
+                self.engine.close_all()
 
 
 def save_checkpoint(path, params: Dict[str, object]) -> None:

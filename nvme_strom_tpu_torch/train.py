@@ -1,5 +1,5 @@
-"""Library train loop on one device (counterpart of
-nvme_strom_tpu/train.py ``Trainer`` and ``FitResult``):
+"""Library train loop, on one device or a mesh of processes
+(counterpart of nvme_strom_tpu/train.py ``Trainer`` and ``FitResult``):
 
     from nvme_strom_tpu_torch.train import Trainer
     with Trainer(cfg, ckpt_dir="run1", save_every=100,
@@ -11,12 +11,21 @@ through the engine, checkpoint resume (which wins over a warm start),
 the train step, the save cadence (synchronous or background), the
 hung-step watchdog and per-step hooks.  Data stays an iterator of (b, s)
 token batches (``ShardedLoader`` or anything else).  Parameters are
-float32 master weights (a warm start is cast to float32); the mesh and
-shardings of the JAX trainer wait for the multi-GPU slice.
+float32 master weights (a warm start is cast to float32).
+
+Under a ``mesh`` (parallel/mesh.py, one process a rank) each rank holds
+its slices of the parameters and of the AdamW moments
+(parallel/shardings.py ``param_shardings``), takes its ``dp`` block of
+each batch (the rows a mesh-aware ``ShardedLoader`` yields), averages
+the gradients over ``dp``, warm-starts through ``load_sharded`` (each
+rank reading its own rows), and saves and resumes its own tiles of the
+checkpoint (checkpoint/manager.py), under this mesh or another.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass
@@ -26,11 +35,15 @@ import numpy as np
 import torch
 
 from nvme_strom_tpu_torch.device import resolve_device
+from nvme_strom_tpu_torch.formats.safetensors import torch_dtype
 from nvme_strom_tpu_torch.io.engine import StromEngine
 from nvme_strom_tpu_torch.io.faults import build_engine
 from nvme_strom_tpu_torch.models.transformer import (
     adamw, init_params, make_train_step, param_shapes, trainable_params)
 from nvme_strom_tpu_torch.ops.bridge import to_device
+from nvme_strom_tpu_torch.parallel.mesh import local_device
+from nvme_strom_tpu_torch.parallel.shardings import (Shard, param_shardings,
+                                                     shard_params)
 
 __all__ = ["Trainer", "FitResult", "optimizer_state", "restore_state"]
 
@@ -43,23 +56,51 @@ class FitResult:
     resumed_from: Optional[int]
 
 
-def optimizer_state(optimizer: torch.optim.Optimizer, params: dict) -> dict:
+def optimizer_state(optimizer: torch.optim.Optimizer, params: dict,
+                    shardings: Optional[dict] = None,
+                    shapes: Optional[dict] = None) -> dict:
     """The optimizer's per-parameter tensors as {state key: {param name:
-    tensor}} (AdamW: ``step``, ``exp_avg``, ``exp_avg_sq``)."""
+    tensor}} (AdamW: ``step``, ``exp_avg``, ``exp_avg_sq``).  With
+    ``shardings`` and the global ``shapes``, each tensor of a
+    parameter's shape is a :class:`Shard` of that parameter's layout."""
     out: dict = {}
     for name, p in params.items():
         for key, val in optimizer.state.get(p, {}).items():
             if isinstance(val, torch.Tensor):
+                if shardings is not None and val.shape == p.shape:
+                    val = Shard(val, shardings[name], shapes[name])
                 out.setdefault(key, {})[name] = val
     return out
 
 
 def restore_state(manager, step: int, params: dict,
-                  optimizer: torch.optim.Optimizer, device) -> None:
+                  optimizer: torch.optim.Optimizer, device,
+                  shardings: Optional[dict] = None,
+                  shapes: Optional[dict] = None) -> None:
     """Checkpoint ``step`` of ``(params, optimizer_state(...))`` copied
     into the live tensors of ``params`` and the optimizer's state (the
-    optimizer keeps its references)."""
-    flat = manager.restore(step=step, device=device)
+    optimizer keeps its references).  With ``shardings`` and the global
+    ``shapes`` each rank reads only its own slices, whatever mesh wrote
+    the checkpoint."""
+    if shardings is None:
+        flat = manager.restore(step=step, device=device)
+    else:
+        with open(os.path.join(manager.step_dir(step), "meta.json")) as f:
+            stored = json.load(f)["tensors"]
+        target = {}
+        for key_name, info in stored.items():
+            name = key_name.split("|")[-1]
+            if name in params and tuple(info["shape"]) == \
+                    tuple(shapes[name]):
+                target[key_name] = Shard(
+                    torch.empty(params[name].shape, device=device,
+                                dtype=torch_dtype(info["dtype"])),
+                    shardings[name], shapes[name])
+            else:
+                target[key_name] = torch.empty(
+                    info["shape"], dtype=torch_dtype(info["dtype"]),
+                    device=device)
+        flat = manager.restore(target, step=step, fallback=False)
     with torch.no_grad():
         for name, p in params.items():
             p.copy_(flat.pop(f"0|{name}"))
@@ -91,7 +132,9 @@ class Trainer:
     lr`` (``transformer.lr_schedule``), set before each update from the
     optimizer's own step count, so a resumed run continues it;
     ``grad_clip`` > 0 clips the gradients to that global norm first;
-    ``act_store``: the activation store of ``remat_policy="nvme"``."""
+    ``act_store``: the activation store of ``remat_policy="nvme"``.
+    ``mesh``: a parallel/mesh.py ``Mesh`` over the processes (see the
+    module docstring; the device then defaults to the process's own)."""
 
     def __init__(self, cfg, *, optimizer: Optional[Callable] = None,
                  lr: float = 3e-4, ckpt_dir=None,
@@ -101,9 +144,15 @@ class Trainer:
                  watchdog_s: float = 0.0, seed: int = 0,
                  hooks: Sequence[Callable] = (), device=None,
                  lr_schedule: Optional[Callable] = None,
-                 grad_clip: float = 0.0, act_store=None):
+                 grad_clip: float = 0.0, act_store=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = resolve_device(
+            device if device is not None or self.mesh is None
+            else local_device())
+        self.shapes = param_shapes(cfg)
+        self.shardings = (param_shardings(cfg, self.mesh)
+                          if self.mesh is not None else None)
         self.hooks = list(hooks)
         self._own_engine = engine is None
         self.engine = engine if engine is not None else build_engine()
@@ -126,17 +175,22 @@ class Trainer:
 
         if init_weights is not None and start is None:
             from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
-            loaded = LazyCheckpoint(init_weights).load(self.engine,
-                                                       device=self.device)
-            want = param_shapes(cfg)
-            got = {n: tuple(t.shape) for n, t in loaded.items()}
-            if got != want:
+            ck = LazyCheckpoint(init_weights)
+            got = {n: ck.shape(n) for n in ck.keys()}
+            if got != self.shapes:
                 raise ValueError(f"{init_weights}: tensors {got} do not "
-                                 f"match the config's {want}")
+                                 f"match the config's {self.shapes}")
+            loaded = (ck.load(self.engine, device=self.device)
+                      if self.mesh is None else
+                      ck.load_sharded(self.shardings, self.engine,
+                                      device=self.device))
             self.params = trainable_params(loaded, self.device)
         else:
-            self.params = trainable_params(init_params(seed, cfg),
-                                           self.device)
+            full = init_params(seed, cfg)
+            if self.mesh is not None:
+                full = shard_params(full, cfg, self.mesh,
+                                    shardings=self.shardings)
+            self.params = trainable_params(full, self.device)
         make_opt = optimizer or (lambda ps: adamw(ps, lr))
         self.optimizer = make_opt(list(self.params.values()))
         if start is not None:
@@ -148,15 +202,24 @@ class Trainer:
                                         attn_fn=attn_fn,
                                         accum_steps=accum_steps,
                                         act_store=act_store,
-                                        lr=lr_schedule, grad_clip=grad_clip)
+                                        lr=lr_schedule, grad_clip=grad_clip,
+                                        mesh=self.mesh,
+                                        shardings=self.shardings)
 
     def _restore(self, step: int) -> None:
         restore_state(self.manager, step, self.params, self.optimizer,
-                      self.device)
+                      self.device, self.shardings, self.shapes)
 
     def state(self):
-        """(params, optimizer state): what a checkpoint holds."""
-        return (self.params, optimizer_state(self.optimizer, self.params))
+        """(params, optimizer state): what a checkpoint holds; under a
+        mesh every parameter-shaped tensor is this rank's Shard."""
+        if self.shardings is None:
+            return (self.params,
+                    optimizer_state(self.optimizer, self.params))
+        params = {n: Shard(p, self.shardings[n], self.shapes[n])
+                  for n, p in self.params.items()}
+        return (params, optimizer_state(self.optimizer, self.params,
+                                        self.shardings, self.shapes))
 
     # ------------------------------------------------------------------
 

@@ -11,6 +11,7 @@
 
     python -m nvme_strom_tpu_torch.train_lm --flash --steps 20
     python -m nvme_strom_tpu_torch.train_lm --tiny --steps 5 --device cpu
+    torchrun --nproc-per-node 4 -m nvme_strom_tpu_torch.train_lm --tp 2
 
 Without ``--data-dir`` or ``--mix`` it writes seeded synthetic shards of
 int32 token samples (4 shards of 8·global-batch samples) to a temporary
@@ -20,9 +21,16 @@ only); ``--offload-opt DIR`` keeps the AdamW moments on NVMe, refusing a
 moment manifest whose step differs from the resumed checkpoint's;
 ``--lr-schedule``, ``--warmup-steps`` and ``--grad-clip`` are optax's
 warmup / cosine schedule and global-norm clip.  At the end it prints the
-engine's stats line.  The JAX example's ``--tp`` (tensor parallel, with
-the multi-GPU slice, ROADMAP Queue 1 item 12) and ``--from-hf`` (with
-the converter, item 15) are not here.
+engine's stats line.
+
+Under ``torchrun`` (one process a card) the processes form a mesh of
+``dp = world / tp`` by ``tp`` (``--tp``, parallel/mesh.py): each ``dp``
+group reads its own rows of every batch, the Trainer holds each rank's
+slices, and the checkpoint (default ``./ckpt``, which every rank must
+see) is written tile by tile.  Rank 0 synthesizes the shards and prints
+the log.  Without ``torchrun`` it runs on one device, and a ``--tp``
+other than 1 exits with an error.  The JAX example's ``--from-hf``
+(with the converter, ROADMAP Queue 1 item 15) is not here.
 """
 
 from __future__ import annotations
@@ -58,9 +66,10 @@ def synthesize_shards(dirpath: str, vocab: int, seq_len: int,
     return paths
 
 
-def token_batches(shards, global_batch: int, vocab: int, engine, device):
+def token_batches(shards, global_batch: int, vocab: int, engine, device,
+                  mesh=None):
     """Endless epochs of (global_batch, seq) int32 token batches on
-    ``device``."""
+    ``device`` (under a ``mesh``, this rank's ``dp`` rows of each)."""
     from nvme_strom_tpu_torch.data.loader import ShardedLoader
 
     def decode(parts):
@@ -70,7 +79,8 @@ def token_batches(shards, global_batch: int, vocab: int, engine, device):
     while True:
         n = 0
         with ShardedLoader(shards, global_batch, decode=decode,
-                           engine=engine, device=device) as loader:
+                           engine=engine, device=device,
+                           mesh=mesh) as loader:
             for b in loader:
                 n += 1
                 yield b
@@ -80,7 +90,7 @@ def token_batches(shards, global_batch: int, vocab: int, engine, device):
 
 
 def _mixture_batches(specs, global_batch: int, vocab: int, engine,
-                     device):
+                     device, mesh=None):
     """Endless (global_batch, seq) token batches drawn from the
     ``(shards, weight)`` corpora by ``MixtureLoader`` (seed 0)."""
     from contextlib import ExitStack
@@ -94,7 +104,7 @@ def _mixture_batches(specs, global_batch: int, vocab: int, engine,
     with ExitStack() as stack:
         loaders = [(stack.enter_context(ShardedLoader(
             shards, global_batch, decode=decode, engine=engine,
-            device=device)), w) for shards, w in specs]
+            device=device, mesh=mesh)), w) for shards, w in specs]
         for b, _src in MixtureLoader(loaders, seed=0):
             yield b
 
@@ -256,6 +266,9 @@ def main(argv=None) -> int:
                     help="tiny config instead of the flagship")
     ap.add_argument("--device", default=None,
                     help="default cuda:0; 'cpu' runs the plain versions")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallel ways (under torchrun; dp is "
+                         "world / tp)")
     args = ap.parse_args(argv)
     if args.offload_opt and args.lora:
         ap.error("--offload-opt is for full fine-tunes; LoRA optimizer "
@@ -268,6 +281,31 @@ def main(argv=None) -> int:
     if args.mix and args.data_dir:
         ap.error("--mix and --data-dir conflict: list every corpus in "
                  "--mix (DIR:W,DIR:W)")
+
+    from nvme_strom_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh, process_info, shutdown_distributed)
+    dist_up = init_distributed()
+    try:
+        world = process_info()[1]
+        if world % args.tp:
+            ap.error(f"--tp {args.tp} needs a multiple of {args.tp} "
+                     "processes (torchrun --nproc-per-node N); this run "
+                     f"has {world}")
+        if world > 1 and args.lora:
+            ap.error("--lora trains on one device (its adapters' tensor "
+                     "parallel is not ported)")
+        mesh = make_mesh({"dp": -1, "tp": args.tp}) if world > 1 else None
+        return _main(ap, args, mesh)
+    finally:
+        if dist_up:
+            shutdown_distributed()
+
+
+def _main(ap, args, mesh) -> int:
+    from nvme_strom_tpu_torch.parallel.mesh import (all_gather_object,
+                                                    barrier, local_device)
+    rank = mesh.rank if mesh is not None else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     from nvme_strom_tpu_torch.io.faults import build_engine
     from nvme_strom_tpu_torch.data.prefetch import prefetch_to_device
@@ -287,36 +325,41 @@ def main(argv=None) -> int:
         attn_fn = make_flash_attn()
     lr = lr_schedule(args.lr, args.lr_schedule, args.warmup_steps,
                      args.steps)
-    print(f"model: d={cfg.d_model} L={cfg.n_layers} vocab={cfg.vocab} "
-          f"seq={args.seq_len} batch={args.global_batch} "
-          f"flash={args.flash} remat={args.remat}")
+    say(f"model: d={cfg.d_model} L={cfg.n_layers} vocab={cfg.vocab} "
+        f"seq={args.seq_len} batch={args.global_batch} "
+        f"flash={args.flash} remat={args.remat}"
+        + (f" mesh={mesh.shape}" if mesh is not None else ""))
 
     tmp = None
     mix = _parse_mix(ap, args.mix) if args.mix else None
     data_dir = args.data_dir
     if mix is None and data_dir is None:
-        tmp = tempfile.TemporaryDirectory(prefix="strom_lm_")
-        data_dir = tmp.name
-        synthesize_shards(data_dir, cfg.vocab, args.seq_len, n_shards=4,
-                          per_shard=8 * args.global_batch)
-        print(f"data: synthesized 4 shards under {data_dir}")
+        # rank 0 writes the shards, every rank reads its rows of them
+        if rank == 0:
+            tmp = tempfile.TemporaryDirectory(prefix="strom_lm_")
+            synthesize_shards(tmp.name, cfg.vocab, args.seq_len,
+                              n_shards=4, per_shard=8 * args.global_batch)
+            say(f"data: synthesized 4 shards under {tmp.name}")
+        data_dir = all_gather_object(tmp.name if tmp else None)[0]
     if mix is None:
         shards = sorted(os.path.join(data_dir, f)
                         for f in os.listdir(data_dir) if f.endswith(".tar"))
         if not shards:
             ap.error(f"no .tar shards found under {data_dir}")
     args.ckpt_dir = args.ckpt_dir or os.path.join(
-        tmp.name if tmp else ".", "ckpt")
+        data_dir if mix is None and not args.data_dir else ".", "ckpt")
 
     engine = build_engine()
     act_store = offl = it = None
     try:
-        dev = resolve_device(args.device)
+        dev = resolve_device(local_device() if mesh is not None
+                             else args.device)
         it = prefetch_to_device(
-            _mixture_batches(mix, args.global_batch, cfg.vocab, engine, dev)
+            _mixture_batches(mix, args.global_batch, cfg.vocab, engine, dev,
+                             mesh)
             if mix is not None else
             token_batches(shards, args.global_batch, cfg.vocab, engine,
-                          dev), size=2)
+                          dev, mesh), size=2)
         t0 = time.monotonic()
         if args.lora:
             _train_lora(args, cfg, attn_fn, engine, it, lr)
@@ -325,10 +368,12 @@ def main(argv=None) -> int:
                 from nvme_strom_tpu_torch.parallel.act_offload import (
                     ActivationStore)
                 act_store = ActivationStore(
-                    os.path.join(args.offload_acts, "acts.bin"),
+                    os.path.join(args.offload_acts,
+                                 "acts.bin" if mesh is None
+                                 else f"acts-{rank:05d}.bin"),
                     cfg.n_layers, engine=engine)
-                print(f"offload-acts: {cfg.n_layers} layer slots under "
-                      f"{args.offload_acts}")
+                say(f"offload-acts: {cfg.n_layers} layer slots under "
+                    f"{args.offload_acts}")
             opt_step = _OffloadStep() if args.offload_opt else None
             with Trainer(cfg, lr=args.lr, ckpt_dir=args.ckpt_dir,
                          engine=engine, attn_fn=attn_fn,
@@ -336,22 +381,23 @@ def main(argv=None) -> int:
                          init_weights=args.init_weights,
                          save_every=args.save_every, async_save=True,
                          watchdog_s=args.watchdog, device=dev,
-                         hooks=[_log_step],
+                         hooks=[_log_step] if rank == 0 else [],
                          optimizer=(lambda ps: opt_step) if opt_step is not None
                          else None,
                          lr_schedule=None if opt_step is not None or not callable(lr)
                          else lr,
                          grad_clip=args.grad_clip,
-                         act_store=act_store) as tr:
+                         act_store=act_store, mesh=mesh) as tr:
                 if tr.resumed_from is not None:
-                    print(f"resumed from step {tr.resumed_from}")
+                    say(f"resumed from step {tr.resumed_from}")
                 if opt_step is not None:
                     from nvme_strom_tpu_torch.parallel.opt_offload import (
                         OffloadedAdam)
                     offl = OffloadedAdam(args.offload_opt, tr.params, lr=lr,
-                                         weight_decay=1e-4, engine=engine)
+                                         weight_decay=1e-4, engine=engine,
+                                         shardings=tr.shardings)
                     opt_step.offl, opt_step.params = offl, tr.params
-                    print(f"offload-opt: {offl.moment_bytes() >> 20} MiB "
+                    say(f"offload-opt: {offl.moment_bytes() >> 20} MiB "
                           f"of moments on NVMe, peak "
                           f"{offl.peak_group_bytes() >> 20} MiB on the "
                           f"device, {offl.num_groups()} groups, resumed at "
@@ -369,13 +415,13 @@ def main(argv=None) -> int:
                 res = tr.fit(it, steps=args.steps)
             n = res.steps - (res.resumed_from or 0)
             dt = time.monotonic() - t0
-            print(f"{n} steps in {dt:.2f}s ({n / max(dt, 1e-9):.2f} "
+            say(f"{n} steps in {dt:.2f}s ({n / max(dt, 1e-9):.2f} "
                   f"steps/s), last loss {res.last_loss:.4f}")
         it.close()              # stop the loader before the engine
         it = None
         engine.sync_stats()
         s = engine.stats
-        print(f"engine stats: direct={s.bytes_direct} "
+        say(f"engine stats: direct={s.bytes_direct} "
               f"fallback={s.bytes_fallback} bounce={s.bounce_bytes} "
               f"written_direct={s.bytes_written_direct} "
               f"to_device={s.bytes_to_device}")
@@ -387,6 +433,7 @@ def main(argv=None) -> int:
         if act_store is not None:
             act_store.close()
         engine.close_all()
+        barrier()               # every rank is done with the shards
         if tmp:
             tmp.cleanup()
     return 0

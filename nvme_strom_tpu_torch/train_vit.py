@@ -7,6 +7,7 @@ examples/train_vit.py):
     python -m nvme_strom_tpu_torch.train_vit --steps 20 --global-batch 32
     python -m nvme_strom_tpu_torch.train_vit --steps 4 --image-size 32 \\
         --device cpu
+    torchrun --nproc-per-node 4 -m nvme_strom_tpu_torch.train_vit --tp 2
 
 Each record is ``C·H·W`` image bytes followed by a 4-byte little-endian
 int32 label.  Records stream NVMe → staging → device with one
@@ -16,9 +17,15 @@ scaled by 1/255, the label bytes viewed as int32 and clipped to
 ``[0, classes)``.  Without ``--data-dir`` it writes 4 seeded shards of
 4·global-batch records to a temporary directory.  The model has the
 example's widths (patch 8, d 192, 4 layers, 4 heads, d_ff 768).  At the
-end it prints the images a second and the engine's stats line.  The
-example's ``--tp`` (tensor parallel) waits for multi-GPU support: any
-value but 1 exits with an error.
+end it prints the images a second and the engine's stats line.
+
+Under ``torchrun`` (one process a card) the processes form a mesh of
+``dp = world / tp`` by ``tp`` (``--tp``, the example's tensor-parallel
+ways; parallel/mesh.py): each ``dp`` group reads its own rows
+(``ShardedLoader(mesh=)``), the weights are split by
+``vit_param_specs`` and gradients averaged over ``dp``.  Without
+``torchrun`` it runs on one device, and a ``--tp`` other than 1 exits
+with an error.
 """
 
 from __future__ import annotations
@@ -40,16 +47,31 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallel ways (1 only for now)")
+                    help="tensor parallel ways (under torchrun; dp is "
+                         "world / tp)")
     ap.add_argument("--image-size", type=int, default=64)
     ap.add_argument("--classes", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda:0")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error(f"--tp {args.tp}: tensor parallel waits for multi-GPU "
-                 "support (ROADMAP Queue 1 item 12); use --tp 1")
 
+    from nvme_strom_tpu_torch.parallel.mesh import (
+        all_gather_object, barrier, init_distributed, make_mesh,
+        process_info, shutdown_distributed)
+    dist_up = init_distributed()
+    rank, world = process_info()
+    if world % args.tp:
+        ap.error(f"--tp {args.tp} needs a multiple of {args.tp} processes "
+                 f"(torchrun --nproc-per-node N); this run has {world}")
+    mesh = make_mesh({"dp": -1, "tp": args.tp}) if world > 1 else None
+    try:
+        return _run(args, mesh, rank, all_gather_object, barrier)
+    finally:
+        if dist_up:
+            shutdown_distributed()
+
+
+def _run(args, mesh, rank, all_gather_object, barrier) -> int:
     import torch
 
     from nvme_strom_tpu_torch.data.loader import ShardedLoader
@@ -60,7 +82,11 @@ def main(argv=None) -> int:
     from nvme_strom_tpu_torch.models.vit import (ViTConfig, init_vit_params,
                                                  make_vit_train_step)
 
-    dev = resolve_device(args.device)
+    from nvme_strom_tpu_torch.parallel.mesh import local_device
+    from nvme_strom_tpu_torch.parallel.shardings import shard_params
+    from nvme_strom_tpu_torch.models.vit import vit_param_shardings
+    dev = resolve_device(local_device() if mesh is not None
+                         else args.device)
     cfg = ViTConfig(image_size=args.image_size, patch_size=8, d_model=192,
                     n_layers=4, n_heads=4, d_ff=768, n_classes=args.classes)
     img_bytes = cfg.channels * cfg.image_size ** 2
@@ -71,11 +97,13 @@ def main(argv=None) -> int:
     tmp = None
     data_dir = args.data_dir
     if data_dir is None:
-        tmp = tempfile.TemporaryDirectory(prefix="strom_vit_")
-        data_dir = tmp.name
-        synthesize_shards(data_dir, img_bytes, args.classes, n_shards=4,
-                          per_shard=4 * args.global_batch)
-        print(f"data: synthesized 4 shards under {data_dir}")
+        # rank 0 writes the shards, every rank reads its rows of them
+        if rank == 0:
+            tmp = tempfile.TemporaryDirectory(prefix="strom_vit_")
+            synthesize_shards(tmp.name, img_bytes, args.classes,
+                              n_shards=4, per_shard=4 * args.global_batch)
+            print(f"data: synthesized 4 shards under {tmp.name}")
+        data_dir = all_gather_object(tmp.name if tmp else None)[0]
     shards = sorted(os.path.join(data_dir, f)
                     for f in os.listdir(data_dir) if f.endswith(".sfr"))
     if not shards:
@@ -83,8 +111,13 @@ def main(argv=None) -> int:
 
     engine = build_engine()
     try:
-        params = trainable_params(init_vit_params(0, cfg), dev)
-        step = make_vit_train_step(cfg, adamw(params, args.lr))
+        full = init_vit_params(0, cfg)
+        if mesh is not None:
+            full = shard_params(full, cfg, mesh,
+                                shardings=vit_param_shardings(cfg, mesh))
+            print(f"rank {rank}: mesh {mesh.shape}", flush=True)
+        params = trainable_params(full, dev)
+        step = make_vit_train_step(cfg, adamw(params, args.lr), mesh=mesh)
 
         t0 = time.monotonic()
         loss = None
@@ -92,12 +125,13 @@ def main(argv=None) -> int:
         while it < args.steps:
             n_epoch = 0
             with ShardedLoader(shards, args.global_batch, fmt="fixedrec",
-                               engine=engine, device=dev) as loader:
+                               engine=engine, device=dev,
+                               mesh=mesh) as loader:
                 for rec in loader:
                     loss = step(params, *decode_records(rec, cfg))
                     it += 1
                     n_epoch += 1
-                    if it % 5 == 0 or it == args.steps:
+                    if rank == 0 and (it % 5 == 0 or it == args.steps):
                         print(f"step {it}: loss={float(loss):.4f}",
                               flush=True)
                     if it >= args.steps:
@@ -118,6 +152,7 @@ def main(argv=None) -> int:
               f"to_device={s.bytes_to_device}")
     finally:
         engine.close_all()
+        barrier()               # every rank is done with the shards
         if tmp:
             tmp.cleanup()
     return 0

@@ -16,10 +16,10 @@ nvme_strom_tpu/utils/stats.py ``StromStats``, trimmed to its counters).
 * ``ici_bytes_read`` — payload bytes the read-once scatter restore read
   from this host's NVMe for its own share(s) (ops/ici.py; in the
   single-process emulation every virtual host's share, so the payload
-  total);
+  total; one rank a process, that process's share);
 * ``ici_bytes_received`` — payload bytes obtained from peers over the
   interconnect instead of local NVMe (0 in the single-process emulation,
-  which has no peers);
+  which has no peers; one rank a process, the other ranks' shares);
 * ``ici_fallbacks`` — scatter set-ups that browned out to the read-all
   path (a one-rank group, a failed share read, a failed or corrupted
   exchange);

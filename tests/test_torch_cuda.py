@@ -1665,3 +1665,87 @@ def test_debug_server_routes_on_a_live_engine(dev, tmp_path, monkeypatch):
         tracer._sinks.clear()
         attrib.reset()
         debugsrv.reset()
+
+
+# -- multi-GPU: the exchange across processes, sharded loads ------------------
+
+def _spawn(job, world, tmp, payload, device, backend, exit_codes=None):
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_dist
+    h = _torch_dist.start(job, world, tmp, payload, timeout=240,
+                          env={"STROM_TEST_DEVICE": device,
+                               "STROM_TEST_BACKEND": backend,
+                               "STROM_NO_RESIDENCY_PROBE": "1"})
+    return _torch_dist.collect(h, exit_codes)
+
+
+def test_process_exchange_refuses_two_ranks_on_one_card(dev, tmp_path):
+    """Two ranks on one card would spin on each other in kernel 7: the
+    exchange across processes refuses them with a clear error, and a
+    read-once ``load_sharded`` and checkpoint restore fail with it
+    rather than brown out."""
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel.weights import save_checkpoint
+    path = str(tmp_path / "w.safetensors")
+    save_checkpoint(path, ttr.init_params(0, ttr.tiny_config()))
+    res = _spawn("cuda_refuse", 2, tmp_path,
+                 {"weights": path, "ckpt": str(tmp_path / "ckpt")},
+                 "cuda:0", "gloo")
+    for r in res:
+        for part in ("exchange", "load_sharded", "restore"):
+            assert "share a card" in r[part], res
+        assert r["fallbacks"] == 0, res
+
+
+def test_load_sharded_two_ranks_on_one_card(dev, tmp_path):
+    """load_sharded with two ranks on cuda:0 (gloo): bitwise the whole
+    load sliced, every byte through h2d_copy with nothing bounced."""
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel.weights import save_checkpoint
+    path = str(tmp_path / "w.safetensors")
+    save_checkpoint(path, ttr.init_params(0, ttr.tiny_config()))
+    res = _spawn("cuda_load_sharded", 2, tmp_path, {"weights": path},
+                 "cuda:0", "gloo")
+    for r in res:
+        assert r["equal"] and r["bounce"] == 0, r
+
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards, the machine has "
+                    f"{torch.cuda.device_count()}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ici_ring_across_processes(dev, tmp_path, world):
+    """Kernel 7 with one rank a process and a card, peers' slots and flags
+    mapped through CUDA IPC: rows of 4 widths, ragged included, three
+    calls each, bitwise, one launch a call on each rank."""
+    _cards(world)
+    widths = [16, 4096 + 5, 48 * 1024 * 3 + 17, 9 << 20]
+    res = _spawn("cuda_exchange", world, tmp_path, widths, "cuda:RANK",
+                 "nccl")
+    for r in res:
+        assert r["ok"], res
+        assert r["launches"] == 3 * len(widths)
+
+
+def test_scatter_restore_across_processes_on_cards(dev, tmp_path):
+    """The read-once restore with one rank a card: bitwise, each rank's
+    share at most half the payload plus a unit, no fallback."""
+    _cards(2)
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel.weights import save_checkpoint
+    path = str(tmp_path / "w.safetensors")
+    save_checkpoint(path, ttr.init_params(0, ttr.tiny_config()))
+    res = _spawn("cuda_load_sharded", 2, tmp_path,
+                 {"weights": path, "scatter": True,
+                  "ckpt": str(tmp_path / "ckpt")}, "cuda:RANK", "nccl")
+    payload = sum(os.path.getsize(os.path.join(
+        tmp_path, "ckpt", "step_00000001", f))
+        for f in os.listdir(tmp_path / "ckpt" / "step_00000001")
+        if f.endswith(".safetensors"))
+    for r in res:
+        assert r["equal"] and r["restored"] and r["fallbacks"] == 0, r
+        assert 0 < r["share"] <= payload / 2 + 4096

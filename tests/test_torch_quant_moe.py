@@ -2,7 +2,7 @@
 quant.py) and mixture-of-experts layers (models/moe.py) in the port,
 held against the JAX package on the CPU with the same numpy weights: the
 cases of tests/test_quant.py and tests/test_moe.py (expert and tensor
-sharding wait for the port's multi-GPU slice, LoRA for its training
+sharding are held in tests/test_torch_multigpu.py, LoRA in its training
 slice).
 
 Quantized leaves must equal the JAX ones bit for bit; dequantized

@@ -10,8 +10,9 @@ loss and 1e-5 / 1e-6 (rtol / atol) on the gradients (the store only
 moves bytes); the port against the JAX step 1e-4 / 2e-5 (float32 sums
 in another order, as tests/test_torch_train.py); ``OffloadedAdam``
 against the JAX one 1e-5 / 1e-6; schedules to float32 rounding (1e-6).
-The JAX test's sharded-input refusal has no counterpart on one device
-(the multi-GPU slice)."""
+The JAX test's sharded-input refusal has no counterpart: the port's
+``OffloadedAdam`` takes each process's slices (``shardings=``, held in
+tests/test_torch_multigpu_io.py)."""
 
 import dataclasses
 import json
