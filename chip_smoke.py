@@ -221,6 +221,18 @@ over NCCL on 2-4 cards; every rank must launch kernels 1, 2 and 4-6
 (and kernel 7 across cards).  ``python3 chip_smoke.py --multigpu`` runs
 that path alone after the build.
 
+Main path 5 is sequence and pipeline parallelism across processes
+(``sp_pp_phase``), started as ``chip_smoke.py --sp-pp-worker`` the same
+way after the one-rank references: (a) the ring on the flash kernels and
+(b) Ulysses on them at LONG_GQA's heads, batch 1, 16384 tokens, against
+one rank's flash over the whole sequence (self-calibrated against
+float32), the ring launching each flash kernel n(n + 1)/2 times a call
+over n ranks; (c) the float32 flagship through ``Trainer`` under sp and
+(d) through ``make_pp_train_step``, against one rank; (e) the loader's
+``seq_axis``; (f) bf16 steps at Llama-3-8B's widths.  Every rank must
+launch ``h2d_copy`` and kernels 4-6.  ``python3 chip_smoke.py --sp-pp``
+runs that path alone after the build.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after: every kernel of the serving path must have launched in
 phases 3-4, again in the prefix-store run and in the GQA serve run of
@@ -6647,11 +6659,39 @@ def _mg_tokens(cfg):
             rng.integers(0, cfg.vocab, (4, MG_GEN_PROMPT)).astype(np.int64))
 
 
-def _llama_step(dev, mesh, tokens, iters, profile_steps=0):
+#: NCCL kernels by the collective they run, matched in their names
+_NCCL_KINDS = (("all_reduce", "allreduce"), ("send_recv", "sendrecv"),
+               ("send_recv", "send"), ("send_recv", "recv"),
+               ("all_gather", "allgather"),
+               ("reduce_scatter", "reducescatter"),
+               ("broadcast", "broadcast"), ("all_to_all", "alltoall"))
+
+
+def _device_split(prof, steps):
+    """(device-busy ms, NCCL ms, {collective: NCCL ms}) a step of a
+    torch.profiler run over ``steps`` steps.  A rank that reaches a
+    collective before its peers waits inside the NCCL kernel, so a
+    kind's ms holds that wait as well as the transfer."""
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+    kinds: dict = {}
+    for e in ev:
+        key = e.key.lower()
+        if "nccl" not in key:
+            continue
+        kind = next((k for k, mark in _NCCL_KINDS if mark in key), "other")
+        kinds[kind] = (kinds.get(kind, 0.0)
+                       + e.self_device_time_total / 1e3 / steps)
+    return busy, sum(kinds.values()), kinds
+
+
+def _llama_step(dev, mesh, tokens, iters, profile_steps=0, attn_fn=None,
+                xent_chunks=0, warmup=2):
     """Median ms of a bf16 train step at Llama-3-8B's widths (2 layers,
-    flash kernels) on this rank's slices (one rank: the whole model),
-    and, with ``profile_steps``, the collectives' share of the device
-    time of that many more steps (torch.profiler)."""
+    the flash kernels or ``attn_fn``) on this rank's slices and span (one
+    rank: the whole model), the step's peak device memory, and, with
+    ``profile_steps``, the collectives' share of the device time of that
+    many more steps (torch.profiler)."""
     import dataclasses
     import statistics
     import torch
@@ -6659,8 +6699,12 @@ def _llama_step(dev, mesh, tokens, iters, profile_steps=0):
     from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
     from nvme_strom_tpu_torch.parallel.shardings import (param_shardings,
                                                          shard_params)
-    cfg = ttr.TransformerConfig(**dict(LLAMA3_8B_2L, max_seq=MG_F_SEQ),
+    seq = tokens.shape[1] * (mesh.shape.get("sp", 1) if mesh else 1)
+    cfg = ttr.TransformerConfig(**dict(LLAMA3_8B_2L,
+                                       max_seq=max(MG_F_SEQ, seq),
+                                       xent_chunks=xent_chunks),
                                 dtype=torch.bfloat16)
+    t_in = time.monotonic()
     full = _card_params(cfg, SEED + 23, dev)
     sh = None
     if mesh is not None:
@@ -6670,10 +6714,12 @@ def _llama_step(dev, mesh, tokens, iters, profile_steps=0):
     del full
     torch.cuda.empty_cache()
     step = ttr.make_train_step(cfg, ttr.adamw(params, 1e-4),
-                               attn_fn=make_flash_attn(), mesh=mesh,
-                               shardings=sh)
-    for _ in range(2):
+                               attn_fn=attn_fn or make_flash_attn(),
+                               mesh=mesh, shardings=sh)
+    for _ in range(warmup):
         step(params, tokens)
+    setup_s = time.monotonic() - t_in
+    torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for _ in range(iters):
         torch.cuda.synchronize(dev)
@@ -6681,20 +6727,19 @@ def _llama_step(dev, mesh, tokens, iters, profile_steps=0):
         loss = float(step(params, tokens))
         times.append((time.monotonic() - t0) * 1e3)
     out = {"step_ms": statistics.median(times), "loss": loss,
-           "step_ms_all": times}
+           "step_ms_all": times, "setup_s": setup_s,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     if profile_steps:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(profile_steps):
                 step(params, tokens)
             torch.cuda.synchronize(dev)
-        ev = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
-        busy = sum(e.self_device_time_total for e in ev)
-        coll = sum(e.self_device_time_total for e in ev
-                   if "nccl" in e.key.lower())
+        busy, coll, kinds = _device_split(prof, profile_steps)
         out["collective_share"] = coll / busy if busy else None
-        out["device_busy_ms"] = busy / 1e3 / profile_steps
+        out["device_busy_ms"] = busy
+        out["compute_ms"] = busy - coll
+        out["collective_ms"] = kinds
     del params, step
     torch.cuda.empty_cache()
     return out
@@ -6987,6 +7032,51 @@ def multigpu_worker(rank: int, world: int, workdir: str, backend: str,
     shutdown_distributed()
 
 
+def _run_ranks(route, world, workdir, args, join_s, what):
+    """Start ``world`` ranks as ``chip_smoke.py route RANK WORLD *args``
+    (logs ``rank<r>.log`` in ``workdir``) and wait at most ``join_s`` s
+    for all of them: a rank outliving that is killed with every other,
+    and any rank's failure prints the logs' tails and raises.  Returns
+    every rank's report, ``rank<r>.json`` in ``workdir``."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = []
+    for r in range(world):
+        logf = open(os.path.join(workdir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), route, str(r),
+             str(world)] + [str(a) for a in args], env=env,
+            stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT), logf))
+    deadline = time.monotonic() + join_s
+    failed = []
+    try:
+        for r, (p, _) in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.01))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} outlived the {join_s} s limit")
+                break
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    failed += [f"rank {r} exited {p.returncode}"
+               for r, (p, _) in enumerate(procs)
+               if p.returncode not in (0, None) and not any(
+                   f.startswith(f"rank {r} ") for f in failed)]
+    if failed:
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                log(f"{what} rank {r} log:\n" + f.read()[-4000:])
+        raise AssertionError(f"{what}: " + "; ".join(failed))
+    reps = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    return reps
+
+
 def multigpu_phase(dev, ckdir, counters):
     """Data and tensor parallel across processes, one rank a process:
     one rank a card over NCCL on 2-4 cards, else two ranks on cuda:0
@@ -7055,42 +7145,8 @@ def multigpu_phase(dev, ckdir, counters):
     for fn in counters.values():
         fn.launches = 0
 
-    env = dict(os.environ, OMP_NUM_THREADS="2")
-    procs = []
-    for r in range(world):
-        logf = open(os.path.join(workdir, f"rank{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--multigpu-worker",
-             str(r), str(world), workdir, backend, ckdir], env=env,
-            stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT), logf))
-    deadline = time.monotonic() + MG_JOIN_S
-    failed = []
-    try:
-        for r, (p, _) in enumerate(procs):
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 0.01))
-            except subprocess.TimeoutExpired:
-                failed.append(f"rank {r} outlived the {MG_JOIN_S} s limit")
-                break
-    finally:
-        for p, logf in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            logf.close()
-    failed += [f"rank {r} exited {p.returncode}"
-               for r, (p, _) in enumerate(procs)
-               if p.returncode not in (0, None) and not any(
-                   f.startswith(f"rank {r} ") for f in failed)]
-    if failed:
-        for r in range(world):
-            with open(os.path.join(workdir, f"rank{r}.log")) as f:
-                log(f"multigpu rank {r} log:\n" + f.read()[-4000:])
-        raise AssertionError("multigpu: " + "; ".join(failed))
-    reps = []
-    for r in range(world):
-        with open(os.path.join(workdir, f"rank{r}.json")) as f:
-            reps.append(json.load(f))
+    reps = _run_ranks("--multigpu-worker", world, workdir,
+                      [workdir, backend, ckdir], MG_JOIN_S, "multigpu")
     # the counts are the ranks' own: every rank launches every kernel of
     # the path (kernel 7 only across cards)
     need = ("h2d_copy", "decode_attention", "flash_fwd", "flash_bwd_dq",
@@ -7163,6 +7219,722 @@ def multigpu_phase(dev, ckdir, counters):
             "tokens_per_s_card": tok_card, "ranks": reps}
 
 
+# -- sequence and pipeline parallel, one process a rank ----------------------
+
+#: the phase's wall-clock budget (s) and its parts' shapes: (a) the ring
+#: and (b) Ulysses at LONG_GQA's heads at batch 1 (b, heads, kv heads,
+#: d, seq); (c) sp and (d) pp parity at the flagship's widths in
+#: float32; (e) the loader's seq_axis over seeded token shards (shards,
+#: rows a shard, tokens a row); (f) bf16 steps at Llama-3-8B's widths
+#: (2 layers), the ring at 16384 tokens and the pipeline at 2048
+SP_BUDGET_S = 90
+SP_ATTN = (1, 32, 8, 128, 16384)
+SP_TRAIN_SEQ, SP_TRAIN_BATCH = 2048, 4
+PP_SEQ, PP_BATCH, PP_MB = 512, 8, 4
+SP_STEPS = 3
+SP_LR = 3e-4
+SP_LOADER = (8, 16, 2048)
+SP_LOADER_BATCH = 8
+SP_F_SEQ = 16384
+#: the lm_head and cross-entropy in 8 chunks: one rank's float32 logits
+#: at 16384 × 32000 would be 2.1 GB
+SP_F_CHUNKS = 8
+PP_F_SEQ, PP_F_BATCH, PP_F_MB = 2048, 4, 4
+SP_F_STEPS = 3
+SP_JOIN_S = 420
+#: (a), (b): each rank's span is held to its own floor, one rank's bf16
+#: flash output's (or gradient's) distance from a float32 run over that
+#: span (the JAX test's self-calibrated bound, per rank).  The output
+#: may be at most SP_OUT_RATIO × the floor from one rank's bf16 output,
+#: and as far from float32 (the JAX test's second band).  The ring rounds
+#: each block's output to bf16 before its float32 merge and the merged
+#: value once more; both outputs lie on the bf16 grid, so they differ by
+#: whole ulps: one ulp at the span's largest outputs reads 2.0-2.2x a
+#: floor just under half an ulp, two read 4x or more.  A gradient at
+#: most 2 × ranks × its floor from one rank's (one more from float32):
+#: a block's dQ or dK/dV is the bf16 sum of at most one bf16 product a
+#: rank, each product and each sum half an ulp off at most, against one
+#: rounding on one rank
+SP_OUT_RATIO = 3.0
+
+
+def _sp_attn_inputs(dev):
+    """Seeded q, k, v and the output's cotangent at SP_ATTN in bf16, K/V
+    drawn at the kv heads and expanded; every rank draws the same."""
+    import torch
+    b, h, hkv, d, s = SP_ATTN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+    def draw(heads):
+        return torch.randn((b, heads, s, d), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+    q = draw(h)
+    k = draw(hkv).repeat_interleave(h // hkv, dim=1)
+    v = draw(hkv).repeat_interleave(h // hkv, dim=1)
+    return q, k, v, draw(h)
+
+
+def _sp_attn_check(name, run, q, k, v, do, ref, cut, kernels, iters=3):
+    """``run(q, k, v)`` on this rank's span ``cut``: its launches, its
+    distance from one rank's bf16 output and gradients against their
+    own distance from float32, and its forward / forward+backward ms
+    (host clock, ranks in step)."""
+    import torch
+    from nvme_strom_tpu_torch.parallel.mesh import barrier
+    qs, ks, vs = (t[:, :, cut].detach().clone().requires_grad_()
+                  for t in (q, k, v))
+    before = {n: fn.launches for n, fn in kernels.items()}
+    o = run(qs, ks, vs)
+    o.backward(do[:, :, cut])
+    torch.cuda.synchronize()
+    rep = {"launches": {n: fn.launches - before[n]
+                        for n, fn in kernels.items()}}
+    for label, got, i in (("out", o, 0), ("dq", qs.grad, 1),
+                          ("dk", ks.grad, 2), ("dv", vs.grad, 3)):
+        r16, r32 = ref["bf16"][i][:, :, cut], ref["f32"][i][:, :, cut]
+        rep[label] = {"dist": float((got.float() - r16.float()).abs().max()),
+                      "dist_f32": float((got.float() - r32).abs().max()),
+                      "floor": float((r16.float() - r32).abs().max())}
+    del o
+    fwd, both = [], []
+    with _uncounted(kernels):
+        for _ in range(iters):
+            barrier()
+            t0 = time.monotonic()
+            o = run(qs, ks, vs)
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            o.backward(do[:, :, cut])
+            torch.cuda.synchronize()
+            fwd.append((t1 - t0) * 1e3)
+            both.append((time.monotonic() - t0) * 1e3)
+    rep["fwd_ms"] = statistics.median(fwd)
+    rep["fwd_bwd_ms"] = statistics.median(both)
+    log(f"sp_pp {name}: {rep}")
+    return rep
+
+
+def _attn_ref(q, k, v, do):
+    """out, dq, dk, dv of the flash kernels over the whole sequence on
+    one rank, in bf16 and on the same values in float32."""
+    import torch
+    from nvme_strom_tpu_torch.ops.flash_attention import flash_attention
+    out = {}
+    for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qq, kk, vv = (t.detach().to(dt).clone().requires_grad_()
+                      for t in (q, k, v))
+        o = flash_attention(qq, kk, vv, causal=True)
+        o.backward(do.to(dt))
+        out[label] = [o.detach(), qq.grad, kk.grad, vv.grad]
+    return out
+
+
+def _llama_pp_step(dev, mesh, tokens, n_mb, iters, profile_steps=0,
+                   warmup=1):
+    """Median ms and peak memory of a bf16 pipelined train step at
+    Llama-3-8B's widths (2 layers, ``make_pp_train_step``) on this
+    rank's stage and rows, and with ``profile_steps`` the device-busy ms
+    a step (torch.profiler), the device-idle share and the share of the
+    step the stage is not computing (idle or in a collective: the
+    bubble)."""
+    import torch
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel import pipeline as tpp
+    t_in = time.monotonic()
+    cfg = ttr.TransformerConfig(**dict(LLAMA3_8B_2L, max_seq=PP_F_SEQ),
+                                dtype=torch.bfloat16)
+    full = _card_params(cfg, SEED + 23, dev)
+    stack, rest = tpp.split_layer_stack(full, cfg)
+    stack = tpp.shard_stack(stack, mesh, cfg, device=dev)
+    del full
+    stack = tpp.from_leaves(stack, {
+        n: t.float().requires_grad_() for n, t in tpp.named_leaves(stack)})
+    rest = ttr.trainable_params(rest, dev)
+    torch.cuda.empty_cache()
+    step = tpp.make_pp_train_step(
+        cfg, ttr.adamw(tpp.pp_parameters(stack, rest), 1e-4), mesh, n_mb)
+    for _ in range(warmup):
+        step(stack, rest, tokens)
+    setup_s = time.monotonic() - t_in
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        loss = float(step(stack, rest, tokens))
+        times.append((time.monotonic() - t0) * 1e3)
+    out = {"step_ms": statistics.median(times), "loss": loss,
+           "step_ms_all": times, "setup_s": setup_s,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "stage": mesh.coords.get("pp", 0)}
+    if profile_steps:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize(dev)
+            t0 = time.monotonic()
+            for _ in range(profile_steps):
+                step(stack, rest, tokens)
+            torch.cuda.synchronize(dev)
+            wall = (time.monotonic() - t0) * 1e3
+        busy, coll, kinds = _device_split(prof, profile_steps)
+        wall /= profile_steps
+        out["device_busy_ms"] = busy
+        out["compute_ms"] = busy - coll
+        out["collective_ms"] = kinds
+        out["idle_share"] = 1.0 - busy / wall if wall > 0 else None
+        # a stage waiting for its neighbour sits in an NCCL receive
+        # kernel: the device is busy, the stage is not computing
+        out["compute_idle_share"] = (1.0 - (busy - coll) / wall
+                                     if wall > 0 else None)
+        out["collective_share"] = coll / busy if busy else None
+    del stack, rest, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_pp_worker(rank: int, world: int, workdir: str, backend: str) -> None:
+    """One rank of ``sp_pp_phase``: parts (a)-(f); writes its report and
+    kernel launches to ``workdir``."""
+    import dataclasses
+    import tarfile
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.data.loader import ShardedLoader
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.parallel import collectives as coll
+    from nvme_strom_tpu_torch.parallel import pipeline as tpp
+    from nvme_strom_tpu_torch.parallel.mesh import (
+        barrier, init_distributed, make_mesh, shutdown_distributed)
+    from nvme_strom_tpu_torch.parallel.ring_attention import make_ring_attn
+    from nvme_strom_tpu_torch.parallel.shardings import (local_slice,
+                                                         param_shardings)
+    from nvme_strom_tpu_torch.parallel.ulysses import make_ulysses_attn
+    from nvme_strom_tpu_torch.train import Trainer
+    kernels = {"h2d_copy": h2d_copy, "flash_fwd": fa.flash_fwd,
+               "flash_bwd_dq": fa.flash_bwd_dq,
+               "flash_bwd_dkv": fa.flash_bwd_dkv}
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    entry = time.time()
+    init_distributed("file://" + os.path.join(workdir, "store"), world,
+                     rank, backend=backend, device=dev, timeout_s=180)
+    for fn in kernels.values():
+        fn.launches = 0
+    # wall-clock marks, for where the phase's seconds go: the rank's
+    # entry (after its imports), each part's end, and the time spent
+    # making meshes (their process groups), each made once
+    rep: dict = {"rank": rank, "entry_wall": entry, "t0_wall": time.time()}
+    t0 = time.monotonic()
+    marks: dict = {}
+    made: dict = {}
+    mesh_s = [0.0]
+
+    def mark(part):
+        marks[part] = time.monotonic() - t0
+
+    def mesh(axes):
+        key = tuple(axes.items())
+        if key not in made:
+            ta = time.monotonic()
+            made[key] = make_mesh(axes)
+            mesh_s[0] += time.monotonic() - ta
+        return made[key]
+
+    sp_mesh = mesh({"sp": world})
+    # on one card the ranks are time-sliced and their collectives cross
+    # the host, so no time counts there: one call or step drives each
+    # path, unwarmed, unprofiled
+    timed = backend == "nccl"
+    steps = SP_F_STEPS if timed else 1
+
+    # (a) the ring on the flash kernels, (b) Ulysses on them
+    q, k, v, do = _sp_attn_inputs(dev)
+    with _uncounted(kernels):
+        ref = _attn_ref(q, k, v, do)
+    mark("a_ref")
+    w = SP_ATTN[4] // world
+    cut = slice(rank * w, (rank + 1) * w)
+    rep["a"] = _sp_attn_check("(a) ring", make_ring_attn(sp_mesh,
+                                                         inner="flash"),
+                              q, k, v, do, ref, cut, kernels,
+                              iters=3 if timed else 1)
+    mark("a")
+    rep["b"] = _sp_attn_check("(b) ulysses", make_ulysses_attn(
+        sp_mesh, attn=fa.make_flash_attn()), q, k, v, do, ref, cut, kernels,
+        iters=3 if timed else 1)
+    mark("b")
+    if rank == 0:
+        # one rank's flash forward / forward+backward on the whole
+        # sequence, the others waiting
+        with _uncounted(kernels):
+            qq, kk, vv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            fwd, both = [], []
+            for _ in range(3):
+                t1 = time.monotonic()
+                o = fa.flash_attention(qq, kk, vv)
+                torch.cuda.synchronize()
+                t2 = time.monotonic()
+                o.backward(do)
+                torch.cuda.synchronize()
+                fwd.append((t2 - t1) * 1e3)
+                both.append((time.monotonic() - t1) * 1e3)
+        rep["one_rank_attn"] = {"fwd_ms": statistics.median(fwd),
+                                "fwd_bwd_ms": statistics.median(both)}
+        del qq, kk, vv, o
+    barrier()
+    del q, k, v, do, ref
+    torch.cuda.empty_cache()
+    mark("ab")
+
+    refs = torch.load(os.path.join(workdir, "ref.pt"), map_location=dev)
+    mark("refs_load")
+    # (c) sp train parity: the float32 flagship through Trainer, the ring
+    # on the flash kernels
+    cfg32 = dataclasses.replace(_mg_cfg(torch.float32),
+                                max_seq=SP_TRAIN_SEQ)
+    shapes = ttr.param_shapes(cfg32)
+    meshes = [sp_mesh] + ([mesh({"dp": 2, "sp": 2}),
+                           mesh({"tp": 2, "sp": 2})]
+                          if world == 4 else [])
+    rep["c"] = []
+    for m in meshes:
+        attn = make_ring_attn(m, inner="flash")
+        sh = param_shardings(cfg32, m)
+        mine = local_slice(refs["sp_tokens"], m, seq_axis="sp")
+        losses = []
+        with Trainer(cfg32, mesh=m, attn_fn=attn, device=dev, seed=SEED,
+                     lr=SP_LR,
+                     hooks=[lambda s, l, dt: losses.append(l)]) as tr:
+            with coll.use_mesh(m):
+                _, grads = ttr.value_and_grad(tr.params, mine, cfg32, attn)
+            g = list(grads.values())
+            coll.mesh_mean_(g, m)
+            n_g = 0
+            for name, gr in zip(grads, g):
+                b = sh[name].local_bounds(shapes[name])
+                n_g += _mg_close(
+                    f"sp (c) {m.shape} step-1 gradient {name}", gr,
+                    refs["sp_grads"][name][tuple(slice(x, y)
+                                                 for x, y in b)],
+                    MG_PARAM_TOL)[0]
+            torch.cuda.synchronize(dev)
+            ta = time.monotonic()
+            tr.fit(iter([mine] * SP_STEPS), steps=SP_STEPS)
+            torch.cuda.synchronize(dev)
+            fit_s = time.monotonic() - ta
+            for got, want in zip(losses, refs["sp_losses"]):
+                if abs(got - want) > MG_LOSS_RTOL * abs(want):
+                    raise AssertionError(
+                        f"sp_pp (c) {m.shape}: losses {losses} against "
+                        f"one rank's {refs['sp_losses']}")
+            outside = exempt = 0
+            for name, p in tr.params.items():
+                b = sh[name].local_bounds(shapes[name])
+                c = tuple(slice(x, y) for x, y in b)
+                o, e = _mg_close(f"sp (c) {m.shape} parameter {name}",
+                                 p.detach(), refs["sp_params"][name][c],
+                                 MG_PARAM_TOL, refs["sp_grads"][name][c])
+                outside += o
+                exempt += e
+            n_params = sum(p.numel() for p in tr.params.values())
+        if exempt > MG_EXEMPT_MAX * n_params:
+            raise AssertionError(f"sp_pp (c) {m.shape}: {exempt} of "
+                                 f"{n_params} elements exempt, above "
+                                 f"{MG_EXEMPT_MAX * n_params:.0f}")
+        rep["c"].append({"mesh": dict(m.shape), "losses": losses,
+                         "grad_outside": n_g, "param_outside": outside,
+                         "param_exempt_near_zero_grad": exempt,
+                         "params": n_params, "fit_s": fit_s})
+    torch.cuda.empty_cache()
+    mark("c")
+
+    # (d) pp train parity: the float32 flagship through
+    # make_pp_train_step, 4 microbatches
+    cfgpp = dataclasses.replace(_mg_cfg(torch.float32), max_seq=PP_SEQ)
+    meshes = ([mesh({"dp": 1, "pp": 2})] if world == 2 else
+              [mesh({"pp": 2, "tp": 2}), mesh({"dp": 2, "pp": 2})])
+    want_stack, want_rest = tpp.split_layer_stack(refs["pp_grads"], cfgpp)
+    want_stack = dict(tpp.named_leaves(want_stack))
+    rep["d"] = []
+    for m in meshes:
+        stack, rest = tpp.split_layer_stack(ttr.init_params(SEED, cfgpp),
+                                            cfgpp)
+        shs = dict(tpp.named_leaves(tpp.stacked_shardings(m, cfgpp)))
+        stack = tpp.shard_stack(stack, m, cfgpp, device=dev)
+        stack = tpp.from_leaves(stack, {n: t.requires_grad_() for n, t in
+                                        tpp.named_leaves(stack)})
+        rest = ttr.trainable_params(rest, dev)
+        mine = local_slice(refs["pp_tokens"], m)
+        _, g_stack, g_rest = tpp.make_pp_value_and_grad(
+            cfgpp, m, PP_MB)(stack, rest, mine)
+        n_g = 0
+        for name, gr in tpp.named_leaves(g_stack):
+            want = want_stack[name]
+            b = shs[name].local_bounds(tuple(want.shape))
+            n_g += _mg_close(f"pp (d) {m.shape} step-1 gradient {name}",
+                             gr, want[tuple(slice(x, y) for x, y in b)],
+                             MG_PARAM_TOL)[0]
+        for name, gr in g_rest.items():
+            n_g += _mg_close(f"pp (d) {m.shape} step-1 gradient {name}",
+                             gr, want_rest[name], MG_PARAM_TOL)[0]
+        del g_stack, g_rest
+        step = tpp.make_pp_train_step(
+            cfgpp, ttr.adamw(tpp.pp_parameters(stack, rest), SP_LR), m,
+            PP_MB)
+        torch.cuda.synchronize(dev)
+        ta = time.monotonic()
+        losses = [float(step(stack, rest, mine)) for _ in range(SP_STEPS)]
+        torch.cuda.synchronize(dev)
+        fit_s = time.monotonic() - ta
+        for got, want in zip(losses, refs["pp_losses"]):
+            if abs(got - want) > MG_LOSS_RTOL * abs(want):
+                raise AssertionError(
+                    f"sp_pp (d) {m.shape}: losses {losses} against one "
+                    f"rank's {refs['pp_losses']}")
+        rep["d"].append({"mesh": dict(m.shape), "losses": losses,
+                         "grad_outside": n_g, "fit_s": fit_s})
+        del stack, rest, step
+    del refs["sp_grads"], refs["sp_params"], refs["pp_grads"]
+    torch.cuda.empty_cache()
+    mark("d")
+
+    # (e) the loader's seq_axis: sp peers read the same shards, each
+    # keeps its span, which reaches the card through h2d_copy
+    lmesh = mesh({"dp": world // 2, "sp": 2})
+
+    def decode(parts):
+        (payload,) = parts.values()
+        return np.frombuffer(payload, dtype=np.int32)
+
+    with StromEngine() as eng:
+        h0 = h2d_copy.launches
+        te = time.monotonic()
+        with ShardedLoader(refs["shards"], SP_LOADER_BATCH, decode=decode,
+                           engine=eng, device=dev, mesh=lmesh,
+                           seq_axis="sp") as ld:
+            got = [b.cpu() for b in ld]
+            mine_shards = list(ld.local_shards)
+            local_batch = ld.local_batch
+        load_s = time.monotonic() - te
+        eng.sync_stats()
+        st = eng.stats.snapshot()
+    rows = []
+    for path in mine_shards:
+        with tarfile.open(path) as tf:
+            rows += [np.frombuffer(tf.extractfile(m).read(), np.int32)
+                     for m in tf.getmembers()]
+    span = SP_LOADER[2] // 2
+    i = lmesh.coords["sp"]
+    want = [np.stack(rows[j:j + local_batch])[:, i * span:(i + 1) * span]
+            for j in range(0, len(rows) - local_batch + 1, local_batch)]
+    if len(got) != len(want) or not all(
+            np.array_equal(g.numpy(), w) for g, w in zip(got, want)):
+        raise AssertionError(f"sp_pp (e): rank {rank}'s batches are not "
+                             "its span of its group's rows")
+    rep["e"] = {"dp": lmesh.coords["dp"], "batches": len(got),
+                "batch_shape": list(got[0].shape),
+                "shards": [os.path.basename(p) for p in mine_shards],
+                "nvme_bytes": st["bytes_direct"] + st["bytes_fallback"],
+                "bytes_direct": st["bytes_direct"],
+                "bounce_bytes": st["bounce_bytes"],
+                "h2d_copy_launches": h2d_copy.launches - h0,
+                "load_s": load_s}
+    log(f"sp_pp (e): {rep['e']}")
+    mark("e")
+
+    # (f) throughput at Llama-3-8B's widths: the ring at SP_F_SEQ over
+    # every rank, and a pp 2 step (one layer a stage)
+    ftoks = refs["f_tokens"]
+    rep["f_sp"] = _llama_step(
+        dev, sp_mesh, local_slice(ftoks, sp_mesh, seq_axis="sp"),
+        steps, profile_steps=2 if timed else 0,
+        attn_fn=make_ring_attn(sp_mesh, inner="flash"),
+        xent_chunks=SP_F_CHUNKS, warmup=int(timed))
+    mark("f_sp")
+    pmesh = mesh({"dp": world // 2, "pp": 2})
+    rep["f_pp"] = _llama_pp_step(dev, pmesh, local_slice(
+        refs["f_pp_tokens"], pmesh), PP_F_MB, steps,
+        profile_steps=int(timed), warmup=int(timed))
+    mark("f_pp")
+    rep["marks_s"] = marks
+    rep["mesh_s"] = mesh_s[0]
+    rep["seconds"] = time.monotonic() - t0
+    rep["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    barrier()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    shutdown_distributed()
+
+
+def sp_pp_phase(dev, counters):
+    """Sequence and pipeline parallelism across processes, one rank a
+    process: one a card over NCCL on 2-4 cards, else two on cuda:0 over
+    gloo (a one-card correctness run).  The one-rank references run here
+    first; each rank then checks (a) the ring on the flash kernels and
+    (b) Ulysses on them against one rank's flash over the whole sequence
+    (self-calibrated against float32), counting the ring's launches;
+    (c) a float32 flagship Trainer under sp (the ring on the flash
+    kernels) and (d) a pipelined one, against one rank's losses,
+    gradients and parameters; (e) the loader's seq_axis; (f) bf16 steps
+    at Llama-3-8B's widths.  Their launches are added to ``counters``."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    from nvme_strom_tpu_torch.parallel.mesh import make_mesh
+    from nvme_strom_tpu_torch.train import Trainer
+    from nvme_strom_tpu_torch.train_lm import synthesize_shards
+    t0 = time.monotonic()
+    cards = torch.cuda.device_count()
+    world = 2 if cards < 4 else 4
+    backend = "nccl" if cards >= 2 else "gloo"
+    workdir = os.path.join(DATA_DIR, "sp_pp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+
+    # the one-rank references, on cuda:0 (every count restarts at 0
+    # before the ranks start)
+    rng = np.random.default_rng(SEED + 43)
+    cfg32 = dataclasses.replace(_mg_cfg(torch.float32), max_seq=SP_TRAIN_SEQ)
+    sp_tokens = torch.from_numpy(rng.integers(
+        0, cfg32.vocab, (SP_TRAIN_BATCH, SP_TRAIN_SEQ))).to(dev)
+    sp_losses = []
+    with Trainer(cfg32, attn_fn=make_flash_attn(), device=dev, seed=SEED,
+                 lr=SP_LR, hooks=[lambda s, l, dt: sp_losses.append(l)]
+                 ) as tr:
+        _, sp_grads = ttr.value_and_grad(tr.params, sp_tokens, cfg32,
+                                         make_flash_attn())
+        ta = time.monotonic()
+        tr.fit(iter([sp_tokens] * SP_STEPS), steps=SP_STEPS)
+        torch.cuda.synchronize(dev)
+        sp_fit_s = time.monotonic() - ta
+        sp_params = {n: p.detach().clone() for n, p in tr.params.items()}
+    cfgpp = dataclasses.replace(_mg_cfg(torch.float32), max_seq=PP_SEQ)
+    pp_tokens = torch.from_numpy(rng.integers(
+        0, cfgpp.vocab, (PP_BATCH, PP_SEQ))).to(dev)
+    params = ttr.trainable_params(ttr.init_params(SEED, cfgpp), dev)
+    _, pp_grads = ttr.value_and_grad(params, pp_tokens, cfgpp)
+    step = ttr.make_train_step(cfgpp, ttr.adamw(params, SP_LR))
+    ta = time.monotonic()
+    pp_losses = [float(step(params, pp_tokens)) for _ in range(SP_STEPS)]
+    pp_fit_s = time.monotonic() - ta
+    del params, step
+    ref_marks = {"trainers": time.monotonic() - t0}
+    f_tokens = torch.from_numpy(rng.integers(
+        0, LLAMA3_8B_2L["vocab"], (1, SP_F_SEQ)))
+    f_pp_tokens = torch.from_numpy(rng.integers(
+        0, LLAMA3_8B_2L["vocab"], (PP_F_BATCH * (world // 2), PP_F_SEQ)))
+    one_sp = _llama_step(dev, None, f_tokens.to(dev), SP_F_STEPS,
+                         xent_chunks=SP_F_CHUNKS, warmup=1)
+    ref_marks["llama_sp"] = time.monotonic() - t0
+    one_pp = _llama_pp_step(dev, make_mesh({"pp": 1}, world_size=1),
+                            f_pp_tokens[:PP_F_BATCH].to(dev), PP_F_MB,
+                            SP_F_STEPS, profile_steps=1)
+    ref_marks["llama_pp"] = time.monotonic() - t0
+    shard_dir = os.path.join(workdir, "shards")
+    os.makedirs(shard_dir)
+    n_shards, per_shard, seq = SP_LOADER
+    shards = synthesize_shards(shard_dir, LLAMA3_8B_2L["vocab"], seq,
+                               n_shards=n_shards, per_shard=per_shard,
+                               seed=SEED + 47)
+    ts = time.monotonic()
+    torch.save({"sp_tokens": sp_tokens, "sp_losses": sp_losses,
+                "sp_grads": sp_grads, "sp_params": sp_params,
+                "pp_tokens": pp_tokens, "pp_losses": pp_losses,
+                "pp_grads": pp_grads, "f_tokens": f_tokens,
+                "f_pp_tokens": f_pp_tokens, "shards": shards},
+               os.path.join(workdir, "ref.pt"))
+    save_s = time.monotonic() - ts
+    del sp_grads, sp_params, pp_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.monotonic() - t0
+    for fn in counters.values():
+        fn.launches = 0
+
+    spawn = time.time()
+    reps = _run_ranks("--sp-pp-worker", world, workdir, [workdir, backend],
+                      SP_JOIN_S, "sp_pp")
+    t_ranks = time.time() - spawn
+    need = ("h2d_copy", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for rep in reps:
+        for n in need:
+            if rep["launches"][n] <= 0:
+                raise AssertionError(f"sp_pp: rank {rep['rank']} never "
+                                     f"launched {n}")
+        for n, c in rep["launches"].items():
+            counters[n].launches += c
+    # a ring call launches each flash kernel n(n+1)/2 times over n
+    # ranks; Ulysses once a rank
+    tri = world * (world + 1) // 2
+    for part, want in (("a", tri), ("b", world)):
+        for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            got = sum(r[part]["launches"][n] for r in reps)
+            if got != want:
+                raise AssertionError(f"sp_pp ({part}): {n} launched {got} "
+                                     f"times over {world} ranks, not {want}")
+    # (e): sp peers (one dp coordinate) read the same shards in the same
+    # order, and as many NVMe bytes; the dp groups share the shards out
+    groups: dict = {}
+    for rep in reps:
+        groups.setdefault(rep["e"]["dp"], []).append(rep["e"])
+    for dp, peers in groups.items():
+        if any((p["shards"], p["nvme_bytes"]) != (peers[0]["shards"],
+                                                  peers[0]["nvme_bytes"])
+               for p in peers):
+            raise AssertionError(
+                f"sp_pp (e): the sp peers at dp {dp} read different shards "
+                f"or bytes: {[(p['shards'], p['nvme_bytes']) for p in peers]}")
+    read = sorted(x for peers in groups.values() for x in peers[0]["shards"])
+    if read != sorted(os.path.basename(p) for p in shards):
+        raise AssertionError(f"sp_pp (e): the dp groups read {read}, not "
+                             "each shard once")
+    # (a), (b): every rank against its own span's floor, so that no
+    # rank's bound is set by another's larger outputs
+    errs = {}
+    for part in ("a", "b"):
+        errs[part] = {}
+        for t in ("out", "dq", "dk", "dv"):
+            limit = SP_OUT_RATIO if t == "out" else 2.0 * world
+            limit32 = SP_OUT_RATIO if t == "out" else limit + 1.0
+            xs = [r[part][t] for r in reps]
+            errs[part][t] = {
+                "ratio": [x["dist"] / x["floor"] if x["floor"] > 0
+                          else float("inf") for x in xs],
+                "ratio_f32": [x["dist_f32"] / x["floor"] if x["floor"] > 0
+                              else float("inf") for x in xs],
+                "floor": [x["floor"] for x in xs],
+                "limit": limit, "limit_f32": limit32}
+    log(f"sp_pp (a), (b) by rank: {json.dumps(errs)}")
+    for part, by_t in errs.items():
+        for t, e in by_t.items():
+            for rank, (x, x32) in enumerate(zip(e["ratio"],
+                                                e["ratio_f32"])):
+                if not (x <= e["limit"] and x32 <= e["limit_f32"]):
+                    raise AssertionError(
+                        f"sp_pp ({part}) {t}, rank {rank}: {x}x its span's "
+                        f"floor from one rank's bf16 and {x32}x from "
+                        f"float32 (limits {e['limit']}x, "
+                        f"{e['limit_f32']}x)")
+    seconds = time.monotonic() - t0
+    label = ("one-card correctness run (2 ranks on cuda:0, gloo)"
+             if backend == "gloo" else f"{world} cards, NCCL")
+    ring_ms = [r["a"]["fwd_ms"] for r in reps]
+    one_attn = reps[0]["one_rank_attn"]
+    b, h, hkv, d, s = SP_ATTN
+
+    def by_rank(part):
+        return "; ".join(
+            f"{t} {[round(x, 3) for x in errs[part][t]['ratio']]} / "
+            f"{[round(x, 3) for x in errs[part][t]['ratio_f32']]}"
+            for t in ("out", "dq", "dk", "dv"))
+
+    log(f"sp_pp (a) {label}: ring on the flash kernels, b {b}, {h} heads "
+        f"(GQA from {hkv}), d {d}, seq {s} over sp {world}, bf16, causal: "
+        f"flash launches a call {tri} each (fwd, dq, dkv); by rank, the "
+        f"distance from one rank's bf16 / from float32 over its span's "
+        f"floor: {by_rank('a')} (limits out {SP_OUT_RATIO} / "
+        f"{SP_OUT_RATIO}, grads {2 * world} / {2 * world + 1}); forward "
+        f"{[round(x, 2) for x in ring_ms]} ms, forward+backward "
+        f"{[round(r['a']['fwd_bwd_ms'], 2) for r in reps]} ms a rank; one "
+        f"rank's flash {one_attn['fwd_ms']:.2f} / "
+        f"{one_attn['fwd_bwd_ms']:.2f} ms")
+    log(f"sp_pp (b) Ulysses, flash inner, by rank: {by_rank('b')}; "
+        f"forward {[round(r['b']['fwd_ms'], 2) for r in reps]} ms, "
+        f"forward+backward {[round(r['b']['fwd_bwd_ms'], 2) for r in reps]}"
+        " ms a rank")
+    for i, c in enumerate(reps[0]["c"]):
+        log(f"sp_pp (c) sp train {c['mesh']}, flagship float32 seq "
+            f"{SP_TRAIN_SEQ} batch {SP_TRAIN_BATCH}, ring flash: losses "
+            f"{c['losses']} against one rank's {sp_losses}; step-1 "
+            "gradients and parameters within (1e-4, 1e-5) but "
+            f"{sum(r['c'][i]['param_exempt_near_zero_grad'] for r in reps)}"
+            f" elements under a near-zero step-1 gradient; {SP_STEPS} steps "
+            f"{max(r['c'][i]['fit_s'] for r in reps):.3f} s against one "
+            f"rank's {sp_fit_s:.3f} s")
+    for i, c in enumerate(reps[0]["d"]):
+        log(f"sp_pp (d) pp train {c['mesh']}, flagship float32 seq {PP_SEQ} "
+            f"batch {PP_BATCH}, {PP_MB} microbatches: losses {c['losses']} "
+            f"against one rank's {pp_losses}; step-1 gradients within "
+            f"(1e-4, 1e-5); {SP_STEPS} steps "
+            f"{max(r['d'][i]['fit_s'] for r in reps):.3f} s against one "
+            f"rank's {pp_fit_s:.3f} s")
+    log(f"sp_pp (e) loader seq_axis (dp {world // 2} x sp 2, batch "
+        f"{SP_LOADER_BATCH} of {SP_LOADER[2]} tokens): per-rank NVMe bytes "
+        f"{[r['e']['nvme_bytes'] for r in reps]}, shards "
+        f"{[r['e']['shards'] for r in reps]}, batch "
+        f"{reps[0]['e']['batch_shape']}, h2d_copy launches "
+        f"{[r['e']['h2d_copy_launches'] for r in reps]}, bounce "
+        f"{[r['e']['bounce_bytes'] for r in reps]}; every batch bitwise "
+        "its span, sp peers' shards and bytes equal")
+    fs = [r["f_sp"] for r in reps]
+    fp = [r["f_pp"] for r in reps]
+    n_cards = max(1, min(cards, world))
+    sp_tok = SP_F_SEQ / (max(f["step_ms"] for f in fs) / 1e3) / n_cards
+    pp_tok = (PP_F_BATCH * (world // 2) * PP_F_SEQ
+              / (max(f["step_ms"] for f in fp) / 1e3) / n_cards)
+
+    def split(f):
+        return (f"compute {f['compute_ms']:.2f} ms, NCCL "
+                + ", ".join(f"{k} {v:.2f}" for k, v in
+                            sorted(f["collective_ms"].items())))
+
+    unmeasured = "not measured (one card: gloo through host memory)"
+    share = (unmeasured if backend == "gloo"
+             else f"{[round(f.get('collective_share') or 0.0, 4) for f in fs]}"
+             f" (by rank, a step: {'; '.join(split(f) for f in fs)})")
+    bubble = (unmeasured if backend == "gloo" else
+              f"by stage device idle "
+              f"{[(f['stage'], round(f['idle_share'], 4)) for f in fp]} and "
+              f"not computing "
+              f"{[(f['stage'], round(f['compute_idle_share'], 4)) for f in fp]}"
+              f" (by rank, a step: {'; '.join(split(f) for f in fp)})")
+    steps = ("one unwarmed step" if backend == "gloo"
+             else f"median of {SP_F_STEPS}")
+    log(f"sp_pp (f) Llama-3-8B widths 2 layers bf16, {label}: sp {world} "
+        f"seq {SP_F_SEQ} batch 1 ring flash: step ({steps}) "
+        f"{[round(f['step_ms'], 2) for f in fs]} ms, {sp_tok:.0f} tokens/s "
+        f"a card, peak {[round(f['peak_gib'], 2) for f in fs]} GiB, "
+        f"collectives' share {share}; one rank: step "
+        f"{one_sp['step_ms']:.2f} ms, {SP_F_SEQ / one_sp['step_ms'] * 1e3:.0f}"
+        f" tokens/s, peak {one_sp['peak_gib']:.2f} GiB")
+    log(f"sp_pp (f) pp 2 x dp {world // 2}, seq {PP_F_SEQ}, batch "
+        f"{PP_F_BATCH} a dp rank, {PP_F_MB} microbatches: step ({steps}) "
+        f"{[round(f['step_ms'], 2) for f in fp]} ms, {pp_tok:.0f} tokens/s a "
+        f"card, peak {[round(f['peak_gib'], 2) for f in fp]} GiB, {bubble}"
+        f"; one rank (pp 1): step {one_pp['step_ms']:.2f} ms, "
+        f"{PP_F_BATCH * PP_F_SEQ / one_pp['step_ms'] * 1e3:.0f} tokens/s, "
+        f"peak {one_pp['peak_gib']:.2f} GiB, idle {one_pp['idle_share']:.4f}")
+    log(f"sp_pp: {seconds:.1f} s (references {t_ref:.1f} s, their parts' "
+        f"ends {({k: round(v, 1) for k, v in ref_marks.items()})} s, of them "
+        f"{save_s:.1f} s saving {os.path.getsize(os.path.join(workdir, 'ref.pt'))}"
+        f" B for the ranks; the ranks "
+        f"{t_ranks:.1f} s), budget {SP_BUDGET_S} s; by rank: from the spawn "
+        f"to its entry {[round(r['entry_wall'] - spawn, 1) for r in reps]} s"
+        f", init_distributed "
+        f"{[round(r['t0_wall'] - r['entry_wall'], 1) for r in reps]} s, "
+        f"parts' ends {[{k: round(v, 1) for k, v in r['marks_s'].items()} for r in reps]}"
+        f" s, making meshes {[round(r['mesh_s'], 1) for r in reps]} s, "
+        f"(f)'s set-up (weights, optimizer, warm-up) "
+        f"{[(round(r['f_sp']['setup_s'], 1), round(r['f_pp']['setup_s'], 1)) for r in reps]}"
+        f" s; "
+        f"rank launches {[r['launches'] for r in reps]}")
+    return {"label": label, "world": world, "backend": backend,
+            "cards": cards, "seconds": seconds, "ref_seconds": t_ref,
+            "ranks_seconds": t_ranks,
+            "errors": errs, "ring_launches_a_call": tri,
+            "one_rank": {"sp_fit_s": sp_fit_s, "sp_losses": sp_losses,
+                         "pp_fit_s": pp_fit_s, "pp_losses": pp_losses,
+                         "llama_sp": one_sp, "llama_pp": one_pp},
+            "tokens_per_s_card": {"sp": sp_tok, "pp": pp_tok},
+            "ranks": reps}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -7179,6 +7951,11 @@ def main() -> int:
         # one rank of multigpu_phase, started by the phase itself
         rank, world, workdir, backend, ckdir = sys.argv[2:7]
         multigpu_worker(int(rank), int(world), workdir, backend, ckdir)
+        return 0
+    if sys.argv[1:2] == ["--sp-pp-worker"]:
+        # one rank of sp_pp_phase, started by the phase itself
+        rank, world, workdir, backend = sys.argv[2:6]
+        sp_pp_worker(int(rank), int(world), workdir, backend)
         return 0
     # The engine's submit-time residency probe (mincore) sends spans it
     # finds in the page cache down the buffered path.  On filesystems
@@ -7223,6 +8000,18 @@ def main() -> int:
         log("multigpu launches: " + json.dumps(
             {n: fn.launches for n, fn in counters.items()}))
         log("multigpu " + json.dumps(multigpu))
+        print(card_line())
+        return 0
+    if sys.argv[1:2] == ["--sp-pp"]:
+        # main path 5 alone (on a machine with 2-4 cards, the phase's
+        # NCCL run without the rest of the script)
+        os.makedirs(DATA_DIR, exist_ok=True)
+        for fn in counters.values():
+            fn.launches = 0
+        sp_pp = sp_pp_phase(dev, counters)
+        log("sp_pp launches: " + json.dumps(
+            {n: fn.launches for n, fn in counters.items()}))
+        log("sp_pp " + json.dumps(sp_pp))
         print(card_line())
         return 0
 
@@ -7473,6 +8262,16 @@ def main() -> int:
             processes_kernel_ms=[x["kernel_ms"] for x in e],
             processes_nccl_ms=[x["nccl_all_gather_ms"] for x in e],
             processes_bound_ms=e[0]["bound_ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    # main path 5: sequence and pipeline parallel over processes (the
+    # ring and Ulysses on the flash kernels, the sp and pp trainers, the
+    # loader's seq_axis through h2d_copy)
+    sp_kernels = ("h2d_copy", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    sp_pp, counts = drive("sp_pp", sp_kernels,
+                          lambda: sp_pp_phase(dev, counters))
+    for n in sp_kernels:
+        results[n]["launches_sp_pp"] = counts[n]
     for n in counters:
         results[n]["kernel_ms"] = results[n]["ms"]
     log("resilience " + json.dumps({
@@ -7507,6 +8306,7 @@ def main() -> int:
     log("attrib " + json.dumps({k: v for k, v in attrib_rep.items()
                                 if k != "profiles"}))
     log("multigpu " + json.dumps(multigpu))
+    log("sp_pp " + json.dumps(sp_pp))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -7528,6 +8328,8 @@ def main() -> int:
                                   "multigpu": {k: v for k, v in
                                                multigpu.items()
                                                if k != "ranks"},
+                                  "sp_pp": {k: v for k, v in sp_pp.items()
+                                            if k != "ranks"},
                                   "flash_split": flash_split,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))

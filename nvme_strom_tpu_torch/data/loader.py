@@ -11,8 +11,11 @@ its own (``process_index`` / ``process_count``, default the
 ``torch.distributed`` rank and world size).  Batches are this process's
 rows: the port has no global array to assemble, and with one device a
 process the JAX ``_process_span`` / ``_device_row_spans`` are the
-group's block of rows.  Sequence sharding (``seq_axis``) waits for
-ROADMAP Queue 1 item 12b.
+group's block of rows.  With ``seq_axis`` (per-sample formats) the
+ranks that differ only along that axis (sp peers) are one group: they
+read the same shards in the same order, and each keeps its own span of
+dim 1 of every rank-2 leaf, the (batch, seq) layout of ring and Ulysses
+attention; only that span is copied to the device.
 
 Formats (``fmt``):
 
@@ -198,15 +201,15 @@ class ShardedLoader:
                  process_count: Optional[int] = None):
         if fmt not in ("wds", "wds_raw", "tfrecord", "fixedrec"):
             raise ValueError(f"unknown fmt {fmt!r}")
-        if seq_axis is not None:
-            raise NotImplementedError(
-                "seq_axis: sequence sharding waits for ROADMAP Queue 1 "
-                "item 12b")
         if fmt in ("fixedrec", "wds_raw"):
             if decode is not None:
                 raise ValueError(
                     f"{fmt} is a zero-copy raw path: payload goes "
                     "staging→device untouched; decode on device instead")
+            if seq_axis is not None:
+                raise ValueError(
+                    f"{fmt} cannot seq-shard: a rank's seq slice of "
+                    "every row is not a contiguous file span")
             if config is not None and config.shard_error_budget > 0:
                 raise ValueError(
                     f"{fmt} does not support shard_error_budget: its "
@@ -215,8 +218,15 @@ class ShardedLoader:
         if global_batch < 1:
             raise ValueError(f"global_batch must be >= 1, got "
                              f"{global_batch}")
-        from nvme_strom_tpu_torch.parallel.mesh import (local_device,
+        from nvme_strom_tpu_torch.parallel.mesh import (batch_sharding,
+                                                        local_device,
                                                         process_info)
+        if seq_axis is not None:
+            if mesh is None:
+                raise ValueError("seq_axis needs a mesh")
+            batch_sharding(mesh, "dp", seq_axis)   # the axis must exist
+        #: the mesh axis dim 1 of rank-2 leaves is split over (or None)
+        self.seq_axis = seq_axis
         self.device = resolve_device(device if device is not None or
                                      mesh is None else local_device())
         self.mesh = mesh
@@ -470,6 +480,8 @@ class ShardedLoader:
                     if err:
                         raise LoaderErrors(err) from err[0]
                     break
+                if self.seq_axis is not None:
+                    hb = _map(self._seq_span, hb)
                 yield _map(put.finish, _map(put.start, hb))
         finally:
             put.close()
@@ -483,6 +495,21 @@ class ShardedLoader:
                     break
             t.join(timeout=30)
         self.epoch += 1
+
+    def _seq_span(self, x: np.ndarray) -> np.ndarray:
+        """This rank's span of dim 1 of a rank-2 (batch, seq) leaf, a
+        view (the copy to the device makes it contiguous); leaves of any
+        other rank whole."""
+        if x.ndim != 2:
+            return x
+        n = self.mesh.shape[self.seq_axis]
+        if x.shape[1] % n:
+            raise ValueError(
+                f"seq_axis={self.seq_axis!r} (size {n}) cannot shard "
+                f"batch leaf of shape {x.shape}: dim 1 not divisible")
+        w = x.shape[1] // n
+        i = self.mesh.coords[self.seq_axis]
+        return x[:, i * w:(i + 1) * w]
 
     # -- the zero-copy paths: fixedrec and wds_raw -------------------------
 

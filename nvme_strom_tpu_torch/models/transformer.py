@@ -26,10 +26,21 @@ embedding's feature slice is gathered; the lm_head's vocabulary slice
 feeds a vocabulary-parallel cross-entropy, or is gathered into whole
 logits.  Head counts come from the local weights' widths, so the same
 code runs every tp size.  Without a mesh none of this runs.
+
+Sequence parallelism (``sp``, parallel/ring_attention.py and
+parallel/ulysses.py): each rank forwards its span of every sequence,
+RoPE at the span's absolute positions; attention is the ``attn_fn``
+(``make_ring_attn`` or ``make_ulysses_attn``), or the dense ring without
+one; the next-token loss takes each span's last target from the next
+rank and counts the whole sequence (:func:`next_token_targets`).  The
+parameters are replicated over ``sp``, so their gradients are summed
+over it.  MoE layers under ``sp`` run in the pipeline only
+(parallel/pipeline.py).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -310,9 +321,15 @@ def attention(x, p, prefix, cfg: TransformerConfig, attn_fn=None,
     ``return_kv`` (cache prefill) also returns the post-RoPE kv-width
     k / v (b, nkv, s, hd)."""
     b, s, _ = x.shape
+    sp = _coll.sp_group()
     if positions is None:
-        positions = torch.arange(s, dtype=torch.float32, device=x.device)
+        # under sp this rank holds positions [r·s, (r + 1)·s)
+        positions = (torch.arange(s, dtype=torch.float32, device=x.device)
+                     + _coll.group_rank(sp) * s)
     q, k, v = qkv_project(x, p, prefix, cfg, positions)
+    if attn_fn is None and sp is not None:
+        from nvme_strom_tpu_torch.parallel.ring_attention import ring_block
+        attn_fn = functools.partial(ring_block, group=sp)
     if attn_fn is None:
         # back to projection layout: free views of the projections
         out = dense_causal_attention_grouped(
@@ -427,6 +444,12 @@ def forward_hidden(params: Dict, tokens: torch.Tensor,
     bytes read back, so activations take one layer's worth of device
     memory whatever the depth."""
     policy = _remat_policy(cfg)
+    if _coll.sp_group() is not None and cfg.n_experts > 0:
+        # the JAX model routes whole rows here; a span's routing groups
+        # would be other ones (the pipeline routes spans, as its JAX
+        # counterpart does)
+        raise ValueError("MoE layers under sp run in the pipeline only "
+                         "(parallel/pipeline.py)")
     x = _coll.gather_from(wmat(params, "tok_embed", cfg.dtype)[tokens.long()],
                           _coll.tp_group())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -485,42 +508,76 @@ def _chunk_nll(h, w, t, wt, group=None, start=0):
     return ((lse - tl) * wt).sum()
 
 
-def chunked_xent(params: Dict, hidden: torch.Tensor, tokens: torch.Tensor,
-                 cfg: TransformerConfig) -> torch.Tensor:
-    """Mean next-token NLL without materialising (b, s, vocab): the
-    sequence is cut into ``cfg.xent_chunks`` slices, each projected
-    through the lm_head and reduced under one ``torch.utils.checkpoint``
-    (its logits are recomputed in the backward).  The last position has
-    no next token and carries weight 0."""
-    b, s, _ = hidden.shape
-    n = cfg.xent_chunks
-    if s % n:
-        raise ValueError(f"xent_chunks={n} must divide the sequence "
-                         f"length {s}")
-    c = s // n
+def next_token_targets(tokens: torch.Tensor):
+    """(targets, weights, count) of the next-token loss over tokens
+    (b, s): each position's next token with weight 1 float32, the
+    sequence's last position target 0 with weight 0; ``count`` the
+    predicted positions, b·(S − 1).  Under sp (the current
+    ``use_mesh``) tokens are this rank's span of the sequence S: a
+    span's last position predicts the next span's first token, received
+    from the next rank, and only the last span's last position has
+    weight 0."""
     tokens = tokens.long()
-    targets = torch.cat([tokens[:, 1:], tokens.new_zeros(b, 1)], dim=1)
-    weights = torch.ones(b, s, dtype=torch.float32, device=hidden.device)
-    weights[:, -1] = 0.0
-    w = wmat(params, "lm_head", hidden.dtype)
-    group, start = _coll.tp_group(), _vocab_start(params)
+    b, s = tokens.shape
+    sp = _coll.sp_group()
+    n, r = _coll.group_size(sp), _coll.group_rank(sp)
+    last = (_coll.ppermute(tokens[:, :1].contiguous(), sp, shift=-1)
+            if sp is not None else tokens.new_zeros(b, 1))
+    targets = torch.cat([tokens[:, 1:], last], dim=1)
+    weights = torch.ones(b, s, dtype=torch.float32, device=tokens.device)
+    if r == n - 1:
+        weights[:, -1] = 0.0
+    return targets, weights, b * (s * n - 1)
+
+
+def nll_sum(hidden: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+            weights: torch.Tensor, chunks: int = 1, group=None,
+            start: int = 0) -> torch.Tensor:
+    """Σ weight · NLL of ``hidden`` (b, s, d) through the lm_head ``w``
+    (this rank's vocabulary columns from ``start`` under a tp
+    ``group``).  ``chunks`` > 1 cuts the sequence into that many slices,
+    each projected and reduced under one ``torch.utils.checkpoint`` (its
+    logits are recomputed in the backward), so (b, s, vocab) logits
+    never exist at once."""
+    if chunks <= 1:
+        return _chunk_nll(hidden, w, targets, weights, group, start)
+    s = hidden.shape[1]
+    if s % chunks:
+        raise ValueError(f"xent_chunks={chunks} must divide the sequence "
+                         f"length {s}")
+    c = s // chunks
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(n):
+    for i in range(chunks):
         sl = slice(i * c, (i + 1) * c)
         total = total + checkpoint(_chunk_nll, hidden[:, sl], w,
                                    targets[:, sl], weights[:, sl], group,
                                    start, use_reentrant=False)
-    return total / (b * (s - 1))
+    return total
+
+
+def chunked_xent(params: Dict, hidden: torch.Tensor, tokens: torch.Tensor,
+                 cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token NLL without materialising (b, s, vocab): the
+    sequence cut into ``cfg.xent_chunks`` slices (:func:`nll_sum`).
+    Targets and weights are :func:`next_token_targets`' (under sp, this
+    span's share of the mean)."""
+    targets, weights, count = next_token_targets(tokens)
+    return nll_sum(hidden, wmat(params, "lm_head", hidden.dtype), targets,
+                   weights, cfg.xent_chunks, _coll.tp_group(),
+                   _vocab_start(params)) / count
 
 
 def loss_fn(params: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
             attn_fn=None, act_store=None) -> torch.Tensor:
     """Next-token cross-entropy; tokens are input and target.  The full
     sequence is forwarded and the last logit dropped.  ``xent_chunks``
-    > 1 takes :func:`chunked_xent`.  The MoE aux loss is added times
-    ``router_aux_coef``.  ``act_store`` serves ``remat_policy="nvme"``
-    (see :func:`forward_hidden`)."""
-    if cfg.xent_chunks > 1:
+    > 1, and sp, take :func:`chunked_xent`.  The MoE aux loss is added
+    times ``router_aux_coef``.  ``act_store`` serves
+    ``remat_policy="nvme"`` (see :func:`forward_hidden`).  Under sp (the
+    current ``use_mesh``) tokens are this rank's span and the loss is the
+    span's share of the mean over the whole sequence
+    (:func:`next_token_targets`): the shares add over ``sp``."""
+    if cfg.xent_chunks > 1 or _coll.sp_group() is not None:
         hidden, aux = forward_hidden(params, tokens, cfg, attn_fn,
                                      act_store=act_store)
         return (chunked_xent(params, hidden, tokens, cfg)
@@ -697,9 +754,11 @@ def make_train_step(cfg: TransformerConfig, optimizer, attn_fn=None,
 
     Under a ``mesh`` (parallel/mesh.py) ``params`` are this rank's
     slices (``shardings``, parallel/shardings.py ``param_shardings``)
-    and ``tokens`` its ``dp`` block of the batch: the model runs inside
-    ``use_mesh(mesh)``, the gradients and the loss are averaged over
-    ``dp``, and the returned loss is the whole batch's."""
+    and ``tokens`` its ``dp`` block of the batch (with ``sp``, its span
+    of that block's sequences): the model runs inside ``use_mesh(mesh)``,
+    the gradients and the loss are summed over ``sp`` and averaged over
+    ``dp`` (``collectives.mesh_mean_``), and the returned loss is the
+    whole batch's."""
 
     def step(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         with _coll.use_mesh(mesh):
@@ -707,9 +766,9 @@ def make_train_step(cfg: TransformerConfig, optimizer, attn_fn=None,
                 lambda mb: value_and_grad(params, mb, cfg, attn_fn,
                                           act_store=act_store), params,
                 tokens, accum_steps)
-        if mesh is not None and mesh.group("dp") is not None:
+        if mesh is not None and mesh.group(("dp", "sp")) is not None:
             loss = loss.reshape(1).clone()
-            _coll.dp_mean_(list(grads.values()) + [loss], mesh.group("dp"))
+            _coll.mesh_mean_(list(grads.values()) + [loss], mesh)
             loss = loss[0]
         with _coll.use_mesh(mesh):
             apply_gradients(optimizer, params, grads, lr=lr,

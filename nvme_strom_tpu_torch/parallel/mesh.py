@@ -4,8 +4,8 @@ nvme_strom_tpu/parallel/mesh.py).
 One process a rank: :func:`init_distributed` brings ``torch.distributed``
 up (NCCL on the cards, gloo on the CPU, or gloo over CUDA tensors for
 several ranks on one card), and :class:`Mesh` names axes (``dp``,
-``tp``, ``ep``) over its ranks with a process group along every set of
-axes.  The JAX package lets XLA insert the collectives a sharding
+``tp``, ``sp``, ``pp``, ``ep``) over its ranks with a process group
+along every set of axes.  The JAX package lets XLA insert the collectives a sharding
 implies; the port calls them itself (parallel/collectives.py).
 
 An :class:`ExchangeGroup` is an ordered list of devices; rank r stands
@@ -99,6 +99,18 @@ def local_batch_slice(global_batch: int,
     return slice(pi * per, (pi + 1) * per)
 
 
+def batch_sharding(mesh, axis: str = "dp", seq_axis: Optional[str] = None):
+    """The :class:`~nvme_strom_tpu_torch.parallel.shardings.Sharding` of a
+    (batch, seq, ...) array: dim 0 over ``axis`` and, with ``seq_axis``,
+    dim 1 over it (the input of ring or Ulysses sequence parallelism).
+    A ``seq_axis`` the mesh lacks raises."""
+    from nvme_strom_tpu_torch.parallel.shardings import P, Sharding
+    if seq_axis is not None and seq_axis not in mesh.shape:
+        raise ValueError(
+            f"mesh has no {seq_axis!r} axis for sequence sharding")
+    return Sharding(mesh, P(axis) if seq_axis is None else P(axis, seq_axis))
+
+
 # -- one process a rank: torch.distributed ------------------------------------
 
 #: the gloo group over every rank that carries host-side control traffic
@@ -107,6 +119,11 @@ def local_batch_slice(global_batch: int,
 _CONTROL = None
 #: the device this process computes on, set by :func:`init_distributed`
 _LOCAL_DEVICE: Optional[torch.device] = None
+
+#: every mesh group made since :func:`init_distributed`, by its ranks:
+#: meshes whose axes cut the same sets of ranks share one group (a new
+#: NCCL group costs every rank about half a second on the cards)
+_GROUPS: dict = {}
 
 #: seconds a collective may wait for a peer before the process group
 #: raises: a dead rank must fail its peers, not hang them
@@ -175,6 +192,7 @@ def init_distributed(init_method: Optional[str] = None,
     _CONTROL = (dist.new_group(backend="gloo", timeout=timeout)
                 if backend != "gloo" else dist.group.WORLD)
     _LOCAL_DEVICE = device
+    _GROUPS.clear()
     return True
 
 
@@ -185,6 +203,7 @@ def shutdown_distributed() -> None:
         torch.distributed.destroy_process_group()
     _CONTROL = None
     _LOCAL_DEVICE = None
+    _GROUPS.clear()
 
 
 def control_group():
@@ -232,7 +251,8 @@ class Mesh:
     rank's index along it.  :meth:`group` gives the process group of
     the ranks that differ from this one only along the named axes (None
     where that group is this rank alone).  Every group is made when the
-    mesh is, by every rank in the same order, as ``new_group`` needs."""
+    mesh is, by every rank in the same order, as ``new_group`` needs; a
+    set of ranks an earlier mesh made a group for reuses that group."""
 
     def __init__(self, sizes: Sequence[int], names: Sequence[str],
                  rank: int = 0):
@@ -253,7 +273,10 @@ class Mesh:
                 for ranks in self._all_groups(axes):
                     if len(ranks) < 2:
                         continue
-                    g = torch.distributed.new_group(ranks)
+                    g = _GROUPS.get(tuple(ranks))
+                    if g is None:
+                        g = _GROUPS[tuple(ranks)] = \
+                            torch.distributed.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[axes] = g
 

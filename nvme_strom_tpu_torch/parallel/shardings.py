@@ -194,9 +194,18 @@ def shard_params(params: Dict, cfg, mesh, device=None,
 
 
 def batch_spec(seq_sharded: bool = False) -> P:
-    """(batch, seq) tokens: batch over dp; seq over sp for sequence
-    parallelism (ROADMAP Queue 1 item 12b)."""
+    """(batch, seq) tokens: batch over dp; seq over sp for ring or
+    Ulysses attention (parallel/ring_attention.py, parallel/ulysses.py),
+    each rank holding one span of every row."""
     return P("dp", "sp") if seq_sharded else P("dp", None)
+
+
+def batch_shardings(mesh, seq_sharded: bool = False) -> Sharding:
+    """:func:`batch_spec` on ``mesh``; ``seq_sharded`` on a mesh without
+    ``sp`` raises."""
+    if seq_sharded and "sp" not in mesh.shape:
+        raise ValueError("mesh has no 'sp' axis for sequence sharding")
+    return Sharding(mesh, batch_spec(seq_sharded))
 
 
 class Shard:
@@ -223,8 +232,19 @@ class Shard:
         return f"Shard({self.bounds} of {self.shape})"
 
 
-def local_slice(batch, mesh, axis: str = "dp"):
-    """This rank's block of a global batch along ``axis`` (dim 0): the
-    rows its ``dp`` group feeds."""
-    b0, b1 = Sharding(mesh, P(axis)).local_bounds(tuple(batch.shape))[0]
+def local_slice(batch, mesh, axis: str = "dp", seq_axis=None):
+    """This rank's block of a global batch: the rows along ``axis``
+    (dim 0) its ``dp`` group feeds and, with ``seq_axis``, its span of
+    dim 1 (the sequence, for ring or Ulysses attention).  A dim 1 that
+    ``seq_axis`` does not divide raises."""
+    from nvme_strom_tpu_torch.parallel.mesh import batch_sharding
+    sh = batch_sharding(mesh, axis, seq_axis)
+    if seq_axis is not None:
+        n = mesh.shape[seq_axis]
+        if batch.shape[1] % n:
+            raise ValueError(f"seq {batch.shape[1]} not divisible by "
+                             f"{seq_axis}={n}")
+        (b0, b1), (s0, s1) = sh.local_bounds(tuple(batch.shape[:2]))
+        return batch[b0:b1, s0:s1]
+    b0, b1 = sh.local_bounds(tuple(batch.shape[:1]))[0]
     return batch[b0:b1]

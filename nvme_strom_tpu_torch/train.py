@@ -16,8 +16,10 @@ float32 master weights (a warm start is cast to float32).
 Under a ``mesh`` (parallel/mesh.py, one process a rank) each rank holds
 its slices of the parameters and of the AdamW moments
 (parallel/shardings.py ``param_shardings``), takes its ``dp`` block of
-each batch (the rows a mesh-aware ``ShardedLoader`` yields), averages
-the gradients over ``dp``, warm-starts through ``load_sharded`` (each
+each batch (the rows a mesh-aware ``ShardedLoader`` yields; with ``sp``,
+its span of them, ``seq_axis="sp"``, and an ``attn_fn`` such as
+``make_ring_attn(mesh, inner="flash")``), sums the gradients over ``sp``
+and averages them over ``dp``, warm-starts through ``load_sharded`` (each
 rank reading its own rows), and saves and resumes its own tiles of the
 checkpoint (checkpoint/manager.py), under this mesh or another.
 """

@@ -458,6 +458,173 @@ def marker_crash(rank: int, world: int, p: dict) -> dict:
         return {"error": str(e)}
 
 
+# -- jobs: sequence and pipeline parallelism (tests/test_torch_seqpar.py,
+# tests/test_torch_pipeline.py) -----------------------------------------------
+
+def _bhsd_sharding(mesh):
+    """(b, h, s, d) attention blocks: batch over dp, heads over tp, the
+    sequence over sp."""
+    from nvme_strom_tpu_torch.parallel.shardings import P, Sharding
+    return Sharding(mesh, P("dp", "tp", "sp", None))
+
+
+def _attn_fn(kind, mesh, device=None):
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    from nvme_strom_tpu_torch.parallel.ring_attention import make_ring_attn
+    from nvme_strom_tpu_torch.parallel.ulysses import make_ulysses_attn
+    if kind is None:
+        return None
+    if kind.startswith("ring"):
+        return make_ring_attn(mesh, inner=kind.split("_")[1])
+    return make_ulysses_attn(
+        mesh, attn=make_flash_attn() if kind == "ulysses_flash" else None)
+
+
+def seqpar_cases(rank: int, world: int, cases: list) -> dict:
+    """Each case's result under its mesh (ring and Ulysses attention,
+    the model under sp), keyed by the case's name."""
+    import torch
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel import collectives as coll
+    from nvme_strom_tpu_torch.parallel.mesh import make_mesh
+    from nvme_strom_tpu_torch.parallel.ring_attention import ring_attention
+    from nvme_strom_tpu_torch.parallel.shardings import (local_slice,
+                                                         param_shardings,
+                                                         shard_params)
+    from nvme_strom_tpu_torch.parallel.ulysses import ulysses_attention
+    from nvme_strom_tpu_torch.ops.flash_attention import make_flash_attn
+    out = {}
+    meshes = {}
+    for case in cases:
+        key = tuple(case["axes"].items())
+        if key not in meshes:
+            meshes[key] = make_mesh(case["axes"])
+        mesh = meshes[key]
+        kind = case["kind"]
+        if kind == "attn":
+            sh = _bhsd_sharding(mesh)
+            shape = case["q"].shape
+            cut = tuple(slice(a, b) for a, b in sh.local_bounds(shape))
+            qkv = [torch.from_numpy(case[n][cut]).requires_grad_()
+                   for n in "qkv"]
+            if case["impl"] == "ring":
+                o = ring_attention(*qkv, mesh, causal=case["causal"],
+                                   inner=case["inner"])
+            else:
+                o = ulysses_attention(
+                    *qkv, mesh, attn=make_flash_attn()
+                    if case["inner"] == "flash" else None)
+            res = {"shapes": {n: shape for n in "oqkv"},
+                   "slices": {"o": (sh.local_bounds(shape),
+                                    o.detach().numpy())}}
+            if case.get("grad"):
+                gs = torch.autograd.grad((o.float() ** 2).sum(), qkv)
+                for n, g in zip("qkv", gs):
+                    res["slices"][n] = (sh.local_bounds(shape), g.numpy())
+            out[case["name"]] = res
+            continue
+        cfg = _cfg("lm", case["cfg"])
+        sh = param_shardings(cfg, mesh)
+        shapes = ttr.param_shapes(cfg)
+        params = ttr.trainable_params(
+            shard_params(case["params"], cfg, mesh, shardings=sh), "cpu")
+        tokens = torch.from_numpy(case["tokens"])
+        mine = local_slice(tokens, mesh, seq_axis="sp")
+        attn = _attn_fn(case.get("attn"), mesh)
+        if kind == "forward":
+            with coll.use_mesh(mesh), torch.no_grad():
+                logits = ttr.forward(params, mine, cfg, attn)
+            bounds = _sharding_2d(mesh).local_bounds(tokens.shape)
+            out[case["name"]] = {"logits": logits.numpy(),
+                                 "bounds": bounds}
+        elif kind == "loss":
+            with coll.use_mesh(mesh):
+                loss, grads = ttr.value_and_grad(params, mine, cfg, attn)
+            loss = loss.reshape(1).clone()
+            names = list(grads)
+            gl = [grads[n] for n in names]
+            coll.mesh_mean_(gl + [loss], mesh)
+            out[case["name"]] = {
+                "loss": float(loss[0]), "shapes": shapes,
+                "slices": {n: (sh[n].local_bounds(shapes[n]),
+                               g.numpy().copy())
+                           for n, g in zip(names, gl)}}
+        elif kind == "train":
+            step = ttr.make_train_step(
+                cfg, ttr.adamw(params, case["lr"]), attn_fn=attn,
+                mesh=mesh, shardings=sh,
+                grad_clip=case.get("grad_clip", 0.0))
+            losses = [float(step(params, mine))
+                      for _ in range(case["steps"])]
+            out[case["name"]] = {"losses": losses, "shapes": shapes,
+                                 "slices": _slices(params, sh, shapes)}
+        else:
+            raise ValueError(kind)
+    return out
+
+
+def _sharding_2d(mesh):
+    """(batch, seq): rows over dp, the sequence over sp where the mesh
+    has it."""
+    from nvme_strom_tpu_torch.parallel.mesh import batch_sharding
+    return batch_sharding(mesh, "dp", "sp" if "sp" in mesh.shape else None)
+
+
+def pipeline_cases(rank: int, world: int, cases: list) -> dict:
+    """Each case's pipelined loss, gradients or train-step losses under
+    its mesh, keyed by the case's name."""
+    import torch
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel import pipeline as pp
+    from nvme_strom_tpu_torch.parallel.mesh import make_mesh
+    from nvme_strom_tpu_torch.parallel.shardings import local_slice
+    out = {}
+    meshes = {}
+    for case in cases:
+        key = tuple(case["axes"].items())
+        if key not in meshes:
+            meshes[key] = make_mesh(case["axes"])
+        mesh = meshes[key]
+        cfg = _cfg("lm", case["cfg"])
+        stack, rest = pp.split_layer_stack(case["params"], cfg)
+        shapes = {n: t.shape for n, t in pp.named_leaves(stack)}
+        shs = dict(pp.named_leaves(pp.stacked_shardings(mesh, cfg)))
+        stack = pp.shard_stack(stack, mesh, cfg)
+        stack = pp.from_leaves(stack, {
+            n: t.requires_grad_() for n, t in pp.named_leaves(stack)})
+        rest = ttr.trainable_params(rest, "cpu")
+        seq = "sp" if "sp" in mesh.shape else None
+        mine = local_slice(torch.from_numpy(case["tokens"]), mesh,
+                           seq_axis=seq)
+        n_mb = case["n_mb"]
+        res = {}
+        if case["kind"] == "loss":
+            res["loss"] = float(pp.make_pp_loss(cfg, mesh, n_mb)(
+                stack, rest, mine))
+            logits, aux = pp.make_pp_forward_with_aux(cfg, mesh, n_mb)(
+                stack, rest, mine)
+            res["aux"] = float(aux)
+            res["logits"] = logits.numpy()
+            res["bounds"] = _sharding_2d(mesh).local_bounds(
+                case["tokens"].shape)
+        elif case["kind"] == "grad":
+            loss, g_stack, g_rest = pp.make_pp_value_and_grad(
+                cfg, mesh, n_mb)(stack, rest, mine)
+            res["loss"] = float(loss)
+            res["shapes"] = shapes
+            res["slices"] = {n: (shs[n].local_bounds(shapes[n]),
+                                 g.numpy().copy())
+                             for n, g in pp.named_leaves(g_stack)}
+            res["rest"] = {n: g.numpy() for n, g in g_rest.items()}
+        else:
+            opt = ttr.adamw(pp.pp_parameters(stack, rest), case["lr"])
+            step = pp.make_pp_train_step(cfg, opt, mesh, n_mb)
+            res["losses"] = [float(step(stack, rest, mine))
+                             for _ in range(case["steps"])]
+        out[case["name"]] = res
+    return out
+
+
 # -- jobs: on the card (tests/test_torch_cuda.py) -----------------------------
 
 def cuda_refuse(rank: int, world: int, p: dict) -> dict:
@@ -611,6 +778,74 @@ def cuda_load_sharded(rank: int, world: int, p: dict) -> dict:
                              for n, t in got.items()),
                 share=after["ici_bytes_read"] - before["ici_bytes_read"],
                 fallbacks=after["ici_fallbacks"] - before["ici_fallbacks"])
+    return out
+
+
+def cuda_seqpar(rank: int, world: int, p: dict) -> dict:
+    """The ring and Ulysses on the flash kernels over ``world`` ranks on
+    the card(s): this rank's launches of one call, and its span's
+    distance from one rank's bf16 flash over the whole sequence and
+    from a float32 run, beside that bf16 output's own distance from
+    float32; then a float32 pipelined loss and its one-rank value."""
+    import torch
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.ops import flash_attention as fa
+    from nvme_strom_tpu_torch.parallel import pipeline as tpp
+    from nvme_strom_tpu_torch.parallel.mesh import local_device, make_mesh
+    from nvme_strom_tpu_torch.parallel.ring_attention import make_ring_attn
+    from nvme_strom_tpu_torch.parallel.shardings import local_slice
+    from nvme_strom_tpu_torch.parallel.ulysses import make_ulysses_attn
+    dev = local_device()
+    mesh = make_mesh({"sp": world})
+    b, h, s, d = p["shape"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def whole(dt):
+        qq, kk, vv = (t.detach().to(dt).clone().requires_grad_()
+                      for t in (q, k, v))
+        o = fa.flash_attention(qq, kk, vv)
+        o.backward(do.to(dt))
+        return [o.detach(), qq.grad, kk.grad, vv.grad]
+    r16, r32 = whole(torch.bfloat16), whole(torch.float32)
+    w = s // world
+    cut = slice(rank * w, (rank + 1) * w)
+    out = {}
+    for name, fn in (("ring", make_ring_attn(mesh, inner="flash")),
+                     ("ulysses", make_ulysses_attn(
+                         mesh, attn=fa.make_flash_attn()))):
+        qs, ks, vs = (t[:, :, cut].detach().clone().requires_grad_()
+                      for t in (q, k, v))
+        before = [getattr(fa, n).launches for n in names]
+        o = fn(qs, ks, vs)
+        o.backward(do[:, :, cut])
+        torch.cuda.synchronize()
+        got = [o.detach(), qs.grad, ks.grad, vs.grad]
+        out[name] = {
+            "launches": [getattr(fa, n).launches - c
+                         for n, c in zip(names, before)],
+            "dist": [float((g.float() - a[:, :, cut].float()).abs().max())
+                     for g, a in zip(got, r16)],
+            "dist32": [float((g.float() - z[:, :, cut]).abs().max())
+                       for g, z in zip(got, r32)],
+            "floor": [float((a[:, :, cut].float() - z[:, :, cut])
+                            .abs().max()) for a, z in zip(r16, r32)]}
+    cfg = ttr.TransformerConfig(**{**ttr.tiny_config().__dict__,
+                                   "max_seq": 16, "dtype": torch.float32})
+    full = ttr.init_params(0, cfg)
+    tokens = torch.from_numpy(p["tokens"]).to(dev)
+    pmesh = make_mesh({"dp": world // 2, "pp": 2})
+    stack, rest = tpp.split_layer_stack(full, cfg)
+    stack = tpp.shard_stack(stack, pmesh, cfg, device=dev)
+    rest = {n: torch.from_numpy(t).to(dev) for n, t in rest.items()}
+    out["pp_loss"] = float(tpp.make_pp_loss(cfg, pmesh, 2)(
+        stack, rest, local_slice(tokens, pmesh)))
+    with torch.no_grad():
+        out["one_rank_loss"] = float(ttr.loss_fn(
+            {n: torch.from_numpy(t).to(dev) for n, t in full.items()},
+            tokens, cfg))
     return out
 
 

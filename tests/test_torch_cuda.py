@@ -1749,3 +1749,55 @@ def test_scatter_restore_across_processes_on_cards(dev, tmp_path):
     for r in res:
         assert r["equal"] and r["restored"] and r["fallbacks"] == 0, r
         assert 0 < r["share"] <= payload / 2 + 4096
+
+
+def _check_seqpar(res, world):
+    """Over all ranks a ring call launches each flash kernel
+    world(world + 1)/2 times and Ulysses once a rank.  Each rank is held
+    to its own span's floor, one rank's bf16 distance from float32 there
+    (the self-calibrated bounds of chip_smoke.py's sp_pp_phase): the
+    output at most 3x that from one rank's bf16 flash and from float32,
+    a gradient at most 2·world x from one rank's bf16 and 2·world + 1 x
+    from float32.  The pipelined loss is one rank's."""
+    readings, over = [], []
+    for name, want in (("ring", world * (world + 1) // 2),
+                       ("ulysses", world)):
+        assert [sum(r[name]["launches"][i] for r in res)
+                for i in range(3)] == [want] * 3, res
+        for i, (limit, limit32) in enumerate(
+                [(3.0, 3.0)] + [(2.0 * world, 2.0 * world + 1)] * 3):
+            for rank, r in enumerate(res):
+                dist, dist32, floor = (r[name][k][i]
+                                       for k in ("dist", "dist32", "floor"))
+                x = (name, ("out", "dq", "dk", "dv")[i], rank, dist, dist32,
+                     floor)
+                readings.append(x)
+                if not (0 < floor and dist <= limit * floor
+                        and dist32 <= limit32 * floor):
+                    over.append(x)
+    # every rank's readings in the message: (part, tensor, rank, from
+    # one rank's bf16, from float32, floor)
+    assert not over, (over, readings)
+    for r in res:
+        assert r["pp_loss"] == pytest.approx(r["one_rank_loss"], rel=1e-4)
+
+
+_SEQPAR = {"shape": (1, 8, 2048, 64),
+           "tokens": np.random.default_rng(3).integers(
+               0, 128, (8, 16)).astype(np.int32)}
+
+
+def test_ring_on_flash_two_ranks_on_one_card(dev, tmp_path):
+    """Sequence parallelism with two ranks on cuda:0 over gloo (K/V,
+    all-to-alls and stage sends through host memory)."""
+    _check_seqpar(_spawn("cuda_seqpar", 2, tmp_path, _SEQPAR, "cuda:0",
+                         "gloo"), 2)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_on_flash_across_cards(dev, tmp_path, world):
+    """The same with one rank a card over NCCL."""
+    _cards(world)
+    _check_seqpar(_spawn("cuda_seqpar", world, tmp_path, _SEQPAR,
+                         "cuda:RANK", "nccl"), world)
+
