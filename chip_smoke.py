@@ -213,12 +213,33 @@ It builds the port's native libraries from the checkout, then:
    ``host_us``, ``design`` and, on two or four cards, ``two_cards`` and
    ``four_cards``.
 
+Main path 6, before phase 8, is Direct SQL (``sql_phase``): tables
+written from the seed by the port's own writers (``sql/pqwrite.py``,
+``formats/arrow.py``) under ``.bench_torch/sql/``, scanned through the
+engine and ``h2d_copy``, decoded and aggregated on the card, every answer
+held against numpy: (a) ``SELECT k, COUNT(*), SUM(v), MEAN(v) ... GROUP
+BY k`` over 1 GiB (2^27 rows, 16 row groups of 1 MiB PLAIN pages) with
+``bounce_bytes`` 0, at both fold methods and windows 0 and 64 MiB,
+beside an engine-only read of the file, then both windows on 8 MiB row
+groups; (b) a string key of 8 RLE_DICTIONARY labels, each chunk's
+indices decoded on the card equal to numpy's, bounce within the raw
+index bytes; (c) GZIP level 1, bounce equal to the decompressed page
+bytes; (d) a 1/8 BETWEEN with ORDER BY v DESC LIMIT 10, at least 27 of
+32 row groups skipped by the zone maps; (e) the star join; (f) nulls in
+v2 pages; (g) a ``DeviceTable`` of (a) queried with 0 NVMe bytes, and a
+control fold with TF32 on that must fail the SUM limit (5e-8 of a
+group's sum of |v|); (h) 256 MiB of Arrow IPC bitwise, bounce 0; (i)
+``multi_groupby`` over 4 files.  Part (j) runs in main path 4's
+ranks: ``dist_groupby`` over (i)'s files.  ``python3 chip_smoke.py
+--sql`` runs the phase alone after the build; ``--multigpu`` runs (j)
+with main path 4.
+
 Main path 4, after phase 9, is data and tensor parallel across
 processes (``multigpu_phase``): the one-rank references on ``cuda:0``,
 then every count at 0 and the ranks started as ``chip_smoke.py
 --multigpu-worker``, two on ``cuda:0`` over gloo on one card, one a card
 over NCCL on 2-4 cards; every rank must launch kernels 1, 2 and 4-6
-(and kernel 7 across cards).  ``python3 chip_smoke.py --multigpu`` runs
+(and kernel 7 across cards); part (j) is Direct SQL's ``dist_groupby``.  ``python3 chip_smoke.py --multigpu`` runs
 that path alone after the build.
 
 Main path 5 is sequence and pipeline parallelism across processes
@@ -244,7 +265,7 @@ and ``h2d_copy``
 in phase 6, kernels 1-3 in its verify run, ``h2d_copy`` in the
 recovering loader's run, ``h2d_copy`` and the flash kernels in
 the training-beyond-device-memory run, ``h2d_copy`` in the data-format,
-ViT and eval_ppl runs, and ``h2d_copy`` and ``ici_ring_gather`` in
+ViT, eval_ppl and SQL runs, and ``h2d_copy`` and ``ici_ring_gather`` in
 phase 9, which must also end with no brown-out (``ici_fallbacks`` 0).
 Any failure exits non-zero before the result line; so does a machine
 without CUDA, or a directory without the package.
@@ -6610,6 +6631,677 @@ def attrib_phase(dev, cfg, params, shared):
     return report
 
 
+# -- Direct SQL: Parquet and Arrow scanned and aggregated on the card -------
+
+#: the phase's wall-clock budget (s), the tables' writing included, and
+#: its tables (rows): (a) the GROUP BY scan (BASELINE.json config 5 at 4x
+#: bench_suite's 256 MiB), (b) the dictionary string key, (c) GZIP, (d)
+#: pushdown and top-k, (e) the star join, (f) nulls, (h) Arrow (bytes),
+#: (i) the multi-file union (files x rows), whose files (j) reuses
+SQL_BUDGET_S = 75
+SQL_A_ROWS, SQL_A_GROUPS, SQL_A_RGS = 1 << 27, 64, 16
+SQL_B_ROWS, SQL_B_RGS = 1 << 25, 8
+SQL_C_ROWS = 1 << 24
+SQL_D_ROWS, SQL_D_RGS = 1 << 25, 32
+SQL_E_ROWS, SQL_E_KEYS, SQL_E_ATTRS = 1 << 24, 1024, 16
+SQL_F_ROWS, SQL_F_NULL = 1 << 22, 0.10
+SQL_H_BYTES, SQL_H_BATCHES = 256 << 20, 16
+SQL_I_FILES, SQL_I_ROWS = 4, 1 << 23
+SQL_WINDOWS = (0, 64 << 20)
+#: the windows' table: (a)'s columns in row groups of 8 MiB, so that a
+#: 64 MiB window folds 8 of them at once (rows, rows a row group, trials)
+SQL_W_ROWS, SQL_W_RG_ROWS, SQL_W_TRIALS = 1 << 25, 1 << 20, 3
+SQL_CITIES = ("tokyo", "osaka", "kyoto", "nagoya", "sapporo", "fukuoka",
+              "sendai", "kobe")
+#: a group's f32 SUM against float64 numpy: |err| <= SQL_SUM_RTOL x the
+#: group's sum of |v|.  Sound folds on an H100 read at most 1.7e-8 of it
+#: (scatter's f32 atomics, 2^17 rows a group and fold) and 1.9e-9 (the
+#: matmul); TF32 in the one-hot product rounds each value to 11 bits, a
+#: random error of ~2e-7 of it at 2^21 rows a group, which (g)'s control
+#: must show failing this limit
+SQL_SUM_RTOL = 5e-8
+
+
+def _sql_dir():
+    d = os.path.join(DATA_DIR, "sql")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _sql_sum_ratio(got_sum, ref_sum, ref_abs):
+    """The largest group's SUM error over its limit (1 = at the limit)."""
+    import numpy as np
+    err = np.abs(np.asarray(got_sum, np.float64) - ref_sum)
+    lim = SQL_SUM_RTOL * np.maximum(ref_abs, 1.0)
+    return float((err / lim).max()) if len(err) else 0.0
+
+
+def _sql_sums_ok(name, got_sum, ref_sum, ref_abs):
+    ratio = _sql_sum_ratio(got_sum, ref_sum, ref_abs)
+    if ratio > 1.0:
+        raise AssertionError(f"sql {name}: SUM {ratio:.3f}x its limit "
+                             f"({SQL_SUM_RTOL} of the group's sum of |v|)")
+    return ratio
+
+
+class _tf32_on:
+    """The control's context in place of ``groupby.full_fp32``: TF32
+    allowed in the one-hot product."""
+
+    def __enter__(self):
+        import torch
+        self.prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = self.prev
+
+
+def _sql_no_host_path(scanner):
+    """The phase's scans must stay on the direct path: the host path of
+    this scanner raises."""
+    def refuse(*a, **k):
+        raise AssertionError(f"sql: {scanner.path} fell back to the host "
+                             "path")
+    scanner.iter_row_groups = refuse
+    return scanner
+
+
+def sql_multi_files(dev):
+    """(i)'s four files (written once) and the union's answer by numpy
+    (float64) and by ``multi_groupby`` on ``dev``: the reference (j)'s
+    ranks are held to."""
+    import numpy as np
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.sql import ParquetScanner, multi_groupby
+    from nvme_strom_tpu_torch.sql.pqwrite import write_parquet
+    d = _sql_dir()
+    paths = [os.path.join(d, f"multi{i}.parquet")
+             for i in range(SQL_I_FILES)]
+    count = np.zeros(SQL_A_GROUPS, np.int64)
+    sums = np.zeros(SQL_A_GROUPS)
+    abss = np.zeros(SQL_A_GROUPS)
+    for i, p in enumerate(paths):
+        rng = np.random.default_rng(SEED + 500 + i)
+        k = rng.integers(0, SQL_A_GROUPS, SQL_I_ROWS, dtype=np.int32)
+        v = rng.standard_normal(SQL_I_ROWS, dtype=np.float32)
+        if not os.path.exists(p):
+            write_parquet(p, {"k": k, "v": v},
+                          row_group_size=SQL_I_ROWS // 4)
+        count += np.bincount(k, minlength=SQL_A_GROUPS)
+        sums += np.bincount(k, weights=v, minlength=SQL_A_GROUPS)
+        abss += np.bincount(k, weights=np.abs(v), minlength=SQL_A_GROUPS)
+    with StromEngine() as eng:
+        scs = [_sql_no_host_path(ParquetScanner(p, eng)) for p in paths]
+        t0 = time.monotonic()
+        res = multi_groupby(scs, "k", "v", SQL_A_GROUPS,
+                            aggs=("count", "sum"), device=dev)
+        secs = time.monotonic() - t0
+    got_c = res["count"].cpu().numpy()
+    got_s = res["sum"].cpu().numpy()
+    if not np.array_equal(got_c, count):
+        raise AssertionError("sql (i): multi_groupby's counts differ from "
+                             "the union's")
+    ratio = _sql_sums_ok("(i)", got_s, sums, abss)
+    np.savez(os.path.join(d, "multi_answer.npz"), count=got_c, sum=got_s,
+             ref_sum=sums, ref_abs=abss)
+    return {"paths": paths, "seconds": secs, "sum_ratio": ratio,
+            "rows": SQL_I_FILES * SQL_I_ROWS}
+
+
+def sql_phase(dev):
+    """Direct SQL on the card through the port's entry points, every
+    table written by the port's writers from the seed, every answer held
+    against numpy: (a) GROUP BY over 1 GiB (2^27 rows, 16 row groups of
+    1 MiB PLAIN pages) by ``sql_query``, bounce 0, at both fold methods
+    and windows 0 and 64 MiB, beside an engine-only read, then the two
+    windows on 2^25 rows in 8 MiB row groups; (b) a string
+    key of 8 RLE_DICTIONARY labels, each chunk's indices decoded on the
+    card equal to numpy's, bounce within the raw index bytes; (c) GZIP
+    level 1 on the direct path, bounce = the decompressed page bytes;
+    (d) a 1/8 BETWEEN over an ascending int64 with ORDER BY ... LIMIT
+    10, >= 27 of 32 groups skipped by the zone maps; (e) the star join;
+    (f) nulls under ``nulls="mask"`` and SUM / COUNT skipping them; (g)
+    (a)'s columns cached in a ``DeviceTable``, the query again with 0
+    NVMe bytes, and once with TF32 let into the one-hot product, which
+    must fail the SUM limit; (h) 256 MiB of Arrow IPC bitwise with bounce 0; (i)
+    ``multi_groupby`` over 4 files against their union."""
+    import numpy as np
+    import torch
+    from nvme_strom_tpu_torch.formats.arrow import (ArrowFileReader,
+                                                    write_arrow_file)
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.ops import bitunpack
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.sql import (DeviceTable, ParquetScanner,
+                                          pq_direct, sql_query,
+                                          sql_scalar_agg)
+    from nvme_strom_tpu_torch.sql import groupby as gb
+    from nvme_strom_tpu_torch.sql.pqwrite import write_parquet
+    t_phase = time.monotonic()
+    d = _sql_dir()
+    rep: dict = {}
+    timing: dict = {}
+
+    def stats_of(eng):
+        eng.sync_stats()
+        s = eng.stats.snapshot()
+        return {k: s[k] for k in ("bytes_direct", "bytes_fallback",
+                                  "bounce_bytes", "bytes_to_device")}
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    # (a) the GROUP BY scan
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED + 300)
+    ka = rng.integers(0, SQL_A_GROUPS, SQL_A_ROWS, dtype=np.int32)
+    va = rng.standard_normal(SQL_A_ROWS, dtype=np.float32)
+    pa_path = os.path.join(d, "groupby.parquet")
+    write_parquet(pa_path, {"k": ka, "v": va},
+                  row_group_size=SQL_A_ROWS // SQL_A_RGS)
+    ref_c = np.bincount(ka, minlength=SQL_A_GROUPS)
+    ref_s = np.bincount(ka, weights=va, minlength=SQL_A_GROUPS)
+    ref_abs = np.bincount(ka, weights=np.abs(va), minlength=SQL_A_GROUPS)
+    del ka, va
+    timing["write_a"] = time.monotonic() - t0
+    payload = SQL_A_ROWS * 8
+    q_a = "SELECT k, COUNT(*), SUM(v), MEAN(v) FROM t GROUP BY k"
+    with StromEngine() as eng:
+        sc = _sql_no_host_path(ParquetScanner(pa_path, eng))
+        if any(sc.direct_reasons(["k", "v"]).values()):
+            raise AssertionError(f"sql (a): not direct: "
+                                 f"{sc.direct_reasons(['k', 'v'])}")
+        plans = pq_direct.plan_columns(sc, ["k", "v"])
+        spans = sum(len(p.spans) for c in plans for p in plans[c])
+        pieces = sum(len(pq_direct._plan_window_ranges(
+            sc, ["k", "v"], plans, [rg])[0])
+            for rg in range(sc.num_row_groups))
+        # the engine alone over the same file: NVMe -> staging, no copy
+        fh = eng.open(pa_path)
+        size = eng.file_size(fh)
+        chunk = eng.config.chunk_bytes
+        t0 = time.monotonic()
+        pend = []
+        for off in range(0, size, chunk):
+            pend.extend(eng.submit_readv([(fh, off, min(chunk,
+                                                        size - off))]))
+            while len(pend) > 3:
+                p = pend.pop(0)
+                p.wait()
+                p.release()
+        for p in pend:
+            p.wait()
+            p.release()
+        engine_s = time.monotonic() - t0
+        eng.close(fh)
+        rep["a"] = {"rows": SQL_A_ROWS, "payload_bytes": payload,
+                    "file_bytes": size, "spans": spans, "pieces": pieces,
+                    "engine_only_gib_per_s": size / engine_s / 2**30,
+                    "runs": []}
+        # one untimed query first (the fold's first CUDA calls), then
+        # each (method, window) twice, the second pass in reverse order
+        sql_query(q_a, {"t": sc}, engine=eng, device=dev)
+        answer = None
+        arms = [(m, w) for m in ("matmul", "scatter") for w in SQL_WINDOWS]
+        for trial, (method, window) in enumerate(arms + arms[::-1]):
+            os.environ["STROM_SQL_WINDOW_BYTES"] = str(window)
+            pre, l0 = stats_of(eng), h2d_copy.launches
+            f0 = dict(gb.FOLDS)
+            t0 = time.monotonic()
+            out = sql_query(q_a, {"t": sc}, engine=eng, device=dev,
+                            method=method)
+            secs = time.monotonic() - t0
+            st, launches = delta(pre, stats_of(eng)), \
+                h2d_copy.launches - l0
+            os.environ.pop("STROM_SQL_WINDOW_BYTES", None)
+            if not np.array_equal(out["count(*)"], ref_c):
+                raise AssertionError(f"sql (a) {method} window "
+                                     f"{window}: counts differ")
+            ratio = _sql_sums_ok(f"(a) {method}", out["sum(v)"],
+                                 ref_s, ref_abs)
+            if st["bounce_bytes"] != 0:
+                raise AssertionError(f"sql (a): bounce "
+                                     f"{st['bounce_bytes']} != 0")
+            if st["bytes_direct"] < payload:
+                raise AssertionError(f"sql (a): bytes_direct "
+                                     f"{st['bytes_direct']} < payload "
+                                     f"{payload}")
+            if launches < pieces:
+                raise AssertionError(f"sql (a): {launches} h2d_copy "
+                                     f"launches < {pieces} pieces")
+            run = {"method": method, "window": window, "s": secs,
+                   "trial": trial // len(arms),
+                   "gib_per_s": payload / secs / 2**30,
+                   "sum_ratio": ratio, "launches": launches,
+                   "folds": gb.FOLDS[method] - f0[method], **st}
+            rep["a"]["runs"].append(run)
+            log(f"sql (a) GROUP BY k over {SQL_A_ROWS} rows, {method}, "
+                f"window {window >> 20} MiB, trial {run['trial']}: "
+                f"{secs:.3f} s = "
+                f"{run['gib_per_s']:.3f} GiB/s (engine alone "
+                f"{rep['a']['engine_only_gib_per_s']:.3f}); bounce "
+                f"{st['bounce_bytes']}, direct {st['bytes_direct']}, "
+                f"h2d_copy {launches} (pieces {pieces}, spans {spans}), "
+                f"{run['folds']} folds; SUM at {ratio:.4f} of its limit")
+            answer = out
+        # the windows on row groups smaller than a window: (a)'s shape in
+        # 8 MiB row groups, window 0 (a fold a row group) against 64 MiB
+        # (8 row groups a fold), in turns
+        t0 = time.monotonic()
+        rng = np.random.default_rng(SEED + 307)
+        kw = rng.integers(0, SQL_A_GROUPS, SQL_W_ROWS, dtype=np.int32)
+        vw = rng.standard_normal(SQL_W_ROWS, dtype=np.float32)
+        pw = os.path.join(d, "windows.parquet")
+        write_parquet(pw, {"k": kw, "v": vw}, row_group_size=SQL_W_RG_ROWS)
+        ref_wc = np.bincount(kw, minlength=SQL_A_GROUPS)
+        ref_ws = np.bincount(kw, weights=vw, minlength=SQL_A_GROUPS)
+        ref_wa = np.bincount(kw, weights=np.abs(vw), minlength=SQL_A_GROUPS)
+        del kw, vw
+        timing["write_w"] = time.monotonic() - t0
+        scw = _sql_no_host_path(ParquetScanner(pw, eng))
+        sql_query(q_a, {"t": scw}, engine=eng, device=dev)
+        w_runs = {w: [] for w in SQL_WINDOWS}
+        for trial in range(SQL_W_TRIALS):
+            for window in (SQL_WINDOWS if trial % 2 == 0
+                           else SQL_WINDOWS[::-1]):
+                os.environ["STROM_SQL_WINDOW_BYTES"] = str(window)
+                f0 = gb.FOLDS["matmul"]
+                t0 = time.monotonic()
+                out = sql_query(q_a, {"t": scw}, engine=eng, device=dev)
+                secs = time.monotonic() - t0
+                os.environ.pop("STROM_SQL_WINDOW_BYTES", None)
+                if not np.array_equal(out["count(*)"], ref_wc):
+                    raise AssertionError(f"sql (a) windows: window {window}"
+                                         ": counts differ")
+                _sql_sums_ok(f"(a) windows, window {window}",
+                             out["sum(v)"], ref_ws, ref_wa)
+                w_runs[window].append({"s": secs,
+                                       "folds": gb.FOLDS["matmul"] - f0})
+        rep["a"]["windows"] = {
+            "rows": SQL_W_ROWS, "row_group_bytes": SQL_W_RG_ROWS * 8,
+            "runs": {str(w): r for w, r in w_runs.items()},
+            "median_s": {str(w): statistics.median(x["s"] for x in r)
+                         for w, r in w_runs.items()}}
+        log(f"sql (a) windows on {SQL_W_ROWS} rows in "
+            f"{SQL_W_ROWS // SQL_W_RG_ROWS} row groups of "
+            f"{SQL_W_RG_ROWS * 8 >> 20} MiB, matmul, {SQL_W_TRIALS} trials "
+            f"in turns: " + "; ".join(
+                f"window {w >> 20} MiB {r[0]['folds']} folds, s "
+                f"{[round(x['s'], 4) for x in r]}, median "
+                f"{statistics.median(x['s'] for x in r):.4f} s = "
+                f"{SQL_W_ROWS * 8 / statistics.median(x['s'] for x in r) / 2**30:.3f}"
+                f" GiB/s" for w, r in w_runs.items()))
+
+        # the fold alone on the card: one 64 MiB window's k, v
+        kk = torch.randint(0, SQL_A_GROUPS, (1 << 23,), device=dev,
+                           dtype=torch.int32)
+        vv = torch.randn(1 << 23, device=dev)
+        rep["a"]["fold_ms_64mib"] = {
+            m: time_ms(lambda m=m: gb.groupby_aggregate(
+                kk, vv, SQL_A_GROUPS, aggs=("count", "sum"), method=m,
+                empty_as_nan=False), 10) for m in ("matmul", "scatter")}
+        del kk, vv
+        log(f"sql (a) the fold alone, 2^23 rows (a 64 MiB window): "
+            f"{rep['a']['fold_ms_64mib']} ms")
+
+        # (g) the same columns cached, the query again
+        t0 = time.monotonic()
+        table = DeviceTable(sc, ["k", "v"], device=dev)
+        cache_s = time.monotonic() - t0
+        pre = stats_of(eng)
+        t0 = time.monotonic()
+        res = table.groupby("k", "v", SQL_A_GROUPS, aggs=("count", "sum"))
+        got_c = res["count"].cpu().numpy()
+        cached_s = time.monotonic() - t0
+        st = delta(pre, stats_of(eng))
+        nvme = st["bytes_direct"] + st["bytes_fallback"]
+        if nvme != 0:
+            raise AssertionError(f"sql (g): cached query read {nvme} B")
+        if not np.array_equal(got_c, answer["count(*)"]):
+            raise AssertionError("sql (g): cached counts differ from (a)'s")
+        g_ratio = _sql_sums_ok("(g)", res["sum"].cpu().numpy(), ref_s,
+                               ref_abs)
+        # the control: the same fold with TF32 let into the one-hot
+        # product must fail the SUM limit, or the check could not see it
+        full_fp32 = gb.full_fp32
+        gb.full_fp32 = _tf32_on
+        try:
+            bad = table.groupby("k", "v", SQL_A_GROUPS,
+                                aggs=("count", "sum"), method="matmul")
+        finally:
+            gb.full_fp32 = full_fp32
+        tf32_ratio = _sql_sum_ratio(bad["sum"].cpu().numpy(), ref_s,
+                                    ref_abs)
+        if tf32_ratio <= 1.0:
+            raise AssertionError(
+                f"sql (g): the fold with TF32 on reads {tf32_ratio:.4f} of "
+                "the SUM limit: the check cannot see TF32")
+        log(f"sql (g) control: the cached fold with TF32 on reads "
+            f"{tf32_ratio:.3f}x the SUM limit (full fp32 {g_ratio:.4f}x)")
+        del bad
+        streamed_s = min(r["s"] for r in rep["a"]["runs"])
+        rep["g"] = {"cache_s": cache_s, "cached_query_s": cached_s,
+                    "streamed_query_s": streamed_s, "nvme_bytes": nvme,
+                    "sum_ratio": g_ratio, "tf32_control_ratio": tf32_ratio,
+                    "resident_bytes": table.nbytes()}
+        log(f"sql (g) DeviceTable of (a)'s k, v ({table.nbytes()} B, "
+            f"{cache_s:.3f} s to cache): the GROUP BY {cached_s:.4f} s, "
+            f"0 NVMe bytes, against {streamed_s:.3f} s streamed")
+        del table, res
+
+        # (b) the dictionary string key
+        t0 = time.monotonic()
+        rng = np.random.default_rng(SEED + 301)
+        codes = rng.integers(0, len(SQL_CITIES), SQL_B_ROWS)
+        vb = rng.standard_normal(SQL_B_ROWS, dtype=np.float32)
+        pb = os.path.join(d, "dict.parquet")
+        write_parquet(pb, {"city": (np.array(SQL_CITIES), codes), "v": vb},
+                      row_group_size=SQL_B_ROWS // SQL_B_RGS,
+                      dictionary=["city"])
+        ref_bc = np.bincount(codes, minlength=len(SQL_CITIES))
+        ref_bs = np.bincount(codes, weights=vb, minlength=len(SQL_CITIES))
+        ref_ba = np.bincount(codes, weights=np.abs(vb),
+                             minlength=len(SQL_CITIES))
+        del codes, vb
+        timing["write_b"] = time.monotonic() - t0
+        scb = _sql_no_host_path(ParquetScanner(pb, eng))
+        ci = {scb.metadata.schema.column(i).name: i
+              for i in range(scb.metadata.num_columns)}["city"]
+        idx_raw = 0
+        with open(pb, "rb") as f:
+            def raw_read(off, ln):
+                return os.pread(f.fileno(), ln, off)
+            chunks = [pq_direct.plan_dict_code_chunk(scb.metadata, rg, ci,
+                                                     raw_read)
+                      for rg in range(scb.num_row_groups)]
+            fh = eng.open(pb)
+            try:
+                for ch in chunks:
+                    on_card = pq_direct._indices_to_device(
+                        eng, fh, ch.parts, ch.dict_count, dev)
+                    want = np.concatenate([pq_direct.decode_rle_hybrid(
+                        raw_read(*p.span), p.bit_width, p.valid_count)
+                        for p in ch.parts])
+                    if not np.array_equal(on_card.cpu().numpy(), want):
+                        raise AssertionError("sql (b): a chunk's indices "
+                                             "decoded on the card differ "
+                                             "from numpy's")
+                    idx_raw += sum(p.span[1] for p in ch.parts)
+            finally:
+                eng.close(fh)
+            # the device decode alone: one row group's index streams
+            table = bitunpack.RunTable()
+            raw = []
+            for p in chunks[0].parts:
+                buf = raw_read(*p.span)
+                if table.add(buf, p.bit_width, p.valid_count):
+                    raw.append(buf)
+            u8 = torch.from_numpy(np.frombuffer(b"".join(raw) + bytes(4),
+                                                np.uint8).copy()).to(dev)
+            meta = torch.from_numpy(np.array(table.rows, np.int64).T
+                                    .copy()).to(dev)
+            decode_ms = time_ms(lambda: bitunpack._batch_decode(
+                u8, meta, table.total), 10)
+            del u8, meta
+        pre, dec0 = stats_of(eng), dict(bitunpack.DECODES)
+        t0 = time.monotonic()
+        out = sql_query("SELECT city, COUNT(*), SUM(v) FROM d GROUP BY city",
+                        {"d": scb}, engine=eng, device=dev)
+        secs = time.monotonic() - t0
+        st = delta(pre, stats_of(eng))
+        labels = [x.decode() for x in out["city"]]
+        order = [SQL_CITIES.index(x) for x in labels]
+        if not np.array_equal(out["count(*)"], ref_bc[order]):
+            raise AssertionError("sql (b): counts differ")
+        ratio = _sql_sums_ok("(b)", out["sum(v)"], ref_bs[order],
+                             ref_ba[order])
+        if st["bounce_bytes"] > idx_raw:
+            raise AssertionError(f"sql (b): bounce {st['bounce_bytes']} > "
+                                 f"raw index bytes {idx_raw}")
+        rep["b"] = {"rows": SQL_B_ROWS, "s": secs, "idx_raw": idx_raw,
+                    "bounce_vs_idx_raw": st["bounce_bytes"] / idx_raw,
+                    "decodes": {k: bitunpack.DECODES[k] - dec0[k]
+                                for k in dec0}, "sum_ratio": ratio,
+                    "decode_ms_row_group": decode_ms,
+                    "values_row_group": table.total, **st}
+        log(f"sql (b) GROUP BY city (8 labels, {SQL_B_ROWS} rows): "
+            f"{secs:.3f} s; bounce {st['bounce_bytes']} = "
+            f"{rep['b']['bounce_vs_idx_raw']:.4f} of the raw index bytes "
+            f"{idx_raw}; card decodes {rep['b']['decodes']}, "
+            f"{decode_ms:.4f} ms for a row group's {table.total} indices; "
+            "every chunk's indices equal numpy's")
+
+        # (c) GZIP level 1
+        t0 = time.monotonic()
+        rng = np.random.default_rng(SEED + 302)
+        kc = rng.integers(0, SQL_A_GROUPS, SQL_C_ROWS, dtype=np.int32)
+        vc = rng.standard_normal(SQL_C_ROWS, dtype=np.float32)
+        pc = os.path.join(d, "gzip.parquet")
+        write_parquet(pc, {"k": kc, "v": vc}, row_group_size=SQL_C_ROWS // 4,
+                      compression="gzip", compression_level=1)
+        ref_cc = np.bincount(kc, minlength=SQL_A_GROUPS)
+        ref_cs = np.bincount(kc, weights=vc, minlength=SQL_A_GROUPS)
+        ref_ca = np.bincount(kc, weights=np.abs(vc), minlength=SQL_A_GROUPS)
+        del kc, vc
+        timing["write_c"] = time.monotonic() - t0
+        scc = _sql_no_host_path(ParquetScanner(pc, eng))
+        if any(scc.direct_reasons(["k", "v"]).values()):
+            raise AssertionError("sql (c): GZIP not direct")
+        cplans = pq_direct.plan_columns(scc, ["k", "v"])
+        decomp = sum(p.uncompressed_len for c in cplans for pl in cplans[c]
+                     for p in pl.parts)
+        pre = stats_of(eng)
+        t0 = time.monotonic()
+        out = sql_query(q_a, {"t": scc}, engine=eng, device=dev)
+        secs = time.monotonic() - t0
+        st = delta(pre, stats_of(eng))
+        if not np.array_equal(out["count(*)"], ref_cc):
+            raise AssertionError("sql (c): counts differ")
+        ratio = _sql_sums_ok("(c)", out["sum(v)"], ref_cs, ref_ca)
+        if st["bounce_bytes"] != decomp:
+            raise AssertionError(f"sql (c): bounce {st['bounce_bytes']} != "
+                                 f"decompressed page bytes {decomp}")
+        rep["c"] = {"rows": SQL_C_ROWS, "s": secs, "decompressed": decomp,
+                    "file_bytes": os.path.getsize(pc), "sum_ratio": ratio,
+                    **st}
+        log(f"sql (c) GZIP level 1 ({os.path.getsize(pc)} B for "
+            f"{decomp} B of values): {secs:.3f} s, bounce "
+            f"{st['bounce_bytes']} = the decompressed page bytes, direct "
+            f"{st['bytes_direct']}")
+
+        # (d) pushdown and top-k
+        t0 = time.monotonic()
+        rng = np.random.default_rng(SEED + 303)
+        ts = np.arange(SQL_D_ROWS, dtype=np.int64)
+        vd = rng.standard_normal(SQL_D_ROWS, dtype=np.float32)
+        pd = os.path.join(d, "topk.parquet")
+        write_parquet(pd, {"ts": ts, "v": vd},
+                      row_group_size=SQL_D_ROWS // SQL_D_RGS)
+        timing["write_d"] = time.monotonic() - t0
+        lo = 3 * (SQL_D_ROWS // 8)
+        hi = lo + SQL_D_ROWS // 8 - 1
+        sel = np.nonzero((ts >= lo) & (ts <= hi))[0]
+        top = sel[np.argsort(-vd[sel], kind="stable")[:10]]
+        scd = _sql_no_host_path(ParquetScanner(pd, eng))
+        kept = scd.prune_row_groups([("ts", lo, hi)])
+        col_bytes = sum(scd.metadata.row_group(rg).column(c)
+                        .total_compressed_size
+                        for rg in range(scd.num_row_groups)
+                        for c in range(2))
+        pre = stats_of(eng)
+        t0 = time.monotonic()
+        out = sql_query(f"SELECT v, ts FROM s WHERE ts BETWEEN {lo} AND "
+                        f"{hi} ORDER BY v DESC LIMIT 10", {"s": scd},
+                        engine=eng, device=dev)
+        secs = time.monotonic() - t0
+        st = delta(pre, stats_of(eng))
+        nvme = st["bytes_direct"] + st["bytes_fallback"]
+        skipped = SQL_D_RGS - len(kept)
+        if skipped < 27:
+            raise AssertionError(f"sql (d): zone maps skipped {skipped} "
+                                 "< 27 of 32 groups")
+        if nvme > 5 * col_bytes // 32:
+            raise AssertionError(f"sql (d): {nvme} NVMe bytes > 5/32 of "
+                                 f"{col_bytes}")
+        if not (np.array_equal(out["ts"], ts[top])
+                and np.array_equal(out["v"], vd[top])):
+            raise AssertionError("sql (d): the top 10 differ from numpy's")
+        del ts, vd
+        rep["d"] = {"rows": SQL_D_ROWS, "s": secs, "skipped": skipped,
+                    "limit_skipped": int(out["_skipped_row_groups"]),
+                    "nvme_bytes": nvme, "column_bytes": col_bytes, **st}
+        log(f"sql (d) WHERE ts BETWEEN (1/8 of {SQL_D_ROWS}) ORDER BY v "
+            f"DESC LIMIT 10: {secs:.3f} s; zone maps skip {skipped} of "
+            f"{SQL_D_RGS} groups, NVMe {nvme} B = "
+            f"{nvme / col_bytes:.4f} of the columns (limit 5/32); rows "
+            "equal numpy's")
+
+        # (e) the star join
+        t0 = time.monotonic()
+        rng = np.random.default_rng(SEED + 304)
+        fk = rng.integers(0, SQL_E_KEYS, SQL_E_ROWS, dtype=np.int32)
+        ve = rng.standard_normal(SQL_E_ROWS, dtype=np.float32)
+        dkey = rng.permutation(SQL_E_KEYS).astype(np.int32)
+        dattr = rng.integers(0, SQL_E_ATTRS, SQL_E_KEYS, dtype=np.int32)
+        pf, pdim = os.path.join(d, "fact.parquet"), os.path.join(d,
+                                                                "dim.parquet")
+        write_parquet(pf, {"fk": fk, "v": ve},
+                      row_group_size=SQL_E_ROWS // 4)
+        write_parquet(pdim, {"key": dkey, "attr": dattr})
+        attr_of = np.zeros(SQL_E_KEYS, np.int64)
+        attr_of[dkey] = dattr
+        ref_es = np.bincount(attr_of[fk], weights=ve, minlength=SQL_E_ATTRS)
+        ref_ea = np.bincount(attr_of[fk], weights=np.abs(ve),
+                             minlength=SQL_E_ATTRS)
+        del fk, ve
+        timing["write_e"] = time.monotonic() - t0
+        pre = stats_of(eng)
+        t0 = time.monotonic()
+        out = sql_query("SELECT d.attr, SUM(f.v) FROM f JOIN d ON "
+                        "f.fk = d.key GROUP BY d.attr",
+                        {"f": _sql_no_host_path(ParquetScanner(pf, eng)),
+                         "d": _sql_no_host_path(ParquetScanner(pdim, eng))},
+                        engine=eng, device=dev)
+        secs = time.monotonic() - t0
+        st = delta(pre, stats_of(eng))
+        ratio = _sql_sums_ok("(e)", out["sum(f.v)"], ref_es, ref_ea)
+        rep["e"] = {"rows": SQL_E_ROWS, "s": secs, "sum_ratio": ratio, **st}
+        log(f"sql (e) star join ({SQL_E_ROWS} fact rows, {SQL_E_KEYS} "
+            f"keys, {SQL_E_ATTRS} attrs): {secs:.3f} s, SUM at "
+            f"{ratio:.4f} of its limit, bounce {st['bounce_bytes']}")
+
+        # (f) nulls
+        t0 = time.monotonic()
+        rng = np.random.default_rng(SEED + 305)
+        xf = rng.standard_normal(SQL_F_ROWS, dtype=np.float32)
+        valid = rng.random(SQL_F_ROWS) >= SQL_F_NULL
+        pn = os.path.join(d, "nulls.parquet")
+        write_parquet(pn, {"x": xf}, nulls={"x": valid},
+                      row_group_size=SQL_F_ROWS // 4,
+                      data_page_version="2.0")
+        timing["write_f"] = time.monotonic() - t0
+        scn = _sql_no_host_path(ParquetScanner(pn, eng))
+        t0 = time.monotonic()
+        v, m = scn.read_columns_to_device(["x"], device=dev,
+                                          direct="always",
+                                          nulls="mask")["x"]
+        vh, mh = v.cpu().numpy(), m.cpu().numpy()
+        if not (np.array_equal(mh, valid)
+                and np.array_equal(vh[valid], xf[valid])
+                and not vh[~valid].any()):
+            raise AssertionError("sql (f): values or mask differ")
+        agg = sql_scalar_agg(scn, "x", aggs=("count", "sum"), nulls="skip",
+                             device=dev)
+        secs = time.monotonic() - t0
+        if int(agg["count"]) != int(valid.sum()):
+            raise AssertionError("sql (f): COUNT counted nulls")
+        ratio = _sql_sums_ok("(f)", [float(agg["sum"])],
+                             np.array([xf[valid].astype(np.float64).sum()]),
+                             np.array([np.abs(xf[valid]).sum()]))
+        rep["f"] = {"rows": SQL_F_ROWS, "nulls": int((~valid).sum()),
+                    "s": secs, "sum_ratio": ratio}
+        log(f"sql (f) {SQL_F_ROWS} rows, {rep['f']['nulls']} nulls, v2 "
+            f"pages: values and mask equal numpy's; COUNT {int(agg['count'])}"
+            f" and SUM skip the nulls; {secs:.3f} s")
+        del xf, valid, v, m
+
+        # (h) Arrow IPC
+        t0 = time.monotonic()
+        rng = np.random.default_rng(SEED + 306)
+        rows_h = SQL_H_BYTES // 12
+        cols_h = {"a": rng.integers(-2**31, 2**31 - 1, rows_h,
+                                    dtype=np.int32),
+                  "b": rng.standard_normal(rows_h, dtype=np.float32),
+                  "c": rng.integers(0, 1 << 20, rows_h, dtype=np.int32)}
+        ph = os.path.join(d, "cols.arrow")
+        write_arrow_file(ph, cols_h,
+                         batch_rows=-(-rows_h // SQL_H_BATCHES))
+        timing["write_h"] = time.monotonic() - t0
+        rd = ArrowFileReader(ph)
+        pre = stats_of(eng)
+        t0 = time.monotonic()
+        got = rd.read_columns_to_device(eng, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs = time.monotonic() - t0
+        st = delta(pre, stats_of(eng))
+        for n, a in cols_h.items():
+            if not torch.equal(got[n], torch.from_numpy(a).to(dev)):
+                raise AssertionError(f"sql (h): column {n} not bitwise")
+        if st["bounce_bytes"] != 0:
+            raise AssertionError(f"sql (h): bounce {st['bounce_bytes']}")
+        nbytes = sum(a.nbytes for a in cols_h.values())
+        rep["h"] = {"bytes": nbytes, "batches": rd.num_batches, "s": secs,
+                    "gib_per_s": nbytes / secs / 2**30, **st}
+        log(f"sql (h) Arrow IPC {nbytes} B in {rd.num_batches} record "
+            f"batches: {rep['h']['gib_per_s']:.3f} GiB/s, bitwise, bounce 0")
+        del got, cols_h
+
+    # (i) the multi-file union
+    t0 = time.monotonic()
+    rep["i"] = sql_multi_files(dev)
+    timing["i"] = time.monotonic() - t0
+    log(f"sql (i) multi_groupby over {SQL_I_FILES} files of {SQL_I_ROWS} "
+        f"rows: {rep['i']['seconds']:.3f} s, the union's counts, SUM at "
+        f"{rep['i']['sum_ratio']:.4f} of its limit")
+    rep["timing"] = timing
+    rep["seconds"] = time.monotonic() - t_phase
+    log(f"sql: {rep['seconds']:.1f} s (budget {SQL_BUDGET_S} s; writing "
+        f"{ {k: round(v, 1) for k, v in timing.items()} })")
+    return rep
+
+
+def _sql_dist_part(rank, world, dev):
+    """(j): ``dist_groupby`` with rank r scanning (i)'s files r, r+world,
+    ...; every rank must hold (i)'s answer (counts exact, SUM within the
+    f32 limit of the union's float64 sum)."""
+    import numpy as np
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.sql import ParquetScanner, dist_groupby
+    d = _sql_dir()
+    ans = np.load(os.path.join(d, "multi_answer.npz"))
+    mine = [os.path.join(d, f"multi{i}.parquet")
+            for i in range(rank, SQL_I_FILES, world)]
+    with StromEngine() as eng:
+        t0 = time.monotonic()
+        res = dist_groupby([_sql_no_host_path(ParquetScanner(p, eng))
+                            for p in mine], "k", "v", SQL_A_GROUPS,
+                           aggs=("count", "sum"), device=dev)
+        secs = time.monotonic() - t0
+        eng.sync_stats()
+        bounce = eng.stats.snapshot()["bounce_bytes"]
+    if not np.array_equal(res["count"], ans["count"]):
+        raise AssertionError(f"sql (j): rank {rank}'s counts differ from "
+                             "(i)'s")
+    ratio = _sql_sums_ok("(j)", res["sum"], ans["ref_sum"], ans["ref_abs"])
+    return {"files": len(mine), "seconds": secs, "sum_ratio": ratio,
+            "max_sum_diff_vs_i": float(np.abs(res["sum"]
+                                              - ans["sum"]).max()),
+            "bounce_bytes": bounce}
+
+
 # -- multi-GPU: data and tensor parallel, one process a rank ------------------
 
 #: the phase's wall-clock budget (s) and its parts' shapes: (a) parity at
@@ -6783,7 +7475,7 @@ def _mg_close(name, got, want, tol, g1=None):
 
 def multigpu_worker(rank: int, world: int, workdir: str, backend: str,
                     ckdir: str) -> None:
-    """One rank of ``multigpu_phase``: parts (a)-(f) under the mesh;
+    """One rank of ``multigpu_phase``: parts (a)-(f) and (j) under the mesh;
     writes its report and kernel launches to ``workdir``."""
     import numpy as np
     import torch
@@ -7023,6 +7715,14 @@ def multigpu_worker(rank: int, world: int, workdir: str, backend: str,
     rep["f"] = _llama_step(dev, tp_mesh, local_slice(ftoks, tp_mesh),
                            MG_F_STEPS,
                            profile_steps=2 if backend == "nccl" else 0)
+    # (j) Direct SQL across processes: each rank scans its share of (i)'s
+    # files, the partials fold over torch.distributed.  Its launches are
+    # kept apart, so that the rank's kernel-1 check stays (b)'s and (d)'s
+    with _uncounted(kernels):
+        pre_j = {n: fn.launches for n, fn in kernels.items()}
+        rep["j"] = _sql_dist_part(rank, world, dev)
+        rep["j"]["launches"] = {n: fn.launches - pre_j[n]
+                                for n, fn in kernels.items()}
     rep["seconds"] = time.monotonic() - t0
     rep["launches"] = {n: fn.launches for n, fn in kernels.items()}
     eng.close_all()
@@ -7088,8 +7788,10 @@ def multigpu_phase(dev, ckdir, counters):
     read-once restore over kernel 7 across processes; (b) the serving
     weights through ``load_sharded``, bitwise a whole load sliced, with
     no bounce; (c) sharded ``generate`` on kernel 2, tokens equal the
-    one-rank run's; (f) a bf16 step at Llama-3-8B's widths.  Their
-    launches are added to ``counters``."""
+    one-rank run's; (f) a bf16 step at Llama-3-8B's widths; (j)
+    ``dist_groupby`` over (i)'s Parquet files, each rank its share, every
+    rank (i)'s answer.  Their launches are added to ``counters``, but
+    (j)'s, which each rank reports apart."""
     import shutil
     import numpy as np
     import torch
@@ -7141,6 +7843,8 @@ def multigpu_phase(dev, ckdir, counters):
     del grads, params
     gc.collect()
     torch.cuda.empty_cache()
+    if not os.path.exists(os.path.join(_sql_dir(), "multi_answer.npz")):
+        sql_multi_files(dev)          # (j)'s files, when run alone
     t_ref = time.monotonic() - t0
     for fn in counters.values():
         fn.launches = 0
@@ -7157,6 +7861,10 @@ def multigpu_phase(dev, ckdir, counters):
             if rep["launches"][n] <= 0:
                 raise AssertionError(f"multigpu: rank {rep['rank']} never "
                                      f"launched {n}")
+        # (j)'s scans go through kernel 1 on every rank, counted apart
+        if rep["j"]["launches"]["h2d_copy"] <= 0:
+            raise AssertionError(f"multigpu (j): rank {rep['rank']} never "
+                                 "launched h2d_copy")
         for n, c in rep["launches"].items():
             counters[n].launches += c
     seconds = time.monotonic() - t0
@@ -7208,10 +7916,15 @@ def multigpu_phase(dev, ckdir, counters):
         f"{tok_card:.0f} tokens/s a card, collectives' share of device "
         f"time {share}; one rank alone: step {one['step_ms']:.2f} ms, "
         f"{MG_F_SEQ / (one['step_ms'] / 1e3):.0f} tokens/s")
+    log(f"multigpu (j) dist_groupby over (i)'s {SQL_I_FILES} files, "
+        f"{[r['j']['files'] for r in reps]} a rank: every rank (i)'s counts,"
+        f" SUM at {[round(r['j']['sum_ratio'], 4) for r in reps]} of its "
+        f"limit, {[round(r['j']['seconds'], 3) for r in reps]} s, h2d_copy "
+        f"{[r['j']['launches']['h2d_copy'] for r in reps]} launches")
     log(f"multigpu: {seconds:.1f} s (references {t_ref:.1f} s), budget "
         f"{MG_BUDGET_S} s; rank seconds "
         f"{[round(r['seconds'], 1) for r in reps]}; rank launches "
-        f"{[r['launches'] for r in reps]}")
+        f"{[r['launches'] for r in reps]} (without (j)'s)")
     return {"label": label, "world": world, "backend": backend,
             "cards": cards, "seconds": seconds, "ref_seconds": t_ref,
             "one_rank": {"fit_s": one_fit_s, "losses": losses,
@@ -8002,6 +8715,20 @@ def main() -> int:
         log("multigpu " + json.dumps(multigpu))
         print(card_line())
         return 0
+    if sys.argv[1:2] == ["--sql"]:
+        # main path 6 alone (Direct SQL); (j) runs in main path 4's ranks
+        os.makedirs(DATA_DIR, exist_ok=True)
+        for fn in counters.values():
+            fn.launches = 0
+        sql = sql_phase(dev)
+        log("sql launches: " + json.dumps(
+            {n: fn.launches for n, fn in counters.items()}))
+        if h2d_copy.launches <= 0:
+            raise AssertionError("kernel h2d_copy never launched on the "
+                                 "sql path")
+        log("sql " + json.dumps(sql))
+        print(card_line())
+        return 0
     if sys.argv[1:2] == ["--sp-pp"]:
         # main path 5 alone (on a machine with 2-4 cards, the phase's
         # NCCL run without the rest of the script)
@@ -8222,6 +8949,13 @@ def main() -> int:
     results["h2d_copy"]["launches_eval_ppl"] = counts["h2d_copy"]
     torch.cuda.empty_cache()
 
+    # main path 6: Direct SQL — Parquet and Arrow tables scanned through
+    # the engine and h2d_copy, decoded and aggregated on the card
+    sql, counts = drive("sql", ("h2d_copy",), lambda: sql_phase(dev))
+    results["h2d_copy"]["launches_sql"] = counts["h2d_copy"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # kernel 7 at the width of the restore below
     from nvme_strom_tpu_torch.checkpoint.manager import CheckpointManager
     from nvme_strom_tpu_torch.checkpoint.scatter import build_restore_manifest
@@ -8256,6 +8990,8 @@ def main() -> int:
                              lambda: multigpu_phase(dev, ckdir, counters))
     for n in mg_kernels:
         results[n]["launches_multigpu"] = counts[n]
+    results["h2d_copy"]["launches_sql_dist"] = sum(
+        r["j"]["launches"]["h2d_copy"] for r in multigpu["ranks"])
     if multigpu["backend"] == "nccl":
         e = [r["e"] for r in multigpu["ranks"]]
         results["ici_ring_gather"].update(
@@ -8307,6 +9043,7 @@ def main() -> int:
                                 if k != "profiles"}))
     log("multigpu " + json.dumps(multigpu))
     log("sp_pp " + json.dumps(sp_pp))
+    log("sql " + json.dumps(sql))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -8330,6 +9067,8 @@ def main() -> int:
                                                if k != "ranks"},
                                   "sp_pp": {k: v for k, v in sp_pp.items()
                                             if k != "ranks"},
+                                  "sql": {k: sql[k] for k in ("seconds",
+                                                              "timing")},
                                   "flash_split": flash_split,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))

@@ -716,7 +716,9 @@ def to_device(engine: Optional[StromEngine], host: np.ndarray,
     :func:`host_to_device` (so a CUDA copy runs ``h2d_copy``); the copy
     has completed when this returns."""
     arr = np.ascontiguousarray(host)
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    if arr.size == 0:
+        return torch.empty(arr.shape, dtype=dtype, device=dev)
     t = host_to_device(engine, arr, dev)
     t.synchronize()
-    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
     return t.tensor.view(dtype).reshape(arr.shape)

@@ -142,7 +142,9 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "handoff_sessions_exported", "handoff_sessions_restored",
             "handoff_bundles", "handoff_bundle_bytes", "handoff_brownouts",
             "handoff_stall_dumps", "attrib_requests",
-            "attrib_spans_dropped")
+            "attrib_spans_dropped", "sql_scans", "sql_rowgroups_scanned",
+            "sql_rowgroups_skipped", "sql_bytes_skipped", "sql_pages_skipped",
+            "sql_parallel_scans")
 GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
           "cache_bytes_resident", "cache_lines_resident", "ring_health",
           "engine_degraded", "boot_phase", "boot_phase_code", "drain_phase",
@@ -232,6 +234,16 @@ class StromStats:
     handoff_stall_dumps: int = 0
     attrib_requests: int = 0
     attrib_spans_dropped: int = 0
+    # Direct SQL pushdown scans (sql/scan_plan.py): zone-map planned
+    # scans, row groups read and skipped, selected-column bytes never
+    # read (skipped groups and late materialization's skipped pages),
+    # pages skipped, scans fanned across the partition-parallel pool
+    sql_scans: int = 0
+    sql_rowgroups_scanned: int = 0
+    sql_rowgroups_skipped: int = 0
+    sql_bytes_skipped: int = 0
+    sql_pages_skipped: int = 0
+    sql_parallel_scans: int = 0
     _gauges: dict = field(default_factory=dict, repr=False, compare=False)
     _class_stats: dict = field(default_factory=dict, repr=False,
                                compare=False)

@@ -1801,3 +1801,182 @@ def test_ring_on_flash_across_cards(dev, tmp_path, world):
     _check_seqpar(_spawn("cuda_seqpar", world, tmp_path, _SEQPAR,
                          "cuda:RANK", "nccl"), world)
 
+
+
+# -- Direct SQL on the card (tables written by the port's writers) -----------
+
+def _sql_engine():
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.utils.config import EngineConfig
+    return StromEngine(EngineConfig(chunk_bytes=1 << 20,
+                                    buffer_pool_bytes=32 << 20))
+
+
+def test_sql_direct_scan_on_card_against_host_path(dev, tmp_path,
+                                                   monkeypatch):
+    """PLAIN, dictionary and BYTE_STREAM_SPLIT-free pages of 4- and
+    8-byte types onto the card: the direct path equal to the host path
+    and to numpy, the PLAIN scan with no host copy (``bounce_bytes`` 0)."""
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    from nvme_strom_tpu_torch.ops.bridge import h2d_copy
+    from nvme_strom_tpu_torch.sql import ParquetScanner
+    from nvme_strom_tpu_torch.sql.pqwrite import write_parquet
+    rng = np.random.default_rng(0)
+    n = 300_000
+    cols = {"k": rng.integers(0, 50, n).astype(np.int32),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "t": rng.integers(-2**50, 2**50, n),
+            "d": rng.standard_normal(n),
+            "dv": rng.integers(0, 1000, n).astype(np.int32)}
+    p = tmp_path / "t.parquet"
+    write_parquet(p, cols, row_group_size=70_000, page_bytes=128 << 10,
+                  dictionary=["dv"])
+    with _sql_engine() as eng:
+        sc = ParquetScanner(p, eng)
+        before = h2d_copy.launches
+        eng.sync_stats()
+        b0 = eng.stats.bounce_bytes
+        plain = sc.read_columns_to_device(["k", "v", "t", "d"], device=dev,
+                                          direct="always")
+        eng.sync_stats()
+        assert eng.stats.bounce_bytes == b0
+        assert h2d_copy.launches > before
+        host = sc.read_columns_to_device(["k", "v", "t", "d", "dv"],
+                                         device=dev, direct="never")
+        dct = sc.read_columns_to_device(["dv"], device=dev,
+                                        direct="always")
+        for c in ("k", "v", "t", "d"):
+            assert plain[c].device == dev
+            assert torch.equal(plain[c], host[c])
+            np.testing.assert_array_equal(plain[c].cpu().numpy(), cols[c])
+        assert torch.equal(dct["dv"], host["dv"])
+        np.testing.assert_array_equal(dct["dv"].cpu().numpy(), cols["dv"])
+
+
+def test_sql_bitunpack_on_card_against_numpy(dev):
+    """The index-stream decode on the card at bit widths 0-24, across
+    RLE / bit-packed run edges, equal to the host decoder."""
+    from nvme_strom_tpu_torch.ops.bitunpack import rle_hybrid_batch_to_device
+    from nvme_strom_tpu_torch.sql.pq_direct import decode_rle_hybrid
+    from nvme_strom_tpu_torch.sql.pqwrite import encode_bitpacked
+    rng = np.random.default_rng(1)
+    for bw in range(25):
+        parts = []
+        for i in range(4):
+            vals = (rng.integers(0, 1 << bw, 1000 + 77 * i) if bw
+                    else np.zeros(1000 + 77 * i, np.int64))
+            rle = (b"\x46" + (int(vals[0]).to_bytes((bw + 7) // 8, "little")
+                              if bw else b""))
+            buf = rle + encode_bitpacked(vals, bw)
+            parts.append((buf, bw, 35 + len(vals) - 5 * i))
+        got = rle_hybrid_batch_to_device(parts, dev)
+        want = np.concatenate([decode_rle_hybrid(*q) for q in parts])
+        assert got.device == dev
+        np.testing.assert_array_equal(got.cpu().numpy(), want, err_msg=bw)
+
+
+def test_sql_gzip_nulls_and_arrow_on_card(dev, tmp_path, monkeypatch):
+    """GZIP pages: bounce equal to the decompressed value bytes; v2 pages
+    with nulls: values and mask equal numpy's; Arrow IPC: bitwise with no
+    host copy."""
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    from nvme_strom_tpu_torch.formats.arrow import (ArrowFileReader,
+                                                    write_arrow_file)
+    from nvme_strom_tpu_torch.sql import ParquetScanner, pq_direct
+    from nvme_strom_tpu_torch.sql.pqwrite import write_parquet
+    rng = np.random.default_rng(2)
+    n = 200_000
+    v = rng.standard_normal(n).astype(np.float32)
+    valid = rng.random(n) > 0.1
+    pg, pn, pa_ = (tmp_path / "g.parquet", tmp_path / "n.parquet",
+                   tmp_path / "c.arrow")
+    write_parquet(pg, {"v": v}, row_group_size=50_000, compression="gzip",
+                  page_bytes=64 << 10)
+    write_parquet(pn, {"x": v}, nulls={"x": valid},
+                  data_page_version="2.0", page_bytes=64 << 10)
+    cols = {"a": rng.integers(-9, 9, n).astype(np.int32), "b": v}
+    write_arrow_file(pa_, cols, batch_rows=30_000)
+    with _sql_engine() as eng:
+        sc = ParquetScanner(pg, eng)
+        decomp = sum(p.uncompressed_len for pl in
+                     pq_direct.plan_columns(sc, ["v"])["v"]
+                     for p in pl.parts)
+        eng.sync_stats()
+        b0 = eng.stats.bounce_bytes
+        got = sc.read_columns_to_device(["v"], device=dev, direct="always")
+        eng.sync_stats()
+        assert eng.stats.bounce_bytes - b0 == decomp
+        assert torch.equal(got["v"].cpu(), torch.from_numpy(v))
+        x, m = ParquetScanner(pn, eng).read_columns_to_device(
+            ["x"], device=dev, direct="always", nulls="mask")["x"]
+        np.testing.assert_array_equal(m.cpu().numpy(), valid)
+        np.testing.assert_array_equal(x.cpu().numpy()[valid], v[valid])
+        assert not x.cpu().numpy()[~valid].any()
+        eng.sync_stats()
+        b0 = eng.stats.bounce_bytes
+        out = ArrowFileReader(pa_).read_columns_to_device(eng, device=dev)
+        eng.sync_stats()
+        assert eng.stats.bounce_bytes == b0
+        for c, a in cols.items():
+            np.testing.assert_array_equal(out[c].cpu().numpy(), a)
+
+
+@pytest.mark.parametrize("method", ["matmul", "scatter"])
+def test_sql_groupby_on_card_against_numpy(dev, tmp_path, monkeypatch,
+                                           method):
+    """``sql_query``'s GROUP BY on the card equal to numpy (counts exact,
+    sums within 1e-5 of the group's sum of |v|), and keys outside
+    [0, num_groups) dropped without a device-side assert."""
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    from nvme_strom_tpu_torch.sql import ParquetScanner, sql_query
+    from nvme_strom_tpu_torch.sql.groupby import groupby_aggregate
+    from nvme_strom_tpu_torch.sql.pqwrite import write_parquet
+    rng = np.random.default_rng(3)
+    n = 500_000
+    k = rng.integers(0, 40, n).astype(np.int32)
+    v = rng.standard_normal(n).astype(np.float32)
+    p = tmp_path / "g.parquet"
+    write_parquet(p, {"k": k, "v": v}, row_group_size=100_000)
+    with _sql_engine() as eng:
+        out = sql_query("SELECT k, COUNT(*), SUM(v) FROM t GROUP BY k",
+                        {"t": ParquetScanner(p, eng)}, engine=eng,
+                        device=dev, method=method)
+    np.testing.assert_array_equal(out["count(*)"],
+                                  np.bincount(k, minlength=40))
+    ref = np.bincount(k, weights=v, minlength=40)
+    lim = 1e-5 * np.bincount(k, weights=np.abs(v), minlength=40)
+    assert (np.abs(out["sum(v)"] - ref) <= lim).all()
+    keys = torch.tensor([0, -1, 3, 4, 9, 2], device=dev)
+    vals = torch.arange(6, dtype=torch.float32, device=dev)
+    r = groupby_aggregate(keys, vals, 4, aggs=("count", "sum", "max"),
+                          method=method)
+    torch.cuda.synchronize()
+    assert r["count"].cpu().tolist() == [1, 0, 1, 1]
+    assert r["sum"].cpu().tolist() == [0.0, 0.0, 5.0, 2.0]
+
+
+@pytest.mark.parametrize("method", ["matmul", "scatter"])
+def test_sql_device_table_counts_past_f32_integers(dev, tmp_path,
+                                                    monkeypatch, method):
+    """A cached table whose group 0 holds 2^24 + 1000 rows, folded in
+    one call: COUNT exact (an f32 count stops at 2^24), for GROUP BY and
+    the scalar COUNT, SUM within 1e-5 of the group's sum of |v|."""
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    from nvme_strom_tpu_torch.sql import DeviceTable, ParquetScanner
+    from nvme_strom_tpu_torch.sql.pqwrite import write_parquet
+    rng = np.random.default_rng(4)
+    n = (1 << 24) + 2000
+    k = np.zeros(n, np.int32)
+    k[rng.choice(n, 1000, replace=False)] = 1
+    v = rng.standard_normal(n).astype(np.float32)
+    p = tmp_path / "big.parquet"
+    write_parquet(p, {"k": k, "v": v}, row_group_size=1 << 22)
+    with _sql_engine() as eng:
+        table = DeviceTable(ParquetScanner(p, eng), ["k", "v"], device=dev)
+    r = table.groupby("k", "v", 2, aggs=("count", "sum"), method=method)
+    assert r["count"].cpu().tolist() == [n - 1000, 1000]
+    ref = np.bincount(k, weights=v, minlength=2)
+    lim = 1e-5 * np.bincount(k, weights=np.abs(v), minlength=2)
+    assert (np.abs(r["sum"].cpu().numpy() - ref) <= lim).all()
+    s = table.scalar_agg("v", aggs=("count",))
+    assert int(s["count"]) == n
