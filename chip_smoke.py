@@ -8648,6 +8648,410 @@ def sp_pp_phase(dev, counters):
             "ranks": reps}
 
 
+# -- the operator tools on the card ---------------------------------------------
+
+TOOLS_BUDGET_S = 90
+#: ssd2gpu_test's chunk and depth (the tool's defaults) and trials
+TOOLS_CHUNK = 8 << 20
+TOOLS_DEPTH = 8
+TOOLS_TRIALS = 3
+#: stream_probe's file (the JAX probe's default size)
+TOOLS_PROBE_BYTES = 512 << 20
+#: LLAMA3_8B_2L's widths as an HF Llama-3.1 checkpoint: llama3 rope
+#: scaling of Llama-3.1-8B's config, 2 layers, the 32000 vocab
+TOOLS_HF_CONFIG = dict(
+    architectures=["LlamaForCausalLM"], vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=2, num_attention_heads=32,
+    num_key_value_heads=8, max_position_embeddings=131072,
+    rms_norm_eps=1e-5, rope_theta=500000.0, hidden_act="silu",
+    tie_word_embeddings=False, torch_dtype="bfloat16",
+    rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192})
+TOOLS_GEN_NEW = 16
+
+
+def _tool_out(fn, argv):
+    """(exit code, standard output) of a tool's ``main(argv)`` run in
+    this process."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue()
+
+
+def _tools_headline(dev, stream_path):
+    """(a) ssd2gpu_test --ceilings --verify on the 2 GiB stream file."""
+    from nvme_strom_tpu_torch.tools import ssd2gpu_test
+    rc, out = _tool_out(ssd2gpu_test.main, [
+        stream_path, "--ceilings", "--verify", "--trials",
+        str(TOOLS_TRIALS), "--chunk-bytes", str(TOOLS_CHUNK), "--depth",
+        str(TOOLS_DEPTH), "--device", str(dev)])
+    res = json.loads(out.strip().splitlines()[-1])
+    for k, t in enumerate(res["trials"]):
+        s = t["stream"]
+        log(f"tools (a) trial {k + 1}: raw SSD {t['ssd']['gib_per_s']:.3f} "
+            f"GiB/s, h2d_copy from one pinned buffer "
+            f"{t['h2d']['gib_per_s']:.3f}, the stream "
+            f"{s['gib_per_s']:.3f} ({s['chunks']} chunks, "
+            f"{s['chunks_verified']} read back and equal to pread, "
+            f"{s['h2d_copy_launches']} h2d_copy launches, bounce "
+            f"{s['bounce_bytes']}, direct {s['bytes_direct']}, fallback "
+            f"{s['bytes_fallback']})")
+        if s["verify"] != "ok" or s["chunks_verified"] != s["chunks"]:
+            raise AssertionError(f"tools (a): a chunk read back from the "
+                                 f"card differs from pread: {s}")
+        if s["h2d_copy_launches"] != s["chunks"]:
+            raise AssertionError(f"tools (a): {s['h2d_copy_launches']} "
+                                 f"h2d_copy launches for {s['chunks']} "
+                                 "chunks")
+        if s["bytes_fallback"] == 0 and s["bounce_bytes"] != 0:
+            raise AssertionError(f"tools (a): O_DIRECT reads bounced "
+                                 f"{s['bounce_bytes']} bytes")
+    if rc != 0:
+        raise AssertionError(f"tools (a): ssd2gpu_test exited {rc}")
+    med = res["median_gib_per_s"]
+    log(f"tools (a) medians of {TOOLS_TRIALS} trials in turns "
+        f"(chunk {TOOLS_CHUNK >> 20} MiB, depth {TOOLS_DEPTH}): raw SSD "
+        f"{med['ssd']:.3f} GiB/s, host→device {med['h2d']:.3f}, stream "
+        f"{med['stream']:.3f}; the stream is "
+        f"{res['stream_share_of_lower_ceiling']:.4f} of the lower ceiling "
+        f"({res['lower_ceiling']})")
+    return res
+
+
+def _tools_probes(dev, tdir):
+    """(b) transfer_diag, (c) stream_probe, (d) kernel_probe."""
+    import torch
+    from nvme_strom_tpu_torch.tools import (kernel_probe, ssd2gpu_test,
+                                            stream_probe, transfer_diag)
+    diag = transfer_diag.run(4 << 20, repeats=5, device=dev)
+    log("tools (b) transfer_diag " + json.dumps(diag))
+    if not (diag["view_in_pool"] and diag["view_registered"]):
+        raise AssertionError(f"tools (b): the view does not alias the "
+                             f"registered staging pool: {diag}")
+    if diag["bounce_staging"] != 0 or diag["bounce_heap"] != diag["bytes"]:
+        raise AssertionError(f"tools (b): bounce staging "
+                             f"{diag['bounce_staging']}, heap "
+                             f"{diag['bounce_heap']}")
+    path = os.path.join(tdir, "probe.bin")
+    ssd2gpu_test.make_test_file(path, TOOLS_PROBE_BYTES)
+    try:
+        probes = stream_probe.run(
+            path, dev, emit=lambda r: log("tools (c) " + json.dumps(r)))
+    finally:
+        os.remove(path)
+    for r in probes:
+        if r["probe"] == "boundary":
+            continue
+        if r["h2d_copy_launches"] <= 0 or (r["bytes_fallback"] == 0
+                                           and r["bounce_bytes"] != 0):
+            raise AssertionError(f"tools (c): {r}")
+    kernels = []
+    for name, shape in kernel_probe.SHAPES.items():
+        for r in kernel_probe.probe_attention(dev, *shape):
+            log(f"tools (d) {name} " + json.dumps(r))
+            kernels.append(r)
+            if r["impl"] == "flash" and not r["within_tol"]:
+                raise AssertionError(f"tools (d): flash at {name} outside "
+                                     f"the bf16 tolerance: {r}")
+        torch.cuda.empty_cache()
+    roof = kernel_probe.probe_matmul_roof(dev)
+    for r in roof:
+        log("tools (d) " + json.dumps(r))
+    return {"transfer_diag": diag, "stream_probe": probes,
+            "kernel_probe": kernels, "matmul_roof": roof}
+
+
+def _tools_stats(dev, export, stream_path):
+    """(f) strom_stat over the phase's $STROM_STATS_EXPORT."""
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.tools import strom_stat
+    from nvme_strom_tpu_torch.utils.stats import COUNTERS
+    after_a = strom_stat.load(export)
+    if not after_a.get("lat_read_p99_us", 0) > 0:
+        raise AssertionError(f"tools (f): lat_read_p99_us after (a): "
+                             f"{after_a.get('lat_read_p99_us')}")
+    stamps = []
+    with StromEngine() as eng:
+        fh = eng.open(stream_path)
+        for k in range(3):
+            p = eng.submit_read(fh, k * (4 << 20), 4 << 20)
+            p.wait()
+            p.release()
+            eng.sync_stats()
+            doc = strom_stat.load(export)
+            stamps.append((doc["_exported_at"], doc["bytes_direct"]
+                           + doc["bytes_fallback"]))
+        eng.close(fh)
+    if [b for _, b in stamps] != [(k + 1) * (4 << 20) for k in range(3)] \
+            or not stamps[0][0] < stamps[1][0] < stamps[2][0]:
+        raise AssertionError(f"tools (f): not written at every sync_stats: "
+                             f"{stamps}")
+    every = {n: k + 1 for k, n in enumerate(COUNTERS)}
+    text = strom_stat.render(every)
+    missing = [n for n in COUNTERS if n not in text]
+    rc_j, js = _tool_out(strom_stat.main, [export, "--json"])
+    rc_p, prom = _tool_out(strom_stat.main, [export, "--prom"])
+    doc = json.loads(js)
+    samples = [ln.rsplit(" ", 1) for ln in prom.splitlines()
+               if ln and not ln.startswith("#")]
+    values = {k: float(v) for k, v in samples}
+    if missing or rc_j or rc_p or not prom.rstrip().endswith("# EOF") \
+            or any(n not in doc or f"strom_{n}_total" not in values
+                   for n in COUNTERS):
+        raise AssertionError(f"tools (f): missing {missing}, rc {rc_j} "
+                             f"{rc_p}")
+    log(f"tools (f) strom_stat: written at each of 3 sync_stats "
+        f"{stamps}; after (a) lat_read_p50_us "
+        f"{after_a.get('lat_read_p50_us')} lat_read_p99_us "
+        f"{after_a['lat_read_p99_us']}; render names all "
+        f"{len(COUNTERS)} counters; --json {len(doc)} keys, --prom "
+        f"{len(values)} samples parse")
+    log("tools (f) table of the last export:\n" + strom_stat.render(doc))
+    return {"stamps": stamps, "lat_read_p50_us":
+            after_a.get("lat_read_p50_us"),
+            "lat_read_p99_us": after_a["lat_read_p99_us"],
+            "prom_samples": len(values)}
+
+
+def _tools_kv_store(dev, tdir):
+    """The prefix store directory to scrub: the prefix store phase's, or
+    (``--tools`` alone) four seeded flagship pages written here."""
+    import torch
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.transformer import flagship_config
+    sdir = os.path.join(DATA_DIR, "kv_store")
+    if os.path.isdir(sdir) and any(n.endswith(".kvman.json")
+                                   for n in os.listdir(sdir)):
+        return sdir
+    sdir = os.path.join(tdir, "kv_store")
+    os.makedirs(sdir, exist_ok=True)
+    cfg = flagship_config()
+    gen = torch.Generator().manual_seed(SEED + 61)
+    shape = (cfg.n_layers, cfg.n_kv_heads, PREFIX_PAGE_TOKENS, cfg.head_dim)
+    with StromEngine() as eng:
+        st = PrefixStore(cfg, eng, os.path.join(sdir, "tools.kvstore"),
+                         PREFIX_PAGE_TOKENS, 64 << 20)
+        keys = st.chain_keys(list(range(4 * PREFIX_PAGE_TOKENS + 1)))
+        for key in keys:
+            page = torch.randn(shape, generator=gen).to(cfg.dtype)
+            st.put([(key, page, page)])
+        st.flush()
+        st.close()
+    return sdir
+
+
+def _tools_scrub(dev, tdir, ckdir):
+    """(g) strom_scrub: clean on the weights checkpoint and the prefix
+    store directory; one flipped byte in a copy; --gc of a planted
+    staging directory."""
+    import shutil
+    from nvme_strom_tpu_torch.tools import strom_scrub
+    out = {}
+    for label, path in (("checkpoint", ckdir),
+                        ("kv_store", _tools_kv_store(dev, tdir))):
+        rc, js = _tool_out(strom_scrub.main, [path, "--json"])
+        rep = json.loads(js)
+        out[label] = {"rc": rc, "files_scanned": rep["files_scanned"],
+                      "bytes_verified": rep["bytes_verified"]}
+        if rc != 0 or rep["files_scanned"] < 1:
+            raise AssertionError(f"tools (g): scrub of {path}: rc {rc}, "
+                                 f"{rep}")
+    cdir = os.path.join(tdir, "scrub_copy")
+    shutil.rmtree(cdir, ignore_errors=True)
+    os.makedirs(cdir)
+    bad = os.path.join(cdir, "model.safetensors")
+    shutil.copyfile(os.path.join(ckdir, "model.safetensors"), bad)
+    _flip_byte(bad, os.path.getsize(bad) - 1000)
+    debris = os.path.join(cdir, ".tmp_step_00000001")
+    os.makedirs(debris)
+    with open(os.path.join(debris, "state-00000.safetensors"), "wb") as f:
+        f.write(b"torn")
+    old = time.time() - 7200
+    for p in (os.path.join(debris, "state-00000.safetensors"), debris):
+        os.utime(p, (old, old))
+    rc, js = _tool_out(strom_scrub.main, [cdir, "--gc", "--json"])
+    rep = json.loads(js)
+    out["flipped"] = {"rc": rc, "damage": rep["damage"],
+                      "tmp_dirs_removed": rep["tmp_dirs_removed"]}
+    if rc != 1 or [d["file"] for d in rep["damage"]] != [bad]:
+        raise AssertionError(f"tools (g): the flipped copy: rc {rc}, "
+                             f"{rep['damage']}")
+    if rep["tmp_dirs_removed"] != [debris] or os.path.exists(debris):
+        raise AssertionError(f"tools (g): --gc left {debris}: {rep}")
+    shutil.rmtree(cdir, ignore_errors=True)
+    log("tools (g) strom_scrub " + json.dumps(out))
+    return out
+
+
+def _tools_write_hf(dev, hf):
+    """LLAMA3_8B_2L's widths as HF-named bf16 safetensors in two files
+    with an index, drawn from the seed on the card."""
+    import torch
+    from nvme_strom_tpu_torch.formats.safetensors import write_safetensors
+    c = TOOLS_HF_CONFIG
+    os.makedirs(hf, exist_ok=True)
+    with open(os.path.join(hf, "config.json"), "w") as f:
+        json.dump(c, f, indent=1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    dm, ff, v = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    kv = c["num_key_value_heads"] * dm // c["num_attention_heads"]
+
+    def w(*shape, scale=0.02, base=0.0):
+        t = torch.randn(shape, generator=gen, device=dev) * scale + base
+        return t.to(torch.bfloat16).cpu()
+    files = [{"model.embed_tokens.weight": w(v, dm, scale=1.0)}, {}]
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        files[i].update({
+            p + "self_attn.q_proj.weight": w(dm, dm),
+            p + "self_attn.k_proj.weight": w(kv, dm),
+            p + "self_attn.v_proj.weight": w(kv, dm),
+            p + "self_attn.o_proj.weight": w(dm, dm),
+            p + "mlp.gate_proj.weight": w(ff, dm),
+            p + "mlp.up_proj.weight": w(ff, dm),
+            p + "mlp.down_proj.weight": w(dm, ff),
+            p + "input_layernorm.weight": w(dm, scale=0.1, base=1.0),
+            p + "post_attention_layernorm.weight": w(dm, scale=0.1,
+                                                     base=1.0)})
+    files[1]["model.norm.weight"] = w(dm, scale=0.1, base=1.0)
+    files[1]["lm_head.weight"] = w(v, dm)
+    weight_map = {}
+    nbytes = 0
+    for k, tensors in enumerate(files):
+        name = f"model-{k + 1:05d}-of-00002.safetensors"
+        write_safetensors(os.path.join(hf, name), tensors)
+        weight_map.update({n: name for n in tensors})
+        nbytes += sum(t.numel() * 2 for t in tensors.values())
+    with open(os.path.join(hf, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes},
+                   "weight_map": weight_map}, f)
+    return nbytes
+
+
+def _tools_generate(argv):
+    """(output ids, {direct, fallback, bounce}, text) of one
+    ``generate.main`` run."""
+    import re
+    from nvme_strom_tpu_torch import generate as gen_main
+    rc, out = _tool_out(gen_main.main, argv)
+    if rc != 0:
+        raise AssertionError(f"generate {argv} exited {rc}: {out}")
+    line = next(x for x in out.splitlines() if x.startswith("output ids:"))
+    ids = [int(t) for t in line.split(":", 1)[1].strip().split(",")]
+    m = re.search(r"direct=(\d+) fallback=(\d+) bounce=(\d+)", out)
+    st = dict(zip(("direct", "fallback", "bounce"), map(int, m.groups())))
+    return ids, st, out
+
+
+def _tools_convert(dev, tdir):
+    """(h) convert_llama and generate --from-hf at LLAMA3_8B_2L's widths."""
+    import shutil
+    import numpy as np
+    hf = os.path.join(tdir, "hf_llama")
+    conv = os.path.join(tdir, "hf_converted")
+    for d in (hf, conv):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.monotonic()
+    nbytes = _tools_write_hf(dev, hf)
+    write_s = time.monotonic() - t0
+    rng = np.random.default_rng(SEED + 62)
+    prompt = ",".join(str(t) for t in rng.integers(
+        0, TOOLS_HF_CONFIG["vocab_size"], 16))
+    common = ["--prompt", prompt, "--new", str(TOOLS_GEN_NEW)]
+    card = ["--device", str(dev)]
+    t0 = time.monotonic()
+    bf16, st_hf, out = _tools_generate(["--from-hf", hf, "--out-dir", conv]
+                                       + common + card)
+    first_s = time.monotonic() - t0
+    if "converted 21 tensors" not in out:
+        raise AssertionError(f"tools (h): no conversion: {out}")
+    bf16_w, st_w, _ = _tools_generate(["--weights", conv] + common + card)
+    f32, st_f32, out = _tools_generate(["--from-hf", hf, "--out-dir", conv,
+                                        "--dtype", "float32"] + common
+                                       + card)
+    if "converted" in out:
+        raise AssertionError("tools (h): the conversion was not reused")
+    f32_cpu, _, _ = _tools_generate(["--weights", conv, "--dtype",
+                                     "float32", "--device", "cpu"] + common)
+    rep = {"hf_bytes": nbytes, "write_hf_s": write_s,
+           "convert_and_generate_s": first_s, "bf16_tokens": bf16,
+           "bf16_equal_weights_run": bf16 == bf16_w,
+           "f32_equal_cpu": f32 == f32_cpu, "load_stats": st_hf,
+           "load_stats_weights": st_w, "load_stats_f32": st_f32}
+    log("tools (h) convert_llama + generate --from-hf " + json.dumps(rep))
+    if bf16 != bf16_w or f32 != f32_cpu:
+        raise AssertionError(f"tools (h): tokens differ: bf16 {bf16} / "
+                             f"{bf16_w}; float32 card {f32} / cpu "
+                             f"{f32_cpu}")
+    for st in (st_hf, st_w, st_f32):
+        if st["fallback"] == 0 and st["bounce"] != 0:
+            raise AssertionError(f"tools (h): the weight load bounced: "
+                                 f"{st}")
+    for d in (hf, conv):
+        shutil.rmtree(d, ignore_errors=True)
+    return rep
+
+
+#: kernels the tools path must launch: h2d_copy (the stream, the
+#: ceilings, the probes, the weight loads), decode (generate) and flash
+TOOLS_KERNELS = ("h2d_copy", "decode_attention", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _tools_summary(rep):
+    """The tools phase's numbers without the per-record lists."""
+    return {"seconds": rep["seconds"],
+            "ceilings": {k: rep["a"][k] for k in (
+                "median_gib_per_s", "lower_ceiling",
+                "stream_share_of_lower_ceiling")},
+            "transfer_diag": rep["transfer_diag"],
+            "matmul_roof": rep["matmul_roof"],
+            "profile": {k: rep["e"][k] for k in (
+                "busy_frac", "category_frac", "top_ops_ms")},
+            "stat": rep["f"], "scrub": rep["g"], "convert": rep["h"]}
+
+
+def tools_phase(dev, stream_path, ckdir):
+    """The operator tools on the card: (a) ssd2gpu_test's ceilings, (b)
+    transfer_diag, (c) stream_probe, (d) kernel_probe, (e)
+    profile_report, (f) strom_stat over the phase's $STROM_STATS_EXPORT,
+    (g) strom_scrub, (h) convert_llama and generate --from-hf."""
+    import shutil
+    import torch
+    from nvme_strom_tpu_torch.tools import profile_report
+    t0 = time.monotonic()
+    tdir = os.path.join(DATA_DIR, "tools")
+    shutil.rmtree(tdir, ignore_errors=True)
+    os.makedirs(tdir)
+    export = os.path.join(tdir, "strom_stats.json")
+    rep = {}
+    with _env(STROM_STATS_EXPORT=export):
+        rep["a"] = _tools_headline(dev, stream_path)
+        rep["f"] = _tools_stats(dev, export, stream_path)
+    rep.update(_tools_probes(dev, tdir))
+    prof = profile_report.capture(TRAIN_BATCH, TRAIN_SEQ, "none", "flash",
+                                  dev)
+    log("tools (e) profile_report " + json.dumps(prof))
+    shares = sum(prof["category_frac"].values())
+    if abs(shares - prof["busy_frac"]) > 0.01 \
+            or not prof["category_ms"].get("attention", 0) > 0:
+        raise AssertionError(f"tools (e): class shares {shares} against "
+                             f"busy {prof['busy_frac']}: {prof}")
+    rep["e"] = prof
+    torch.cuda.empty_cache()
+    rep["g"] = _tools_scrub(dev, tdir, ckdir)
+    rep["h"] = _tools_convert(dev, tdir)
+    shutil.rmtree(tdir, ignore_errors=True)
+    rep["seconds"] = time.monotonic() - t0
+    log(f"tools: {rep['seconds']:.1f} s (budget {TOOLS_BUDGET_S} s)")
+    return rep
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nvme_strom_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (the "
@@ -8727,6 +9131,27 @@ def main() -> int:
             raise AssertionError("kernel h2d_copy never launched on the "
                                  "sql path")
         log("sql " + json.dumps(sql))
+        print(card_line())
+        return 0
+    if sys.argv[1:2] == ["--tools"]:
+        # main path 7 alone (the operator tools), on its own stream file
+        # and weights checkpoint
+        os.makedirs(DATA_DIR, exist_ok=True)
+        stream_path = os.path.join(DATA_DIR, "stream.bin")
+        ckdir = os.path.join(DATA_DIR, "ckpt")
+        write_stream_file(stream_path)
+        write_checkpoint(ckdir, flagship_config())
+        for fn in counters.values():
+            fn.launches = 0
+        tools = tools_phase(dev, stream_path, ckdir)
+        counts = {n: fn.launches for n, fn in counters.items()}
+        log("tools launches: " + json.dumps(counts))
+        for n in TOOLS_KERNELS:
+            if counts[n] <= 0:
+                raise AssertionError(f"kernel {n} never launched on the "
+                                     "tools path")
+        log("tools " + json.dumps(_tools_summary(tools)))
+        os.remove(stream_path)
         print(card_line())
         return 0
     if sys.argv[1:2] == ["--sp-pp"]:
@@ -8877,8 +9302,18 @@ def main() -> int:
                                             stream_path, want)
     torch.cuda.empty_cache()
     del shared
-    os.remove(stream_path)
     del params
+    torch.cuda.empty_cache()
+    # main path 7: the operator tools: the stream file through
+    # ssd2gpu_test's ceilings and the probes (h2d_copy), the flash
+    # kernels in kernel_probe and profile_report, generate --from-hf on
+    # kernel 2
+    tools, counts = drive("tools", TOOLS_KERNELS,
+                          lambda: tools_phase(dev, stream_path, ckdir))
+    for n in TOOLS_KERNELS:
+        results[n]["launches_tools"] = counts[n]
+    os.remove(stream_path)
+    gc.collect()
     torch.cuda.empty_cache()
     # main path 1l: speculative decoding, the draft's steps on kernel 2
     speculative, counts = drive("speculative", ("decode_attention",),
@@ -9044,6 +9479,7 @@ def main() -> int:
     log("multigpu " + json.dumps(multigpu))
     log("sp_pp " + json.dumps(sp_pp))
     log("sql " + json.dumps(sql))
+    log("tools " + json.dumps(_tools_summary(tools)))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -9069,6 +9505,9 @@ def main() -> int:
                                             if k != "ranks"},
                                   "sql": {k: sql[k] for k in ("seconds",
                                                               "timing")},
+                                  "tools": {"seconds": tools["seconds"],
+                                            "ceilings": tools["a"][
+                                                "median_gib_per_s"]},
                                   "flash_split": flash_split,
                                   "seconds": time.monotonic() - t_start}))
     print(json.dumps({"kernels": [results[n] for n in counters]}))

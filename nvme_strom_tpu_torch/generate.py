@@ -13,9 +13,15 @@ sampled decode, optionally with the SSD-backed KV cache.
     # --int8 --int4 is the mixed recipe (int8 lm_head, int4 the rest)
     python -m nvme_strom_tpu_torch.generate --weights DIR --int8
 
+    # a local HF Llama checkpoint, converted into DIR once
+    # (tools/convert_llama.py) and read from there on every later run
+    python -m nvme_strom_tpu_torch.generate --from-hf HF_DIR --out-dir DIR
+
 ``DIR`` holds ``*.safetensors`` and ``strom_config.json`` (the model
 config).  Token ids in, token ids out.  Runs on ``cuda:0`` unless
-``--device`` says otherwise.
+``--device`` says otherwise; there the decode steps attend with the
+decode kernel (``ops/decode_attention.py``, kernel 2), and on the CPU
+with the dense path.  ``--dtype`` is the compute dtype (bfloat16).
 """
 
 from __future__ import annotations
@@ -29,8 +35,14 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="nvme_strom_tpu_torch.generate")
-    ap.add_argument("--weights", required=True,
-                    help="checkpoint dir with strom_config.json")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--weights", default=None,
+                     help="checkpoint dir with strom_config.json")
+    src.add_argument("--from-hf", default=None, metavar="HF_DIR",
+                     help="HF Llama checkpoint dir, converted into "
+                          "--out-dir first (reused when already there)")
+    ap.add_argument("--out-dir", default=None,
+                    help="conversion output dir of --from-hf")
     ap.add_argument("--prompt", default="1,2,3,4",
                     help="comma-separated token ids")
     ap.add_argument("--new", type=int, default=32,
@@ -41,6 +53,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="sampling seed")
     ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16", "float32"),
+                    help="compute dtype of the model")
     ap.add_argument("--int8", action="store_true",
                     help="weight-only int8 quantization after the load "
                          "(models/quant.py)")
@@ -61,6 +76,15 @@ def main(argv=None) -> int:
                          "(a bounded window for any prompt length)")
     args = ap.parse_args(argv)
 
+    if args.from_hf:
+        if not args.out_dir:
+            ap.error("--from-hf needs --out-dir for the conversion")
+        if not os.path.exists(os.path.join(args.out_dir,
+                                           "strom_config.json")):
+            from nvme_strom_tpu_torch.tools.convert_llama import convert
+            summary = convert(args.from_hf, args.out_dir)
+            print(f"converted {summary['tensors']} tensors", flush=True)
+        args.weights = args.out_dir
     cfg_path = os.path.join(args.weights, "strom_config.json")
     if not os.path.exists(cfg_path):
         ap.error(f"{cfg_path} not found")
@@ -80,7 +104,8 @@ def main(argv=None) -> int:
     from nvme_strom_tpu_torch.parallel.weights import LazyCheckpoint
 
     with open(cfg_path) as f:
-        cfg = TransformerConfig(**json.load(f))
+        cfg = TransformerConfig(**json.load(f),
+                                dtype=getattr(torch, args.dtype))
     if max(prompt_ids) >= cfg.vocab or min(prompt_ids) < 0:
         ap.error(f"prompt ids must be in [0, {cfg.vocab})")
     total = len(prompt_ids) + args.new
@@ -125,10 +150,16 @@ def main(argv=None) -> int:
                   f"quant={args.offload_quant or 'off'}")
         else:
             from nvme_strom_tpu_torch.models.decode import generate
+            from nvme_strom_tpu_torch.ops.decode_attention import (
+                decode_attention)
             gen = torch.Generator(device=dev).manual_seed(args.seed)
+            # the card's decode steps attend with kernel 2; the CPU keeps
+            # the dense path
             out = generate(params, prompt, cfg, args.new,
                            temperature=args.temperature, generator=gen,
-                           eos_id=args.eos_id)
+                           eos_id=args.eos_id,
+                           cache_attn=(decode_attention
+                                       if dev.type == "cuda" else None))
             sync()
             dt = time.monotonic() - t0
         ids = [int(t) for t in out[0].tolist()]

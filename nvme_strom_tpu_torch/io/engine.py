@@ -58,7 +58,11 @@ exported as the ``ring_state_s`` gauge at every ``sync_stats``, which
 also samples the ``strom.ring.inflight`` counter track while a trace
 file is written; under ``STROM_DEBUG_PORT`` the first engine starts the
 process's debug server (obs/debugsrv.py) and each engine attaches as
-its live one until ``close_all``.
+its live one until ``close_all``.  Every ``sync_stats`` sets the
+interval read-latency gauges and exports the block to
+``$STROM_STATS_EXPORT`` / ``$STROM_METRICS_FILE`` (utils/stats.py, read
+by ``tools/strom_stat.py``); under ``STROM_METRICS_FILE`` the first
+engine starts the process's periodic writer.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ from nvme_strom_tpu_torch.obs.ledger import RingTimeLedger
 from nvme_strom_tpu_torch.utils.config import (BreakerConfig, EngineConfig,
                                                FlightConfig, SchedConfig)
 from nvme_strom_tpu_torch.utils.stats import (StromStats,
+                                              maybe_start_metrics_writer,
                                               percentiles_from_log2_hist)
 from nvme_strom_tpu_torch.utils.trace import (NO_CONTEXT, attach_context,
                                               global_tracer)
@@ -96,6 +101,36 @@ class _FileInfo(ctypes.Structure):
         ("supports_direct", ctypes.c_int32),
         ("block_size", ctypes.c_int32),
         ("fs_magic", ctypes.c_uint64),
+    ]
+
+
+#: md members a device record holds (STROM_MAX_RAID_MEMBERS)
+_MAX_RAID_MEMBERS = 16
+#: flag of an extent from a filesystem without FIEMAP (readable, not
+#: physically addressable)
+EXTENT_SYNTHETIC = 0x80000000
+
+
+class _DeviceInfo(ctypes.Structure):
+    _fields_ = [
+        ("device", ctypes.c_char * 64),
+        ("is_nvme", ctypes.c_int32),
+        ("is_raid", ctypes.c_int32),
+        ("raid_level", ctypes.c_int32),
+        ("n_members", ctypes.c_int32),
+        ("rotational", ctypes.c_int32),
+        ("nvme_backed", ctypes.c_int32),
+        ("members", (ctypes.c_char * 64) * _MAX_RAID_MEMBERS),
+    ]
+
+
+class _Extent(ctypes.Structure):
+    _fields_ = [
+        ("logical", ctypes.c_uint64),
+        ("physical", ctypes.c_uint64),
+        ("length", ctypes.c_uint64),
+        ("flags", ctypes.c_uint32),
+        ("pad", ctypes.c_uint32),
     ]
 
 
@@ -217,6 +252,10 @@ def _lib() -> ctypes.CDLL:
         "strom_file_ident": (I, [P, I, ctypes.POINTER(U64)]),
         "strom_check_file": (I, [ctypes.c_char_p,
                                  ctypes.POINTER(_FileInfo)]),
+        "strom_resolve_device": (I, [ctypes.c_char_p,
+                                     ctypes.POINTER(_DeviceInfo)]),
+        "strom_file_extents": (I, [ctypes.c_char_p,
+                                   ctypes.POINTER(_Extent), U32]),
         "strom_get_pool_info": (None, [P, ctypes.POINTER(_PoolInfo)]),
         "strom_open": (I, [P, ctypes.c_char_p, I]),
         "strom_file_is_direct": (I, [P, I]),
@@ -265,7 +304,43 @@ def check_file(path) -> dict:
     if rc < 0:
         raise OSError(-rc, os.strerror(-rc), str(path))
     return {"size": info.size, "supports_direct": bool(info.supports_direct),
-            "block_size": info.block_size}
+            "block_size": info.block_size, "fs_magic": info.fs_magic}
+
+
+def block_device(path) -> dict:
+    """The backing block device of ``path`` from sysfs (``device`` ""
+    when none is visible: overlay, tmpfs, a network fs): ``is_nvme``,
+    ``is_raid``, ``raid_level`` (-1 unknown), ``rotational`` (-1
+    unknown), ``members`` of an md array, and ``nvme_backed``, NVMe or
+    raid0 over NVMe members only."""
+    info = _DeviceInfo()
+    rc = _lib().strom_resolve_device(os.fsencode(path), ctypes.byref(info))
+    if rc < 0:
+        raise OSError(-rc, os.strerror(-rc), str(path))
+    members = [info.members[i].value.decode()
+               for i in range(min(info.n_members, _MAX_RAID_MEMBERS))]
+    return {"device": info.device.decode(), "is_nvme": bool(info.is_nvme),
+            "is_raid": bool(info.is_raid), "raid_level": info.raid_level,
+            "rotational": info.rotational,
+            "nvme_backed": bool(info.nvme_backed), "members": members}
+
+
+def file_extents(path, max_extents: int = 1024) -> List[dict]:
+    """The file's whole extent map (``logical``, ``physical``,
+    ``length``, ``synthetic``: no FIEMAP), growing the buffer until it
+    fits."""
+    while True:
+        arr = (_Extent * max_extents)()
+        n = _lib().strom_file_extents(os.fsencode(path), arr, max_extents)
+        if n == -errno.E2BIG and max_extents < (1 << 22):
+            max_extents *= 4
+            continue
+        if n < 0:
+            raise OSError(-n, os.strerror(-n), str(path))
+        return [{"logical": e.logical, "physical": e.physical,
+                 "length": e.length,
+                 "synthetic": bool(e.flags & EXTENT_SYNTHETIC)}
+                for e in arr[:n]]
 
 
 class BouncedBytes(np.ndarray):
@@ -587,17 +662,32 @@ class StromEngine:
         #: the process's debug server (obs/debugsrv.py) under
         #: STROM_DEBUG_PORT, with this engine as its live one
         self._debug_srv = maybe_start_debug_server(self.stats, engine=self)
+        #: read-latency histogram at the previous sync_stats, which the
+        #: interval percentiles are the difference from
+        self._last_lat_read = [0] * _LAT_BUCKETS
+        #: the process's STROM_METRICS_FILE writer (utils/stats.py),
+        #: started with the first engine; while it watches this engine's
+        #: block, each periodic snapshot drains the C counters first
+        self._metrics_writer = maybe_start_metrics_writer(self.stats)
+        if self._metrics_writer is not None \
+                and self._metrics_writer.stats is self.stats:
+            self._metrics_writer.set_sync(self.sync_stats)
+        else:
+            self._metrics_writer = None
 
     # -- files --------------------------------------------------------------
 
-    def open(self, path, writable: bool = False) -> int:
+    def open(self, path, writable: bool = False,
+             force_buffered: bool = False) -> int:
         """A handle for engine reads (and writes when ``writable``); the
-        engine tries O_DIRECT first and falls back to buffered I/O.  The
-        file's identity comes from ``fstat`` on the engine's own
+        engine tries O_DIRECT first and falls back to buffered I/O
+        (``force_buffered``: buffered only, the fallback path alone).
+        The file's identity comes from ``fstat`` on the engine's own
         descriptor, never the path, so a rename racing the open cannot
         key one file's lines under another's."""
         fh = self._lib.strom_open(self._h, os.fsencode(path),
-                                  1 if writable else 0)
+                                  (1 if writable else 0)
+                                  | (2 if force_buffered else 0))
         if fh < 0:
             raise OSError(-fh, os.strerror(-fh), str(path))
         ident = (ctypes.c_uint64 * 4)()
@@ -859,12 +949,24 @@ class StromEngine:
         return {n: int(getattr(info, n)) for n, _ in _PoolInfo._fields_}
 
     def sync_stats(self) -> dict:
-        """Drain the C counters (read-and-zero) into ``self.stats``; a
-        multi-ring engine also sets the ``ring_depths`` gauge."""
+        """Drain the C counters (read-and-zero) into ``self.stats``, set
+        the read-latency gauges ``lat_read_p50_us`` / ``lat_read_p99_us``
+        over the interval since the previous sync (the histogram's
+        difference, so old samples never bury a new regression; an
+        interval without reads leaves them as they were), a multi-ring
+        engine's ``ring_depths`` gauge, and export the block
+        (``StromStats.maybe_export``)."""
         blk = _StatsBlk()
         self._lib.strom_drain_stats(self._h, ctypes.byref(blk))
         snap = {n: int(getattr(blk, n)) for n, _ in _StatsBlk._fields_}
         self.stats.merge_engine(snap)
+        cur = self.latency_histogram()["read"]
+        interval = [max(0, c - p) for c, p in zip(cur, self._last_lat_read)]
+        self._last_lat_read = cur
+        pct = percentiles_from_log2_hist(interval, ps=(50, 99))
+        if any(pct.values()):
+            self.stats.set_gauges(lat_read_p50_us=pct[50] / 1000.0,
+                                  lat_read_p99_us=pct[99] / 1000.0)
         if self.n_rings > 1:
             self.stats.set_gauges(ring_depths=self.ring_depths())
         self._sample_ring_states()
@@ -881,6 +983,7 @@ class StromEngine:
                     "strom.ring.inflight",
                     {str(i): d for i, d in enumerate(depths)})
             self._ring_counter_live = live
+        self.stats.maybe_export()
         return snap
 
     @property
@@ -900,6 +1003,10 @@ class StromEngine:
             # the server outlives engines: it only stops routing here
             self._debug_srv.detach_engine(self)
             self._debug_srv = None
+        if self._metrics_writer is not None:
+            # no periodic drain may reach the handle destroyed below
+            self._metrics_writer.detach_sync(self.sync_stats)
+            self._metrics_writer = None
         if self.supervisor is not None:
             self.supervisor.close()
         if self.scheduler is not None:

@@ -47,9 +47,12 @@ or gauge of this module moves.
 Engine work (serving steps, the store's flush, hint collection, flight
 dumps) runs outside the coordinator's lock.
 
-The exit hook's last metrics export (``StromStats.maybe_export`` in the
-JAX package) waits for the port's ``strom_stat`` tooling; the exit
-flush here is the forced flight dump.
+The exit hook (:meth:`DrainCoordinator.final_snapshot`) flushes what a
+TERM would lose: a last export of the stats block
+(``StromStats.maybe_export``: the JSON snapshot at
+``$STROM_STATS_EXPORT`` that ``tools/strom_stat.py`` reads, and the
+OpenMetrics text at ``$STROM_METRICS_FILE``) and a forced flight dump
+of the last operations.
 """
 
 from __future__ import annotations
@@ -353,8 +356,14 @@ class DrainCoordinator:
             stats.add(handoff_stall_dumps=1)
 
     def final_snapshot(self, reason: str = "exit") -> None:
-        """The exit flush a TERM would lose: a forced flight dump of the
-        last operations."""
+        """The exit flush a TERM would lose: a last export of the stats
+        block and a forced flight dump of the last operations."""
+        stats = self._stats()
+        if stats is not None:
+            try:
+                stats.maybe_export()
+            except Exception:   # noqa: BLE001 — the exit goes on
+                pass
         flight = getattr(self.engine, "flight", None)
         if flight is None:
             return

@@ -383,13 +383,22 @@ class DeviceStream:
     then go through the :class:`OverlapStage`, which frees each staging
     buffer as soon as its bytes are in a slab.  ``overlap_transfer``
     replaces the stage's transfer (tests).  ``klass`` is the latency
-    class of the stream's batches (io/sched.py)."""
+    class of the stream's batches (io/sched.py).
+
+    ``drain``: "blocking" (the default) waits for the oldest copy once
+    ``depth`` are in flight; "ready" also hands back every finished copy
+    at the head after each one it starts, so staging buffers recycle as
+    soon as the card is done with them (``tools/stream_probe.py``
+    measures both)."""
 
     def __init__(self, engine: StromEngine, device=None, depth: int = 3,
                  overlap_transfer: Optional[Callable] = None,
-                 klass: Optional[str] = None):
+                 klass: Optional[str] = None, drain: str = "blocking"):
         if depth < 1:
             raise ValueError("depth must be >= 1")
+        if drain not in ("blocking", "ready"):
+            raise ValueError(f"bad drain={drain!r}")
+        self.drain = drain
         self.engine = engine
         self.device = resolve_device(device)
         self.depth = depth
@@ -500,6 +509,9 @@ class DeviceStream:
                 i += len(take)
                 while len(pending) > self.depth:
                     start_transfer()
+                    if self.drain == "ready":
+                        while inflight and inflight[0][0].is_ready():
+                            yield drain_one()
                     while len(inflight) > self.depth:
                         yield drain_one()
             while pending:

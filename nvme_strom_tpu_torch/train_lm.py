@@ -29,8 +29,14 @@ group reads its own rows of every batch, the Trainer holds each rank's
 slices, and the checkpoint (default ``./ckpt``, which every rank must
 see) is written tile by tile.  Rank 0 synthesizes the shards and prints
 the log.  Without ``torchrun`` it runs on one device, and a ``--tp``
-other than 1 exits with an error.  The JAX example's ``--from-hf``
-(with the converter, ROADMAP Queue 1 item 15) is not here.
+other than 1 exits with an error.
+
+``--from-hf HF_DIR`` warm-starts from a local HuggingFace Llama
+checkpoint: converted once (tools/convert_llama.py) into
+``--ckpt-dir/hf_converted`` and reused while its ``source.json`` names
+the same ``config.json``; the model config is the checkpoint's, its
+``max_seq`` capped at ``--seq-len``.  It excludes ``--init-weights``
+and ``--tiny``, and needs ``--ckpt-dir``.
 """
 
 from __future__ import annotations
@@ -225,6 +231,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--init-weights", default=None,
                     help="safetensors file or dir to warm-start from")
+    ap.add_argument("--from-hf", default=None, metavar="HF_DIR",
+                    help="warm-start from a HuggingFace Llama checkpoint "
+                         "dir: converted once into --ckpt-dir/"
+                         "hf_converted, the model config taken from it")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -281,6 +291,14 @@ def main(argv=None) -> int:
     if args.mix and args.data_dir:
         ap.error("--mix and --data-dir conflict: list every corpus in "
                  "--mix (DIR:W,DIR:W)")
+    if args.from_hf:
+        if args.init_weights or args.tiny:
+            ap.error("--from-hf is mutually exclusive with "
+                     "--init-weights/--tiny (it supplies both weights "
+                     "and model config)")
+        if not args.ckpt_dir:
+            ap.error("--from-hf needs --ckpt-dir: the converted shards "
+                     "are a durable multi-GB artifact")
 
     from nvme_strom_tpu_torch.parallel.mesh import (
         init_distributed, make_mesh, process_info, shutdown_distributed)
@@ -314,9 +332,11 @@ def _main(ap, args, mesh) -> int:
         flagship_config, lr_schedule, tiny_config)
     from nvme_strom_tpu_torch.train import Trainer
 
-    cfg = dataclasses.replace(
-        tiny_config() if args.tiny else flagship_config(),
-        remat_policy=args.remat)
+    if args.from_hf:
+        base = _from_hf(ap, args, rank, say)
+    else:
+        base = tiny_config() if args.tiny else flagship_config()
+    cfg = dataclasses.replace(base, remat_policy=args.remat)
     if args.xent_chunks > 1:
         cfg = dataclasses.replace(cfg, xent_chunks=args.xent_chunks)
     attn_fn = None
@@ -437,6 +457,39 @@ def _main(ap, args, mesh) -> int:
         if tmp:
             tmp.cleanup()
     return 0
+
+
+def _from_hf(ap, args, rank: int, say):
+    """Convert ``--from-hf`` into ``--ckpt-dir/hf_converted`` (rank 0,
+    once: a conversion of the same ``config.json`` is reused, one of
+    another checkpoint refused), point ``--init-weights`` at it and
+    return its config with ``max_seq`` capped at ``--seq-len``."""
+    import json
+    from nvme_strom_tpu_torch.models.transformer import TransformerConfig
+    from nvme_strom_tpu_torch.parallel.mesh import barrier
+    from nvme_strom_tpu_torch.tools.convert_llama import (convert,
+                                                          converted_for)
+    conv_dir = os.path.join(args.ckpt_dir, "hf_converted")
+    same = converted_for(args.from_hf, conv_dir)
+    if same is False:
+        ap.error(f"{conv_dir} holds a conversion of a different "
+                 "checkpoint; refusing to mix — use a fresh --ckpt-dir "
+                 "or delete hf_converted/")
+    if same:
+        say(f"from-hf: reusing converted shards under {conv_dir}")
+    elif rank == 0:
+        summary = convert(args.from_hf, conv_dir)
+        say(f"from-hf: converted {summary['tensors']} tensors into "
+            f"{summary['shards']} shard(s) under {conv_dir}")
+    barrier()
+    with open(os.path.join(conv_dir, "strom_config.json")) as f:
+        cfg = TransformerConfig(**json.load(f))
+    if cfg.max_seq > args.seq_len:
+        # HF configs carry max_position_embeddings up to 128k; the
+        # training length is a run's choice
+        cfg = dataclasses.replace(cfg, max_seq=args.seq_len)
+    args.init_weights = conv_dir
+    return cfg
 
 
 def _log_step(step: int, loss: float, dt: float) -> None:

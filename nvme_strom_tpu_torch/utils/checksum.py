@@ -12,8 +12,9 @@ KV prefix store's recompute, a checkpoint restore's step back) treats it
 as a failed read.  CRC32C is the engine's (``io/engine.py`` ``crc32c``).
 
 Record formats are stamped by an offset-keyed sidecar next to the data
-file, ``<file>.crc.json`` (``write_sidecar``, ``stamp_wds``; read back by
-``load_sidecar``), in the JAX package's format, so either package reads
+file, ``<file>.crc.json`` (``write_sidecar``, ``stamp_wds``,
+``stamp_fixedrec``, ``stamp_tfrecord``; read back by ``load_sidecar``),
+in the JAX package's format, so either package reads
 what the other wrote; the WebDataset loader checks each sample part
 against it.
 """
@@ -215,5 +216,34 @@ def stamp_wds(path) -> str:
                 for _ext, (off, ln) in idx.samples[key].items():
                     f.seek(off)
                     yield off, ln, f.read(ln)
+
+    return write_sidecar(path, spans())
+
+
+def stamp_fixedrec(path) -> str:
+    """Stamp a fixedrec shard: one span a record."""
+    from nvme_strom_tpu_torch.formats.fixedrec import FixedRecIndex
+    idx = FixedRecIndex(path)
+    rb = idx.record_bytes
+
+    def spans():
+        with open(path, "rb") as f:
+            for i in range(idx.count):
+                f.seek(i * rb)
+                yield i * rb, rb, f.read(rb)
+
+    return write_sidecar(path, spans())
+
+
+def stamp_tfrecord(path) -> str:
+    """Stamp a TFRecord shard: one span a record payload."""
+    from nvme_strom_tpu_torch.formats.tfrecord import TFRecordIndex
+    idx = TFRecordIndex(path)
+
+    def spans():
+        with open(path, "rb") as f:
+            for off, ln in zip(idx.offsets, idx.lengths):
+                f.seek(off)
+                yield off, ln, f.read(ln)
 
     return write_sidecar(path, spans())

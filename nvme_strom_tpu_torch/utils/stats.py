@@ -98,19 +98,32 @@ state) and ``engine_degraded``, ``boot_phase`` /
 ``boot_phase_code``, ``drain_phase`` / ``drain_phase_code`` and
 ``handoff_source`` (``bundle`` once a boot consumed one), and
 ``ring_state_s`` (each ring's cumulative seconds per state,
-obs/ledger.py ``RingTimeLedger``).  :func:`openmetrics_from_snapshot`
+obs/ledger.py ``RingTimeLedger``), and ``lat_read_p50_us`` /
+``lat_read_p99_us`` (the engine's read latency over the interval since
+its previous ``sync_stats``).  :func:`openmetrics_from_snapshot`
 renders a snapshot as OpenMetrics text (the debug server's
 ``/metrics``).
+
+Export, with the JAX package's knobs: :meth:`StromStats.maybe_export`,
+which every engine's ``sync_stats`` calls, writes the snapshot as JSON
+to ``$STROM_STATS_EXPORT`` (with ``_exported_at`` and ``_pid``; the
+file ``tools/strom_stat.py`` reads) and as OpenMetrics text to
+``$STROM_METRICS_FILE``, each atomically and each on its own;
+:func:`maybe_start_metrics_writer` starts the process's one periodic
+writer of ``$STROM_METRICS_FILE`` (every ``STROM_METRICS_INTERVAL_S``,
+default 10 s) with the first engine.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import math
 import os
 import threading
+import time
 from dataclasses import dataclass, field, fields
-from typing import List
+from typing import List, Optional
 
 COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "bounce_bytes", "bytes_to_device", "overlap_chunks",
@@ -148,7 +161,8 @@ COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
 GAUGES = ("kv_restore_p99_ms", "kv_store_pages_resident", "ring_depths",
           "cache_bytes_resident", "cache_lines_resident", "ring_health",
           "engine_degraded", "boot_phase", "boot_phase_code", "drain_phase",
-          "drain_phase_code", "handoff_source", "ring_state_s")
+          "drain_phase_code", "handoff_source", "ring_state_s",
+          "lat_read_p50_us", "lat_read_p99_us")
 
 
 @dataclass
@@ -324,6 +338,29 @@ class StromStats:
                                         self._tenant_stats.items()}
             return snap
 
+    def maybe_export(self) -> None:
+        """Write the snapshot to ``$STROM_STATS_EXPORT`` (JSON, with
+        ``_exported_at`` and ``_pid``) and to ``$STROM_METRICS_FILE``
+        (OpenMetrics), each when set and each atomically; a failed
+        write is skipped, the caller's sync goes on."""
+        path = os.environ.get("STROM_STATS_EXPORT")
+        mpath = os.environ.get("STROM_METRICS_FILE")
+        if not path and not mpath:
+            return
+        snap = self.snapshot()
+        snap["_exported_at"] = time.time()
+        snap["_pid"] = os.getpid()
+        if path:
+            try:
+                atomic_write_text(path, json.dumps(snap, sort_keys=True))
+            except OSError:
+                pass
+        if mpath:
+            try:
+                write_openmetrics_file(mpath, snap)
+            except OSError:
+                pass
+
 
 #: a log2 bucket [2^i, 2^(i+1)) reports its geometric mean, 2^i·√2
 _LOG2_BUCKET_MEAN = math.sqrt(2.0)
@@ -350,6 +387,15 @@ def percentiles_from_log2_hist(hist: list, ps=(50, 90, 99)) -> dict:
                 break
         out[p] = val
     return out
+
+
+def human_bytes(n: float) -> str:
+    """1536 → '1.50 KiB'; negative deltas (a counter reset) too."""
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024:
+            return f"{n:.2f} {unit}"
+        n /= 1024
+    return f"{n:.2f} TiB"
 
 
 class Log2Histogram:
@@ -438,8 +484,8 @@ def openmetrics_from_snapshot(snap: dict) -> str:
                             "ring_health", "ring_state_s"}
     for name in sorted(snap):
         v = snap[name]
-        if name not in skip and isinstance(v, (int, float)) \
-                and not isinstance(v, bool):
+        if name not in skip and not name.startswith("_") \
+                and isinstance(v, (int, float)) and not isinstance(v, bool):
             add(f"strom_{name}", "gauge", f"strom-io gauge {name}", v)
     lines = []
     for name in sorted(fams):
@@ -474,3 +520,105 @@ def atomic_write_text(path: str, text: str) -> None:
         except OSError:
             pass
         raise
+
+
+def write_openmetrics_file(path: str, snap: dict) -> None:
+    """``snap`` as OpenMetrics text at ``path``, atomically (the
+    ``STROM_METRICS_FILE`` textfile)."""
+    atomic_write_text(path, openmetrics_from_snapshot(snap))
+
+
+class MetricsSnapshotter:
+    """Every ``interval_s`` a daemon thread runs ``sync`` (an engine's
+    ``sync_stats``, when attached), snapshots ``stats`` into ``series``
+    (the newest ``keep``) and rewrites ``path`` as OpenMetrics text.
+    ``close()`` takes one last snapshot, so a short run exports too."""
+
+    def __init__(self, stats: StromStats, interval_s: float = 10.0,
+                 path: Optional[str] = None, keep: int = 512, sync=None):
+        if interval_s <= 0:
+            raise ValueError("interval_s must be > 0")
+        self.stats = stats
+        self.interval_s = interval_s
+        self.path = path
+        self.keep = keep
+        #: run before each snapshot; swapped under ``_sync_lock`` so an
+        #: engine detaching at close never races a drain of its handle
+        self._sync = sync
+        self._sync_lock = threading.Lock()
+        self.series: List[dict] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="strom-metrics")
+        self._thread.start()
+
+    def set_sync(self, sync) -> None:
+        """Attach (or, with None, detach) the pre-snapshot hook; waits
+        for a drain in progress."""
+        with self._sync_lock:
+            self._sync = sync
+
+    def detach_sync(self, sync) -> None:
+        """Detach ``sync`` only if it is still the hook: a closing
+        engine leaves a later engine's hook in place."""
+        with self._sync_lock:
+            if self._sync == sync:
+                self._sync = None
+
+    def snap_once(self) -> None:
+        with self._sync_lock:
+            if self._sync is not None:
+                try:
+                    self._sync()
+                except Exception:   # noqa: BLE001 — the writer goes on
+                    pass
+        snap = self.stats.snapshot()
+        snap["_t"] = time.time()
+        self.series.append(snap)
+        del self.series[:max(0, len(self.series) - self.keep)]
+        if self.path:
+            try:
+                write_openmetrics_file(self.path, snap)
+            except OSError:
+                pass
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.snap_once()
+
+    def close(self) -> None:
+        if not self._stop.is_set():
+            self._stop.set()
+            self._thread.join(timeout=5)
+            self.snap_once()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+_writer_lock = threading.Lock()
+_writer: Optional[MetricsSnapshotter] = None
+
+
+def maybe_start_metrics_writer(stats: StromStats, sync=None
+                               ) -> Optional[MetricsSnapshotter]:
+    """The process's ``STROM_METRICS_FILE`` writer, started on the first
+    call with that variable set (interval ``STROM_METRICS_INTERVAL_S``,
+    default 10 s, at least 0.05); None without it."""
+    global _writer
+    path = os.environ.get("STROM_METRICS_FILE")
+    if not path:
+        return None
+    with _writer_lock:
+        if _writer is None:
+            try:
+                interval = float(os.environ.get("STROM_METRICS_INTERVAL_S",
+                                                10.0))
+            except ValueError:
+                interval = 10.0
+            _writer = MetricsSnapshotter(stats, max(0.05, interval),
+                                         path=path, sync=sync)
+        return _writer

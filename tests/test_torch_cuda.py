@@ -1980,3 +1980,42 @@ def test_sql_device_table_counts_past_f32_integers(dev, tmp_path,
     assert (np.abs(r["sum"].cpu().numpy() - ref) <= lim).all()
     s = table.scalar_agg("v", aggs=("count",))
     assert int(s["count"]) == n
+
+
+# -- the operator tools on the card -------------------------------------------
+
+def test_ssd2gpu_device_dest_verified_on_card(dev, tmp_path, monkeypatch,
+                                              capsys):
+    """``ssd2gpu_test --dest device --verify``: every chunk read back
+    from the card equals a pread of its range, one h2d_copy launch a
+    chunk, and no bounce when the reads were O_DIRECT."""
+    import json
+    monkeypatch.setenv("STROM_NO_RESIDENCY_PROBE", "1")
+    from nvme_strom_tpu_torch.tools import ssd2gpu_test
+    path = tmp_path / "payload.bin"
+    ssd2gpu_test.make_test_file(str(path), 24 * (1 << 20) + 777)
+    rc = ssd2gpu_test.main([str(path), "--dest", "device", "--verify",
+                            "--chunk-bytes", str(4 << 20), "--depth", "3"])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and res["verify"] == "ok"
+    assert res["bytes"] == path.stat().st_size
+    assert res["chunks_verified"] == res["chunks"] == 7
+    assert res["h2d_copy_launches"] == res["chunks"]
+    if res["bytes_fallback"] == 0:
+        assert res["bounce_bytes"] == 0
+
+
+def test_kernel_probe_small_shape_on_card(dev, capsys):
+    """``kernel_probe`` at a small GQA shape: kernels 4-6 each launched,
+    out, dQ, dK and dV within the flash bf16 tolerance of their plain
+    versions and the forward's lse within 1e-4 of the plain lse."""
+    import json
+    from nvme_strom_tpu_torch.tools import kernel_probe
+    assert kernel_probe.main(["--shapes", "", "--shape", "2,8,2,512,128",
+                              "--roof-n", "1024", "--iters", "2"]) == 0
+    recs = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    flash = recs[0]
+    assert flash["impl"] == "flash" and flash["within_tol"]
+    assert set(flash["err_over_tol"]) == {"out", "lse", "dq", "dk", "dv"}
+    assert all(n > 0 for n in flash["launches_checked"].values())
+    assert recs[-1]["probe"] == "matmul_roof" and recs[-1]["finite"]
