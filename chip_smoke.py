@@ -126,7 +126,14 @@ It builds the port's native libraries from the checkout, then:
    ``STROM_DEBUG_PORT=0``, attribution on and off in turns, every
    retired request folded (coverage + unattributed within 1% of wall,
    ``nvme_read`` and ``bridge`` nonzero), every debug route answering,
-   a flight dump carrying ``attrib``; then the cost of
+   a flight dump carrying ``attrib``; main path — static analysis and
+   the lock-order witness (``lint_phase``): ``strom_lint`` over the
+   checkout exits 0 and the kernel entry points it parses are exactly
+   the built library's exports, then the prefix store's chat traffic on
+   the default engine (rings, the QoS scheduler, a host tier) through
+   both servers under ``STROM_LOCK_WITNESS=strict``: 0 cycles, the
+   edges and ``/locks`` printed (``--lint`` runs it alone on weights
+   made on the card); then the cost of
    the default supervisor and recorder against none, in turns: a 2 GiB
    stream pass and the prefix store's requests on both servers; main
    path — speculative decoding (``speculative_phase``): Llama-3-8B
@@ -260,7 +267,7 @@ phases 3-4, again in the prefix-store run and in the GQA serve run of
 phase 5, ``h2d_copy`` in its offload run, kernels 1-3 in its qos and
 tenant runs, in the recovery run and in the failure-domain run,
 kernels 1-2 in the cold-start run, kernels 1-3 in the attribution
-run, ``decode_attention`` in the speculative run, the flash kernels
+and lint runs, ``decode_attention`` in the speculative run, the flash kernels
 and ``h2d_copy``
 in phase 6, kernels 1-3 in its verify run, ``h2d_copy`` in the
 recovering loader's run, ``h2d_copy`` and the flash kernels in
@@ -1522,9 +1529,12 @@ def profile_run(run, label):
     the profiled window (the run may go on unprofiled; the window also
     ends with the run): device time by kernel and the share of the
     window's wall time the device was busy (the profiler's own overhead
-    lengthens the wall time)."""
+    lengthens the wall time).  Device time is kernels and copies only
+    (``profile_report.device_events``): a user annotation such as the
+    optimizer's spans kernels that are already counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from nvme_strom_tpu_torch.tools.profile_report import device_events
     prof = profile(activities=[ProfilerActivity.CPU,
                                ProfilerActivity.CUDA])
     window = {}
@@ -1541,9 +1551,13 @@ def profile_run(run, label):
     finally:
         done()
     secs = window["secs"]
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
+    events = device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
+    # what the share leaves out: user annotations on the device timeline
+    annotation_us = sum(e.self_device_time_total
+                        for e in prof.key_averages()
+                        if e.device_type.name == "CUDA"
+                        and getattr(e, "is_user_annotation", False))
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
     flash = {e.key[:60]: (e.self_device_time_total / 1e3, e.count)
@@ -1551,12 +1565,15 @@ def profile_run(run, label):
     flash_ms = sum(ms for ms, _ in flash.values())
     out = {"wall_s": secs, "device_busy_s": busy_us / 1e6,
            "device_busy_share": busy_us / 1e6 / secs,
+           "annotation_s": annotation_us / 1e6,
            "top_kernels": [(e.key[:60], e.self_device_time_total / 1e3,
                             e.count) for e in top],
            "flash_kernels": flash, "flash_ms": flash_ms,
            "flash_share": flash_ms * 1e3 / busy_us if busy_us else 0.0}
     log(f"profile ({label}): device busy {busy_us / 1e6:.4f} s of "
-        f"{secs:.4f} s wall = {out['device_busy_share']:.3f}; top "
+        f"{secs:.4f} s wall = {out['device_busy_share']:.3f} (kernels and "
+        f"copies; user annotations left out: {annotation_us / 1e6:.4f} "
+        f"s); top "
         f"kernels (name, ms, calls) {out['top_kernels']}; flash kernels "
         f"{flash} = {flash_ms:.3f} ms, {out['flash_share']:.3f} of busy")
     return out
@@ -6476,7 +6493,7 @@ def eval_ppl_phase(dev, ckdir):
 #: store engine's tracer, or detached)
 ATTRIB_ORDER = ("on", "off", "off", "on")
 ATTRIB_ROUTES = ("/", "/metrics", "/attrib", "/ledger", "/flight",
-                 "/health")
+                 "/health", "/locks")
 
 
 def attrib_phase(dev, cfg, params, shared):
@@ -6628,6 +6645,175 @@ def attrib_phase(dev, cfg, params, shared):
         f"{report['attrib_spans_dropped']}; tok/s {tps}; on / off "
         f"{report['on_over_off']}; routes {report['routes']}; phase "
         f"{report['seconds']:.1f} s")
+    return report
+
+
+# -- strom-lint and the lock-order witness on the serving path --------------
+
+#: the phase's wall-clock budget (s), and the host tier's MiB in (b)
+LINT_BUDGET_S = 40
+LINT_TIER_MB = 256
+#: the kernels (b)'s serving path launches
+LINT_KERNELS = ("h2d_copy", "decode_attention", "paged_attention")
+
+
+def _exported_entry_points(path):
+    """The ``strom_*`` functions a built library exports (``nm -D``)."""
+    import subprocess
+    out = subprocess.run(["nm", "-D", "--defined-only", str(path)],
+                         capture_output=True, text=True, check=True).stdout
+    names = set()
+    for ln in out.splitlines():
+        f = ln.split()
+        if len(f) >= 3 and f[1] in "TtWw" and f[2].startswith("strom_"):
+            names.add(f[2])
+    return names
+
+
+def lint_phase(dev, cfg, params):
+    """(a) ``python -m nvme_strom_tpu_torch.tools.strom_lint`` over the
+    checkout exits 0, once the kernel library has built, and every entry
+    point the ABI pass reads from ``nvme_strom_tpu_torch/csrc/*.cu`` is a
+    function the built ``libstrom_torch_kernels.so`` exports, with no
+    ``strom_*`` export left over;
+    (b) under the lock-order witness in strict mode
+    (``STROM_LOCK_WITNESS=strict``, armed for the part): the default
+    engine (its rings and the QoS scheduler) with a host tier of
+    LINT_TIER_MB, the prefix store's chat traffic through
+    ``PagedDecodeServer`` cold, then its NVMe hit (pages restored through
+    ``h2d_copy``), then ``DecodeServer``'s NVMe hit; both hits' tokens
+    equal.  Every lock built in the part is witnessed and a cycle raises
+    where it closes.  Reports the witness's edges, its cycles (0) and the
+    debug server's ``/locks`` answer."""
+    import io
+    import urllib.request
+    from contextlib import redirect_stdout
+    from pathlib import Path
+    import torch
+    from nvme_strom_tpu_torch import _build
+    from nvme_strom_tpu_torch.analysis.cabi import parse_kernel_sources
+    from nvme_strom_tpu_torch.analysis.driver import default_kernel_sources
+    from nvme_strom_tpu_torch.io import hostcache
+    from nvme_strom_tpu_torch.io.engine import StromEngine
+    from nvme_strom_tpu_torch.models.kv_offload import PrefixStore
+    from nvme_strom_tpu_torch.models.serving import (DecodeServer,
+                                                     PagedDecodeServer)
+    from nvme_strom_tpu_torch.obs import debugsrv
+    from nvme_strom_tpu_torch.tools import strom_lint
+    from nvme_strom_tpu_torch.utils import lockwitness
+    from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+    t_phase = time.monotonic()
+    report = {}
+    # (a) the static passes, and the ABI pass against the built library
+    _build.kernel_library()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with redirect_stdout(buf):
+        rc = strom_lint.main(["--json"])
+    lint = json.loads(buf.getvalue())
+    report["lint_s"] = time.monotonic() - t0
+    if rc != 0 or lint["n_active"]:
+        raise AssertionError(f"strom_lint exit {rc}: " + "; ".join(
+            f"{v['file']}:{v['line']}: [{v['check']}] {v['message']}"
+            for v in lint["violations"] if not v["waived"]))
+    parsed = set(parse_kernel_sources(
+        default_kernel_sources(Path(ROOT))).funcs)
+    exported = _exported_entry_points(
+        _build.BUILD_DIR / "libstrom_torch_kernels.so")
+    if parsed != exported:
+        raise AssertionError(f"kernel entry points: parsed but not "
+                             f"exported {sorted(parsed - exported)}; "
+                             f"exported but not parsed "
+                             f"{sorted(exported - parsed)}")
+    report["a"] = {"exit": rc, "checks": lint["checks_run"],
+                   "waived": lint["n_waived"],
+                   "entry_points": len(parsed)}
+    log(f"lint (a): strom_lint exit {rc} in {report['lint_s']:.2f} s "
+        f"({lint['n_waived']} waived); {len(parsed)} kernel entry points "
+        f"parsed, all exported by the built library, none left over")
+    # (b) the serving path under the witness, strict
+    requests = prefix_requests(cfg.vocab)
+    path = os.path.join(DATA_DIR, "kv_store", "lint.kvstore")
+    for p in (path, path + ".kvman.json"):
+        if os.path.exists(p):
+            os.remove(p)
+    P = PREFIX_PAGE_TOKENS
+    with _env(STROM_LOCK_WITNESS="strict"), \
+            lockwitness.armed_scope() as w:
+        with StromEngine() as eng:
+            srv_http = None
+            try:
+                if eng.scheduler is None:
+                    raise AssertionError("lint (b): the default engine has no "
+                                         "QoS scheduler")
+                cache = hostcache.configure(
+                    HostCacheConfig(budget_mb=LINT_TIER_MB), engine=eng)
+                eng.cuda_mapping(dev.index)
+                cache.arena.cuda.mapping(dev.index)
+                st = PrefixStore(cfg, eng, path, P, PREFIX_STORE_BYTES)
+                _, rep_cold = store_run(
+                    "lint paged cold", PagedDecodeServer(
+                        params, cfg, PREFIX_REQUESTS, 2048, total_blocks=128,
+                        block_len=P, device=dev, kv_store=st),
+                    requests, eng, st)
+                st.close()
+                st = PrefixStore(cfg, eng, path, P, PREFIX_STORE_BYTES)
+                paged_hit, rep_hit = store_run(
+                    "lint paged NVMe hit", PagedDecodeServer(
+                        params, cfg, PREFIX_REQUESTS, 2048, total_blocks=128,
+                        block_len=P, device=dev, kv_store=st),
+                    requests, eng, st)
+                dense_hit, rep_dense = store_run(
+                    "lint dense hit", DecodeServer(
+                        params, cfg, PREFIX_REQUESTS, 2048, device=dev,
+                        kv_store=st),
+                    requests, eng, st)
+                if paged_hit != dense_hit:
+                    raise AssertionError("lint (b): the paged and dense hits' "
+                                         "tokens differ")
+                if not rep_hit["stats"]["kv_pages_restored"]:
+                    raise AssertionError(f"lint (b): no page restored "
+                                         f"{rep_hit['stats']}")
+                st.close()
+                torch.cuda.synchronize()
+                srv_http = debugsrv.DebugServer(eng.stats, port=0)
+                srv_http.attach_engine(eng)
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{srv_http.port}/locks",
+                        timeout=10) as r:
+                    locks = json.loads(r.read().decode())
+            finally:
+                if srv_http is not None:
+                    srv_http.close()
+                hostcache.reset()
+        edges = w.snapshot_edges()
+        cycles = list(w.violations)
+    n_edges = sum(len(v) for v in edges.values())
+    if cycles:
+        raise AssertionError(f"lint (b): the witness recorded {cycles}")
+    if not (locks.get("armed") and locks.get("mode") == "strict"
+            and locks.get("violations") == []
+            and sum(len(v) for v in locks.get("edges", {}).values())):
+        raise AssertionError(f"lint (b): /locks answered {locks}")
+    report["b"] = {"edges": n_edges, "locks": sorted(edges),
+                   "edge_list": edges, "cycles": len(cycles),
+                   "locks_route": {"armed": locks["armed"],
+                                   "mode": locks["mode"],
+                                   "edges": sum(len(v) for v in
+                                                locks["edges"].values()),
+                                   "violations": locks["violations"]},
+                   "restored_pages": rep_hit["stats"]["kv_pages_restored"],
+                   "h2d_launches": rep_cold["h2d_launches"]
+                   + rep_hit["h2d_launches"] + rep_dense["h2d_launches"]}
+    report["seconds"] = time.monotonic() - t_phase
+    log(f"lint (b): witness strict, {n_edges} edges over {len(edges)} held "
+        f"locks, {len(cycles)} cycles; edges {edges}; /locks "
+        f"{report['b']['locks_route']}; pages restored "
+        f"{report['b']['restored_pages']}")
+    log(f"lint: {report['seconds']:.1f} s (budget {LINT_BUDGET_S} s)")
+    if report["seconds"] > LINT_BUDGET_S:
+        raise AssertionError(f"lint: {report['seconds']:.1f} s, past its "
+                             f"{LINT_BUDGET_S} s budget")
     return report
 
 
@@ -7363,8 +7549,10 @@ def _device_split(prof, steps):
     """(device-busy ms, NCCL ms, {collective: NCCL ms}) a step of a
     torch.profiler run over ``steps`` steps.  A rank that reaches a
     collective before its peers waits inside the NCCL kernel, so a
-    kind's ms holds that wait as well as the transfer."""
-    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kind's ms holds that wait as well as the transfer.  Device time is
+    kernels and copies only (``profile_report.device_events``)."""
+    from nvme_strom_tpu_torch.tools.profile_report import device_events
+    ev = device_events(prof)
     busy = sum(e.self_device_time_total for e in ev) / 1e3 / steps
     kinds: dict = {}
     for e in ev:
@@ -9154,6 +9342,25 @@ def main() -> int:
         os.remove(stream_path)
         print(card_line())
         return 0
+    if sys.argv[1:2] == ["--lint"]:
+        # lint_phase alone: strom_lint over the checkout, and the serving
+        # path under the strict witness on seeded flagship weights made
+        # on the card
+        os.makedirs(os.path.join(DATA_DIR, "kv_store"), exist_ok=True)
+        cfg = flagship_config()
+        params = _card_params(cfg, SEED, dev)
+        for fn in counters.values():
+            fn.launches = 0
+        lint = lint_phase(dev, cfg, params)
+        counts = {n: fn.launches for n, fn in counters.items()}
+        log("lint launches: " + json.dumps(counts))
+        for n in LINT_KERNELS:
+            if counts[n] <= 0:
+                raise AssertionError(f"kernel {n} never launched on the "
+                                     "lint path")
+        log("lint " + json.dumps(lint))
+        print(card_line())
+        return 0
     if sys.argv[1:2] == ["--sp-pp"]:
         # main path 5 alone (on a machine with 2-4 cards, the phase's
         # NCCL run without the rest of the script)
@@ -9298,6 +9505,13 @@ def main() -> int:
         lambda: attrib_phase(dev, cfg, params, shared))
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches_attrib"] = counts[n]
+    # main path 1m: strom_lint over the checkout, then the prefix store
+    # on both servers with the host tier and the QoS scheduler under the
+    # strict lock-order witness (kernels 1-3)
+    lint, counts = drive("lint", LINT_KERNELS,
+                         lambda: lint_phase(dev, cfg, params))
+    for n in LINT_KERNELS:
+        results[n]["launches_lint"] = counts[n]
     supervisor_cost = supervisor_cost_phase(dev, cfg, params, shared,
                                             stream_path, want)
     torch.cuda.empty_cache()
@@ -9480,6 +9694,7 @@ def main() -> int:
     log("sp_pp " + json.dumps(sp_pp))
     log("sql " + json.dumps(sql))
     log("tools " + json.dumps(_tools_summary(tools)))
+    log("lint " + json.dumps(lint))
 
     log("summary: " + json.dumps({"stream": stream, "serve": serving,
                                   "gqa_serve": gqa, "prefix_store": prefix,
@@ -9505,6 +9720,8 @@ def main() -> int:
                                             if k != "ranks"},
                                   "sql": {k: sql[k] for k in ("seconds",
                                                               "timing")},
+                                  "lint": {"seconds": lint["seconds"],
+                                           "edges": lint["b"]["edges"]},
                                   "tools": {"seconds": tools["seconds"],
                                             "ceilings": tools["a"][
                                                 "median_gib_per_s"]},

@@ -29,6 +29,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
+
 _PKG = Path(__file__).resolve().parent
 _ROOT = _PKG.parent
 BUILD_DIR = _ROOT / "build" / "torch_kernels"
@@ -48,7 +50,7 @@ NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared",
 #: start of the parallel compile to that source's end)
 build_seconds: Dict[str, float] = {}
 
-_lock = threading.Lock()
+_lock = make_lock("_build._lock")
 _engine_lib: Optional[ctypes.CDLL] = None
 _kernel_lib: Optional[ctypes.CDLL] = None
 
@@ -187,11 +189,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # split_len, dtype, scale, stream, dev
         "strom_decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I,
                                    I, I, F, P, I],
+        # the fp16 unit's entry point, which strom_decode_attention hands
+        # fp16 calls to
+        "strom_decode_attention_f16": [P, P, P, P, P, P, I, I, I, I, I, I,
+                                       I, I, I, F, P, I],
         # q, k_pool, v_pool, table, pos, out, ws, b, nkv, g, n_pool,
         # block_k, max_blocks, d, width, rows, split_len, dtype, scale,
         # stream, dev
         "strom_paged_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                   I, I, I, I, F, P, I],
+        "strom_paged_attention_f16": [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                      I, I, I, I, I, F, P, I],
         # q, k, v, out, lse, strides, b, h, s, skv, d, dtype, causal,
         # scale, stream, dev
         "strom_flash_fwd": [P, P, P, P, P, S, I, I, I, I, I, I, I, F, P, I],
@@ -206,8 +214,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "strom_flash_route": [I, I],
         # slots, flags, ranks (host arrays), n_here, n, remote_right,
         # slot_bytes, blocks, base, budget_ns, err, err_host, stream, dev
-        "strom_ici_ring": [P, P, P, I, I, U64, U64, I, ctypes.c_uint,
-                           ctypes.c_ulonglong, P, P, P, I],
+        "strom_ici_ring": [ctypes.POINTER(U64), ctypes.POINTER(U64),
+                           ctypes.POINTER(I), I, I, U64, U64, I,
+                           ctypes.c_uint, ctypes.c_ulonglong, P, P, P, I],
         # dev, blocks, chunk (both written)
         "strom_ici_ring_capacity": [I, ctypes.POINTER(I),
                                     ctypes.POINTER(ctypes.c_uint)],

@@ -33,12 +33,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from nvme_strom_tpu_torch import _build
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 #: carve alignment: every slab starts O_DIRECT- and page-aligned
 CARVE_ALIGN = 4096
@@ -77,7 +77,7 @@ class CudaRegistration:
         self.nbytes = nbytes
         self.what = what
         self._maps: Dict[int, HostMapping] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("arena.CudaRegistration._lock")
         self._closed = False
 
     @property
@@ -218,7 +218,7 @@ class PinnedArena:
         nbytes = (nbytes + CARVE_ALIGN - 1) // CARVE_ALIGN * CARVE_ALIGN
         self.nbytes = nbytes
         self.lock_pages = lock_pages
-        self._lock = threading.Lock()
+        self._lock = make_lock("arena.PinnedArena._lock")
         self._free_list: List[Tuple[int, int]] = [(0, nbytes)]
         self._carved: Dict[int, Tuple[int, str]] = {}   # off → (n, tag)
         self._slabs: Dict[int, Slab] = {}               # off → live slab
@@ -343,7 +343,7 @@ class PinnedArena:
 # the process's arena
 # ---------------------------------------------------------------------------
 
-_singleton_lock = threading.Lock()
+_singleton_lock = make_lock("arena._singleton_lock")
 _arena: Optional[PinnedArena] = None
 _arena_init = False
 

@@ -1,5 +1,5 @@
 """Serve-while-restoring cold start: the boot-phase machine (counterpart
-of nvme_strom_tpu/io/coldstart.py, with plain ``threading`` locks).
+of nvme_strom_tpu/io/coldstart.py).
 
 A replica that restarts or scales out takes traffic before its weights
 are resident: a request that needs a missing tensor faults it in at
@@ -40,6 +40,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from nvme_strom_tpu_torch.utils.config import ColdStartConfig
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 #: boot phases in order; the index is the ``boot_phase_code`` gauge
 PHASES = ("cold", "faulting", "warming", "steady")
@@ -52,7 +53,7 @@ class ColdStartCoordinator:
     def __init__(self, engine=None, cfg: Optional[ColdStartConfig] = None):
         self.cfg = cfg or ColdStartConfig()
         self.engine = engine
-        self._lock = threading.Lock()
+        self._lock = make_lock("coldstart.ColdStartCoordinator._lock")
         self._phase = "cold"
         self._t0 = time.monotonic()
         self._t_phase: Dict[str, float] = {"cold": 0.0}

@@ -51,12 +51,13 @@ from __future__ import annotations
 import errno
 import os
 import random
-import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 READ_FAULT_KINDS = ("eio", "short", "delay", "stuck", "bitflip",
                     "estorm")
@@ -169,7 +170,7 @@ class FaultPlan:
         self._matches: Dict[int, int] = {}   # spec index → matching reads
         self._fired: Dict[int, int] = {}     # spec index → injections
         self.injected: Dict[str, int] = {}   # kind → injections
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.FaultPlan._lock")
 
     @classmethod
     def parse(cls, text: str, seed: int = 0) -> "FaultPlan":

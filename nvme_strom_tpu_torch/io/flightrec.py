@@ -1,6 +1,6 @@
 """Flight recorder: a bounded ring of recent I/O op records that dumps
 itself to disk when a failure trigger fires (counterpart of
-nvme_strom_tpu/io/flightrec.py, with plain ``threading`` locks).
+nvme_strom_tpu/io/flightrec.py).
 
 Every completed engine read and write, and every degraded pread,
 appends one tuple (class, ring, bytes, latency, outcome) to a
@@ -32,11 +32,11 @@ import itertools
 import json
 import os
 import tempfile
-import threading
 import time
 from typing import Optional
 
 from nvme_strom_tpu_torch.utils.config import FlightConfig
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 from nvme_strom_tpu_torch.utils.stats import Log2Histogram, atomic_write_text
 
 #: dump numbers, process-wide: two engines' recorders never write one
@@ -58,7 +58,7 @@ class FlightRecorder:
         self._ops: collections.deque = collections.deque(
             maxlen=self.cfg.ops)
         self._lat = Log2Histogram()
-        self._dump_lock = threading.Lock()
+        self._dump_lock = make_lock("flightrec.FlightRecorder._dump_lock")
         #: reason → monotonic time of its last dump (the rate limit is
         #: per reason: a breaker trip's dump must not hide the SLO
         #: violation's that follows it)

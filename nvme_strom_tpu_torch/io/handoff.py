@@ -1,6 +1,5 @@
 """Drain and warm handoff: a retiring replica hands its live sessions and
-warm state to its replacement (counterpart of nvme_strom_tpu/io/handoff.py,
-with plain ``threading`` locks).
+warm state to its replacement (counterpart of nvme_strom_tpu/io/handoff.py).
 
 An integrator builds a :class:`DrainCoordinator` beside the server, and
 under ``STROM_HANDOFF=1`` (``HandoffConfig.enabled``) retirement walks a
@@ -64,6 +63,7 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 from nvme_strom_tpu_torch.utils.config import HandoffConfig
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 from nvme_strom_tpu_torch.utils.stats import atomic_write_text
 
 #: drain phases in order; the index is the ``drain_phase_code`` gauge
@@ -164,7 +164,7 @@ class DrainCoordinator:
         self.checkpoint = checkpoint
         self.hint_paths = list(hint_paths or [])
         self._bundle = bundle
-        self._lock = threading.Lock()
+        self._lock = make_lock("handoff.DrainCoordinator._lock")
         self._phase = "serving"
         self._t0 = time.monotonic()
         self._t_phase: Dict[str, float] = {"serving": 0.0}

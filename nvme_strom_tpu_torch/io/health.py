@@ -1,6 +1,6 @@
 """Failure-domain supervision: ring health, circuit breakers, hot ring
 restart and the degraded buffered mode (counterpart of
-nvme_strom_tpu/io/health.py, with plain ``threading`` locks).
+nvme_strom_tpu/io/health.py).
 
 A retry makes one bad read survivable; the supervisor makes a whole
 failure domain survivable: a wedged ring, or a device that throws an
@@ -47,7 +47,6 @@ buffer and ``h2d_copy`` without counting them twice.
 from __future__ import annotations
 
 import errno
-import threading
 import time
 from collections import deque
 from typing import List, Optional, Sequence
@@ -56,6 +55,7 @@ import numpy as np
 
 from nvme_strom_tpu_torch.obs.ledger import charge_waste
 from nvme_strom_tpu_torch.utils.config import BreakerConfig
+from nvme_strom_tpu_torch.utils.lockwitness import make_rlock
 from nvme_strom_tpu_torch.utils.trace import NO_CONTEXT, attach_context
 
 #: breaker states (the ``ring_health`` gauge)
@@ -189,7 +189,7 @@ class EngineSupervisor:
         self.rings = [_RingBreaker(self.cfg.window_s) for _ in range(n)]
         self.device_window = _Window(self.cfg.window_s)
         self._degraded = False         # the device breaker is open
-        self._lock = threading.RLock()
+        self._lock = make_rlock("health.EngineSupervisor._lock")
         self._next_tick = 0.0
         self._next_probe = 0.0
         self._rr = 0                   # healthy-ring round-robin cursor

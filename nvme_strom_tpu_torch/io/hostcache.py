@@ -75,7 +75,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 import time
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
@@ -90,6 +89,7 @@ from nvme_strom_tpu_torch.io.sched import (CLASS_ORDER, DEFAULT_CLASS,
 from nvme_strom_tpu_torch.io.tenants import current_tenant
 from nvme_strom_tpu_torch.obs.ledger import charge_waste
 from nvme_strom_tpu_torch.utils.config import HostCacheConfig
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock, make_rlock
 from nvme_strom_tpu_torch.utils.trace import attach_context
 
 #: line key: ((dev, ino, mtime_ns, size), line_offset)
@@ -341,7 +341,7 @@ class HostCache:
         for k in quotas:
             if k not in self._rev_order:
                 self._rev_order.insert(0, k)
-        self._lock = threading.RLock()
+        self._lock = make_rlock("hostcache.HostCache._lock")
         self._lines: Dict[LineKey, _Line] = {}
         self._free: List[int] = list(range(self.capacity))
         self._ghost: "OrderedDict[LineKey, None]" = OrderedDict()
@@ -857,7 +857,7 @@ class HostCache:
 # the process's tier: one budget
 # ---------------------------------------------------------------------------
 
-_singleton_lock = threading.Lock()
+_singleton_lock = make_lock("hostcache._singleton_lock")
 _cache: Optional[HostCache] = None
 _cache_init = False
 

@@ -1,6 +1,5 @@
 """ResilientEngine: every detected I/O failure turned into a recovery
-(counterpart of nvme_strom_tpu/io/resilient.py, with plain
-``threading`` locks).
+(counterpart of nvme_strom_tpu/io/resilient.py).
 
 ``ResilientEngine`` wraps any engine-shaped object (a StromEngine, or a
 FaultyEngine for chaos runs) and gives its reads three mechanisms
@@ -70,7 +69,6 @@ engine's.
 from __future__ import annotations
 
 import random
-import threading
 import time
 from dataclasses import replace
 from typing import Optional
@@ -80,6 +78,7 @@ import numpy as np
 from nvme_strom_tpu_torch.io.tenants import current_tenant
 from nvme_strom_tpu_torch.obs.ledger import charge_waste
 from nvme_strom_tpu_torch.utils.config import ResilientConfig
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 from nvme_strom_tpu_torch.utils.trace import NO_CONTEXT, current_context
 
 #: granularity of the hedged/stuck wait loop: long enough to stay off
@@ -680,7 +679,7 @@ class ResilientEngine:
         #: the wrappers' delegation), read on every poll slice
         self._supervisor = getattr(engine, "supervisor", None)
         self._hedge_out: dict = {}           # class -> outstanding hedges
-        self._hedge_lock = threading.Lock()
+        self._hedge_lock = make_lock("resilient.ResilientEngine._hedge_lock")
         self._rng = random.Random(self.rconfig.seed)
         # abandoned attempts (lost hedges, cancelled stuck reads) whose
         # I/O may still be in flight: released opportunistically once
@@ -688,7 +687,7 @@ class ResilientEngine:
         # straggler/wedge being recovered from.  Bounded: at most
         # 1 + max_retries outstanding attempts exist per logical read.
         self._zombies: list = []
-        self._zombie_lock = threading.Lock()
+        self._zombie_lock = make_lock("resilient.ResilientEngine._zombie_lock")
         # derived hedge threshold, refreshed at most once a second PER
         # CLASS: the percentile walk over the C histogram is cheap but
         # runs per wait — uncached it becomes measurable on tens of

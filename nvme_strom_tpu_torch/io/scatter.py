@@ -24,7 +24,6 @@ engine's.
 from __future__ import annotations
 
 import os
-import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -32,6 +31,7 @@ import numpy as np
 import torch
 
 from nvme_strom_tpu_torch.io.engine import HostMapping
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 
 @dataclass(frozen=True)
@@ -190,7 +190,7 @@ class ScatterServeEngine:
         self.scatter_store = store
         self._paths: Dict[int, str] = {}
         self._maps: Dict[int, HostMapping] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("scatter.ScatterServeEngine._lock")
 
     # -- handle tracking ----------------------------------------------
 

@@ -52,13 +52,13 @@ also samples each class's queue depth as the
 from __future__ import annotations
 
 import errno
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Sequence
 
 from nvme_strom_tpu_torch.io.tenants import current_tenant
+from nvme_strom_tpu_torch.utils.lockwitness import make_condition, make_lock
 from nvme_strom_tpu_torch.utils.trace import NO_CONTEXT, attach_context
 
 #: priority order, highest first
@@ -172,8 +172,8 @@ class QoSScheduler:
         #: ring → spans granted and not yet submitted to the engine
         self._granted_out: Dict[int, int] = {}
         self._closed = False
-        self._lock = threading.Lock()
-        self._cv = threading.Condition(self._lock)
+        self._lock = make_lock("sched.QoSScheduler._lock")
+        self._cv = make_condition("sched.QoSScheduler._cv", self._lock)
         self.dispatches = 0
         self.promotions = 0
         self.enqueued = 0

@@ -26,18 +26,19 @@ that lets each layer below the servers keep them apart:
 Everything is inert while ``STROM_TENANTS=0`` (the default): no server
 enters a tenant scope, ``current_tenant()`` stays None, and every
 consumer's tenant branch falls through to the path without tenants.
-The registry's lock is a plain ``threading`` lock; the reference's
-lock-order witness comes with the port's lint tools.
+The registry's locks come from the lock-order witness's constructors
+(utils/lockwitness.py).
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from contextvars import ContextVar
 from dataclasses import dataclass
 from typing import Dict, List, Optional
+
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 #: SLO tiers, best first: admission sheds from the back of this list
 TIER_ORDER = ("gold", "silver", "bronze")
@@ -190,7 +191,7 @@ class TenantRegistry:
             from nvme_strom_tpu_torch.utils.config import TenantConfig
             config = TenantConfig()
         self.config = config
-        self._lock = threading.Lock()
+        self._lock = make_lock("tenants.TenantRegistry._lock")
         self._tenants: Dict[str, Tenant] = dict(
             parse_tenant_spec(config.spec))
 
@@ -277,7 +278,7 @@ def tenant_context(tenant: Optional[Tenant]):
 # -- the process's registry -------------------------------------------------
 
 _registry: Optional[TenantRegistry] = None
-_registry_lock = threading.Lock()
+_registry_lock = make_lock("tenants._registry_lock")
 
 
 def get_registry() -> TenantRegistry:

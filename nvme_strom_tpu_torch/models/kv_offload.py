@@ -118,6 +118,7 @@ from nvme_strom_tpu_torch.ops.bridge import (DeviceStream, host_to_device,
                                              write_from_device)
 from nvme_strom_tpu_torch.utils.checksum import ChecksumError, VerifyPolicy
 from nvme_strom_tpu_torch.utils.config import ColdStartConfig
+from nvme_strom_tpu_torch.utils.lockwitness import make_condition, make_lock
 from nvme_strom_tpu_torch.utils.stats import percentiles_from_log2_hist
 from nvme_strom_tpu_torch.utils.trace import live_tracer
 
@@ -977,8 +978,8 @@ class PrefixStore:
             os.makedirs(d, exist_ok=True)
         self._fh = engine.open(self.path, writable=True)
         self.stats = engine.stats
-        self._lock = threading.Lock()
-        self._wlock = threading.Lock()
+        self._lock = make_lock("kv_offload.PrefixStore._lock")
+        self._wlock = make_lock("kv_offload.PrefixStore._wlock")
         #: set by close() before its final flush: put() and
         #: restore_many() refuse new work from then on, so the drain
         #: converges; _io_inflight counts the puts and restores past
@@ -986,7 +987,8 @@ class PrefixStore:
         #: closes the file
         self._closed = False
         self._io_inflight = 0
-        self._io_cv = threading.Condition(self._lock)
+        self._io_cv = make_condition("kv_offload.PrefixStore._io_cv",
+                                     self._lock)
         #: thread id of the active drainer (the _drain_mu holder): a
         #: put() re-entered from one of the drain's own waits skips the
         #: backpressure acquire instead of deadlocking on it
@@ -994,7 +996,7 @@ class PrefixStore:
         # serializes drainers only; put()'s maintenance drain only
         # try-acquires it, so a submitter never waits behind another
         # thread's I/O while the backlog is within twice the bound
-        self._drain_mu = threading.Lock()
+        self._drain_mu = make_lock("kv_offload.PrefixStore._drain_mu")
         #: key -> {"page", "hits", "seq", "crc", "pins", "ready",
         #: "tenant"}
         self._entries: Dict[bytes, dict] = {}

@@ -1,6 +1,5 @@
 """Critical-path attribution: where each request's time went
-(counterpart of nvme_strom_tpu/obs/attrib.py, with plain ``threading``
-locks).
+(counterpart of nvme_strom_tpu/obs/attrib.py).
 
 The tracer (utils/trace.py) records what happened; this module folds
 it per request: a decode request spent so many µs queued at the
@@ -48,10 +47,10 @@ Unset, no collector exists and nothing changes.
 from __future__ import annotations
 
 import os
-import threading
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 from nvme_strom_tpu_torch.utils.stats import Log2Histogram
 
 #: the fixed breakdown, in render order (``unattributed`` is derived,
@@ -165,7 +164,7 @@ class AttributionCollector:
 
     def __init__(self, max_traces: int = 256, max_spans: int = 1024,
                  stats=None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("attrib.AttributionCollector._lock")
         self.max_traces = max_traces
         self.max_spans = max_spans
         #: trace id (hex, as stamped in span args) → span tuples
@@ -305,7 +304,7 @@ class AttributionCollector:
 
 # -- the process's collector (STROM_ATTRIB) ----------------------------------
 
-_singleton_lock = threading.Lock()
+_singleton_lock = make_lock("attrib._singleton_lock")
 _collector: Optional[AttributionCollector] = None
 _collector_init = False
 

@@ -1,5 +1,5 @@
 """Live debug endpoint: the stack's state over plain HTTP (counterpart
-of nvme_strom_tpu/obs/debugsrv.py, with plain ``threading`` locks).
+of nvme_strom_tpu/obs/debugsrv.py).
 
 With ``STROM_DEBUG_PORT`` set (unset by default: no thread, no socket)
 the first engine of a process starts one loopback server, and every
@@ -16,13 +16,15 @@ later engine attaches as the live one.  Routes:
   ``/health``   ring breaker states, device degradation, the health
                 counters, and the ``boot_phase`` and ``drain_phase``
                 gauges (io/health.py, io/coldstart.py, io/handoff.py);
+  ``/locks``    the lock-order witness: whether it is armed, its mode,
+                the acquisition edges it observed and the cycles it
+                recorded (utils/lockwitness.py);
   ``/``         a JSON index of the routes.
 
 One stdlib ``http.server`` daemon thread; each request serves a JSON (or
 OpenMetrics) snapshot and changes nothing.  A route that raises answers
 200 with ``{"error": ...}``.  ``STROM_DEBUG_PORT=0`` binds a port the OS
-picks (:attr:`DebugServer.port`).  The reference's ``/locks`` route
-waits for the port's lock-order witness.
+picks (:attr:`DebugServer.port`).
 """
 
 from __future__ import annotations
@@ -34,7 +36,10 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-ROUTES = ("/metrics", "/attrib", "/ledger", "/flight", "/health")
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
+
+ROUTES = ("/metrics", "/attrib", "/ledger", "/flight", "/health",
+          "/locks")
 
 
 class DebugServer:
@@ -44,7 +49,7 @@ class DebugServer:
 
     def __init__(self, stats, port: int = 0, host: str = "127.0.0.1"):
         self.stats = stats
-        self._lock = threading.Lock()
+        self._lock = make_lock("debugsrv.DebugServer._lock")
         self._engine = None
         self._closed = False
         srv = self
@@ -87,7 +92,7 @@ class DebugServer:
         path = h.path.split("?", 1)[0].rstrip("/") or "/"
         routes = {"/metrics": self._metrics, "/attrib": self._attrib,
                   "/ledger": self._ledger, "/flight": self._flight,
-                  "/health": self._health}
+                  "/health": self._health, "/locks": self._locks}
         try:
             if path == "/":
                 body, ctype = json.dumps({"routes": list(ROUTES)}), \
@@ -166,6 +171,15 @@ class DebugServer:
         }
         return json.dumps(doc), "application/json"
 
+    def _locks(self):
+        from nvme_strom_tpu_torch.utils import lockwitness
+        w = lockwitness.witness()
+        doc = {"armed": lockwitness.armed(),
+               "mode": os.environ.get("STROM_LOCK_WITNESS", "0"),
+               "edges": w.snapshot_edges(),
+               "violations": list(w.violations)}
+        return json.dumps(doc, default=list), "application/json"
+
     # -- lifecycle ------------------------------------------------------------
 
     def close(self) -> None:
@@ -190,7 +204,7 @@ class DebugServer:
 
 # -- the process's server (STROM_DEBUG_PORT) ---------------------------------
 
-_singleton_lock = threading.Lock()
+_singleton_lock = make_lock("debugsrv._singleton_lock")
 _server: Optional[DebugServer] = None
 _server_failed = False
 

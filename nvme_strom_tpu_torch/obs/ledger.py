@@ -29,9 +29,10 @@ goodput dip that no byte counter can.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, List, Optional, Sequence
+
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 #: waste class → its StromStats counter
 WASTE_COUNTERS = {
@@ -93,7 +94,7 @@ class RingTimeLedger:
 
     def __init__(self, n_rings: int):
         self.n_rings = max(1, int(n_rings))
-        self._lock = threading.Lock()
+        self._lock = make_lock("ledger.RingTimeLedger._lock")
         self._t: Dict[str, List[float]] = {
             s: [0.0] * self.n_rings for s in RING_STATES}
         self._last = time.monotonic()

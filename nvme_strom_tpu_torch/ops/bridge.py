@@ -36,7 +36,6 @@ With the engine's tracer on, each copy's launch is a
 from __future__ import annotations
 
 import ctypes
-import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -50,6 +49,7 @@ from nvme_strom_tpu_torch.io.engine import (BouncedBytes, HostMapping,
                                             StromEngine)
 from nvme_strom_tpu_torch.io.hostcache import spoil_span
 from nvme_strom_tpu_torch.io.plan import split_spans, submit_spans_tiered
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 from nvme_strom_tpu_torch.utils.trace import live_tracer
 
 _SIDE_STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -130,7 +130,7 @@ def h2d_copy(src, dst: torch.Tensor, src_ptr: Optional[int] = None
 
 #: launches of the h2d_copy kernel (CUDA only)
 h2d_copy.launches = 0
-_LAUNCHES_LOCK = threading.Lock()
+_LAUNCHES_LOCK = make_lock("bridge._LAUNCHES_LOCK")
 
 
 class Transfer:

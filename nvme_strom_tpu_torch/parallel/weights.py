@@ -62,6 +62,7 @@ from nvme_strom_tpu_torch.ops.ici import (ExchangeError, ici_scatter_enabled,
                                           scatter_engine)
 from nvme_strom_tpu_torch.utils.checksum import (ChecksumError,
                                                  VerifyPolicy)
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 
 def _sharding_of(shardings, name: str, shape):
@@ -353,7 +354,7 @@ class FaultingCheckpoint:
         self._stamps = ({sf.path: tensor_checksums(sf)
                          for sf in self.ckpt.files}
                         if self._policy.enabled else {})
-        self._lock = threading.Lock()
+        self._lock = make_lock("coldstart.FaultingCheckpoint._lock")
         self._tensors: Dict[str, torch.Tensor] = {}
         #: name → the bulk stream's event after its copies (CUDA only)
         self._events: Dict[str, object] = {}

@@ -43,6 +43,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from nvme_strom_tpu_torch.utils.lockwitness import make_condition, make_lock
+
 
 __all__ = ["ScanPlan", "plan_scan", "pushdown_enabled", "sql_workers",
            "iter_scan_columns"]
@@ -289,7 +291,8 @@ def _iter_windows_parallel(scanner, columns, plans, windows, dev,
     path."""
     from nvme_strom_tpu_torch.sql import pq_direct
 
-    cond = threading.Condition(threading.Lock())
+    lock = make_lock("scan_plan.ParallelScan._lock")
+    cond = make_condition("scan_plan.ParallelScan._lock", lock)
     state = {"yielded": 0, "stop": False}
     results: Dict[int, tuple] = {}     # wi -> ("ok", cols) | ("err", e)
     bound = workers + _PACING_SLACK
@@ -552,7 +555,8 @@ def _iter_late_parallel(scanner, windows, dev, workers, assemble_late,
     passes per window — the mask readback is a genuine barrier between
     filter and payload, so the cross-window pipelining comes from the
     pool, not from one long range sequence)."""
-    cond = threading.Condition(threading.Lock())
+    lock = make_lock("scan_plan.ParallelScan._lock")
+    cond = make_condition("scan_plan.ParallelScan._lock", lock)
     state = {"yielded": 0, "stop": False}
     results: Dict[int, tuple] = {}
     bound = workers + _PACING_SLACK

@@ -71,6 +71,17 @@ def classify(name: str) -> str:
     return "other"
 
 
+def device_events(prof) -> list:
+    """The device-side events of a ``torch.profiler`` run that are
+    kernels and copies: a user annotation on the device timeline
+    (``Optimizer.step#AdamW.step``) spans kernels already counted, so it
+    is left out, as is every event with no device time of its own."""
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+
+
 def summarize(events, wall_ms: float, steps: int, top: int = 8) -> dict:
     """The report of ``events``, ``(name, device ms, calls)`` over a
     window of ``wall_ms``."""
@@ -150,14 +161,8 @@ def capture(batch: int, seq: int, remat: str, attn: str, device=None,
         sync()
         wall_ms = (time.monotonic() - t0) * 1e3
     if dev.type == "cuda":
-        # kernels and copies only: a user annotation on the device
-        # timeline ("Optimizer.step#AdamW.step") spans kernels already
-        # counted
         events = [(e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"
-                  and not getattr(e, "is_user_annotation", False)
-                  and e.self_device_time_total > 0]
+                  for e in device_events(prof)]
     else:
         events = [(e.key, e.self_cpu_time_total / 1e3, e.count)
                   for e in prof.key_averages()

@@ -24,12 +24,12 @@ from __future__ import annotations
 import json
 import logging
 import os
-import threading
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
 from nvme_strom_tpu_torch.io.engine import crc32c
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 _log = logging.getLogger(__name__)
 
@@ -72,7 +72,7 @@ class VerifyPolicy:
         self.mode = mode if mode is not None else verify_mode()
         self._every = sample_every()
         self._seen = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("checksum.VerifyPolicy._lock")
 
     @property
     def enabled(self) -> bool:

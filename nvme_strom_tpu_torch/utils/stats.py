@@ -125,6 +125,8 @@ import time
 from dataclasses import dataclass, field, fields
 from typing import List, Optional
 
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
+
 COUNTERS = ("bytes_direct", "bytes_fallback", "bytes_written_direct",
             "bounce_bytes", "bytes_to_device", "overlap_chunks",
             "overlap_bytes", "ici_bytes_read", "ici_bytes_received",
@@ -263,8 +265,9 @@ class StromStats:
                                compare=False)
     _tenant_stats: dict = field(default_factory=dict, repr=False,
                                 compare=False)
-    _lock: threading.Lock = field(default_factory=threading.Lock,
-                                  repr=False, compare=False)
+    _lock: threading.Lock = field(
+        default_factory=lambda: make_lock("stats.StromStats._lock"),
+        repr=False, compare=False)
 
     def add(self, **deltas: int) -> None:
         with self._lock:
@@ -404,7 +407,7 @@ class Log2Histogram:
     and :func:`percentiles_from_log2_hist`.  Thread-safe."""
 
     def __init__(self, buckets: int = 40):
-        self._lock = threading.Lock()
+        self._lock = make_lock("stats.Log2Histogram._lock")
         self._counts = [0] * buckets
 
     def observe(self, v: float) -> None:
@@ -545,7 +548,7 @@ class MetricsSnapshotter:
         #: run before each snapshot; swapped under ``_sync_lock`` so an
         #: engine detaching at close never races a drain of its handle
         self._sync = sync
-        self._sync_lock = threading.Lock()
+        self._sync_lock = make_lock("stats.MetricsSnapshotter._sync_lock")
         self.series: List[dict] = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -599,7 +602,7 @@ class MetricsSnapshotter:
         self.close()
 
 
-_writer_lock = threading.Lock()
+_writer_lock = make_lock("stats._writer_lock")
 _writer: Optional[MetricsSnapshotter] = None
 
 

@@ -1,6 +1,5 @@
 """Chrome-trace span recorder with request-scoped causal context
-(counterpart of nvme_strom_tpu/utils/trace.py, with plain ``threading``
-locks).
+(counterpart of nvme_strom_tpu/utils/trace.py).
 
 ``Tracer`` records completed spans (``add_span``, or the ``span``
 context manager) and counter samples (``add_counter``) and exports
@@ -37,6 +36,7 @@ import threading
 import time
 from typing import Optional
 
+from nvme_strom_tpu_torch.utils.lockwitness import make_lock
 
 
 #: Default in-memory span cap; override per-tracer or with
@@ -141,7 +141,7 @@ class Tracer:
 
     def __init__(self, path: Optional[str] = None,
                  max_events: Optional[int] = None, stats=None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("trace.Tracer._lock")
         self._events: list[dict] = []
         self._path = path
         self.enabled = path is not None

@@ -1,6 +1,5 @@
 """Step watchdog: turn a silent training hang into a diagnosis
-(counterpart of nvme_strom_tpu/utils/watchdog.py ``StepWatchdog``, with
-plain ``threading`` locks).
+(counterpart of nvme_strom_tpu/utils/watchdog.py ``StepWatchdog``).
 
 A daemon thread holds a deadline around each armed section; past it, it
 dumps every Python thread's stack and the engine's counters to the
@@ -26,6 +25,8 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Optional
+
+from nvme_strom_tpu_torch.utils.lockwitness import make_condition, make_lock
 
 
 class StepWatchdog:
@@ -55,8 +56,8 @@ class StepWatchdog:
         self._armed_at: Optional[float] = None
         self._started_at = 0.0
         self._label = ""
-        self._lock = threading.Lock()
-        self._wake = threading.Condition(self._lock)
+        self._lock = make_lock("watchdog.StepWatchdog._lock")
+        self._wake = make_condition("watchdog.StepWatchdog._wake", self._lock)
         self._stop = False
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="strom-watchdog")

@@ -40,6 +40,20 @@ from nvme_strom_tpu_torch.utils.stats import (StromStats,
 from nvme_strom_tpu_torch.utils.trace import TraceContext, Tracer, use_context
 
 
+@pytest.fixture(autouse=True)
+def _port_lock_witness():
+    """Each test runs under the port's lock-order witness (the
+    counterpart of the reference's chaos suites, which tests/conftest.py
+    arms): every lock the port builds in the test records its
+    acquisition order, and a cycle fails the test even when this run got
+    away with it."""
+    from nvme_strom_tpu_torch.utils import lockwitness
+    with lockwitness.armed_scope() as w:
+        yield w
+    assert not w.violations, (
+        f"the port's lock-order witness recorded {w.violations}")
+
+
 def _cfg(**kw):
     base = dict(chunk_bytes=1 << 20, queue_depth=8,
                 buffer_pool_bytes=16 << 20)
@@ -452,9 +466,13 @@ def test_debug_server_routes_and_shutdown(no_obs_env, tmp_data_file):
                 assert key in health
             index = _fetch(srv.port, "/")
             assert set(index["routes"]) == {"/metrics", "/attrib",
-                                            "/ledger", "/flight", "/health"}
+                                            "/ledger", "/flight", "/health",
+                                            "/locks"}
+            locks = _fetch(srv.port, "/locks")
+            assert set(locks) == {"armed", "mode", "edges", "violations"}
+            assert locks["violations"] == []
             with pytest.raises(urllib.error.HTTPError):
-                _fetch(srv.port, "/locks")
+                _fetch(srv.port, "/nope")
         finally:
             port = srv.port
             srv.close()

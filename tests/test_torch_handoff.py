@@ -85,6 +85,20 @@ PKGS = {
 PORT, JAX = PKGS["port"], PKGS["jax"]
 
 
+@pytest.fixture(autouse=True)
+def _port_lock_witness():
+    """Each test runs under the port's lock-order witness (the
+    counterpart of the reference's chaos suites, which tests/conftest.py
+    arms): every lock the port builds in the test records its
+    acquisition order, and a cycle fails the test even when this run got
+    away with it."""
+    from nvme_strom_tpu_torch.utils import lockwitness
+    with lockwitness.armed_scope() as w:
+        yield w
+    assert not w.violations, (
+        f"the port's lock-order witness recorded {w.violations}")
+
+
 def _both(case):
     """``case(pkg)`` through both packages; the results must be equal.
     Returns the port's."""

@@ -25,6 +25,20 @@ CPU = "cpu"
 AGGS = ("count", "sum", "mean", "min", "max", "var", "std")
 
 
+@pytest.fixture(autouse=True)
+def _port_lock_witness():
+    """Each test runs under the port's lock-order witness (the
+    counterpart of the reference's chaos suites, which tests/conftest.py
+    arms): every lock the port builds in the test records its
+    acquisition order, and a cycle fails the test even when this run got
+    away with it."""
+    from nvme_strom_tpu_torch.utils import lockwitness
+    with lockwitness.armed_scope() as w:
+        yield w
+    assert not w.violations, (
+        f"the port's lock-order witness recorded {w.violations}")
+
+
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     return write_tables(tmp_path_factory.mktemp("sqlx"))
