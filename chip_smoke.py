@@ -220,6 +220,23 @@ It builds the port's native libraries from the checkout, then:
    ``host_us``, ``design`` and, on two or four cards, ``two_cards`` and
    ``four_cards``.
 
+The weight-only int8 / int4 kernels (``check_quant``, after the fp16
+times): ``quant_gemv`` against ``quant_matmul_plain`` (max |err| over
+max |plain| 1e-2 in bf16 / fp16, 1e-5 in fp32, TF32 off) and
+``dequant`` against ``dequant_plain`` bitwise, two calls of each bitwise
+equal, at Llama-3-8B's MLP weights at M 1, 3, 8, 16 and one M past
+``QUANT_GEMV_MAX_ROWS`` (also through ``quant_matmul``'s dequant route),
+Mixtral-8x7B's int8 expert leaves, int4 groups of 128 and 24, d_out 1000
+and 1003 and the int8 lm_head; then every Llama-3-8B weight timed at M 8
+(``quant ...`` lines: GEMV and dequant ms and device ms, bounds, today's
+``wmat`` + ``torch.matmul``, the bf16 matmul, ``torch._weight_int8pack_mm``
+/ ``_weight_int4pack_mm`` where the installed torch runs them on CUDA)
+and the GEMV against dequant + matmul at M 1-64 (``quant crossover``).
+Main path 1j (``moe_quant_phase``) must launch both; it also logs each
+mode's prefill step (the dequant route) and fails if a CUDA leaf was
+dequantized by torch ops.  ``python3 chip_smoke.py --quant`` runs the
+check and that path alone after the build.
+
 Main path 6, before phase 8, is Direct SQL (``sql_phase``): tables
 written from the seed by the port's own writers (``sql/pqwrite.py``,
 ``formats/arrow.py``) under ``.bench_torch/sql/``, scanned through the
@@ -5389,15 +5406,21 @@ def _first_logits(params, cfg, ids, dev):
 
 def _quant_tok_s(params, cfg, dev, requests):
     """Decode tok/s of a DecodeServer: the requests admitted and
-    prefilled in one step, untimed, then the rest of their QUANT_NEW
-    tokens timed from a synchronised start, so the prefills (and a
-    quantized mode's dequantization in them) stay out of the window."""
+    prefilled in one step, timed apart (the time to every request's
+    first token: a quantized mode's prefill takes the dequant route),
+    then the rest of their QUANT_NEW tokens timed from a synchronised
+    start (a quantized mode's steps take the GEMV).  Returns (tok/s, the
+    tokens, the prefill step's ms)."""
     import torch
     from nvme_strom_tpu_torch.models.serving import DecodeServer
     srv = DecodeServer(params, cfg, len(requests), 1024, device=dev)
     for rid, ids in requests:
         srv.submit(rid, ids, QUANT_NEW)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
     srv.step_many(1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
     if srv.queue or any(s is None for s in srv.slots):
         raise AssertionError("quant: the requests did not all admit in "
                              "one step")
@@ -5407,7 +5430,8 @@ def _quant_tok_s(params, cfg, dev, requests):
     out = srv.run(lookahead=8)
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
-    return (sum(len(v) for v in out.values()) - before) / secs, out
+    return (sum(len(v) for v in out.values()) - before) / secs, out, \
+        prefill_ms
 
 
 def _quant_modes(name, cfg, full, modes, dev, rail_int8):
@@ -5447,13 +5471,20 @@ def _quant_modes(name, cfg, full, modes, dev, rail_int8):
                                        QUANT_PROMPT).tolist())
                 for i in range(8)]
     tps = {m: [] for m in modes}
+    ttft = {m: [] for m in modes}
     for mode in QUANT_ORDER[name]:
-        rate, _ = _quant_tok_s(params[mode], cfg, dev, requests)
+        rate, _, prefill_ms = _quant_tok_s(params[mode], cfg, dev, requests)
         tps[mode].append(rate)
+        ttft[mode].append(prefill_ms)
     for mode in modes:
         rep.setdefault(mode, {})["tok_per_s"] = tps[mode]
+        rep[mode]["prefill_ms"] = ttft[mode]
     med = {m: statistics.median(v) for m, v in tps.items()}
     rep["tok_s_ratio"] = {m: med[m] / med["bf16"] for m in modes}
+    rep["prefill_ms_median"] = {m: statistics.median(v)
+                                for m, v in ttft.items()}
+    log(f"quant {name}: prefill step ({len(requests)} x {QUANT_PROMPT} "
+        f"tokens, every request's first token) in turns {ttft} ms")
     rep["tok_s_ratio_spread"] = {
         m: (min(tps[m]) / max(tps["bf16"]), max(tps[m]) / min(tps["bf16"]))
         for m in modes}
@@ -5511,8 +5542,10 @@ def moe_quant_phase(dev, cfg):
     from nvme_strom_tpu_torch.models.serving import (DecodeServer,
                                                      PagedDecodeServer)
     from nvme_strom_tpu_torch.models.transformer import TransformerConfig
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
     t0 = time.monotonic()
     report = {"card": card_line()}
+    torch_dequants = qmm.dequant_plain.device_calls
     mcfg = TransformerConfig(**MIXTRAL_8X7B_2L)
     full = _card_params(mcfg, SEED + 22, dev)
     n_params = sum(t.numel() for t in full.values())
@@ -5566,8 +5599,358 @@ def moe_quant_phase(dev, cfg):
         QUANT_RAILS["int8"])
     del full
     torch.cuda.empty_cache()
+    report["quant_launches"] = {"quant_gemv": qmm.quant_gemv.launches,
+                                "dequant": qmm.dequant.launches}
+    if qmm.dequant_plain.device_calls != torch_dequants:
+        raise AssertionError("moe quant: a CUDA leaf was dequantized by "
+                             "torch ops")
+    log(f"moe quant: quantized products through quant_gemv "
+        f"{qmm.quant_gemv.launches} and dequant {qmm.dequant.launches} "
+        f"launches, no CUDA leaf dequantized by torch ops")
     report["seconds"] = time.monotonic() - t0
     return report
+
+
+# -- the weight-only int8 / int4 matmul (ops/quant_matmul.py) ---------------
+
+#: quant_gemv against quant_matmul_plain on the card: max |kernel - plain|
+#: over max |plain|.  Both round the weight alike and sum in float32 in
+#: another order; bf16 / fp16 then round the output once (one ulp of an
+#: element apart at most), float32 does not (TF32 off)
+QUANT_KERNEL_TOL = {"bfloat16": 1e-2, "float16": 1e-2, "float32": 1e-5}
+#: Llama-3-8B's products (d_in, d_out) at the issue's widths
+QUANT_LLAMA = {"w_gate": (4096, 14336), "w_down": (14336, 4096),
+               "wq": (4096, 4096), "wk": (4096, 1024),
+               "lm_head": (4096, 32000)}
+#: rows of x the checks take; the crossover sweep's
+QUANT_CHECK_M = (1, 3, 8, 16)
+QUANT_CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)
+#: the rows the timed table is taken at (a decode step of 8 slots)
+QUANT_TIMED_M = 8
+#: the headline entry of the kernels line: Llama-3-8B's w_gate in int8
+QUANT_HEADLINE = ("w_gate", "int8")
+#: the weight-only kernels' names in the counters and the kernels line
+QUANT_KERNELS = ("quant_gemv", "dequant")
+
+
+def _quant_leaf(kind, shape, dev, seed):
+    """A leaf quantized on the card from a seeded weight: ``int8`` or
+    ``int4_g<group>`` (the group exact: it must divide d_in).  Returns
+    (leaf, the weight in bf16)."""
+    import torch
+    from nvme_strom_tpu_torch.models import quant as q
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(shape, generator=g, device=dev) * 0.02
+    if kind == "int8":
+        leaf = q.quantize_weights_int8({"w": w}, suffixes=("w",))["w"]
+    else:
+        group = int(kind.split("_g")[1])
+        leaf = q.quantize_weights_int4({"w": w}, suffixes=("w",),
+                                       group=group)["w"]
+        if leaf["scale4"].shape[-3] * group != shape[-2]:
+            raise AssertionError(f"{kind} {shape}: group {group} not exact")
+    return leaf, w.to(torch.bfloat16)
+
+
+def _leaf_bytes(leaf):
+    return sum(t.numel() * t.element_size() for t in leaf.values())
+
+
+def _quant_bound(leaf, M, K, N, E, itemsize, gemv):
+    """(ms, bound_by): quant_gemv reads the quantized bytes, the scales
+    and x and writes out; dequant reads the quantized bytes and the
+    scales and writes the weight.  Operations: the GEMV's 2·M·K·N at the
+    dtype's tensor-core rate (bf16 / fp16) or float32's."""
+    if gemv:
+        nbytes = _leaf_bytes(leaf) + E * M * (K + N) * itemsize
+        flops = 2.0 * E * M * K * N
+        rate = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+        return bound(nbytes, HBM_BYTES_PER_S, flops, rate)
+    return bound(_leaf_bytes(leaf) + E * K * N * itemsize, HBM_BYTES_PER_S)
+
+
+def _int_pack_library(kind, leaf, x2, plain):
+    """A PyTorch call that computes the same product, where the installed
+    torch has one on CUDA: ``torch._weight_int8pack_mm`` (int8) or
+    ``torch._weight_int4pack_mm`` (int4, bf16 x), its layout converted
+    here, outside any clock.  Returns (callable, max rel err against the
+    plain product) or (None, the reason)."""
+    import torch
+    try:
+        if kind == "int8":
+            w = leaf["q8"].t().contiguous()
+            sc = leaf["scale"].reshape(-1).to(x2.dtype)
+            fns = [lambda: torch._weight_int8pack_mm(x2, w, sc)]
+        else:
+            if x2.dtype != torch.bfloat16:
+                return None, "int4pack takes bf16"
+            q4 = leaf["q4"]
+            lo, hi = (q4 & 0xF).t(), (q4 >> 4).t()      # (N, K/2) each
+            K = 2 * q4.shape[-2]
+            g = K // leaf["scale4"].shape[-3]
+            sz = torch.stack([leaf["scale4"][:, 0, :],
+                              torch.zeros_like(leaf["scale4"][:, 0, :])],
+                             dim=-1).to(torch.bfloat16).contiguous()
+            # the packed layout's nibble order differs between releases:
+            # both are tried, and the one that computes the product kept
+            fns = [(lambda packed: lambda: torch._weight_int4pack_mm(
+                x2, packed, g, sz))(torch._convert_weight_to_int4pack(
+                    b.contiguous(), 8))
+                for b in ((lo << 4) | hi, (hi << 4) | lo)]
+        best = None
+        for f in fns:
+            out = f()
+            torch.cuda.synchronize()
+            rel = ((out.float() - plain.float()).abs().max()
+                   / plain.float().abs().max()).item()
+            if best is None or rel < best[1]:
+                best = (f, rel)
+    except (RuntimeError, NotImplementedError, AttributeError,
+            TypeError) as e:
+        return None, f"none ({type(e).__name__}: {str(e)[:120]})"
+    return best
+
+
+def _quant_correct(dev, gen):
+    """quant_gemv against quant_matmul_plain and dequant against
+    dequant_plain (bitwise), each called twice (bitwise equal), over the
+    cases of check_quant's docstring.  Returns the worst relative error
+    by dtype, the worst absolute error in bf16 and the cases run."""
+    import torch
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    dts = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32}
+    cases = []      # (label, kind, shape, ms, dtypes)
+    for name in ("w_gate", "w_down"):
+        for kind in ("int8", "int4_g128"):
+            cases.append((f"Llama-3-8B {name} {kind}", kind,
+                          QUANT_LLAMA[name], QUANT_CHECK_M
+                          + (2 * qmm.QUANT_GEMV_MAX_ROWS,), tuple(dts)))
+    cases += [
+        ("Mixtral-8x7B experts w_gate int8", "int8", (8, 4096, 14336),
+         (2, 8), ("bfloat16",)),
+        ("Mixtral-8x7B experts w_down int8", "int8", (8, 14336, 4096),
+         (2, 8), ("bfloat16",)),
+        ("int4 g24", "int4_g24", (4032, 1000), (1, 8), tuple(dts)),
+        ("int8 d_out 1000", "int8", (4096, 1000), (1, 8), tuple(dts)),
+        ("int8 d_out 1003 (ragged)", "int8", (4096, 1003), (3,),
+         tuple(dts)),
+        ("lm_head int8", "int8", QUANT_LLAMA["lm_head"], (1, 8),
+         ("bfloat16", "float32")),
+    ]
+    worst, worst_abs = {d: 0.0 for d in dts}, 0.0
+    for i, (label, kind, shape, ms, dnames) in enumerate(cases):
+        leaf, _ = _quant_leaf(kind, shape, dev, SEED + 40 + i)
+        E = shape[0] if len(shape) == 3 else 1
+        K = shape[-2]
+        for dn in dnames:
+            dt = dts[dn]
+            w = qmm.dequant(leaf, dt)
+            if not torch.equal(w, qmm.dequant_plain(leaf, dt)):
+                raise AssertionError(f"dequant {label} {dn}: not bitwise "
+                                     "the torch ops")
+            _repeatable(f"dequant {label} {dn}", qmm.dequant, (leaf, dt))
+            del w
+            for m in ms:
+                x = torch.randn(E, m, K, generator=gen, device=dev).to(dt)
+                got = qmm.quant_gemv(x, leaf)
+                want = qmm.quant_matmul_plain(x if E > 1 else x[0], leaf)
+                want = want if E > 1 else want[None]
+                rel = ((got.float() - want.float()).abs().max()
+                       / want.float().abs().max()).item()
+                if not (torch.isfinite(got).all() and
+                        rel <= QUANT_KERNEL_TOL[dn]):
+                    raise AssertionError(f"quant_gemv {label} {dn} M {m}: "
+                                         f"max rel {rel}")
+                _repeatable(f"quant_gemv {label} {dn} M {m}",
+                            qmm.quant_gemv, (x, leaf))
+                if m > qmm.QUANT_GEMV_MAX_ROWS:
+                    xm = x if E > 1 else x[0]
+                    if not torch.equal(qmm.quant_matmul(xm, leaf),
+                                       xm @ qmm.dequant(leaf, dt)):
+                        raise AssertionError(f"quant_matmul {label} M {m}: "
+                                             "not the dequant route")
+                worst[dn] = max(worst[dn], rel)
+                if dn == "bfloat16":
+                    worst_abs = max(worst_abs, (got.float() - want.float())
+                                    .abs().max().item())
+        log(f"quant check {label} {tuple(shape)}: dequant bitwise and "
+            f"quant_gemv at M {ms} within {[QUANT_KERNEL_TOL[d] for d in dnames]}"
+            f" in {dnames}, two calls bitwise equal")
+        del leaf
+    torch.cuda.empty_cache()
+    return worst, worst_abs, [c[0] for c in cases]
+
+
+def _quant_times(dev, gen, name, kind, M):
+    """Times at one Llama-3-8B weight and M rows in bf16, inputs in
+    rotation past the L2: the GEMV (and its device time), its plain
+    version (wmat's torch ops + torch.matmul, today's route), the dequant
+    kernel (and device time) and dequant + torch.matmul, dequant_plain,
+    the bf16 matmul on the unquantized weight, the library call."""
+    import torch
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    K, N = QUANT_LLAMA[name]
+    probe, _ = _quant_leaf(kind, (K, N), dev, SEED + 60)
+    nb = _leaf_bytes(probe)
+    sets = _rotating(lambda: (
+        _quant_leaf(kind, (K, N), dev, SEED + 61)[0],
+        torch.randn(1, M, K, generator=gen, device=dev).to(torch.bfloat16)),
+        nb)
+    wsets = _rotating(lambda: (
+        (torch.randn(K, N, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16),
+        torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)),
+        K * N * 2)
+    gemv = Rotor(lambda leaf, x: qmm.quant_gemv(x, leaf), sets)
+    deq = Rotor(lambda leaf, x: qmm.dequant(leaf, torch.bfloat16), sets)
+    deq_mm = Rotor(lambda leaf, x: x[0] @ qmm.dequant(leaf, torch.bfloat16),
+                   sets)
+    plain = Rotor(lambda leaf, x: qmm.quant_matmul_plain(x[0], leaf), sets)
+    plain_deq = Rotor(lambda leaf, x: qmm.dequant_plain(leaf,
+                                                        torch.bfloat16),
+                      sets)
+    bf16 = Rotor(lambda w, x: x @ w, wsets)
+    it = 50 if nb < (64 << 20) else 20
+    lib = [_int_pack_library(kind.split("_")[0], leaf, x[0],
+                             qmm.quant_matmul_plain(x[0], leaf))
+           for leaf, x in sets]
+    lib_ms, lib_note = None, lib[0][1]
+    if lib[0][0] is not None:
+        worst = max(rel for _, rel in lib)
+        if worst <= QUANT_KERNEL_TOL["bfloat16"]:
+            lib_ms = time_ms(Rotor(lambda f: f(), [(f,) for f, _ in lib]),
+                             it)
+            lib_note = (f"torch._weight_{kind.split('_')[0]}pack_mm, max "
+                        f"rel {worst:.3g} against plain")
+        else:
+            lib_note = f"none (max rel {worst:.3g} against plain: layout)"
+    gb, gby = _quant_bound(probe, M, K, N, 1, 2, True)
+    db, dby = _quant_bound(probe, M, K, N, 1, 2, False)
+    r = {"weight": name, "kind": kind, "M": M, "K": K, "N": N,
+         "quant_bytes": nb,
+         "gemv_ms": time_ms(gemv, it), "gemv_device_ms": device_ms(gemv, it),
+         "gemv_bound_ms": gb, "gemv_bound_by": gby,
+         "dequant_ms": time_ms(deq, it), "dequant_device_ms":
+         device_ms(deq, it), "dequant_bound_ms": db, "dequant_bound_by": dby,
+         "dequant_matmul_ms": time_ms(deq_mm, it),
+         "wmat_matmul_ms": time_ms(plain, it),
+         "dequant_plain_ms": time_ms(plain_deq, it),
+         "bf16_matmul_ms": time_ms(bf16, it),
+         "library_ms": lib_ms, "library": lib_note}
+    del sets, wsets, probe
+    torch.cuda.empty_cache()
+    return r
+
+
+def _quant_crossover(dev, gen):
+    """quant_gemv against dequant + torch.matmul at QUANT_CROSSOVER_M rows
+    for the Llama-3-8B MLP weights, int8 and int4 (g 128), bf16, inputs
+    in rotation; the crossover is the first M where the GEMV is slower."""
+    import torch
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    out = {}
+    for name in ("w_gate", "w_down"):
+        K, N = QUANT_LLAMA[name]
+        for kind in ("int8", "int4_g128"):
+            def make():
+                x = torch.randn(1, max(QUANT_CROSSOVER_M), K, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                return (_quant_leaf(kind, (K, N), dev, SEED + 70)[0],
+                        {m: x[:, :m].contiguous() for m in QUANT_CROSSOVER_M})
+            sets = _rotating(make, K * N // (1 if kind == "int8" else 2))
+            row = {}
+            for m in QUANT_CROSSOVER_M:
+                gemv = Rotor(lambda leaf, xs: qmm.quant_gemv(xs[m], leaf),
+                             sets)
+                dm = Rotor(lambda leaf, xs: xs[m][0] @ qmm.dequant(
+                    leaf, torch.bfloat16), sets)
+                row[m] = (time_ms(gemv, 20), time_ms(dm, 20))
+            cross = next((m for m in QUANT_CROSSOVER_M
+                          if row[m][0] > row[m][1]), None)
+            out[f"{name} {kind}"] = {"gemv_ms": [row[m][0] for m in row],
+                                     "dequant_matmul_ms": [row[m][1]
+                                                           for m in row],
+                                     "first_m_gemv_slower": cross}
+            log(f"quant crossover {name} {kind} (M {QUANT_CROSSOVER_M}): "
+                f"gemv {[round(row[m][0], 4) for m in row]} ms, dequant + "
+                f"matmul {[round(row[m][1], 4) for m in row]} ms; the GEMV "
+                f"first slower at M {cross}")
+            del sets
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_quant(dev, results):
+    """The weight-only kernels (csrc/quant_matmul.cu) on the card:
+    quant_gemv against quant_matmul_plain (QUANT_KERNEL_TOL) and dequant
+    against dequant_plain bitwise, in bf16 / fp16 / fp32, two calls of
+    each bitwise equal, at Llama-3-8B's MLP shapes at M 1, 3, 8, 16 and
+    one M past QUANT_GEMV_MAX_ROWS (also through quant_matmul's dequant
+    route), Mixtral-8x7B's expert leaves in int8, int4 in groups of 128
+    and of 24, d_out 1000 and 1003, the lm_head in int8; then each kernel
+    timed at every Llama-3-8B weight at M 8 in bf16 (int8; int4 but the
+    lm_head) with its bound, its plain version, today's ``wmat`` +
+    ``torch.matmul``, the bf16 matmul and the library call, and the
+    crossover of the GEMV against dequant + matmul."""
+    import torch
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    t0 = time.monotonic()
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        worst, worst_abs, cases = _quant_correct(dev, gen)
+        table = [_quant_times(dev, gen, name, kind, QUANT_TIMED_M)
+                 for name in QUANT_LLAMA
+                 for kind in (("int8",) if name == "lm_head"
+                              else ("int8", "int4_g128"))]
+        crossover = _quant_crossover(dev, gen)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    for r in table:
+        log(f"quant {r['weight']} {r['kind']} M {r['M']} ({r['K']} x "
+            f"{r['N']}, {r['quant_bytes']} B): gemv {r['gemv_ms']:.4f} ms "
+            f"({r['gemv_device_ms']:.4f} on the device; bound "
+            f"{r['gemv_bound_ms']:.4f}, {r['gemv_bound_by']}); dequant "
+            f"{r['dequant_ms']:.4f} ms ({r['dequant_device_ms']:.4f}; bound "
+            f"{r['dequant_bound_ms']:.4f}), + matmul "
+            f"{r['dequant_matmul_ms']:.4f}; wmat + matmul (torch ops) "
+            f"{r['wmat_matmul_ms']:.4f}; dequant_plain "
+            f"{r['dequant_plain_ms']:.4f}; bf16 matmul "
+            f"{r['bf16_matmul_ms']:.4f}; library {r['library_ms']} "
+            f"({r['library']})")
+    head = next(r for r in table if (r["weight"], r["kind"])
+                == QUANT_HEADLINE)
+    shape = (f"Llama-3-8B {head['weight']} {head['kind']} ({head['K']} x "
+             f"{head['N']}), x ({head['M']}, {head['K']}) bf16")
+    common = dict(route="cuda",
+                  source="nvme_strom_tpu_torch/csrc/quant_matmul.cu",
+                  replaces="nvme_strom_tpu/models/transformer.py:220 "
+                  "(wmat, fused by XLA)", shape=shape, ok=True,
+                  table=table, cases=cases)
+    results["quant_gemv"] = dict(
+        name="quant_gemv", max_abs_err=worst_abs,
+        max_rel_err=worst, ms=head["gemv_ms"],
+        device_ms=head["gemv_device_ms"], plain_ms=head["wmat_matmul_ms"],
+        bound_ms=head["gemv_bound_ms"], bound_by=head["gemv_bound_by"],
+        library_ms=head["library_ms"], library=head["library"],
+        bf16_matmul_ms=head["bf16_matmul_ms"],
+        max_rows=qmm.QUANT_GEMV_MAX_ROWS, crossover=crossover, **common)
+    results["dequant"] = dict(
+        name="dequant", max_abs_err=0.0, ms=head["dequant_ms"],
+        device_ms=head["dequant_device_ms"],
+        plain_ms=head["dequant_plain_ms"],
+        bound_ms=head["dequant_bound_ms"],
+        bound_by=head["dequant_bound_by"], library_ms=None,
+        dequant_matmul_ms=head["dequant_matmul_ms"],
+        wmat_matmul_ms=head["wmat_matmul_ms"],
+        bf16_matmul_ms=head["bf16_matmul_ms"], **common)
+    # the kernels line keeps one copy of the table and the cases
+    del results["dequant"]["table"], results["dequant"]["cases"]
+    log(f"check_quant: {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- training beyond device memory ---------------------------------------------
@@ -9280,6 +9663,7 @@ def main() -> int:
     from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
     from nvme_strom_tpu_torch.ops.ici import ici_ring_gather
     from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
+    from nvme_strom_tpu_torch.ops.quant_matmul import dequant, quant_gemv
 
     t_start = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -9292,7 +9676,8 @@ def main() -> int:
                 "paged_attention": paged_attention,
                 "flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
                 "flash_bwd_dkv": fa.flash_bwd_dkv,
-                "ici_ring_gather": ici_ring_gather}
+                "ici_ring_gather": ici_ring_gather,
+                "quant_gemv": quant_gemv, "dequant": dequant}
     if sys.argv[1:2] == ["--multigpu"]:
         # main path 4 alone (on a machine with 2-4 cards, the phase's
         # NCCL run without the rest of the script)
@@ -9361,6 +9746,27 @@ def main() -> int:
         log("lint " + json.dumps(lint))
         print(card_line())
         return 0
+    if sys.argv[1:2] == ["--quant"]:
+        # the weight-only kernels alone: check_quant, then moe_quant_phase
+        # (main path 1j) with every count at 0
+        os.makedirs(DATA_DIR, exist_ok=True)
+        results: dict = {}
+        check_quant(dev, results)
+        for fn in counters.values():
+            fn.launches = 0
+        moe_quant = moe_quant_phase(dev, flagship_config())
+        counts = {n: fn.launches for n, fn in counters.items()}
+        log("moe quant launches: " + json.dumps(counts))
+        for n in QUANT_KERNELS:
+            if counts[n] <= 0:
+                raise AssertionError(f"kernel {n} never launched on the "
+                                     "moe quant path")
+            results[n]["launches"] = counts[n]
+        log("moe quant " + json.dumps(moe_quant))
+        log("quant kernels " + json.dumps([results[n]
+                                           for n in QUANT_KERNELS]))
+        print(card_line())
+        return 0
     if sys.argv[1:2] == ["--sp-pp"]:
         # main path 5 alone (on a machine with 2-4 cards, the phase's
         # NCCL run without the rest of the script)
@@ -9383,11 +9789,14 @@ def main() -> int:
         results[f"{n}_attention"]["host_us"] = host[n]
     flash_split = check_flash(dev, results)
     fp16_times(dev, results)
+    check_quant(dev, results)
     # the checks' inputs (GBs at the long shapes) stay in the caching
     # allocator: hand them back before the main paths are timed
     gc.collect()
     torch.cuda.empty_cache()
     for r in results.values():
+        if r["name"] in QUANT_KERNELS:
+            continue        # check_quant logs its own table
         lib = ("in flash_bwd_dq's" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         rate = (f" = {r['tflops']:.1f} TFLOP/s on {r['units']}"
@@ -9418,6 +9827,10 @@ def main() -> int:
             if counts[n] <= 0:
                 raise AssertionError(f"kernel {n} never launched on the "
                                      f"{path} path")
+        for n in QUANT_KERNELS:       # every path a quantized leaf takes
+            if counts[n]:
+                results[n]["launches_" + path.replace(" ", "_")] = \
+                    counts[n]
         return out, counts
 
     # main path 1: the stream and serving
@@ -9542,10 +9955,12 @@ def main() -> int:
     # main path 1j: Mixtral-8x7B widths (2 layers) on both servers, a MoE
     # flagship streamed through h2d_copy, int8 / int4 serving
     moe_quant, counts = drive(
-        "moe quant", ("h2d_copy", "decode_attention", "paged_attention"),
-        lambda: moe_quant_phase(dev, cfg))
+        "moe quant", ("h2d_copy", "decode_attention", "paged_attention")
+        + QUANT_KERNELS, lambda: moe_quant_phase(dev, cfg))
     for n in ("h2d_copy", "decode_attention", "paged_attention"):
         results[n]["launches_moe_quant"] = counts[n]
+    for n in QUANT_KERNELS:
+        results[n]["launches"] = counts[n]
     torch.cuda.empty_cache()
 
     # main path 2: training with the flash kernels, batches through h2d

@@ -220,6 +220,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # dev, blocks, chunk (both written)
         "strom_ici_ring_capacity": [I, ctypes.POINTER(I),
                                     ctypes.POINTER(ctypes.c_uint)],
+        # x, q (q8 or q4), scale (scale or scale4), out, ws, E, M, K, N,
+        # group (rows a scale; K for int8), bits (8 or 4), split_rows,
+        # dtype, stream, dev
+        "strom_quant_gemv": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, I],
+        # q, scale, out, E, K, N, group, bits, dtype, sms, stream, dev
+        "strom_dequant": [P, P, P, I, I, I, I, I, I, I, P, I],
         "strom_stream_synchronize": [P, I],
         "strom_enable_peer_access": [I, I],
         # dev, bytes, ptr (written), 64-byte handle (written)

@@ -112,7 +112,7 @@ from nvme_strom_tpu_torch.io.engine import StromEngine, crc32c
 from nvme_strom_tpu_torch.io.plan import plan_and_submit
 from nvme_strom_tpu_torch.io.tenants import SLO_MAX_BOOST, current_tenant
 from nvme_strom_tpu_torch.models.transformer import (
-    TransformerConfig, embed, mlp_block, qkv_project, rms_norm, wmat)
+    TransformerConfig, embed, mlp_block, project, qkv_project, rms_norm)
 from nvme_strom_tpu_torch.ops.bridge import (DeviceStream, host_to_device,
                                              pinned_mapping, split_ranges,
                                              write_from_device)
@@ -755,14 +755,14 @@ def _layer_forward(params: Dict, i: int, x, cfg: TransformerConfig,
     q, k, v = qkv_project(h, params, Lk, cfg, positions)
     a = attend(i, q, k, v)
     a = a.transpose(1, 2).reshape(b, s, -1)
-    x = x + a @ wmat(params, Lk + "wo", a.dtype)
+    x = x + project(a, params, Lk + "wo")
     h = rms_norm(x, params[Lk + "mlp_norm"], cfg.norm_eps)
     return (x + mlp_block(h, params, Lk, cfg)).to(cfg.dtype)
 
 
 def _final_logits(params: Dict, x_last, cfg: TransformerConfig):
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return (x_last @ wmat(params, "lm_head", x_last.dtype)).float()
+    return project(x_last, params, "lm_head").float()
 
 
 def offload_decode_step(params: Dict, token, cfg: TransformerConfig,

@@ -29,6 +29,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from nvme_strom_tpu_torch.models.quant import logical_shape
+from nvme_strom_tpu_torch.ops.quant_matmul import quant_matmul
 from nvme_strom_tpu_torch.parallel import collectives as _coll
 
 
@@ -109,12 +111,24 @@ def moe_group_size(cfg, n_tokens: int, seq: int) -> int:
     return gs
 
 
+def _expert_project(x: torch.Tensor, p: Dict, name: str) -> torch.Tensor:
+    """x (E, C, d_in) through each expert's (E, d_in, d_out) weight: a
+    plain tensor by einsum, a quantized leaf by ``quant_matmul``'s
+    batched form."""
+    w = p[name]
+    if isinstance(w, dict):
+        return quant_matmul(x, w)
+    return torch.einsum("ecd,edf->ecf", x,
+                        w if w.dtype == x.dtype else w.to(x.dtype))
+
+
 def moe_mlp(x: torch.Tensor, p: Dict, prefix: str, cfg) -> tuple:
     """x (b, s, d) → (out (b, s, d), aux loss).  Weights:
     ``{prefix}router`` (d, E), ``moe_w_gate`` / ``moe_w_up`` (E, d, ff),
-    ``moe_w_down`` (E, ff, d); the experts' may be quantized leaves.
-    Capacity binds within each group; aux is the mean over groups."""
-    from nvme_strom_tpu_torch.models.transformer import wmat
+    ``moe_w_down`` (E, ff, d); the experts' may be quantized leaves,
+    whose batched products go through ops/quant_matmul.py
+    ``quant_matmul``.  Capacity binds within each group; aux is the mean
+    over groups."""
     b, s, d = x.shape
     T = b * s
     E, k = cfg.n_experts, cfg.expert_top_k
@@ -129,11 +143,10 @@ def moe_mlp(x: torch.Tensor, p: Dict, prefix: str, cfg) -> tuple:
     dispatch, combine, aux = _dispatch_groups(probs, k, C)
     aux = aux.mean()
 
-    w_gate = wmat(p, prefix + "moe_w_gate", x.dtype)
     group = _coll.moe_group()
     if group is not None:
         # this rank's experts, on the tokens it holds
-        el = w_gate.shape[0]
+        el = logical_shape(p[prefix + "moe_w_gate"])[0]
         e0 = _coll.ep_index() * el
         xg = _coll.copy_to(xg, group)
         combine = _coll.copy_to(combine, group)
@@ -143,11 +156,9 @@ def moe_mlp(x: torch.Tensor, p: Dict, prefix: str, cfg) -> tuple:
     # each expert sees G·C slots, wherever the group boundaries fell
     xd = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
     xd = xd.reshape(E, G * C, d)
-    gate = F.silu(torch.einsum("ecd,edf->ecf", xd, w_gate))
-    up = torch.einsum("ecd,edf->ecf", xd,
-                      wmat(p, prefix + "moe_w_up", x.dtype))
-    h = torch.einsum("ecf,efd->ecd", gate * up,
-                     wmat(p, prefix + "moe_w_down", x.dtype))
+    gate = F.silu(_expert_project(xd, p, prefix + "moe_w_gate"))
+    up = _expert_project(xd, p, prefix + "moe_w_up")
+    h = _expert_project(gate * up, p, prefix + "moe_w_down")
     h = h.reshape(E, G, C, d)
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), h)
     out = _coll.reduce_from(out, group)

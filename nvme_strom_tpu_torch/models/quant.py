@@ -11,12 +11,13 @@ groups of ``group`` rows along d_in (default 128) with two values a
 byte: ``{"q4": uint8 (..., d_in / 2, d_out), "scale4": float32 (...,
 n_groups, 1, d_out)}``; row ``2i`` is byte ``i``'s low nibble, row
 ``2i + 1`` its high nibble, each stored as ``q + 8``.
-``transformer.wmat`` dequantizes either kind in the compute dtype, so
-every inference path (decode, both servers, the offloaded cache) serves
-quantized params with the code that serves full-precision ones.  The
-rounding and clipping are the JAX package's, and the leaves equal its
-bit for bit; here they are torch ops on whatever device holds the
-weight.
+``transformer.wmat`` dequantizes either kind in the compute dtype and
+``transformer.project`` multiplies by it (on the card through the
+kernels of ops/quant_matmul.py), so every inference path (decode, both
+servers, the offloaded cache) serves quantized params with the code that
+serves full-precision ones.  The rounding and clipping are the JAX
+package's, and the leaves equal its bit for bit; here they are torch ops
+on whatever device holds the weight.
 
 Only matmul weights are quantized: ``tok_embed`` is gathered, not
 multiplied, norms are tiny, and the MoE router stays full precision

@@ -104,7 +104,7 @@ from nvme_strom_tpu_torch.io.tenants import (TokenBucket, get_registry,
 from nvme_strom_tpu_torch.models import decode as _dec
 from nvme_strom_tpu_torch.models.moe import prefill_len
 from nvme_strom_tpu_torch.models.transformer import (
-    TransformerConfig, embed, mlp_block, qkv_project, rms_norm, wmat)
+    TransformerConfig, embed, mlp_block, project, qkv_project, rms_norm)
 from nvme_strom_tpu_torch.obs.attrib import get_collector
 from nvme_strom_tpu_torch.ops.decode_attention import decode_attention
 from nvme_strom_tpu_torch.ops.paged_attention import paged_attention
@@ -182,11 +182,11 @@ def _batched_step(params: Dict, cfg: TransformerConfig, tok: torch.Tensor,
         q, k, v = qkv_project(h, params, L, cfg, positions)
         a = write_and_attend(i, q.contiguous(), k, v)
         a = a.transpose(1, 2).reshape(B, 1, -1)
-        x = x + a @ wmat(params, L + "wo", a.dtype)
+        x = x + project(a, params, L + "wo")
         h = rms_norm(x, params[L + "mlp_norm"], cfg.norm_eps)
         x = (x + mlp_block(h, params, L, cfg)).to(cfg.dtype)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    return (x @ wmat(params, "lm_head", x.dtype)).float()
+    return project(x, params, "lm_head").float()
 
 
 class DecodeServer:

@@ -13,8 +13,9 @@ of every matmul is in the compute dtype.
 Mixture-of-experts layers (models/moe.py) replace the dense MLP of every
 layer ``i`` with ``i % moe_every == moe_every - 1`` when ``n_experts`` >
 0; their router weights stay float32.  Weight-only quantized leaves
-(models/quant.py) dequantize in ``wmat``; training takes full-precision
-weights only.
+(models/quant.py) dequantize in ``wmat`` and multiply in :func:`project`
+(on the card through ops/quant_matmul.py's kernels); training takes
+full-precision weights only.
 
 Tensor parallelism (parallel/shardings.py ``param_specs``): inside
 ``collectives.use_mesh(mesh)`` the parameters are this rank's slices and
@@ -51,6 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nvme_strom_tpu_torch.models import moe as _moe
+from nvme_strom_tpu_torch.ops import quant_matmul as _qmm
 from nvme_strom_tpu_torch.parallel import collectives as _coll
 
 
@@ -223,22 +225,26 @@ def wmat(p: Dict[str, torch.Tensor], name: str, dtype: torch.dtype
     (..., n_groups, 1, d_out)}`` unpacks byte i's low nibble to row 2i
     and its high nibble to row 2i + 1 (each stored as q + 8), then
     scales each group of rows.  The dequantized weight is a new tensor
-    of the full weight's size in ``dtype``."""
+    of the full weight's size in ``dtype``: on the card written by the
+    ``dequant`` kernel (ops/quant_matmul.py), on the CPU by its plain
+    torch ops.  A product ``x @ W`` takes :func:`project`, which never
+    writes W on the card at decode widths."""
     w = p[name]
     if isinstance(w, dict):
-        if "q8" in w:
-            return w["q8"].to(dtype) * w["scale"].to(dtype)
-        pk, sc = w["q4"], w["scale4"]
-        lead = tuple(pk.shape[:-2])
-        dhalf, dout = pk.shape[-2], pk.shape[-1]
-        lo = (pk & 0xF).to(torch.int8) - 8
-        hi = (pk >> 4).to(torch.int8) - 8
-        q = torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * dhalf, dout)
-        ngroup = sc.shape[-3]
-        g = (2 * dhalf) // ngroup
-        wf = q.to(dtype).reshape(*lead, ngroup, g, dout) * sc.to(dtype)
-        return wf.reshape(*lead, 2 * dhalf, dout)
+        return _qmm.dequant(w, dtype)
     return w if w.dtype == dtype else w.to(dtype)
+
+
+def project(x: torch.Tensor, p, name: str) -> torch.Tensor:
+    """``x @ W`` of the named matmul weight in x's dtype.  A plain tensor
+    is ``x @ w``; a quantized leaf goes through ops/quant_matmul.py
+    ``quant_matmul``: on the card the fused GEMV for up to
+    ``QUANT_GEMV_MAX_ROWS`` rows of x, the ``dequant`` kernel and a
+    matmul past them; on the CPU ``x @ wmat(...)``'s torch ops."""
+    w = p[name]
+    if isinstance(w, dict):
+        return _qmm.quant_matmul(x, w)
+    return x @ (w if w.dtype == x.dtype else w.to(x.dtype))
 
 
 def qkv_project(x: torch.Tensor, p, prefix: str, cfg: TransformerConfig,
@@ -248,9 +254,9 @@ def qkv_project(x: torch.Tensor, p, prefix: str, cfg: TransformerConfig,
     b, s, _ = x.shape
     hd = cfg.head_dim
     x = _coll.copy_to(x, _coll.tp_group())
-    q = (x @ wmat(p, prefix + "wq", x.dtype)).view(b, s, -1, hd)
-    k = (x @ wmat(p, prefix + "wk", x.dtype)).view(b, s, -1, hd)
-    v = (x @ wmat(p, prefix + "wv", x.dtype)).view(b, s, -1, hd)
+    q = project(x, p, prefix + "wq").view(b, s, -1, hd)
+    k = project(x, p, prefix + "wk").view(b, s, -1, hd)
+    v = project(x, p, prefix + "wv").view(b, s, -1, hd)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     cos, sin = _rope_cos_sin(hd // 2, cfg.rope_theta, positions,
                              cfg.rope_scaling_dict)
@@ -343,13 +349,13 @@ def attention(x, p, prefix, cfg: TransformerConfig, attn_fn=None,
 
 def row_parallel(x, p, name: str) -> torch.Tensor:
     """``x @ w`` of a row-parallel weight, summed over ``tp``."""
-    return _coll.reduce_from(x @ wmat(p, name, x.dtype), _coll.tp_group())
+    return _coll.reduce_from(project(x, p, name), _coll.tp_group())
 
 
 def mlp(x, p, prefix) -> torch.Tensor:
     x = _coll.copy_to(x, _coll.tp_group())
-    gate = F.silu(x @ wmat(p, prefix + "w_gate", x.dtype))
-    up = x @ wmat(p, prefix + "w_up", x.dtype)
+    gate = F.silu(project(x, p, prefix + "w_gate"))
+    up = project(x, p, prefix + "w_up")
     return row_parallel(gate * up, p, prefix + "w_down")
 
 
@@ -371,7 +377,7 @@ def lm_logits(x: torch.Tensor, p, gather: bool = True) -> torch.Tensor:
     """float32 logits of ``x`` through the lm_head: whole, or with
     ``gather=False`` this rank's vocabulary slice under tp."""
     g = _coll.tp_group()
-    logits = (_coll.copy_to(x, g) @ wmat(p, "lm_head", x.dtype)).float()
+    logits = project(_coll.copy_to(x, g), p, "lm_head").float()
     return _coll.gather_from(logits, g) if gather else logits
 
 

@@ -157,14 +157,38 @@ def _to_tensor(x, device):
         else t.contiguous().clone()
 
 
+def _scale4_spec(name: str, spec: tuple, mesh, din: int, n_groups: int
+                 ) -> P:
+    """The spec of an int4 leaf's ``scale4`` (..., n_groups, 1, d_out)
+    for a weight of spec ``spec`` (..., d_in, d_out): its lead (expert)
+    axes and d_out as the weight's, its group axis cut by the mesh axes
+    that cut d_in, so that each rank holds the scales of its own rows.
+    A d_in shard boundary inside a group raises."""
+    cut = prune_spec(P(*spec), mesh)[-2]
+    n = int(np.prod([mesh.shape[a] for a in _axes(cut)]))
+    if n_groups % n:
+        raise ValueError(
+            f"{name}: int4 scale groups of {din // n_groups} rows do not "
+            f"fit its d_in shards of {din / n:g} rows over {cut!r} ({n} "
+            f"shards): a shard boundary falls inside a group")
+    return P(*spec[:-2], spec[-2], None, spec[-1])
+
+
 def shard_params(params: Dict, cfg, mesh, device=None,
                  shardings: Optional[Dict] = None) -> Dict:
     """This rank's slice of every parameter of the full ``params``
     (tensors or numpy arrays), on ``device`` (default: where each
-    is).  Weight-only quantized leaves (models/quant.py) split as the
-    JAX ``shard_params`` places them: ``q8`` / ``q4`` by the weight's
-    own spec, ``scale`` by its output axis, ``scale4`` along d_out
-    only.  A parameter without a spec raises."""
+    is).  Weight-only quantized leaves (models/quant.py) are cut so that
+    each rank's ``wmat`` is the same slice of the whole leaf's: ``q8`` /
+    ``q4`` by the weight's own spec (the packed int4 axis halves d_in,
+    the axis name still cuts it), ``scale`` by the weight's spec with its
+    d_in axis whole, ``scale4`` by the weight's expert and d_out axes and
+    its group axis by the mesh axes that cut d_in.  A d_in shard whose
+    boundary falls inside an int4 group raises, naming the weight, the
+    group size and the shard.  (The JAX package keeps every group of
+    ``scale4`` on each rank: its ``wmat`` runs on the global shapes under
+    GSPMD.  Here each rank dequantizes its own leaf.)  A parameter
+    without a spec raises."""
     sh = shardings if shardings is not None else param_shardings(cfg, mesh)
     out = {}
     for name, w in params.items():
@@ -173,15 +197,16 @@ def shard_params(params: Dict, cfg, mesh, device=None,
         s = sh[name]
         if isinstance(w, dict):
             key = "q8" if "q8" in w else "q4"
-            spec = tuple(s.spec) + (None,) * (w[key].dim() - len(s.spec))
+            spec = tuple(s.spec) + (None,) * (np.ndim(w[key]) - len(s.spec))
             wsh = Sharding(mesh, P(*spec))
             if key == "q8":
                 ssh = Sharding(mesh, P(*spec[:-2], None, spec[-1]))
                 skey = "scale"
             else:
-                ssh = Sharding(mesh, P(*[None] * (w["scale4"].dim() - 1),
-                                       spec[-1]))
                 skey = "scale4"
+                ssh = Sharding(mesh, _scale4_spec(
+                    name, spec, mesh, 2 * int(w[key].shape[-2]),
+                    int(w[skey].shape[-3])))
             out[name] = {
                 key: _to_tensor(_slice(w[key], wsh.local_bounds(
                     w[key].shape)), device),

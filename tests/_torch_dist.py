@@ -242,6 +242,27 @@ def model_cases(rank: int, world: int, cases: list) -> dict:
     return out
 
 
+def quant_cases(rank: int, world: int, cases: list) -> dict:
+    """Each case's quantized forward (tests/test_torch_quant_shards.py):
+    the whole quantized params cut by ``shard_params`` for this rank of
+    the case's mesh, logits of the whole batch under ``use_mesh``."""
+    import torch
+    from nvme_strom_tpu_torch.models import transformer as ttr
+    from nvme_strom_tpu_torch.parallel import collectives as coll
+    from nvme_strom_tpu_torch.parallel.mesh import make_mesh
+    from nvme_strom_tpu_torch.parallel.shardings import shard_params
+    out = {}
+    for case in cases:
+        mesh = make_mesh(case["axes"])
+        cfg = _cfg("lm", case["cfg"])
+        params = shard_params(case["params"], cfg, mesh, device="cpu")
+        with coll.use_mesh(mesh), torch.no_grad():
+            logits = ttr.forward(params, torch.from_numpy(case["tokens"]),
+                                 cfg)
+        out[case["name"]] = logits.numpy()
+    return out
+
+
 def _rows(mesh, batch: int) -> tuple:
     dp = mesh.shape.get("dp", 1)
     i = mesh.coords.get("dp", 0)

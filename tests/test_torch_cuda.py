@@ -2019,3 +2019,175 @@ def test_kernel_probe_small_shape_on_card(dev, capsys):
     assert set(flash["err_over_tol"]) == {"out", "lse", "dq", "dk", "dv"}
     assert all(n > 0 for n in flash["launches_checked"].values())
     assert recs[-1]["probe"] == "matmul_roof" and recs[-1]["finite"]
+
+
+# -- the weight-only int8 / int4 matmul (ops/quant_matmul.py) ---------------
+
+#: quant_gemv against its plain version: max |kernel - plain| over max
+#: |plain|.  Both round the weight alike and sum in float32 (in another
+#: order); bf16 / fp16 round the output once, so they may differ by one
+#: ulp of an element (2**-7 / 2**-10 of it); float32 only by the order.
+QUANT_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-5}
+
+
+def _quant_leaf(kind, shape, dev, seed=0):
+    """A leaf quantized on the card from a seeded weight of ``shape``
+    (E, K, N) or (K, N): ``int8``, or ``int4_g<group>``."""
+    from nvme_strom_tpu_torch.models import quant as q
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(shape, generator=g, device=dev) * 0.05
+    if kind == "int8":
+        return q.quantize_weights_int8({"w": w}, suffixes=("w",))["w"]
+    leaf = q.quantize_weights_int4({"w": w}, suffixes=("w",),
+                                   group=int(kind.split("_g")[1]))["w"]
+    assert leaf["scale4"].shape[-3] == shape[-2] // int(kind.split("_g")[1])
+    return leaf
+
+
+#: (kind, weight shape): aligned and ragged d_out (1000, 1003 columns:
+#: not a whole vector of 8 bytes), int4 groups of 128 and of 24, experts
+QUANT_CASES = [("int8", (512, 1000)), ("int8", (640, 1003)),
+               ("int4_g128", (1024, 1003)), ("int4_g24", (768, 520)),
+               ("int8", (4, 512, 264)), ("int4_g32", (3, 256, 136))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=["bf16", "f16",
+                                                        "f32"])
+@pytest.mark.parametrize("kind,shape", QUANT_CASES)
+def test_quant_gemv_matches_plain(dev, kind, shape, dtype, monkeypatch):
+    """The fused GEMV at 1-17 rows (one to two row tiles) against
+    ``quant_matmul_plain`` on the same card tensors, two calls bitwise
+    equal, one launch a call."""
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    leaf = _quant_leaf(kind, shape, dev)
+    E = shape[0] if len(shape) == 3 else 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    for m in (1, 3, 8, 16, 17):
+        x = torch.randn(E, m, shape[-2], generator=g, device=dev).to(dtype)
+        n0 = qmm.quant_gemv.launches
+        got = qmm.quant_gemv(x, leaf)
+        assert qmm.quant_gemv.launches == n0 + 1
+        want = qmm.quant_matmul_plain(x if E > 1 else x[0], leaf)
+        want = want if E > 1 else want[None]
+        assert got.dtype == dtype and got.shape == want.shape
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= QUANT_TOL[dtype] * want.float().abs().max().item(), \
+            (m, err)
+        assert torch.equal(got, qmm.quant_gemv(x, leaf)), m
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=["bf16", "f16",
+                                                        "f32"])
+@pytest.mark.parametrize("kind,shape", QUANT_CASES)
+def test_dequant_kernel_bitwise(dev, kind, shape, dtype):
+    """The dequant kernel writes ``wmat``'s torch-op weight bit for bit,
+    also from a leaf whose bytes start off the vector alignment."""
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    leaf = _quant_leaf(kind, shape, dev)
+    n0 = qmm.dequant.launches
+    got = qmm.dequant(leaf, dtype)
+    assert qmm.dequant.launches == n0 + 1
+    assert torch.equal(got, qmm.dequant_plain(leaf, dtype))
+    key = "q8" if "q8" in leaf else "q4"
+    raw = torch.empty(leaf[key].numel() + 1, dtype=leaf[key].dtype,
+                      device=dev)
+    off = {key: raw[1:].view(leaf[key].shape), **{
+        k: v for k, v in leaf.items() if k != key}}
+    off[key].copy_(leaf[key])
+    assert torch.equal(qmm.dequant(off, dtype), got)
+    assert torch.equal(qmm.quant_gemv(torch.ones(
+        *(leaf[key].shape[:-2] or (1,)), 2, got.shape[-2], dtype=dtype,
+        device=dev), off), qmm.quant_gemv(torch.ones(
+            *(leaf[key].shape[:-2] or (1,)), 2, got.shape[-2], dtype=dtype,
+            device=dev), leaf))
+
+
+def test_quant_routes_and_counts(dev):
+    """``quant_matmul`` takes the GEMV up to QUANT_GEMV_MAX_ROWS rows and
+    the dequant kernel past them; ``wmat`` and ``project`` of a CUDA leaf
+    launch a kernel and never dequantize with torch ops."""
+    from nvme_strom_tpu_torch.models import transformer as tr
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    leaf = _quant_leaf("int8", (256, 64), dev)
+    p = {"w": leaf}
+    n = qmm.QUANT_GEMV_MAX_ROWS
+    counts = lambda: (qmm.quant_gemv.launches, qmm.dequant.launches,
+                      qmm.dequant_plain.device_calls)
+    c0 = counts()
+    x = torch.randn(2, n // 2, 256, device=dev, dtype=torch.bfloat16)
+    assert tr.project(x, p, "w").shape == (2, n // 2, 64)
+    assert counts() == (c0[0] + 1, c0[1], c0[2])
+    x = torch.randn(1, n + 1, 256, device=dev, dtype=torch.bfloat16)
+    tr.project(x, p, "w")
+    tr.wmat(p, "w", torch.float32)
+    assert counts() == (c0[0] + 1, c0[1] + 2, c0[2])
+
+
+def test_quant_refusals(dev):
+    """A non-contiguous leaf, a dtype the kernels do not take, tensors on
+    two devices, a leaf that asks for a gradient and the GEMV on an x
+    that needs one each raise; ``quant_matmul`` gives such an x its
+    gradient through the dequant route."""
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    leaf = _quant_leaf("int8", (128, 64), dev)
+    x = torch.randn(1, 2, 128, device=dev)
+    strided = {"q8": leaf["q8"].t().contiguous().t(),
+               "scale": leaf["scale"]}
+    with pytest.raises(ValueError, match="contiguous"):
+        qmm.quant_matmul(x, strided)
+    with pytest.raises(ValueError, match="takes"):
+        qmm.quant_matmul(x.double(), leaf)
+    with pytest.raises(ValueError, match="tensors on"):
+        qmm.quant_gemv(x, {"q8": leaf["q8"], "scale": leaf["scale"].cpu()})
+    with pytest.raises(RuntimeError, match="no backward"):
+        trainable = leaf["scale"].clone().requires_grad_()
+        qmm.quant_matmul(x, {"q8": leaf["q8"], "scale": trainable})
+    with pytest.raises(RuntimeError, match="no backward"):
+        qmm.quant_gemv(x.requires_grad_(), leaf)
+    g0, d0 = qmm.quant_gemv.launches, qmm.dequant.launches
+    qmm.quant_matmul(x, leaf).sum().backward()
+    assert (qmm.quant_gemv.launches, qmm.dequant.launches) == (g0, d0 + 1)
+    want = qmm.dequant_plain(leaf, x.dtype).sum(-1).expand(1, 2, 128)
+    torch.testing.assert_close(x.grad, want, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        qmm.quant_matmul(x, leaf)
+    assert qmm.quant_gemv.launches == g0 + 1
+
+
+def test_quant_int8_decode_server_tokens_on_kernel_and_cpu_routes(
+        dev, monkeypatch):
+    """A float32 int8 model's DecodeServer on the card (every quantized
+    product through quant_gemv or dequant) gives the CPU route's tokens
+    (torch ops, which tests/test_torch_quant_moe.py holds against the
+    JAX servers)."""
+    from nvme_strom_tpu_torch.convert import params_from_jax
+    from nvme_strom_tpu_torch.models import quant as q
+    from nvme_strom_tpu_torch.models.serving import DecodeServer
+    from nvme_strom_tpu_torch.models.transformer import (TransformerConfig,
+                                                         init_params)
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = TransformerConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=256,
+                            dtype=torch.float32)
+    np_params = init_params(0, cfg)
+    rng = np.random.default_rng(2)
+    reqs = [(f"r{i}", rng.integers(0, 256, n).tolist(), 12)
+            for i, n in enumerate([3, 40, 90, 7, 130])]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        params = q.quantize_weights_int8(params_from_jax(np_params, cfg, d))
+        srv = DecodeServer(params, cfg, 3, 256, device=d)
+        for rid, p, m in reqs:
+            srv.submit(rid, p, m)
+        c0 = (qmm.quant_gemv.launches, qmm.dequant.launches,
+              qmm.dequant_plain.device_calls)
+        outs.append(srv.run(lookahead=4))
+        if d.type == "cuda":
+            assert qmm.quant_gemv.launches > c0[0]
+            assert qmm.dequant.launches > c0[1]
+            assert qmm.dequant_plain.device_calls == c0[2]
+    assert outs[0] == outs[1]
