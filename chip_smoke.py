@@ -224,14 +224,24 @@ The weight-only int8 / int4 kernels (``check_quant``, after the fp16
 times): ``quant_gemv`` against ``quant_matmul_plain`` (max |err| over
 max |plain| 1e-2 in bf16 / fp16, 1e-5 in fp32, TF32 off) and
 ``dequant`` against ``dequant_plain`` bitwise, two calls of each bitwise
-equal, at Llama-3-8B's MLP weights at M 1, 3, 8, 16 and one M past
-``QUANT_GEMV_MAX_ROWS`` (also through ``quant_matmul``'s dequant route),
-Mixtral-8x7B's int8 expert leaves, int4 groups of 128 and 24, d_out 1000
-and 1003 and the int8 lm_head; then every Llama-3-8B weight timed at M 8
-(``quant ...`` lines: GEMV and dequant ms and device ms, bounds, today's
-``wmat`` + ``torch.matmul``, the bf16 matmul, ``torch._weight_int8pack_mm``
-/ ``_weight_int4pack_mm`` where the installed torch runs them on CUDA)
-and the GEMV against dequant + matmul at M 1-64 (``quant crossover``).
+equal, at Llama-3-8B's MLP weights at M 1-65 across the row tiles and
+at the GEMV's most rows and one past them (``QUANT_GEMV_MAX_ROWS`` for
+bf16 / fp16 on the tensor cores, ``FMA_GEMV_MAX_ROWS`` for fp32; past
+them also through ``quant_matmul``'s dequant route), Mixtral-8x7B's
+int8 expert leaves, int4 groups of 128, 24 and 16, d_out 1000 and 1003
+and the int8 lm_head; the tensor-core GEMV's SASS (``cuobjdump``: HMMA
+in every instantiation, registers, spills; ``quant sass``); then every
+Llama-3-8B weight timed at M 8 (``quant ...`` lines: GEMV and dequant ms
+and device ms, bounds, today's ``wmat`` + ``torch.matmul``, the bf16
+matmul, ``torch._weight_int8pack_mm`` / ``_weight_int4pack_mm`` where the
+installed torch runs them on CUDA) and the GEMV against dequant +
+matmul at M 1-256 for the MLP weights in bf16, and at M 64, 128 and 256
+for every weight of the table and a Mixtral-8x7B expert leaf in bf16 and
+fp16 (``quant crossover``: the last M where the GEMV is faster, in each
+case and in all, beside ``QUANT_GEMV_MAX_ROWS``).
+``python3 chip_smoke.py --quant-times DIR`` times the table alone on the
+package of the checkout at DIR (one side of an A/B of two checkouts, run
+in turns).
 Main path 1j (``moe_quant_phase``) must launch both; it also logs each
 mode's prefill step (the dequant route) and fails if a CUDA leaf was
 dequantized by torch ops.  ``python3 chip_smoke.py --quant`` runs the
@@ -3938,14 +3948,14 @@ def kernel_device_ms(fn, iters, name):
     """Mean device milliseconds of a kernel whose name holds ``name``,
     over the launches torch.profiler records in ``iters`` calls of ``fn``
     (one a call; the profiler may miss one, and a window in which it
-    recorded none is taken again, twice at most): the kernel's own time,
-    for calls that wait for their kernels and so cannot be queued ahead
-    of the card."""
+    recorded none is taken again, five times at most): the kernel's own
+    time, for calls that wait for their kernels and so cannot be queued
+    ahead of the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a window whose launches the profiler all missed
+    for _ in range(6):   # a window whose launches the profiler all missed
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -5391,6 +5401,11 @@ QUANT_RAILS = {"int8": 0.05, "int8_moe": 0.08, "int4": 0.25}
 #: prefills, the modes in turns
 QUANT_PROMPT = 128
 QUANT_NEW = 256
+#: tokens of the prompt whose first-step logits are held to the rails:
+#: past QUANT_GEMV_MAX_ROWS (128), so that its prefill takes the dequant
+#: route (dequant + torch.matmul) while the 128-token requests' prefills
+#: and every decode step take the GEMV
+QUANT_LOGITS_PROMPT = 256
 QUANT_ORDER = {"llama": ("bf16", "int8", "int4", "int4", "int8", "bf16"),
                "mixtral": ("bf16", "int8", "int8", "bf16")}
 
@@ -5407,7 +5422,7 @@ def _first_logits(params, cfg, ids, dev):
 def _quant_tok_s(params, cfg, dev, requests):
     """Decode tok/s of a DecodeServer: the requests admitted and
     prefilled in one step, timed apart (the time to every request's
-    first token: a quantized mode's prefill takes the dequant route),
+    first token: a quantized mode's 128-row prefills take the GEMV),
     then the rest of their QUANT_NEW tokens timed from a synchronised
     start (a quantized mode's steps take the GEMV).  Returns (tok/s, the
     tokens, the prefill step's ms)."""
@@ -5448,7 +5463,7 @@ def _quant_modes(name, cfg, full, modes, dev, rail_int8):
             "int8": lambda: quantize_weights_int8(full),
             "int4": lambda: quantize_weights_int4(full)}
     rng = np.random.default_rng(SEED + 23)
-    ids = rng.integers(0, cfg.vocab, 64).tolist()
+    ids = rng.integers(0, cfg.vocab, QUANT_LOGITS_PROMPT).tolist()
     ref = _first_logits(full, cfg, ids, dev)
     params, rep = {}, {}
     for mode in modes:
@@ -5622,9 +5637,16 @@ QUANT_KERNEL_TOL = {"bfloat16": 1e-2, "float16": 1e-2, "float32": 1e-5}
 QUANT_LLAMA = {"w_gate": (4096, 14336), "w_down": (14336, 4096),
                "wq": (4096, 4096), "wk": (4096, 1024),
                "lm_head": (4096, 32000)}
-#: rows of x the checks take; the crossover sweep's
-QUANT_CHECK_M = (1, 3, 8, 16)
-QUANT_CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64)
+#: rows of x the checks take (the tensor-core GEMV's row tiles change
+#: at 9, 17, 33 and 65; each dtype adds its most rows and one past
+#: them); the crossover sweep's
+QUANT_CHECK_M = (1, 3, 8, 9, 16, 17, 33, 65)
+QUANT_CROSSOVER_M = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+#: rows around QUANT_GEMV_MAX_ROWS at which the crossover also takes the
+#: other weights and dtypes, and the Mixtral-8x7B expert leaf it takes
+#: (8 experts, w_gate's widths)
+QUANT_EDGE_M = (64, 128, 256)
+QUANT_MIXTRAL_EXPERTS = (8, 4096, 14336)
 #: the rows the timed table is taken at (a decode step of 8 slots)
 QUANT_TIMED_M = 8
 #: the headline entry of the kernels line: Llama-3-8B's w_gate in int8
@@ -5724,14 +5746,15 @@ def _quant_correct(dev, gen):
     for name in ("w_gate", "w_down"):
         for kind in ("int8", "int4_g128"):
             cases.append((f"Llama-3-8B {name} {kind}", kind,
-                          QUANT_LLAMA[name], QUANT_CHECK_M
-                          + (2 * qmm.QUANT_GEMV_MAX_ROWS,), tuple(dts)))
+                          QUANT_LLAMA[name], QUANT_CHECK_M, tuple(dts)))
     cases += [
         ("Mixtral-8x7B experts w_gate int8", "int8", (8, 4096, 14336),
          (2, 8), ("bfloat16",)),
         ("Mixtral-8x7B experts w_down int8", "int8", (8, 14336, 4096),
          (2, 8), ("bfloat16",)),
         ("int4 g24", "int4_g24", (4032, 1000), (1, 8), tuple(dts)),
+        ("Llama-3-8B wq int4 g16", "int4_g16", QUANT_LLAMA["wq"], (1, 8),
+         tuple(dts)),
         ("int8 d_out 1000", "int8", (4096, 1000), (1, 8), tuple(dts)),
         ("int8 d_out 1003 (ragged)", "int8", (4096, 1003), (3,),
          tuple(dts)),
@@ -5739,7 +5762,7 @@ def _quant_correct(dev, gen):
          ("bfloat16", "float32")),
     ]
     worst, worst_abs = {d: 0.0 for d in dts}, 0.0
-    for i, (label, kind, shape, ms, dnames) in enumerate(cases):
+    for i, (label, kind, shape, base, dnames) in enumerate(cases):
         leaf, _ = _quant_leaf(kind, shape, dev, SEED + 40 + i)
         E = shape[0] if len(shape) == 3 else 1
         K = shape[-2]
@@ -5751,6 +5774,8 @@ def _quant_correct(dev, gen):
                                      "the torch ops")
             _repeatable(f"dequant {label} {dn}", qmm.dequant, (leaf, dt))
             del w
+            top = qmm.max_rows(dt)
+            ms = sorted(set(base) | {top, top + 1})
             for m in ms:
                 x = torch.randn(E, m, K, generator=gen, device=dev).to(dt)
                 got = qmm.quant_gemv(x, leaf)
@@ -5764,7 +5789,7 @@ def _quant_correct(dev, gen):
                                          f"max rel {rel}")
                 _repeatable(f"quant_gemv {label} {dn} M {m}",
                             qmm.quant_gemv, (x, leaf))
-                if m > qmm.QUANT_GEMV_MAX_ROWS:
+                if m > top:
                     xm = x if E > 1 else x[0]
                     if not torch.equal(qmm.quant_matmul(xm, leaf),
                                        xm @ qmm.dequant(leaf, dt)):
@@ -5775,8 +5800,9 @@ def _quant_correct(dev, gen):
                     worst_abs = max(worst_abs, (got.float() - want.float())
                                     .abs().max().item())
         log(f"quant check {label} {tuple(shape)}: dequant bitwise and "
-            f"quant_gemv at M {ms} within {[QUANT_KERNEL_TOL[d] for d in dnames]}"
-            f" in {dnames}, two calls bitwise equal")
+            f"quant_gemv at M {base} and each dtype's most rows and one "
+            f"past within {[QUANT_KERNEL_TOL[d] for d in dnames]} in "
+            f"{dnames}, two calls bitwise equal")
         del leaf
     torch.cuda.empty_cache()
     return worst, worst_abs, [c[0] for c in cases]
@@ -5843,68 +5869,149 @@ def _quant_times(dev, gen, name, kind, M):
     return r
 
 
-def _quant_crossover(dev, gen):
-    """quant_gemv against dequant + torch.matmul at QUANT_CROSSOVER_M rows
-    for the Llama-3-8B MLP weights, int8 and int4 (g 128), bf16, inputs
-    in rotation; the crossover is the first M where the GEMV is slower."""
+def _quant_table(dev, gen):
+    """_quant_times at every Llama-3-8B weight at QUANT_TIMED_M rows: int8
+    and int4 (g 128), the lm_head in int8."""
+    return [_quant_times(dev, gen, name, kind, QUANT_TIMED_M)
+            for name in QUANT_LLAMA
+            for kind in (("int8",) if name == "lm_head"
+                         else ("int8", "int4_g128"))]
+
+
+def _quant_sweep(dev, gen, shape, kind, dt, ms):
+    """quant_gemv against dequant + torch.matmul on a leaf of ``shape``
+    ((d_in, d_out), or (E, d_in, d_out) with ``ms`` rows an expert) at
+    each of ``ms`` rows of x in ``dt``, inputs in rotation; returns
+    {rows: (GEMV ms, dequant + matmul ms)}."""
     import torch
     from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    E = shape[0] if len(shape) == 3 else 1
+    K, N = shape[-2:]
+
+    def make():
+        x = torch.randn(E, max(ms), K, generator=gen, device=dev).to(dt)
+        return (_quant_leaf(kind, shape, dev, SEED + 70)[0],
+                {m: x[:, :m].contiguous() for m in ms})
+    sets = _rotating(make, E * K * N // (1 if kind == "int8" else 2))
+    row = {}
+    for m in ms:
+        gemv = Rotor(lambda leaf, xs: qmm.quant_gemv(xs[m], leaf), sets)
+        dm = Rotor(lambda leaf, xs: (xs[m] if E > 1 else xs[m][0])
+                   @ qmm.dequant(leaf, dt), sets)
+        row[m] = (time_ms(gemv, 20), time_ms(dm, 20))
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
+def _quant_crossover(dev, gen):
+    """quant_gemv against dequant + torch.matmul, inputs in rotation: the
+    Llama-3-8B MLP weights, int8 and int4 (g 128), in bf16 at
+    QUANT_CROSSOVER_M rows; then every weight of the timed table and a
+    Mixtral-8x7B expert leaf (QUANT_EDGE_M rows an expert) in bf16 and
+    fp16 at QUANT_EDGE_M rows.  For each case the first M where the GEMV
+    is slower and the last where it is faster; ``last_m_everywhere`` is
+    the least of the latter, which QUANT_GEMV_MAX_ROWS should not pass."""
+    import torch
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    kinds = lambda name: (("int8",) if name == "lm_head"
+                          else ("int8", "int4_g128"))
+    cases = [(f"{name} {kind}", QUANT_LLAMA[name], kind, torch.bfloat16,
+              QUANT_CROSSOVER_M)
+             for name in ("w_gate", "w_down") for kind in kinds(name)]
+    for dt in (torch.bfloat16, torch.float16):
+        for name, shape in [*QUANT_LLAMA.items(),
+                            ("Mixtral-8x7B experts w_gate",
+                             QUANT_MIXTRAL_EXPERTS)]:
+            for kind in kinds(name):
+                if dt == torch.bfloat16 and name in ("w_gate", "w_down"):
+                    continue          # in the full sweep above
+                cases.append((f"{name} {kind} {str(dt)[6:]}", shape, kind,
+                              dt, QUANT_EDGE_M))
     out = {}
-    for name in ("w_gate", "w_down"):
-        K, N = QUANT_LLAMA[name]
-        for kind in ("int8", "int4_g128"):
-            def make():
-                x = torch.randn(1, max(QUANT_CROSSOVER_M), K, generator=gen,
-                                device=dev).to(torch.bfloat16)
-                return (_quant_leaf(kind, (K, N), dev, SEED + 70)[0],
-                        {m: x[:, :m].contiguous() for m in QUANT_CROSSOVER_M})
-            sets = _rotating(make, K * N // (1 if kind == "int8" else 2))
-            row = {}
-            for m in QUANT_CROSSOVER_M:
-                gemv = Rotor(lambda leaf, xs: qmm.quant_gemv(xs[m], leaf),
-                             sets)
-                dm = Rotor(lambda leaf, xs: xs[m][0] @ qmm.dequant(
-                    leaf, torch.bfloat16), sets)
-                row[m] = (time_ms(gemv, 20), time_ms(dm, 20))
-            cross = next((m for m in QUANT_CROSSOVER_M
-                          if row[m][0] > row[m][1]), None)
-            out[f"{name} {kind}"] = {"gemv_ms": [row[m][0] for m in row],
-                                     "dequant_matmul_ms": [row[m][1]
-                                                           for m in row],
-                                     "first_m_gemv_slower": cross}
-            log(f"quant crossover {name} {kind} (M {QUANT_CROSSOVER_M}): "
-                f"gemv {[round(row[m][0], 4) for m in row]} ms, dequant + "
-                f"matmul {[round(row[m][1], 4) for m in row]} ms; the GEMV "
-                f"first slower at M {cross}")
-            del sets
-            torch.cuda.empty_cache()
+    for label, shape, kind, dt, ms in cases:
+        row = _quant_sweep(dev, gen, shape, kind, dt, ms)
+        cross = next((m for m in ms if row[m][0] > row[m][1]), None)
+        last = max((m for m in ms if row[m][0] < row[m][1]), default=None)
+        out[label] = {"m": list(ms),
+                      "gemv_ms": [row[m][0] for m in ms],
+                      "dequant_matmul_ms": [row[m][1] for m in ms],
+                      "first_m_gemv_slower": cross,
+                      "last_m_gemv_faster": last}
+        log(f"quant crossover {label} (M {ms}): gemv "
+            f"{[round(row[m][0], 4) for m in ms]} ms, dequant + matmul "
+            f"{[round(row[m][1], 4) for m in ms]} ms; the GEMV first slower "
+            f"at M {cross}, last faster at M {last}")
+    everywhere = min((c["last_m_gemv_faster"] or 0) for c in out.values())
+    out["last_m_everywhere"] = everywhere
+    log(f"quant crossover: the GEMV faster in every case up to M "
+        f"{everywhere} (QUANT_GEMV_MAX_ROWS {qmm.QUANT_GEMV_MAX_ROWS})")
     return out
+
+
+def _quant_sass():
+    """The tensor-core GEMV's instantiations in the built kernel library,
+    read with the cuobjdump beside the nvcc that built it: HMMA
+    instructions, registers and local (spill) bytes of each.  Raises if
+    one has no HMMA; None where that toolkit has no cuobjdump."""
+    import re
+    from nvme_strom_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    lib = str(_build.BUILD_DIR / "libstrom_torch_kernels.so")
+    fns, cur = {}, None
+    for line in subprocess.run([tool, "-sass", lib], capture_output=True,
+                               text=True, timeout=300).stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if "quant_gemv_tc" in m.group(1) else None
+            if cur:
+                fns[cur] = {"hmma": 0}
+        elif cur and re.search(r"\bHMMA\b", line):
+            fns[cur]["hmma"] += 1
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=300).stdout.splitlines()
+    for i, line in enumerate(res):
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m and m.group(1) in fns and i + 1 < len(res):
+            for key in ("REG", "LOCAL", "SHARED"):
+                r = re.search(rf"\b{key}:(\d+)", res[i + 1])
+                if r:
+                    fns[m.group(1)][key.lower()] = int(r.group(1))
+    if not fns or any(f["hmma"] == 0 for f in fns.values()):
+        raise AssertionError(f"quant_gemv_tc: an instantiation without "
+                             f"HMMA in the SASS: {fns}")
+    return {"functions": len(fns),
+            "hmma": [f["hmma"] for f in fns.values()],
+            "max_reg": max(f.get("reg", 0) for f in fns.values()),
+            "local_bytes": max(f.get("local", 0) for f in fns.values())}
 
 
 def check_quant(dev, results):
     """The weight-only kernels (csrc/quant_matmul.cu) on the card:
     quant_gemv against quant_matmul_plain (QUANT_KERNEL_TOL) and dequant
     against dequant_plain bitwise, in bf16 / fp16 / fp32, two calls of
-    each bitwise equal, at Llama-3-8B's MLP shapes at M 1, 3, 8, 16 and
-    one M past QUANT_GEMV_MAX_ROWS (also through quant_matmul's dequant
-    route), Mixtral-8x7B's expert leaves in int8, int4 in groups of 128
-    and of 24, d_out 1000 and 1003, the lm_head in int8; then each kernel
-    timed at every Llama-3-8B weight at M 8 in bf16 (int8; int4 but the
-    lm_head) with its bound, its plain version, today's ``wmat`` +
-    ``torch.matmul``, the bf16 matmul and the library call, and the
-    crossover of the GEMV against dequant + matmul."""
+    each bitwise equal, at Llama-3-8B's MLP shapes at QUANT_CHECK_M and
+    each dtype's most GEMV rows and one past them (also through
+    quant_matmul's dequant route), Mixtral-8x7B's expert leaves in int8,
+    int4 in groups of 128, 24 and 16, d_out 1000 and 1003, the lm_head in
+    int8; the tensor-core GEMV's SASS; then each kernel timed at every
+    Llama-3-8B weight at M 8 in bf16 (int8; int4 but the lm_head) with
+    its bound, its plain version, today's ``wmat`` + ``torch.matmul``,
+    the bf16 matmul and the library call, and the crossover of the GEMV
+    against dequant + matmul."""
     import torch
     from nvme_strom_tpu_torch.ops import quant_matmul as qmm
     t0 = time.monotonic()
+    sass = _quant_sass()
+    log(f"quant sass (quant_gemv_tc, cuobjdump): {sass}")
     old_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         worst, worst_abs, cases = _quant_correct(dev, gen)
-        table = [_quant_times(dev, gen, name, kind, QUANT_TIMED_M)
-                 for name in QUANT_LLAMA
-                 for kind in (("int8",) if name == "lm_head"
-                              else ("int8", "int4_g128"))]
+        table = _quant_table(dev, gen)
         crossover = _quant_crossover(dev, gen)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old_tf32
@@ -5922,6 +6029,8 @@ def check_quant(dev, results):
             f"({r['library']})")
     head = next(r for r in table if (r["weight"], r["kind"])
                 == QUANT_HEADLINE)
+    head4 = next(r for r in table if (r["weight"], r["kind"])
+                 == (QUANT_HEADLINE[0], "int4_g128"))
     shape = (f"Llama-3-8B {head['weight']} {head['kind']} ({head['K']} x "
              f"{head['N']}), x ({head['M']}, {head['K']}) bf16")
     common = dict(route="cuda",
@@ -5935,8 +6044,13 @@ def check_quant(dev, results):
         device_ms=head["gemv_device_ms"], plain_ms=head["wmat_matmul_ms"],
         bound_ms=head["gemv_bound_ms"], bound_by=head["gemv_bound_by"],
         library_ms=head["library_ms"], library=head["library"],
+        int4_ms=head4["gemv_ms"], int4_bound_ms=head4["gemv_bound_ms"],
+        library_int4_ms=head4["library_ms"],
+        library_int4=head4["library"],
         bf16_matmul_ms=head["bf16_matmul_ms"],
-        max_rows=qmm.QUANT_GEMV_MAX_ROWS, crossover=crossover, **common)
+        max_rows=qmm.QUANT_GEMV_MAX_ROWS,
+        fma_max_rows=qmm.FMA_GEMV_MAX_ROWS, sass=sass,
+        crossover=crossover, **common)
     results["dequant"] = dict(
         name="dequant", max_abs_err=0.0, ms=head["dequant_ms"],
         device_ms=head["dequant_device_ms"],
@@ -9635,6 +9749,24 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--quant-times"]:
+        # one side of an A/B of two checkouts' quant_gemv, run in turns:
+        # the timed table (every Llama-3-8B weight at QUANT_TIMED_M rows)
+        # on the package of the checkout at argv[2], built there
+        tree = os.path.abspath(sys.argv[2])
+        sys.path.insert(0, tree)
+        from nvme_strom_tpu_torch import _build
+        if not _build.__file__.startswith(tree + os.sep):
+            raise RuntimeError(f"--quant-times: imported {_build.__file__},"
+                               f" not the package in {tree}")
+        _build.kernel_library()
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for r in _quant_table(dev, torch.Generator(device=dev)
+                              .manual_seed(SEED)):
+            log("quant times " + json.dumps({"tree": tree, **r}))
+        print(card_line())
+        return 0
     if sys.argv[1:2] == ["--multigpu-worker"]:
         # one rank of multigpu_phase, started by the phase itself
         rank, world, workdir, backend, ckdir = sys.argv[2:7]

@@ -224,8 +224,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # group (rows a scale; K for int8), bits (8 or 4), split_rows,
         # dtype, stream, dev
         "strom_quant_gemv": [P, P, P, P, P, I, I, I, I, I, I, I, I, P, I],
+        # the fp16 unit's entry point, which strom_quant_gemv hands fp16
+        # calls to
+        "strom_quant_gemv_f16": [P, P, P, P, P, I, I, I, I, I, I, I, I, P,
+                                 I],
+        # rows of x, bits, dev, blocks a SM (written)
+        "strom_quant_gemv_blocks": [I, I, I, ctypes.POINTER(I)],
         # q, scale, out, E, K, N, group, bits, dtype, sms, stream, dev
         "strom_dequant": [P, P, P, I, I, I, I, I, I, I, P, I],
+        "strom_dequant_f16": [P, P, P, I, I, I, I, I, I, I, P, I],
         "strom_stream_synchronize": [P, I],
         "strom_enable_peer_access": [I, I],
         # dev, bytes, ptr (written), 64-byte handle (written)

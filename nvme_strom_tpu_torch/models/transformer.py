@@ -239,8 +239,8 @@ def project(x: torch.Tensor, p, name: str) -> torch.Tensor:
     """``x @ W`` of the named matmul weight in x's dtype.  A plain tensor
     is ``x @ w``; a quantized leaf goes through ops/quant_matmul.py
     ``quant_matmul``: on the card the fused GEMV for up to
-    ``QUANT_GEMV_MAX_ROWS`` rows of x, the ``dequant`` kernel and a
-    matmul past them; on the CPU ``x @ wmat(...)``'s torch ops."""
+    ``max_rows(x.dtype)`` rows of x, the ``dequant`` kernel and a matmul
+    past them; on the CPU ``x @ wmat(...)``'s torch ops."""
     w = p[name]
     if isinstance(w, dict):
         return _qmm.quant_matmul(x, w)

@@ -8,21 +8,25 @@ reads the quantized bytes only.  Written as torch ops, the dequantized
 weight is a tensor of its own, written in the compute dtype and read
 back by the matmul.  The two kernels replace that program:
 
-* ``quant_gemv`` — the fused decode product ``x @ W`` for at most
-  ``QUANT_GEMV_MAX_ROWS`` rows of x.  It dequantizes each weight element
-  in registers as ``wmat`` rounds it and never writes W.  Bound: the
-  quantized bytes over HBM bandwidth at a few rows; the CUDA cores'
-  issue rate (M FMAs and ~4 dequant instructions an element) past ~8
-  rows.  Its K splits write f32 partials to a workspace that a second
-  launch sums in split order (``quant_gemv_split_plain`` is that split
-  and combine in torch).
+* ``quant_gemv`` — the fused product ``x @ W`` for the few rows of x of
+  a decode or verify step: up to ``QUANT_GEMV_MAX_ROWS`` rows of bf16 /
+  fp16 x, ``FMA_GEMV_MAX_ROWS`` of float32.  It dequantizes each weight
+  element in registers as ``wmat`` rounds it and never writes W.  bf16 /
+  fp16 x runs on the tensor cores (``mma.sync`` m16n8k16, the weight the
+  tall operand), its weight tiles staged by asynchronous copies; bound
+  by the quantized bytes over HBM bandwidth at a few rows (at 8 rows it
+  runs at 54-55% of that bound in int8, 33-34% in int4), its time
+  growing with the rows past ~16 as the products and B fragments add
+  up.  float32 x keeps the CUDA-core FMA kernel (a tensor-core product
+  would be TF32).  Both write f32 partials of their K splits, which a
+  second launch sums in split order; ``quant_gemv_split_plain`` is that
+  split and combine in torch.
 * ``dequant`` — ``wmat``'s weight in one pass, reading the quantized
   bytes once, bitwise equal to the torch ops (``dequant_plain``).  Bound:
   the quantized bytes read and the weight written.  It serves every
-  other product (``quant_matmul`` past ``QUANT_GEMV_MAX_ROWS``: prefill,
-  chunked prefill, a wide verify step), whose matmul then goes to
-  ``torch.matmul`` as the JAX package leaves it to XLA, and every
-  ``wmat`` of a CUDA leaf.
+  other product (``quant_matmul`` past the GEMV's rows: prefill, chunked
+  prefill), whose matmul then goes to ``torch.matmul`` as the JAX
+  package leaves it to XLA, and every ``wmat`` of a CUDA leaf.
 
 A CPU tensor runs the plain version; a CUDA tensor launches a kernel or
 raises.  Neither kernel has a backward: a leaf that asks for a gradient
@@ -33,6 +37,7 @@ raises, ``quant_gemv`` on an x that needs one raises, and
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -44,45 +49,102 @@ from nvme_strom_tpu_torch.ops.decode_attention import workspace
 
 #: element types the kernels take, by their code in csrc/quant_matmul.cu
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
-#: most rows of x that ``quant_matmul`` sends to the fused GEMV; wider
-#: products take ``dequant`` and ``torch.matmul``.  The crossover
-#: chip_smoke.py ``check_quant`` measures at the Llama-3-8B MLP weights
-#: (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6): the GEMV is faster up
-#: to 8 rows of bf16 x and first slower at 16 (int8 and int4 w_gate,
-#: int4 w_down) or 32 (int8 w_down), where dequant + matmul takes
-#: ~0.11-0.13 ms whatever the rows.
-QUANT_GEMV_MAX_ROWS = 8
-#: blocks of the GEMV's grid the split count aims for, a SM.  8 blocks of
-#: 4 warps against 4 of 8 warps on the same card: 0.87-1.35x as fast at
-#: M 8, 0.89-1.16x at M 1 (PERF.md §6)
+#: most rows of bf16 / fp16 x that ``quant_matmul`` sends to the fused
+#: GEMV; wider products take ``dequant`` and ``torch.matmul``.  The
+#: crossover chip_smoke.py ``check_quant`` measures (NVIDIA H100 80GB
+#: HBM3, 700.00 W; PERF.md §6): the tensor-core GEMV is faster up to 128
+#: rows at every Llama-3-8B weight (w_gate, w_down, wq, wk, lm_head) and
+#: at a Mixtral-8x7B expert leaf (128 rows an expert), in int8 and int4,
+#: in bf16 and fp16, and slower at 256 rows in most of them (w_gate int8
+#: bf16: 0.089 against 0.132 ms at 128, 0.178 against 0.134 at 256; the
+#: expert leaf 0.54 against 0.93 at 128, 1.08 against 0.95 at 256)
+QUANT_GEMV_MAX_ROWS = 128
+#: most rows of float32 x that go to the CUDA-core GEMV: its crossover
+#: as chip_smoke.py ``check_quant`` measured it in bf16 (NVIDIA H100
+#: 80GB HBM3, 700.00 W; PERF.md §6), where that kernel was first slower
+#: than dequant + matmul at 16 rows
+FMA_GEMV_MAX_ROWS = 8
+#: output columns a block of the tensor-core GEMV holds (4 warps of 32)
+TC_COLS = 128
+#: fewest rows a split of the tensor-core GEMV holds: shorter splits only
+#: deepen the in-order sum of the partials (Llama-3-8B's wk on an H100:
+#: PERF.md §6)
+TC_MIN_SPLIT_ROWS = 256
+#: blocks of the float32 GEMV's grid the split count aims for, a SM.  8
+#: blocks of 4 warps against 4 of 8 warps on the same card: 0.87-1.35x as
+#: fast at M 8, 0.89-1.16x at M 1 (PERF.md §6)
 BLOCKS_PER_SM = 8
-#: fewest rows a split holds (more splits only grow the workspace), and
-#: the step split lengths are rounded up to (even: an int4 split starts
-#: on an even row)
+#: fewest rows a split of the float32 GEMV holds (more splits only grow
+#: the workspace), and the step split lengths are rounded up to (a k16
+#: step of the tensor cores; even, so an int4 split starts on an even row)
 MIN_SPLIT_ROWS = 128
 SPLIT_ROW_STEP = 16
 
 
-def row_tile(m: int) -> tuple:
-    """(rows of x a block holds, columns a lane holds) of a GEMV over
-    ``m`` rows, as csrc/quant_matmul.cu ``dispatch_gemv`` picks them."""
+def row_tile(m: int) -> int:
+    """Rows of x a block of the tensor-core GEMV holds over ``m`` rows:
+    8, 16 or 32 (one, two or four n8 tiles), else tiles of 64, as
+    csrc/quant_matmul.cu ``tc_tiles`` picks them."""
+    return next((t for t in (8, 16, 32) if m <= t), 64)
+
+
+@functools.lru_cache(maxsize=64)
+def resident_blocks(device: int, mt: int, bits: int) -> int:
+    """Blocks of the tensor-core GEMV at a row tile of ``mt`` rows and
+    a weight of ``bits`` that share one SM of CUDA device ``device``, as
+    the runtime counts them (csrc/quant_matmul.cu
+    ``strom_quant_gemv_blocks``): what the kernel's launch bounds leave
+    room for, or fewer where its ring's shared memory runs out."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.kernel_library().strom_quant_gemv_blocks(
+        mt, bits, device, ctypes.byref(blocks)), "quant_gemv")
+    return blocks.value
+
+
+def _split_rows(K: int, want: int, least: int) -> tuple:
+    """(rows a split holds, splits): at most ``want`` splits of at least
+    ``least`` rows, a multiple of SPLIT_ROW_STEP, covering d_in."""
+    rows = -(-K // max(1, want))
+    rows = max(least, -(-rows // SPLIT_ROW_STEP) * SPLIT_ROW_STEP)
+    return rows, -(-K // rows)
+
+
+@functools.lru_cache(maxsize=4096)
+def kernel_launch(E: int, M: int, K: int, N: int, sms: int,
+                  resident: int) -> tuple:
+    """(rows a split holds, splits, f32 workspace elements) of the
+    tensor-core GEMV over x (E, M, K) and a (E, K, N) weight on a card of
+    ``sms`` SMs that each hold ``resident`` of its blocks
+    (``resident_blocks``): row tiles x TC_COLS-column tiles x E blocks a
+    split, as many splits of at least TC_MIN_SPLIT_ROWS rows as let every
+    block of the grid be resident at once (one wave: a second one would
+    stream the weight's tail alone).  The workspace holds every split's
+    (E, M, N) partials, 0 for one split."""
+    mt = row_tile(M)
+    tiles = -(-M // mt) * -(-N // TC_COLS) * E
+    rows, n_splits = _split_rows(K, resident * sms // tiles,
+                                 TC_MIN_SPLIT_ROWS)
+    return rows, n_splits, n_splits * E * M * N if n_splits > 1 else 0
+
+
+def fma_row_tile(m: int) -> tuple:
+    """(rows of x a block holds, columns a lane holds) of the float32
+    GEMV over ``m`` rows, as csrc/quant_matmul.cu ``run_fma`` picks
+    them."""
     mt = next((t for t in (1, 2, 4, 8) if m <= t), 16)
     return mt, 4 if mt == 16 else 8
 
 
 @functools.lru_cache(maxsize=4096)
-def kernel_launch(E: int, M: int, K: int, N: int, sms: int) -> tuple:
-    """(rows a split holds, splits, f32 workspace elements) of a GEMV over
-    x (E, M, K) and a (E, K, N) weight on a card of ``sms`` SMs: the
-    fewest splits of at least MIN_SPLIT_ROWS rows that give the grid
-    BLOCKS_PER_SM blocks a SM.  The workspace holds every split's
-    (E, M, N) partials; it is 0 for one split."""
-    mt, vec = row_tile(M)
+def fma_launch(E: int, M: int, K: int, N: int, sms: int) -> tuple:
+    """(rows a split holds, splits, f32 workspace elements) of the
+    float32 GEMV: the fewest splits of at least MIN_SPLIT_ROWS rows that
+    give the grid BLOCKS_PER_SM blocks a SM; the workspace holds every
+    split's (E, M, N) partials, 0 for one split."""
+    mt, vec = fma_row_tile(M)
     base = -(-N // (32 * vec)) * E * -(-M // mt)
-    want = max(1, -(-BLOCKS_PER_SM * sms // base))
-    rows = -(-K // want)
-    rows = max(MIN_SPLIT_ROWS, -(-rows // SPLIT_ROW_STEP) * SPLIT_ROW_STEP)
-    n_splits = -(-K // rows)
+    rows, n_splits = _split_rows(K, -(-BLOCKS_PER_SM * sms // base),
+                                 MIN_SPLIT_ROWS)
     return rows, n_splits, n_splits * E * M * N if n_splits > 1 else 0
 
 
@@ -218,12 +280,18 @@ def quant_gemv(x: torch.Tensor, leaf) -> torch.Tensor:
 
 
 def _gemv(x: torch.Tensor, parts: tuple) -> torch.Tensor:
-    """The GEMV's launch on checked parts (``_check_leaf``)."""
+    """The GEMV's launch on checked parts (``_check_leaf``): the
+    tensor-core kernel for bf16 / fp16 x, the FMA kernel for float32."""
     q, scale, bits, E, K, N, group = parts
     M = int(x.shape[1])
     dev = x.device.index
-    rows, _, n_ws = kernel_launch(E, M, K, N, sm_count(dev))
     stream = current_stream(dev)
+    if x.dtype == torch.float32:
+        rows, _, n_ws = fma_launch(E, M, K, N, sm_count(dev))
+    else:
+        rows, _, n_ws = kernel_launch(E, M, K, N, sm_count(dev),
+                                      resident_blocks(dev, row_tile(M),
+                                                      bits))
     ws = workspace(x.device, stream, n_ws)
     out = torch.empty(E, M, N, dtype=x.dtype, device=x.device)
     _build.check(_build.kernel_library().strom_quant_gemv(
@@ -232,6 +300,13 @@ def _gemv(x: torch.Tensor, parts: tuple) -> torch.Tensor:
         KERNEL_DTYPES[x.dtype], stream, dev), "quant_gemv")
     quant_gemv.launches += 1
     return out
+
+
+def max_rows(dtype: torch.dtype) -> int:
+    """Most rows of x in ``dtype`` that ``quant_matmul`` sends to the
+    fused GEMV."""
+    return FMA_GEMV_MAX_ROWS if dtype == torch.float32 \
+        else QUANT_GEMV_MAX_ROWS
 
 
 def dequant(leaf, dtype: torch.dtype) -> torch.Tensor:
@@ -257,8 +332,8 @@ def dequant(leaf, dtype: torch.dtype) -> torch.Tensor:
 def quant_matmul(x: torch.Tensor, leaf) -> torch.Tensor:
     """``x @ wmat(leaf)`` in x's dtype: x (..., K) against a 2-D leaf, or
     (E, M, K) against a 3-D (expert) one.  CPU: ``quant_matmul_plain``.
-    CUDA: the fused GEMV where x has at most QUANT_GEMV_MAX_ROWS rows
-    (an expert's rows for a 3-D leaf), else ``dequant`` and
+    CUDA: the fused GEMV where x has at most ``max_rows`` rows (an
+    expert's rows for a 3-D leaf), else ``dequant`` and
     ``torch.matmul``, whose autograd also gives x's gradient where it is
     needed (an adapter upstream of a frozen quantized base)."""
     if x.device.type == "cpu":
@@ -273,7 +348,7 @@ def quant_matmul(x: torch.Tensor, leaf) -> torch.Tensor:
     M = math.prod(lead) // E
     if M == 0:
         return x.new_empty(*lead, N)
-    if M > QUANT_GEMV_MAX_ROWS or _needs_grad(x):
+    if M > max_rows(x.dtype) or _needs_grad(x):
         return x @ dequant(leaf, x.dtype)
     return _gemv(x.reshape(E, M, K).contiguous(), parts).reshape(*lead, N)
 

@@ -2045,10 +2045,23 @@ def _quant_leaf(kind, shape, dev, seed=0):
 
 
 #: (kind, weight shape): aligned and ragged d_out (1000, 1003 columns:
-#: not a whole vector of 8 bytes), int4 groups of 128 and of 24, experts
+#: not a whole 16-byte copy), int4 groups of 128, 16, 24 and 6 (a k16
+#: step of the tensor-core GEMV holds several groups), experts (8 of
+#: them, as Mixtral's), d_in not a whole k16 step (520)
 QUANT_CASES = [("int8", (512, 1000)), ("int8", (640, 1003)),
                ("int4_g128", (1024, 1003)), ("int4_g24", (768, 520)),
-               ("int8", (4, 512, 264)), ("int4_g32", (3, 256, 136))]
+               ("int8", (4, 512, 264)), ("int4_g32", (3, 256, 136)),
+               ("int4_g16", (512, 264)), ("int4_g6", (384, 200)),
+               ("int8", (520, 136)), ("int8", (8, 512, 1024)),
+               ("int4_g16", (8, 256, 264))]
+
+
+def _gemv_rows(qmm, dtype):
+    """Rows of x the GEMV checks take: across the tensor-core kernel's
+    row tiles (9, 17, 33, 65 start new ones) and the dtype's most rows
+    and one past them."""
+    top = qmm.max_rows(dtype)
+    return sorted({1, 3, 8, 9, 16, 17, 33, 65, top, top + 1})
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
@@ -2056,15 +2069,16 @@ QUANT_CASES = [("int8", (512, 1000)), ("int8", (640, 1003)),
                                                         "f32"])
 @pytest.mark.parametrize("kind,shape", QUANT_CASES)
 def test_quant_gemv_matches_plain(dev, kind, shape, dtype, monkeypatch):
-    """The fused GEMV at 1-17 rows (one to two row tiles) against
-    ``quant_matmul_plain`` on the same card tensors, two calls bitwise
-    equal, one launch a call."""
+    """The fused GEMV (tensor cores for bf16 / fp16, the FMA kernel for
+    float32) across its row tiles up to the rows ``quant_matmul`` gives
+    it and one past, against ``quant_matmul_plain`` on the same card
+    tensors, two calls bitwise equal, one launch a call."""
     from nvme_strom_tpu_torch.ops import quant_matmul as qmm
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     leaf = _quant_leaf(kind, shape, dev)
     E = shape[0] if len(shape) == 3 else 1
     g = torch.Generator(device=dev).manual_seed(1)
-    for m in (1, 3, 8, 16, 17):
+    for m in _gemv_rows(qmm, dtype):
         x = torch.randn(E, m, shape[-2], generator=g, device=dev).to(dtype)
         n0 = qmm.quant_gemv.launches
         got = qmm.quant_gemv(x, leaf)
@@ -2105,10 +2119,40 @@ def test_dequant_kernel_bitwise(dev, kind, shape, dtype):
             device=dev), leaf))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("kind,shape", [("int8", (1024, 1024)),
+                                        ("int4_g128", (1024, 1024)),
+                                        ("int4_g24", (768, 512))])
+def test_quant_gemv_unaligned_leaf(dev, kind, shape, dtype, monkeypatch):
+    """A leaf whose bytes start 1, 4 and 8 bytes off a 16-byte boundary
+    (the weight copies fall back to 4- and 8-byte or byte loads) gives
+    the aligned leaf's output bit for bit, across the row tiles and with
+    K splits."""
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    leaf = _quant_leaf(kind, shape, dev)
+    key = "q8" if "q8" in leaf else "q4"
+    g = torch.Generator(device=dev).manual_seed(3)
+    for off in (1, 4, 8):
+        raw = torch.empty(leaf[key].numel() + 16, dtype=leaf[key].dtype,
+                          device=dev)
+        moved = raw[off:off + leaf[key].numel()].view(leaf[key].shape)
+        moved.copy_(leaf[key])
+        assert moved.data_ptr() % 16 == off
+        other = {**leaf, key: moved}
+        for m in (1, 8, 17, 65):
+            x = torch.randn(1, m, shape[0], generator=g,
+                            device=dev).to(dtype)
+            assert torch.equal(qmm.quant_gemv(x, other),
+                               qmm.quant_gemv(x, leaf)), (off, m)
+
+
 def test_quant_routes_and_counts(dev):
-    """``quant_matmul`` takes the GEMV up to QUANT_GEMV_MAX_ROWS rows and
-    the dequant kernel past them; ``wmat`` and ``project`` of a CUDA leaf
-    launch a kernel and never dequantize with torch ops."""
+    """``quant_matmul`` takes the GEMV up to QUANT_GEMV_MAX_ROWS rows of
+    bf16 x (FMA_GEMV_MAX_ROWS of float32) and the dequant kernel past
+    them; ``wmat`` and ``project`` of a CUDA leaf launch a kernel and
+    never dequantize with torch ops."""
     from nvme_strom_tpu_torch.models import transformer as tr
     from nvme_strom_tpu_torch.ops import quant_matmul as qmm
     leaf = _quant_leaf("int8", (256, 64), dev)
@@ -2124,6 +2168,24 @@ def test_quant_routes_and_counts(dev):
     tr.project(x, p, "w")
     tr.wmat(p, "w", torch.float32)
     assert counts() == (c0[0] + 1, c0[1] + 2, c0[2])
+    f = qmm.FMA_GEMV_MAX_ROWS
+    tr.project(torch.randn(1, f, 256, device=dev), p, "w")
+    assert counts() == (c0[0] + 2, c0[1] + 2, c0[2])
+    tr.project(torch.randn(1, f + 1, 256, device=dev), p, "w")
+    assert counts() == (c0[0] + 2, c0[1] + 3, c0[2])
+
+
+def test_quant_gemv_resident_blocks(dev):
+    """The runtime's count of the tensor-core GEMV's blocks a SM, which
+    its split plan fills in one wave: three (what the launch bounds hold
+    the registers to) up to 32 rows and at 64 rows of int8, two at 64
+    rows of int4, whose ring takes 104 KiB."""
+    from nvme_strom_tpu_torch.ops import quant_matmul as qmm
+    for mt in (8, 16, 32):
+        for bits in (8, 4):
+            assert qmm.resident_blocks(dev.index, mt, bits) == 3, (mt, bits)
+    assert qmm.resident_blocks(dev.index, 64, 8) == 3
+    assert qmm.resident_blocks(dev.index, 64, 4) == 2
 
 
 def test_quant_refusals(dev):

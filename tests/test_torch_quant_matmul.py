@@ -175,25 +175,88 @@ def test_leaf_parts():
         qmm.quant_gemv(torch.zeros(1, 2, K + 2), l4)
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 16, 17, 64])
-@pytest.mark.parametrize("shape", [(1, 4096, 14336), (1, 14336, 4096),
-                                   (1, 4096, 1024), (8, 4096, 14336),
-                                   (1, 4096, 32000), (1, 48, 1000)])
+#: (E, d_in, d_out) of the plans: Llama-3-8B's w_gate, w_down, wk, the
+#: lm_head, Mixtral's experts, a ragged d_out
+PLAN_SHAPES = [(1, 4096, 14336), (1, 14336, 4096), (1, 4096, 1024),
+               (8, 4096, 14336), (1, 4096, 32000), (1, 48, 1000),
+               (1, 4032, 1003)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 16, 17, 33, 64, 65, 128,
+                               256, 257])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_kernel_launch(shape, m):
-    """The split plan: splits of whole, even rows (an int4 split starts
-    on an even row), at least MIN_SPLIT_ROWS, covering d_in with no empty
-    split, never more splits than the grid's target of BLOCKS_PER_SM
-    blocks a SM needs; the workspace every split's partials."""
+    """The tensor-core GEMV's split plan at the resident blocks an H100
+    gives it (three a SM; two at 64 rows of int4, whose ring is 104 KiB)
+    and at one: splits of whole k16 steps (so an int4 split starts on an
+    even row), at least TC_MIN_SPLIT_ROWS, covering d_in with no empty
+    split; as many splits as keep the whole grid resident at once (one
+    wave) where d_in allows, never more; the workspace every split's
+    partials, none for one split; the row tile one to eight n8 tiles."""
     e, k, n = shape
     sms = 132
-    rows, splits, ws = qmm.kernel_launch(e, m, k, n, sms)
+    mt = qmm.row_tile(m)
+    assert mt in (8, 16, 32, 64) and mt >= min(m, 64)
+    assert mt == 8 or m > mt // 2
+    tiles = -(-m // mt) * -(-n // qmm.TC_COLS) * e
+    for resident in (1, 2, 3):
+        rows, splits, ws = qmm.kernel_launch(e, m, k, n, sms, resident)
+        assert rows % qmm.SPLIT_ROW_STEP == 0 and rows % 16 == 0
+        assert rows >= qmm.TC_MIN_SPLIT_ROWS
+        assert (splits - 1) * rows < k <= splits * rows
+        assert ws == (splits * e * m * n if splits > 1 else 0)
+        slots = resident * sms
+        assert splits == 1 or splits * tiles <= slots
+        # the shortest splits that keep to one wave: a step shorter
+        # would give more splits than fit, or fall under
+        # TC_MIN_SPLIT_ROWS
+        assert rows == qmm.TC_MIN_SPLIT_ROWS or \
+            -(-k // (rows - qmm.SPLIT_ROW_STEP)) > max(1, slots // tiles)
+
+
+@pytest.mark.parametrize("resident", [1, 2, 3, 4])
+def test_kernel_launch_splits_grow_with_resident_blocks(resident):
+    """Llama-3-8B's w_gate at 8 rows (112 column tiles on 132 SMs) takes
+    one split a resident block, and more resident blocks never give
+    fewer splits; wk (8 column tiles) takes as many as its 4096 rows
+    allow in splits of TC_MIN_SPLIT_ROWS."""
+    sms = 132
+    gate = qmm.kernel_launch(1, 8, 4096, 14336, sms, resident)[1]
+    assert gate == resident * sms // 112
+    if resident > 1:
+        assert gate >= qmm.kernel_launch(1, 8, 4096, 14336, sms,
+                                         resident - 1)[1]
+    wk = qmm.kernel_launch(1, 8, 4096, 1024, sms, resident)[1]
+    assert wk == 4096 // qmm.TC_MIN_SPLIT_ROWS
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 16, 17, 64])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_fma_launch(shape, m):
+    """The float32 GEMV's split plan: splits of whole, even
+    rows, at least MIN_SPLIT_ROWS, covering d_in, never more than
+    BLOCKS_PER_SM blocks a SM need; the row tile keeps at most 64 sums a
+    thread."""
+    e, k, n = shape
+    sms = 132
+    rows, splits, ws = qmm.fma_launch(e, m, k, n, sms)
     assert rows % qmm.SPLIT_ROW_STEP == 0 and rows >= qmm.MIN_SPLIT_ROWS
     assert (splits - 1) * rows < k <= splits * rows
     assert ws == (splits * e * m * n if splits > 1 else 0)
-    mt, vec = qmm.row_tile(m)
+    mt, vec = qmm.fma_row_tile(m)
     assert mt >= min(m, 16) and mt * vec <= 64
     base = -(-n // (32 * vec)) * e * -(-m // mt)
     assert splits <= max(1, -(-qmm.BLOCKS_PER_SM * sms // base))
+
+
+def test_gemv_rows_by_dtype():
+    """bf16 / fp16 x goes to the tensor-core GEMV up to
+    QUANT_GEMV_MAX_ROWS rows, float32 to the FMA one up to
+    FMA_GEMV_MAX_ROWS; each limit at least a decode step of 8 slots."""
+    assert qmm.max_rows(torch.bfloat16) == qmm.QUANT_GEMV_MAX_ROWS
+    assert qmm.max_rows(torch.float16) == qmm.QUANT_GEMV_MAX_ROWS
+    assert qmm.max_rows(torch.float32) == qmm.FMA_GEMV_MAX_ROWS
+    assert min(qmm.QUANT_GEMV_MAX_ROWS, qmm.FMA_GEMV_MAX_ROWS) >= 8
 
 
 @pytest.mark.parametrize("how", list(LEAVES))

@@ -302,7 +302,7 @@ def test_header_abi_parsed_in_full():
 #: every entry point of the kernel sources, by the form it is defined in
 KERNEL_ENTRY_POINTS = {
     "single": ("strom_flash_fwd", "strom_flash_route", "strom_flash_bwd_dq",
-               "strom_flash_bwd_dkv", "strom_quant_gemv", "strom_dequant"),
+               "strom_flash_bwd_dkv", "strom_quant_gemv_blocks"),
     "block": ("strom_h2d_copy", "strom_h2d_copy_probe",
               "strom_host_register", "strom_host_unregister",
               "strom_host_device_pointer", "strom_cuda_error_string",
@@ -311,7 +311,9 @@ KERNEL_ENTRY_POINTS = {
               "strom_ipc_alloc", "strom_ipc_open", "strom_ipc_close",
               "strom_ipc_free"),
     "macro": ("strom_decode_attention", "strom_decode_attention_f16",
-              "strom_paged_attention", "strom_paged_attention_f16"),
+              "strom_paged_attention", "strom_paged_attention_f16",
+              "strom_quant_gemv", "strom_quant_gemv_f16", "strom_dequant",
+              "strom_dequant_f16"),
 }
 
 
